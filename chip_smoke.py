@@ -9,18 +9,27 @@ Drives ``lightgbm_tpu_torch``'s main path on the card, in phases, printing
 one JSON line per phase; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile both histogram kernels from the sources in this checkout
-   (one ``nvcc`` per source, all at once);
+2. build: compile the four histogram kernels from the sources in this
+   checkout (one ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (max relative error ``|a-b|/(|b|+1)`` <= 1e-5: both
    sum in float64 in different orders and round to float32 once), with
-   per-launch times from CUDA events;
+   per-launch times from CUDA events.  The atomic kernels (``hist_full``,
+   ``hist_leaves``) once; the one-hot kernels for every bf16-pair variant
+   the width serves, at B=256 (all but ``packed``) and B=64 (all seven):
+   ``onehot_full`` in both layouts (``featmajor``, the root histogram of
+   ``force_row_wise``; ``rowmajor``, which no entry point reaches) and
+   ``onehot_leaves``;
 4. train: binary GBDT on 1,000,000 x 28 Higgs-shaped rows, 255 leaves,
-   20 iterations, once through the kernels (launches counted from zero
-   around this run) and once with ``force_plain()``; held-out AUC of both
-   within 1e-3 and tree 0's splits identical;
+   ``max_bin=255``, 20 iterations, twice: by default (the atomic kernels)
+   and with ``force_row_wise=True, hist_variant="staged"`` (the one-hot
+   kernels).  Each runs once through the kernels (launch counts from zero
+   around that run) and once with ``force_plain()``; held-out AUC within
+   1e-3 of the plain run (and the one-hot run's of the atomic run's), the
+   atomic run's tree 0 identical to its plain run's.  Then a ``packed`` run
+   at ``max_bin=63`` on 200,000 rows for 5 iterations;
 5. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
-   bit-identically to the booster in memory.
+   bit-identically to the booster in memory, for both 1M-row boosters.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the package beside it, it fails
@@ -38,13 +47,18 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and f32 outside the
-# tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside the
+# tensor cores, and dense bf16 in the tensor cores
 HBM_TB_PER_S = 3.35
 F32_TFLOP_PER_S = 67.0
+BF16_TFLOP_PER_S = 989.0
 REL_TOL = 1e-5
 AUC_TOL = 1e-3
 N_TRAIN, N_VALID, N_FEAT, N_ITERS = 1_000_000, 100_000, 28, 20
+# the packed run: a smaller one at the width packing serves
+N_PACKED, ITERS_PACKED = 200_000, 5
+# one frontier round's batched smaller-child histograms
+LEAVES_SHAPE = dict(C=262_144, NC=40, f=28, k=16, BR=512)
 
 
 def emit(obj) -> None:
@@ -86,6 +100,13 @@ def bound(nbytes: float, nflops: float):
     t_bytes = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
     t_ops = nflops / (F32_TFLOP_PER_S * 1e12) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_core_floor_ms(lanes: int, rows: int) -> float:
+    """The one-hot design's own floor: mma does 2 flops for each of its 8
+    N columns (6 channel rows used), each lane and each row, at the dense
+    bf16 peak."""
+    return 16.0 * lanes * rows / (BF16_TFLOP_PER_S * 1e12) * 1e3
 
 
 def phase_device():
@@ -137,6 +158,51 @@ def _check_full(hist, gen, dev, n, f, B):
     return bins, g, h, m, got, ref, err
 
 
+def _index_add_ms(dev, flat, vals, size):
+    """The library yardstick: one float32 ``index_add_`` of every (row,
+    feature) value into its (slot, feature, bin) row."""
+    out = torch.zeros(size, 3, device=dev)
+    return median_ms(lambda: out.index_add_(0, flat, vals))
+
+
+def _full_yardstick(dev, bins, g, h, m, B):
+    n, f = bins.shape
+    b = bins.long()                  # a uint8 compare with 256 wraps to 0
+    keep = (b < B).reshape(-1)
+    flat = (b + B * torch.arange(f, device=dev)).reshape(-1)[keep]
+    vals = torch.stack([g * m, h * m, m], 1)[:, None, :].expand(n, f, 3) \
+        .reshape(-1, 3)[keep].contiguous()
+    return _index_add_ms(dev, flat, vals, f * B)
+
+
+def _leaves_yardstick(dev, comb, g, h, m, block_leaf, k, B, BR, fl):
+    C = comb.shape[0]
+    row_leaf = block_leaf.long().repeat_interleave(BR)
+    b = comb[:, :fl].long()
+    keep = (b < B).reshape(-1)
+    flat = ((row_leaf[:, None] * fl + torch.arange(fl, device=dev)) * B
+            + b).reshape(-1)[keep]
+    vals = torch.stack([g * m, h * m, m], 1)[:, None, :].expand(C, fl, 3) \
+        .reshape(-1, 3)[keep].contiguous()
+    return _index_add_ms(dev, flat, vals, k * fl * B)
+
+
+def _leaves_inputs(gen, dev):
+    """One frontier round's shapes: unsorted block->slot map with slot 5
+    empty, and a NaN gradient in block 100."""
+    C, NC, k, BR = (LEAVES_SHAPE[x] for x in ("C", "NC", "k", "BR"))
+    nb = C // BR
+    comb = torch.randint(0, 256, (C, NC), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    g, h, m = _rows(gen, C, dev)
+    empty, nan_block = 5, 100
+    slots = torch.tensor([s for s in range(k) if s != empty], device=dev)
+    block_leaf = slots[torch.randint(0, k - 1, (nb,), generator=gen,
+                                     device=dev)].to(torch.int32)
+    g[nan_block * BR + 7] = float("nan")
+    return comb, g, h, m, block_leaf, empty, int(block_leaf[nan_block])
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes."""
     from lightgbm_tpu_torch.ops import histogram as hist
@@ -153,30 +219,18 @@ def phase_kernels():
     ms = median_ms(lambda: hist.hist_full(bins, g, h, m, B))
     with hist.force_plain():
         plain_ms = median_ms(lambda: hist.build_histogram(bins, g, h, m, B))
-    flat = (bins.long() + B * torch.arange(f, device=dev)).reshape(-1)
-    vals = torch.stack([g * m, h * m, m], 1)[:, None, :].expand(n, f, 3) \
-        .reshape(-1, 3).contiguous()
-    lib_out = torch.zeros(f * B, 3, device=dev)
-    library_ms = median_ms(lambda: lib_out.index_add_(0, flat, vals))
+    library_ms = _full_yardstick(dev, bins, g, h, m, B)
     b_ms, b_by = bound(n * f + 12 * n + f * B * 12, 3 * n * f + 2 * n)
     out["hist_full"] = dict(
         shape=[n, f, B], relerr=err, relerr_odd_shape=err_odd,
         max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-    del bins, g, h, m, flat, vals
+    del bins, g, h, m
 
     # hist_leaves: one frontier round's batched smaller-child histograms
-    C, NC, fl, k, BR = 262_144, 40, 28, 16, 512
+    C, NC, fl, k, BR = (LEAVES_SHAPE[x] for x in ("C", "NC", "f", "k", "BR"))
     nb = C // BR
-    comb = torch.randint(0, 256, (C, NC), generator=gen, device=dev,
-                         dtype=torch.uint8)
-    g, h, m = _rows(gen, C, dev)
-    empty, nan_block = 5, 100
-    slots = torch.tensor([s for s in range(k) if s != empty], device=dev)
-    block_leaf = slots[torch.randint(0, k - 1, (nb,), generator=gen,
-                                     device=dev)].to(torch.int32)
-    g[nan_block * BR + 7] = float("nan")
-    nan_slot = int(block_leaf[nan_block])
+    comb, g, h, m, block_leaf, empty, nan_slot = _leaves_inputs(gen, dev)
     with hist.force_plain():
         ref = hist.build_histogram_leaves(comb, g, h, m, block_leaf, k, B,
                                           block_rows=BR, f_limit=fl)
@@ -200,13 +254,8 @@ def phase_kernels():
     with hist.force_plain():
         plain_ms = median_ms(lambda: hist.build_histogram_leaves(
             comb, g, h, m, block_leaf, k, B, block_rows=BR, f_limit=fl))
-    row_leaf = block_leaf.long().repeat_interleave(BR)
-    flat = ((row_leaf[:, None] * fl + torch.arange(fl, device=dev)) * B
-            + comb[:, :fl].long()).reshape(-1)
-    vals = torch.stack([g * m, h * m, m], 1)[:, None, :].expand(C, fl, 3) \
-        .reshape(-1, 3).contiguous()
-    lib_out = torch.zeros(k * fl * B, 3, device=dev)
-    library_ms = median_ms(lambda: lib_out.index_add_(0, flat, vals))
+    library_ms = _leaves_yardstick(dev, comb, g, h, m, block_leaf, k, B, BR,
+                                   fl)
     b_ms, b_by = bound(C * fl + 12 * C + 4 * nb + k * fl * B * 12,
                        3 * C * fl + 2 * C)
     out["hist_leaves"] = dict(
@@ -216,6 +265,107 @@ def phase_kernels():
         bound_by=b_by, empty_slot_zero=True, nan_confined=True)
     emit({"phase": "kernels", **out})
     return out
+
+
+def onehot_cases():
+    """(variant, B) for every ported bf16-pair body at the two widths:
+    B=256 (all but packed) and B=64 (all seven)."""
+    from lightgbm_tpu_torch.ops import onehot_variants as ov
+    return [(v, B) for B in (256, 64) for v in ov.VARIANT_NAMES
+            if ov.VARIANTS[v].kernel_id is not None
+            and ov.VARIANTS[v].supports(B)]
+
+
+def phase_kernels_onehot(card):
+    """Every one-hot kernel, layout and variant against the plain version
+    on the card, at the main path's shapes; returns one row per (kernel,
+    layout, variant, width)."""
+    from lightgbm_tpu_torch.ops import histogram as hist
+    from lightgbm_tpu_torch.ops import onehot_variants as ov
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    n, f = N_TRAIN, N_FEAT
+    bins256 = torch.randint(0, 256, (n, f), generator=gen, device=dev,
+                            dtype=torch.uint8)
+    g, h, m = _rows(gen, n, dev)
+    C, k, BR, fl = (LEAVES_SHAPE[x] for x in ("C", "k", "BR", "f"))
+    nb = C // BR
+    comb256, lg, lh, lm, block_leaf, empty, nan_slot = _leaves_inputs(gen,
+                                                                     dev)
+    others = [s for s in range(k) if s != nan_slot]
+    # bins as a width-B dataset has them (the card tests cover bins >= B)
+    bins = {256: bins256, 64: bins256 & 63}
+    comb = {256: comb256, 64: comb256 & 63}
+
+    def full(B, **kw):
+        return hist.build_histogram(bins[B], g, h, m, B, method="onehot",
+                                    **kw)
+
+    def leaves(B, **kw):
+        return hist.build_histogram_leaves(
+            comb[B], lg, lh, lm, block_leaf, k, B, block_rows=BR,
+            f_limit=fl, method="onehot", **kw)
+
+    ref, plain_ms, lib_ms = {}, {}, {}
+    for B in (256, 64):
+        with hist.force_plain():
+            ref[B] = (full(B), leaves(B))
+            plain_ms[B] = (median_ms(lambda: full(B)),
+                           median_ms(lambda: leaves(B)))
+        lib_ms[B] = (_full_yardstick(dev, bins[B], g, h, m, B),
+                     _leaves_yardstick(dev, comb[B], lg, lh, lm, block_leaf,
+                                       k, B, BR, fl))
+    rows = {}
+    for v, B in onehot_cases():
+        lanes_full = ov.total_lanes(v, f, B)
+        lanes_leaves = ov.total_lanes(v, fl, B)
+        for layout in ("featmajor", "rowmajor"):
+            got = full(B, variant=v, layout=layout)
+            again = full(B, variant=v, layout=layout)
+            torch.cuda.synchronize()
+            err = relerr(got, ref[B][0])
+            if not (err <= REL_TOL and torch.equal(got, again)):
+                raise AssertionError(f"onehot_full {layout} {v} B={B}: "
+                                     f"relerr {err}")
+            b_ms, b_by = bound(n * f + 12 * n + f * B * 12,
+                               3 * n * f + 2 * n)
+            rows[f"onehot_full/{layout}/{v}/B{B}"] = dict(
+                kernel="onehot_full", layout=layout, variant=v, B=B,
+                shape=[n, f, B], lanes=lanes_full, relerr=err,
+                max_abs_err=float((got - ref[B][0]).abs().max()),
+                ms=median_ms(lambda: full(B, variant=v, layout=layout)),
+                plain_ms=plain_ms[B][0], library_ms=lib_ms[B][0],
+                bound_ms=b_ms, bound_by=b_by,
+                tensor_core_floor_ms=tensor_core_floor_ms(lanes_full, n))
+        got = leaves(B, variant=v)
+        again = leaves(B, variant=v)
+        torch.cuda.synchronize()
+        r = ref[B][1]
+        ok = (bool((got[empty] == 0).all())
+              and bool(torch.isnan(got[nan_slot][..., 0]).all())
+              and bool(torch.isfinite(got[others]).all())
+              and torch.equal(got[others], again[others]))
+        err = max(relerr(got[others], r[others]),
+                  relerr(got[nan_slot][..., 1:], r[nan_slot][..., 1:]))
+        if not (ok and err <= REL_TOL):
+            raise AssertionError(f"onehot_leaves {v} B={B}: relerr {err}, "
+                                 f"slot checks {ok}")
+        b_ms, b_by = bound(C * fl + 12 * C + 4 * nb + k * fl * B * 12,
+                           3 * C * fl + 2 * C)
+        rows[f"onehot_leaves/rowmajor/{v}/B{B}"] = dict(
+            kernel="onehot_leaves", layout="rowmajor", variant=v, B=B,
+            shape=[C, LEAVES_SHAPE["NC"], fl, k, BR], lanes=lanes_leaves,
+            relerr=err,
+            max_abs_err=float((got[others] - r[others]).abs().max()),
+            ms=median_ms(lambda: leaves(B, variant=v)),
+            plain_ms=plain_ms[B][1], library_ms=lib_ms[B][1],
+            bound_ms=b_ms, bound_by=b_by,
+            tensor_core_floor_ms=tensor_core_floor_ms(lanes_leaves, C),
+            empty_slot_zero=True, nan_confined=True)
+    emit({"phase": "kernels_onehot", "card": card, "tolerance": REL_TOL,
+          "rows": rows})
+    return rows
 
 
 def _auc(scores, labels):
@@ -229,41 +379,33 @@ def _auc(scores, labels):
     return m.eval(np.asarray(scores, np.float64))[0][1]
 
 
-def _train(lgt, ds, params):
+def _train(lgt, ds, params, iters):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    booster = lgt.train(params, ds, N_ITERS, verbose_eval=False,
+    booster = lgt.train(params, ds, iters, verbose_eval=False,
                         device="cuda")
     booster._gbdt.models                       # drain the pending trees
     torch.cuda.synchronize()
     return booster, time.perf_counter() - t0
 
 
-def phase_train(card):
-    import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.ops import histogram as hist
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
-              "learning_rate": 0.1, "verbose": -1}
-    X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=42)
-    Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=43)
-    t0 = time.perf_counter()
-    ds = lgt.Dataset(X, label=y, params=params).construct(device="cuda")
-    construct_s = time.perf_counter() - t0
-
-    # the main path: launch counts from zero around this run only
+def _train_pair(lgt, hist, ds, params, iters, Xv, yv, expect):
+    """Train once through the kernels, with the launch counts set to 0 just
+    before and read just after, and once under ``force_plain()``.  Every
+    kernel in ``expect`` must have launched and no other."""
     hist.reset_launch_counts()
-    booster, secs = _train(lgt, ds, params)
+    booster, secs = _train(lgt, ds, params, iters)
     launches = dict(hist.launch_counts)
     for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+        if (cnt > 0) != (name in expect):
+            raise AssertionError(f"{params}: {name} launched {cnt} times; "
+                                 f"this run must launch {sorted(expect)}")
     hist.reset_launch_counts()
     with hist.force_plain():
-        booster_p, secs_p = _train(lgt, ds, params)
+        booster_p, secs_p = _train(lgt, ds, params, iters)
     if any(hist.launch_counts.values()):
         raise AssertionError(f"force_plain launched kernels: "
                              f"{hist.launch_counts}")
-
     t_k, t_p = booster._gbdt.models[0], booster_p._gbdt.models[0]
     same_tree0 = (t_k.num_leaves == t_p.num_leaves
                   and np.array_equal(t_k.split_feature, t_p.split_feature)
@@ -271,43 +413,92 @@ def phase_train(card):
     auc_k = _auc(booster.predict(Xv, raw_score=True), yv)
     auc_p = _auc(booster_p.predict(Xv, raw_score=True), yv)
     leaves = [t.num_leaves for t in booster._gbdt.models]
-    rows_iters = N_TRAIN * N_ITERS / 1e6
-    emit({"phase": "train", "card": card, "rows": N_TRAIN,
-          "features": N_FEAT, "iterations": N_ITERS, "num_leaves": 255,
-          "construct_s": construct_s,
-          "kernel": {"s_per_tree": secs / N_ITERS,
-                     "mrow_iters_per_s": rows_iters / secs,
-                     "auc_holdout": auc_k},
-          "plain": {"s_per_tree": secs_p / N_ITERS,
-                    "mrow_iters_per_s": rows_iters / secs_p,
-                    "auc_holdout": auc_p},
-          "launches": launches,
-          "hist_leaves_per_tree": launches["hist_leaves"] / N_ITERS,
-          "leaves_per_tree": [min(leaves), max(leaves)],
-          "tree0_identical": bool(same_tree0)})
+    n = ds.num_data()
+    out = {"rows": n, "iterations": iters,
+           "hist_method": booster._gbdt._grower_cfg.hist_method,
+           "hist_variant": booster._gbdt._grower_cfg.hist_variant,
+           "kernel": {"s_per_tree": secs / iters,
+                      "mrow_iters_per_s": n * iters / 1e6 / secs,
+                      "auc_holdout": auc_k},
+           "plain": {"s_per_tree": secs_p / iters,
+                     "mrow_iters_per_s": n * iters / 1e6 / secs_p,
+                     "auc_holdout": auc_p},
+           "launches": launches,
+           "per_leaf_launches_per_tree": (launches["hist_leaves"]
+                                          + launches["onehot_leaves"]) / iters,
+           "leaves_per_tree": [min(leaves), max(leaves)],
+           "tree0_identical": bool(same_tree0)}
     if abs(auc_k - auc_p) > AUC_TOL:
-        raise AssertionError(f"AUC kernel {auc_k} vs plain {auc_p}")
-    if not same_tree0:
-        raise AssertionError("tree 0 differs between kernel and plain runs")
+        raise AssertionError(f"{params}: AUC kernel {auc_k} vs plain {auc_p}")
     if not auc_k > 0.75:
-        raise AssertionError(f"held-out AUC {auc_k} below 0.75")
-    return booster, Xv, launches
+        raise AssertionError(f"{params}: held-out AUC {auc_k} below 0.75")
+    return booster, out
 
 
-def phase_predict(booster, Xv):
+def phase_train(card):
     import lightgbm_tpu_torch as lgt
-    p_mem = booster.predict(Xv)
-    with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, "model.txt")
-        booster.save_model(path)
-        p_file = lgt.Booster(model_file=path, device="cuda").predict(Xv)
-    if not (p_mem.shape == (len(Xv),) and np.isfinite(p_mem).all()
-            and ((p_mem >= 0) & (p_mem <= 1)).all()):
-        raise AssertionError("predictions are not finite probabilities")
-    if not np.array_equal(p_mem, p_file):
-        raise AssertionError("reloaded predictions differ from in-memory")
+    from lightgbm_tpu_torch.ops import histogram as hist
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+            "learning_rate": 0.1, "verbose": -1}
+    onehot = dict(base, force_row_wise=True, hist_variant="staged")
+    X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=42)
+    Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=43)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, params=base).construct(device="cuda")
+    construct_s = time.perf_counter() - t0
+
+    # the default path: the atomic kernels
+    booster, atomic = _train_pair(lgt, hist, ds, base, N_ITERS, Xv, yv,
+                                  {"hist_full", "hist_leaves"})
+    if not atomic["tree0_identical"]:
+        raise AssertionError("tree 0 differs between kernel and plain runs")
+    # the row-wise path: the one-hot kernels, root once per tree
+    booster_oh, row_wise = _train_pair(lgt, hist, ds, onehot, N_ITERS, Xv,
+                                       yv, {"onehot_full", "onehot_leaves"})
+    if row_wise["launches"]["onehot_full"] != N_ITERS:
+        raise AssertionError(f"onehot_full ran {row_wise['launches']} "
+                             f"times in {N_ITERS} trees")
+    auc_gap = abs(row_wise["kernel"]["auc_holdout"]
+                  - atomic["kernel"]["auc_holdout"])
+    if auc_gap > AUC_TOL:
+        raise AssertionError(f"one-hot vs atomic AUC gap {auc_gap}")
+    del ds, X, y
+    # packed at the width it serves, on fewer rows
+    packed = dict(base, max_bin=63, force_row_wise=True,
+                  hist_variant="packed")
+    Xp, yp = make_higgs_like(N_PACKED, N_FEAT, seed=44)
+    dsp = lgt.Dataset(Xp, label=yp, params=packed).construct(device="cuda")
+    _, packed_run = _train_pair(lgt, hist, dsp, packed, ITERS_PACKED, Xv,
+                                yv, {"onehot_full", "onehot_leaves"})
+    if packed_run["hist_variant"] != "packed":
+        raise AssertionError(f"max_bin=63 resolved {packed_run}")
+    emit({"phase": "train", "card": card, "features": N_FEAT,
+          "num_leaves": 255, "construct_s": construct_s,
+          "atomic": atomic, "row_wise_staged": row_wise,
+          "row_wise_packed_max_bin_63": packed_run,
+          "onehot_vs_atomic_auc_gap": auc_gap})
+    return (booster, booster_oh), Xv, {
+        "atomic": atomic["launches"], "staged": row_wise["launches"],
+        "packed": packed_run["launches"]}
+
+
+def phase_predict(boosters, Xv):
+    import lightgbm_tpu_torch as lgt
+    out = []
+    for booster in boosters:
+        p_mem = booster.predict(Xv)
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "model.txt")
+            booster.save_model(path)
+            p_file = lgt.Booster(model_file=path, device="cuda").predict(Xv)
+        if not (p_mem.shape == (len(Xv),) and np.isfinite(p_mem).all()
+                and ((p_mem >= 0) & (p_mem <= 1)).all()):
+            raise AssertionError("predictions are not finite probabilities")
+        if not np.array_equal(p_mem, p_file):
+            raise AssertionError("reloaded predictions differ from in-memory")
+        out.append(float(p_mem.mean()))
     emit({"phase": "predict", "rows": len(Xv), "bit_identical": True,
-          "mean_p": float(p_mem.mean())})
+          "mean_p": out})
 
 
 def _device_us(evt) -> float:
@@ -392,6 +583,56 @@ KERNEL_INFO = {
                     "lightgbm_tpu/ops/histogram.py:226",
                     "lightgbm_tpu/ops/histogram.py::_hist_leaves_pallas"),
 }
+# the one-hot kernels: the shell each (kernel, layout) replaces, and the
+# body each variant replaces
+ONEHOT_SHELLS = {
+    ("onehot_full", "featmajor"): (
+        "lightgbm_tpu_torch/ops/kernels/onehot_full.cu",
+        "lightgbm_tpu/ops/histogram.py:483",
+        "lightgbm_tpu/ops/histogram.py::_hist_pallas (kernel_fm)"),
+    ("onehot_full", "rowmajor"): (
+        "lightgbm_tpu_torch/ops/kernels/onehot_full.cu",
+        "lightgbm_tpu/ops/histogram.py:437",
+        "lightgbm_tpu/ops/histogram.py::_hist_pallas (kernel_rm)"),
+    ("onehot_leaves", "rowmajor"): (
+        "lightgbm_tpu_torch/ops/kernels/onehot_leaves.cu",
+        "lightgbm_tpu/ops/histogram.py:273",
+        "lightgbm_tpu/ops/histogram.py::_hist_leaves_pallas"),
+}
+ONEHOT_BODIES = {"base": 178, "bf16cmp": 187, "i16cmp": 196, "u8cmp": 205,
+                 "sub1abs": 214, "staged": 227, "packed": 250}
+# which training run of the train phase drives each (variant, width)
+MAIN_PATH_RUNS = {("staged", 256): "staged", ("packed", 64): "packed"}
+
+
+def kernel_rows(kern, onehot, launches, card):
+    """The ``{"kernels": [...]}`` rows: the atomic kernels, then one row
+    per one-hot (kernel, layout, variant, width).  ``launches`` is the count
+    from the training run that drives the row's kernel (0 for the row-major
+    layout and the variants no run trains with)."""
+    keys = ("max_abs_err", "relerr", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    rows = []
+    for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
+        rows.append({"name": kname, "route": "cuda", "source": src,
+                     "replaces": replaces, "jax": jax_fn,
+                     "launches": launches["atomic"][kname],
+                     **{k: kern[kname][k] for k in keys}, "card": card})
+    for name, r in onehot.items():
+        src, replaces, jax_fn = ONEHOT_SHELLS[(r["kernel"], r["layout"])]
+        run = MAIN_PATH_RUNS.get((r["variant"], r["B"]))
+        on_path = run is not None and (r["kernel"], r["layout"]) != (
+            "onehot_full", "rowmajor")
+        n = launches[run][r["kernel"]] if on_path else 0
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "jax": jax_fn,
+                     "body": "lightgbm_tpu_torch/ops/kernels/"
+                             "onehot_common.cuh",
+                     "body_replaces": "lightgbm_tpu/ops/onehot_variants.py:"
+                                      f"{ONEHOT_BODIES[r['variant']]}",
+                     "launches": n, **{k: r[k] for k in keys},
+                     "card": card})
+    return rows
 
 
 def main() -> int:
@@ -408,20 +649,12 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     kern = phase_kernels()
-    booster, Xv, launches = phase_train(smi)
-    phase_predict(booster, Xv)
+    onehot = phase_kernels_onehot(smi)
+    boosters, Xv, launches = phase_train(smi)
+    phase_predict(boosters, Xv)
     if args.profile:
-        phase_profile(booster, smi)
-    rows = []
-    for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
-        k = kern[kname]
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": replaces, "jax": jax_fn,
-                     "launches": launches[kname],
-                     "max_abs_err": k["max_abs_err"], "relerr": k["relerr"],
-                     "ms": k["ms"], "plain_ms": k["plain_ms"],
-                     "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"], "card": smi})
+        phase_profile(boosters[0], smi)
+    rows = kernel_rows(kern, onehot, launches, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

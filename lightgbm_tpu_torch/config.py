@@ -1,8 +1,8 @@
 """Typed configuration — the single flag mechanism shared by every layer.
 
 A copy of the JAX package's ``config.py`` (same names, aliases and
-``finalize`` checks, so one parameter dict drives both packages); only the
-hist-variant name list is kept locally instead of imported.
+``finalize`` checks, so one parameter dict drives both packages); the
+hist-variant name list comes from the port's own ``ops/onehot_variants.py``.
 
 Re-design of the reference's ``Config`` system
 (``include/LightGBM/config.h:34``, parsing ``src/io/config.cpp:194``, generated
@@ -23,12 +23,13 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Union
 
+from .ops.onehot_variants import VARIANT_NAMES
 from .utils.log import LightGBMError, Log, check
 
-# one-hot histogram variant names accepted by ``hist_variant`` (the JAX
-# package's ops/onehot_variants.py registry); the port's kernels ignore it
-VARIANT_NAMES = ("base", "bf16cmp", "i16cmp", "u8cmp", "sub1abs", "staged",
-                 "packed", "int8")
+# ``hist_variant`` (one of VARIANT_NAMES, or auto) picks the one-hot body of
+# the row-wise histogram kernels; it acts only under ``force_row_wise``, as
+# in the JAX package, where the scatter method ignores it.  ``int8`` and
+# ``auto`` under ``force_row_wise`` raise NotPortedError (models/gbdt.py).
 
 # ---------------------------------------------------------------------------
 # Alias table (reference: src/io/config_auto.cpp:10-168). Maps alias -> canonical.

@@ -24,6 +24,7 @@ from ..device import NotPortedError, resolve_device
 from ..io.dataset import Dataset
 from ..metric import create_metrics
 from ..objective import ObjectiveFunction, create_objective
+from ..ops import onehot_variants
 from ..ops.grower import GrowerConfig, grow_tree
 from ..ops.predict import predict_leaf_binned, tree_depth
 from ..ops.split import SplitParams
@@ -66,6 +67,12 @@ def check_ported(cfg: Config) -> None:
         bad.append("CEGB")
     if cfg.objective not in ("binary",):
         bad.append(f"objective={cfg.objective}")
+    if cfg.force_row_wise and cfg.hist_variant == "auto":
+        bad.append("hist_variant=auto under force_row_wise (the on-card "
+                   "variant election; pick a variant by name)")
+    if cfg.force_row_wise and cfg.hist_variant == "int8":
+        bad.append("hist_variant=int8 under force_row_wise (the int8 "
+                   "one-hot body)")
     if bad:
         raise NotPortedError("not ported yet: " + ", ".join(bad))
 
@@ -187,6 +194,17 @@ class GBDT:
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             max_cat_threshold=cfg.max_cat_threshold,
             min_data_per_group=cfg.min_data_per_group)
+        # histogram kernels, as the JAX package picks them
+        # (lightgbm_tpu/models/gbdt.py:264-292): force_row_wise takes the
+        # one-hot kernels with the variant resolved against the kernel
+        # width; the default and force_col_wise take the atomic kernels,
+        # the counterpart of the JAX package's scatter method, which ignores
+        # hist_variant
+        if cfg.force_row_wise:
+            hist_method = "onehot"
+            hist_variant = onehot_variants.resolve(cfg.hist_variant, max_bin)
+        else:
+            hist_method, hist_variant = "atomic", "base"
         return GrowerConfig(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth, max_bin=max_bin,
             split=sp, feature_fraction_bynode=cfg.feature_fraction_bynode,
@@ -195,7 +213,8 @@ class GBDT:
             cegb_split_penalty=cfg.cegb_tradeoff * cfg.cegb_penalty_split,
             grower_mode=cfg.tree_grower,
             frontier_k=cfg.frontier_k,
-            frontier_block_rows=cfg.frontier_block_rows)
+            frontier_block_rows=cfg.frontier_block_rows,
+            hist_method=hist_method, hist_variant=hist_variant)
 
     def add_valid_data(self, valid_data: Dataset, name: str) -> None:
         check(valid_data.reference is self.train_data or

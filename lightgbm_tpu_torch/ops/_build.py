@@ -24,8 +24,15 @@ from typing import Dict, Iterable, Optional
 
 KERNEL_DIR = Path(__file__).resolve().parent / "kernels"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = {"hist_full": "hist_full.cu", "hist_leaves": "hist_leaves.cu"}
-_HEADERS = ("hist_common.cuh",)
+KERNELS = {"hist_full": "hist_full.cu", "hist_leaves": "hist_leaves.cu",
+           "onehot_full": "onehot_full.cu",
+           "onehot_leaves": "onehot_leaves.cu"}
+# headers each kernel includes: they feed its library's name, so an edit to
+# one rebuilds every kernel that includes it
+_HEADERS = {"hist_full": ("hist_common.cuh",),
+            "hist_leaves": ("hist_common.cuh",),
+            "onehot_full": ("onehot_common.cuh",),
+            "onehot_leaves": ("onehot_common.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +46,15 @@ _ARGTYPES = {
     "hist_leaves": [_INT, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P, _VOID_P,
                     _VOID_P, _VOID_P, _INT, _INT, _VOID_P, _INT, _INT, _INT,
                     _VOID_P],
+    # device, bins, ld, n, f, layout, gh, out, variant, lpf_log2, lanes,
+    # nf_max, cps, grid_x, stream
+    "onehot_full": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _VOID_P, _VOID_P,
+                    _INT, _INT, _INT, _INT, _INT, _INT, _VOID_P],
+    # device, comb, ld, c, f, gh, block_leaf, br, k, out, variant,
+    # lpf_log2, lanes, nf_max, bpc, stream
+    "onehot_leaves": [_INT, _VOID_P, _LL, _LL, _INT, _VOID_P, _VOID_P,
+                      _INT, _INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
+                      _VOID_P],
 }
 
 # loaded libraries, one per kernel for the life of the process
@@ -61,7 +77,7 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (KERNELS[name],) + _HEADERS:
+    for src in (KERNELS[name],) + _HEADERS[name]:
         h.update((KERNEL_DIR / src).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -5,8 +5,9 @@ the serial learner, without EFB, monotone constraints, per-node feature
 sampling or extra-trees.  The algorithm is the same: each round expands the
 top-k pending leaves by ``g_hat(v) = min(gain(v), g_hat(parent(v)))`` with
 one [N]-pass stable partition of the row permutation, ONE leaf-grouped row
-gather feeding the batched histogram kernel (``hist_leaves``) for the k
-smaller children, the larger siblings by subtraction, and one batched split
+gather feeding the batched histogram kernel (``hist_leaves``, or
+``hist_onehot_leaves`` under ``hist_method='onehot'``) for the k smaller
+children, the larger siblings by subtraction, and one batched split
 search over the 2k children.  Growth stops when no pending ``g_hat`` can
 displace an applied split, and a replay of the leaf-slot argmaxes over the
 applied split records recovers the exact best-first order and the
@@ -84,7 +85,9 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
                                count, p, feature_mask)
 
     # ---- root -------------------------------------------------------------
-    root_hist = build_histogram(bins, grad, hess, row_weight, B)
+    root_hist = build_histogram(bins, grad, hess, row_weight, B,
+                                method=cfg.hist_method,
+                                variant=cfg.hist_variant)
     root_split = find(root_hist[None], tot[0:1], tot[1:2], tot[2:3])
 
     pend = _BestSplits.empty(LS, dev).set_rows(
@@ -190,7 +193,8 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         m = torch.where(okrow, ghb[:, 2], 0.0)
         hist_small = build_histogram_leaves(
             combb, ghb[:, 0].contiguous(), ghb[:, 1].contiguous(), m,
-            i_of_blk.to(torch.int32), k, B, block_rows=BR, f_limit=f)
+            i_of_blk.to(torch.int32), k, B, block_rows=BR, f_limit=f,
+            method=cfg.hist_method, variant=cfg.hist_variant)
 
         parent_hist = hist[sel]
         large_hist = parent_hist - hist_small

@@ -14,7 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..device import NotPortedError
-from .histogram import _SMEM_PER_BIN, SMEM_MAX_BYTES
+from .histogram import _OH_CHUNK, _SMEM_PER_BIN, SMEM_MAX_BYTES
 from .split import NEG_INF, SplitParams, SplitResult
 
 
@@ -34,6 +34,10 @@ class GrowerConfig(NamedTuple):
     grower_mode: str = "auto"
     frontier_k: int = 16          # leaves expanded per round
     frontier_block_rows: int = 512  # rows per kernel block
+    # histogram kernels: 'atomic' (default, force_col_wise) or 'onehot'
+    # (force_row_wise) with a resolved one-hot body (ops/onehot_variants.py)
+    hist_method: str = "atomic"
+    hist_variant: str = "base"
 
 
 class TreeArrays(NamedTuple):
@@ -99,19 +103,31 @@ def _frontier_eligible(cfg: GrowerConfig, n_cols: int) -> bool:
     and the per-node RNG features (feature_fraction_bynode, extra_trees)
     are not ported.
 
-    The card's budget: the histogram kernels keep a privatised
-    ``[features, B, 3]`` float64 histogram of one feature group in shared
-    memory and split wider feature sets over ``gridDim.y``, so any feature
-    count fits as long as ONE feature does: ``24 * B`` bytes within the
-    227 KB a CTA may opt into (B <= 9,685; u8 bins give B <= 256)."""
+    The card's budget, by histogram method:
+
+    - atomic: the kernels keep a privatised ``[features, B, 3]`` float64
+      histogram of one feature group in shared memory and split wider
+      feature sets over ``gridDim.y``, so any feature count fits as long as
+      ONE feature does: ``24 * B`` bytes within the 227 KB a CTA may opt
+      into (B <= 9,685; u8 bins give B <= 256).
+    - onehot: the kernels keep their sums in registers and stage 128 rows
+      at a time (at most 18 KB of shared memory), so any feature count and
+      any u8 width fits; the per-leaf kernel needs whole 128-row chunks in
+      a block (``frontier_block_rows`` a multiple of 128, which the config
+      already demands)."""
     if cfg.grower_mode == "serial":
         return False
+    if cfg.hist_method == "onehot":
+        budget_ok = (cfg.max_bin <= 256
+                     and cfg.frontier_block_rows % _OH_CHUNK == 0)
+    else:
+        budget_ok = _SMEM_PER_BIN * cfg.max_bin <= SMEM_MAX_BYTES
     return (not cfg.has_monotone
             and cfg.cegb_split_penalty == 0.0
             and cfg.feature_fraction_bynode >= 1.0
             and not cfg.extra_trees
             and n_cols >= 0
-            and _SMEM_PER_BIN * cfg.max_bin <= SMEM_MAX_BYTES)
+            and budget_ok)
 
 
 def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -125,7 +141,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         raise NotPortedError(
             "this configuration needs the sequential (serial) grower, which "
             "is not ported yet: tree_grower=serial, monotone constraints, "
-            "CEGB, feature_fraction_bynode < 1 and extra_trees all need it")
+            "CEGB, feature_fraction_bynode < 1, extra_trees and a "
+            "histogram width the card's kernels refuse all need it")
     from .frontier import grow_tree_frontier
     return grow_tree_frontier(bins, grad, hess, row_weight, feature_mask,
                               num_bins, nan_bins, cfg)

@@ -183,19 +183,25 @@ def test_cpu_tensors_take_the_plain_path_and_wrappers_refuse_them():
     rng = np.random.default_rng(0)
     bins = rng.integers(0, 16, (256, 3)).astype(np.uint8)
     g, h, m = _rows(rng, 256)
+    bl = torch.zeros(2, dtype=torch.int32)
     thist.reset_launch_counts()
-    thist.build_histogram(*_t(bins, g, h, m), 16)
-    thist.build_histogram_leaves(*_t(bins, g, h, m),
-                                 torch.zeros(2, dtype=torch.int32), 1, 16,
-                                 block_rows=128)
-    assert thist.launch_counts == {"hist_full": 0, "hist_leaves": 0}
+    for method in ("atomic", "onehot"):
+        thist.build_histogram(*_t(bins, g, h, m), 16, method=method)
+        thist.build_histogram_leaves(*_t(bins, g, h, m), bl, 1, 16,
+                                     block_rows=128, method=method)
+    assert set(thist.launch_counts) == {"hist_full", "hist_leaves",
+                                        "onehot_full", "onehot_leaves"}
+    assert not any(thist.launch_counts.values())
     with pytest.raises(ValueError, match="CUDA"):
         thist.hist_full(*_t(bins, g, h, m), 16)
     with pytest.raises(ValueError, match="CUDA"):
-        thist.hist_leaves(*_t(bins, g, h, m),
-                          torch.zeros(2, dtype=torch.int32), 1, 16,
-                          block_rows=128)
-    assert thist.launch_counts == {"hist_full": 0, "hist_leaves": 0}
+        thist.hist_leaves(*_t(bins, g, h, m), bl, 1, 16, block_rows=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        thist.hist_onehot_full(*_t(bins, g, h, m), 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        thist.hist_onehot_leaves(*_t(bins, g, h, m), bl, 1, 16,
+                                 block_rows=128)
+    assert not any(thist.launch_counts.values())
 
 
 def test_force_plain_is_scoped():

@@ -9,13 +9,16 @@ it runs on a machine that has only PyTorch:
 (``--noconftest``: the suite's conftest imports JAX.)  Each kernel is held
 against its plain PyTorch version on the same CUDA tensors at relative
 error ``|a-b|/(|b|+1)`` <= 1e-5: both sum in float64 and round once, so only
-the float64 summation order differs.
+the summation order differs (the one-hot kernels also sum each 128-row
+chunk's tensor-core products in float32 first, which is exact for the few
+rows of one chunk that share a bin).
 """
 import numpy as np
 import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import histogram as thist
+from lightgbm_tpu_torch.ops import onehot_variants as ov
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -122,7 +125,128 @@ def test_training_launches_both_kernels_and_matches_plain(dev):
     with thist.force_plain():
         bp = lgt.train(params, lgt.Dataset(X, label=y), 5,
                        verbose_eval=False, device="cuda")
-    assert thist.launch_counts == {"hist_full": 0, "hist_leaves": 0}
+    assert not any(thist.launch_counts.values())
+    for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
+        assert np.array_equal(tk.split_feature, tp.split_feature)
+        assert np.array_equal(tk.threshold, tp.threshold)
+    np.testing.assert_allclose(bk.predict(X[:2000]), bp.predict(X[:2000]),
+                               rtol=0, atol=1e-6)
+
+
+# every ported one-hot body at each width it serves (packed only at B=64)
+ONEHOT_CASES = [(v, B) for B in (64, 256) for v in ov.VARIANT_NAMES
+                if ov.VARIANTS[v].kernel_id is not None
+                and ov.VARIANTS[v].supports(B)]
+
+
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+@pytest.mark.parametrize("variant,B", ONEHOT_CASES)
+def test_onehot_full_matches_plain(dev, variant, B, layout):
+    rng = np.random.default_rng(B)
+    n, f, ncols = 50_003, 13, 16               # ragged rows, f_limit < NC
+    bins = torch.as_tensor(rng.integers(0, 256, (n, ncols)).astype(np.uint8)
+                           ).to(dev)                  # bins >= B are dropped
+    g, h, m = _rows(rng, n, dev)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, f_limit=f,
+                                    method="onehot", variant=variant,
+                                    layout=layout)
+    before = dict(thist.launch_counts)
+    got = thist.build_histogram(bins, g, h, m, B, f_limit=f, method="onehot",
+                                variant=variant, layout=layout)
+    again = thist.build_histogram(bins, g, h, m, B, f_limit=f,
+                                  method="onehot", variant=variant,
+                                  layout=layout)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_full"] == before["onehot_full"] + 2
+    assert thist.launch_counts["hist_full"] == before["hist_full"]
+    assert got.shape == (f, B, 3) and got.dtype == torch.float32
+    assert relerr(got, ref) <= TOL
+    assert torch.equal(got, again)                 # the same bits twice
+
+
+@pytest.mark.parametrize("variant,B", ONEHOT_CASES)
+def test_onehot_leaves_matches_plain(dev, variant, B):
+    """An empty slot stays zero and a NaN stays in its slot.  Inside that
+    slot the NaN spreads over its channel (0 * NaN in the tensor cores),
+    where the plain version puts it in its own bins only; the other two
+    channels agree."""
+    rng = np.random.default_rng(17)
+    k, BR, f, nc = 6, 512, 28, 40
+    block_leaf = np.array([4, 0, 2, 4, 1, 5, 0, 2, 1, 4], np.int32)  # 3 empty
+    C = block_leaf.size * BR
+    comb = torch.as_tensor(rng.integers(0, 256, (C, nc)).astype(np.uint8)
+                           ).to(dev)
+    g, h, m = _rows(rng, C, dev)
+    nan_block = 5
+    g[nan_block * BR + 3] = float("nan")
+    bl = torch.as_tensor(block_leaf).to(dev)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B,
+                                           block_rows=BR, f_limit=f,
+                                           method="onehot", variant=variant)
+    before = thist.launch_counts["onehot_leaves"]
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B,
+                                       block_rows=BR, f_limit=f,
+                                       method="onehot", variant=variant)
+    again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B,
+                                         block_rows=BR, f_limit=f,
+                                         method="onehot", variant=variant)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_leaves"] == before + 2
+    assert got.shape == (k, f, B, 3)
+    assert bool((got[3] == 0).all())                      # empty slot
+    nan_slot = int(block_leaf[nan_block])
+    assert bool(torch.isnan(got[nan_slot][..., 0]).all())
+    others = [s for s in range(k) if s != nan_slot]
+    assert bool(torch.isfinite(got[others]).all())        # NaN stays put
+    assert relerr(got[others], ref[others]) <= TOL
+    assert relerr(got[nan_slot][..., 1:], ref[nan_slot][..., 1:]) <= TOL
+    assert torch.equal(got[others], again[others])
+    assert torch.equal(got[nan_slot][..., 1:], again[nan_slot][..., 1:])
+
+
+def test_onehot_wrappers_check_their_inputs(dev):
+    bins = torch.zeros(1024, 4, dtype=torch.uint8, device=dev)
+    z = torch.zeros(1024, device=dev)
+    with pytest.raises(ValueError, match="does not support"):
+        thist.hist_onehot_full(bins, z, z, z, 255, variant="packed")
+    with pytest.raises(ValueError, match="layout"):
+        thist.hist_onehot_full(bins, z, z, z, 64, layout="colmajor")
+    with pytest.raises(ValueError, match="multiple"):
+        thist.hist_onehot_leaves(bins, z, z, z,
+                                 torch.zeros(16, dtype=torch.int32,
+                                             device=dev), 2, 16,
+                                 block_rows=64)
+
+
+@pytest.mark.parametrize("variant,max_bin", [("staged", 255),
+                                             ("packed", 63)])
+def test_training_force_row_wise_launches_only_onehot(dev, variant,
+                                                      max_bin):
+    """force_row_wise runs every histogram through the one-hot kernels and
+    grows the trees of the same run under force_plain() on the card."""
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(20_000, 10)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=20_000)
+         > 0).astype(np.float32)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "force_row_wise": True, "hist_variant": variant,
+              "max_bin": max_bin}
+    thist.reset_launch_counts()
+    bk = lgt.train(params, lgt.Dataset(X, label=y), 5, verbose_eval=False,
+                   device="cuda")
+    assert bk._gbdt._grower_cfg.hist_variant == variant
+    assert thist.launch_counts["onehot_full"] == 5
+    assert thist.launch_counts["onehot_leaves"] >= 5
+    assert thist.launch_counts["hist_full"] == 0
+    assert thist.launch_counts["hist_leaves"] == 0
+    thist.reset_launch_counts()
+    with thist.force_plain():
+        bp = lgt.train(params, lgt.Dataset(X, label=y), 5,
+                       verbose_eval=False, device="cuda")
+    assert not any(thist.launch_counts.values())
     for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
         assert np.array_equal(tk.split_feature, tp.split_feature)
         assert np.array_equal(tk.threshold, tp.threshold)
