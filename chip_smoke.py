@@ -9,27 +9,41 @@ Drives ``lightgbm_tpu_torch``'s main path on the card, in phases, printing
 one JSON line per phase; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the four histogram kernels from the sources in this
+2. build: compile the five histogram kernels from the sources in this
    checkout (one ``nvcc`` per source, all at once);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (max relative error ``|a-b|/(|b|+1)`` <= 1e-5: both
    sum in float64 in different orders and round to float32 once), with
    per-launch times from CUDA events.  The atomic kernels (``hist_full``,
-   ``hist_leaves``) once; the one-hot kernels for every bf16-pair variant
-   the width serves, at B=256 (all but ``packed``) and B=64 (all seven):
+   ``hist_leaves``) once; the one-hot kernels for every variant the width
+   serves, at B=256 (all but ``packed``) and B=64 (all eight):
    ``onehot_full`` in both layouts (``featmajor``, the root histogram of
    ``force_row_wise``; ``rowmajor``, which no entry point reaches) and
-   ``onehot_leaves``;
-4. train: binary GBDT on 1,000,000 x 28 Higgs-shaped rows, 255 leaves,
-   ``max_bin=255``, 20 iterations, twice: by default (the atomic kernels)
-   and with ``force_row_wise=True, hist_variant="staged"`` (the one-hot
-   kernels).  Each runs once through the kernels (launch counts from zero
-   around that run) and once with ``force_plain()``; held-out AUC within
-   1e-3 of the plain run (and the one-hot run's of the atomic run's), the
-   atomic run's tree 0 identical to its plain run's.  Then a ``packed`` run
-   at ``max_bin=63`` on 200,000 rows for 5 iterations;
-5. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
-   bit-identically to the booster in memory, for both 1M-row boosters.
+   ``onehot_leaves``, a NaN gradient in one leaf block making the same
+   NaNs as the plain version;
+4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
+   plain version at the main path's blocks (1M rows per 1024 and per 512,
+   the leaves' 262,144 rows per 512 with a NaN block);
+5. shootout: the shootout shell's entry (``onehot_bench``, the JAX
+   package's ``make_bench_kernel``) once per election candidate at B=256
+   and B=64, on the shootout's shape (1,001,472 x 28, BR=512), against its
+   plain version;
+6. elect: ``hist_variant=auto``'s election at B=256 and B=64: every
+   candidate's time and error (none may be disqualified), the winner, and
+   a second call served from the cache without a launch;
+7. train: binary GBDT on 1,000,000 x 28 Higgs-shaped rows, 255 leaves,
+   ``max_bin=255``, 20 iterations, three times: by default (the atomic
+   kernels), with ``force_row_wise=True, hist_variant="staged"`` and with
+   ``hist_variant="int8"`` (the one-hot kernels).  Each runs once through
+   the kernels (launch counts from zero around that run) and once with
+   ``force_plain()``; held-out AUC within 1e-3 of the plain run (and the
+   one-hot runs' of the atomic run's), tree 0 identical to the plain run's
+   for the atomic and int8 runs.  Then ``force_row_wise=True`` with no
+   ``hist_variant`` (so ``auto``) for 5 iterations, which trains with the
+   elected variant, and a ``packed`` run at ``max_bin=63`` on 200,000 rows
+   for 5 iterations;
+8. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
+   bit-identically to the booster in memory, for the 1M-row boosters.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the package beside it, it fails
@@ -48,10 +62,11 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside the
-# tensor cores, and dense bf16 in the tensor cores
+# tensor cores, and dense bf16 and int8 in the tensor cores
 HBM_TB_PER_S = 3.35
 F32_TFLOP_PER_S = 67.0
 BF16_TFLOP_PER_S = 989.0
+INT8_TOP_PER_S = 1979.0
 REL_TOL = 1e-5
 AUC_TOL = 1e-3
 N_TRAIN, N_VALID, N_FEAT, N_ITERS = 1_000_000, 100_000, 28, 20
@@ -59,6 +74,10 @@ N_TRAIN, N_VALID, N_FEAT, N_ITERS = 1_000_000, 100_000, 28, 20
 N_PACKED, ITERS_PACKED = 200_000, 5
 # one frontier round's batched smaller-child histograms
 LEAVES_SHAPE = dict(C=262_144, NC=40, f=28, k=16, BR=512)
+# the JAX shootout's shape (scripts/bench_onehot_variants.py): 1M rows
+# padded to a multiple of 2048, 28 features, every family at BR=512
+SHOOTOUT_SHAPE = dict(N=1_001_472, rows=1_000_000, f=28, BR=512)
+ITERS_AUTO = 5
 
 
 def emit(obj) -> None:
@@ -102,10 +121,13 @@ def bound(nbytes: float, nflops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def tensor_core_floor_ms(lanes: int, rows: int) -> float:
-    """The one-hot design's own floor: mma does 2 flops for each of its 8
-    N columns (6 channel rows used), each lane and each row, at the dense
-    bf16 peak."""
+def tensor_core_floor_ms(lanes: int, rows: int, variant: str) -> float:
+    """The one-hot design's own floor: mma does 2 operations for each of
+    its N columns, each lane and each row, at the dense peak of its type:
+    8 columns (6 channel rows used) in bf16, or for int8 two n8 tiles (9
+    channel rows used) at the int8 peak."""
+    if variant == "int8":
+        return 32.0 * lanes * rows / (INT8_TOP_PER_S * 1e12) * 1e3
     return 16.0 * lanes * rows / (BF16_TFLOP_PER_S * 1e12) * 1e3
 
 
@@ -268,8 +290,8 @@ def phase_kernels():
 
 
 def onehot_cases():
-    """(variant, B) for every ported bf16-pair body at the two widths:
-    B=256 (all but packed) and B=64 (all seven)."""
+    """(variant, B) for every one-hot body at the two widths: B=256 (all
+    but packed) and B=64 (all eight)."""
     from lightgbm_tpu_torch.ops import onehot_variants as ov
     return [(v, B) for B in (256, 64) for v in ov.VARIANT_NAMES
             if ov.VARIANTS[v].kernel_id is not None
@@ -307,24 +329,32 @@ def phase_kernels_onehot(card):
             comb[B], lg, lh, lm, block_leaf, k, B, block_rows=BR,
             f_limit=fl, method="onehot", **kw)
 
+    # the plain versions: one for the seven bf16-pair variants (the same
+    # function), and int8's own, whose blocks depend on the layout
     ref, plain_ms, lib_ms = {}, {}, {}
     for B in (256, 64):
-        with hist.force_plain():
-            ref[B] = (full(B), leaves(B))
-            plain_ms[B] = (median_ms(lambda: full(B)),
-                           median_ms(lambda: leaves(B)))
+        for fam in ("base", "int8"):
+            with hist.force_plain():
+                for layout in ("featmajor", "rowmajor"):
+                    ref[B, fam, layout] = full(B, variant=fam, layout=layout)
+                ref[B, fam, "leaves"] = leaves(B, variant=fam)
+                plain_ms[B, fam] = (
+                    median_ms(lambda: full(B, variant=fam)),
+                    median_ms(lambda: leaves(B, variant=fam)))
         lib_ms[B] = (_full_yardstick(dev, bins[B], g, h, m, B),
                      _leaves_yardstick(dev, comb[B], lg, lh, lm, block_leaf,
                                        k, B, BR, fl))
     rows = {}
     for v, B in onehot_cases():
+        fam = "int8" if v == "int8" else "base"
         lanes_full = ov.total_lanes(v, f, B)
         lanes_leaves = ov.total_lanes(v, fl, B)
         for layout in ("featmajor", "rowmajor"):
             got = full(B, variant=v, layout=layout)
             again = full(B, variant=v, layout=layout)
             torch.cuda.synchronize()
-            err = relerr(got, ref[B][0])
+            r = ref[B, fam, layout]
+            err = relerr(got, r)
             if not (err <= REL_TOL and torch.equal(got, again)):
                 raise AssertionError(f"onehot_full {layout} {v} B={B}: "
                                      f"relerr {err}")
@@ -333,21 +363,22 @@ def phase_kernels_onehot(card):
             rows[f"onehot_full/{layout}/{v}/B{B}"] = dict(
                 kernel="onehot_full", layout=layout, variant=v, B=B,
                 shape=[n, f, B], lanes=lanes_full, relerr=err,
-                max_abs_err=float((got - ref[B][0]).abs().max()),
+                max_abs_err=float((got - r).abs().max()),
                 ms=median_ms(lambda: full(B, variant=v, layout=layout)),
-                plain_ms=plain_ms[B][0], library_ms=lib_ms[B][0],
+                plain_ms=plain_ms[B, fam][0], library_ms=lib_ms[B][0],
                 bound_ms=b_ms, bound_by=b_by,
-                tensor_core_floor_ms=tensor_core_floor_ms(lanes_full, n))
+                tensor_core_floor_ms=tensor_core_floor_ms(lanes_full, n, v))
         got = leaves(B, variant=v)
         again = leaves(B, variant=v)
         torch.cuda.synchronize()
-        r = ref[B][1]
+        r = ref[B, fam, "leaves"]
+        fin = torch.isfinite(r)
         ok = (bool((got[empty] == 0).all())
               and bool(torch.isnan(got[nan_slot][..., 0]).all())
               and bool(torch.isfinite(got[others]).all())
+              and torch.equal(torch.isnan(got), torch.isnan(r))
               and torch.equal(got[others], again[others]))
-        err = max(relerr(got[others], r[others]),
-                  relerr(got[nan_slot][..., 1:], r[nan_slot][..., 1:]))
+        err = relerr(got[fin], r[fin])
         if not (ok and err <= REL_TOL):
             raise AssertionError(f"onehot_leaves {v} B={B}: relerr {err}, "
                                  f"slot checks {ok}")
@@ -357,15 +388,150 @@ def phase_kernels_onehot(card):
             kernel="onehot_leaves", layout="rowmajor", variant=v, B=B,
             shape=[C, LEAVES_SHAPE["NC"], fl, k, BR], lanes=lanes_leaves,
             relerr=err,
-            max_abs_err=float((got[others] - r[others]).abs().max()),
+            max_abs_err=float((got[fin] - r[fin]).abs().max()),
             ms=median_ms(lambda: leaves(B, variant=v)),
-            plain_ms=plain_ms[B][1], library_ms=lib_ms[B][1],
+            plain_ms=plain_ms[B, fam][1], library_ms=lib_ms[B][1],
             bound_ms=b_ms, bound_by=b_by,
-            tensor_core_floor_ms=tensor_core_floor_ms(lanes_leaves, C),
+            tensor_core_floor_ms=tensor_core_floor_ms(lanes_leaves, C, v),
             empty_slot_zero=True, nan_confined=True)
     emit({"phase": "kernels_onehot", "card": card, "tolerance": REL_TOL,
           "rows": rows})
     return rows
+
+
+def _same_quant(a, b) -> bool:
+    """q identical, and s identical bit for bit where it is not NaN, NaN in
+    the same places (a NaN's payload is not part of the function)."""
+    (qa, sa), (qb, sb) = a, b
+    ok = ~torch.isnan(sb)
+    return (torch.equal(qa, qb)
+            and torch.equal(torch.isnan(sa), torch.isnan(sb))
+            and torch.equal(sa[ok].view(torch.int32),
+                            sb[ok].view(torch.int32)))
+
+
+def phase_quant(card):
+    """The int8 quantize kernel, bit-identical to its plain version at the
+    blocks the main path gives it."""
+    from lightgbm_tpu_torch.ops import histogram as hist
+    from lightgbm_tpu_torch.ops import onehot_variants as ov
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    n, f, B = N_TRAIN, N_FEAT, 256
+    g, h, m = _rows(gen, n, dev)
+    rows = ov.prep_f32(g, h, m)
+    _, lg, lh, lm, _, _, _ = _leaves_inputs(gen, dev)    # NaN in block 100
+    lrows = ov.prep_f32(lg, lh, lm)
+    cases = {"featmajor": (rows, ov.pallas_block_rows("int8", "featmajor",
+                                                      n, f, B)),
+             "rowmajor": (rows, ov.pallas_block_rows("int8", "rowmajor",
+                                                     n, f, B)),
+             "leaves": (lrows, LEAVES_SHAPE["BR"])}
+    out = {}
+    for name, (x, br) in cases.items():
+        got = hist.quantize_int8_blocks(x, br)
+        torch.cuda.synchronize()
+        ref = ov.quantize_int8_blocks_plain(x, br)
+        if not _same_quant(got, ref):
+            raise AssertionError(f"onehot_quant {name} (block {br}): not "
+                                 "bit-identical to the plain version")
+        out[name] = dict(rows=x.shape[1], block_rows=br,
+                         nan_blocks=int(torch.isnan(got[1]).any(1).sum()))
+    x, br = cases["featmajor"]
+    ms = median_ms(lambda: hist.quantize_int8_blocks(x, br))
+    plain_ms = median_ms(lambda: ov.quantize_int8_blocks_plain(x, br))
+    # per element and level: abs, max, divide, round, fused multiply-add,
+    # convert -- 6 operations on each of 3 rows, 3 levels
+    b_ms, b_by = bound(12 * n + 9 * n + 36 * (-(-n // br)), 54 * n)
+    row = dict(shape=[3, n], block_rows=br, bit_identical=True,
+               relerr=0.0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "quant", "card": card, "cases": out, **row})
+    return row
+
+
+def phase_shootout(card):
+    """The shootout shell (K4) once per election candidate at both widths,
+    on the JAX shootout's shape; each candidate's launches are counted
+    from zero around its own run, then it is held against its plain
+    version and timed."""
+    from lightgbm_tpu_torch.ops import histogram as hist
+    from lightgbm_tpu_torch.ops import onehot_variants as ov
+    dev = torch.device("cuda")
+    N, nrows, f, BR = (SHOOTOUT_SHAPE[x] for x in ("N", "rows", "f", "BR"))
+    rng = np.random.default_rng(0)
+    rows_out = {}
+    for B in (256, 64):
+        bins = torch.as_tensor(rng.integers(0, B, size=(N, f),
+                                            dtype=np.uint8)).to(dev)
+        g = torch.as_tensor(rng.normal(size=N).astype(np.float32)).to(dev)
+        g[nrows:] = 0.0
+        h = torch.full((N,), 0.25, device=dev)
+        m = (torch.arange(N, device=dev) < nrows).float()
+        bins_t = bins.t().contiguous()                    # [F, N], once
+        lib_ms = _full_yardstick(dev, bins, g, h, m, B)
+        b_ms, b_by = bound(N * f + 12 * N + f * B * 12, 3 * N * f + 2 * N)
+        for v in ov.AUTO_CANDIDATES:
+            if not ov.VARIANTS[v].supports(B):
+                continue
+            prep, run = ov.make_bench_kernel(v, f, B, BR)
+            x = prep(g, h, m)
+            hist.reset_launch_counts()
+            got = run(bins_t, x)
+            torch.cuda.synchronize()
+            launches = dict(hist.launch_counts)
+            want = {"onehot_bench": 1, "onehot_quant": int(v == "int8")}
+            if any(launches[k] != want.get(k, 0) for k in launches):
+                raise AssertionError(f"onehot_bench {v} B={B}: launches "
+                                     f"{launches}")
+            with hist.force_plain():
+                ref = run(bins_t, x)
+                plain_ms = median_ms(lambda: run(bins_t, x))
+            err = relerr(got, ref)
+            if not err <= REL_TOL:
+                raise AssertionError(f"onehot_bench {v} B={B}: relerr {err}")
+            rows_out[f"onehot_bench/{v}/B{B}"] = dict(
+                variant=v, B=B, shape=[f, N, BR], relerr=err,
+                max_abs_err=float((got - ref).abs().max()),
+                ms=median_ms(lambda: run(bins_t, x)), plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                launches=launches["onehot_bench"])
+        del bins, bins_t, g, h, m
+    emit({"phase": "shootout", "card": card, "tolerance": REL_TOL,
+          "rows": rows_out})
+    return rows_out
+
+
+def phase_elect(card):
+    """hist_variant=auto's election at both widths, from an empty cache;
+    then again, served from the cache with no launch."""
+    from lightgbm_tpu_torch.ops import histogram as hist
+    from lightgbm_tpu_torch.ops import onehot_variants as ov
+    dev = torch.device("cuda", torch.cuda.current_device())
+    name = torch.cuda.get_device_name(dev)
+    out = {}
+    for B in (256, 64):
+        ov._AUTO_CACHE.pop((name, B), None)
+        t0 = time.perf_counter()
+        won = ov.pick_variant(B, N_FEAT, device=dev)
+        secs = time.perf_counter() - t0
+        res = ov.AUTO_RESULTS[(name, B)]
+        bad = [v for v, r in res.items() if not r["qualified"]]
+        if bad:
+            raise AssertionError(f"election B={B} disqualified {bad}: {res}")
+        print(f"elected B={B}: {won}", flush=True)
+        hist.reset_launch_counts()
+        again = ov.pick_variant(B, N_FEAT, device=dev)
+        if again != won or any(hist.launch_counts.values()):
+            raise AssertionError(f"election B={B}: the second call gave "
+                                 f"{again} with launches "
+                                 f"{hist.launch_counts}")
+        out[f"B{B}"] = {"winner": won, "seconds": secs, "candidates": res,
+                        "second_call_from_cache": True}
+    emit({"phase": "elect", "card": card, "rows": 262144,
+          "features": N_FEAT, **out})
+    return {B: out[f"B{B}"]["winner"] for B in (256, 64)}
 
 
 def _auc(scores, labels):
@@ -435,7 +601,7 @@ def _train_pair(lgt, hist, ds, params, iters, Xv, yv, expect):
     return booster, out
 
 
-def phase_train(card):
+def phase_train(card, elected):
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import histogram as hist
     base = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
@@ -446,6 +612,7 @@ def phase_train(card):
     t0 = time.perf_counter()
     ds = lgt.Dataset(X, label=y, params=base).construct(device="cuda")
     construct_s = time.perf_counter() - t0
+    one_hot_kernels = {"onehot_full", "onehot_leaves"}
 
     # the default path: the atomic kernels
     booster, atomic = _train_pair(lgt, hist, ds, base, N_ITERS, Xv, yv,
@@ -454,14 +621,34 @@ def phase_train(card):
         raise AssertionError("tree 0 differs between kernel and plain runs")
     # the row-wise path: the one-hot kernels, root once per tree
     booster_oh, row_wise = _train_pair(lgt, hist, ds, onehot, N_ITERS, Xv,
-                                       yv, {"onehot_full", "onehot_leaves"})
-    if row_wise["launches"]["onehot_full"] != N_ITERS:
-        raise AssertionError(f"onehot_full ran {row_wise['launches']} "
-                             f"times in {N_ITERS} trees")
-    auc_gap = abs(row_wise["kernel"]["auc_holdout"]
-                  - atomic["kernel"]["auc_holdout"])
-    if auc_gap > AUC_TOL:
-        raise AssertionError(f"one-hot vs atomic AUC gap {auc_gap}")
+                                       yv, one_hot_kernels)
+    # the int8 body: the quantize kernel before each one-hot launch
+    int8 = dict(base, force_row_wise=True, hist_variant="int8")
+    booster_i8, int8_run = _train_pair(lgt, hist, ds, int8, N_ITERS, Xv, yv,
+                                       one_hot_kernels | {"onehot_quant"})
+    if not int8_run["tree0_identical"]:
+        raise AssertionError("int8: tree 0 differs between kernel and plain")
+    gaps = {}
+    for tag, run in (("staged", row_wise), ("int8", int8_run)):
+        if run["launches"]["onehot_full"] != N_ITERS:
+            raise AssertionError(f"{tag}: onehot_full ran "
+                                 f"{run['launches']} times in {N_ITERS} "
+                                 "trees")
+        gaps[tag] = abs(run["kernel"]["auc_holdout"]
+                        - atomic["kernel"]["auc_holdout"])
+        if gaps[tag] > AUC_TOL:
+            raise AssertionError(f"{tag} vs atomic AUC gap {gaps[tag]}")
+    # force_row_wise with no hist_variant: auto, the elected variant
+    auto = dict(base, force_row_wise=True)
+    kernels_auto = one_hot_kernels | (
+        {"onehot_quant"} if elected[256] == "int8" else set())
+    _, auto_run = _train_pair(lgt, hist, ds, auto, ITERS_AUTO, Xv, yv,
+                              kernels_auto)
+    if auto_run["hist_variant"] != elected[256]:
+        raise AssertionError(f"auto trained with {auto_run['hist_variant']}"
+                             f", the election chose {elected[256]}")
+    print(f"auto trained with the elected variant: {elected[256]}",
+          flush=True)
     del ds, X, y
     # packed at the width it serves, on fewer rows
     packed = dict(base, max_bin=63, force_row_wise=True,
@@ -469,17 +656,18 @@ def phase_train(card):
     Xp, yp = make_higgs_like(N_PACKED, N_FEAT, seed=44)
     dsp = lgt.Dataset(Xp, label=yp, params=packed).construct(device="cuda")
     _, packed_run = _train_pair(lgt, hist, dsp, packed, ITERS_PACKED, Xv,
-                                yv, {"onehot_full", "onehot_leaves"})
+                                yv, one_hot_kernels)
     if packed_run["hist_variant"] != "packed":
         raise AssertionError(f"max_bin=63 resolved {packed_run}")
     emit({"phase": "train", "card": card, "features": N_FEAT,
           "num_leaves": 255, "construct_s": construct_s,
           "atomic": atomic, "row_wise_staged": row_wise,
+          "row_wise_int8": int8_run, "row_wise_auto": auto_run,
           "row_wise_packed_max_bin_63": packed_run,
-          "onehot_vs_atomic_auc_gap": auc_gap})
-    return (booster, booster_oh), Xv, {
+          "onehot_vs_atomic_auc_gap": gaps})
+    return (booster, booster_oh, booster_i8), Xv, {
         "atomic": atomic["launches"], "staged": row_wise["launches"],
-        "packed": packed_run["launches"]}
+        "int8": int8_run["launches"], "packed": packed_run["launches"]}
 
 
 def phase_predict(boosters, Xv):
@@ -600,16 +788,27 @@ ONEHOT_SHELLS = {
         "lightgbm_tpu/ops/histogram.py::_hist_leaves_pallas"),
 }
 ONEHOT_BODIES = {"base": 178, "bf16cmp": 187, "i16cmp": 196, "u8cmp": 205,
-                 "sub1abs": 214, "staged": 227, "packed": 250}
+                 "sub1abs": 214, "staged": 227, "packed": 250, "int8": 267}
 # which training run of the train phase drives each (variant, width)
-MAIN_PATH_RUNS = {("staged", 256): "staged", ("packed", 64): "packed"}
+MAIN_PATH_RUNS = {("staged", 256): "staged", ("packed", 64): "packed",
+                  ("int8", 256): "int8"}
+# the int8 quantize kernel (the `level` chain of the int8 body) and the
+# shootout shell's entry
+QUANT_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_quant.cu",
+              "lightgbm_tpu/ops/onehot_variants.py:284",
+              "lightgbm_tpu/ops/onehot_variants.py::_contrib_int8 (level)")
+BENCH_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_full.cu",
+              "lightgbm_tpu/ops/onehot_variants.py:440",
+              "lightgbm_tpu/ops/onehot_variants.py::make_bench_kernel")
 
 
-def kernel_rows(kern, onehot, launches, card):
-    """The ``{"kernels": [...]}`` rows: the atomic kernels, then one row
-    per one-hot (kernel, layout, variant, width).  ``launches`` is the count
-    from the training run that drives the row's kernel (0 for the row-major
-    layout and the variants no run trains with)."""
+def kernel_rows(kern, onehot, quant, bench, launches, card):
+    """The ``{"kernels": [...]}`` rows: the atomic kernels, one row per
+    one-hot (kernel, layout, variant, width), the quantize kernel, and one
+    row per shootout (variant, width).  ``launches`` is the count from the
+    run that drives the row's kernel: a training run (0 for the row-major
+    layout and the variants no run trains with), or for the shootout shell
+    its own run in the shootout phase."""
     keys = ("max_abs_err", "relerr", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     rows = []
@@ -632,6 +831,21 @@ def kernel_rows(kern, onehot, launches, card):
                                       f"{ONEHOT_BODIES[r['variant']]}",
                      "launches": n, **{k: r[k] for k in keys},
                      "card": card})
+    src, replaces, jax_fn = QUANT_INFO
+    rows.append({"name": "onehot_quant", "route": "cuda", "source": src,
+                 "replaces": replaces, "jax": jax_fn,
+                 "launches": launches["int8"]["onehot_quant"],
+                 **{k: quant[k] for k in keys}, "card": card})
+    src, replaces, jax_fn = BENCH_INFO
+    for name, r in bench.items():
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "jax": jax_fn,
+                     "body": "lightgbm_tpu_torch/ops/kernels/"
+                             "onehot_common.cuh",
+                     "body_replaces": "lightgbm_tpu/ops/onehot_variants.py:"
+                                      f"{ONEHOT_BODIES[r['variant']]}",
+                     "launches": r["launches"],
+                     **{k: r[k] for k in keys}, "card": card})
     return rows
 
 
@@ -650,11 +864,14 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     onehot = phase_kernels_onehot(smi)
-    boosters, Xv, launches = phase_train(smi)
+    quant = phase_quant(smi)
+    bench = phase_shootout(smi)
+    elected = phase_elect(smi)
+    boosters, Xv, launches = phase_train(smi, elected)
     phase_predict(boosters, Xv)
     if args.profile:
         phase_profile(boosters[0], smi)
-    rows = kernel_rows(kern, onehot, launches, smi)
+    rows = kernel_rows(kern, onehot, quant, bench, launches, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -28,8 +28,9 @@ from .utils.log import LightGBMError, Log, check
 
 # ``hist_variant`` (one of VARIANT_NAMES, or auto) picks the one-hot body of
 # the row-wise histogram kernels; it acts only under ``force_row_wise``, as
-# in the JAX package, where the scatter method ignores it.  ``int8`` and
-# ``auto`` under ``force_row_wise`` raise NotPortedError (models/gbdt.py).
+# in the JAX package, where the scatter method ignores it.  Every name runs
+# there; ``auto`` elects one by timing the candidates on the card
+# (ops/onehot_variants.pick_variant) and is ``base`` on the CPU.
 
 # ---------------------------------------------------------------------------
 # Alias table (reference: src/io/config_auto.cpp:10-168). Maps alias -> canonical.

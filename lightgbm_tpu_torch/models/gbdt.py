@@ -67,12 +67,6 @@ def check_ported(cfg: Config) -> None:
         bad.append("CEGB")
     if cfg.objective not in ("binary",):
         bad.append(f"objective={cfg.objective}")
-    if cfg.force_row_wise and cfg.hist_variant == "auto":
-        bad.append("hist_variant=auto under force_row_wise (the on-card "
-                   "variant election; pick a variant by name)")
-    if cfg.force_row_wise and cfg.hist_variant == "int8":
-        bad.append("hist_variant=int8 under force_row_wise (the int8 "
-                   "one-hot body)")
     if bad:
         raise NotPortedError("not ported yet: " + ", ".join(bad))
 
@@ -197,12 +191,20 @@ class GBDT:
         # histogram kernels, as the JAX package picks them
         # (lightgbm_tpu/models/gbdt.py:264-292): force_row_wise takes the
         # one-hot kernels with the variant resolved against the kernel
-        # width; the default and force_col_wise take the atomic kernels,
-        # the counterpart of the JAX package's scatter method, which ignores
-        # hist_variant
+        # width -- 'auto' by the election on the card (cached per card and
+        # width; 'base' on the CPU without timing anything), before the
+        # first tree; the default and force_col_wise take the atomic
+        # kernels, the counterpart of the JAX package's scatter method,
+        # which ignores hist_variant
         if cfg.force_row_wise:
             hist_method = "onehot"
-            hist_variant = onehot_variants.resolve(cfg.hist_variant, max_bin)
+            if cfg.hist_variant == "auto":
+                hist_variant = onehot_variants.pick_variant(
+                    max_bin, self.train_data.num_features,
+                    device=self.device)
+            else:
+                hist_variant = onehot_variants.resolve(cfg.hist_variant,
+                                                       max_bin)
         else:
             hist_method, hist_variant = "atomic", "base"
         return GrowerConfig(

@@ -1,7 +1,9 @@
 """Build and load the hand-written Hopper kernels.
 
 Each ``kernels/<name>.cu`` is compiled by ``nvcc`` into its own shared
-library with a plain C interface (``<name>_launch``), loaded with ``ctypes``.
+library with a plain C interface (``<name>_launch``, and for
+``onehot_full`` also the shootout shell's ``onehot_bench_launch``), loaded
+with ``ctypes``.
 Libraries are cached in ``ops/_build/`` under a name keyed on a hash of the
 sources and flags, so an edit to a kernel rebuilds it and an unchanged
 kernel is built once per checkout.  ``build()`` starts one ``nvcc`` per
@@ -26,35 +28,54 @@ KERNEL_DIR = Path(__file__).resolve().parent / "kernels"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = {"hist_full": "hist_full.cu", "hist_leaves": "hist_leaves.cu",
            "onehot_full": "onehot_full.cu",
-           "onehot_leaves": "onehot_leaves.cu"}
+           "onehot_leaves": "onehot_leaves.cu",
+           "onehot_quant": "onehot_quant.cu"}
 # headers each kernel includes: they feed its library's name, so an edit to
 # one rebuilds every kernel that includes it
 _HEADERS = {"hist_full": ("hist_common.cuh",),
             "hist_leaves": ("hist_common.cuh",),
             "onehot_full": ("onehot_common.cuh",),
-            "onehot_leaves": ("onehot_common.cuh",)}
+            "onehot_leaves": ("onehot_common.cuh",),
+            "onehot_quant": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of each library's entry points
 _ARGTYPES = {
-    # device, bins, n, stride, f, B, g, h, m, out, fg, grid_x, threads, stream
-    "hist_full": [_INT, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P, _VOID_P,
-                  _VOID_P, _VOID_P, _INT, _INT, _INT, _VOID_P],
-    # device, comb, c, stride, f, B, g, h, m, block_leaf, br, k, out, fg,
-    # bpc, threads, stream
-    "hist_leaves": [_INT, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P, _VOID_P,
-                    _VOID_P, _VOID_P, _INT, _INT, _VOID_P, _INT, _INT, _INT,
-                    _VOID_P],
-    # device, bins, ld, n, f, layout, gh, out, variant, lpf_log2, lanes,
-    # nf_max, cps, grid_x, stream
-    "onehot_full": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _VOID_P, _VOID_P,
-                    _INT, _INT, _INT, _INT, _INT, _INT, _VOID_P],
-    # device, comb, ld, c, f, gh, block_leaf, br, k, out, variant,
-    # lpf_log2, lanes, nf_max, bpc, stream
-    "onehot_leaves": [_INT, _VOID_P, _LL, _LL, _INT, _VOID_P, _VOID_P,
-                      _INT, _INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
-                      _VOID_P],
+    "hist_full": {
+        # device, bins, n, stride, f, B, g, h, m, out, fg, grid_x, threads,
+        # stream
+        "hist_full_launch": [_INT, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P,
+                             _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT,
+                             _VOID_P]},
+    "hist_leaves": {
+        # device, comb, c, stride, f, B, g, h, m, block_leaf, br, k, out,
+        # fg, bpc, threads, stream
+        "hist_leaves_launch": [_INT, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P,
+                               _VOID_P, _VOID_P, _VOID_P, _INT, _INT,
+                               _VOID_P, _INT, _INT, _INT, _VOID_P]},
+    "onehot_full": {
+        # device, bins, ld, n, f, layout, gh, scales, qbr, out, variant,
+        # lpf_log2, lanes, nf_max, cps, grid_x, stream
+        "onehot_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _VOID_P,
+                               _VOID_P, _INT, _VOID_P, _INT, _INT, _INT,
+                               _INT, _INT, _INT, _VOID_P],
+        # device, bins_t, n, f, gh, scales, qbr, out, variant, lpf_log2,
+        # lanes, nf_max, cps, grid_x, stream
+        "onehot_bench_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _VOID_P,
+                                _INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
+                                _INT, _VOID_P]},
+    "onehot_leaves": {
+        # device, comb, ld, c, f, gh, scales, block_leaf, br, k, out,
+        # variant, lpf_log2, lanes, nf_max, bpc, stream
+        "onehot_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _VOID_P,
+                                 _VOID_P, _VOID_P, _INT, _INT, _VOID_P, _INT,
+                                 _INT, _INT, _INT, _INT, _VOID_P]},
+    "onehot_quant": {
+        # device, rows, n, br, q, s, stream
+        "onehot_quant_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _VOID_P,
+                                _VOID_P]},
 }
 
 # loaded libraries, one per kernel for the life of the process
@@ -134,9 +155,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise KernelBuildError(f"cannot load {path}: {e}") from e
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
+    for entry, argtypes in _ARGTYPES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.lgbt_error_string.argtypes = [ctypes.c_int]
     lib.lgbt_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

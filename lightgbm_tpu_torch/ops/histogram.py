@@ -18,8 +18,16 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
   kernels: ``gh · onehotᵀ`` with the ``[6, N]`` bf16 (hi, lo) split of
   ``(g·m, h·m, m)``, the one-hot built by the ``variant``'s body
   (``onehot_variants.py``), in the ``featmajor`` or ``rowmajor`` layout.
-  Every variant computes the same function, so they share one plain
-  version per entry point.
+  The seven bf16-pair variants compute the same function and share one
+  plain version per entry point.  ``int8`` first runs the quantize kernel
+  (``quantize_int8_blocks``) over the Pallas kernels' row blocks, then
+  multiplies int8 by int8 with exact int32 sums; it has plain versions of
+  its own (``hist_onehot_int8_*_plain``).  ``hist_onehot_bench`` is the
+  shootout shell's entry (``onehot_variants.make_bench_kernel``).
+
+A non-finite value makes its whole channel NaN in the one-hot product
+(``0·NaN`` and ``0·inf`` are NaN) -- in a full pass everywhere, per leaf
+in its slot -- and the plain one-hot versions give the same NaNs.
 
 The frontier calls ``build_histogram`` for its root histogram and
 ``build_histogram_leaves`` once per round.  Every kernel and plain version
@@ -45,8 +53,14 @@ import torch
 from . import _build
 from . import onehot_variants as ov
 
-# kernel launches since the last reset_launch_counts(), by kernel name
-launch_counts: Dict[str, int] = {name: 0 for name in _build.KERNELS}
+# kernel launches since the last reset_launch_counts(), by kernel name:
+# one per library, and the shootout shell's own entry into onehot_full's
+launch_counts: Dict[str, int] = {name: 0 for name in
+                                 (*_build.KERNELS, "onehot_bench")}
+
+# tolerance of every one-hot variant against the exact scatter (the JAX
+# package's HIST_PARITY_TOL): the bf16 pair's, and int8's, own error
+HIST_PARITY_TOL = 5e-4
 
 # bytes of one CTA's privatised float64 histogram per (feature, bin)
 _SMEM_PER_BIN = 24
@@ -102,6 +116,10 @@ def build_histogram(bins: torch.Tensor, grad: torch.Tensor,
     ignores them."""
     if method == "onehot":
         _onehot_spec(variant, max_bin, layout)
+        if _plain(bins) and variant == "int8":
+            return hist_onehot_int8_full_plain(bins, grad, hess, mask,
+                                               max_bin, f_limit=f_limit,
+                                               layout=layout)
         if _plain(bins):
             return hist_onehot_full_plain(bins, grad, hess, mask, max_bin,
                                           f_limit=f_limit)
@@ -127,6 +145,10 @@ def build_histogram_leaves(comb: torch.Tensor, grad: torch.Tensor,
     ``block_leaf[i]`` (need not be sorted; a slot with no block is zero)."""
     if method == "onehot":
         _onehot_spec(variant, max_bin, "rowmajor")
+        if _plain(comb) and variant == "int8":
+            return hist_onehot_int8_leaves_plain(
+                comb, grad, hess, mask, block_leaf, num_slots, max_bin,
+                block_rows=block_rows, f_limit=f_limit)
         if _plain(comb):
             return hist_onehot_leaves_plain(
                 comb, grad, hess, mask, block_leaf, num_slots, max_bin,
@@ -167,36 +189,84 @@ def _n_feat(ncols: int, f_limit: Optional[int]) -> int:
     return min(f_limit, ncols) if f_limit is not None else ncols
 
 
-def _full_plain(bins, vals, max_bin, f_limit):
-    """Sum the float64 row values ``vals [N, 3]`` per (feature, bin) of the
-    first ``f`` columns; bins >= ``max_bin`` are dropped."""
-    n, ncols = bins.shape
-    f = _n_feat(ncols, f_limit)
-    b = bins[:, :f].long()
-    keep = b < max_bin
-    flat = b + max_bin * torch.arange(f, device=b.device)[None, :]
-    out = torch.zeros(f * max_bin, 3, dtype=torch.float64, device=b.device)
-    out.index_add_(0, flat[keep], vals[:, None, :].expand(n, f, 3)[keep])
-    return out.float().view(f, max_bin, 3)
-
-
-def _leaves_plain(comb, vals, block_leaf, num_slots, max_bin, block_rows,
-                  f_limit):
-    """Per-slot ``_full_plain``: row ``r`` belongs to slot
-    ``block_leaf[r // block_rows]``; a slot outside ``[0, num_slots)``
-    matches nothing."""
-    n, nc = comb.shape
-    f = _n_feat(nc, f_limit)
+def _row_slots(n, block_leaf, num_slots, block_rows, device):
+    """``(slot [N] int64, ok [N] bool)``: row ``r``'s slot
+    ``block_leaf[r // block_rows]`` (0 for a full pass, ``block_leaf`` None)
+    and whether it lies in ``[0, num_slots)``; a row outside matches
+    nothing."""
+    if block_leaf is None:
+        return (torch.zeros(n, dtype=torch.int64, device=device),
+                torch.ones(n, dtype=torch.bool, device=device))
     row_leaf = block_leaf.long().repeat_interleave(block_rows)[:n]
-    b = comb[:, :f].long()
-    slot_ok = (row_leaf >= 0) & (row_leaf < num_slots)
-    keep = (b < max_bin) & slot_ok[:, None]
-    flat = ((row_leaf[:, None] * f
-             + torch.arange(f, device=b.device)[None, :]) * max_bin + b)
-    out = torch.zeros(num_slots * f * max_bin, 3, dtype=torch.float64,
+    ok = (row_leaf >= 0) & (row_leaf < num_slots)
+    return torch.where(ok, row_leaf, 0), ok
+
+
+def _scatter(b, vals, rows_ok, slot, num_slots, max_bin):
+    """``[num_slots, f, B, C]`` float64: the row values ``vals [N, C]``
+    summed per (slot, feature, bin) of ``b [N, f]`` over the rows in
+    ``rows_ok``; bins >= ``max_bin`` are dropped."""
+    n, f = b.shape
+    c = vals.shape[1]
+    keep = (b < max_bin) & rows_ok[:, None]
+    flat = ((slot[:, None] * f + torch.arange(f, device=b.device)[None, :])
+            * max_bin + b)
+    out = torch.zeros(num_slots * f * max_bin, c, dtype=torch.float64,
                       device=b.device)
-    out.index_add_(0, flat[keep], vals[:, None, :].expand(n, f, 3)[keep])
-    return out.float().view(num_slots, f, max_bin, 3)
+    out.index_add_(0, flat[keep], vals[:, None, :].expand(n, f, c)[keep])
+    return out.view(num_slots, f, max_bin, c)
+
+
+def _pair_plain(b, gh6, slot, ok, num_slots, max_bin):
+    """The function of every bf16-pair variant: the pair ``hi + lo`` summed
+    per (slot, feature, bin) in float64.  A row that holds a non-finite
+    value (rare) adds instead its own dense product ``hi·onehot +
+    lo·onehot`` over every (feature, bin) of its slot, as the one-hot
+    product gives it: ``0·NaN`` and ``0·inf`` are NaN, so the NaN covers
+    its channel (an infinite ``x`` has a NaN ``lo = x - hi``)."""
+    pair = gh6.double()
+    hi, lo = pair[:3].t(), pair[3:].t()
+    bad = ~torch.isfinite(pair).all(0)
+    out = _scatter(b, hi + lo, ok & ~bad, slot, num_slots, max_bin)
+    rows = torch.nonzero(bad & ok)[:, 0]
+    if rows.numel():
+        onehot = (b[rows, :, None] == torch.arange(max_bin, device=b.device)
+                  ).double()[..., None]                     # [m, f, B, 1]
+        dense = (hi[rows, None, None, :] * onehot
+                 + lo[rows, None, None, :] * onehot)        # [m, f, B, 3]
+        out.index_add_(0, slot[rows], dense)
+    return out
+
+
+def _int8_plain(b, rows, block_rows, slot, ok, num_slots, max_bin):
+    """The int8 variant's function: ``rows [3, N]`` quantized per block of
+    ``block_rows`` rows (``quantize_int8_blocks_plain``), the exact integer
+    sums per bin folded by the block's scales in float64: ``hi = Σq1·s1``,
+    ``lo = Σq2·s2 + Σq3·s3`` (each ``q·s`` is exact in float64).  A block
+    whose scales are not all finite (a non-finite value in it) adds instead
+    its dense product ``acc·s`` over every (feature, bin) of its slot, zero
+    sums included, as the kernels fold it."""
+    n = b.shape[0]
+    q, s = ov.quantize_int8_blocks_plain(rows, block_rows)
+    sd = s.double()
+    blk = torch.arange(n, device=b.device) // block_rows
+    v = q.t().double() * sd[blk]                            # [N, 9]
+    vals = v[:, 0:3] + (v[:, 3:6] + v[:, 6:9])
+    bad_blk = ~torch.isfinite(s).all(1)
+    out = _scatter(b, vals, ok & ~bad_blk[blk], slot, num_slots, max_bin)
+    for j in torch.nonzero(bad_blk)[:, 0].tolist():
+        r0, r1 = j * block_rows, min((j + 1) * block_rows, n)
+        if not bool(ok[r0]):
+            continue
+        acc = _scatter(b[r0:r1], q[:, r0:r1].t().double(),
+                       torch.ones(r1 - r0, dtype=torch.bool, device=b.device),
+                       torch.zeros(r1 - r0, dtype=torch.int64,
+                                   device=b.device), 1, max_bin)[0]
+        sj = sd[j]
+        out[int(slot[r0])] += (acc[..., 0:3] * sj[0:3]
+                               + (acc[..., 3:6] * sj[3:6]
+                                  + acc[..., 6:9] * sj[6:9]))
+    return out
 
 
 def _gh_rows(grad, hess, mask):
@@ -204,36 +274,82 @@ def _gh_rows(grad, hess, mask):
     return torch.stack([grad * mask, hess * mask, mask], dim=-1).double()
 
 
-def _pair_rows(grad, hess, mask):
-    """``[N, 3]`` float64 of the bf16 pair ``hi + lo`` of (g·m, h·m, m):
-    the row values every one-hot variant sums."""
-    gh6 = ov.split_bf16_pair(grad, hess, mask).double()
-    return (gh6[:3] + gh6[3:]).t()
+def _full_rows(bins, f_limit):
+    n, ncols = bins.shape
+    return (bins[:, :_n_feat(ncols, f_limit)].long(),
+            *_row_slots(n, None, 1, 1, bins.device))
+
+
+def _leaves_rows(comb, block_leaf, num_slots, block_rows, f_limit):
+    n, nc = comb.shape
+    return (comb[:, :_n_feat(nc, f_limit)].long(),
+            *_row_slots(n, block_leaf, num_slots, block_rows, comb.device))
 
 
 def hist_full_plain(bins, grad, hess, mask, max_bin, f_limit=None):
-    return _full_plain(bins, _gh_rows(grad, hess, mask), max_bin, f_limit)
+    b, slot, ok = _full_rows(bins, f_limit)
+    return _scatter(b, _gh_rows(grad, hess, mask), ok, slot, 1,
+                    max_bin)[0].float()
 
 
 def hist_leaves_plain(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
                       block_rows=512, f_limit=None):
-    return _leaves_plain(comb, _gh_rows(grad, hess, mask), block_leaf,
-                         num_slots, max_bin, block_rows, f_limit)
+    b, slot, ok = _leaves_rows(comb, block_leaf, num_slots, block_rows,
+                               f_limit)
+    return _scatter(b, _gh_rows(grad, hess, mask), ok, slot, num_slots,
+                    max_bin).float()
 
 
 def hist_onehot_full_plain(bins, grad, hess, mask, max_bin, f_limit=None):
-    """The function of every one-hot variant in both layouts: the bf16 pair
-    summed per (feature, bin) in float64 and rounded once.  A non-finite
-    value reaches only its own bins here; in the kernels (and the Pallas
-    ones) it spreads over its channel, since the one-hot's zeros times it
-    are NaN."""
-    return _full_plain(bins, _pair_rows(grad, hess, mask), max_bin, f_limit)
+    """The function of every bf16-pair variant in both layouts: the bf16
+    pair summed per (feature, bin) in float64 and rounded once; a
+    non-finite value makes its channel NaN, as in the kernels."""
+    b, slot, ok = _full_rows(bins, f_limit)
+    return _pair_plain(b, ov.split_bf16_pair(grad, hess, mask), slot, ok, 1,
+                       max_bin)[0].float()
 
 
 def hist_onehot_leaves_plain(comb, grad, hess, mask, block_leaf, num_slots,
                              max_bin, block_rows=512, f_limit=None):
-    return _leaves_plain(comb, _pair_rows(grad, hess, mask), block_leaf,
-                         num_slots, max_bin, block_rows, f_limit)
+    b, slot, ok = _leaves_rows(comb, block_leaf, num_slots, block_rows,
+                               f_limit)
+    return _pair_plain(b, ov.split_bf16_pair(grad, hess, mask), slot, ok,
+                       num_slots, max_bin).float()
+
+
+def hist_onehot_int8_full_plain(bins, grad, hess, mask, max_bin, f_limit=None,
+                                layout="featmajor"):
+    """The int8 variant's full pass, quantized in the layout's blocks (the
+    JAX package's ``BR``, ``onehot_variants.pallas_block_rows``)."""
+    b, slot, ok = _full_rows(bins, f_limit)
+    br = ov.pallas_block_rows("int8", layout, b.shape[0], b.shape[1],
+                              max_bin)
+    return _int8_plain(b, ov.prep_f32(grad, hess, mask), br, slot, ok, 1,
+                       max_bin)[0].float()
+
+
+def hist_onehot_int8_leaves_plain(comb, grad, hess, mask, block_leaf,
+                                  num_slots, max_bin, block_rows=512,
+                                  f_limit=None):
+    """The int8 variant per slot, quantized per ``block_rows`` block (each
+    block belongs to one slot)."""
+    b, slot, ok = _leaves_rows(comb, block_leaf, num_slots, block_rows,
+                               f_limit)
+    return _int8_plain(b, ov.prep_f32(grad, hess, mask), block_rows, slot,
+                       ok, num_slots, max_bin).float()
+
+
+def hist_onehot_bench_plain(bins_t, rows, max_bin, variant="base",
+                            block_rows=1024):
+    """The shootout shell's function: ``bins_t [f, N]`` against the
+    variant's prepped ``rows``, quantized per ``block_rows`` for int8."""
+    b = bins_t.t().long()
+    slot, ok = _row_slots(b.shape[0], None, 1, 1, b.device)
+    if variant == "int8":
+        out = _int8_plain(b, rows, block_rows, slot, ok, 1, max_bin)
+    else:
+        out = _pair_plain(b, rows, slot, ok, 1, max_bin)
+    return out[0].float()
 
 
 # --------------------------------------------------------------------------
@@ -355,8 +471,6 @@ def _onehot_spec(variant: str, max_bin: int, layout: str) -> ov.VariantSpec:
     _check(variant in ov.VARIANTS, f"unknown hist_variant {variant!r}; "
            f"known: {', '.join(ov.VARIANT_NAMES)}")
     spec = ov.VARIANTS[variant]
-    if spec.kernel_id is None:
-        ov.resolve(variant, max_bin)               # raises NotPortedError
     _check(0 < max_bin <= 256 and spec.supports(max_bin),
            f"hist variant {variant!r} does not support max_bin={max_bin} "
            "(resolve the variant with onehot_variants.resolve first)")
@@ -377,12 +491,57 @@ def _onehot_ctas(dev: torch.device) -> int:
             * _OH_CTAS_PER_SM)
 
 
+# most rows one quantization block may hold: the quantize kernel keeps a
+# block's three float32 rows in shared memory (12 bytes a row)
+_QUANT_MAX_ROWS = 16384
+
+
+def quantize_int8_blocks(rows, block_rows):
+    """``(q [9, N] int8, s [nblocks, 9] float32)`` of ``rows [3, N]``
+    float32 by the ``onehot_quant`` CUDA kernel, one block per CTA;
+    bit-identical to ``onehot_variants.quantize_int8_blocks_plain``."""
+    dev = rows.device
+    _check(dev.type == "cuda", "onehot_quant: tensors must be on a CUDA "
+           "device")
+    _check(rows.dtype == torch.float32 and rows.dim() == 2
+           and rows.shape[0] == 3 and rows.is_contiguous(),
+           "onehot_quant: rows must be a contiguous float32 [3, N] tensor")
+    _check(block_rows % _OH_CHUNK == 0 and 0 < block_rows <= _QUANT_MAX_ROWS,
+           f"onehot_quant: block_rows ({block_rows}) must be a multiple of "
+           f"{_OH_CHUNK} and at most {_QUANT_MAX_ROWS}")
+    n = rows.shape[1]
+    nb = -(-n // block_rows)
+    q = torch.empty(9, n, dtype=torch.int8, device=dev)
+    s = torch.empty(nb, 9, dtype=torch.float32, device=dev)
+    if n > 0:
+        lib = _build.load("onehot_quant")
+        rc = lib.onehot_quant_launch(
+            dev.index, rows.data_ptr(), n, block_rows, q.data_ptr(),
+            s.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, "onehot_quant", rc)
+        launch_counts["onehot_quant"] += 1
+    return q, s
+
+
+def _onehot_operands(spec, grad, hess, mask, qbr):
+    """What the kernel multiplies: the ``[6, N]`` bf16 pair, or for int8
+    the quantize kernel's ``q [9, N]`` and its scales per ``qbr`` rows."""
+    if spec.name == "int8":
+        return quantize_int8_blocks(ov.prep_f32(grad, hess, mask), qbr)
+    return ov.split_bf16_pair(grad, hess, mask), None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
                      variant="base", layout="featmajor"):
     """``[F, B, 3]`` histogram by the ``onehot_full`` CUDA kernel: the
     variant's one-hot body, reading a ``[F, N]`` transposed copy of the bins
     (``featmajor``, as the Pallas path does) or the ``[N, NC]`` matrix as
-    stored (``rowmajor``)."""
+    stored (``rowmajor``).  ``int8`` first runs the quantize kernel over
+    the JAX package's row blocks for that layout."""
     _check_rows("onehot_full", bins, grad, hess, mask)
     spec = _onehot_spec(variant, max_bin, layout)
     n, ncols = bins.shape
@@ -390,7 +549,8 @@ def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
     Bp, lanes, lpf_log2, nf_max = _onehot_geometry(spec, f, max_bin)
     out = torch.zeros(6, lanes, dtype=torch.float64, device=bins.device)
     if n > 0 and f > 0:
-        gh6 = ov.split_bf16_pair(grad, hess, mask)
+        qbr = ov.pallas_block_rows(variant, layout, n, f, max_bin)
+        gh, scales = _onehot_operands(spec, grad, hess, mask, qbr)
         if layout == "featmajor":
             src, ld, lay = bins[:, :f].t().contiguous(), n, 0
         else:
@@ -402,8 +562,8 @@ def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
         lib = _build.load("onehot_full")
         rc = lib.onehot_full_launch(
             bins.device.index, src.data_ptr(), ld, n, f, lay,
-            gh6.data_ptr(), out.data_ptr(), spec.kernel_id, lpf_log2, lanes,
-            nf_max, cps, -(-chunks // cps),
+            gh.data_ptr(), _ptr(scales), qbr, out.data_ptr(), spec.kernel_id,
+            lpf_log2, lanes, nf_max, cps, -(-chunks // cps),
             torch.cuda.current_stream(bins.device).cuda_stream)
         _raise_on(lib, "onehot_full", rc)
         launch_counts["onehot_full"] += 1
@@ -414,7 +574,8 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
                        max_bin, block_rows=512, f_limit=None,
                        variant="base"):
     """``[num_slots, F, B, 3]`` histograms by the ``onehot_leaves`` CUDA
-    kernel, reading ``comb [C, NC]`` as the frontier gathers it."""
+    kernel, reading ``comb [C, NC]`` as the frontier gathers it; ``int8``
+    quantizes per ``block_rows`` block (one slot's rows)."""
     _check_rows("onehot_leaves", comb, grad, hess, mask)
     spec = _onehot_spec(variant, max_bin, "rowmajor")
     c, nc = comb.shape
@@ -433,15 +594,69 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
     out = torch.zeros(num_slots, 6, lanes, dtype=torch.float64,
                       device=comb.device)
     if nb > 0 and f > 0 and num_slots > 0:
-        gh6 = ov.split_bf16_pair(grad, hess, mask)
+        gh, scales = _onehot_operands(spec, grad, hess, mask, block_rows)
         nlb = -(-lanes // _OH_BLOCK_LANES)
         bpc = max(1, -(-nb * nlb // _onehot_ctas(comb.device)))
         lib = _build.load("onehot_leaves")
         rc = lib.onehot_leaves_launch(
-            comb.device.index, comb.data_ptr(), nc, c, f, gh6.data_ptr(),
-            block_leaf.data_ptr(), block_rows, num_slots, out.data_ptr(),
-            spec.kernel_id, lpf_log2, lanes, nf_max, bpc,
+            comb.device.index, comb.data_ptr(), nc, c, f, gh.data_ptr(),
+            _ptr(scales), block_leaf.data_ptr(), block_rows, num_slots,
+            out.data_ptr(), spec.kernel_id, lpf_log2, lanes, nf_max, bpc,
             torch.cuda.current_stream(comb.device).cuda_stream)
         _raise_on(lib, "onehot_leaves", rc)
         launch_counts["onehot_leaves"] += 1
+    return ov.finish_hist(out, f, max_bin, Bp, spec).float()
+
+
+def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
+                      block_rows=1024):
+    """The shootout shell (``make_bench_kernel``'s ``run``): ``[f, B, 3]``
+    histograms of ``bins_t [f, N]`` u8, transposed by the caller and read
+    as given, against the variant's prepped ``rows`` (``VariantSpec.prep``);
+    ``N`` a multiple of ``block_rows``, the quantization block of int8.
+    The ``onehot_bench`` entry of the ``onehot_full`` kernel on CUDA
+    tensors (after the quantize kernel, for int8); the plain version on
+    CPU tensors."""
+    spec = _onehot_spec(variant, max_bin, "featmajor")
+    _check(bins_t.dim() == 2 and rows.dim() == 2
+           and rows.shape[1] == bins_t.shape[1],
+           "onehot_bench: bins_t must be [f, N] and rows [R, N]")
+    f, n = bins_t.shape
+    _check(block_rows > 0 and block_rows % _OH_CHUNK == 0
+           and n % block_rows == 0,
+           f"onehot_bench: rows ({n}) must be a multiple of block_rows "
+           f"({block_rows}), itself a multiple of {_OH_CHUNK}")
+    want = ((3, torch.float32) if variant == "int8"
+            else (6, torch.bfloat16))
+    _check((rows.shape[0], rows.dtype) == want,
+           f"onehot_bench: {variant} takes [{want[0]}, N] {want[1]} rows "
+           f"(its prep)")
+    if _plain(bins_t):
+        return hist_onehot_bench_plain(bins_t, rows, max_bin, variant,
+                                       block_rows)
+    dev = bins_t.device
+    _check(dev.type == "cuda" and rows.device == dev,
+           "onehot_bench: tensors must be on one CUDA device")
+    _check(bins_t.dtype == torch.uint8 and bins_t.is_contiguous()
+           and rows.is_contiguous(),
+           "onehot_bench: bins_t must be contiguous uint8, rows contiguous")
+    Bp, lanes, lpf_log2, nf_max = _onehot_geometry(spec, f, max_bin)
+    out = torch.zeros(6, lanes, dtype=torch.float64, device=dev)
+    if n > 0 and f > 0:
+        if variant == "int8":
+            gh, scales = quantize_int8_blocks(rows, block_rows)
+        else:
+            gh, scales = rows, None
+        chunks = n // _OH_CHUNK
+        nlb = -(-lanes // _OH_BLOCK_LANES)
+        splits = max(1, min(chunks, -(-_onehot_ctas(dev) // nlb)))
+        cps = -(-chunks // splits)
+        lib = _build.load("onehot_full")
+        rc = lib.onehot_bench_launch(
+            dev.index, bins_t.data_ptr(), n, f, gh.data_ptr(), _ptr(scales),
+            block_rows, out.data_ptr(), spec.kernel_id, lpf_log2, lanes,
+            nf_max, cps, -(-chunks // cps),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, "onehot_bench", rc)
+        launch_counts["onehot_bench"] += 1
     return ov.finish_hist(out, f, max_bin, Bp, spec).float()

@@ -185,12 +185,16 @@ def test_cpu_tensors_take_the_plain_path_and_wrappers_refuse_them():
     g, h, m = _rows(rng, 256)
     bl = torch.zeros(2, dtype=torch.int32)
     thist.reset_launch_counts()
-    for method in ("atomic", "onehot"):
-        thist.build_histogram(*_t(bins, g, h, m), 16, method=method)
+    for method, variant in (("atomic", "base"), ("onehot", "base"),
+                            ("onehot", "int8")):
+        thist.build_histogram(*_t(bins, g, h, m), 16, method=method,
+                              variant=variant)
         thist.build_histogram_leaves(*_t(bins, g, h, m), bl, 1, 16,
-                                     block_rows=128, method=method)
+                                     block_rows=128, method=method,
+                                     variant=variant)
     assert set(thist.launch_counts) == {"hist_full", "hist_leaves",
-                                        "onehot_full", "onehot_leaves"}
+                                        "onehot_full", "onehot_leaves",
+                                        "onehot_quant", "onehot_bench"}
     assert not any(thist.launch_counts.values())
     with pytest.raises(ValueError, match="CUDA"):
         thist.hist_full(*_t(bins, g, h, m), 16)
@@ -201,6 +205,8 @@ def test_cpu_tensors_take_the_plain_path_and_wrappers_refuse_them():
     with pytest.raises(ValueError, match="CUDA"):
         thist.hist_onehot_leaves(*_t(bins, g, h, m), bl, 1, 16,
                                  block_rows=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        thist.quantize_int8_blocks(torch.zeros(3, 256), 128)
     assert not any(thist.launch_counts.values())
 
 

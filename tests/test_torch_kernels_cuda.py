@@ -9,9 +9,11 @@ it runs on a machine that has only PyTorch:
 (``--noconftest``: the suite's conftest imports JAX.)  Each kernel is held
 against its plain PyTorch version on the same CUDA tensors at relative
 error ``|a-b|/(|b|+1)`` <= 1e-5: both sum in float64 and round once, so only
-the summation order differs (the one-hot kernels also sum each 128-row
+the summation order differs (the bf16 one-hot kernels also sum each 128-row
 chunk's tensor-core products in float32 first, which is exact for the few
-rows of one chunk that share a bin).
+rows of one chunk that share a bin; the int8 kernels' int32 sums are exact).
+A non-finite value makes its channel NaN in the one-hot product, and the
+plain versions put the NaN in the same places.
 """
 import numpy as np
 import pytest
@@ -133,7 +135,7 @@ def test_training_launches_both_kernels_and_matches_plain(dev):
                                rtol=0, atol=1e-6)
 
 
-# every ported one-hot body at each width it serves (packed only at B=64)
+# every one-hot body at each width it serves (packed only at B=64)
 ONEHOT_CASES = [(v, B) for B in (64, 256) for v in ov.VARIANT_NAMES
                 if ov.VARIANTS[v].kernel_id is not None
                 and ov.VARIANTS[v].supports(B)]
@@ -165,12 +167,33 @@ def test_onehot_full_matches_plain(dev, variant, B, layout):
     assert torch.equal(got, again)                 # the same bits twice
 
 
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+@pytest.mark.parametrize("variant,B", ONEHOT_CASES)
+def test_onehot_full_nan_matches_plain(dev, variant, B, layout):
+    """A NaN gradient covers the gradient channel of the whole histogram,
+    in the kernel and in the plain version alike."""
+    rng = np.random.default_rng(B + 1)
+    n, f = 20_000, 9
+    bins = torch.as_tensor(rng.integers(0, B, (n, f)).astype(np.uint8)
+                           ).to(dev)
+    g, h, m = _rows(rng, n, dev)
+    g[12_345] = float("nan")
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, method="onehot",
+                                    variant=variant, layout=layout)
+    got = thist.build_histogram(bins, g, h, m, B, method="onehot",
+                                variant=variant, layout=layout)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[..., 0]).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert relerr(got[..., 1:], ref[..., 1:]) <= TOL
+
+
 @pytest.mark.parametrize("variant,B", ONEHOT_CASES)
 def test_onehot_leaves_matches_plain(dev, variant, B):
     """An empty slot stays zero and a NaN stays in its slot.  Inside that
-    slot the NaN spreads over its channel (0 * NaN in the tensor cores),
-    where the plain version puts it in its own bins only; the other two
-    channels agree."""
+    slot the NaN covers its channel (0 * NaN in the tensor cores), in the
+    kernel and the plain version alike; the other two channels agree."""
     rng = np.random.default_rng(17)
     k, BR, f, nc = 6, 512, 28, 40
     block_leaf = np.array([4, 0, 2, 4, 1, 5, 0, 2, 1, 4], np.int32)  # 3 empty
@@ -200,8 +223,9 @@ def test_onehot_leaves_matches_plain(dev, variant, B):
     assert bool(torch.isnan(got[nan_slot][..., 0]).all())
     others = [s for s in range(k) if s != nan_slot]
     assert bool(torch.isfinite(got[others]).all())        # NaN stays put
-    assert relerr(got[others], ref[others]) <= TOL
-    assert relerr(got[nan_slot][..., 1:], ref[nan_slot][..., 1:]) <= TOL
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = torch.isfinite(ref)
+    assert relerr(got[fin], ref[fin]) <= TOL
     assert torch.equal(got[others], again[others])
     assert torch.equal(got[nan_slot][..., 1:], again[nan_slot][..., 1:])
 
@@ -221,11 +245,14 @@ def test_onehot_wrappers_check_their_inputs(dev):
 
 
 @pytest.mark.parametrize("variant,max_bin", [("staged", 255),
-                                             ("packed", 63)])
+                                             ("packed", 63), ("int8", 255),
+                                             ("auto", 255)])
 def test_training_force_row_wise_launches_only_onehot(dev, variant,
                                                       max_bin):
-    """force_row_wise runs every histogram through the one-hot kernels and
-    grows the trees of the same run under force_plain() on the card."""
+    """force_row_wise runs every histogram through the one-hot kernels (and
+    int8 through the quantize kernel) and grows the trees of the same run
+    under force_plain() on the card; auto trains with the elected
+    variant."""
     import lightgbm_tpu_torch as lgt
     rng = np.random.default_rng(1)
     X = rng.normal(size=(20_000, 10)).astype(np.float32)
@@ -234,10 +261,14 @@ def test_training_force_row_wise_launches_only_onehot(dev, variant,
     params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
               "force_row_wise": True, "hist_variant": variant,
               "max_bin": max_bin}
+    if variant == "auto":                      # elect outside the count
+        elected = ov.pick_variant(256, 10, device=dev)
     thist.reset_launch_counts()
     bk = lgt.train(params, lgt.Dataset(X, label=y), 5, verbose_eval=False,
                    device="cuda")
-    assert bk._gbdt._grower_cfg.hist_variant == variant
+    used = bk._gbdt._grower_cfg.hist_variant
+    assert used == (elected if variant == "auto" else variant)
+    assert (thist.launch_counts["onehot_quant"] > 0) == (used == "int8")
     assert thist.launch_counts["onehot_full"] == 5
     assert thist.launch_counts["onehot_leaves"] >= 5
     assert thist.launch_counts["hist_full"] == 0
@@ -252,3 +283,69 @@ def test_training_force_row_wise_launches_only_onehot(dev, variant,
         assert np.array_equal(tk.threshold, tp.threshold)
     np.testing.assert_allclose(bk.predict(X[:2000]), bp.predict(X[:2000]),
                                rtol=0, atol=1e-6)
+
+
+def test_quantize_kernel_is_bit_identical_to_plain(dev):
+    rng = np.random.default_rng(3)
+    for n, br in ((1_000_003, 1024), (262_144, 512), (5_000, 128),
+                  (70_000, 16384)):
+        x = (rng.normal(size=(3, n)) * rng.lognormal(0, 3, (3, n))).astype(
+            np.float32)
+        x[:, br:2 * br] = 0.0                            # an all-zero block
+        x[:, 2 * br:3 * br] = rng.integers(-120, 120, (3, br)) + 0.5
+        x[:, 2 * br] = 127.0                             # ties at s = 1
+        x[0, 3 * br + 5] = np.nan
+        x[1, 4 * br - 1] = np.inf
+        rows = torch.as_tensor(x).to(dev)
+        before = thist.launch_counts["onehot_quant"]
+        q, s = thist.quantize_int8_blocks(rows, br)
+        torch.cuda.synchronize()
+        assert thist.launch_counts["onehot_quant"] == before + 1
+        qp, sp = ov.quantize_int8_blocks_plain(rows, br)
+        assert torch.equal(q, qp)
+        assert torch.equal(torch.isnan(s), torch.isnan(sp))
+        ok = ~torch.isnan(sp)
+        assert torch.equal(s[ok].view(torch.int32), sp[ok].view(torch.int32))
+
+
+BENCH_CASES = [(v, B) for B in (64, 256) for v in ov.AUTO_CANDIDATES
+               if ov.VARIANTS[v].supports(B)]
+
+
+@pytest.mark.parametrize("variant,B", BENCH_CASES)
+def test_bench_kernel_matches_plain(dev, variant, B):
+    """K4: the shootout shell's entry on caller-transposed bins, as given."""
+    rng = np.random.default_rng(9)
+    n, f, BR = 65_536, 28, 1024
+    bins_t = torch.as_tensor(rng.integers(0, B, (f, n)).astype(np.uint8)
+                             ).to(dev)
+    g, h, m = _rows(rng, n, dev)
+    prep, run = ov.make_bench_kernel(variant, f, B, BR)
+    rows = prep(g, h, m)
+    with thist.force_plain():
+        ref = run(bins_t, rows)
+    before = dict(thist.launch_counts)
+    got = run(bins_t, rows)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_bench"] == before["onehot_bench"] + 1
+    assert thist.launch_counts["onehot_full"] == before["onehot_full"]
+    assert (thist.launch_counts["onehot_quant"]
+            == before["onehot_quant"] + (variant == "int8"))
+    assert got.shape == (f, B, 3)
+    assert relerr(got, ref) <= TOL
+
+
+def test_election_on_the_card_passes_parity_everywhere(dev):
+    """Every candidate the width serves is timed and passes parity; the
+    second call is served from the cache without timing again."""
+    for B in (256, 64):
+        ov._AUTO_CACHE.pop((torch.cuda.get_device_name(dev), B), None)
+        won = ov.pick_variant(B, 28, device=dev)
+        res = ov.AUTO_RESULTS[(torch.cuda.get_device_name(dev), B)]
+        assert set(res) == {v for v in ov.AUTO_CANDIDATES
+                            if ov.VARIANTS[v].supports(B)}
+        assert all(r["qualified"] for r in res.values()), res
+        assert won == min(res, key=lambda v: res[v]["ms"])
+        before = dict(thist.launch_counts)
+        assert ov.pick_variant(B, 28, device=dev) == won
+        assert thist.launch_counts == before

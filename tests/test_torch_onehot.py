@@ -2,13 +2,18 @@
 
 ``force_row_wise`` selects the one-hot histogram kernels in both packages,
 and ``hist_variant`` their body.  On the CPU the port's one-hot entry points
-take one plain version (the bf16 (hi, lo) pair summed per bin in float64 and
-rounded once): every bf16-pair variant computes that function.  Here it is
-held against the JAX Pallas kernels in interpret mode for each variant,
-width and layout, and against the exact scatter-add.  The tolerance against
-Pallas is ``|a-b|/(|b|+1)`` <= 1e-5, since both sum the same bf16 pair and
-only the float32 summation order of the Pallas kernels differs; against the
-scatter-add it is ``HIST_PARITY_TOL``, the pair's own error.
+take the plain versions: the bf16 (hi, lo) pair summed per bin in float64
+and rounded once, which every bf16-pair variant computes, and for ``int8``
+the same three-level quantization per block of rows as the JAX package
+(bit-identical), with exact integer sums folded by the block's scales in
+float64.  Here they are held against the JAX Pallas kernels in interpret
+mode for each variant, width and layout, and against the exact
+scatter-add.  The tolerance against Pallas is ``|a-b|/(|b|+1)`` <= 1e-5,
+since both sum the same values and only the float32 summation (and, for
+int8, float32 folding) of the Pallas kernels differs; against the
+scatter-add it is ``HIST_PARITY_TOL``, the variants' own error.  A
+non-finite value makes its channel NaN in the one-hot product (``0·NaN``),
+and the plain versions give the Pallas kernels' NaN positions exactly.
 
 The Pallas kernels and the JAX trainer that reaches them run in clean
 subprocesses (the conftest strips the backends Pallas registers its
@@ -32,7 +37,7 @@ import torch
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu.ops import histogram as jhist
 from lightgbm_tpu.ops import onehot_variants as jov
-from lightgbm_tpu_torch.device import NotPortedError
+from lightgbm_tpu_torch.ops import _build
 from lightgbm_tpu_torch.ops import histogram as thist
 from lightgbm_tpu_torch.ops import onehot_variants as tov
 from lightgbm_tpu_torch.utils import log as tlog
@@ -44,13 +49,13 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PALLAS_TOL = 1e-5
 
-# every ported bf16-pair body at the widths of the JAX variant tests
+# every one-hot body at the widths of the JAX variant tests
 CASES = [(v, B) for B in (64, 255) for v in tov.VARIANT_NAMES
          if tov.VARIANTS[v].kernel_id is not None
          and tov.VARIANTS[v].supports(B)]
 LAYOUTS = ("featmajor", "rowmajor")
 # the end-to-end runs: (variant, max_bin)
-E2E = (("base", 63), ("packed", 63), ("staged", 255))
+E2E = (("base", 63), ("packed", 63), ("staged", 255), ("int8", 63))
 
 
 def relerr(a, b):
@@ -147,9 +152,9 @@ def test_full_matches_pallas(pallas, variant, B, layout):
 @pytest.mark.parametrize("variant,B", CASES)
 def test_leaves_match_pallas(pallas, variant, B):
     """The empty slot is zero and the NaN stays in its slot.  Inside that
-    slot the Pallas kernel spreads the NaN over the gradient channel
-    (0 * NaN in the one-hot product) where the plain version keeps it in
-    its own bins; everything else agrees."""
+    slot the NaN covers the gradient channel (0 * NaN in the one-hot
+    product), in the plain version exactly where the Pallas kernel puts
+    it; everything else agrees."""
     d = _inputs(B)
     got = thist.build_histogram_leaves(
         *_t(d["comb"], d["lg"], d["lh"], d["lm"], d["bl"]), d["k"], B,
@@ -161,10 +166,11 @@ def test_leaves_match_pallas(pallas, variant, B):
     nan_slot = int(d["bl"][4])
     fin = [s for s in range(d["k"]) if s != nan_slot]
     assert np.isfinite(got[fin]).all() and np.isfinite(ref[fin]).all()
-    assert relerr(got[fin], ref[fin]) <= PALLAS_TOL
-    assert relerr(got[nan_slot][..., 1:], ref[nan_slot][..., 1:]) <= PALLAS_TOL
-    g_nan = np.isnan(got[nan_slot][..., 0])
-    assert g_nan.any() and np.isnan(ref[nan_slot][..., 0][g_nan]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[nan_slot][..., 0]).all()
+    assert np.isfinite(got[nan_slot][..., 1:]).all()
+    ok = np.isfinite(ref)
+    assert relerr(got[ok], ref[ok]) <= PALLAS_TOL
     exact = np.asarray(jhist.build_histogram_leaves(
         d["comb"], d["lg"], d["lh"], d["lm"], d["bl"], d["k"], B,
         method="scatter", block_rows=d["BR"], f_limit=d["f"]))
@@ -302,14 +308,19 @@ def _cfg(**params):
     return b._gbdt._grower_cfg
 
 
-@pytest.mark.parametrize("variant", ["auto", "int8"])
-def test_force_row_wise_refuses_unported_variants(variant):
-    """The election (auto) and the int8 body are not ported: under
-    force_row_wise they raise, never train through another path."""
-    with pytest.raises(NotPortedError, match=f"hist_variant={variant}"):
-        _cfg(force_row_wise=True, hist_variant=variant)
-    with pytest.raises(NotPortedError, match="int8"):
-        tov.resolve("int8", 64)
+@pytest.mark.parametrize("variant", [*tov.VARIANT_NAMES, "auto"])
+def test_force_row_wise_refuses_unported_variants(variant, monkeypatch):
+    """No hist_variant is refused under force_row_wise any more (the port
+    once refused auto, the election, and int8): each trains through the
+    one-hot path.  auto resolves to base on the CPU without timing
+    anything; packed cannot serve max_bin=255 and falls back to base."""
+    def no_timing(*a, **k):
+        raise AssertionError("the election timed a candidate on the CPU")
+    monkeypatch.setattr(tov, "_time_auto_candidate", no_timing)
+    monkeypatch.setattr(tov, "_run_auto_bench", no_timing)
+    cfg = _cfg(force_row_wise=True, hist_variant=variant)
+    resolved = "base" if variant in ("auto", "packed") else variant
+    assert (cfg.hist_method, cfg.hist_variant) == ("onehot", resolved)
     with pytest.raises(ValueError, match="unknown"):
         tov.resolve("nope", 64)
 
@@ -340,3 +351,285 @@ def test_unsupported_width_resolves_to_base_with_a_warning():
         thist.build_histogram(*_t(np.zeros((8, 2), np.uint8),
                                   *[np.zeros(8, np.float32)] * 3), 255,
                               method="onehot", variant="packed")
+
+
+# --------------------------------------------------------------------------
+# int8: the quantizer and its blocks
+# --------------------------------------------------------------------------
+
+def _jax_level_chain(x):
+    """The JAX package's ``level`` chain (``_contrib_int8``) on one block
+    ``x [3, BR]``, jitted as the Pallas kernel runs it."""
+    def level(x):
+        s = jnp.maximum(jnp.max(jnp.abs(x), axis=1, keepdims=True) / 127.0,
+                        jnp.float32(1e-30))
+        q = jnp.round(x / s)
+        return s, q, x - q * s
+
+    s1, q1, r1 = level(x)
+    s2, q2, r2 = level(r1)
+    s3, q3, _ = level(r2)
+    q = jnp.concatenate([q1, q2, q3], axis=0).astype(jnp.int8)
+    return q, jnp.concatenate([s1, s2, s3], axis=0)[:, 0]
+
+
+def _quant_rows(br, nb):
+    """Heavy-tailed rows over ``nb`` blocks: block 1 all zero, block 2 at
+    exact .5 ties (max 127 gives s = 1), block 3 with a NaN gradient and
+    block 4 with an infinite hessian; a ragged last block."""
+    rng = np.random.default_rng(21)
+    n = nb * br - 37
+    x = (rng.normal(size=(3, n)) * rng.lognormal(0, 3, (3, n))).astype(
+        np.float32)
+    x[:, br:2 * br] = 0.0
+    x[:, 2 * br:3 * br] = rng.integers(-120, 120, (3, br)) + 0.5
+    x[:, 2 * br] = 127.0
+    x[0, 3 * br + 9] = np.nan
+    x[1, 4 * br + 3] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("br", [128, 512])
+def test_quantize_int8_blocks_is_bit_identical_to_jax(br):
+    x = _quant_rows(br, 6)
+    q, s = tov.quantize_int8_blocks_plain(torch.as_tensor(x), br)
+    nb = -(-x.shape[1] // br)
+    assert q.shape == (9, x.shape[1]) and q.dtype == torch.int8
+    assert s.shape == (nb, 9) and s.dtype == torch.float32
+    xp = np.zeros((3, nb * br), np.float32)
+    xp[:, :x.shape[1]] = x
+    chain = jax.jit(_jax_level_chain)
+    for b in range(nb):
+        qj, sj = (np.asarray(a) for a in chain(xp[:, b * br:(b + 1) * br]))
+        qt = q[:, b * br:(b + 1) * br].numpy()
+        np.testing.assert_array_equal(qt, qj[:, :qt.shape[1]])
+        st = s[b].numpy()
+        np.testing.assert_array_equal(np.isnan(st), np.isnan(sj))
+        ok = ~np.isnan(sj)
+        np.testing.assert_array_equal(st[ok].view(np.int32),
+                                      sj[ok].view(np.int32))
+    assert (s[1] == np.float32(1e-30)).all() and (q[:, br:2 * br] == 0).all()
+    assert (s[2, 0:3] == 1.0).all()                     # the tie block
+    ties = q[0:3, 2 * br + 1:3 * br].numpy()
+    np.testing.assert_array_equal(ties, np.round(x[:, 2 * br + 1:3 * br]))
+    assert np.isnan(s[3, [0, 3, 6]].numpy()).all()      # the NaN channel
+    assert bool(torch.isinf(s[4, 1]))
+    assert bool(torch.isnan(s[4, [4, 7]]).all())
+    assert tov.RECIP_127 == float(np.float32(1) / np.float32(127))
+
+
+@pytest.mark.parametrize("n,f,B", [(1000, 6, 64), (5000, 28, 255),
+                                   (300, 28, 255), (20_000, 300, 64)])
+def test_pallas_block_rows_match_jax_arithmetic(n, f, B):
+    """The quantization blocks are the Pallas kernels' BR, recomputed here
+    from the JAX package's own constants (``_hist_pallas``)."""
+    assert (tov.PALLAS_BLOCK_ROWS, tov.PALLAS_BLOCK_LANES,
+            tov.PALLAS_ONEHOT_BYTES) == (jhist._PALLAS_BLOCK_ROWS,
+                                         jhist._PALLAS_BLOCK_LANES,
+                                         jhist._PALLAS_ONEHOT_BYTES)
+    for v in ("int8", "base", "packed"):
+        spec = jov.VARIANTS[v]
+        if not spec.supports(B):
+            continue
+        Bp = jov.padded_bins(B)
+        gf = spec.group_feats(B, Bp)
+        lpf = spec.group_lanes(B, Bp) // gf
+        align = max(8, gf)
+        fc = max(align, (jhist._PALLAS_BLOCK_LANES // lpf) // align * align)
+        for layout, lanes in (("featmajor", fc * lpf), ("rowmajor", f * lpf)):
+            cap = max(128, (jhist._PALLAS_ONEHOT_BYTES // (2 * lanes))
+                      // 128 * 128)
+            want = max(128, min(jhist._PALLAS_BLOCK_ROWS, cap,
+                                -(-n // 128) * 128))
+            assert tov.pallas_block_rows(v, layout, n, f, B) == want
+    assert tov.pallas_block_rows("int8", "featmajor", 1_000_000, 28,
+                                 256) == 1024
+    assert tov.pallas_block_rows("int8", "featmajor", 1_000_000, 28,
+                                 64) == 1024
+    assert tov.pallas_block_rows("int8", "rowmajor", 1_000_000, 28,
+                                 256) == 512
+
+
+_BLOCKS_SCRIPT = r"""
+import sys, numpy as np, jax
+jax.config.update("jax_platforms", "cpu")
+from lightgbm_tpu.ops.histogram import _hist_pallas
+d = np.load(sys.argv[1])
+out = {lay: np.asarray(_hist_pallas(d["bins"], d["g"], d["h"], d["m"], 255,
+                                    layout=lay, variant="int8",
+                                    interpret=True))
+       for lay in ("featmajor", "rowmajor")}
+np.savez(sys.argv[2], **out)
+"""
+
+
+def test_int8_blocks_decide_the_result_as_in_pallas():
+    """At f=28, B=255 the featmajor kernel quantizes per 1024 rows and the
+    rowmajor one per 512, and with heavy-tailed gradients the two differ
+    by far more than PALLAS_TOL: the port matches each layout's Pallas
+    result only with that layout's blocks."""
+    rng = np.random.default_rng(5)
+    n, f = 2048, 28
+    bins = rng.integers(0, 255, (n, f)).astype(np.uint8)
+    g = (rng.normal(size=n) * rng.lognormal(0, 3, n)).astype(np.float32)
+    g[100] = 3e4                               # one outlier in block 0
+    h = rng.uniform(0.05, 0.25, n).astype(np.float32)
+    m = np.ones(n, np.float32)
+    with tempfile.TemporaryDirectory() as td:
+        src, dst = os.path.join(td, "in.npz"), os.path.join(td, "out.npz")
+        np.savez(src, bins=bins, g=g, h=h, m=m)
+        _run_clean(_BLOCKS_SCRIPT, [src, dst])
+        ref = dict(np.load(dst))
+    got = {lay: thist.build_histogram(*_t(bins, g, h, m), 255,
+                                      method="onehot", variant="int8",
+                                      layout=lay).numpy()
+           for lay in LAYOUTS}
+    assert relerr(got["featmajor"], ref["featmajor"]) <= PALLAS_TOL
+    assert relerr(got["rowmajor"], ref["rowmajor"]) <= PALLAS_TOL
+    assert relerr(got["featmajor"], ref["rowmajor"]) > 10 * PALLAS_TOL
+
+
+# --------------------------------------------------------------------------
+# K4: the shootout shell
+# --------------------------------------------------------------------------
+
+BENCH_CASES = [(v, B) for B in (64, 255)
+               for v in ("base", "packed", "staged", "int8")
+               if tov.VARIANTS[v].supports(B)]
+
+_BENCH_SCRIPT = r"""
+import json, sys, numpy as np, jax
+jax.config.update("jax_platforms", "cpu")
+from lightgbm_tpu.ops import onehot_variants as ov
+out = {}
+for v, B in json.loads(sys.argv[1]):
+    d = np.load(sys.argv[2] + f"/in{B}.npz")
+    prep, run = ov.make_bench_kernel(v, int(d["f"]), B, 128, interpret=True)
+    out[f"{v}_{B}"] = np.asarray(run(d["bins_t"],
+                                     prep(d["g"], d["h"], d["m"])))
+np.savez(sys.argv[2] + "/out.npz", **out)
+"""
+
+
+def _bench_inputs(B):
+    rng = np.random.default_rng(30 + B)
+    n, f = 1024, 9
+    bins = rng.integers(0, B, (n, f)).astype(np.uint8)
+    g, h, m = _rows(rng, n)
+    return dict(bins_t=np.ascontiguousarray(bins.T), g=g, h=h, m=m, f=f)
+
+
+@pytest.fixture(scope="module")
+def jax_bench():
+    with tempfile.TemporaryDirectory() as td:
+        for B in (64, 255):
+            np.savez(os.path.join(td, f"in{B}.npz"), **_bench_inputs(B))
+        _run_clean(_BENCH_SCRIPT, [json.dumps(BENCH_CASES), td])
+        return dict(np.load(os.path.join(td, "out.npz")))
+
+
+@pytest.mark.parametrize("variant,B", BENCH_CASES)
+def test_bench_kernel_matches_jax(jax_bench, variant, B):
+    d = _bench_inputs(B)
+    prep, run = tov.make_bench_kernel(variant, d["f"], B, 128)
+    rows = prep(*_t(d["g"], d["h"], d["m"]))
+    got = run(torch.as_tensor(d["bins_t"]), rows).numpy()
+    ref = jax_bench[f"{variant}_{B}"]
+    assert got.shape == ref.shape == (d["f"], B, 3)
+    assert relerr(got, ref) <= PALLAS_TOL
+    exact = np.asarray(jhist._hist_scatter(d["bins_t"].T, d["g"], d["h"],
+                                           d["m"], B))
+    assert relerr(got, exact) <= jhist.HIST_PARITY_TOL
+    with pytest.raises(ValueError, match="multiple of block_rows"):
+        run(torch.as_tensor(d["bins_t"][:, :1000]), rows[:, :1000])
+
+
+# --------------------------------------------------------------------------
+# the election (hist_variant=auto)
+# --------------------------------------------------------------------------
+
+def test_parity_tolerance_is_jax():
+    assert thist.HIST_PARITY_TOL == jhist.HIST_PARITY_TOL
+
+
+def test_pick_variant_caches_one_bench_per_key(monkeypatch):
+    """One election per (card, width): later fits reuse the winner; on the
+    CPU 'base' comes back with nothing timed."""
+    calls = []
+
+    def fake_bench(max_bin, f, dev):
+        calls.append((max_bin, dev.type))
+        return "staged"
+
+    monkeypatch.setattr(tov, "_run_auto_bench", fake_bench)
+    monkeypatch.setattr(tov, "_AUTO_CACHE", {})
+    assert tov.pick_variant(256, 28, device="cpu") == "base"
+    assert calls == []
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA H100 80GB HBM3")
+    assert tov.pick_variant(64, 28, device="cuda") == "staged"
+    assert tov.pick_variant(64, 28, device="cuda") == "staged"
+    assert tov.pick_variant(64, 99, device="cuda") == "staged"  # same key
+    assert calls == [(64, "cuda")]
+    assert tov.pick_variant(256, 28, device="cuda") == "staged"
+    assert calls == [(64, "cuda"), (256, "cuda")]
+
+
+def _small_bench_data(monkeypatch):
+    orig = tov._auto_bench_data
+    monkeypatch.setattr(tov, "_auto_bench_data",
+                        lambda mb, f, dev: orig(mb, f, dev, rows=2048))
+
+
+@pytest.mark.parametrize("max_bin", [64, 256])
+def test_election_skips_unsupported_widths(monkeypatch, max_bin):
+    _small_bench_data(monkeypatch)
+    timed = []
+
+    def fake_time(name, bins, g, h, m, mb, ref, iters=5):
+        assert bins.shape == (2048, 28) and ref.shape == (28, mb, 3)
+        timed.append(name)
+        return {"base": 3.0, "u8cmp": 2.0, "staged": 4.0, "packed": 1.0,
+                "int8": 5.0}[name] * 1e-3, 1e-6
+
+    monkeypatch.setattr(tov, "_time_auto_candidate", fake_time)
+    won = tov._run_auto_bench(max_bin, 28, torch.device("cpu"))
+    want = [v for v in tov.AUTO_CANDIDATES if v != "packed" or max_bin == 64]
+    assert timed == want
+    assert won == ("packed" if max_bin == 64 else "u8cmp")
+
+
+def test_election_disqualifies_a_faster_candidate_that_fails_parity(
+        monkeypatch):
+    _small_bench_data(monkeypatch)
+
+    def fake_time(name, *a, **k):
+        if name == "int8":
+            return 0.5e-3, 10 * thist.HIST_PARITY_TOL     # fastest, wrong
+        return {"base": 3.0, "u8cmp": 2.0, "staged": 4.0}[name] * 1e-3, 0.0
+
+    monkeypatch.setattr(tov, "_time_auto_candidate", fake_time)
+    assert tov._run_auto_bench(256, 28, torch.device("cpu")) == "u8cmp"
+    res = tov.AUTO_RESULTS[("cpu", 256)]
+    assert not res["int8"]["qualified"] and res["u8cmp"]["qualified"]
+    assert res["int8"]["relerr"] > thist.HIST_PARITY_TOL
+
+
+def test_election_raises_on_a_build_or_launch_error(monkeypatch):
+    """Unlike the JAX package, which skips a candidate that fails to lower,
+    the port raises: a kernel that does not build is a fault of the port."""
+    _small_bench_data(monkeypatch)
+
+    def fake_time(name, *a, **k):
+        if name == "staged":
+            raise _build.KernelBuildError("staged: nvcc exit 1")
+        return 1e-3, 0.0
+
+    monkeypatch.setattr(tov, "_time_auto_candidate", fake_time)
+    with pytest.raises(_build.KernelBuildError, match="staged"):
+        tov._run_auto_bench(256, 28, torch.device("cpu"))
+    monkeypatch.undo()
+    _small_bench_data(monkeypatch)
+    # the real timer on CPU tensors: the kernel wrapper refuses to launch
+    with pytest.raises(ValueError, match="CUDA"):
+        tov._run_auto_bench(256, 28, torch.device("cpu"))
