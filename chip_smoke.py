@@ -20,14 +20,18 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    ``onehot_full`` in both layouts (``featmajor``, the root histogram of
    ``force_row_wise``; ``rowmajor``, which no entry point reaches) and
    ``onehot_leaves``, a NaN gradient in one leaf block making the same
-   NaNs as the plain version;
+   NaNs as the plain version.  Each one-hot row also gives its ratio to
+   ``index_add_``, its kernel's registers a thread and static and dynamic
+   shared bytes (``cudaFuncGetAttributes``), and ``kernel_ms``, the
+   kernel's own device time (torch.profiler), beside ``ms``, the time of
+   the whole call;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
    the leaves' 262,144 rows per 512 with a NaN block);
 5. shootout: the shootout shell's entry (``onehot_bench``, the JAX
    package's ``make_bench_kernel``) once per election candidate at B=256
    and B=64, on the shootout's shape (1,001,472 x 28, BR=512), against its
-   plain version;
+   plain version, with the same ratio and attributes;
 6. elect: ``hist_variant=auto``'s election at B=256 and B=64: every
    candidate's time and error (none may be disqualified), the winner, and
    a second call served from the cache without a launch;
@@ -209,6 +213,40 @@ def _leaves_yardstick(dev, comb, g, h, m, block_leaf, k, B, BR, fl):
     return _index_add_ms(dev, flat, vals, k * fl * B)
 
 
+def kernel_ms(fn, match: str, reps: int = 10):
+    """Mean device time of one launch of the kernel whose name holds
+    ``match`` (torch.profiler over ``reps`` calls, per launch it
+    recorded): the kernel alone, without the wrapper's host work and
+    small torch ops that ``ms`` includes.  None when the profiler records
+    no launch of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and match in e.key]
+    n = sum(e.count for e in rows)
+    return sum(_device_us(e) for e in rows) / 1e3 / n if n else None
+
+
+def _vs_library(row, attrs, fn, match):
+    """The row's ratio to ``index_add_``, its kernel's attributes and its
+    kernel-only time."""
+    row["vs_index_add"] = row["ms"] / row["library_ms"]
+    row["kernel_ms"] = kernel_ms(fn, match)
+    row.update(attrs)
+    return row
+
+
+def _kernel_name(kernel, variant):
+    """The CUDA function a one-hot row launches (int8: its own kernel)."""
+    return (kernel + ("_int8_kernel" if variant == "int8" else "_kernel"))
+
+
 def _leaves_inputs(gen, dev):
     """One frontier round's shapes: unsorted block->slot map with slot 5
     empty, and a NaN gradient in block 100."""
@@ -360,14 +398,17 @@ def phase_kernels_onehot(card):
                                      f"relerr {err}")
             b_ms, b_by = bound(n * f + 12 * n + f * B * 12,
                                3 * n * f + 2 * n)
-            rows[f"onehot_full/{layout}/{v}/B{B}"] = dict(
+            rows[f"onehot_full/{layout}/{v}/B{B}"] = _vs_library(dict(
                 kernel="onehot_full", layout=layout, variant=v, B=B,
                 shape=[n, f, B], lanes=lanes_full, relerr=err,
                 max_abs_err=float((got - r).abs().max()),
                 ms=median_ms(lambda: full(B, variant=v, layout=layout)),
                 plain_ms=plain_ms[B, fam][0], library_ms=lib_ms[B][0],
                 bound_ms=b_ms, bound_by=b_by,
-                tensor_core_floor_ms=tensor_core_floor_ms(lanes_full, n, v))
+                tensor_core_floor_ms=tensor_core_floor_ms(lanes_full, n, v)),
+                hist.onehot_kernel_attributes("onehot_full", v, f, B, layout),
+                lambda: full(B, variant=v, layout=layout),
+                _kernel_name("onehot_full", v))
         got = leaves(B, variant=v)
         again = leaves(B, variant=v)
         torch.cuda.synchronize()
@@ -384,7 +425,7 @@ def phase_kernels_onehot(card):
                                  f"slot checks {ok}")
         b_ms, b_by = bound(C * fl + 12 * C + 4 * nb + k * fl * B * 12,
                            3 * C * fl + 2 * C)
-        rows[f"onehot_leaves/rowmajor/{v}/B{B}"] = dict(
+        rows[f"onehot_leaves/rowmajor/{v}/B{B}"] = _vs_library(dict(
             kernel="onehot_leaves", layout="rowmajor", variant=v, B=B,
             shape=[C, LEAVES_SHAPE["NC"], fl, k, BR], lanes=lanes_leaves,
             relerr=err,
@@ -393,7 +434,10 @@ def phase_kernels_onehot(card):
             plain_ms=plain_ms[B, fam][1], library_ms=lib_ms[B][1],
             bound_ms=b_ms, bound_by=b_by,
             tensor_core_floor_ms=tensor_core_floor_ms(lanes_leaves, C, v),
-            empty_slot_zero=True, nan_confined=True)
+            empty_slot_zero=True, nan_confined=True),
+            hist.onehot_kernel_attributes("onehot_leaves", v, fl, B,
+                                          ld=LEAVES_SHAPE["NC"]),
+            lambda: leaves(B, variant=v), _kernel_name("onehot_leaves", v))
     emit({"phase": "kernels_onehot", "card": card, "tolerance": REL_TOL,
           "rows": rows})
     return rows
@@ -491,12 +535,16 @@ def phase_shootout(card):
             err = relerr(got, ref)
             if not err <= REL_TOL:
                 raise AssertionError(f"onehot_bench {v} B={B}: relerr {err}")
-            rows_out[f"onehot_bench/{v}/B{B}"] = dict(
+            # the shell launches the main path's featmajor kernel of the body
+            rows_out[f"onehot_bench/{v}/B{B}"] = _vs_library(dict(
                 variant=v, B=B, shape=[f, N, BR], relerr=err,
                 max_abs_err=float((got - ref).abs().max()),
                 ms=median_ms(lambda: run(bins_t, x)), plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                launches=launches["onehot_bench"])
+                launches=launches["onehot_bench"]),
+                hist.onehot_kernel_attributes("onehot_full", v, f, B,
+                                              "featmajor"),
+                lambda: run(bins_t, x), _kernel_name("onehot_full", v))
         del bins, bins_t, g, h, m
     emit({"phase": "shootout", "card": card, "tolerance": REL_TOL,
           "rows": rows_out})

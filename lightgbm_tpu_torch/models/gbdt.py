@@ -32,6 +32,14 @@ from ..utils.log import Log, check
 from .tree import Tree
 
 
+def kernel_backend(device: torch.device) -> str:
+    """Where the histograms of a model on ``device`` run: ``"cuda"`` (the
+    hand-written kernels, the card standing for the JAX package's TPU) or
+    ``"cpu"``.  The port's counterpart of ``jax.default_backend()`` in the
+    JAX package's histogram dispatch."""
+    return "cuda" if device.type == "cuda" else "cpu"
+
+
 def check_ported(cfg: Config) -> None:
     """Raise ``NotPortedError`` for any training parameter whose path the
     port does not have yet (no silent fallback to another path)."""
@@ -188,15 +196,18 @@ class GBDT:
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             max_cat_threshold=cfg.max_cat_threshold,
             min_data_per_group=cfg.min_data_per_group)
-        # histogram kernels, as the JAX package picks them
-        # (lightgbm_tpu/models/gbdt.py:264-292): force_row_wise takes the
-        # one-hot kernels with the variant resolved against the kernel
-        # width -- 'auto' by the election on the card (cached per card and
-        # width; 'base' on the CPU without timing anything), before the
-        # first tree; the default and force_col_wise take the atomic
-        # kernels, the counterpart of the JAX package's scatter method,
-        # which ignores hist_variant
-        if cfg.force_row_wise:
+        # histogram kernels, as the JAX package picks them by its backend
+        # (lightgbm_tpu/models/gbdt.py:264-292): on the card (the TPU's
+        # counterpart) force_row_wise takes the one-hot kernels with the
+        # variant resolved against the kernel width -- 'auto' by the
+        # election (cached per card and width), before the first tree.
+        # Everything else takes the atomic method, the counterpart of the
+        # JAX package's scatter, and ignores hist_variant: the default and
+        # force_col_wise everywhere, and force_row_wise on the CPU, where
+        # the JAX package sums exactly in float32 (its XLA one-hot and
+        # scatter fallbacks) and the port's plain atomic version sums
+        # exactly in float64 and rounds once
+        if cfg.force_row_wise and kernel_backend(self.device) == "cuda":
             hist_method = "onehot"
             if cfg.hist_variant == "auto":
                 hist_variant = onehot_variants.pick_variant(

@@ -3,7 +3,9 @@
 Each ``kernels/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (``<name>_launch``, and for
 ``onehot_full`` also the shootout shell's ``onehot_bench_launch``), loaded
-with ``ctypes``.
+with ``ctypes``.  The one-hot libraries also export an attribute query
+(``onehot_full_query``, ``onehot_leaves_query``: registers, static and
+dynamic shared memory, spills of a body's kernel).
 Libraries are cached in ``ops/_build/`` under a name keyed on a hash of the
 sources and flags, so an edit to a kernel rebuilds it and an unchanged
 kernel is built once per checkout.  ``build()`` starts one ``nvcc`` per
@@ -41,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_INT_P = ctypes.POINTER(ctypes.c_int)
 # argument types of each library's entry points
 _ARGTYPES = {
     "hist_full": {
@@ -56,22 +59,27 @@ _ARGTYPES = {
                                _VOID_P, _VOID_P, _VOID_P, _INT, _INT,
                                _VOID_P, _INT, _INT, _INT, _VOID_P]},
     "onehot_full": {
-        # device, bins, ld, n, f, layout, gh, scales, qbr, out, variant,
-        # lpf_log2, lanes, nf_max, cps, grid_x, stream
+        # device, bins, ld, n, f, layout, g, h, m, q, scales, qbr, out,
+        # variant, lpf_log2, lanes, nf_max, stream
         "onehot_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _VOID_P,
-                               _VOID_P, _INT, _VOID_P, _INT, _INT, _INT,
-                               _INT, _INT, _INT, _VOID_P],
-        # device, bins_t, n, f, gh, scales, qbr, out, variant, lpf_log2,
-        # lanes, nf_max, cps, grid_x, stream
+                               _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT,
+                               _VOID_P, _INT, _INT, _INT, _INT, _VOID_P],
+        # device, bins_t, n, f, rows (or q), scales, qbr, out, variant,
+        # lpf_log2, lanes, nf_max, stream
         "onehot_bench_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _VOID_P,
-                                _INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
-                                _INT, _VOID_P]},
+                                _INT, _VOID_P, _INT, _INT, _INT, _INT,
+                                _VOID_P],
+        # variant, layout, nf_max, ld, out[4]
+        "onehot_full_query": [_INT, _INT, _INT, _LL, _INT_P]},
     "onehot_leaves": {
-        # device, comb, ld, c, f, gh, scales, block_leaf, br, k, out,
-        # variant, lpf_log2, lanes, nf_max, bpc, stream
+        # device, comb, ld, c, f, g, h, m, q, scales, block_leaf, br, k,
+        # out, variant, lpf_log2, lanes, nf_max, stream
         "onehot_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _VOID_P,
-                                 _VOID_P, _VOID_P, _INT, _INT, _VOID_P, _INT,
-                                 _INT, _INT, _INT, _INT, _VOID_P]},
+                                 _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
+                                 _INT, _INT, _VOID_P, _INT, _INT, _INT, _INT,
+                                 _VOID_P],
+        # variant, nf_max, ld, out[4]
+        "onehot_leaves_query": [_INT, _INT, _LL, _INT_P]},
     "onehot_quant": {
         # device, rows, n, br, q, s, stream
         "onehot_quant_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _VOID_P,

@@ -342,13 +342,15 @@ def hist_onehot_int8_leaves_plain(comb, grad, hess, mask, block_leaf,
 def hist_onehot_bench_plain(bins_t, rows, max_bin, variant="base",
                             block_rows=1024):
     """The shootout shell's function: ``bins_t [f, N]`` against the
-    variant's prepped ``rows``, quantized per ``block_rows`` for int8."""
+    variant's prepped ``rows`` (``onehot_variants.VariantSpec.prep``),
+    quantized per ``block_rows`` for int8."""
     b = bins_t.t().long()
     slot, ok = _row_slots(b.shape[0], None, 1, 1, b.device)
     if variant == "int8":
         out = _int8_plain(b, rows, block_rows, slot, ok, 1, max_bin)
     else:
-        out = _pair_plain(b, rows, slot, ok, 1, max_bin)
+        out = _pair_plain(b, ov.split_bf16_pair(*rows), slot, ok, 1,
+                          max_bin)
     return out[0].float()
 
 
@@ -457,10 +459,10 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
 # --------------------------------------------------------------------------
 
 # the kernels' geometry (kernels/onehot_common.cuh): 128-thread CTAs of 512
-# output lanes that stage 128 rows at a time
+# output lanes that stage 128 rows at a time; the launchers size the grid
+# to the CTAs the card holds at once
 _OH_BLOCK_LANES = 512
 _OH_CHUNK = 128
-_OH_CTAS_PER_SM = 4
 
 
 def _onehot_spec(variant: str, max_bin: int, layout: str) -> ov.VariantSpec:
@@ -484,11 +486,6 @@ def _onehot_geometry(spec, f, max_bin):
     lanes = ov.feat_geometry(spec, f, max_bin, Bp)[1]
     lpf = ov.lanes_per_feature(spec, max_bin)
     return Bp, lanes, lpf.bit_length() - 1, min(f, _OH_BLOCK_LANES // lpf)
-
-
-def _onehot_ctas(dev: torch.device) -> int:
-    return (torch.cuda.get_device_properties(dev).multi_processor_count
-            * _OH_CTAS_PER_SM)
 
 
 # most rows one quantization block may hold: the quantize kernel keeps a
@@ -523,12 +520,18 @@ def quantize_int8_blocks(rows, block_rows):
     return q, s
 
 
-def _onehot_operands(spec, grad, hess, mask, qbr):
-    """What the kernel multiplies: the ``[6, N]`` bf16 pair, or for int8
-    the quantize kernel's ``q [9, N]`` and its scales per ``qbr`` rows."""
+def _operands(spec, grad, hess, mask, qbr):
+    """What the kernel reads besides the bins, as ``(g, h, m, q, scales)``:
+    the bf16-pair kernels split ``grad``, ``hess`` and ``mask`` into the
+    pair themselves (16-byte aligned: a misaligned view is copied), int8
+    reads the quantize kernel's ``q [9, N]`` and its scales per ``qbr``
+    rows."""
     if spec.name == "int8":
-        return quantize_int8_blocks(ov.prep_f32(grad, hess, mask), qbr)
-    return ov.split_bf16_pair(grad, hess, mask), None
+        q, s = quantize_int8_blocks(ov.prep_f32(grad, hess, mask), qbr)
+        return None, None, None, q, s
+    rows = [t if t.data_ptr() % 16 == 0 else t.clone()
+            for t in (grad, hess, mask)]
+    return (*rows, None, None)
 
 
 def _ptr(t):
@@ -550,21 +553,22 @@ def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
     out = torch.zeros(6, lanes, dtype=torch.float64, device=bins.device)
     if n > 0 and f > 0:
         qbr = ov.pallas_block_rows(variant, layout, n, f, max_bin)
-        gh, scales = _onehot_operands(spec, grad, hess, mask, qbr)
+        ops = _operands(spec, grad, hess, mask, qbr)
         if layout == "featmajor":
-            src, ld, lay = bins[:, :f].t().contiguous(), n, 0
+            # the kernel copies whole 128-row chunks of each feature, so
+            # the copy's rows reach the last chunk's end (the rows past n
+            # have zero weight and are never summed)
+            ld = -(-n // _OH_CHUNK) * _OH_CHUNK
+            src = bins.new_empty(f, ld)
+            src[:, :n] = bins[:, :f].t()
+            lay = 0
         else:
             src, ld, lay = bins, ncols, 1
-        chunks = -(-n // _OH_CHUNK)
-        nlb = -(-lanes // _OH_BLOCK_LANES)
-        splits = max(1, min(chunks, -(-_onehot_ctas(bins.device) // nlb)))
-        cps = -(-chunks // splits)
         lib = _build.load("onehot_full")
         rc = lib.onehot_full_launch(
             bins.device.index, src.data_ptr(), ld, n, f, lay,
-            gh.data_ptr(), _ptr(scales), qbr, out.data_ptr(), spec.kernel_id,
-            lpf_log2, lanes, nf_max, cps, -(-chunks // cps),
-            torch.cuda.current_stream(bins.device).cuda_stream)
+            *map(_ptr, ops), qbr, out.data_ptr(), spec.kernel_id, lpf_log2,
+            lanes, nf_max, torch.cuda.current_stream(bins.device).cuda_stream)
         _raise_on(lib, "onehot_full", rc)
         launch_counts["onehot_full"] += 1
     return ov.finish_hist(out, f, max_bin, Bp, spec).float()
@@ -594,14 +598,12 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
     out = torch.zeros(num_slots, 6, lanes, dtype=torch.float64,
                       device=comb.device)
     if nb > 0 and f > 0 and num_slots > 0:
-        gh, scales = _onehot_operands(spec, grad, hess, mask, block_rows)
-        nlb = -(-lanes // _OH_BLOCK_LANES)
-        bpc = max(1, -(-nb * nlb // _onehot_ctas(comb.device)))
+        ops = _operands(spec, grad, hess, mask, block_rows)
         lib = _build.load("onehot_leaves")
         rc = lib.onehot_leaves_launch(
-            comb.device.index, comb.data_ptr(), nc, c, f, gh.data_ptr(),
-            _ptr(scales), block_leaf.data_ptr(), block_rows, num_slots,
-            out.data_ptr(), spec.kernel_id, lpf_log2, lanes, nf_max, bpc,
+            comb.device.index, comb.data_ptr(), nc, c, f, *map(_ptr, ops),
+            block_leaf.data_ptr(), block_rows, num_slots, out.data_ptr(),
+            spec.kernel_id, lpf_log2, lanes, nf_max,
             torch.cuda.current_stream(comb.device).cuda_stream)
         _raise_on(lib, "onehot_leaves", rc)
         launch_counts["onehot_leaves"] += 1
@@ -612,11 +614,12 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
                       block_rows=1024):
     """The shootout shell (``make_bench_kernel``'s ``run``): ``[f, B, 3]``
     histograms of ``bins_t [f, N]`` u8, transposed by the caller and read
-    as given, against the variant's prepped ``rows`` (``VariantSpec.prep``);
-    ``N`` a multiple of ``block_rows``, the quantization block of int8.
-    The ``onehot_bench`` entry of the ``onehot_full`` kernel on CUDA
-    tensors (after the quantize kernel, for int8); the plain version on
-    CPU tensors."""
+    as given, against the variant's prepped ``[3, N]`` float32 ``rows``
+    (``VariantSpec.prep``); ``N`` a multiple of ``block_rows``, the
+    quantization block of int8.  The ``onehot_bench`` entry of the
+    ``onehot_full`` kernel, which launches the main path's featmajor
+    kernel, on CUDA tensors (after the quantize kernel, for int8); the
+    plain version on CPU tensors."""
     spec = _onehot_spec(variant, max_bin, "featmajor")
     _check(bins_t.dim() == 2 and rows.dim() == 2
            and rows.shape[1] == bins_t.shape[1],
@@ -626,11 +629,8 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
            and n % block_rows == 0,
            f"onehot_bench: rows ({n}) must be a multiple of block_rows "
            f"({block_rows}), itself a multiple of {_OH_CHUNK}")
-    want = ((3, torch.float32) if variant == "int8"
-            else (6, torch.bfloat16))
-    _check((rows.shape[0], rows.dtype) == want,
-           f"onehot_bench: {variant} takes [{want[0]}, N] {want[1]} rows "
-           f"(its prep)")
+    _check(rows.shape[0] == 3 and rows.dtype == torch.float32,
+           "onehot_bench: rows must be [3, N] float32 (the variant's prep)")
     if _plain(bins_t):
         return hist_onehot_bench_plain(bins_t, rows, max_bin, variant,
                                        block_rows)
@@ -643,20 +643,47 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
     Bp, lanes, lpf_log2, nf_max = _onehot_geometry(spec, f, max_bin)
     out = torch.zeros(6, lanes, dtype=torch.float64, device=dev)
     if n > 0 and f > 0:
+        # the kernel's 16-byte copies need 16-byte aligned rows
+        if bins_t.data_ptr() % 16:
+            bins_t = bins_t.clone()
+        if rows.data_ptr() % 16:
+            rows = rows.clone()
         if variant == "int8":
-            gh, scales = quantize_int8_blocks(rows, block_rows)
+            rows, scales = quantize_int8_blocks(rows, block_rows)
         else:
-            gh, scales = rows, None
-        chunks = n // _OH_CHUNK
-        nlb = -(-lanes // _OH_BLOCK_LANES)
-        splits = max(1, min(chunks, -(-_onehot_ctas(dev) // nlb)))
-        cps = -(-chunks // splits)
+            scales = None
         lib = _build.load("onehot_full")
         rc = lib.onehot_bench_launch(
-            dev.index, bins_t.data_ptr(), n, f, gh.data_ptr(), _ptr(scales),
+            dev.index, bins_t.data_ptr(), n, f, rows.data_ptr(), _ptr(scales),
             block_rows, out.data_ptr(), spec.kernel_id, lpf_log2, lanes,
-            nf_max, cps, -(-chunks // cps),
-            torch.cuda.current_stream(dev).cuda_stream)
+            nf_max, torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, "onehot_bench", rc)
         launch_counts["onehot_bench"] += 1
     return ov.finish_hist(out, f, max_bin, Bp, spec).float()
+
+
+def onehot_kernel_attributes(kernel: str, variant: str, f: int, max_bin: int,
+                             layout: str = "rowmajor",
+                             ld: Optional[int] = None) -> Dict[str, int]:
+    """Registers a thread, static shared bytes and spilled bytes a thread
+    of the ``onehot_full`` (per ``layout``) or ``onehot_leaves`` kernel of
+    ``variant``, from ``cudaFuncGetAttributes``, and the dynamic shared
+    bytes of its launch over ``f`` features at ``max_bin`` (row-major rows
+    of ``ld`` bytes, ``f`` by default, 16-byte aligned); builds the kernel
+    first if needed."""
+    import ctypes
+    spec = _onehot_spec(variant, max_bin, layout)
+    nf_max = _onehot_geometry(spec, f, max_bin)[3]
+    ld = f if ld is None else ld
+    buf = (ctypes.c_int * 4)()
+    lib = _build.load(kernel)
+    if kernel == "onehot_full":
+        rc = lib.onehot_full_query(spec.kernel_id, LAYOUTS.index(layout),
+                                   nf_max, ld, buf)
+    else:
+        _check(kernel == "onehot_leaves" and layout == "rowmajor",
+               f"no attribute query for {kernel} ({layout})")
+        rc = lib.onehot_leaves_query(spec.kernel_id, nf_max, ld, buf)
+    _raise_on(lib, f"{kernel} query", rc)
+    return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                     "local_bytes"), buf))

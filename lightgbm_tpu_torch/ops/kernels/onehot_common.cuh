@@ -1,7 +1,8 @@
 // Shared pieces of the one-hot (row-wise) histogram kernels
 // (onehot_full.cu, onehot_leaves.cu): the seven bf16-pair one-hot bodies
-// of lightgbm_tpu/ops/onehot_variants.py and their tensor-core tile
-// product, and the int8 body (the last part of this file).
+// of lightgbm_tpu/ops/onehot_variants.py, their tensor-core tile product
+// and the asynchronous staging that feeds it, and the int8 body (the last
+// part of this file).
 //
 // The function: out[c][lane] = sum over rows r of gh[c][r] * onehot(lane, r)
 // where gh is the [6, N] bf16 (hi, lo) split of (g*m, h*m, m) and
@@ -12,32 +13,76 @@
 // carries (>= Bp, or >= B under packing) matches nothing.
 //
 // Tile product: mma.sync.m16n8k16, bf16 inputs, f32 sums.  The one-hot
-// lanes go on M (16 lanes a tile), the rows on K (16 rows a step) and the
-// six channel rows on N (8, two of them zero) -- the TPU kernel put gh on
-// M only because the MXU's sublanes are 8 wide.  So the B fragment (gh of
-// 16 rows) is loaded once per step and reused by every lane tile, and each
-// thread builds its A fragment -- the one-hot of its 2 lanes x 4 rows --
-// in registers, in the variant's own compare domain:
+// lanes go on M (16 lanes a tile, 8 tiles a warp), the rows on K (16 rows
+// a step) and the six channel rows on N (8, two of them zero) -- the TPU
+// kernel put gh on M only because the MXU's sublanes are 8 wide.
 //
-//   base, packed  int32 compare          bf16cmp  bf16 compare (__heq2)
-//   i16cmp        int16 compare (SIMD)   u8cmp    uint8 compare (SIMD)
+// On an H100 the instructions that build the one-hot fragment take about
+// half of a kernel's time and the mma about a quarter
+// (scripts/torch_onehot_ablation.py), far above the tensor cores' floor
+// (0.116 ms a full pass at 1M x 28, B = 256) and the bytes' (0.012 ms).
+// The design spends as few build instructions as it can:
+//
+// * Rows inside a K step may go in any order, so thread (g, t) takes rows
+//   4t..4t+3 of the step for both fragments: A's k = 2t, 2t+1 are rows
+//   4t, 4t+1 and k = 2t+8, 2t+9 are rows 4t+2, 4t+3, and B's two
+//   registers are one 64-bit load of gh at row 4t.  One 32-bit shared
+//   load then gives the thread its four bins of the step.  A warp's 128
+//   lanes are 128-aligned and an unpacked feature has >= 128 lanes, so
+//   that word serves all 8 tiles; the lane bin ids follow from the tile
+//   index (tile tl, thread g: j = jb + 16 tl and j + 8, jb = the warp's
+//   first bin + g).  `packed` loads a word per feature of the warp when
+//   B >= 16 (a tile lies in one feature) and builds its tiles as base
+//   does, or a word per tile and lane half when a tile spans features
+//   (B <= 8).
+// * Each body builds its registers from that word in its own compare
+//   domain and hoists what no tile changes:
+//
+//   base, packed  int32 compare of each row's bin with j
+//   bf16cmp       bf16 compare (__heq2) of the rows' bins with j
+//   i16cmp        int16 SIMD compare of two rows' bins with j
+//   u8cmp         uint8 SIMD compare of the four rows' bins with j
 //   sub1abs       max(0, 1 - |b - j|) in bf16 arithmetic
-//   staged        (hi digit one-hot) * (lo digit one-hot), digit width 16
+//   staged        bin = 16 hi + lo: the lo-digit one-hot of the four rows
+//                 for lanes g and g + 8 is built once per step (it is the
+//                 same in every tile); each tile has one hi digit, so a
+//                 tile costs one SIMD byte compare of the four rows' hi
+//                 digits (>= the tile's, shared with the next tile, which
+//                 needs >= its own), two byte permutes into halfword
+//                 masks and four three-input ANDs (the product of two 0/1
+//                 bf16 values is the AND of their bits)
 //
-// Each one-hot element is exactly 0 or 1 and each product exact, so every
-// body gives the same sums.
+//   Each one-hot element is exactly 0 or 1 and each product exact, so
+//   every body gives the same sums.
+// * Staging: a CTA walks its 128-row chunks through kStages shared-memory
+//   buffers filled by cp.async (16-byte copies, addresses fixed per
+//   thread), so chunk i+1's and i+2's loads fly while chunk i multiplies.
+//   The kernels stage grad, hess and mask as float rows and split them
+//   into the six bf16 rows in shared memory (no prep pass in device
+//   memory).  The feature-major bins ([f, ld] bytes) land as
+//   [feature][row] bytes; the row-major ones ([n, ld]: onehot_leaves,
+//   rowmajor) land as the rows lie and are transposed to [feature][row]
+//   in shared memory (rows too wide for the buffers, or an unaligned
+//   matrix, are read straight from global memory instead), in the same
+//   phase as the split, before a second barrier.  The bf16 rows are
+//   padded to kGhStride, so the eight rows g of a fragment load fall in
+//   distinct banks.
+// * Grid: as many CTAs as the card holds at once (the occupancy
+//   calculator's count), each with an equal run of chunks: no second,
+//   partly empty wave.
 //
-// Accumulation: a CTA owns kBlockLanes lanes and a range of rows.  Rows
-// are staged kChunk at a time in shared memory (bins as [feature][row]
-// bytes, gh as [8][row] bf16); the tile sums of one chunk stay in f32 mma
-// registers (at most kChunk rows per lane, which in practice sum exactly
-// in f32), then fold into float64 registers.  The float64 sums leave the
-// CTA through float64 global atomics and the wrapper rounds to float32
-// once, after adding hi and lo, as the plain version does.
+// Accumulation: a CTA owns kBlockLanes lanes and a range of chunks; the
+// tile sums of one chunk stay in f32 mma registers (at most kChunk rows
+// per lane, which in practice sum exactly in f32; the chunk's first mma
+// takes a zero accumulator), then fold into float64 registers.  The
+// float64 sums leave the CTA through float64 global atomics and the
+// wrapper rounds to float32 once, after adding hi and lo, as the plain
+// version does.  A non-finite gh value reaches every lane of
+// its channel (0 * NaN is NaN in the tensor cores), as in the Pallas
+// kernels.
 #pragma once
 
 #include <cstdint>
-#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -49,7 +94,15 @@ constexpr int kTiles = 8;                             // 16-lane tiles a warp
 constexpr int kWarpLanes = kTiles * 16;               // 128
 constexpr int kBlockLanes = kWarps * kWarpLanes;      // 512 lanes a CTA
 constexpr int kChunk = 128;                           // rows staged at once
-constexpr int kGhBytes = 8 * kChunk * 2;              // staged gh, 8 rows
+// registers: at most 168 a thread, so that three CTAs share an SM (the
+// sweep of 1, 3 and 4 on the card: 3 is fastest; 4 spills)
+constexpr int kMinBlocks = 3;
+constexpr int kUnroll = 4;                            // 16-row steps
+constexpr int kStages = 3;                            // cp.async buffers
+constexpr int kGhStride = kChunk + 16;                // bf16, padded row
+constexpr int kGhStageBytes = 8 * kGhStride * 2;      // staged gh, 8 rows
+// widest row-major row staged as it lies (wider ones are read directly)
+constexpr int kMaxRawLd = 256;
 
 enum Variant { kBase = 0, kBf16Cmp, kI16Cmp, kU8Cmp, kSub1Abs, kStaged,
                kPacked, kInt8, kNumVariants };
@@ -57,104 +110,246 @@ enum Layout { kFeatMajor = 0, kRowMajor = 1 };
 
 constexpr uint32_t kOneLo = 0x3F80u;        // bf16 1.0 in the low half
 constexpr uint32_t kOneHi = 0x3F800000u;    // bf16 1.0 in the high half
+constexpr uint32_t kOnes = kOneLo | kOneHi;
+constexpr uint32_t kRep = 0x01010101u;      // a byte in all four bytes
 
+// the bits of a bf16 pair (low half first); by the raw struct, not a byte
+// copy, which the compiler may lower to byte conversions
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
+  const __nv_bfloat162_raw r = v;
+  return (uint32_t)r.x | ((uint32_t)r.y << 16);
 }
 
 __device__ __forceinline__ uint32_t pair(bool lo, bool hi) {
   return (lo ? kOneLo : 0u) | (hi ? kOneHi : 0u);
 }
 
-// bf16x2 one-hot {onehot(b0, j), onehot(b1, j)} of two rows' bins b0, b1
-// (0..255) against lane bin id j; j < 0 marks a lane with no feature, which
-// matches nothing.
-template <int V>
-__device__ __forceinline__ uint32_t onehot2(int b0, int b1, int j);
-
-template <>
-__device__ __forceinline__ uint32_t onehot2<kBase>(int b0, int b1, int j) {
-  return pair(b0 == j, b1 == j);
+// PTX prmt (default mode) of {0, a}: selector nibble i picks result byte
+// i -- 0..3 a byte of a, 4..7 zero; with its top bit set (8 + k) the
+// sign bit of byte k fills the result byte
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(0u), "r"(sel));
+  return d;
 }
 
-template <>
-__device__ __forceinline__ uint32_t onehot2<kPacked>(int b0, int b1, int j) {
-  return pair(b0 == j, b1 == j);
-}
-
-template <>
-__device__ __forceinline__ uint32_t onehot2<kBf16Cmp>(int b0, int b1,
-                                                      int j) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn((float)b0, (float)b1);
-  return bits(__heq2(b, __float2bfloat162_rn((float)j)));
-}
-
-template <>
-__device__ __forceinline__ uint32_t onehot2<kI16Cmp>(int b0, int b1, int j) {
-  const uint32_t jj = (uint32_t)(j & 0xFFFF) * 0x00010001u;
-  return (__vcmpeq2((uint32_t)b0 | ((uint32_t)b1 << 16), jj) & 0x00010001u)
-         * kOneLo;
-}
-
-template <>
-__device__ __forceinline__ uint32_t onehot2<kU8Cmp>(int b0, int b1, int j) {
-  // bytes 0 and 2 carry the bins; bytes 1 and 3 compare 0 with 0 and are
-  // masked off
-  const uint32_t jj = (uint32_t)(j & 0xFF) * 0x00010001u;
-  const uint32_t eq =
-      (__vcmpeq4((uint32_t)b0 | ((uint32_t)b1 << 16), jj) & 0x00010001u)
-      * kOneLo;
-  return j < 0 ? 0u : eq;
-}
-
-template <>
-__device__ __forceinline__ uint32_t onehot2<kSub1Abs>(int b0, int b1,
-                                                      int j) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn((float)b0, (float)b1);
-  const __nv_bfloat162 d = __hsub2(b, __float2bfloat162_rn((float)j));
-  const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
-  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
-  return bits(__hmax2(__hsub2(one, __habs2(d)), zero));
-}
-
-template <>
-__device__ __forceinline__ uint32_t onehot2<kStaged>(int b0, int b1, int j) {
-  // bin = hi * 16 + lo; the one-hot is the product of the two digits'
-  // one-hots (both 0/1, so the bf16 product is exact)
-  const int jh = j >> 4, jl = j & 15;
-  uint32_t hi = pair((b0 >> 4) == jh, (b1 >> 4) == jh);
-  uint32_t lo = pair((b0 & 15) == jl, (b1 & 15) == jl);
-  __nv_bfloat162 h, l;
-  memcpy(&h, &hi, 4);
-  memcpy(&l, &lo, 4);
-  return bits(__hmul2(h, l));
-}
-
-// d += A(16 x 16, bf16, row) * B(16 x 8, bf16, col), f32 sums
+// d += A(16 x 16, bf16, row) * B(16 x 8, bf16, col), f32 sums; with
+// kFirst, d = A * B (a zero accumulator operand, so a chunk's sums need
+// no zeroing first)
+template <bool kFirst = false>
 __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  if (kFirst)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// What one thread needs to know about its lanes.  In the m16n8k16
-// fragments thread (g = lane_id / 4, t = lane_id % 4) builds the one-hot of
-// tile lanes g and g + 8 for rows 2t, 2t+1, 2t+8, 2t+9 of a 16-row step,
-// and ends with the sums of channels 2t, 2t+1 of those two lanes (the int8
-// body's m16n8k32 fragments: rows 4t..4t+3 and 16+4t..16+4t+3 of a 32-row
-// step, the same lanes and channels).
-struct Lanes {
-  int off[kTiles][2];   // byte offset of the lane's feature row in smem
-  int bin[kTiles][2];   // lane bin id, or -1 for a lane with no feature
+// ---------------------------------------------------------------------------
+// The bodies.  A step's word w holds the bins of rows 4t..4t+3 (byte i is
+// row 4t+i).  Step<V> is what the body derives from w once per step;
+// tile<V>(s, tl, a) writes the four A registers of tile tl:
+//   a[0] = lane g, rows 4t, 4t+1      a[1] = lane g+8, rows 4t, 4t+1
+//   a[2] = lane g, rows 4t+2, 4t+3    a[3] = lane g+8, rows 4t+2, 4t+3
+// (the earlier row in the low half).  Lane bin ids: j = jb + 16 tl (lane
+// g) and j + 8 (lane g + 8).
+// ---------------------------------------------------------------------------
+
+// per-thread constants of the unpacked bodies, derived from jb
+struct Ids {
+  int jb;                 // lane g's bin id in tile 0
+  uint32_t hb;            // staged: the warp's first hi digit, in each byte
+  uint32_t lo_g;          // staged: g in each byte
+  __nv_bfloat162 jg, j8;  // bf16cmp, sub1abs: {jb, jb}, {jb + 8, jb + 8}
 };
+
+__device__ __forceinline__ Ids make_ids(int jb) {
+  Ids d;
+  d.jb = jb;
+  d.hb = (uint32_t)(jb >> 4) * kRep;     // jb - g is 0 or 128: 0 or 8
+  d.lo_g = (uint32_t)(jb & 15) * kRep;   // = g
+  d.jg = __float2bfloat162_rn((float)jb);
+  d.j8 = __float2bfloat162_rn((float)(jb + 8));
+  return d;
+}
+
+template <int V>
+struct Step;
+
+// base: int32 compares of each row's bin, less jb, with 16 tl and 16 tl + 8
+template <>
+struct Step<kBase> {
+  int d0, d1, d2, d3;
+  __device__ __forceinline__ Step(uint32_t w, int jb) {
+    d0 = (int)(w & 0xFFu) - jb;
+    d1 = (int)((w >> 8) & 0xFFu) - jb;
+    d2 = (int)((w >> 16) & 0xFFu) - jb;
+    d3 = (int)(w >> 24) - jb;
+  }
+  __device__ __forceinline__ Step(uint32_t w, const Ids& ids)
+      : Step(w, ids.jb) {}
+  __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
+    const int c = 16 * tl, c8 = c + 8;
+    a[0] = pair(d0 == c, d1 == c);
+    a[1] = pair(d0 == c8, d1 == c8);
+    a[2] = pair(d2 == c, d3 == c);
+    a[3] = pair(d2 == c8, d3 == c8);
+  }
+};
+
+// bins < 256 are exact in bf16, and so is every j + 16 tl
+__device__ __forceinline__ void bins_bf16(uint32_t w, __nv_bfloat162& b01,
+                                          __nv_bfloat162& b23) {
+  b01 = __floats2bfloat162_rn((float)(w & 0xFFu), (float)((w >> 8) & 0xFFu));
+  b23 = __floats2bfloat162_rn((float)((w >> 16) & 0xFFu), (float)(w >> 24));
+}
+
+__device__ __forceinline__ __nv_bfloat162 plus16(__nv_bfloat162 j, int tl) {
+  return __hadd2(j, __float2bfloat162_rn(16.f * tl));
+}
+
+template <>
+struct Step<kBf16Cmp> {
+  __nv_bfloat162 b01, b23, jg, j8;
+  __device__ __forceinline__ Step(uint32_t w, const Ids& ids)
+      : jg(ids.jg), j8(ids.j8) {
+    bins_bf16(w, b01, b23);
+  }
+  __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
+    const __nv_bfloat162 j = plus16(jg, tl), k = plus16(j8, tl);
+    a[0] = bits(__heq2(b01, j));
+    a[1] = bits(__heq2(b01, k));
+    a[2] = bits(__heq2(b23, j));
+    a[3] = bits(__heq2(b23, k));
+  }
+};
+
+// i16cmp: two rows' bins as the halves of one word, compared as int16
+template <>
+struct Step<kI16Cmp> {
+  uint32_t p01, p23;
+  int jb;
+  __device__ __forceinline__ Step(uint32_t w, const Ids& ids) : jb(ids.jb) {
+    p01 = prmt(w, 0x4140);               // {b0, 0, b1, 0}
+    p23 = prmt(w, 0x4342);
+  }
+  __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
+    const uint32_t j = (uint32_t)(jb + 16 * tl) * 0x00010001u;
+    const uint32_t k = j + 8 * 0x00010001u;
+    a[0] = __vcmpeq2(p01, j) & kOnes;
+    a[1] = __vcmpeq2(p01, k) & kOnes;
+    a[2] = __vcmpeq2(p23, j) & kOnes;
+    a[3] = __vcmpeq2(p23, k) & kOnes;
+  }
+};
+
+// u8cmp: the four rows' bins compared as bytes at once; the byte masks
+// become halfword masks by permutes
+template <>
+struct Step<kU8Cmp> {
+  uint32_t w;
+  int jb;
+  __device__ __forceinline__ Step(uint32_t w_, const Ids& ids)
+      : w(w_), jb(ids.jb) {}
+  __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
+    const uint32_t mg = __vcmpeq4(w, (uint32_t)(jb + 16 * tl) * kRep);
+    const uint32_t m8 = __vcmpeq4(w, (uint32_t)(jb + 16 * tl + 8) * kRep);
+    a[0] = prmt(mg, 0x1100) & kOnes;
+    a[1] = prmt(m8, 0x1100) & kOnes;
+    a[2] = prmt(mg, 0x3322) & kOnes;
+    a[3] = prmt(m8, 0x3322) & kOnes;
+  }
+};
+
+__device__ __forceinline__ uint32_t sub1abs(__nv_bfloat162 b,
+                                            __nv_bfloat162 j) {
+  const __nv_bfloat162 one = __float2bfloat162_rn(1.f);
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+  return bits(__hmax2(__hsub2(one, __habs2(__hsub2(b, j))), zero));
+}
+
+template <>
+struct Step<kSub1Abs> {
+  __nv_bfloat162 b01, b23, jg, j8;
+  __device__ __forceinline__ Step(uint32_t w, const Ids& ids)
+      : jg(ids.jg), j8(ids.j8) {
+    bins_bf16(w, b01, b23);
+  }
+  __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
+    const __nv_bfloat162 j = plus16(jg, tl), k = plus16(j8, tl);
+    a[0] = sub1abs(b01, j);
+    a[1] = sub1abs(b01, k);
+    a[2] = sub1abs(b23, j);
+    a[3] = sub1abs(b23, k);
+  }
+};
+
+// A byte of x is <= 15.  Returns x + 0x7F in each byte, whose top bit is
+// set exactly where the byte of x is not zero (no carry crosses a byte).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return x + 0x7F7F7F7Fu;
+}
+
+// staged: lo[] = the lo-digit one-hot of the four rows for lanes g and
+// g + 8, as bf16 pairs (built once per step); hi = the rows' hi digits,
+// XOR the warp's first hi digit, so that tile tl's rows match where a
+// byte equals tl.  Byte permutes with the sign-replicate selector (8 + i:
+// byte i's top bit in all 8 bits) turn a byte's top bit into a halfword
+// mask.
+template <>
+struct Step<kStaged> {
+  uint32_t lo[4], hi;
+  __device__ __forceinline__ Step(uint32_t w, const Ids& ids) {
+    const uint32_t xg = (w & 0x0F0F0F0Fu) ^ ids.lo_g;     // 0 where lo == g
+    const uint32_t ng = nonzero_bytes(xg);
+    const uint32_t n8 = nonzero_bytes(xg ^ 0x08080808u);  // lo == g + 8
+    lo[0] = ~prmt(ng, 0x9988) & kOnes;
+    lo[1] = ~prmt(n8, 0x9988) & kOnes;
+    lo[2] = ~prmt(ng, 0xBBAA) & kOnes;
+    lo[3] = ~prmt(n8, 0xBBAA) & kOnes;
+    hi = ((w >> 4) & 0x0F0F0F0Fu) ^ ids.hb;
+  }
+  // the rows whose hi digit is >= tl: hi + (0x80 - tl) has its top bit
+  // set exactly there (bytes <= 15, no carry)
+  __device__ __forceinline__ uint32_t ge(int tl, uint32_t sel) const {
+    return prmt(hi + (uint32_t)(0x80 - tl) * kRep, sel);
+  }
+  __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
+    // equal to tl: >= tl and not >= tl + 1 (a hi digit >= 8 is a bin
+    // >= Bp at Bp = 128, which no tile takes)
+    const uint32_t g01 = tl == 0 ? ~0u : ge(tl, 0x9988);
+    const uint32_t g23 = tl == 0 ? ~0u : ge(tl, 0xBBAA);
+    const uint32_t n01 = ge(tl + 1, 0x9988), n23 = ge(tl + 1, 0xBBAA);
+    a[0] = lo[0] & g01 & ~n01;
+    a[1] = lo[1] & g01 & ~n01;
+    a[2] = lo[2] & g23 & ~n23;
+    a[3] = lo[3] & g23 & ~n23;
+  }
+};
+
+// packed (int32 compares): the pair of one word's rows against lane bin j
+// (j < 0: a lane with no feature, which matches nothing)
+__device__ __forceinline__ uint32_t packed_pair(uint32_t w, int shift,
+                                                int j) {
+  return pair((int)((w >> shift) & 0xFFu) == j,
+              (int)((w >> (shift + 8)) & 0xFFu) == j);
+}
+
+// ---------------------------------------------------------------------------
+// The CTA's geometry and the per-chunk tile product.
+// ---------------------------------------------------------------------------
 
 // The CTA's lanes [lb0, lb0 + kBlockLanes) read features [fa, fa + nf).
 __device__ __forceinline__ void cta_features(int lb0, int f, int lpf_log2,
@@ -163,6 +358,468 @@ __device__ __forceinline__ void cta_features(int lb0, int f, int lpf_log2,
   const int fb = min(f, ((lb0 + kBlockLanes - 1) >> lpf_log2) + 1);
   *nf = max(0, fb - *fa);
 }
+
+// What a thread needs about its lanes: its warp's first lane wl0, and the
+// CTA's first feature fa.  Unpacked bodies: the warp's feature row in the
+// staged bins (or -1: the warp's lanes have no feature) and jb.
+struct Geo {
+  int wl0, fa, f, lanes, lpf_log2;
+  int frow;
+  int jb;
+};
+
+__device__ __forceinline__ Geo make_geo(int lb0, int lanes, int f,
+                                        int lpf_log2, int fa) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  Geo G;
+  G.wl0 = lb0 + warp * kWarpLanes;
+  G.fa = fa;
+  G.f = f;
+  G.lanes = lanes;
+  G.lpf_log2 = lpf_log2;
+  const int feat = G.wl0 >> lpf_log2;
+  G.frow = (G.wl0 < lanes && feat < f) ? feat - fa : -1;
+  G.jb = (G.wl0 & ((1 << lpf_log2) - 1)) + g;
+  return G;
+}
+
+// One 16-row step of the unpacked bodies: gp, bp point at the thread's
+// rows 4t..4t+3 of the step in the staged gh and bins.
+template <int V, bool kFirst>
+__device__ __forceinline__ void step(float (&c)[kTiles][4],
+                                     const uint16_t* gp, const uint8_t* bp,
+                                     const Ids& ids) {
+  const uint2 b = *reinterpret_cast<const uint2*>(gp);
+  const Step<V> s(*reinterpret_cast<const uint32_t*>(bp), ids);
+#pragma unroll
+  for (int tl = 0; tl < kTiles; ++tl) {
+    uint32_t a[4];
+    s.tile(tl, a);
+    mma16816<kFirst>(c[tl], a[0], a[1], a[2], a[3], b.x, b.y);
+  }
+}
+
+// The staged chunk's tile sums (replacing c): sg is the chunk's gh
+// ([8][kGhStride] bf16), sb its bins ([feature][kChunk]).  Called only by
+// a warp whose lanes have a feature (G.frow >= 0).
+template <int V>
+__device__ __forceinline__ void mma_chunk(float (&c)[kTiles][4],
+                                          const uint16_t* sg,
+                                          const uint8_t* sb, const Geo& G,
+                                          const Ids& ids) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const uint16_t* gp = sg + g * kGhStride + 4 * t;
+  const uint8_t* bp = sb + G.frow * kChunk + 4 * t;
+  step<V, true>(c, gp, bp, ids);
+#pragma unroll kUnroll
+  for (int ks = 16; ks < kChunk; ks += 16)
+    step<V, false>(c, gp + ks, bp + ks, ids);
+}
+
+// packed at B >= 16: a warp's 128 lanes start at a feature and hold
+// kFeats = 128 / B features of kTpf = B / 16 tiles each, so a step loads
+// one word per feature and builds each of its tiles as base does (bins
+// less g against 16 k and 16 k + 8, k the tile's place in the feature).
+// A feature >= f takes jb = 1024, which no bin minus it can match.
+template <int kTpf, bool kFirst>
+__device__ __forceinline__ void packed_step(float (&c)[kTiles][4],
+                                            const uint16_t* gp,
+                                            const uint8_t* sb,
+                                            const int (&off)[kTiles / kTpf],
+                                            const int (&jb)[kTiles / kTpf]) {
+  const uint2 b = *reinterpret_cast<const uint2*>(gp);
+#pragma unroll
+  for (int fi = 0; fi < kTiles / kTpf; ++fi) {
+    const Step<kBase> s(*reinterpret_cast<const uint32_t*>(sb + off[fi]),
+                        jb[fi]);
+#pragma unroll
+    for (int k = 0; k < kTpf; ++k) {
+      uint32_t a[4];
+      s.tile(k, a);
+      mma16816<kFirst>(c[fi * kTpf + k], a[0], a[1], a[2], a[3], b.x, b.y);
+    }
+  }
+}
+
+template <int kTpf>
+__device__ __forceinline__ void mma_chunk_packed(float (&c)[kTiles][4],
+                                                 const uint16_t* sg,
+                                                 const uint8_t* sb,
+                                                 const Geo& G) {
+  constexpr int kFeats = kTiles / kTpf;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int f0 = G.wl0 >> G.lpf_log2;     // the warp's first feature
+  int off[kFeats], jb[kFeats];
+#pragma unroll
+  for (int fi = 0; fi < kFeats; ++fi) {
+    const bool ok = f0 + fi < G.f;
+    off[fi] = (ok ? f0 + fi - G.fa : 0) * kChunk + 4 * t;
+    jb[fi] = ok ? g : 1024;
+  }
+  const uint16_t* gp = sg + g * kGhStride + 4 * t;
+  packed_step<kTpf, true>(c, gp, sb, off, jb);
+#pragma unroll kUnroll
+  for (int ks = 16; ks < kChunk; ks += 16)
+    packed_step<kTpf, false>(c, gp + ks, sb + ks, off, jb);
+}
+
+// packed at B <= 8: a tile spans 16 / B features, so lanes g and g + 8
+// of a tile may read different features.  Each tile reads the word of
+// lane g's feature and of lane g + 8's; the lane table is rebuilt per
+// chunk from the tile index.
+template <>
+__device__ __forceinline__ void mma_chunk<kPacked>(float (&c)[kTiles][4],
+                                                   const uint16_t* sg,
+                                                   const uint8_t* sb,
+                                                   const Geo& G,
+                                                   const Ids&) {
+  if (G.lpf_log2 >= 6) return mma_chunk_packed<4>(c, sg, sb, G);
+  if (G.lpf_log2 == 5) return mma_chunk_packed<2>(c, sg, sb, G);
+  if (G.lpf_log2 == 4) return mma_chunk_packed<1>(c, sg, sb, G);
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int bmask = (1 << G.lpf_log2) - 1;
+  int off[kTiles][2], jj[kTiles][2];
+#pragma unroll
+  for (int tl = 0; tl < kTiles; ++tl) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lane = G.wl0 + tl * 16 + g + 8 * h;
+      const int feat = lane >> G.lpf_log2;
+      const bool ok = lane < G.lanes && feat < G.f;
+      off[tl][h] = (ok ? feat - G.fa : 0) * kChunk + 4 * t;
+      jj[tl][h] = ok ? (lane & bmask) : -1;
+    }
+  }
+  const uint16_t* gp = sg + g * kGhStride + 4 * t;
+#pragma unroll 1
+  for (int ks = 0; ks < kChunk; ks += 16) {
+    const uint2 b = *reinterpret_cast<const uint2*>(gp + ks);
+#pragma unroll
+    for (int tl = 0; tl < kTiles; ++tl) {
+      const uint32_t w0 =
+          *reinterpret_cast<const uint32_t*>(sb + off[tl][0] + ks);
+      const uint32_t w1 =
+          *reinterpret_cast<const uint32_t*>(sb + off[tl][1] + ks);
+      const int j0 = jj[tl][0], j1 = jj[tl][1];
+      const uint32_t a0 = packed_pair(w0, 0, j0), a1 = packed_pair(w1, 0, j1),
+                     a2 = packed_pair(w0, 16, j0),
+                     a3 = packed_pair(w1, 16, j1);
+      if (ks == 0)
+        mma16816<true>(c[tl], a0, a1, a2, a3, b.x, b.y);
+      else
+        mma16816(c[tl], a0, a1, a2, a3, b.x, b.y);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(double (&acc)[kTiles][4]) {
+#pragma unroll
+  for (int tl = 0; tl < kTiles; ++tl)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[tl][i] = 0.0;
+}
+
+// Add this thread's sums into out, the [6, lanes] float64 accumulator of
+// one slot.  Zeros are skipped (a NaN is not zero, so it is added).
+__device__ __forceinline__ void flush(double* __restrict__ out,
+                                      const double (&acc)[kTiles][4],
+                                      int lb0, int lanes) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            t = threadIdx.x & 3;
+  if (t == 3) return;                      // channels 6 and 7 are padding
+#pragma unroll
+  for (int tl = 0; tl < kTiles; ++tl) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lane = lb0 + warp * kWarpLanes + tl * 16 + g + 8 * (i >> 1);
+      const int ch = 2 * t + (i & 1);
+      const double v = acc[tl][i];
+      if (lane < lanes && v != 0.0) atomicAdd(out + ch * lanes + lane, v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous staging.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// What a CTA reads.  bins: [f, ld] (kFeatMajor; ld a multiple of 16 and at
+// least the rows rounded up to kChunk) or [n, ld] (kRowMajor); grad, hess
+// and mask: [n] float32 each, 16-byte aligned, split into the (hi, lo)
+// bf16 pair of (g*m, h*m, m) in shared memory as each chunk lands; the
+// CTA's features [fa, fa + nf).  raw: the bytes of one row-major chunk
+// staged as it lies (kChunk * ld), or 0 to read the bins straight from
+// global memory.
+struct Src {
+  const uint8_t* bins;
+  int64_t ld, n;
+  const float* g;
+  const float* h;
+  const float* m;
+  int fa, nf, raw;
+};
+
+// Shared memory: kStages buffers of [float rows | bins], then the current
+// chunk's bf16 rows ([8][kGhStride]) and (row-major only) its transposed
+// bins, [nf_max][kChunk].
+constexpr int kRowsBytes = 3 * kChunk * 4;
+
+__host__ __device__ __forceinline__ int stage_bytes(int layout, int nf_max,
+                                                    int raw) {
+  return kRowsBytes + (layout == kFeatMajor ? nf_max * kChunk : raw);
+}
+
+__host__ __device__ __forceinline__ int smem_bytes(int layout, int nf_max,
+                                                   int raw) {
+  return kStages * stage_bytes(layout, nf_max, raw) + kGhStageBytes +
+         (layout == kRowMajor ? nf_max * kChunk : 0);
+}
+
+// One thread's share of a chunk's copies, fixed for the kernel: its
+// 16-byte piece of the float rows (4 rows of grad, hess or mask), and its
+// first piece of the feature-major bins (16 rows of one feature); the
+// chunk adds its row offset.  A thread without a piece holds a null
+// source.
+struct Copies {
+  const void* rsrc;   // rows: source at chunk 0
+  int rdst;           // rows: byte offset in the stage buffer
+  int rrow;           // rows: the piece's first row in the chunk
+  const uint8_t* bsrc;
+  int bdst;
+};
+
+__device__ __forceinline__ Copies make_copies(const Src& S, int L) {
+  const int i = threadIdx.x;
+  Copies K{nullptr, 0, 0, nullptr, 0};
+  if (i < 3 * (kChunk / 4)) {
+    const int c = i >> 5, q = i & 31;
+    K.rsrc = (c == 0 ? S.g : (c == 1 ? S.h : S.m)) + 4 * q;
+    K.rdst = (c * kChunk + 4 * q) * 4;
+    K.rrow = 4 * q;
+  }
+  if (L == kFeatMajor && i < S.nf * (kChunk / 16)) {
+    const int fl = i >> 3, q = i & 7;
+    K.bsrc = S.bins + (int64_t)(S.fa + fl) * S.ld + 16 * q;
+    K.bdst = kRowsBytes + fl * kChunk + 16 * q;
+  }
+  return K;
+}
+
+// Start the copies of chunk ci into one stage buffer.  A ragged last
+// chunk copies the float rows' whole pieces below n and its tail row by
+// row (rows >= n are never read); the feature-major bins it copies whole
+// (they reach the last chunk's end).
+template <int L>
+__device__ __forceinline__ void issue(const Src& S, const Copies& K,
+                                      uint8_t* st, int64_t ci) {
+  const int64_t r0 = ci * kChunk;
+  const int64_t left = S.n - r0;
+  if (K.rsrc != nullptr && K.rrow + 4 <= left)
+    cp16(st + K.rdst, reinterpret_cast<const float*>(K.rsrc) + r0);
+  if (left < kChunk && threadIdx.x < 3 * 4) {
+    const int c = threadIdx.x >> 2, r = (int)(left & ~3) + (threadIdx.x & 3);
+    const float* src = c == 0 ? S.g : (c == 1 ? S.h : S.m);
+    if (r < left)
+      reinterpret_cast<float*>(st)[c * kChunk + r] = src[r0 + r];
+  }
+  if (L == kFeatMajor) {
+    if (K.bsrc != nullptr) cp16(st + K.bdst, K.bsrc + r0);
+    // more features than a chunk's pieces per thread (packed, B <= 8)
+    for (int i = threadIdx.x + kThreads; i < S.nf * (kChunk / 16);
+         i += kThreads) {
+      const int fl = i >> 3, q = i & 7;
+      cp16(st + kRowsBytes + fl * kChunk + 16 * q,
+           S.bins + (int64_t)(S.fa + fl) * S.ld + r0 + 16 * q);
+    }
+  } else if (S.raw > 0) {
+    // the chunk's rows as they lie: kChunk * ld contiguous bytes, a
+    // multiple of 16 from a 16-aligned start; a ragged last chunk copies
+    // its whole 16-byte pieces and then its tail byte by byte
+    uint8_t* sb = st + kRowsBytes;
+    const int bytes = (int)((left < kChunk ? left : kChunk) * S.ld);
+    const uint8_t* src = S.bins + r0 * S.ld;
+    const int whole = bytes >> 4;
+    for (int i = threadIdx.x; i < whole; i += kThreads)
+      cp16(sb + 16 * i, src + 16 * i);
+    for (int i = (whole << 4) + threadIdx.x; i < bytes; i += kThreads)
+      sb[i] = src[i];
+  }
+}
+
+// The chunk's six bf16 rows from its staged float rows: hi = bf16(x) and
+// lo = bf16(x - hi) of x = (g*m, h*m, m), as split_bf16_pair makes them;
+// rows >= n are zero.  One row a thread.
+__device__ __forceinline__ void split_rows(const Src& S, const float* sf,
+                                           uint16_t* sg, int64_t ci) {
+  const int r = threadIdx.x;
+  float x[3] = {0.f, 0.f, 0.f};
+  if (ci * kChunk + r < S.n) {
+    const float m = sf[2 * kChunk + r];
+    x[0] = sf[r] * m;
+    x[1] = sf[kChunk + r] * m;
+    x[2] = m;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x[c]);
+    const __nv_bfloat16 lo = __float2bfloat16_rn(x[c] - __bfloat162float(hi));
+    sg[c * kGhStride + r] = __bfloat16_as_ushort(hi);
+    sg[(c + 3) * kGhStride + r] = __bfloat16_as_ushort(lo);
+  }
+}
+
+// Row-major bins of chunk ci as [feature][row] bytes in tb: from the
+// staged rows, or (S.raw == 0) from global memory; rows >= n read as 0.
+__device__ __forceinline__ void transpose(const Src& S, const uint8_t* raw,
+                                          uint8_t* tb, int64_t ci) {
+  const int64_t r0 = ci * kChunk;
+  for (int i = threadIdx.x; i < S.nf * (kChunk / 4); i += kThreads) {
+    const int fl = i >> 5, r = (i & 31) * 4;
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t v;
+      if (S.raw > 0) {
+        v = raw[(r + k) * S.ld + S.fa + fl];
+      } else {
+        const int64_t row = r0 + r + k;
+        v = row < S.n ? S.bins[row * S.ld + S.fa + fl] : 0u;
+      }
+      w |= v << (8 * k);
+    }
+    *reinterpret_cast<uint32_t*>(tb + fl * kChunk + r) = w;
+  }
+}
+
+// Multiply the CTA's chunks [c0, c1) into acc, kStages - 1 chunks' copies
+// in flight while one multiplies.  use(ci), called once per chunk in
+// order, says whether chunk ci counts (the same answer in every thread);
+// it may flush and zero acc first.  Every thread of the CTA must call it.
+template <int V, int L, typename Use>
+__device__ __forceinline__ void run_chunks(const Src& S, uint8_t* smem,
+                                           int sbytes, int64_t c0,
+                                           int64_t c1, const Geo& geo,
+                                           const Ids& ids,
+                                           double (&acc)[kTiles][4],
+                                           Use use) {
+  // after the stages: the split rows, then the transposed bins
+  uint16_t* sg = reinterpret_cast<uint16_t*>(smem + kStages * sbytes);
+  uint8_t* tb = smem + kStages * sbytes + kGhStageBytes;
+  // rows 6, 7 of the bf16 rows: mma's N padding
+  for (int i = threadIdx.x; i < 2 * kGhStride; i += kThreads)
+    sg[6 * kGhStride + i] = 0;
+  const Copies K = make_copies(S, L);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (c0 + s < c1) issue<L>(S, K, smem + s * sbytes, c0 + s);
+    cp_commit();
+  }
+  int s = 0;
+  for (int64_t ci = c0; ci < c1; ++ci) {
+    cp_wait<kStages - 2>();                // chunk ci has landed
+    __syncthreads();                       // ... for all; chunk ci-1 done
+    int sn = s + kStages - 1;
+    if (sn >= kStages) sn -= kStages;
+    if (ci + kStages - 1 < c1)
+      issue<L>(S, K, smem + sn * sbytes, ci + kStages - 1);
+    cp_commit();
+    uint8_t* st = smem + s * sbytes;
+    const uint8_t* sb = st + kRowsBytes;
+    const bool on = use(ci);
+    if (on) {
+      split_rows(S, reinterpret_cast<const float*>(st), sg, ci);
+      if (L == kRowMajor) transpose(S, sb, tb, ci);
+    }
+    __syncthreads();
+    if (L == kRowMajor) sb = tb;
+    if (on && geo.frow >= 0) {
+      float c[kTiles][4];
+      mma_chunk<V>(c, sg, sb, geo, ids);
+#pragma unroll
+      for (int tl = 0; tl < kTiles; ++tl)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[tl][i] += (double)c[tl][i];
+    }
+    if (++s == kStages) s = 0;
+  }
+  cp_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// Launch geometry (host).
+// ---------------------------------------------------------------------------
+
+// CTAs of kern, with smem bytes of dynamic shared memory, that the card
+// holds at once.
+template <typename K>
+static inline int resident_ctas(K kern, int smem, int device) {
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                smem);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+}
+
+// Split `units` units of rows over grid.x so that the whole grid (grid.y =
+// nlb lane blocks) is resident at once: no second, partly empty wave.
+// Returns the units per CTA; *gx the grid's x.
+static inline long long split_units(long long units, int nlb, int resident,
+                                    int* gx) {
+  long long splits = resident / (nlb > 0 ? nlb : 1);
+  if (splits < 1) splits = 1;
+  if (splits > units) splits = units;
+  const long long per = (units + splits - 1) / splits;
+  *gx = (int)((units + per - 1) / per);
+  return per;
+}
+
+// Set a kernel's dynamic shared memory limit when it needs more than the
+// default 48 KB.
+template <typename K>
+static inline cudaError_t allow_smem(K kern, int smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+             : cudaSuccess;
+}
+
+// The bytes of one row-major chunk staged as it lies (rows of ld bytes),
+// or 0 when the bins are read straight from global memory: rows wider
+// than kMaxRawLd, a matrix that is not 16-byte aligned, or feature-major
+// bins (staged by feature).
+static inline int raw_bytes(int layout, long long ld, bool aligned) {
+  return (layout == kRowMajor && ld <= kMaxRawLd && aligned)
+             ? (int)(kChunk * ld)
+             : 0;
+}
+
+// ---------------------------------------------------------------------------
+// Lane tables of the int8 body (below): the byte offset of each tile lane's
+// feature row in the staged bins and its bin id.  In the m16n8k32
+// fragments thread (g = lane_id / 4, t = lane_id % 4) builds the one-hot
+// of tile lanes g and g + 8 for rows 4t..4t+3 and 16+4t..16+4t+3 of a
+// 32-row step and ends with the sums of channels 2t, 2t+1 of those lanes.
+// ---------------------------------------------------------------------------
+struct Lanes {
+  int off[kTiles][2];   // byte offset of the lane's feature row in smem
+  int bin[kTiles][2];   // lane bin id, or -1 for a lane with no feature
+};
 
 __device__ __forceinline__ void init_lanes(Lanes& L, int lb0, int lanes,
                                            int f, int lpf_log2, int fa) {
@@ -207,103 +864,6 @@ __device__ __forceinline__ void stage_bins(uint8_t* sb,
   }
 }
 
-// Stage rows [r0, r0 + kChunk) of gh ([6, n] bf16) and of the bins;
-// rows >= n read as zero weight.
-template <int L>
-__device__ __forceinline__ void stage(uint16_t* sg, uint8_t* sb,
-                                      const uint8_t* __restrict__ bins,
-                                      int64_t ld, int64_t n, int fa, int nf,
-                                      const uint16_t* __restrict__ gh,
-                                      int64_t r0) {
-  for (int i = threadIdx.x; i < 6 * kChunk; i += kThreads) {
-    const int c = i / kChunk, r = i - c * kChunk;
-    const int64_t row = r0 + r;
-    sg[i] = row < n ? gh[c * n + row] : (uint16_t)0;
-  }
-  stage_bins<L>(sb, bins, ld, n, fa, nf, r0);
-}
-
-// The staged chunk's contribution to this thread's tile sums.
-template <int V>
-__device__ __forceinline__ void mma_chunk(float (&c)[kTiles][4],
-                                          const uint16_t* sg,
-                                          const uint8_t* sb, const Lanes& L) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll 2
-  for (int ks = 0; ks < kChunk; ks += 16) {
-    const uint16_t* gp = sg + g * kChunk + ks + 2 * t;
-    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(gp);
-    const uint32_t b1 = *reinterpret_cast<const uint32_t*>(gp + 8);
-#pragma unroll
-    for (int tl = 0; tl < kTiles; ++tl) {
-      const uint8_t* p0 = sb + L.off[tl][0] + ks + 2 * t;   // lane g
-      const uint8_t* p1 = sb + L.off[tl][1] + ks + 2 * t;   // lane g + 8
-      const int j0 = L.bin[tl][0], j1 = L.bin[tl][1];
-      const uint32_t a0 = onehot2<V>(p0[0], p0[1], j0);
-      const uint32_t a1 = onehot2<V>(p1[0], p1[1], j1);
-      const uint32_t a2 = onehot2<V>(p0[8], p0[9], j0);
-      const uint32_t a3 = onehot2<V>(p1[8], p1[9], j1);
-      mma16816(c[tl], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_acc(double (&acc)[kTiles][4]) {
-#pragma unroll
-  for (int tl = 0; tl < kTiles; ++tl)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[tl][i] = 0.0;
-}
-
-// Stage and multiply rows [r0, r1) chunk by chunk, folding each chunk's
-// f32 tile sums into acc.  Every thread of the CTA must call it.
-template <int V, int L>
-__device__ __forceinline__ void accumulate_rows(
-    double (&acc)[kTiles][4], uint16_t* sg, uint8_t* sb, const Lanes& lanes,
-    const uint8_t* __restrict__ bins, int64_t ld, int64_t n, int fa, int nf,
-    const uint16_t* __restrict__ gh, int64_t r0, int64_t r1) {
-  for (int64_t r = r0; r < r1; r += kChunk) {
-    __syncthreads();                       // the last chunk has been read
-    stage<L>(sg, sb, bins, ld, n, fa, nf, gh, r);
-    __syncthreads();
-    float c[kTiles][4];
-#pragma unroll
-    for (int tl = 0; tl < kTiles; ++tl)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[tl][i] = 0.f;
-    mma_chunk<V>(c, sg, sb, lanes);
-#pragma unroll
-    for (int tl = 0; tl < kTiles; ++tl)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[tl][i] += (double)c[tl][i];
-  }
-}
-
-// Add this thread's sums into out, the [6, lanes] float64 accumulator of
-// one slot.  Zeros are skipped (a NaN is not zero, so it is added).
-__device__ __forceinline__ void flush(double* __restrict__ out,
-                                      const double (&acc)[kTiles][4],
-                                      int lb0, int lanes) {
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
-            t = threadIdx.x & 3;
-  if (t == 3) return;                      // channels 6 and 7 are padding
-#pragma unroll
-  for (int tl = 0; tl < kTiles; ++tl) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int lane = lb0 + warp * kWarpLanes + tl * 16 + g + 8 * (i >> 1);
-      const int ch = 2 * t + (i & 1);
-      const double v = acc[tl][i];
-      if (lane < lanes && v != 0.0) atomicAdd(out + ch * lanes + lane, v);
-    }
-  }
-}
-
-// Rows 6 and 7 of the staged gh are the padding of mma's N = 8.
-__device__ __forceinline__ void zero_gh_padding(uint16_t* sg) {
-  for (int i = threadIdx.x; i < 2 * kChunk; i += kThreads)
-    sg[6 * kChunk + i] = 0;
-}
 
 // ---------------------------------------------------------------------------
 // The int8 body (lightgbm_tpu/ops/onehot_variants.py::_contrib_int8).
@@ -333,6 +893,14 @@ __device__ __forceinline__ void zero_gh_padding(uint16_t* sg) {
 constexpr int kQRows = 16;                          // 9 channel rows + pad
 constexpr int kQBytes = kQRows * kChunk;            // staged q
 constexpr int kFaccBytes = 9 * kBlockLanes * 8;     // float64 sums
+
+// Dynamic shared bytes of a launch of a variant's kernel with nf_max
+// features a CTA (row-major rows of ld bytes, 16-byte aligned or not).
+static inline int launch_smem(int variant, int layout, int nf_max,
+                              long long ld, bool aligned) {
+  if (variant == kInt8) return kFaccBytes + kQBytes + nf_max * kChunk;
+  return smem_bytes(layout, nf_max, raw_bytes(layout, ld, aligned));
+}
 
 // d += A(16 x 32, s8, row) * B(32 x 8, s8, col), s32 sums
 __device__ __forceinline__ void mma16832(int (&d)[4], uint32_t a0,

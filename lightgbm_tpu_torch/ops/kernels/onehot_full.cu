@@ -14,46 +14,45 @@
 // own entry point onehot_bench_launch: that shell computes the featmajor
 // function over caller-transposed [f, N] bins, one feature block against
 // a grid of BR-row blocks -- a TPU artefact with no Hopper counterpart, so
-// the entry launches the featmajor kernels on the caller's bins as given.
+// the entry launches the main path's featmajor kernels on the caller's
+// bins and rows as given.
 //
-// Grid: (row splits, lane blocks).  A CTA owns 512 lanes and a range of
-// whole 128-row chunks; it keeps its sums in registers and adds them to the
-// zeroed float64 [6, lanes] accumulator once, with atomics.
+// Grid: (row splits, lane blocks), as many CTAs as the card holds at once.
+// A CTA owns 512 lanes and a range of whole 128-row chunks, staged through
+// cp.async buffers (onehot_common.cuh); it keeps its sums in registers and
+// adds them to the zeroed float64 [6, lanes] accumulator once, with
+// atomics.  The kernels read grad, hess and mask and split them into the
+// bf16 pair themselves.
 //
 // Bound on an H100: it must read n * f bytes of bins and 12 * n bytes of
 // gh once and write 48 * lanes bytes; the tensor cores must do
 // 2 * 8 * lanes * n flops (6 of mma's 8 N columns are used) -- at
 // n = 1M, lanes = 7168 that is 0.12 ms at 989 TFLOP/s, ten times the bytes'
-// time, so the one-hot design is bounded by operations.  This simple
-// version uses mma.sync (not wgmma) and builds every one-hot element with
-// integer or bf16 instructions, which bound it well above that.
+// time, so the one-hot design is bounded by operations.  It uses mma.sync
+// (not wgmma) and builds the one-hot fragments with integer or bf16
+// instructions, which take about half of its time and keep it well above
+// that (scripts/torch_onehot_ablation.py).
 #include "onehot_common.cuh"
 
 using namespace lgbt_oh;
 
 template <int V, int L>
-__global__ void __launch_bounds__(kThreads)
-    onehot_full_kernel(const uint8_t* __restrict__ bins, int64_t ld,
-                       int64_t n, int f, const uint16_t* __restrict__ gh,
-                       double* __restrict__ out, int lpf_log2, int lanes,
-                       int cps) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    onehot_full_kernel(Src S, int f, double* __restrict__ out, int lpf_log2,
+                       int lanes, int64_t cps, int nf_max) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* sg = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* sb = smem + kGhBytes;
   const int lb0 = blockIdx.y * kBlockLanes;
-  int fa, nf;
-  cta_features(lb0, f, lpf_log2, &fa, &nf);
-  Lanes lm;
-  init_lanes(lm, lb0, lanes, f, lpf_log2, fa);
-  zero_gh_padding(sg);
+  cta_features(lb0, f, lpf_log2, &S.fa, &S.nf);
+  const Geo geo = make_geo(lb0, lanes, f, lpf_log2, S.fa);
+  const Ids ids = make_ids(geo.jb);
   double acc[kTiles][4];
   zero_acc(acc);
-  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  const int64_t chunks = (S.n + kChunk - 1) / kChunk;
   const int64_t c0 = (int64_t)blockIdx.x * cps;
   const int64_t c1 = (c0 + cps < chunks) ? c0 + cps : chunks;
   if (c0 < c1)
-    accumulate_rows<V, L>(acc, sg, sb, lm, bins, ld, n, fa, nf, gh,
-                          c0 * kChunk, c1 * kChunk);
+    run_chunks<V, L>(S, smem, stage_bytes(L, nf_max, S.raw), c0, c1, geo,
+                     ids, acc, [](int64_t) { return true; });
   flush(out, acc, lb0, lanes);
 }
 
@@ -85,38 +84,70 @@ __global__ void __launch_bounds__(kThreads)
   flush_int8(out, facc, lb0, lanes);
 }
 
+// What one launch is given (the C entries' arguments).
+struct Args {
+  int device;
+  const void* bins;
+  long long ld, n;
+  int f;
+  const float *g, *h, *m;
+  const void* q;              // int8: [9, n]
+  const void* scales;         // int8
+  int qbr;                    // int8
+  void* out;
+  int lpf_log2, lanes, nf_max;
+  cudaStream_t stream;
+};
+
+static bool aligned16(const void* p) { return !((uintptr_t)p & 15); }
+
 template <int V, int L>
-static int launch(const void* bins, long long ld, long long n, int f,
-                  const void* gh, const void* scales, int qbr, void* out,
-                  int lpf_log2, int lanes, int cps, int grid_x, int nf_max,
-                  cudaStream_t stream) {
-  const dim3 grid(grid_x, (lanes + kBlockLanes - 1) / kBlockLanes);
-  const int smem = kGhBytes + nf_max * kChunk;
-  onehot_full_kernel<V, L><<<grid, kThreads, smem, stream>>>(
-      (const uint8_t*)bins, (int64_t)ld, (int64_t)n, f,
-      (const uint16_t*)gh, (double*)out, lpf_log2, lanes, cps);
+static int launch(const Args& a) {
+  const long long chunks = (a.n + kChunk - 1) / kChunk;
+  // 16-byte copies: the rows, and the feature-major bins' rows, must start
+  // 16-byte aligned (and the feature-major bins reach past the last chunk)
+  if (!(aligned16(a.g) && aligned16(a.h) && aligned16(a.m)))
+    return (int)cudaErrorInvalidValue;
+  if (L == kFeatMajor &&
+      (!aligned16(a.bins) || a.ld % 16 || a.ld < chunks * kChunk))
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = aligned16(a.bins);
+  const int smem = launch_smem(V, L, a.nf_max, a.ld, aligned);
+  auto kern = onehot_full_kernel<V, L>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nlb = (a.lanes + kBlockLanes - 1) / kBlockLanes;
+  int gx;
+  const long long cps =
+      split_units(chunks, nlb, resident_ctas(kern, smem, a.device), &gx);
+  const Src S{(const uint8_t*)a.bins, (int64_t)a.ld, (int64_t)a.n, a.g, a.h,
+              a.m, 0, 0, raw_bytes(L, a.ld, aligned)};
+  kern<<<dim3(gx, nlb), kThreads, smem, a.stream>>>(
+      S, a.f, (double*)a.out, a.lpf_log2, a.lanes, (int64_t)cps, a.nf_max);
   return (int)cudaGetLastError();
 }
 
 template <int L>
-static int launch_int8(const void* bins, long long ld, long long n, int f,
-                       const void* q, const void* scales, int qbr, void* out,
-                       int lpf_log2, int lanes, int cps, int grid_x,
-                       int nf_max, cudaStream_t stream) {
-  if (scales == nullptr || qbr <= 0 || qbr % kChunk != 0)
+static int launch_int8(const Args& a) {
+  if (a.scales == nullptr || a.qbr <= 0 || a.qbr % kChunk != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid_x, (lanes + kBlockLanes - 1) / kBlockLanes);
-  const int smem = kFaccBytes + kQBytes + nf_max * kChunk;
-  onehot_full_int8_kernel<L><<<grid, kThreads, smem, stream>>>(
-      (const uint8_t*)bins, (int64_t)ld, (int64_t)n, f, (const int8_t*)q,
-      (const float*)scales, qbr, (double*)out, lpf_log2, lanes, cps);
+  const int smem = launch_smem(kInt8, L, a.nf_max, a.ld, true);
+  auto kern = onehot_full_int8_kernel<L>;
+  const long long chunks = (a.n + kChunk - 1) / kChunk;
+  const int nlb = (a.lanes + kBlockLanes - 1) / kBlockLanes;
+  int gx;
+  const long long cps =
+      split_units(chunks, nlb, resident_ctas(kern, smem, a.device), &gx);
+  kern<<<dim3(gx, nlb), kThreads, smem, a.stream>>>(
+      (const uint8_t*)a.bins, (int64_t)a.ld, (int64_t)a.n, a.f,
+      (const int8_t*)a.q, (const float*)a.scales, a.qbr, (double*)a.out,
+      a.lpf_log2, a.lanes, (int)cps);
   return (int)cudaGetLastError();
 }
 
-typedef int (*LaunchFn)(const void*, long long, long long, int, const void*,
-                        const void*, int, void*, int, int, int, int, int,
-                        cudaStream_t);
+typedef int (*LaunchFn)(const Args&);
 
+// by (variant, layout)
 static const LaunchFn kLaunch[kNumVariants][2] = {
     {launch<kBase, kFeatMajor>, launch<kBase, kRowMajor>},
     {launch<kBf16Cmp, kFeatMajor>, launch<kBf16Cmp, kRowMajor>},
@@ -128,37 +159,82 @@ static const LaunchFn kLaunch[kNumVariants][2] = {
     {launch_int8<kFeatMajor>, launch_int8<kRowMajor>},
 };
 
-// bins: [f, ld] (featmajor) or [n, ld] (rowmajor) u8; gh: [6, n] bf16, or
-// for int8 q [9, n] int8 with scales [ceil(n / qbr), 9] float32 (scales
-// and qbr are not read by the other variants); out: zeroed [6, lanes]
-// float64.  cps: 128-row chunks per CTA.
+// bins: [f, ld] (featmajor: ld a multiple of 16 covering n rounded up to
+// 128) or [n, ld] (rowmajor) u8; g, h, m: [n] float32 (grad, hess, mask),
+// or for int8 q [9, n] int8 with scales [ceil(n / qbr), 9] float32 (g, h
+// and m are not read by int8, q, scales and qbr not by the other
+// variants); out: zeroed [6, lanes] float64.
 extern "C" int onehot_full_launch(int device, const void* bins,
                                   long long ld, long long n, int f,
-                                  int layout, const void* gh,
+                                  int layout, const void* g, const void* h,
+                                  const void* m, const void* q,
                                   const void* scales, int qbr, void* out,
                                   int variant, int lpf_log2, int lanes,
-                                  int nf_max, int cps, int grid_x,
-                                  void* stream) {
+                                  int nf_max, void* stream) {
   if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  return kLaunch[variant][layout](bins, ld, n, f, gh, scales, qbr, out,
-                                  lpf_log2, lanes, cps, grid_x,
-                                  nf_max > 0 ? nf_max : 1,
-                                  (cudaStream_t)stream);
+  const Args a{device, bins, ld, n, f, (const float*)g, (const float*)h,
+               (const float*)m, q, scales, qbr, out, lpf_log2, lanes,
+               nf_max > 0 ? nf_max : 1, (cudaStream_t)stream};
+  return kLaunch[variant][layout](a);
 }
 
 // The shootout shell's entry (K4): bins_t [f, n] u8 as the caller
-// transposed it, gh (or q and scales per qbr rows, n a multiple of qbr) as
-// the variant's prep made it; the featmajor kernels.
+// transposed it; rows [3, n] float32, the rows grad, hess and mask (or for
+// int8 q [9, n] int8 with its scales per qbr rows); n a multiple of 128
+// (and of qbr).  The main path's featmajor kernels.
 extern "C" int onehot_bench_launch(int device, const void* bins_t,
-                                   long long n, int f, const void* gh,
+                                   long long n, int f, const void* rows,
                                    const void* scales, int qbr, void* out,
                                    int variant, int lpf_log2, int lanes,
-                                   int nf_max, int cps, int grid_x,
-                                   void* stream) {
-  return onehot_full_launch(device, bins_t, n, n, f, kFeatMajor, gh, scales,
-                            qbr, out, variant, lpf_log2, lanes, nf_max, cps,
-                            grid_x, stream);
+                                   int nf_max, void* stream) {
+  if (variant < 0 || variant >= kNumVariants || n % kChunk)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const float* r = (const float*)rows;
+  const Args a{device, bins_t, n, n, f, r, r + n, r + 2 * n, rows, scales,
+               qbr, out, lpf_log2, lanes, nf_max > 0 ? nf_max : 1,
+               (cudaStream_t)stream};
+  return kLaunch[variant][kFeatMajor](a);
+}
+
+template <int V, int L>
+static cudaError_t attrs(cudaFuncAttributes* a) {
+  if constexpr (V == kInt8)
+    return cudaFuncGetAttributes(a, onehot_full_int8_kernel<L>);
+  else
+    return cudaFuncGetAttributes(a, onehot_full_kernel<V, L>);
+}
+
+typedef cudaError_t (*AttrFn)(cudaFuncAttributes*);
+static const AttrFn kAttrs[kNumVariants][2] = {
+    {attrs<kBase, kFeatMajor>, attrs<kBase, kRowMajor>},
+    {attrs<kBf16Cmp, kFeatMajor>, attrs<kBf16Cmp, kRowMajor>},
+    {attrs<kI16Cmp, kFeatMajor>, attrs<kI16Cmp, kRowMajor>},
+    {attrs<kU8Cmp, kFeatMajor>, attrs<kU8Cmp, kRowMajor>},
+    {attrs<kSub1Abs, kFeatMajor>, attrs<kSub1Abs, kRowMajor>},
+    {attrs<kStaged, kFeatMajor>, attrs<kStaged, kRowMajor>},
+    {attrs<kPacked, kFeatMajor>, attrs<kPacked, kRowMajor>},
+    {attrs<kInt8, kFeatMajor>, attrs<kInt8, kRowMajor>},
+};
+
+// The kernel of (variant, layout): out[0] registers a thread, out[1]
+// static shared bytes, out[2] the dynamic shared bytes of a launch with
+// nf_max features a CTA (rowmajor: rows of ld bytes, 16-byte aligned),
+// out[3] local (spill) bytes a thread.
+extern "C" int onehot_full_query(int variant, int layout, int nf_max,
+                                 long long ld, int* out) {
+  if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = kAttrs[variant][layout](&a);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = launch_smem(variant, layout, nf_max > 0 ? nf_max : 1, ld, true);
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }

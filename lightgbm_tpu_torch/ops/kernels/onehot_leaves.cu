@@ -5,8 +5,11 @@
 // Replaces lightgbm_tpu/ops/histogram.py::_hist_leaves_pallas, which keeps
 // the whole [k, 6, lanes] accumulator resident and adds each BR-row
 // block's one-hot product into slot block_leaf[blk] through a `where`.
-// Here each CTA owns 512 lanes and a run of `bpc` consecutive BR-row
-// blocks, keeps its sums in registers, and adds them to slot
+// Here each CTA owns 512 lanes and a run of consecutive 128-row chunks
+// (as many CTAs as the card holds at once), which it walks through
+// cp.async buffers (onehot_common.cuh: the rows are staged as they lie and
+// transposed in shared memory, and grad, hess and mask split into the bf16
+// pair there), keeps its sums in registers, and adds them to slot
 // block_leaf[blk] of the zeroed float64 accumulator (atomics) whenever the
 // slot changes, then starts again from zero.  block_leaf need not be
 // sorted; a block whose slot is outside [0, k) is skipped; a slot that no
@@ -27,41 +30,46 @@
 using namespace lgbt_oh;
 
 template <int V>
-__global__ void __launch_bounds__(kThreads)
-    onehot_leaves_kernel(const uint8_t* __restrict__ comb, int64_t ld,
-                         int64_t c, int f, const uint16_t* __restrict__ gh,
-                         const int32_t* __restrict__ block_leaf, int br,
-                         int k, double* __restrict__ out, int lpf_log2,
-                         int lanes, int bpc) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    onehot_leaves_kernel(Src S, int f, const int32_t* __restrict__ block_leaf,
+                         int br, int k, double* __restrict__ out,
+                         int lpf_log2, int lanes, int64_t cpc, int nf_max) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* sg = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* sb = smem + kGhBytes;
   const int lb0 = blockIdx.y * kBlockLanes;
-  int fa, nf;
-  cta_features(lb0, f, lpf_log2, &fa, &nf);
-  Lanes lm;
-  init_lanes(lm, lb0, lanes, f, lpf_log2, fa);
-  zero_gh_padding(sg);
+  cta_features(lb0, f, lpf_log2, &S.fa, &S.nf);
+  const Geo geo = make_geo(lb0, lanes, f, lpf_log2, S.fa);
+  const Ids ids = make_ids(geo.jb);
   double acc[kTiles][4];
   zero_acc(acc);
-  const int64_t nb = c / br;
-  const int64_t b0 = (int64_t)blockIdx.x * bpc;
-  const int64_t b1 = (b0 + bpc < nb) ? b0 + bpc : nb;
+  const int64_t chunks = S.n / kChunk;
+  const int64_t c0 = (int64_t)blockIdx.x * cpc;
+  const int64_t c1 = (c0 + cpc < chunks) ? c0 + cpc : chunks;
+  const int cpb = br / kChunk;                  // chunks a block
   const int64_t slot_size = (int64_t)6 * lanes;
   int cur = -1;
-  for (int64_t blk = b0; blk < b1; ++blk) {
-    const int slot = block_leaf[blk];
-    if (slot < 0 || slot >= k) continue;
-    if (slot != cur) {
-      if (cur >= 0) {
-        flush(out + cur * slot_size, acc, lb0, lanes);
-        zero_acc(acc);
-      }
-      cur = slot;
-    }
-    accumulate_rows<V, kRowMajor>(acc, sg, sb, lm, comb, ld, c, fa, nf,
-                                  gh, blk * br, blk * br + br);
-  }
+  // the block of the next chunk, and that chunk's place in it (chunks
+  // come in order, one call each)
+  int64_t blk = c0 / cpb;
+  int sub = (int)(c0 - blk * cpb);
+  if (c0 < c1)
+    run_chunks<V, kRowMajor>(
+        S, smem, stage_bytes(kRowMajor, nf_max, S.raw), c0, c1, geo, ids,
+        acc, [&](int64_t) {
+          const int slot = block_leaf[blk];
+          if (++sub == cpb) {
+            sub = 0;
+            ++blk;
+          }
+          if (slot < 0 || slot >= k) return false;
+          if (slot != cur) {
+            if (cur >= 0) {
+              flush(out + cur * slot_size, acc, lb0, lanes);
+              zero_acc(acc);
+            }
+            cur = slot;
+          }
+          return true;
+        });
   if (cur >= 0) flush(out + cur * slot_size, acc, lb0, lanes);
 }
 
@@ -103,63 +111,115 @@ __global__ void __launch_bounds__(kThreads)
   if (cur >= 0) flush_int8(out + cur * slot_size, facc, lb0, lanes);
 }
 
+static bool aligned16(const void* p) { return !((uintptr_t)p & 15); }
+
 template <int V>
 static int launch(const void* comb, long long ld, long long c, int f,
-                  const void* gh, const void* scales, const void* block_leaf,
-                  int br, int k, void* out, int lpf_log2, int lanes, int bpc,
-                  int nf_max, cudaStream_t stream) {
-  const long long nb = c / br;
-  const dim3 grid((unsigned)((nb + bpc - 1) / bpc),
-                  (lanes + kBlockLanes - 1) / kBlockLanes);
-  const int smem = kGhBytes + nf_max * kChunk;
-  onehot_leaves_kernel<V><<<grid, kThreads, smem, stream>>>(
-      (const uint8_t*)comb, (int64_t)ld, (int64_t)c, f, (const uint16_t*)gh,
-      (const int32_t*)block_leaf, br, k, (double*)out, lpf_log2, lanes, bpc);
+                  const float* g, const float* h, const float* m,
+                  const void*, const void*, const void* block_leaf, int br,
+                  int k, void* out, int lpf_log2, int lanes, int nf_max,
+                  int device, cudaStream_t stream) {
+  if (!(aligned16(g) && aligned16(h) && aligned16(m)))
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = aligned16(comb);
+  const int smem = launch_smem(V, kRowMajor, nf_max, ld, aligned);
+  auto kern = onehot_leaves_kernel<V>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nlb = (lanes + kBlockLanes - 1) / kBlockLanes;
+  int gx;
+  const long long cpc = split_units(c / kChunk, nlb,
+                                    resident_ctas(kern, smem, device), &gx);
+  const Src S{(const uint8_t*)comb, (int64_t)ld, (int64_t)c, g, h, m, 0, 0,
+              raw_bytes(kRowMajor, ld, aligned)};
+  kern<<<dim3(gx, nlb), kThreads, smem, stream>>>(
+      S, f, (const int32_t*)block_leaf, br, k, (double*)out, lpf_log2, lanes,
+      (int64_t)cpc, nf_max);
   return (int)cudaGetLastError();
 }
 
 static int launch_int8(const void* comb, long long ld, long long c, int f,
+                       const float*, const float*, const float*,
                        const void* q, const void* scales,
                        const void* block_leaf, int br, int k, void* out,
-                       int lpf_log2, int lanes, int bpc, int nf_max,
+                       int lpf_log2, int lanes, int nf_max, int device,
                        cudaStream_t stream) {
   if (scales == nullptr) return (int)cudaErrorInvalidValue;
-  const long long nb = c / br;
-  const dim3 grid((unsigned)((nb + bpc - 1) / bpc),
-                  (lanes + kBlockLanes - 1) / kBlockLanes);
-  const int smem = kFaccBytes + kQBytes + nf_max * kChunk;
-  onehot_leaves_int8_kernel<<<grid, kThreads, smem, stream>>>(
+  const int smem = launch_smem(kInt8, kRowMajor, nf_max, ld, true);
+  const int nlb = (lanes + kBlockLanes - 1) / kBlockLanes;
+  int gx;
+  const long long bpc =
+      split_units(c / br, nlb,
+                  resident_ctas(onehot_leaves_int8_kernel, smem, device), &gx);
+  onehot_leaves_int8_kernel<<<dim3(gx, nlb), kThreads, smem, stream>>>(
       (const uint8_t*)comb, (int64_t)ld, (int64_t)c, f, (const int8_t*)q,
       (const float*)scales, (const int32_t*)block_leaf, br, k, (double*)out,
-      lpf_log2, lanes, bpc);
+      lpf_log2, lanes, (int)bpc);
   return (int)cudaGetLastError();
 }
 
-typedef int (*LaunchFn)(const void*, long long, long long, int, const void*,
-                        const void*, const void*, int, int, void*, int, int,
-                        int, int, cudaStream_t);
+typedef int (*LaunchFn)(const void*, long long, long long, int, const float*,
+                        const float*, const float*, const void*, const void*,
+                        const void*, int, int, void*, int, int, int, int,
+                        cudaStream_t);
 
 static const LaunchFn kLaunch[kNumVariants] = {
     launch<kBase>, launch<kBf16Cmp>, launch<kI16Cmp>, launch<kU8Cmp>,
     launch<kSub1Abs>, launch<kStaged>, launch<kPacked>, launch_int8,
 };
 
-// comb: [C, ld] u8, row-major; gh: [6, C] bf16, or for int8 q [9, C] int8
-// with scales [C / br, 9] float32 (not read by the other variants);
-// block_leaf: [C / br] i32; out: zeroed [k, 6, lanes] float64.  br must be
-// a multiple of 128; bpc: blocks per CTA.
+// comb: [C, ld] u8, row-major; g, h, m: [C] float32 (grad, hess, mask), or
+// for int8 q [9, C] int8 with scales [C / br, 9] float32 (g, h and m are
+// not read by int8, q and scales not by the other variants); block_leaf:
+// [C / br] i32; out: zeroed [k, 6, lanes] float64.  br must be a multiple
+// of 128.
 extern "C" int onehot_leaves_launch(int device, const void* comb,
                                     long long ld, long long c, int f,
-                                    const void* gh, const void* scales,
+                                    const void* g, const void* h,
+                                    const void* m, const void* q,
+                                    const void* scales,
                                     const void* block_leaf, int br, int k,
                                     void* out, int variant, int lpf_log2,
-                                    int lanes, int nf_max, int bpc,
-                                    void* stream) {
+                                    int lanes, int nf_max, void* stream) {
   if (variant < 0 || variant >= kNumVariants || br <= 0 || br % kChunk != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  return kLaunch[variant](comb, ld, c, f, gh, scales, block_leaf, br, k, out,
-                          lpf_log2, lanes, bpc, nf_max > 0 ? nf_max : 1,
+  return kLaunch[variant](comb, ld, c, f, (const float*)g, (const float*)h,
+                          (const float*)m, q, scales, block_leaf, br, k, out,
+                          lpf_log2, lanes, nf_max > 0 ? nf_max : 1, device,
                           (cudaStream_t)stream);
+}
+
+template <int V>
+static cudaError_t attrs(cudaFuncAttributes* a) {
+  if constexpr (V == kInt8)
+    return cudaFuncGetAttributes(a, onehot_leaves_int8_kernel);
+  else
+    return cudaFuncGetAttributes(a, onehot_leaves_kernel<V>);
+}
+
+typedef cudaError_t (*AttrFn)(cudaFuncAttributes*);
+static const AttrFn kAttrs[kNumVariants] = {
+    attrs<kBase>,    attrs<kBf16Cmp>, attrs<kI16Cmp>, attrs<kU8Cmp>,
+    attrs<kSub1Abs>, attrs<kStaged>,  attrs<kPacked>, attrs<kInt8>,
+};
+
+// The kernel of a variant: out[0] registers a thread, out[1] static shared
+// bytes, out[2] the dynamic shared bytes of a launch with nf_max features
+// a CTA over rows of ld bytes, 16-byte aligned, out[3] local (spill) bytes
+// a thread.
+extern "C" int onehot_leaves_query(int variant, int nf_max, long long ld,
+                                   int* out) {
+  if (variant < 0 || variant >= kNumVariants)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = kAttrs[variant](&a);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = launch_smem(variant, kRowMajor, nf_max > 0 ? nf_max : 1, ld,
+                       true);
+  out[3] = (int)a.localSizeBytes;
+  return 0;
 }

@@ -58,9 +58,11 @@ class VariantSpec(NamedTuple):
     group_lanes/group_feats: output-lane geometry; ``group_feats`` features
         share one ``group_lanes``-wide lane group (1 per ``Bp`` lanes for the
         unpacked variants, ``k`` per 128 lanes for lane packing).
-    prep(grad, hess, mask) -> the rows the kernel multiplies: ``[6, N]``
-        bf16 (``split_bf16_pair``) or, for int8, ``[3, N]`` float32
-        (``prep_f32``), quantized per block of rows by the kernel's shell.
+    prep(grad, hess, mask) -> the ``[3, N]`` float32 rows the shootout
+        shell's kernel reads: ``grad, hess, mask`` as given
+        (``stack_rows``; the bf16-pair kernels split them into the pair
+        themselves) or, for int8, ``(g·m, h·m, m)`` (``prep_f32``),
+        quantized per block of rows by the kernel's shell.
     supports(B): static eligibility for a kernel bin width.
     kernel_id: the body's number in ``kernels/onehot_common.cuh``.
     """
@@ -86,6 +88,14 @@ def split_bf16_pair(grad: torch.Tensor, hess: torch.Tensor,
     return torch.cat([hi, lo]).contiguous()
 
 
+def stack_rows(grad: torch.Tensor, hess: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """``[3, N]`` float32 rows ``grad, hess, mask`` as given: what the
+    bf16-pair kernels read, splitting ``(g·m, h·m, m)`` into the bf16 pair
+    (``split_bf16_pair``) as each chunk lands in shared memory."""
+    return torch.stack([grad, hess, mask]).float().contiguous()
+
+
 def prep_f32(grad: torch.Tensor, hess: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
     """``[3, N]`` float32 channel rows ``(g·m, h·m, m)``: the int8
@@ -104,26 +114,26 @@ def _one(B, Bp):
 
 VARIANTS = {
     "base": VariantSpec(
-        "base", "int32 compare -> bf16 one-hot", split_bf16_pair,
+        "base", "int32 compare -> bf16 one-hot", stack_rows,
         _geom_plain, _one, lambda B: True, 0),
     "bf16cmp": VariantSpec(
-        "bf16cmp", "bf16 bins == bf16 lane id", split_bf16_pair,
+        "bf16cmp", "bf16 bins == bf16 lane id", stack_rows,
         _geom_plain, _one, lambda B: B <= 256, 1),
     "i16cmp": VariantSpec(
-        "i16cmp", "int16 compare", split_bf16_pair,
+        "i16cmp", "int16 compare", stack_rows,
         _geom_plain, _one, lambda B: B <= 32768, 2),
     "u8cmp": VariantSpec(
-        "u8cmp", "uint8 compare", split_bf16_pair,
+        "u8cmp", "uint8 compare", stack_rows,
         _geom_plain, _one, lambda B: B <= 256, 3),
     "sub1abs": VariantSpec(
         "sub1abs", "onehot = max(0, 1 - |b - j|) in bf16 (no compare)",
-        split_bf16_pair, _geom_plain, _one, lambda B: B <= 256, 4),
+        stack_rows, _geom_plain, _one, lambda B: B <= 256, 4),
     "staged": VariantSpec(
         "staged", "hi-digit one-hot * lo-digit one-hot (digit width 16)",
-        split_bf16_pair, _geom_plain, _one, lambda B: True, 5),
+        stack_rows, _geom_plain, _one, lambda B: True, 5),
     "packed": VariantSpec(
         "packed", "k=128//B features per 128-lane group (B <= 64, B | 128)",
-        split_bf16_pair, lambda B, Bp: 128, lambda B, Bp: 128 // B,
+        stack_rows, lambda B, Bp: 128, lambda B, Bp: 128 // B,
         lambda B: pack_k(B) >= 2, 6),
     "int8": VariantSpec(
         "int8", "int8 one-hot, per-block 3-level quantized gh, int32 sums",

@@ -230,6 +230,119 @@ def test_onehot_leaves_matches_plain(dev, variant, B):
     assert torch.equal(got[nan_slot][..., 1:], again[nan_slot][..., 1:])
 
 
+# the edges of the bf16-pair kernels' design (onehot_common.cuh): every
+# bf16 body at a Bp = 256 width with bins >= B, a Bp = 128 width with bins
+# >= Bp, and packed at B = 64, 16 (a tile in one feature) and 8 (a tile
+# spanning two)
+EDGE_CASES = [(v, B) for v in ov.VARIANT_NAMES if v != "int8"
+              for B in ((64, 16, 8) if v == "packed" else (255, 100))]
+
+
+def _edge_bins(rng, case, n, ncols):
+    if case == "one_bin":                       # all rows in one bin
+        return np.full((n, ncols), 7, np.uint8)
+    if case == "one_hi_digit":                  # bins 32..47 only
+        return rng.integers(32, 48, (n, ncols)).astype(np.uint8)
+    return rng.integers(0, 256, (n, ncols)).astype(np.uint8)
+
+
+# (case, n, f, ncols): fewer rows than one 128-row chunk; a ragged last
+# chunk with f * lanes not a multiple of a CTA's 512 lanes; one bin; one
+# hi digit; rows wider than the kernels stage as they lie; more features
+# a CTA than a chunk has 16-byte pieces a thread (packed at B = 16 and 8:
+# 32 and 40 features, 8 pieces each)
+FULL_EDGES = [("tiny", 100, 3, 5), ("ragged", 1037, 5, 7),
+              ("one_bin", 700, 5, 5), ("one_hi_digit", 515, 5, 6),
+              ("wide", 400, 5, 300), ("many_features", 1037, 40, 44)]
+
+
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+@pytest.mark.parametrize("case,n,f,ncols", FULL_EDGES)
+@pytest.mark.parametrize("variant,B", EDGE_CASES)
+def test_onehot_full_edges_match_plain(dev, variant, B, case, n, f, ncols,
+                                       layout):
+    rng = np.random.default_rng(n + B)
+    bins = torch.as_tensor(_edge_bins(rng, case, n, ncols)).to(dev)
+    g, h, m = _rows(rng, n, dev)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, f_limit=f,
+                                    method="onehot", variant=variant,
+                                    layout=layout)
+    got = thist.build_histogram(bins, g, h, m, B, f_limit=f, method="onehot",
+                                variant=variant, layout=layout)
+    again = thist.build_histogram(bins, g, h, m, B, f_limit=f,
+                                  method="onehot", variant=variant,
+                                  layout=layout)
+    torch.cuda.synchronize()
+    assert got.shape == (f, B, 3)
+    assert relerr(got, ref) <= TOL
+    assert torch.equal(got, again)
+
+
+# (case, f, nc): a row width that is not a multiple of 16; a block with a
+# NaN gradient; rows wider than the kernels stage as they lie; a matrix
+# that does not start 16-byte aligned; more features a CTA than the
+# transpose has words a thread (packed at B = 16 and 8)
+LEAVES_EDGES = [("ld19", 11, 19), ("nan_block", 11, 19), ("wide", 7, 300),
+                ("unaligned", 11, 19), ("many_features", 40, 44)]
+
+
+@pytest.mark.parametrize("case,f,nc", LEAVES_EDGES)
+@pytest.mark.parametrize("variant,B", EDGE_CASES)
+def test_onehot_leaves_edges_match_plain(dev, variant, B, case, f, nc):
+    rng = np.random.default_rng(nc + B)
+    k, BR = 5, 256
+    block_leaf = np.array([3, 0, 3, 1, 4, 0, 2], np.int32)
+    C = block_leaf.size * BR
+    raw = rng.integers(0, 256, (C + 1, nc)).astype(np.uint8)
+    comb = torch.as_tensor(raw).to(dev)
+    comb = comb[1:] if case == "unaligned" else comb[:C]
+    assert comb.is_contiguous()
+    g, h, m = _rows(rng, C, dev)
+    nan_slot = None
+    if case == "nan_block":
+        g[4 * BR + 9] = float("nan")
+        nan_slot = int(block_leaf[4])
+    bl = torch.as_tensor(block_leaf).to(dev)
+    kw = dict(block_rows=BR, f_limit=f, method="onehot", variant=variant)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (k, f, B, 3)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    if nan_slot is not None:
+        assert bool(torch.isnan(got[nan_slot][..., 0]).all())
+        others = [s for s in range(k) if s != nan_slot]
+        assert bool(torch.isfinite(got[others]).all())
+    fin = torch.isfinite(ref)
+    assert relerr(got[fin], ref[fin]) <= TOL
+    assert torch.equal(got[fin], again[fin])
+
+
+def test_onehot_kernel_attributes(dev):
+    """The attribute query reports each body's kernel: registers, and the
+    dynamic shared memory of a launch at the width asked for -- more for
+    more features a CTA, more for wider row-major rows, the same whether
+    or not a launch came first."""
+    for v in ("base", "staged", "packed", "int8"):
+        for kernel, layout in (("onehot_full", "featmajor"),
+                               ("onehot_full", "rowmajor"),
+                               ("onehot_leaves", "rowmajor")):
+            a = thist.onehot_kernel_attributes(kernel, v, 28, 64, layout,
+                                               ld=40)
+            assert 0 < a["registers"] <= 255
+            assert a["dynamic_smem_bytes"] > 0
+            one = thist.onehot_kernel_attributes(kernel, v, 1, 64, layout)
+            assert one["dynamic_smem_bytes"] < a["dynamic_smem_bytes"]
+    wide = thist.onehot_kernel_attributes("onehot_leaves", "base", 28, 64,
+                                          ld=200)
+    narrow = thist.onehot_kernel_attributes("onehot_leaves", "base", 28, 64,
+                                            ld=40)
+    assert wide["dynamic_smem_bytes"] > narrow["dynamic_smem_bytes"]
+
+
 def test_onehot_wrappers_check_their_inputs(dev):
     bins = torch.zeros(1024, 4, dtype=torch.uint8, device=dev)
     z = torch.zeros(1024, device=dev)

@@ -19,7 +19,12 @@ The Pallas kernels and the JAX trainer that reaches them run in clean
 subprocesses (the conftest strips the backends Pallas registers its
 lowerings with); the trainer sees ``jax.default_backend() == "tpu"`` while
 its booster is built, so that ``force_row_wise`` picks the Pallas kernels,
-which then run in interpret mode on the CPU.  The card's kernels:
+which then run in interpret mode on the CPU.  Likewise the port's
+trainer sees its own probe, ``models.gbdt.kernel_backend``, say ``cuda``,
+so that ``force_row_wise`` picks the one-hot path, whose plain versions
+then run on the CPU.  Unpatched, both packages follow their CPU dispatch
+under ``force_row_wise`` (exact sums, ``hist_variant`` ignored), and they
+are held to each other that way too.  The card's kernels:
 ``tests/test_torch_kernels_cuda.py``.
 """
 import json
@@ -37,6 +42,7 @@ import torch
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu.ops import histogram as jhist
 from lightgbm_tpu.ops import onehot_variants as jov
+from lightgbm_tpu_torch.models import gbdt as tgbdt
 from lightgbm_tpu_torch.ops import _build
 from lightgbm_tpu_torch.ops import histogram as thist
 from lightgbm_tpu_torch.ops import onehot_variants as tov
@@ -280,8 +286,16 @@ def _trees(text):
     return out
 
 
+@pytest.fixture
+def card_dispatch(monkeypatch):
+    """The port's trainer dispatches as on the card (one-hot kernels under
+    force_row_wise), as JAX's sees a TPU in ``_E2E_SCRIPT``."""
+    monkeypatch.setattr(tgbdt, "kernel_backend", lambda device: "cuda")
+
+
 @pytest.mark.parametrize("variant,max_bin", E2E)
-def test_train_force_row_wise_matches_jax(jax_e2e, variant, max_bin):
+def test_train_force_row_wise_matches_jax(jax_e2e, card_dispatch, variant,
+                                          max_bin):
     X, y, Xv = _e2e_data()
     p = {"objective": "binary", "num_leaves": 15, "verbose": -1,
          "max_bin": max_bin, "force_row_wise": True, "hist_variant": variant}
@@ -309,7 +323,8 @@ def _cfg(**params):
 
 
 @pytest.mark.parametrize("variant", [*tov.VARIANT_NAMES, "auto"])
-def test_force_row_wise_refuses_unported_variants(variant, monkeypatch):
+def test_force_row_wise_refuses_unported_variants(variant, monkeypatch,
+                                                  card_dispatch):
     """No hist_variant is refused under force_row_wise any more (the port
     once refused auto, the election, and int8): each trains through the
     one-hot path.  auto resolves to base on the CPU without timing
@@ -325,6 +340,43 @@ def test_force_row_wise_refuses_unported_variants(variant, monkeypatch):
         tov.resolve("nope", 64)
 
 
+@pytest.mark.parametrize("variant,max_bin", [("auto", 255),
+                                             ("staged", 255),
+                                             ("packed", 63), ("int8", 63)])
+def test_cpu_force_row_wise_matches_jax_cpu(variant, max_bin, monkeypatch):
+    """Both packages on the CPU, neither backend probe patched: under
+    force_row_wise the JAX package builds exact float32 histograms (its XLA
+    one-hot root and scatter leaves) and ignores hist_variant, and so does
+    the port (its plain atomic sums, exact in float64, rounded once),
+    without an election.  Same trees; leaf values to 1e-5 and predictions
+    to 5e-6, the summation-order tolerance of the default path
+    (tests/test_torch_train.py)."""
+    import lightgbm_tpu as lgb
+
+    def no_timing(*a, **k):
+        raise AssertionError("the election timed a candidate on the CPU")
+    monkeypatch.setattr(tov, "_run_auto_bench", no_timing)
+    X, y, Xv = _e2e_data()
+    p = {"objective": "binary", "num_leaves": 15, "verbose": -1,
+         "max_bin": max_bin, "force_row_wise": True, "hist_variant": variant}
+    assert jax.default_backend() == "cpu"
+    bj = lgb.train(p, lgb.Dataset(X, label=y, params=p), E2E_ITERS,
+                   verbose_eval=False)
+    assert (bj._gbdt._grower_cfg.hist_method,
+            bj._gbdt._grower_cfg.hist_variant) == ("onehot", "base")
+    bt = lgt.train(p, lgt.Dataset(X, label=y), E2E_ITERS, verbose_eval=False,
+                   device="cpu")
+    cfg = bt._gbdt._grower_cfg
+    assert (cfg.hist_method, cfg.hist_variant) == ("atomic", "base")
+    tj, tt = _trees(bj.model_to_string()), _trees(bt.model_to_string())
+    assert len(tt) == len(tj) == E2E_ITERS
+    for (sj, lj), (st, lt) in zip(tj, tt):
+        assert st == sj
+        np.testing.assert_allclose(lt, lj, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(bt.predict(Xv), bj.predict(Xv), rtol=0,
+                               atol=5e-6)
+
+
 @pytest.mark.parametrize("params", [{}, {"force_col_wise": True},
                                     {"force_col_wise": True,
                                      "hist_variant": "int8"}])
@@ -334,7 +386,7 @@ def test_col_wise_and_default_take_the_atomic_kernels(params):
     assert (cfg.hist_method, cfg.hist_variant) == ("atomic", "base")
 
 
-def test_unsupported_width_resolves_to_base_with_a_warning():
+def test_unsupported_width_resolves_to_base_with_a_warning(card_dispatch):
     seen = []
     tlog.register_log_callback(seen.append)
     try:
