@@ -21,10 +21,12 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    ``force_row_wise``; ``rowmajor``, which no entry point reaches) and
    ``onehot_leaves``, a NaN gradient in one leaf block making the same
    NaNs as the plain version.  Each one-hot row also gives its ratio to
-   ``index_add_``, its kernel's registers a thread and static and dynamic
-   shared bytes (``cudaFuncGetAttributes``), and ``kernel_ms``, the
-   kernel's own device time (torch.profiler), beside ``ms``, the time of
-   the whole call;
+   ``index_add_``, its kernel's registers a thread, spilled bytes, static
+   and dynamic shared bytes (``cudaFuncGetAttributes``) and CTAs an SM
+   (the occupancy calculator), and ``kernel_ms``, the kernel's own device
+   time (torch.profiler), beside ``ms``, the time of the whole call; the
+   int8 rows' times, registers and spills are also printed and gathered
+   under ``int8``;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
    the leaves' 262,144 rows per 512 with a NaN block);
@@ -438,8 +440,17 @@ def phase_kernels_onehot(card):
             hist.onehot_kernel_attributes("onehot_leaves", v, fl, B,
                                           ld=LEAVES_SHAPE["NC"]),
             lambda: leaves(B, variant=v), _kernel_name("onehot_leaves", v))
+    # the int8 kernels' times beside their registers, spills and CTAs an SM
+    int8 = {name: {k: r[k] for k in ("kernel_ms", "ms", "registers",
+                                     "local_bytes", "ctas_per_sm")}
+            for name, r in rows.items() if r["variant"] == "int8"}
+    for name, r in int8.items():
+        print(f"{name}: kernel {r['kernel_ms']:.4f} ms, call "
+              f"{r['ms']:.4f} ms, {r['registers']} registers, "
+              f"{r['local_bytes']} spilled bytes, {r['ctas_per_sm']} CTAs "
+              "an SM", flush=True)
     emit({"phase": "kernels_onehot", "card": card, "tolerance": REL_TOL,
-          "rows": rows})
+          "int8": int8, "rows": rows})
     return rows
 
 

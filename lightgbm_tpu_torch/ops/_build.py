@@ -5,7 +5,7 @@ library with a plain C interface (``<name>_launch``, and for
 ``onehot_full`` also the shootout shell's ``onehot_bench_launch``), loaded
 with ``ctypes``.  The one-hot libraries also export an attribute query
 (``onehot_full_query``, ``onehot_leaves_query``: registers, static and
-dynamic shared memory, spills of a body's kernel).
+dynamic shared memory, spills and CTAs an SM of a body's kernel).
 Libraries are cached in ``ops/_build/`` under a name keyed on a hash of the
 sources and flags, so an edit to a kernel rebuilds it and an unchanged
 kernel is built once per checkout.  ``build()`` starts one ``nvcc`` per
@@ -69,7 +69,7 @@ _ARGTYPES = {
         "onehot_bench_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _VOID_P,
                                 _INT, _VOID_P, _INT, _INT, _INT, _INT,
                                 _VOID_P],
-        # variant, layout, nf_max, ld, out[4]
+        # variant, layout, nf_max, ld, out[5]
         "onehot_full_query": [_INT, _INT, _INT, _LL, _INT_P]},
     "onehot_leaves": {
         # device, comb, ld, c, f, g, h, m, q, scales, block_leaf, br, k,
@@ -78,12 +78,12 @@ _ARGTYPES = {
                                  _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
                                  _INT, _INT, _VOID_P, _INT, _INT, _INT, _INT,
                                  _VOID_P],
-        # variant, nf_max, ld, out[4]
+        # variant, nf_max, ld, out[5]
         "onehot_leaves_query": [_INT, _INT, _LL, _INT_P]},
     "onehot_quant": {
-        # device, rows, n, br, q, s, stream
-        "onehot_quant_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _VOID_P,
-                                _VOID_P]},
+        # device, rows, n, br, q, ldq, s, stream
+        "onehot_quant_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _LL,
+                                _VOID_P, _VOID_P]},
 }
 
 # loaded libraries, one per kernel for the life of the process

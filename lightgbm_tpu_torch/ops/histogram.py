@@ -496,7 +496,10 @@ _QUANT_MAX_ROWS = 16384
 def quantize_int8_blocks(rows, block_rows):
     """``(q [9, N] int8, s [nblocks, 9] float32)`` of ``rows [3, N]``
     float32 by the ``onehot_quant`` CUDA kernel, one block per CTA;
-    bit-identical to ``onehot_variants.quantize_int8_blocks_plain``."""
+    bit-identical to ``onehot_variants.quantize_int8_blocks_plain``.  ``q``
+    is a view of a ``[9, ldq]`` buffer, ``ldq`` = ``N`` rounded up to 128,
+    whose columns past ``N`` the kernel sets to zero: the int8 one-hot
+    kernels read it in whole 128-row chunks."""
     dev = rows.device
     _check(dev.type == "cuda", "onehot_quant: tensors must be on a CUDA "
            "device")
@@ -508,24 +511,25 @@ def quantize_int8_blocks(rows, block_rows):
            f"{_OH_CHUNK} and at most {_QUANT_MAX_ROWS}")
     n = rows.shape[1]
     nb = -(-n // block_rows)
-    q = torch.empty(9, n, dtype=torch.int8, device=dev)
+    ldq = -(-n // _OH_CHUNK) * _OH_CHUNK
+    q = torch.empty(9, ldq, dtype=torch.int8, device=dev)
     s = torch.empty(nb, 9, dtype=torch.float32, device=dev)
     if n > 0:
         lib = _build.load("onehot_quant")
         rc = lib.onehot_quant_launch(
-            dev.index, rows.data_ptr(), n, block_rows, q.data_ptr(),
+            dev.index, rows.data_ptr(), n, block_rows, q.data_ptr(), ldq,
             s.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, "onehot_quant", rc)
         launch_counts["onehot_quant"] += 1
-    return q, s
+    return q[:, :n], s
 
 
 def _operands(spec, grad, hess, mask, qbr):
     """What the kernel reads besides the bins, as ``(g, h, m, q, scales)``:
     the bf16-pair kernels split ``grad``, ``hess`` and ``mask`` into the
     pair themselves (16-byte aligned: a misaligned view is copied), int8
-    reads the quantize kernel's ``q [9, N]`` and its scales per ``qbr``
-    rows."""
+    reads the quantize kernel's ``q [9, N]`` (rows padded to a multiple of
+    128 with zeros) and its scales per ``qbr`` rows."""
     if spec.name == "int8":
         q, s = quantize_int8_blocks(ov.prep_f32(grad, hess, mask), qbr)
         return None, None, None, q, s
@@ -669,13 +673,14 @@ def onehot_kernel_attributes(kernel: str, variant: str, f: int, max_bin: int,
     of the ``onehot_full`` (per ``layout``) or ``onehot_leaves`` kernel of
     ``variant``, from ``cudaFuncGetAttributes``, and the dynamic shared
     bytes of its launch over ``f`` features at ``max_bin`` (row-major rows
-    of ``ld`` bytes, ``f`` by default, 16-byte aligned); builds the kernel
-    first if needed."""
+    of ``ld`` bytes, ``f`` by default, 16-byte aligned) and the CTAs an SM
+    then holds (the occupancy calculator's count, which sizes the grid);
+    builds the kernel first if needed."""
     import ctypes
     spec = _onehot_spec(variant, max_bin, layout)
     nf_max = _onehot_geometry(spec, f, max_bin)[3]
     ld = f if ld is None else ld
-    buf = (ctypes.c_int * 4)()
+    buf = (ctypes.c_int * 5)()
     lib = _build.load(kernel)
     if kernel == "onehot_full":
         rc = lib.onehot_full_query(spec.kernel_id, LAYOUTS.index(layout),
@@ -686,4 +691,4 @@ def onehot_kernel_attributes(kernel: str, variant: str, f: int, max_bin: int,
         rc = lib.onehot_leaves_query(spec.kernel_id, nf_max, ld, buf)
     _raise_on(lib, f"{kernel} query", rc)
     return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
-                     "local_bytes"), buf))
+                     "local_bytes", "ctas_per_sm"), buf))

@@ -80,6 +80,13 @@
 // version does.  A non-finite gh value reaches every lane of
 // its channel (0 * NaN is NaN in the tensor cores), as in the Pallas
 // kernels.
+//
+// The int8 body (the last part of this file, with its own design notes)
+// takes the same grid, lane map and bin staging with q in place of gh:
+// mma.sync.m16n8k32 on a u8 one-hot built as `staged` builds it, one
+// 64-bit bin load and one 64-bit q load a thread per 32-row step shared
+// by the 8 tiles, int32 sums kept across a quantization block and folded
+// into float64 shared memory once a block.
 #pragma once
 
 #include <cstdint>
@@ -592,10 +599,11 @@ __host__ __device__ __forceinline__ int smem_bytes(int layout, int nf_max,
 }
 
 // One thread's share of a chunk's copies, fixed for the kernel: its
-// 16-byte piece of the float rows (4 rows of grad, hess or mask), and its
-// first piece of the feature-major bins (16 rows of one feature); the
-// chunk adds its row offset.  A thread without a piece holds a null
-// source.
+// 16-byte piece of the rows (bf16 shells: 4 rows of grad, hess or mask;
+// int8: 16 rows of one q row), and its first piece of the feature-major
+// bins (16 rows of one feature), at an offset in the bins' part of the
+// stage buffer; the chunk adds its row offset.  A thread without a piece
+// holds a null source.
 struct Copies {
   const void* rsrc;   // rows: source at chunk 0
   int rdst;           // rows: byte offset in the stage buffer
@@ -603,6 +611,15 @@ struct Copies {
   const uint8_t* bsrc;
   int bdst;
 };
+
+__device__ __forceinline__ void bin_copies(const Src& S, int L, Copies& K) {
+  const int i = threadIdx.x;
+  if (L == kFeatMajor && i < S.nf * (kChunk / 16)) {
+    const int fl = i >> 3, q = i & 7;
+    K.bsrc = S.bins + (int64_t)(S.fa + fl) * S.ld + 16 * q;
+    K.bdst = fl * kChunk + 16 * q;
+  }
+}
 
 __device__ __forceinline__ Copies make_copies(const Src& S, int L) {
   const int i = threadIdx.x;
@@ -613,18 +630,44 @@ __device__ __forceinline__ Copies make_copies(const Src& S, int L) {
     K.rdst = (c * kChunk + 4 * q) * 4;
     K.rrow = 4 * q;
   }
-  if (L == kFeatMajor && i < S.nf * (kChunk / 16)) {
-    const int fl = i >> 3, q = i & 7;
-    K.bsrc = S.bins + (int64_t)(S.fa + fl) * S.ld + 16 * q;
-    K.bdst = kRowsBytes + fl * kChunk + 16 * q;
-  }
+  bin_copies(S, L, K);
   return K;
+}
+
+// Start the copies of chunk ci's bins into sb, the bins' part of a stage
+// buffer.  The feature-major bins are copied whole (they reach the last
+// chunk's end); the row-major rows as they lie, when S.raw > 0.
+template <int L>
+__device__ __forceinline__ void issue_bins(const Src& S, const Copies& K,
+                                           uint8_t* sb, int64_t ci) {
+  const int64_t r0 = ci * kChunk;
+  if (L == kFeatMajor) {
+    if (K.bsrc != nullptr) cp16(sb + K.bdst, K.bsrc + r0);
+    // more features than a chunk's pieces per thread (packed, B <= 8)
+    for (int i = threadIdx.x + kThreads; i < S.nf * (kChunk / 16);
+         i += kThreads) {
+      const int fl = i >> 3, q = i & 7;
+      cp16(sb + fl * kChunk + 16 * q,
+           S.bins + (int64_t)(S.fa + fl) * S.ld + r0 + 16 * q);
+    }
+  } else if (S.raw > 0) {
+    // the chunk's rows as they lie: kChunk * ld contiguous bytes, a
+    // multiple of 16 from a 16-aligned start; a ragged last chunk copies
+    // its whole 16-byte pieces and then its tail byte by byte
+    const int64_t left = S.n - r0;
+    const int bytes = (int)((left < kChunk ? left : kChunk) * S.ld);
+    const uint8_t* src = S.bins + r0 * S.ld;
+    const int whole = bytes >> 4;
+    for (int i = threadIdx.x; i < whole; i += kThreads)
+      cp16(sb + 16 * i, src + 16 * i);
+    for (int i = (whole << 4) + threadIdx.x; i < bytes; i += kThreads)
+      sb[i] = src[i];
+  }
 }
 
 // Start the copies of chunk ci into one stage buffer.  A ragged last
 // chunk copies the float rows' whole pieces below n and its tail row by
-// row (rows >= n are never read); the feature-major bins it copies whole
-// (they reach the last chunk's end).
+// row (rows >= n are never read).
 template <int L>
 __device__ __forceinline__ void issue(const Src& S, const Copies& K,
                                       uint8_t* st, int64_t ci) {
@@ -638,28 +681,7 @@ __device__ __forceinline__ void issue(const Src& S, const Copies& K,
     if (r < left)
       reinterpret_cast<float*>(st)[c * kChunk + r] = src[r0 + r];
   }
-  if (L == kFeatMajor) {
-    if (K.bsrc != nullptr) cp16(st + K.bdst, K.bsrc + r0);
-    // more features than a chunk's pieces per thread (packed, B <= 8)
-    for (int i = threadIdx.x + kThreads; i < S.nf * (kChunk / 16);
-         i += kThreads) {
-      const int fl = i >> 3, q = i & 7;
-      cp16(st + kRowsBytes + fl * kChunk + 16 * q,
-           S.bins + (int64_t)(S.fa + fl) * S.ld + r0 + 16 * q);
-    }
-  } else if (S.raw > 0) {
-    // the chunk's rows as they lie: kChunk * ld contiguous bytes, a
-    // multiple of 16 from a 16-aligned start; a ragged last chunk copies
-    // its whole 16-byte pieces and then its tail byte by byte
-    uint8_t* sb = st + kRowsBytes;
-    const int bytes = (int)((left < kChunk ? left : kChunk) * S.ld);
-    const uint8_t* src = S.bins + r0 * S.ld;
-    const int whole = bytes >> 4;
-    for (int i = threadIdx.x; i < whole; i += kThreads)
-      cp16(sb + 16 * i, src + 16 * i);
-    for (int i = (whole << 4) + threadIdx.x; i < bytes; i += kThreads)
-      sb[i] = src[i];
-  }
+  issue_bins<L>(S, K, st + kRowsBytes, ci);
 }
 
 // The chunk's six bf16 rows from its staged float rows: hi = bf16(x) and
@@ -684,26 +706,35 @@ __device__ __forceinline__ void split_rows(const Src& S, const float* sf,
   }
 }
 
-// Row-major bins of chunk ci as [feature][row] bytes in tb: from the
-// staged rows, or (S.raw == 0) from global memory; rows >= n read as 0.
+// The bins of rows r..r+3 of row-major chunk ci for the CTA's feature fl,
+// as one word: from the staged rows, or (S.raw == 0) from global memory;
+// rows >= n read as 0.
+__device__ __forceinline__ uint32_t transpose_word(const Src& S,
+                                                  const uint8_t* raw,
+                                                  int64_t ci, int fl,
+                                                  int r) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t v;
+    if (S.raw > 0) {
+      v = raw[(r + k) * S.ld + S.fa + fl];
+    } else {
+      const int64_t row = ci * kChunk + r + k;
+      v = row < S.n ? S.bins[row * S.ld + S.fa + fl] : 0u;
+    }
+    w |= v << (8 * k);
+  }
+  return w;
+}
+
+// Row-major bins of chunk ci as [feature][row] bytes in tb.
 __device__ __forceinline__ void transpose(const Src& S, const uint8_t* raw,
                                           uint8_t* tb, int64_t ci) {
-  const int64_t r0 = ci * kChunk;
   for (int i = threadIdx.x; i < S.nf * (kChunk / 4); i += kThreads) {
     const int fl = i >> 5, r = (i & 31) * 4;
-    uint32_t w = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t v;
-      if (S.raw > 0) {
-        v = raw[(r + k) * S.ld + S.fa + fl];
-      } else {
-        const int64_t row = r0 + r + k;
-        v = row < S.n ? S.bins[row * S.ld + S.fa + fl] : 0u;
-      }
-      w |= v << (8 * k);
-    }
-    *reinterpret_cast<uint32_t*>(tb + fl * kChunk + r) = w;
+    *reinterpret_cast<uint32_t*>(tb + fl * kChunk + r) =
+        transpose_word(S, raw, ci, fl, r);
   }
 }
 
@@ -809,233 +840,285 @@ static inline int raw_bytes(int layout, long long ld, bool aligned) {
              : 0;
 }
 
-// ---------------------------------------------------------------------------
-// Lane tables of the int8 body (below): the byte offset of each tile lane's
-// feature row in the staged bins and its bin id.  In the m16n8k32
-// fragments thread (g = lane_id / 4, t = lane_id % 4) builds the one-hot
-// of tile lanes g and g + 8 for rows 4t..4t+3 and 16+4t..16+4t+3 of a
-// 32-row step and ends with the sums of channels 2t, 2t+1 of those lanes.
-// ---------------------------------------------------------------------------
-struct Lanes {
-  int off[kTiles][2];   // byte offset of the lane's feature row in smem
-  int bin[kTiles][2];   // lane bin id, or -1 for a lane with no feature
-};
-
-__device__ __forceinline__ void init_lanes(Lanes& L, int lb0, int lanes,
-                                           int f, int lpf_log2, int fa) {
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-#pragma unroll
-  for (int tl = 0; tl < kTiles; ++tl) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int lane = lb0 + warp * kWarpLanes + tl * 16 + g + 8 * h;
-      const int feat = lane >> lpf_log2;
-      const bool ok = lane < lanes && feat < f;
-      L.off[tl][h] = ok ? (feat - fa) * kChunk : 0;
-      L.bin[tl][h] = ok ? (lane & ((1 << lpf_log2) - 1)) : -1;
-    }
-  }
+// Registers, spills and resident CTAs an SM of kern launched with smem
+// bytes of dynamic shared memory (its limit raised as a launch raises it):
+// out[0] registers a thread, out[1] static shared bytes, out[2] smem,
+// out[3] local (spill) bytes a thread, out[4] CTAs an SM.
+template <typename K>
+static inline cudaError_t kernel_attrs(K kern, int smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = smem;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = per_sm;
+  return cudaSuccess;
 }
-
-// Stage rows [r0, r0 + kChunk) of the bins of features [fa, fa + nf) into
-// shared memory as [feature][row] bytes; rows >= n read as bin 0 (their
-// weights are staged as zero).  kFeatMajor reads a [f, ld] transposed copy,
-// kRowMajor the [n, ld] matrix as stored (columns past f are never read).
-template <int L>
-__device__ __forceinline__ void stage_bins(uint8_t* sb,
-                                           const uint8_t* __restrict__ bins,
-                                           int64_t ld, int64_t n, int fa,
-                                           int nf, int64_t r0) {
-  for (int i = threadIdx.x; i < nf * kChunk; i += kThreads) {
-    int fl, r;
-    if (L == kFeatMajor) {
-      fl = i / kChunk;
-      r = i - fl * kChunk;
-    } else {
-      r = i / nf;
-      fl = i - r * nf;
-    }
-    const int64_t row = r0 + r;
-    uint8_t v = 0;
-    if (row < n)
-      v = (L == kFeatMajor) ? bins[(int64_t)(fa + fl) * ld + row]
-                            : bins[row * ld + fa + fl];
-    sb[fl * kChunk + r] = v;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // The int8 body (lightgbm_tpu/ops/onehot_variants.py::_contrib_int8).
 //
 // The nine int8 rows q (3 levels x 3 channels, quantized per block of rows
-// by onehot_quant.cu) times the int8 one-hot: mma.sync.m16n8k32, int8
-// inputs, int32 sums, each exact.  Lanes on M (16 a tile), rows on K (32 a
-// step), channels on N in two n8 tiles: channels 0-7, and channel 8 with
-// seven zero rows.  Thread (g, t) builds A, the one-hot of lanes g and g+8
-// for rows 4t..4t+3 and 16+4t..16+4t+3 of the step: four consecutive rows'
-// bins are one 32-bit word of the [feature][row] staged bytes (byte i is
-// row 4t+i, the PTX fragment's element order), and __vcmpeq4 compares all
-// four with the lane's bin at once.
+// by onehot_quant.cu) times the one-hot: mma.sync.m16n8k32, u8 A (the
+// one-hot), s8 B (q), int32 sums, each exact.  Lanes on M (16 a tile, 8
+// tiles a warp), rows on K (32 a step), channels on N in two n8 tiles:
+// eight channels, and the ninth beside seven zero columns (only threads
+// g = 0 load it; the others multiply zeros).  Channels on M and lanes on N
+// would take as many instructions (9 of 16 M rows used, as 9 of 16 N
+// columns are here), so the lanes stay on M, as in the bf16 bodies.
 //
-// Each staged chunk (128 rows) lies inside one quantization block (every
-// block is a multiple of 128 rows), so its int32 sums fold into float64 by
-// that block's scales: acc += sum * s[block][channel], zero sums too, so a
-// NaN or infinite scale reaches every lane, as acc * s does in the Pallas
-// kernel.  The float64 sums live in shared memory, a [9][kBlockLanes]
-// array whose entries each belong to one thread (no races, no atomics),
-// which leaves the registers to the mma sums.  They leave the CTA as
-// hi = level 1 (channels 0-2 -> rows 0-2) and lo = levels 2 + 3 (channels
-// 3-5 and 6-8 -> rows 3-5) of the [6, lanes] output, so finish_hist is
-// the bf16 bodies'.
+// * Rows inside a step may go in any order, so thread (g, t) takes rows
+//   8t..8t+7 of the step: A's k = 4t..4t+3 are rows 8t..8t+3 and k =
+//   16+4t..16+4t+3 rows 8t+4..8t+7, and B's two registers are the same
+//   rows of q row g.  One 64-bit load gives the step's two bin words, one
+//   64-bit load its q fragment.  A warp's 128 lanes lie in one feature (an
+//   int8 feature has Bp >= 128 lanes), so the words serve all 8 tiles, and
+//   the lane bin ids follow from the tile index: tile tl, thread g takes
+//   bins jb + 16 tl and jb + 16 tl + 8 (jb = the warp's first bin + g).
+// * The one-hot as `staged` builds it (bin = 16 hi + lo): the lo-digit
+//   masks of lanes g and g + 8 once a step; tile tl takes the rows whose hi
+//   digit, XOR the warp's first, is >= tl and not >= tl + 1, a carry-free
+//   add each (the >= mask is shared with the next tile); each A register
+//   is then one three-input AND.  A matching byte is 0x80, read as u8, so
+//   the sums are 128 times the one-hot's, which the fold scales back by
+//   2^-7 (exact); |sum| <= 128 * 127 * the rows of a block < 2^31.
+// * Staging: kStages cp.async buffers of [q: 9 rows of kQStride bytes |
+//   bins], the bins as the bf16 shells stage them (feature-major as
+//   [feature][row]; row-major as the rows lie, or not at all when too wide
+//   or unaligned).  q is [9, ldq], ldq = n rounded up to kChunk and zero
+//   past n (onehot_quant.cu), so each chunk of q is 72 whole 16-byte
+//   pieces, at most one a thread.  A warp reads one feature, so in the
+//   row-major shells each warp transposes its own feature's row of the
+//   chunk (a word a thread, from the staged rows or from global memory)
+//   into a [kChunk] buffer of its own, behind a __syncwarp: one barrier a
+//   chunk in every shell.  The staged q rows are padded to kQStride bytes,
+//   so that the eight rows g of a fragment load fall in distinct banks.
+// * The int32 sums stay in registers across the CTA's rows of one
+//   quantization block (chunk / cpb; a block is cpb whole chunks) and fold
+//   into float64 once a block, and where the CTA's chunk range ends inside
+//   one: acc += sum * s[block][channel] / 128, zero sums too, so a NaN or
+//   infinite scale reaches every lane, as acc * s does in the Pallas
+//   kernel.  Each sum times its scale is exact in float64.  The sums leave
+//   the CTA as the [6, lanes] output's hi = level 1 (channels 0-2 -> rows
+//   0-2) and lo = levels 2 + 3 (channels 3-5 and 6-8 -> rows 3-5), so
+//   finish_hist is the bf16 bodies'.  q's rows are staged in the order
+//   q_channel, so that thread t's two N columns are the level-2 and level-3
+//   channels of output row 3 + t (t < 3) or channels 0 and 1 (t = 3), and
+//   the ninth column is channel 2: each thread folds both of its columns
+//   into the output rows' float64 sums, [6][kFaccStride] in shared memory,
+//   each entry owned by one thread (no races), padded so that a warp's
+//   four t fall in two bank halves; a flush adds six rows, not nine.
 // ---------------------------------------------------------------------------
 
-constexpr int kQRows = 16;                          // 9 channel rows + pad
-constexpr int kQBytes = kQRows * kChunk;            // staged q
-constexpr int kFaccBytes = 9 * kBlockLanes * 8;     // float64 sums
+constexpr int kQStride = kChunk + 32;               // a staged q row, bytes
+constexpr int kQStageBytes = 9 * kQStride;          // staged q of a chunk
+constexpr int kFaccStride = kBlockLanes + 8;        // float64 sums, a row
+constexpr int kFaccBytes = 6 * kFaccStride * 8;
+constexpr uint32_t kTop = 0x80808080u;              // each byte's top bit
+// registers: onehot_full's int8 kernels at most 168 a thread (3 CTAs an
+// SM), onehot_leaves' at most 128 (4; it spills a few bytes there and is
+// still faster): what the card's sweep of 2, 3 and 4 found fastest for
+// each (scripts/torch_onehot_ablation.py --sweep, PERF.md)
+constexpr int kInt8MinBlocks = 3;
+constexpr int kInt8LeavesMinBlocks = 4;
+
+// The channel of q held by staged row r (N column r; row 8 is the second
+// n8 tile's column 0): 3, 6, 4, 7, 5, 8, 0, 1, 2
+__host__ __device__ __forceinline__ int q_channel(int r) {
+  return r < 6 ? 3 + (r >> 1) + 3 * (r & 1) : r - 6;
+}
+
+__host__ __device__ __forceinline__ int stage_bytes_int8(int layout,
+                                                         int nf_max,
+                                                         int raw) {
+  return kQStageBytes + (layout == kFeatMajor ? nf_max * kChunk : raw);
+}
 
 // Dynamic shared bytes of a launch of a variant's kernel with nf_max
 // features a CTA (row-major rows of ld bytes, 16-byte aligned or not).
+// int8: the float64 sums, the stage buffers, then (row-major) each warp's
+// transposed bins.
 static inline int launch_smem(int variant, int layout, int nf_max,
                               long long ld, bool aligned) {
-  if (variant == kInt8) return kFaccBytes + kQBytes + nf_max * kChunk;
-  return smem_bytes(layout, nf_max, raw_bytes(layout, ld, aligned));
+  const int raw = raw_bytes(layout, ld, aligned);
+  if (variant == kInt8)
+    return kFaccBytes + kStages * stage_bytes_int8(layout, nf_max, raw) +
+           (layout == kRowMajor ? kWarps * kChunk : 0);
+  return smem_bytes(layout, nf_max, raw);
 }
 
-// d += A(16 x 32, s8, row) * B(32 x 8, s8, col), s32 sums
+// d += A(16 x 32, u8, row) * B(32 x 8, s8, col), s32 sums
 __device__ __forceinline__ void mma16832(int (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint2 ld64(const uint8_t* p) {
+  return *reinterpret_cast<const uint2*>(p);
 }
 
-// int8 one-hot of four rows' bins (the bytes of v) against lane bin j;
-// j < 0 marks a lane with no feature, which matches nothing
-__device__ __forceinline__ uint32_t onehot4(uint32_t v, int j) {
-  return j < 0 ? 0u : (__vcmpeq4(v, (uint32_t)j * 0x01010101u) & 0x01010101u);
+// a & b & ~c in one instruction (lop3's table: 0xF0 & 0xCC & ~0xAA).  Left
+// to itself nvcc computed ~c by a second, negated add and the AND of b and
+// ~c apart, which cost five instructions a tile and word where this
+// costs three (scripts/torch_onehot_sass.py).
+__device__ __forceinline__ uint32_t and_andnot(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x40;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-// Stage rows [r0, r0 + kChunk) of q ([9, n] int8) as [channel][row] bytes;
-// rows >= n read as zero.
-__device__ __forceinline__ void stage_q(uint8_t* sq,
-                                        const int8_t* __restrict__ q,
-                                        int64_t n, int64_t r0) {
-  for (int i = threadIdx.x; i < 9 * kChunk; i += kThreads) {
-    const int c = i / kChunk, r = i - c * kChunk;
-    const int64_t row = r0 + r;
-    sq[i] = row < n ? (uint8_t)q[c * n + row] : (uint8_t)0;
+// per-thread constants of the int8 body, from jb
+struct Int8Ids {
+  uint32_t lo_g, lo_g8;   // g and g + 8 in each byte
+  uint32_t hb;            // the warp's first hi digit (0 or 8), each byte
+};
+
+__device__ __forceinline__ Int8Ids make_int8_ids(int jb) {
+  const int g = (threadIdx.x & 31) >> 2;
+  Int8Ids d;
+  d.lo_g = (uint32_t)g * kRep;
+  d.lo_g8 = (uint32_t)(g + 8) * kRep;
+  d.hb = (uint32_t)((jb - g) >> 4) * kRep;
+  return d;
+}
+
+// What a step derives from its two bin words (word 0: rows 8t..8t+3, word
+// 1: rows 8t+4..8t+7; byte i is the word's i-th row): lg, lh the rows
+// whose lo digit is g, g + 8 (as each byte's top bit); hi the rows' hi
+// digits XOR the warp's first.
+struct Int8Step {
+  uint32_t lg[2], lh[2], hi[2];
+  __device__ __forceinline__ Int8Step(uint2 w, const Int8Ids& d) {
+    const uint32_t v[2] = {w.x, w.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t lo = v[i] & 0x0F0F0F0Fu;
+      lg[i] = ~nonzero_bytes(lo ^ d.lo_g) & kTop;
+      lh[i] = ~nonzero_bytes(lo ^ d.lo_g8) & kTop;
+      hi[i] = ((v[i] >> 4) & 0x0F0F0F0Fu) ^ d.hb;
+    }
   }
-}
+  // the rows of word i whose hi digit is >= tl, as each byte's top bit:
+  // hi + (0x80 - tl) carries into no other byte (bytes <= 15)
+  __device__ __forceinline__ uint32_t ge(int i, int tl) const {
+    return hi[i] + (uint32_t)(0x80 - tl) * kRep;
+  }
+  // tile tl's A: a[0] lane g and a[1] lane g + 8 over word 0's rows, a[2]
+  // and a[3] over word 1's (a hi digit >= 8 is a bin no tile of the warp
+  // takes: tile 7 excludes it)
+  __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t gp = tl == 0 ? ~0u : ge(i, tl), gn = ge(i, tl + 1);
+      a[2 * i] = and_andnot(lg[i], gp, gn);
+      a[2 * i + 1] = and_andnot(lh[i], gp, gn);
+    }
+  }
+};
 
-// Rows 9-15 of the staged q are the padding of the second n8 tile.
-__device__ __forceinline__ void zero_q_padding(uint8_t* sq) {
-  for (int i = threadIdx.x; i < (kQRows - 9) * kChunk; i += kThreads)
-    sq[9 * kChunk + i] = 0;
-}
-
-// The staged chunk's int32 sums: c[tile][n-tile][fragment].
+// Add the staged chunk's products to c[tile][n-tile][fragment]: sq the
+// chunk's q ([9][kQStride] bytes), fb the warp's feature row of its bins
+// ([kChunk] bytes).
 __device__ __forceinline__ void mma_chunk_int8(int (&c)[kTiles][2][4],
                                                const uint8_t* sq,
-                                               const uint8_t* sb,
-                                               const Lanes& L) {
+                                               const uint8_t* fb,
+                                               const Int8Ids& ids) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll 1
+  const uint8_t* qp = sq + g * kQStride + 8 * t;
+  const uint8_t* q8 = sq + 8 * kQStride + 8 * t;
+  const uint8_t* bp = fb + 8 * t;
+#pragma unroll
   for (int ks = 0; ks < kChunk; ks += 32) {
-    const uint8_t* qp = sq + g * kChunk + ks + 4 * t;
-    const uint32_t b0 = ld32(qp), b1 = ld32(qp + 16);
-    const uint32_t b2 = ld32(qp + 8 * kChunk), b3 = ld32(qp + 8 * kChunk + 16);
+    const uint2 b = ld64(qp + ks);
+    uint2 b8 = make_uint2(0u, 0u);           // column 8 and seven zeros
+    if (g == 0) b8 = ld64(q8 + ks);
+    const Int8Step o(ld64(bp + ks), ids);
 #pragma unroll
     for (int tl = 0; tl < kTiles; ++tl) {
-      const uint8_t* p0 = sb + L.off[tl][0] + ks + 4 * t;   // lane g
-      const uint8_t* p1 = sb + L.off[tl][1] + ks + 4 * t;   // lane g + 8
-      const int j0 = L.bin[tl][0], j1 = L.bin[tl][1];
-      const uint32_t a0 = onehot4(ld32(p0), j0);
-      const uint32_t a1 = onehot4(ld32(p1), j1);
-      const uint32_t a2 = onehot4(ld32(p0 + 16), j0);
-      const uint32_t a3 = onehot4(ld32(p1 + 16), j1);
-      mma16832(c[tl][0], a0, a1, a2, a3, b0, b1);
-      mma16832(c[tl][1], a0, a1, a2, a3, b2, b3);
+      uint32_t a[4];
+      o.tile(tl, a);
+      mma16832(c[tl][0], a[0], a[1], a[2], a[3], b.x, b.y);
+      mma16832(c[tl][1], a[0], a[1], a[2], a[3], b8.x, b8.y);
     }
   }
 }
 
-// The float64 sums this thread owns: channels 2t and 2t+1 (and 8, for
-// t == 0) of its lanes g and g + 8 in each tile.  fn(channel, local lane).
+__device__ __forceinline__ void zero_sums(int (&c)[kTiles][2][4]) {
+#pragma unroll
+  for (int tl = 0; tl < kTiles; ++tl)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) c[tl][i >> 2][i & 3] = 0;
+}
+
+// The output rows of thread t's two N columns (the same row for t < 3).
+__device__ __forceinline__ int row_a(int t) { return t < 3 ? 3 + t : 0; }
+__device__ __forceinline__ int row_b(int t) { return t < 3 ? 3 + t : 1; }
+
+// The float64 sums this thread owns: output rows row_a(t), row_b(t) (one
+// row for t = 1, 2) and, for t == 0, row 2, of its lanes g and g + 8 in
+// each tile.  fn(row, local lane).
 template <typename Fn>
 __device__ __forceinline__ void for_owned(Fn fn) {
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
-  for (int h = 0; h < (t == 0 ? 3 : 2); ++h) {
-    const int ch = h < 2 ? 2 * t + h : 8;
+  for (int h = 0; h < (t == 1 || t == 2 ? 1 : 2); ++h) {
+    const int row = h == 0 ? row_a(t) : (t == 3 ? 1 : 2);
 #pragma unroll
     for (int tl = 0; tl < kTiles; ++tl) {
-      fn(ch, warp * kWarpLanes + tl * 16 + g);
-      fn(ch, warp * kWarpLanes + tl * 16 + g + 8);
+      fn(row, warp * kWarpLanes + tl * 16 + g);
+      fn(row, warp * kWarpLanes + tl * 16 + g + 8);
     }
   }
 }
 
 __device__ __forceinline__ void zero_facc(double* facc) {
-  for_owned([&](int ch, int ll) { facc[ch * kBlockLanes + ll] = 0.0; });
+  for_owned([&](int row, int ll) { facc[row * kFaccStride + ll] = 0.0; });
 }
 
-// Fold one chunk's int32 sums into facc by the chunk's block scales sc[9].
+// Fold a block's int32 sums into facc by the block's scales sc[9]: each
+// sum is 128 times the one-hot's, and sum * (s / 128) is exact.  Columns
+// 2t and 2t+1 go to rows row_a(t) and row_b(t), column 8 (t == 0) to row 2.
 __device__ __forceinline__ void fold_int8(double* facc,
                                           const int (&c)[kTiles][2][4],
                                           const float* __restrict__ sc) {
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             t = threadIdx.x & 3;
-  const double s0 = sc[2 * t], s1 = sc[2 * t + 1];
-  double* f0 = facc + (2 * t) * kBlockLanes + warp * kWarpLanes + g;
-  double* f1 = f0 + kBlockLanes;
+  constexpr double kInv = 1.0 / 128;
+  const double sa = (double)sc[q_channel(2 * t)] * kInv;
+  const double sb = (double)sc[q_channel(2 * t + 1)] * kInv;
+  double* fa = facc + row_a(t) * kFaccStride + warp * kWarpLanes + g;
+  double* fb = facc + row_b(t) * kFaccStride + warp * kWarpLanes + g;
 #pragma unroll
   for (int tl = 0; tl < kTiles; ++tl) {
-    f0[tl * 16] += (double)c[tl][0][0] * s0;
-    f1[tl * 16] += (double)c[tl][0][1] * s1;
-    f0[tl * 16 + 8] += (double)c[tl][0][2] * s0;
-    f1[tl * 16 + 8] += (double)c[tl][0][3] * s1;
+    fa[tl * 16] += (double)c[tl][0][0] * sa;
+    fb[tl * 16] += (double)c[tl][0][1] * sb;
+    fa[tl * 16 + 8] += (double)c[tl][0][2] * sa;
+    fb[tl * 16 + 8] += (double)c[tl][0][3] * sb;
   }
   if (t == 0) {
-    const double s8 = sc[8];
-    double* f8 = facc + 8 * kBlockLanes + warp * kWarpLanes + g;
+    const double s2 = (double)sc[q_channel(8)] * kInv;
+    double* f2 = facc + 2 * kFaccStride + warp * kWarpLanes + g;
 #pragma unroll
     for (int tl = 0; tl < kTiles; ++tl) {
-      f8[tl * 16] += (double)c[tl][1][0] * s8;
-      f8[tl * 16 + 8] += (double)c[tl][1][2] * s8;
+      f2[tl * 16] += (double)c[tl][1][0] * s2;
+      f2[tl * 16 + 8] += (double)c[tl][1][2] * s2;
     }
-  }
-}
-
-// Stage and multiply rows [r0, r1) chunk by chunk, folding each chunk into
-// facc by the scales of its block (row / qbr).  Every thread must call it.
-template <int L>
-__device__ __forceinline__ void accumulate_rows_int8(
-    double* facc, uint8_t* sq, uint8_t* sb, const Lanes& lanes,
-    const uint8_t* __restrict__ bins, int64_t ld, int64_t n, int fa, int nf,
-    const int8_t* __restrict__ q, const float* __restrict__ scales, int qbr,
-    int64_t r0, int64_t r1) {
-  for (int64_t r = r0; r < r1; r += kChunk) {
-    __syncthreads();                       // the last chunk has been read
-    stage_q(sq, q, n, r);
-    stage_bins<L>(sb, bins, ld, n, fa, nf, r);
-    __syncthreads();
-    int c[kTiles][2][4];
-#pragma unroll
-    for (int tl = 0; tl < kTiles; ++tl)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) c[tl][i >> 2][i & 3] = 0;
-    mma_chunk_int8(c, sq, sb, lanes);
-    fold_int8(facc, c, scales + (r / qbr) * 9);
   }
 }
 
@@ -1045,12 +1128,97 @@ __device__ __forceinline__ void accumulate_rows_int8(
 __device__ __forceinline__ void flush_int8(double* __restrict__ out,
                                            double* facc, int lb0,
                                            int lanes) {
-  for_owned([&](int ch, int ll) {
-    double& v = facc[ch * kBlockLanes + ll];
-    const int lane = lb0 + ll, row = ch < 6 ? ch : ch - 3;
+  for_owned([&](int row, int ll) {
+    double& v = facc[row * kFaccStride + ll];
+    const int lane = lb0 + ll;
     if (lane < lanes && v != 0.0) atomicAdd(out + row * lanes + lane, v);
     v = 0.0;
   });
+}
+
+// A thread's copies of q (staged row r's 16-byte piece p, from q row
+// q_channel(r): threads 9 * 8) and of the feature-major bins.
+__device__ __forceinline__ Copies make_copies_int8(const Src& S, int L,
+                                                   const int8_t* q,
+                                                   int64_t ldq) {
+  const int i = threadIdx.x;
+  Copies K{nullptr, 0, 0, nullptr, 0};
+  if (i < 9 * (kChunk / 16)) {
+    const int r = i >> 3, p = i & 7;
+    K.rsrc = q + q_channel(r) * ldq + 16 * p;
+    K.rdst = r * kQStride + 16 * p;
+  }
+  bin_copies(S, L, K);
+  return K;
+}
+
+template <int L>
+__device__ __forceinline__ void issue_int8(const Src& S, const Copies& K,
+                                           uint8_t* st, int64_t ci) {
+  if (K.rsrc != nullptr)
+    cp16(st + K.rdst, reinterpret_cast<const int8_t*>(K.rsrc) + ci * kChunk);
+  issue_bins<L>(S, K, st + kQStageBytes, ci);
+}
+
+// Multiply the CTA's chunks [c0, c1) in int32, kStages - 1 chunks' copies
+// in flight while one multiplies, and fold the sums into facc by the scales
+// of block chunk / cpb at the end of each block and of the range.
+// use(blk), called in order at the first chunk of each block the range
+// touches, says whether block blk counts (the same answer in every thread);
+// it may flush facc first.  Every thread of the CTA must call it.
+template <int L, typename Use>
+__device__ __forceinline__ void run_chunks_int8(
+    const Src& S, const int8_t* q, const float* __restrict__ scales, int cpb,
+    uint8_t* smem, int sbytes, int64_t c0, int64_t c1, const Geo& geo,
+    const Int8Ids& ids, double* facc, Use use) {
+  uint8_t* tb = smem + kStages * sbytes;    // row-major: the warps' bins
+  const int64_t ldq = (S.n + kChunk - 1) / kChunk * kChunk;
+  const Copies K = make_copies_int8(S, L, q, ldq);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (c0 + s < c1) issue_int8<L>(S, K, smem + s * sbytes, c0 + s);
+    cp_commit();
+  }
+  int c[kTiles][2][4];
+  zero_sums(c);
+  int64_t blk = c0 / cpb;
+  int sub = (int)(c0 - blk * cpb);          // chunk ci's place in its block
+  bool on = false;
+  int s = 0;
+  for (int64_t ci = c0; ci < c1; ++ci) {
+    cp_wait<kStages - 2>();                 // chunk ci has landed
+    __syncthreads();                        // ... for all; chunk ci-1 done
+    int sn = s + kStages - 1;
+    if (sn >= kStages) sn -= kStages;
+    if (ci + kStages - 1 < c1)
+      issue_int8<L>(S, K, smem + sn * sbytes, ci + kStages - 1);
+    cp_commit();
+    const uint8_t* st = smem + s * sbytes;
+    const uint8_t* fb = st + kQStageBytes + geo.frow * kChunk;
+    if (ci == c0 || sub == 0) on = use(blk);
+    const bool last = ++sub == cpb || ci + 1 == c1;
+    if (on && geo.frow >= 0) {
+      if (L == kRowMajor) {
+        const int lane = threadIdx.x & 31;
+        uint8_t* wb = tb + (threadIdx.x >> 5) * kChunk;
+        *reinterpret_cast<uint32_t*>(wb + 4 * lane) = transpose_word(
+            S, st + kQStageBytes, ci, geo.frow, 4 * lane);
+        __syncwarp();
+        fb = wb;
+      }
+      mma_chunk_int8(c, st, fb, ids);
+      if (last) {
+        fold_int8(facc, c, scales + blk * 9);
+        zero_sums(c);
+      }
+    }
+    if (sub == cpb) {
+      sub = 0;
+      ++blk;
+    }
+    if (++s == kStages) s = 0;
+  }
+  cp_wait<0>();
 }
 
 }  // namespace lgbt_oh

@@ -19,7 +19,9 @@
 // gathers them, [C, ld] row-major, and only the first f columns (the rest
 // are the packed gradient bytes).  int8 has a kernel of its own,
 // onehot_leaves_int8_kernel, over the quantize kernel's q and scales, one
-// quantization block per BR-row block (so per slot).
+// quantization block per BR-row block (so per slot), staged the same way:
+// its CTAs own runs of whole blocks, keep a block's int32 sums in registers
+// and fold them into float64 shared memory at the block's end.
 //
 // Bound on an H100: C * f bytes of bins, 12 * C bytes of gh and 4 * C / BR
 // of block_leaf read once, k * 48 * lanes bytes written; the tensor cores
@@ -74,40 +76,41 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 }
 
 // The int8 body: q [9, C] int8 and scales [C / br, 9] float32, block blk
-// quantized on its own.
-__global__ void __launch_bounds__(kThreads)
-    onehot_leaves_int8_kernel(const uint8_t* __restrict__ comb, int64_t ld,
-                              int64_t c, int f, const int8_t* __restrict__ q,
+// (cpb chunks) quantized on its own and owned by one slot: a CTA owns a run
+// of whole blocks, folds each block's int32 sums into its float64 sums at
+// the block's end, and flushes those when the slot changes.
+__global__ void __launch_bounds__(kThreads, kInt8LeavesMinBlocks)
+    onehot_leaves_int8_kernel(Src S, int f, const int8_t* __restrict__ q,
                               const float* __restrict__ scales,
-                              const int32_t* __restrict__ block_leaf, int br,
-                              int k, double* __restrict__ out, int lpf_log2,
-                              int lanes, int bpc) {
+                              const int32_t* __restrict__ block_leaf,
+                              int cpb, int k, double* __restrict__ out,
+                              int lpf_log2, int lanes, int64_t bpc,
+                              int nf_max) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* facc = reinterpret_cast<double*>(smem);
-  uint8_t* sq = smem + kFaccBytes;
-  uint8_t* sb = sq + kQBytes;
   const int lb0 = blockIdx.y * kBlockLanes;
-  int fa, nf;
-  cta_features(lb0, f, lpf_log2, &fa, &nf);
-  Lanes lm;
-  init_lanes(lm, lb0, lanes, f, lpf_log2, fa);
-  zero_q_padding(sq);
+  cta_features(lb0, f, lpf_log2, &S.fa, &S.nf);
+  const Geo geo = make_geo(lb0, lanes, f, lpf_log2, S.fa);
+  const Int8Ids ids = make_int8_ids(geo.jb);
   zero_facc(facc);
-  const int64_t nb = c / br;
+  const int64_t nb = S.n / ((int64_t)cpb * kChunk);
   const int64_t b0 = (int64_t)blockIdx.x * bpc;
   const int64_t b1 = (b0 + bpc < nb) ? b0 + bpc : nb;
   const int64_t slot_size = (int64_t)6 * lanes;
   int cur = -1;
-  for (int64_t blk = b0; blk < b1; ++blk) {
-    const int slot = block_leaf[blk];
-    if (slot < 0 || slot >= k) continue;
-    if (slot != cur) {
-      if (cur >= 0) flush_int8(out + cur * slot_size, facc, lb0, lanes);
-      cur = slot;
-    }
-    accumulate_rows_int8<kRowMajor>(facc, sq, sb, lm, comb, ld, c, fa, nf, q,
-                                    scales, br, blk * br, blk * br + br);
-  }
+  if (b0 < b1)
+    run_chunks_int8<kRowMajor>(
+        S, q, scales, cpb, smem + kFaccBytes,
+        stage_bytes_int8(kRowMajor, nf_max, S.raw), b0 * cpb, b1 * cpb, geo,
+        ids, facc, [&](int64_t blk) {
+          const int slot = block_leaf[blk];
+          if (slot < 0 || slot >= k) return false;
+          if (slot != cur) {
+            if (cur >= 0) flush_int8(out + cur * slot_size, facc, lb0, lanes);
+            cur = slot;
+          }
+          return true;
+        });
   if (cur >= 0) flush_int8(out + cur * slot_size, facc, lb0, lanes);
 }
 
@@ -144,17 +147,26 @@ static int launch_int8(const void* comb, long long ld, long long c, int f,
                        const void* block_leaf, int br, int k, void* out,
                        int lpf_log2, int lanes, int nf_max, int device,
                        cudaStream_t stream) {
-  if (scales == nullptr) return (int)cudaErrorInvalidValue;
-  const int smem = launch_smem(kInt8, kRowMajor, nf_max, ld, true);
+  // whole chunks a block; q's rows start 16-byte aligned (C, its row
+  // stride, is a multiple of kChunk)
+  if (q == nullptr || scales == nullptr || br <= 0 || br % kChunk != 0 ||
+      c % br != 0 || !aligned16(q))
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = aligned16(comb);
+  const int smem = launch_smem(kInt8, kRowMajor, nf_max, ld, aligned);
+  auto kern = onehot_leaves_int8_kernel;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
   const int nlb = (lanes + kBlockLanes - 1) / kBlockLanes;
   int gx;
   const long long bpc =
-      split_units(c / br, nlb,
-                  resident_ctas(onehot_leaves_int8_kernel, smem, device), &gx);
-  onehot_leaves_int8_kernel<<<dim3(gx, nlb), kThreads, smem, stream>>>(
-      (const uint8_t*)comb, (int64_t)ld, (int64_t)c, f, (const int8_t*)q,
-      (const float*)scales, (const int32_t*)block_leaf, br, k, (double*)out,
-      lpf_log2, lanes, (int)bpc);
+      split_units(c / br, nlb, resident_ctas(kern, smem, device), &gx);
+  const Src S{(const uint8_t*)comb, (int64_t)ld, (int64_t)c, nullptr,
+              nullptr, nullptr, 0, 0, raw_bytes(kRowMajor, ld, aligned)};
+  kern<<<dim3(gx, nlb), kThreads, smem, stream>>>(
+      S, f, (const int8_t*)q, (const float*)scales,
+      (const int32_t*)block_leaf, br / kChunk, k, (double*)out, lpf_log2,
+      lanes, (int64_t)bpc, nf_max);
   return (int)cudaGetLastError();
 }
 
@@ -192,14 +204,14 @@ extern "C" int onehot_leaves_launch(int device, const void* comb,
 }
 
 template <int V>
-static cudaError_t attrs(cudaFuncAttributes* a) {
+static cudaError_t attrs(int smem, int* out) {
   if constexpr (V == kInt8)
-    return cudaFuncGetAttributes(a, onehot_leaves_int8_kernel);
+    return kernel_attrs(onehot_leaves_int8_kernel, smem, out);
   else
-    return cudaFuncGetAttributes(a, onehot_leaves_kernel<V>);
+    return kernel_attrs(onehot_leaves_kernel<V>, smem, out);
 }
 
-typedef cudaError_t (*AttrFn)(cudaFuncAttributes*);
+typedef cudaError_t (*AttrFn)(int, int*);
 static const AttrFn kAttrs[kNumVariants] = {
     attrs<kBase>,    attrs<kBf16Cmp>, attrs<kI16Cmp>, attrs<kU8Cmp>,
     attrs<kSub1Abs>, attrs<kStaged>,  attrs<kPacked>, attrs<kInt8>,
@@ -208,18 +220,12 @@ static const AttrFn kAttrs[kNumVariants] = {
 // The kernel of a variant: out[0] registers a thread, out[1] static shared
 // bytes, out[2] the dynamic shared bytes of a launch with nf_max features
 // a CTA over rows of ld bytes, 16-byte aligned, out[3] local (spill) bytes
-// a thread.
+// a thread, out[4] CTAs an SM at that launch.
 extern "C" int onehot_leaves_query(int variant, int nf_max, long long ld,
                                    int* out) {
   if (variant < 0 || variant >= kNumVariants)
     return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t e = kAttrs[variant](&a);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = launch_smem(variant, kRowMajor, nf_max > 0 ? nf_max : 1, ld,
-                       true);
-  out[3] = (int)a.localSizeBytes;
-  return 0;
+  return (int)kAttrs[variant](
+      launch_smem(variant, kRowMajor, nf_max > 0 ? nf_max : 1, ld, true),
+      out);
 }

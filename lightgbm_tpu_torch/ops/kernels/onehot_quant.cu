@@ -14,8 +14,11 @@
 // which is what the JAX package's jitted chain computes: XLA turns
 // `/ 127.0` into a multiply by the float32 reciprocal and contracts
 // `x - q * s` into a fused multiply-add.  q goes to row 3 * level + c of
-// q [9, n] int8 (0 where it is NaN), s to s[block][3 * level + c].
-// Bit-identical to onehot_variants.quantize_int8_blocks_plain.
+// q [9, ldq] int8 (0 where it is NaN), s to s[block][3 * level + c].
+// Bit-identical to onehot_variants.quantize_int8_blocks_plain.  The rows
+// of q are ldq >= n bytes apart and the last block writes zeros from n to
+// ldq: with ldq = n rounded up to 128 the one-hot kernels copy q in whole
+// 16-byte pieces of 128-row chunks.
 //
 // One CTA a block; the block's rows stay in shared memory (12 * br bytes).
 // Bound on an H100: it reads 12 n bytes and writes 9 n + 36 n / br bytes,
@@ -39,12 +42,15 @@ __device__ __forceinline__ float nanmax(float a, float b) {
 
 __global__ void __launch_bounds__(kThreads)
     quant_kernel(const float* __restrict__ rows, int64_t n, int br,
-                 int8_t* __restrict__ q, float* __restrict__ s) {
+                 int8_t* __restrict__ q, int64_t ldq,
+                 float* __restrict__ s) {
   extern __shared__ float xs[];               // [3][br]
   __shared__ float red[3][kWarps];
   __shared__ float scale[3];
   const int64_t r0 = (int64_t)blockIdx.x * br;
   const int len = (int)((n - r0 < br) ? n - r0 : br);
+  // the rows of q this block writes: its own, and (the last) the padding
+  const int span = (int)((ldq - r0 < br) ? ldq - r0 : br);
   for (int c = 0; c < 3; ++c)
     for (int i = threadIdx.x; i < len; i += kThreads)
       xs[c * br + i] = rows[c * n + r0 + i];
@@ -74,13 +80,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float sc = scale[c];
-      int8_t* qrow = q + (int64_t)(3 * lvl + c) * n + r0;
+      int8_t* qrow = q + (int64_t)(3 * lvl + c) * ldq + r0;
       for (int i = threadIdx.x; i < len; i += kThreads) {
         const float x = xs[c * br + i];
         const float qf = rintf(__fdiv_rn(x, sc));
         xs[c * br + i] = __fmaf_rn(-qf, sc, x);
         qrow[i] = (qf != qf) ? (int8_t)0 : (int8_t)(int)qf;
       }
+      for (int i = len + threadIdx.x; i < span; i += kThreads) qrow[i] = 0;
     }
     __syncthreads();
   }
@@ -88,11 +95,13 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// rows: [3, n] float32; q: [9, n] int8; s: [ceil(n / br), 9] float32.
-// br: a multiple of 128, at most kMaxRows.
+// rows: [3, n] float32; q: [9, ldq] int8, n <= ldq <= the blocks' rows;
+// s: [ceil(n / br), 9] float32.  br: a multiple of 128, at most kMaxRows.
 extern "C" int onehot_quant_launch(int device, const void* rows, long long n,
-                                   int br, void* q, void* s, void* stream) {
-  if (br <= 0 || br % 128 != 0 || br > kMaxRows || n < 0)
+                                   int br, void* q, long long ldq, void* s,
+                                   void* stream) {
+  if (br <= 0 || br % 128 != 0 || br > kMaxRows || n < 0 || ldq < n ||
+      ldq > (n + br - 1) / br * br)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -106,7 +115,8 @@ extern "C" int onehot_quant_launch(int device, const void* rows, long long n,
   }
   const long long nb = (n + br - 1) / br;
   quant_kernel<<<(unsigned)nb, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)rows, (int64_t)n, br, (int8_t*)q, (float*)s);
+      (const float*)rows, (int64_t)n, br, (int8_t*)q, (int64_t)ldq,
+      (float*)s);
   return (int)cudaGetLastError();
 }
 

@@ -1,37 +1,54 @@
-"""Where the time of the PyTorch port's bf16-pair one-hot kernels goes, on
-one NVIDIA card.
+"""Where the time of the PyTorch port's one-hot kernels goes, on one
+NVIDIA card.
 
-    python3 scripts/torch_onehot_ablation.py
+    python3 scripts/torch_onehot_ablation.py [--sweep]
+        [--int8-body words|lanes] [--out PATH]
 
 Builds ``onehot_full`` and ``onehot_leaves`` (``lightgbm_tpu_torch/ops/
 kernels``) from the sources as they are and from copies with one part of
 the work taken out, and times each body's kernel alone at
-``chip_smoke.py``'s shapes: the full pass (featmajor, 1M x 28) and one
-frontier round's leaves (C=262,144, NC=40, f=28, k=16, BR=512), B=256,
-for ``base``, ``bf16cmp`` and ``staged``.  A copy edits
-``onehot_common.cuh`` as text (each edit must match exactly once, or the
-script stops) and is built with the port's ``nvcc`` flags into
-``ops/_build/ablation/<name>/``; what a copy computes is wrong on purpose,
-only its time is read.
+``chip_smoke.py``'s shapes: the full pass (1M x 28, featmajor and
+rowmajor) and one frontier round's leaves (C=262,144, NC=40, f=28, k=16,
+BR=512), B=256, for ``base``, ``bf16cmp``, ``staged`` and ``int8``.  A
+copy edits ``onehot_common.cuh`` as text (each edit must
+match exactly once, or the script stops) and is built with the port's
+``nvcc`` flags into ``ops/_build/ablation/<name>/``; what a copy computes
+is wrong on purpose, only its time is read.
 
   repo        the sources as they are
   const_a     each tile's A fragment is a constant: no bin word read and
               no one-hot built; staging, split, mma and fold stay
-  no_mma      each bf16 mma.sync becomes an XOR of its six operands into
-              its first sum: the one-hot build stays live, the tensor
-              cores do nothing
+  no_mma      each mma.sync (bf16 and int8) becomes an XOR of its six
+              operands into its first sum: the one-hot build stays live,
+              the tensor cores do nothing
   skeleton    const_a and no_mma together: staging, split, loop and fold
+
+With ``--sweep`` it also times int8 alone from copies of the sources as
+they are whose int8 kernels bound their registers for 2, 3 or 4 resident
+CTAs an SM (``kInt8MinBlocks``, ``kInt8LeavesMinBlocks``; the sources say
+3 for ``onehot_full``, 4 for ``onehot_leaves``).
+
+The int8 edits fit the int8 body the sources hold: ``words`` (the default:
+one bin word per k-half a step, the one-hot built as ``Int8Step::tile``)
+or ``lanes`` (the earlier body: per-lane offset tables, the one-hot built
+by ``onehot4``), so that a checkout of the earlier sources can be timed
+side by side with this one: run this script from that checkout's root
+with ``--int8-body lanes``.
 
 The float64 fold cannot be taken out alone: with its sums unused, ptxas
 deletes the mma instructions as dead code (the asm's volatile does not
-reach it) and the build with them, so such a copy times almost nothing.  The skeleton bounds it.
+reach it) and the build with them, so such a copy times almost nothing.
+The skeleton bounds it.
 
 Kernel time: torch.profiler's device time per launch (mean of 10 calls),
-as ``chip_smoke.py``'s ``kernel_ms``; registers a thread from the
+as ``chip_smoke.py``'s ``kernel_ms``; for the sources as they are also the
+time of a whole call, wrapper included (median of 20, CUDA events, as
+``chip_smoke.py``'s ``ms``); registers a thread and spilled bytes from the
 kernels' attribute query.  Prints one JSON line per copy and writes them
-all to ``chiprun_out/onehot_ablation.json``.  Exits non-zero without a
-CUDA card.
+all to ``chiprun_out/onehot_ablation.json`` (or ``--out``).  Exits
+non-zero without a CUDA card.
 """
+import argparse
 import json
 import os
 import shutil
@@ -63,11 +80,46 @@ _NO_MMA = [
      "template <bool kFirst = false>\n"
      "__device__ __forceinline__ void mma16816_unused("),
 ]
-ABLATIONS = {"repo": [], "const_a": _CONST_A, "no_mma": _NO_MMA,
-             "skeleton": _CONST_A + _NO_MMA}
+# the int8 body's: its one-hot (per body) and its mma.sync (both bodies)
+_INT8_CONST_A = {
+    "words": [("      o.tile(tl, a);\n",
+               "      a[0] = a[1] = a[2] = a[3] = kTop >> tl;\n")],
+    "lanes": [("  return j < 0 ? 0u : (__vcmpeq4(v, (uint32_t)j * "
+               "0x01010101u) & 0x01010101u);\n",
+               "  return 0x01010101u;\n")],
+}
+_INT8_NO_MMA = [
+    ("__device__ __forceinline__ void mma16832(int (&d)[4], uint32_t a0,\n",
+     "__device__ __forceinline__ void mma16832(int (&d)[4], uint32_t a0,\n"
+     "    uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0, uint32_t b1) {\n"
+     "  d[0] += (int)(a0 ^ a1 ^ a2 ^ a3 ^ b0 ^ b1);\n"
+     "}\n"
+     "__device__ __forceinline__ void mma16832_unused(int (&d)[4], "
+     "uint32_t a0,\n"),
+]
+ABLATIONS = ("repo", "const_a", "no_mma", "skeleton")
+INT8_BODIES = tuple(_INT8_CONST_A)
+# --sweep: the sources as they are with both int8 kernels' register bound
+# sized for 2, 3 or 4 CTAs an SM (the sources say 3 for onehot_full and 4
+# for onehot_leaves); int8 only
+SWEEP = {f"int8_min_blocks_{b}": [
+    ("constexpr int kInt8MinBlocks = 3;\n",
+     f"constexpr int kInt8MinBlocks = {b};\n"),
+    ("constexpr int kInt8LeavesMinBlocks = 4;\n",
+     f"constexpr int kInt8LeavesMinBlocks = {b};\n")] for b in (2, 3, 4)}
 KERNELS = ("onehot_full", "onehot_leaves")
-BODIES = ("base", "bf16cmp", "staged")
+BODIES = ("base", "bf16cmp", "staged", "int8")
 B = 256
+
+
+def ablation_edits(name, int8_body="words"):
+    """The text edits of one copy, for sources holding ``int8_body``."""
+    if name in SWEEP:
+        return SWEEP[name]
+    const_a = _CONST_A + _INT8_CONST_A[int8_body]
+    no_mma = _NO_MMA + _INT8_NO_MMA
+    return {"repo": [], "const_a": const_a, "no_mma": no_mma,
+            "skeleton": const_a + no_mma}[name]
 
 
 def _patched_sources(name, edits, kernel_dir, out_dir):
@@ -86,14 +138,15 @@ def _patched_sources(name, edits, kernel_dir, out_dir):
         fh.write(text)
 
 
-def build_all(_build):
-    """{(ablation, kernel): ctypes library}, one nvcc each, all at once."""
+def build_all(_build, names, int8_body="words"):
+    """{(copy, kernel): ctypes library}, one nvcc each, all at once."""
     import ctypes
     root = _build.BUILD_DIR / "ablation"
     procs = {}
-    for name, edits in ABLATIONS.items():
+    for name in names:
         src = root / name
-        _patched_sources(name, edits, str(_build.KERNEL_DIR), str(src))
+        _patched_sources(name, ablation_edits(name, int8_body),
+                         str(_build.KERNEL_DIR), str(src))
         for k in KERNELS:
             out = src / f"{k}.so"
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
@@ -118,6 +171,16 @@ def build_all(_build):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--int8-body", default="words", choices=INT8_BODIES,
+                    help="the int8 body the sources hold (for its edits)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time int8 with its register bound sized "
+                         "for 2, 3 and 4 CTAs an SM")
+    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
+                                                  "onehot_ablation.json"))
+    args = ap.parse_args()
+    names = ABLATIONS + (tuple(SWEEP) if args.sweep else ())
     if not torch.cuda.is_available():
         print("torch_onehot_ablation: no CUDA device", file=sys.stderr)
         return 1
@@ -129,7 +192,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    libs = build_all(_build)
+    libs = build_all(_build, names, args.int8_body)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -137,40 +200,48 @@ def main() -> int:
     bins = torch.randint(0, B, (n, f), generator=gen, device=dev,
                          dtype=torch.uint8)
     g, h, m = cs._rows(gen, n, dev)
-    k, BR, fl = (cs.LEAVES_SHAPE[x] for x in ("k", "BR", "f"))
+    k, BR, fl, nc = (cs.LEAVES_SHAPE[x] for x in ("k", "BR", "f", "NC"))
     comb, lg, lh, lm, block_leaf, _, _ = cs._leaves_inputs(gen, dev)
     calls = {
-        "onehot_full": lambda v: hist.hist_onehot_full(
+        ("onehot_full", "featmajor"): lambda v: hist.hist_onehot_full(
             bins, g, h, m, B, variant=v, layout="featmajor"),
-        "onehot_leaves": lambda v: hist.hist_onehot_leaves(
+        ("onehot_full", "rowmajor"): lambda v: hist.hist_onehot_full(
+            bins, g, h, m, B, variant=v, layout="rowmajor"),
+        ("onehot_leaves", "rowmajor"): lambda v: hist.hist_onehot_leaves(
             comb, lg, lh, lm, block_leaf, k, B, block_rows=BR, f_limit=fl,
             variant=v),
     }
     rows = []
     saved = dict(_build._LIBS)
     try:
-        for name in ABLATIONS:
-            row = {"ablation": name, "card": smi, "B": B}
+        for name in names:
+            row = {"ablation": name, "card": smi, "B": B,
+                   "int8_body": args.int8_body}
             for kern in KERNELS:
                 _build._LIBS[kern] = libs[name, kern]
+            for (kern, layout), fn in calls.items():
+                full = kern == "onehot_full"
                 for v in BODIES:
-                    fn = calls[kern]
-                    row[f"{kern}/{v}/kernel_ms"] = cs.kernel_ms(
-                        lambda: fn(v), kern + "_kernel")
-                    row[f"{kern}/{v}/registers"] = \
-                        hist.onehot_kernel_attributes(
-                            kern, v, f if kern == "onehot_full" else fl, B,
-                            "featmajor" if kern == "onehot_full"
-                            else "rowmajor",
-                            ld=cs.LEAVES_SHAPE["NC"])["registers"]
+                    if name in SWEEP and v != "int8":
+                        continue
+                    key = f"{kern}/{layout}/{v}"
+                    match = cs._kernel_name(kern, v)
+                    row[f"{key}/kernel_ms"] = cs.kernel_ms(lambda: fn(v),
+                                                           match)
+                    if name == "repo" or name in SWEEP:
+                        row[f"{key}/ms"] = cs.median_ms(lambda: fn(v))
+                    a = hist.onehot_kernel_attributes(
+                        kern, v, f if full else fl, B, layout,
+                        ld=f if full else nc)
+                    row[f"{key}/registers"] = a["registers"]
+                    row[f"{key}/local_bytes"] = a["local_bytes"]
             print(json.dumps(row), flush=True)
             rows.append(row)
     finally:
         _build._LIBS.clear()
         _build._LIBS.update(saved)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "onehot_ablation.json"),
-              "w") as fh:
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
         json.dump(rows, fh, indent=1)
     return 0
 

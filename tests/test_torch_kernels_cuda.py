@@ -230,11 +230,12 @@ def test_onehot_leaves_matches_plain(dev, variant, B):
     assert torch.equal(got[nan_slot][..., 1:], again[nan_slot][..., 1:])
 
 
-# the edges of the bf16-pair kernels' design (onehot_common.cuh): every
-# bf16 body at a Bp = 256 width with bins >= B, a Bp = 128 width with bins
-# >= Bp, and packed at B = 64, 16 (a tile in one feature) and 8 (a tile
-# spanning two)
-EDGE_CASES = [(v, B) for v in ov.VARIANT_NAMES if v != "int8"
+# the edges of the one-hot kernels' design (onehot_common.cuh): every
+# bf16 body and int8 at a Bp = 256 width with bins >= B, a Bp = 128 width
+# with bins >= Bp, and packed at B = 64, 16 (a tile in one feature) and 8
+# (a tile spanning two); int8 also at quantization blocks of 1, 3 and 8
+# chunks and a q whose row length is no multiple of 16 (n = 1037, 515)
+EDGE_CASES = [(v, B) for v in ov.VARIANT_NAMES
               for B in ((64, 16, 8) if v == "packed" else (255, 100))]
 
 
@@ -321,6 +322,57 @@ def test_onehot_leaves_edges_match_plain(dev, variant, B, case, f, nc):
     assert torch.equal(got[fin], again[fin])
 
 
+def _split_units(units, nlb, resident):
+    """(units a CTA, grid x): the launchers' row split
+    (onehot_common.cuh::split_units)."""
+    splits = min(max(1, resident // max(nlb, 1)), units)
+    per = -(-units // splits)
+    return per, -(-units // per)
+
+
+def _is_prime(p):
+    return p > 1 and all(p % d for d in range(2, int(p ** 0.5) + 1))
+
+
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+def test_onehot_full_int8_mid_block_matches_plain(dev, layout):
+    """A CTA whose chunk range starts and ends inside a quantization block
+    (the full kernel splits rows in chunks, not blocks): the int32 sums
+    fold by the block of each chunk.  The row count is the first prime
+    number of chunks (with a ragged last one) for which the launcher's
+    split puts both ends of some CTA's range inside a block."""
+    f, B = 28, 256
+    lanes = ov.total_lanes("int8", f, B)
+    nlb = -(-lanes // 512)
+    per_sm = thist.onehot_kernel_attributes("onehot_full", "int8", f, B,
+                                            layout, ld=f)["ctas_per_sm"]
+    resident = per_sm * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    found = None
+    for chunks in filter(_is_prime, range(2003, 4000)):
+        n = chunks * 128 - 57
+        cpb = ov.pallas_block_rows("int8", layout, n, f, B) // 128
+        per, gx = _split_units(chunks, nlb, resident)
+        mid = [x for x in range(gx - 1)
+               if (x * per) % cpb and ((x + 1) * per) % cpb]
+        if mid:
+            found = n
+            break
+    assert found is not None
+    rng = np.random.default_rng(found)
+    bins = torch.as_tensor(rng.integers(0, 256, (found, f)).astype(np.uint8)
+                           ).to(dev)
+    g, h, m = _rows(rng, found, dev)
+    kw = dict(method="onehot", variant="int8", layout=layout)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, **kw)
+    got = thist.build_histogram(bins, g, h, m, B, **kw)
+    again = thist.build_histogram(bins, g, h, m, B, **kw)
+    torch.cuda.synchronize()
+    assert relerr(got, ref) <= TOL
+    assert torch.equal(got, again)
+
+
 def test_onehot_kernel_attributes(dev):
     """The attribute query reports each body's kernel: registers, and the
     dynamic shared memory of a launch at the width asked for -- more for
@@ -334,6 +386,7 @@ def test_onehot_kernel_attributes(dev):
                                                ld=40)
             assert 0 < a["registers"] <= 255
             assert a["dynamic_smem_bytes"] > 0
+            assert a["ctas_per_sm"] >= 1
             one = thist.onehot_kernel_attributes(kernel, v, 1, 64, layout)
             assert one["dynamic_smem_bytes"] < a["dynamic_smem_bytes"]
     wide = thist.onehot_kernel_attributes("onehot_leaves", "base", 28, 64,
@@ -416,6 +469,11 @@ def test_quantize_kernel_is_bit_identical_to_plain(dev):
         assert thist.launch_counts["onehot_quant"] == before + 1
         qp, sp = ov.quantize_int8_blocks_plain(rows, br)
         assert torch.equal(q, qp)
+        # q's rows are padded to a multiple of 128 with zeros, which the
+        # int8 one-hot kernels read as whole chunks
+        ldq = -(-n // 128) * 128
+        assert q.stride() == (ldq, 1)
+        assert not q.as_strided((9, ldq), (ldq, 1))[:, n:].any()
         assert torch.equal(torch.isnan(s), torch.isnan(sp))
         ok = ~torch.isnan(sp)
         assert torch.equal(s[ok].view(torch.int32), sp[ok].view(torch.int32))
