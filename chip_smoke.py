@@ -15,7 +15,18 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    main path's shapes (max relative error ``|a-b|/(|b|+1)`` <= 1e-5: both
    sum in float64 in different orders and round to float32 once), with
    per-launch times from CUDA events.  The atomic kernels (``hist_full``,
-   ``hist_leaves``) once; the one-hot kernels for every variant the width
+   ``hist_leaves``) within ``ATOMIC_REL_TOL`` (one float32 rounding step),
+   the same NaNs and the same bits from two calls, with the share of
+   entries bit-identical to the plain version, ``kernel_ms`` (the main and
+   reduce kernels' device time a call), the ratio to ``index_add_``, the
+   shared-memory floor beside the byte bound, and the plan's registers,
+   spills, shared bytes, CTAs an SM and scratch partials; ``hist_full``
+   also at an odd shape and on wide rows (20,011 x 700); ``hist_leaves``
+   on three inputs:
+   the random block->slot map, the same blocks slot by slot as the
+   frontier lays a round out, and that layout with skewed bins (one
+   feature in one bin, one in four).  The one-hot kernels for every
+   variant the width
    serves, at B=256 (all but ``packed``) and B=64 (all eight):
    ``onehot_full`` in both layouts (``featmajor``, the root histogram of
    ``force_row_wise``; ``rowmajor``, which no entry point reaches) and
@@ -74,6 +85,17 @@ F32_TFLOP_PER_S = 67.0
 BF16_TFLOP_PER_S = 989.0
 INT8_TOP_PER_S = 1979.0
 REL_TOL = 1e-5
+# the atomic kernels sum in float64 and round once, as their plain
+# versions do: at most one float32 rounding step apart
+ATOMIC_REL_TOL = 1.2e-7
+# shared-memory bytes an SM moves a clock: the atomic kernels' update
+# floor is one read-add-write of three float64 values (48 bytes) per
+# (row, feature) at this rate on every SM
+SMEM_BYTES_PER_CLK = 128
+# the kernels a call of each atomic wrapper launches (profiler names)
+ATOMIC_KERNELS = {"hist_full": ("hist_full_kernel", "hist_reduce_kernel"),
+                  "hist_leaves": ("hist_leaves_kernel",
+                                  "hist_reduce_kernel")}
 AUC_TOL = 1e-3
 N_TRAIN, N_VALID, N_FEAT, N_ITERS = 1_000_000, 100_000, 28, 20
 # the packed run: a smaller one at the width packing serves
@@ -144,11 +166,16 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
+          "clock_max_sm_mhz": clock,
           "capability": list(torch.cuda.get_device_capability(0)),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    return name, smi
+    return name, smi, clock
 
 
 def phase_build():
@@ -172,6 +199,27 @@ def _rows(gen, n, dev):
     return g, h, m
 
 
+def _atomic_stats(got, again, ref):
+    """An atomic kernel's result against its plain version: relerr and the
+    largest error on the finite entries, the NaN pattern, the same bits
+    from a second call, and the share of finite entries that are
+    bit-identical to the plain version's."""
+    fin = torch.isfinite(ref)
+    return dict(
+        relerr=relerr(got[fin], ref[fin]),
+        max_abs_err=float((got[fin] - ref[fin]).abs().max()),
+        nan_equal=bool(torch.equal(torch.isnan(got), torch.isnan(ref))),
+        same_bits_twice=bool(torch.equal(got.view(torch.int32),
+                                         again.view(torch.int32))),
+        bit_identical_share=float((got[fin] == ref[fin]).float().mean()))
+
+
+def _hold_atomic(name, st):
+    if not (st["relerr"] <= ATOMIC_REL_TOL and st["nan_equal"]
+            and st["same_bits_twice"]):
+        raise AssertionError(f"{name}: {st}")
+
+
 def _check_full(hist, gen, dev, n, f, B):
     bins = torch.randint(0, B, (n, f), generator=gen, device=dev,
                          dtype=torch.uint8)
@@ -179,11 +227,67 @@ def _check_full(hist, gen, dev, n, f, B):
     with hist.force_plain():
         ref = hist.build_histogram(bins, g, h, m, B)
     got = hist.hist_full(bins, g, h, m, B)
+    again = hist.hist_full(bins, g, h, m, B)
     torch.cuda.synchronize()
-    err = relerr(got, ref)
-    if not err <= REL_TOL:
-        raise AssertionError(f"hist_full {n}x{f}x{B}: relerr {err}")
-    return bins, g, h, m, got, ref, err
+    st = _atomic_stats(got, again, ref)
+    _hold_atomic(f"hist_full {n}x{f}x{B}", st)
+    return bins, g, h, m, st
+
+
+def smem_floor_ms(rows, feats, clock_mhz, sms):
+    """The atomic kernels' update floor: 48 bytes a (row, feature) through
+    shared memory at SMEM_BYTES_PER_CLK on each of ``sms`` SMs at the
+    card's highest SM clock."""
+    return (48.0 * rows * feats / (SMEM_BYTES_PER_CLK * sms * clock_mhz * 1e6)
+            * 1e3)
+
+
+def calls_ms(fn, names, reps: int = 10):
+    """Device time per call of the kernels whose names hold one of
+    ``names`` (torch.profiler over ``reps`` calls): a wrapper's kernels
+    alone, without its host work and allocations.  None when the profiler
+    records no launch of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and any(n in e.key for n in names)]
+    if not rows:
+        return None
+    return sum(_device_us(e) for e in rows) / 1e3 / reps
+
+
+def _skewed_bins(comb):
+    """Every row of feature 0 in one bin, feature 1 in four: the worst
+    case for lanes that share a bin."""
+    out = comb.clone()
+    out[:, 0] = 7
+    out[:, 1] = (comb[:, 1] & 3) * 60 + 3
+    return out
+
+
+def _atomic_attrs(hist, kernel, dev, units, stride, f, B, k=1):
+    """The launch plan's geometry, its kernel's registers, spills, shared
+    bytes and CTAs an SM, and the float64 partials a call writes (one a
+    CTA for the full pass; for the leaves one a CTA for each slot its
+    blocks may name, min(blocks a CTA, k))."""
+    plan = hist.atomic_plan(kernel, dev, stride, f, B)
+    full = kernel == "hist_full"
+    grid_x, per = hist.atomic_grid(plan, units,
+                                   hist._FULL_ROW_ALIGN if full else 1)
+    partials = grid_x * (1 if full else min(per, k))
+    return {**{x: plan[x] for x in ("registers", "local_bytes",
+                                    "static_smem_bytes",
+                                    "dynamic_smem_bytes", "ctas_per_sm",
+                                    "fg", "tile", "threads")},
+            "grid_x": grid_x, "partials": partials,
+            "scratch_mb": partials * f * B * 3 * 8 / 1e6}
 
 
 def _index_add_ms(dev, flat, vals, size):
@@ -217,22 +321,10 @@ def _leaves_yardstick(dev, comb, g, h, m, block_leaf, k, B, BR, fl):
 
 def kernel_ms(fn, match: str, reps: int = 10):
     """Mean device time of one launch of the kernel whose name holds
-    ``match`` (torch.profiler over ``reps`` calls, per launch it
-    recorded): the kernel alone, without the wrapper's host work and
-    small torch ops that ``ms`` includes.  None when the profiler records
-    no launch of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and match in e.key]
-    n = sum(e.count for e in rows)
-    return sum(_device_us(e) for e in rows) / 1e3 / n if n else None
+    ``match`` (one a call): the kernel alone, without the wrapper's host
+    work and small torch ops that ``ms`` includes.  None when the profiler
+    records no launch of it."""
+    return calls_ms(fn, (match,), reps)
 
 
 def _vs_library(row, attrs, fn, match):
@@ -265,67 +357,98 @@ def _leaves_inputs(gen, dev):
     return comb, g, h, m, block_leaf, empty, int(block_leaf[nan_block])
 
 
-def phase_kernels():
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(clock_mhz):
+    """Each atomic kernel against its plain version at the main path's
+    shapes, with its kernel-alone time, its attributes, and for the leaves
+    three inputs: the random block->slot map, the same blocks slot by slot
+    as the frontier lays a round out, and that layout with skewed bins."""
     from lightgbm_tpu_torch.ops import histogram as hist
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     out = {}
 
-    # hist_full: the frontier's root histogram (N=1M, F=28, B=256) and an
-    # odd shape (ragged row count, feature count not a power of two)
+    # hist_full: the frontier's root histogram (N=1M, F=28, B=256), an odd
+    # shape (ragged row count, feature count not a power of two) and wide
+    # rows (staged row by row, features in groups)
     n, f, B = N_TRAIN, N_FEAT, 256
-    bins, g, h, m, got, ref, err = _check_full(hist, gen, dev, n, f, B)
-    _, _, _, _, _, _, err_odd = _check_full(hist, gen, dev, 100_003, 13, 64)
-    ms = median_ms(lambda: hist.hist_full(bins, g, h, m, B))
+    bins, g, h, m, st = _check_full(hist, gen, dev, n, f, B)
+    st_odd = _check_full(hist, gen, dev, 100_003, 13, 64)[-1]
+    st_wide = _check_full(hist, gen, dev, 20_011, 700, 256)[-1]
+
+    def full():
+        return hist.hist_full(bins, g, h, m, B)
+    ms = median_ms(full)
     with hist.force_plain():
         plain_ms = median_ms(lambda: hist.build_histogram(bins, g, h, m, B))
     library_ms = _full_yardstick(dev, bins, g, h, m, B)
     b_ms, b_by = bound(n * f + 12 * n + f * B * 12, 3 * n * f + 2 * n)
     out["hist_full"] = dict(
-        shape=[n, f, B], relerr=err, relerr_odd_shape=err_odd,
-        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        shape=[n, f, B], **st, relerr_odd_shape=st_odd["relerr"],
+        relerr_wide_rows=st_wide["relerr"], ms=ms,
+        kernel_ms=calls_ms(full, ATOMIC_KERNELS["hist_full"]),
+        plain_ms=plain_ms, library_ms=library_ms,
+        vs_index_add=ms / library_ms, bound_ms=b_ms, bound_by=b_by,
+        smem_floor_ms=smem_floor_ms(n, f, clock_mhz, sms),
+        **_atomic_attrs(hist, "hist_full", dev, n, f, f, B))
     del bins, g, h, m
 
     # hist_leaves: one frontier round's batched smaller-child histograms
     C, NC, fl, k, BR = (LEAVES_SHAPE[x] for x in ("C", "NC", "f", "k", "BR"))
     nb = C // BR
-    comb, g, h, m, block_leaf, empty, nan_slot = _leaves_inputs(gen, dev)
-    with hist.force_plain():
-        ref = hist.build_histogram_leaves(comb, g, h, m, block_leaf, k, B,
-                                          block_rows=BR, f_limit=fl)
-    got = hist.hist_leaves(comb, g, h, m, block_leaf, k, B, block_rows=BR,
-                           f_limit=fl)
-    torch.cuda.synchronize()
-    if not bool((got[empty] == 0).all()):
-        raise AssertionError("hist_leaves: the empty slot is not zero")
-    others = [s for s in range(k) if s != nan_slot]
-    if not (bool(torch.isnan(got[nan_slot]).any())
-            and bool(torch.isfinite(got[others]).all())):
-        raise AssertionError("hist_leaves: the NaN is not confined to its slot")
-    if not torch.equal(torch.isnan(got), torch.isnan(ref)):
-        raise AssertionError("hist_leaves: NaN pattern differs from plain")
-    fin = torch.isfinite(ref)
-    err = relerr(got[fin], ref[fin])
-    if not err <= REL_TOL:
-        raise AssertionError(f"hist_leaves: relerr {err}")
-    ms = median_ms(lambda: hist.hist_leaves(comb, g, h, m, block_leaf, k, B,
-                                            block_rows=BR, f_limit=fl))
+    comb, g, h, m, block_leaf, empty, _ = _leaves_inputs(gen, dev)
+    ordered = torch.sort(block_leaf).values
+    inputs = {"random": (comb, block_leaf), "slot_ordered": (comb, ordered),
+              "skewed": (_skewed_bins(comb), ordered)}
+    cases = {}
+    for case, (cb, bl) in inputs.items():
+        def leaves(cb=cb, bl=bl):
+            return hist.hist_leaves(cb, g, h, m, bl, k, B, block_rows=BR,
+                                    f_limit=fl)
+        with hist.force_plain():
+            ref = hist.build_histogram_leaves(cb, g, h, m, bl, k, B,
+                                              block_rows=BR, f_limit=fl)
+        got, again = leaves(), leaves()
+        torch.cuda.synchronize()
+        nan_slot = int(bl[100])                  # the block with the NaN
+        others = [s for s in range(k) if s != nan_slot]
+        if not bool((got[empty] == 0).all()):
+            raise AssertionError(f"hist_leaves {case}: the empty slot is "
+                                 "not zero")
+        if not (bool(torch.isnan(got[nan_slot]).any())
+                and bool(torch.isfinite(got[others]).all())):
+            raise AssertionError(f"hist_leaves {case}: the NaN is not "
+                                 "confined to its slot")
+        st = _atomic_stats(got, again, ref)
+        _hold_atomic(f"hist_leaves {case}", st)
+        case_ms = median_ms(leaves)
+        lib_ms = _leaves_yardstick(dev, cb, g, h, m, bl, k, B, BR, fl)
+        cases[case] = dict(
+            **st, ms=case_ms,
+            kernel_ms=calls_ms(leaves, ATOMIC_KERNELS["hist_leaves"]),
+            library_ms=lib_ms, vs_index_add=case_ms / lib_ms)
     with hist.force_plain():
         plain_ms = median_ms(lambda: hist.build_histogram_leaves(
             comb, g, h, m, block_leaf, k, B, block_rows=BR, f_limit=fl))
-    library_ms = _leaves_yardstick(dev, comb, g, h, m, block_leaf, k, B, BR,
-                                   fl)
     b_ms, b_by = bound(C * fl + 12 * C + 4 * nb + k * fl * B * 12,
                        3 * C * fl + 2 * C)
     out["hist_leaves"] = dict(
-        shape=[C, NC, fl, k, BR], relerr=err,
-        max_abs_err=float((got[fin] - ref[fin]).abs().max()), ms=ms,
-        plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-        bound_by=b_by, empty_slot_zero=True, nan_confined=True)
-    emit({"phase": "kernels", **out})
+        shape=[C, NC, fl, k, BR], **cases["random"], plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by,
+        smem_floor_ms=smem_floor_ms(C, fl, clock_mhz, sms),
+        **_atomic_attrs(hist, "hist_leaves", dev, nb, NC, fl, B, k),
+        cases=cases, empty_slot_zero=True, nan_confined=True)
+    for name, r in out.items():
+        print(f"{name}: kernel {r['kernel_ms']:.4f} ms, call {r['ms']:.4f} "
+              f"ms, index_add_ {r['library_ms']:.4f} ms, {r['registers']} "
+              f"registers, {r['local_bytes']} spilled bytes, "
+              f"{r['ctas_per_sm']} CTAs an SM", flush=True)
+    for case, r in cases.items():
+        print(f"hist_leaves {case}: kernel {r['kernel_ms']:.4f} ms, call "
+              f"{r['ms']:.4f} ms, relerr {r['relerr']:.3g}", flush=True)
+    emit({"phase": "kernels", "tolerance": ATOMIC_REL_TOL,
+          "clock_max_sm_mhz": clock_mhz, **out})
     return out
 
 
@@ -871,11 +994,20 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
     keys = ("max_abs_err", "relerr", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     rows = []
+    atomic_keys = ("kernel_ms", "vs_index_add", "smem_floor_ms",
+                   "registers", "local_bytes", "dynamic_smem_bytes",
+                   "ctas_per_sm")
     for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": replaces, "jax": jax_fn,
-                     "launches": launches["atomic"][kname],
-                     **{k: kern[kname][k] for k in keys}, "card": card})
+        r = kern[kname]
+        row = {"name": kname, "route": "cuda", "source": src,
+               "replaces": replaces, "jax": jax_fn,
+               "launches": launches["atomic"][kname],
+               **{k: r[k] for k in keys + atomic_keys}, "card": card}
+        if "cases" in r:
+            row["cases"] = {c: {k: v[k] for k in ("relerr", "ms",
+                                                  "kernel_ms", "library_ms")}
+                            for c, v in r["cases"].items()}
+        rows.append(row)
     for name, r in onehot.items():
         src, replaces, jax_fn = ONEHOT_SHELLS[(r["kernel"], r["layout"])]
         run = MAIN_PATH_RUNS.get((r["variant"], r["B"]))
@@ -919,9 +1051,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
-    name, smi = phase_device()
+    name, smi, clock = phase_device()
     phase_build()
-    kern = phase_kernels()
+    kern = phase_kernels(clock)
     onehot = phase_kernels_onehot(smi)
     quant = phase_quant(smi)
     bench = phase_shootout(smi)

@@ -5,7 +5,9 @@ library with a plain C interface (``<name>_launch``, and for
 ``onehot_full`` also the shootout shell's ``onehot_bench_launch``), loaded
 with ``ctypes``.  The one-hot libraries also export an attribute query
 (``onehot_full_query``, ``onehot_leaves_query``: registers, static and
-dynamic shared memory, spills and CTAs an SM of a body's kernel).
+dynamic shared memory, spills and CTAs an SM of a body's kernel), and the
+atomic ones a launch plan (``hist_full_plan``, ``hist_leaves_plan``: the
+geometry of a launch and the same attributes of its kernel).
 Libraries are cached in ``ops/_build/`` under a name keyed on a hash of the
 sources and flags, so an edit to a kernel rebuilds it and an unchanged
 kernel is built once per checkout.  ``build()`` starts one ``nvcc`` per
@@ -47,17 +49,22 @@ _INT_P = ctypes.POINTER(ctypes.c_int)
 # argument types of each library's entry points
 _ARGTYPES = {
     "hist_full": {
-        # device, bins, n, stride, f, B, g, h, m, out, fg, grid_x, threads,
-        # stream
-        "hist_full_launch": [_INT, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P,
-                             _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT,
-                             _VOID_P]},
+        # device, stride, f, B, out[9]
+        "hist_full_plan": [_INT, _LL, _INT, _INT, _INT_P],
+        # device, bins, n, stride, f, B, g, h, m, partial, out, fg, tile,
+        # threads, grid_x, rows_per_cta, stream
+        "hist_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _VOID_P,
+                             _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _INT,
+                             _INT, _INT, _LL, _VOID_P]},
     "hist_leaves": {
-        # device, comb, c, stride, f, B, g, h, m, block_leaf, br, k, out,
-        # fg, bpc, threads, stream
-        "hist_leaves_launch": [_INT, _VOID_P, _LL, _INT, _INT, _INT, _VOID_P,
+        # device, stride, f, B, out[9]
+        "hist_leaves_plan": [_INT, _LL, _INT, _INT, _INT_P],
+        # device, comb, c, stride, f, B, g, h, m, block_leaf, br, k,
+        # scratch, out, fg, tile, threads, grid_x, bpc, parts, stream
+        "hist_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _VOID_P,
                                _VOID_P, _VOID_P, _VOID_P, _INT, _INT,
-                               _VOID_P, _INT, _INT, _INT, _VOID_P]},
+                               _VOID_P, _VOID_P, _INT, _INT, _INT, _INT,
+                               _INT, _INT, _VOID_P]},
     "onehot_full": {
         # device, bins, ld, n, f, layout, g, h, m, q, scales, qbr, out,
         # variant, lpf_log2, lanes, nf_max, stream

@@ -10,8 +10,10 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
 
 - ``method="atomic"`` (the default; ``force_col_wise``):
   ``build_histogram`` -> ``hist_full``, ``build_histogram_leaves`` ->
-  ``hist_leaves``: rows scattered into float64 shared-memory histograms.
-  The counterpart of the JAX package's scatter method, the card's
+  ``hist_leaves``: rows scattered into float64 shared-memory histograms
+  whose features each warp owns (no atomics), one float64 partial per CTA
+  (per slot run for the leaves) summed by a second kernel in a fixed
+  order.  The counterpart of the JAX package's scatter method, the card's
   counterpart of a known winner.
 - ``method="onehot"`` (``force_row_wise``): ``hist_onehot_full`` and
   ``hist_onehot_leaves``, the tensor-core port of the Pallas one-hot
@@ -32,7 +34,7 @@ in its slot -- and the plain one-hot versions give the same NaNs.
 The frontier calls ``build_histogram`` for its root histogram and
 ``build_histogram_leaves`` once per round.  Every kernel and plain version
 sums in float64 and rounds to float32 once: a float32 sum drifts with the
-summation order (atomics have none) by ~1e-4 when ~4,000 gradients cancel
+summation order by ~1e-4 when ~4,000 gradients cancel
 in a bin, while the float64 sum of float32 (or bf16) values is exact or
 nearly so, so a kernel and its plain version give the same bits in
 practice and grow the same trees.
@@ -62,15 +64,12 @@ launch_counts: Dict[str, int] = {name: 0 for name in
 # package's HIST_PARITY_TOL): the bf16 pair's, and int8's, own error
 HIST_PARITY_TOL = 5e-4
 
-# bytes of one CTA's privatised float64 histogram per (feature, bin)
+# bytes of one CTA's privatised float64 histogram per (feature, bin); at
+# F=28, B=256 the whole [F, B, 3] histogram (172,032 bytes) fits one CTA
+# beside its staging buffers (kernels/hist_common.cuh::plan_geometry)
 _SMEM_PER_BIN = 24
-# shared-memory budget of that histogram: F*B*24 bytes at F=28, B=256 is
-# 172,032 bytes, so the main path runs two feature groups (16 + 12
-# features, 98,304 bytes) and two CTAs fit an SM (228 KB)
-SMEM_BUDGET_BYTES = 96 * 1024
 # largest dynamic shared memory a CTA may opt into on Hopper
 SMEM_MAX_BYTES = 227 * 1024
-_THREADS = 512
 
 _force_plain = False
 
@@ -376,21 +375,53 @@ def _check_rows(name, mat, grad, hess, mask):
                f"on {dev}")
 
 
-def _feature_group(f: int, max_bin: int) -> int:
-    per_feat = _SMEM_PER_BIN * max_bin
-    _check(per_feat <= SMEM_MAX_BYTES,
-           f"max_bin={max_bin} needs {per_feat} bytes of shared memory per "
-           f"feature, above {SMEM_MAX_BYTES}")
-    return max(1, min(f, max(SMEM_BUDGET_BYTES, per_feat) // per_feat))
+# the atomic kernels' launch plan (kernels/hist_common.cuh::plan_launch):
+# feature group, tile rows, threads, dynamic shared bytes, CTAs an SM, SMs,
+# registers a thread, static shared bytes, spilled bytes a thread; it
+# depends on the shape only, so it is kept per (kernel, device, stride, f,
+# B) and a call splits its rows or blocks with atomic_grid
+_PLAN_KEYS = ("fg", "tile", "threads", "dynamic_smem_bytes", "ctas_per_sm",
+              "sms", "registers", "static_smem_bytes", "local_bytes")
+_plans: Dict[tuple, Dict[str, int]] = {}
+# rows a hist_full CTA takes are a multiple of this (16 rows of any
+# stride are whole 16-byte pieces, so every CTA's span starts at the
+# matrix's offset in its piece)
+_FULL_ROW_ALIGN = 16
 
 
-def _ctas(dev: torch.device, fg: int, max_bin: int) -> int:
-    """CTAs that fit the card at once: SMs times CTAs per SM by shared
-    memory (at most 2 with 512 threads each)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = max(1, min(2, (228 * 1024)
-                        // (_SMEM_PER_BIN * fg * max_bin + 1024)))
-    return sms * per_sm
+def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
+                max_bin: int) -> Dict[str, int]:
+    """The launch plan of ``hist_full`` or ``hist_leaves`` over ``f``
+    features of ``max_bin`` bins in rows of ``stride`` bytes; builds the
+    kernel first if needed."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    key = (kernel, index, stride, f, max_bin)
+    plan = _plans.get(key)
+    if plan is None:
+        import ctypes
+        per_feat = _SMEM_PER_BIN * max_bin
+        _check(per_feat <= SMEM_MAX_BYTES,
+               f"max_bin={max_bin} needs {per_feat} bytes of shared memory "
+               f"per feature, above {SMEM_MAX_BYTES}")
+        buf = (ctypes.c_int * len(_PLAN_KEYS))()
+        lib = _build.load(kernel)
+        rc = getattr(lib, f"{kernel}_plan")(index, stride, f, max_bin, buf)
+        _raise_on(lib, f"{kernel} plan", rc)
+        plan = _plans[key] = dict(zip(_PLAN_KEYS, buf))
+        plan["groups"] = -(-f // plan["fg"])
+    return plan
+
+
+def atomic_grid(plan: Dict[str, int], units: int, align: int = 1):
+    """``(CTAs along x, units a CTA)``: ``units`` rows or blocks split over
+    the CTAs the card holds at once, each feature group a column of the
+    grid, the units a CTA rounded up to a multiple of ``align``."""
+    splits = max(1, max(1, plan["ctas_per_sm"]) * plan["sms"]
+                 // plan["groups"])
+    per = -(-units // splits)
+    per = -(-per // align) * align
+    return -(-units // per), per
 
 
 def _raise_on(lib, name: str, rc: int) -> None:
@@ -400,58 +431,73 @@ def _raise_on(lib, name: str, rc: int) -> None:
 
 
 def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
-    """``[F, B, 3]`` histogram by the ``hist_full`` CUDA kernel."""
+    """``[F, B, 3]`` histogram by the ``hist_full`` CUDA kernel: one launch
+    of the kernel over the plan's CTAs, each writing a float64 partial
+    into scratch, and one of the reduce kernel, which sums them into the
+    float32 result."""
     _check_rows("hist_full", bins, grad, hess, mask)
     n, ncols = bins.shape
     f = _n_feat(ncols, f_limit)
-    out = torch.zeros(f, max_bin, 3, dtype=torch.float64, device=bins.device)
+    dev = bins.device
     if n == 0 or f == 0:
-        return out.float()
-    fg = _feature_group(f, max_bin)
-    grid_x = max(1, min(_ctas(bins.device, fg, max_bin), -(-n // _THREADS)))
+        return torch.zeros(f, max_bin, 3, device=dev)
+    plan = atomic_plan("hist_full", dev, ncols, f, max_bin)
+    grid_x, per_cta = atomic_grid(plan, n, _FULL_ROW_ALIGN)
+    partial = torch.empty(grid_x, f, max_bin, 3, dtype=torch.float64,
+                          device=dev)
+    out = torch.empty(f, max_bin, 3, device=dev)
     lib = _build.load("hist_full")
     rc = lib.hist_full_launch(
-        bins.device.index, bins.data_ptr(), n, ncols, f, max_bin,
-        grad.data_ptr(), hess.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        fg, grid_x, _THREADS, torch.cuda.current_stream(bins.device).cuda_stream)
+        dev.index, bins.data_ptr(), n, ncols, f, max_bin, grad.data_ptr(),
+        hess.data_ptr(), mask.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        plan["fg"], plan["tile"], plan["threads"], grid_x, per_cta,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_full", rc)
     launch_counts["hist_full"] += 1
-    return out.float()
+    return out
 
 
 def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
                 block_rows=512, f_limit=None):
     """``[num_slots, F, B, 3]`` histograms by the ``hist_leaves`` CUDA
-    kernel."""
+    kernel: one launch over the plan's CTAs, each writing one float64
+    partial per slot its blocks name into scratch and naming the slot
+    there, and one of the reduce kernel, which sums each slot's partials
+    into the float32 result."""
     _check_rows("hist_leaves", comb, grad, hess, mask)
     c, nc = comb.shape
     f = _n_feat(nc, f_limit)
+    dev = comb.device
     _check(block_rows > 0 and c % block_rows == 0,
            f"hist_leaves: rows ({c}) must be a multiple of block_rows "
            f"({block_rows})")
     nb = c // block_rows
-    _check(block_leaf.device == comb.device and block_leaf.dtype == torch.int32
+    _check(block_leaf.device == dev and block_leaf.dtype == torch.int32
            and block_leaf.dim() == 1 and block_leaf.shape[0] == nb
            and block_leaf.is_contiguous(),
            f"hist_leaves: block_leaf must be a contiguous int32 [{nb}] "
-           f"tensor on {comb.device}")
-    out = torch.zeros(num_slots, f, max_bin, 3, dtype=torch.float64,
-                      device=comb.device)
+           f"tensor on {dev}")
     if nb == 0 or f == 0 or num_slots == 0:
-        return out.float()
-    fg = _feature_group(f, max_bin)
-    n_groups = -(-f // fg)
-    ctas = _ctas(comb.device, fg, max_bin)
-    bpc = max(1, -(-nb * n_groups // ctas))
+        return torch.zeros(num_slots, f, max_bin, 3, device=dev)
+    plan = atomic_plan("hist_leaves", dev, nc, f, max_bin)
+    grid_x, bpc = atomic_grid(plan, nb)
+    # the partials (float64 [grid x * parts, F, B, 3]: a CTA writes one for
+    # each slot its blocks name), then their slots
+    parts = min(bpc, num_slots)
+    n_partial = grid_x * parts
+    scratch = torch.empty(n_partial * (f * max_bin * 3 * 8 + 4),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty(num_slots, f, max_bin, 3, device=dev)
     lib = _build.load("hist_leaves")
     rc = lib.hist_leaves_launch(
-        comb.device.index, comb.data_ptr(), c, nc, f, max_bin,
-        grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
-        block_leaf.data_ptr(), block_rows, num_slots, out.data_ptr(), fg,
-        bpc, _THREADS, torch.cuda.current_stream(comb.device).cuda_stream)
+        dev.index, comb.data_ptr(), c, nc, f, max_bin, grad.data_ptr(),
+        hess.data_ptr(), mask.data_ptr(), block_leaf.data_ptr(), block_rows,
+        num_slots, scratch.data_ptr(), out.data_ptr(), plan["fg"],
+        plan["tile"], plan["threads"], grid_x, bpc, parts,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_leaves", rc)
     launch_counts["hist_leaves"] += 1
-    return out.float()
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -4,53 +4,75 @@
 // Replaces lightgbm_tpu/ops/histogram.py::_hist_pallas (feature-major
 // branch, kernel_fm), which builds the same sums as a bf16 (hi, lo) one-hot
 // matmul over a transposed [f, N] copy of the bins.  Here there is no
-// one-hot and no transpose: each CTA reads its own contiguous stretch of
-// rows of the [N, stride] matrix as stored and scatters them into a
-// float64 shared-memory histogram of its feature group (gridDim.y splits
-// the features when F * B * 24 bytes exceeds the shared-memory budget the
-// wrapper chose), then flushes with float64 global atomics into the zeroed
-// accumulator, which the wrapper rounds to float32.
+// one-hot and no transpose: each CTA takes a contiguous stretch of rows of
+// the [N, stride] matrix as stored, stages it tile by tile, and adds it
+// into a float64 shared-memory histogram of its feature group in which
+// each warp owns whole features (hist_common.cuh); it writes that
+// histogram once into its float64 partial, and hist_reduce_kernel sums
+// the partials in a fixed order into the float32 output.
 //
 // Bound on an H100: it must read N * f bytes of bins and 12 * N bytes of
-// (g, h, m) once, so the memory bound is (f + 12) * N / 3.35 TB/s; this
-// simple version is limited by shared-memory atomics instead (3 per row and
-// feature, float64), and by the flush (3 * F * B global atomics per CTA).
+// (g, h, m) once and write F * B * 12 bytes, so the byte bound is about
+// (f + 12) * N / 3.35 TB/s (0.012 ms at 1M x 28).  The update has a floor
+// of its own: one read-add-write of three float64 values per (row,
+// feature), 48 bytes through shared memory at 128 bytes a clock an SM
+// (about 0.04 ms at 1M x 28).  The partials add 2 * (grid x) * F * B * 24
+// bytes of device-memory traffic (about 45 MB at 1M x 28 with one CTA an
+// SM).
 #include "hist_common.cuh"
 
-__global__ void hist_full_kernel(const uint8_t* __restrict__ bins, int64_t n,
-                                 int stride, int f, int B,
-                                 const float* __restrict__ g,
-                                 const float* __restrict__ h,
-                                 const float* __restrict__ m,
-                                 double* __restrict__ out, int fg) {
-  extern __shared__ double s[];
+__global__ void __launch_bounds__(1024)
+    hist_full_kernel(const uint8_t* __restrict__ bins, long long n,
+                     long long stride, int f, int B,
+                     const float* __restrict__ g, const float* __restrict__ h,
+                     const float* __restrict__ m, double* __restrict__ partial,
+                     int fg, int tile, long long rows_per_cta) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int f0 = blockIdx.y * fg;
   const int fgc = min(fg, f - f0);
-  lgbt::zero_shared(s, 3 * fgc * B);
+  const lgbt::Smem sm = lgbt::carve(smem, fgc, B);
+  const lgbt::Stage st = lgbt::stage_of(tile, stride, fg);
+  const long long r0 = (long long)blockIdx.x * rows_per_cta;
+  const long long r1 = min(n, r0 + rows_per_cta);
+  lgbt::zero_hist(sm.hist, 3 * fgc * B);
+  const lgbt::Rows src{bins, stride, g, h, m};
+  lgbt::accumulate_rows(sm.hist, sm.words, sm.stage, st, src, r0, r1, f0, fgc,
+                        B);
   __syncthreads();
-  const int64_t per_cta = (n + gridDim.x - 1) / gridDim.x;
-  const int64_t r0 = (int64_t)blockIdx.x * per_cta;
-  const int64_t r1 = (r0 + per_cta < n) ? r0 + per_cta : n;
-  lgbt::accumulate_rows(s, bins, stride, g, h, m, r0, r1, f0, fgc, B);
-  __syncthreads();
-  lgbt::flush_shared(out, s, f0, fgc, B);
+  lgbt::write_partial(partial + ((long long)blockIdx.x * f + f0) * B * 3,
+                      sm.hist, 3 * fgc * B);
 }
 
+// The launch plan of a shape (lgbt::plan_launch's nine values).
+extern "C" int hist_full_plan(int device, long long stride, int f, int B,
+                              int* out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)lgbt::plan_launch(hist_full_kernel, device, stride, f, B, out);
+}
+
+// The main kernel over grid_x CTAs (rows_per_cta rows each) and the
+// feature groups, then the reduce pass over its grid_x partials
+// ([grid_x, f, B, 3] float64) into out ([f, B, 3] float32).
 extern "C" int hist_full_launch(int device, const void* bins, long long n,
-                                int stride, int f, int B, const void* g,
-                                const void* h, const void* m, void* out,
-                                int fg, int grid_x, int threads,
+                                long long stride, int f, int B, const void* g,
+                                const void* h, const void* m, void* partial,
+                                void* out, int fg, int tile, int threads,
+                                int grid_x, long long rows_per_cta,
                                 void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)3 * fg * B * sizeof(double);
-  e = cudaFuncSetAttribute(hist_full_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  const int smem = (int)lgbt::smem_bytes(fg, B, tile, stride);
+  e = lgbt::allow_smem(hist_full_kernel, device, smem);
   if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(grid_x, (f + fg - 1) / fg);
-  hist_full_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, (int64_t)n, stride, f, B, (const float*)g,
-      (const float*)h, (const float*)m, (double*)out, fg);
-  return (int)cudaGetLastError();
+  hist_full_kernel<<<grid, threads, smem, s>>>(
+      (const uint8_t*)bins, n, stride, f, B, (const float*)g,
+      (const float*)h, (const float*)m, (double*)partial, fg, tile,
+      rows_per_cta);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)lgbt::launch_reduce((const double*)partial, nullptr, grid_x,
+                                  (long long)f * B * 3, 1, (float*)out, s);
 }

@@ -4,80 +4,128 @@
 // Replaces lightgbm_tpu/ops/histogram.py::_hist_leaves_pallas, which keeps
 // the whole [k, 6, F * Bp] accumulator resident and adds each BR-row
 // block's one-hot matmul into slot block_leaf[blk] through a slot select.
-// Here each CTA takes a run of `bpc` consecutive BR-row blocks and one
-// feature group, accumulates rows into a float64 shared-memory histogram,
-// and flushes it into slot block_leaf[blk] of the zeroed float64
-// accumulator whenever the slot changes (the frontier lays blocks out
-// grouped by leaf, so a run usually flushes once); the wrapper rounds the
-// accumulator to float32.  block_leaf need not be sorted; a block whose
-// slot is outside [0, k) matches no slot and is dropped, as in the Pallas
-// kernel's `where`.  A slot no block names stays zero, and a NaN stays in
-// the slot of the block that carried it.  Only the first `f` columns of
-// each `stride`-byte row are read (the rest are packed g/h/w bytes).
+// Here each CTA takes `bpc` consecutive BR-row blocks and one feature
+// group.  It takes the slots its blocks name one at a time, in the order
+// each first appears, and adds every run of that slot's blocks (a
+// contiguous stretch of rows) into a float64 shared-memory histogram in
+// which each warp owns whole features (hist_common.cuh); then it writes
+// that histogram once into its partial blockIdx.x * parts + j for its
+// j-th slot, naming the slot in pslot (-1 for the partials it leaves
+// unused).  So a CTA holds at most parts = min(bpc, k) partials, and
+// hist_reduce_kernel sums each slot's partials, at most one a CTA, in the
+// order of their index into the float32 output.  The frontier lays a
+// round's blocks out slot by slot, so a CTA usually writes one or two.
+// block_leaf need not be sorted; a block whose slot is outside [0, k) is
+// dropped, as in the Pallas kernel's `where`.  A slot no block names is
+// zero, and a NaN stays in the (slot, feature, bin) entries of the row
+// that carried it.  Only the first `f` columns of each `stride`-byte row
+// are read (the rest are packed g/h/w bytes).
 //
 // Bound on an H100: C * f bytes of bins, 12 * C bytes of (g, h, m) and
 // 4 * C / BR bytes of block_leaf read once, k * F * B * 12 bytes written:
-// memory bound (f + 12) * C / 3.35 TB/s.  This simple version is limited by
-// shared-memory atomics and by the flush (3 * F * B global atomics per CTA
-// and slot change).
+// the byte bound is about (f + 12) * C / 3.35 TB/s (0.0035 ms at C =
+// 262,144, f = 28, k = 16).  The update's shared-memory floor is 48 bytes
+// per (row, feature) at 128 bytes a clock an SM (about 0.011 ms there).
+// Each partial adds 2 * F * B * 24 bytes of device-memory traffic.
 #include "hist_common.cuh"
 
-__global__ void hist_leaves_kernel(const uint8_t* __restrict__ comb,
-                                   int64_t c, int stride, int f, int B,
-                                   const float* __restrict__ g,
-                                   const float* __restrict__ h,
-                                   const float* __restrict__ m,
-                                   const int32_t* __restrict__ block_leaf,
-                                   int br, int k, double* __restrict__ out,
-                                   int fg, int bpc) {
-  extern __shared__ double s[];
-  const int f0 = blockIdx.y * fg;
-  const int fgc = min(fg, f - f0);
-  const int64_t nb = c / br;
-  const int64_t b0 = (int64_t)blockIdx.x * bpc;
-  const int64_t b1 = (b0 + bpc < nb) ? b0 + bpc : nb;
-  const int64_t slot_size = (int64_t)f * B * 3;
-  int cur = -1;
-  lgbt::zero_shared(s, 3 * fgc * B);
-  __syncthreads();
-  for (int64_t blk = b0; blk < b1; ++blk) {
-    const int slot = block_leaf[blk];
-    if (slot < 0 || slot >= k) continue;
-    if (slot != cur) {
-      if (cur >= 0) {
-        __syncthreads();
-        lgbt::flush_shared(out + cur * slot_size, s, f0, fgc, B);
-        __syncthreads();
-        lgbt::zero_shared(s, 3 * fgc * B);
-        __syncthreads();
-      }
-      cur = slot;
-    }
-    lgbt::accumulate_rows(s, comb, stride, g, h, m, blk * br,
-                          blk * br + br, f0, fgc, B);
-  }
-  __syncthreads();
-  if (cur >= 0) lgbt::flush_shared(out + cur * slot_size, s, f0, fgc, B);
+// Whether a block of [b0, blk) names `slot` (nearest first, so a block
+// inside a run answers at once).
+__device__ __forceinline__ bool named_before(const int32_t* block_leaf,
+                                             int b0, int blk, int slot) {
+  for (int b = blk - 1; b >= b0; --b)
+    if (block_leaf[b] == slot) return true;
+  return false;
 }
 
+__global__ void __launch_bounds__(1024)
+    hist_leaves_kernel(const uint8_t* __restrict__ comb, long long c,
+                       long long stride, int f, int B,
+                       const float* __restrict__ g,
+                       const float* __restrict__ h,
+                       const float* __restrict__ m,
+                       const int32_t* __restrict__ block_leaf, int br, int k,
+                       double* __restrict__ partial,
+                       int32_t* __restrict__ pslot, int fg, int tile,
+                       int bpc, int parts) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int f0 = blockIdx.y * fg;
+  const int fgc = min(fg, f - f0);
+  const lgbt::Smem sm = lgbt::carve(smem, fgc, B);
+  const lgbt::Stage st = lgbt::stage_of(tile, stride, fg);
+  const int nb = (int)(c / br);
+  const int b0 = blockIdx.x * bpc;
+  const int b1 = min(nb, b0 + bpc);
+  const lgbt::Rows src{comb, stride, g, h, m};
+  int j = 0;
+  for (int first = b0; first < b1; ++first) {
+    const int slot = block_leaf[first];
+    if (slot < 0 || slot >= k || named_before(block_leaf, b0, first, slot))
+      continue;
+    __syncthreads();  // the last slot's partial is written
+    lgbt::zero_hist(sm.hist, 3 * fgc * B);
+    for (int blk = first; blk < b1;) {  // each run of the slot
+      if (block_leaf[blk] != slot) {
+        ++blk;
+        continue;
+      }
+      int end = blk + 1;
+      while (end < b1 && block_leaf[end] == slot) ++end;
+      lgbt::accumulate_rows(sm.hist, sm.words, sm.stage, st, src,
+                            (long long)blk * br, (long long)end * br, f0,
+                            fgc, B);
+      blk = end;
+    }
+    __syncthreads();
+    const long long p = (long long)blockIdx.x * parts + j;
+    lgbt::write_partial(partial + (p * f + f0) * B * 3, sm.hist,
+                        3 * fgc * B);
+    if (blockIdx.y == 0 && threadIdx.x == 0) pslot[p] = slot;
+    ++j;
+  }
+  if (blockIdx.y == 0)
+    for (int r = j + threadIdx.x; r < parts; r += blockDim.x)
+      pslot[(long long)blockIdx.x * parts + r] = -1;
+}
+
+// The launch plan of a shape (lgbt::plan_launch's nine values).
+extern "C" int hist_leaves_plan(int device, long long stride, int f, int B,
+                                int* out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)lgbt::plan_launch(hist_leaves_kernel, device, stride, f, B,
+                                out);
+}
+
+// The main kernel over grid_x CTAs (bpc blocks each) and the feature
+// groups, then the reduce pass over its grid_x * parts partials into out
+// ([k, f, B, 3] float32).  parts >= min(bpc, k); scratch holds the
+// partials ([grid_x * parts, f, B, 3] float64), then their slots (int32
+// each).
 extern "C" int hist_leaves_launch(int device, const void* comb, long long c,
-                                  int stride, int f, int B, const void* g,
-                                  const void* h, const void* m,
+                                  long long stride, int f, int B,
+                                  const void* g, const void* h, const void* m,
                                   const void* block_leaf, int br, int k,
-                                  void* out, int fg, int bpc, int threads,
+                                  void* scratch, void* out, int fg, int tile,
+                                  int threads, int grid_x, int bpc, int parts,
                                   void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)3 * fg * B * sizeof(double);
-  e = cudaFuncSetAttribute(hist_leaves_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  if (parts < (bpc < k ? bpc : k)) return (int)cudaErrorInvalidValue;
+  const int smem = (int)lgbt::smem_bytes(fg, B, tile, stride);
+  e = lgbt::allow_smem(hist_leaves_kernel, device, smem);
   if (e != cudaSuccess) return (int)e;
-  const long long nb = c / br;
-  const dim3 grid((unsigned)((nb + bpc - 1) / bpc), (f + fg - 1) / fg);
-  hist_leaves_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)comb, (int64_t)c, stride, f, B, (const float*)g,
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(grid_x, (f + fg - 1) / fg);
+  const long long E = (long long)f * B * 3;
+  double* partial = (double*)scratch;
+  int32_t* pslot = (int32_t*)(partial + (long long)grid_x * parts * E);
+  hist_leaves_kernel<<<grid, threads, smem, s>>>(
+      (const uint8_t*)comb, c, stride, f, B, (const float*)g,
       (const float*)h, (const float*)m, (const int32_t*)block_leaf, br, k,
-      (double*)out, fg, bpc);
-  return (int)cudaGetLastError();
+      partial, pslot, fg, tile, bpc, parts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)lgbt::launch_reduce(partial, pslot, grid_x * parts, E, k,
+                                  (float*)out, s);
 }

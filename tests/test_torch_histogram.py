@@ -215,3 +215,34 @@ def test_force_plain_is_scoped():
     with thist.force_plain():
         assert thist._force_plain
     assert not thist._force_plain
+
+
+@pytest.mark.parametrize("units,align,ctas_per_sm,sms,groups", [
+    (1_000_000, 16, 1, 132, 1),       # the full pass's rows
+    (512, 1, 1, 132, 1),              # one frontier round's blocks
+    (5, 1, 1, 132, 1),                # fewer units than CTAs
+    (3_001, 16, 2, 132, 24),          # wide rows: 24 feature groups
+    (700, 1, 0, 132, 200),            # more groups than CTAs at once
+    (1, 16, 1, 132, 1),               # one row: a share of one align
+    (1_953, 1, 3, 132, 2)])           # several CTAs an SM
+def test_atomic_grid_covers_every_unit_once(units, align, ctas_per_sm, sms,
+                                            groups):
+    """The atomic kernels' split of rows (or blocks) over CTAs: every unit
+    in exactly one CTA's share, shares a multiple of ``align``, no CTA
+    without units, and no more CTAs along x than the card holds at once
+    over the feature groups."""
+    plan = {"ctas_per_sm": ctas_per_sm, "sms": sms, "groups": groups}
+    grid_x, per = thist.atomic_grid(plan, units, align)
+    assert per % align == 0 and per >= 1
+    assert (grid_x - 1) * per < units <= grid_x * per
+    assert grid_x <= max(1, max(1, ctas_per_sm) * sms // groups)
+
+
+def test_atomic_plan_refuses_a_width_shared_memory_cannot_hold():
+    """A bin width whose one-feature histogram exceeds a CTA's shared
+    memory is refused before any kernel is built (so also here, without
+    a card)."""
+    with pytest.raises(ValueError, match="max_bin=20000"):
+        thist.atomic_plan("hist_full", torch.device("cuda", 0), 28, 28,
+                          20_000)
+    assert not thist._plans

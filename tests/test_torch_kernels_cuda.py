@@ -93,6 +93,156 @@ def test_hist_leaves_matches_plain(dev):
     assert relerr(got[fin], ref[fin]) <= TOL
 
 
+# the atomic kernels sum in float64 and round once, as their plain
+# versions do: at most one float32 rounding step apart
+ATOMIC_TOL = 1.2e-7
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _hold_atomic(got, again, ref):
+    """Within one rounding step of the plain version on its finite entries,
+    NaN where it is NaN, and the same bits from a second call."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = torch.isfinite(ref)
+    assert torch.equal(got[~fin & ~torch.isnan(ref)],
+                       ref[~fin & ~torch.isnan(ref)])     # the infinities
+    assert relerr(got[fin], ref[fin]) <= ATOMIC_TOL
+    assert _same_bits(got, again)
+
+
+def _edge_rows(rng, case, n, ncols, dev):
+    bins = rng.integers(0, 256, (n, ncols)).astype(np.uint8)
+    if case == "one_bin":                       # every row in one bin
+        bins[:] = 3
+    g, h, m = _rows(rng, n, dev)                # weights 0, 1 and 2.5
+    if case == "nonfinite":
+        g[5], h[9], g[n // 2] = float("nan"), float("inf"), float("-inf")
+    return torch.as_tensor(bins).to(dev), g, h, m
+
+
+# (case, n, f, ncols, B): rows in one bin; B = 64 and 255; f = 13 with
+# wider rows; row counts that are no multiple of a tile or of a CTA's
+# share; fewer rows than one step; NaN and inf; rows wide enough to be
+# staged row by row, over feature groups (the last one narrower)
+FULL_ATOMIC_EDGES = [("one_bin", 5_000, 5, 5, 64),
+                     ("random", 20_003, 13, 20, 64),
+                     ("random", 33_333, 28, 40, 255),
+                     ("random", 17, 3, 7, 16),
+                     ("nonfinite", 9_999, 13, 16, 255),
+                     ("random", 3_001, 700, 701, 256),
+                     ("random", 1_000, 2000, 2003, 256)]
+
+
+@pytest.mark.parametrize("case,n,f,ncols,B", FULL_ATOMIC_EDGES)
+def test_hist_full_edges_match_plain(dev, case, n, f, ncols, B):
+    rng = np.random.default_rng(n + B)
+    bins, g, h, m = _edge_rows(rng, case, n, ncols, dev)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    got = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    again = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    torch.cuda.synchronize()
+    assert got.shape == (f, B, 3)
+    _hold_atomic(got, again, ref)
+    if case == "nonfinite":     # NaN only in the three rows' own bins
+        assert 0 < int(torch.isnan(got).sum()) <= 3 * f
+
+
+def _leaf_map(rng, case, nb, k):
+    if case == "one_slot":                      # every run crosses CTAs
+        return np.zeros(nb, np.int32)
+    if case == "alternating":                   # each slot met again
+        return (np.arange(nb) % 2).astype(np.int32)
+    if case == "slot_ordered":                  # as the frontier lays it
+        return np.sort(rng.integers(0, k, nb)).astype(np.int32)
+    # random slots, two of them never named, blocks outside [0, k)
+    bl = rng.integers(0, k - 2, nb).astype(np.int32)
+    bl[3], bl[nb // 2] = -1, k
+    return bl
+
+
+# (map case, bins case, k, BR, nb, f, nc, B): k = 1 with one slot's run
+# split over many CTAs (each starts and ends inside it); k = 64 with
+# empty slots and dropped blocks; the frontier's slot order; rows in one
+# bin; NaN and inf; B = 64 and 255; two slots in turn, so a CTA adds runs
+# of a slot it has met before into that slot's one partial (slot 2
+# empty); wide rows staged row by row, over feature groups, and at B = 64
+# warps that own several features
+LEAVES_ATOMIC_EDGES = [("one_slot", "random", 1, 64, 700, 13, 20, 255),
+                       ("random", "random", 64, 128, 300, 28, 40, 255),
+                       ("slot_ordered", "random", 16, 512, 90, 28, 40, 64),
+                       ("slot_ordered", "one_bin", 8, 256, 40, 5, 9, 64),
+                       ("random", "nonfinite", 10, 100, 50, 13, 16, 255),
+                       ("alternating", "random", 3, 64, 600, 13, 20, 255),
+                       ("slot_ordered", "random", 4, 128, 24, 700, 712,
+                        256),
+                       ("random", "random", 16, 64, 40, 300, 301, 64)]
+
+
+@pytest.mark.parametrize("map_case,bin_case,k,BR,nb,f,nc,B",
+                         LEAVES_ATOMIC_EDGES)
+def test_hist_leaves_edges_match_plain(dev, map_case, bin_case, k, BR, nb, f,
+                                       nc, B):
+    rng = np.random.default_rng(nb + k)
+    C = nb * BR
+    comb, g, h, m = _edge_rows(rng, bin_case, C, nc, dev)
+    block_leaf = _leaf_map(rng, map_case, nb, k)
+    bl = torch.as_tensor(block_leaf).to(dev)
+    kw = dict(block_rows=BR, f_limit=f)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (k, f, B, 3)
+    _hold_atomic(got, again, ref)
+    for s in set(range(k)) - set(block_leaf.tolist()):
+        assert bool((got[s] == 0).all())        # a slot no block names
+    if map_case in ("one_slot", "alternating"):
+        plan = thist.atomic_plan("hist_leaves", comb.device, nc, f, B)
+        bpc = thist.atomic_grid(plan, nb)[1]
+        assert 1 < bpc < nb                     # CTAs split the blocks
+    if bin_case == "nonfinite":                 # each in its row's slot
+        for r in (5, 9, C // 2):
+            s = int(block_leaf[r // BR])
+            if 0 <= s < k:
+                assert not bool(torch.isfinite(got[s]).all())
+
+
+def test_atomic_plan_holds_the_main_path_in_one_group(dev):
+    """At F = 28, B = 256 one CTA holds every feature (rows read once),
+    with no spill; the kernels launch through it."""
+    for kernel, units, stride in (("hist_full", 1_000_000, 28),
+                                  ("hist_leaves", 512, 40)):
+        plan = thist.atomic_plan(kernel, dev, stride, 28, 256)
+        assert plan["fg"] == 28 and 0 < plan["threads"] <= 28 * 32
+        assert plan["threads"] % 32 == 0
+        assert plan["ctas_per_sm"] >= 1 and plan["local_bytes"] == 0
+        assert plan["registers"] > 0 and plan["sms"] >= 1
+        assert thist.atomic_grid(plan, units)[0] >= 1
+
+
+@pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
+@pytest.mark.parametrize("f", (700, 2000))
+def test_atomic_plan_narrows_groups_before_tiles_on_wide_rows(dev, kernel,
+                                                              f):
+    """Wide rows take narrower feature groups, not tiles of a few rows:
+    at B = 256 a group holds 16 to 32 features and a tile at least 128
+    rows, with no spill, and the groups keep at least three quarters of
+    the card's CTA slots busy (f = 2000: 125 groups of 16, not 67 of 30)."""
+    plan = thist.atomic_plan(kernel, dev, f + 12, f, 256)
+    assert plan["tile"] >= 128 and 16 <= plan["fg"] <= 32
+    assert plan["groups"] == -(-f // plan["fg"])
+    assert plan["local_bytes"] == 0
+    slots = plan["ctas_per_sm"] * plan["sms"]
+    grid_x = thist.atomic_grid(plan, 10 ** 6)[0]
+    ctas = grid_x * plan["groups"]
+    assert ctas / (-(-ctas // slots) * slots) >= 0.75
+
+
 def test_wrappers_check_their_inputs(dev):
     bins = torch.zeros(1024, 4, dtype=torch.uint8, device=dev)
     z = torch.zeros(1024, device=dev)
@@ -107,6 +257,8 @@ def test_wrappers_check_their_inputs(dev):
         thist.hist_leaves(bins[:1000], z[:1000], z[:1000], z[:1000],
                           torch.zeros(2, dtype=torch.int32, device=dev), 2,
                           16, block_rows=512)
+    with pytest.raises(ValueError, match="max_bin"):
+        thist.hist_full(bins, z, z, z, 20_000)
 
 
 def test_training_launches_both_kernels_and_matches_plain(dev):
