@@ -40,7 +40,12 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    under ``int8``;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
-   the leaves' 262,144 rows per 512 with a NaN block);
+   the leaves' 262,144 rows per 512 with a NaN block), in both input
+   forms: grad, hess and mask (the int8 wrappers' fused pre-pass, which
+   must launch once a call) and prepped rows (the shootout shell's); each
+   case with both forms' ``ms`` a call, kernel alone and launches a call,
+   the plain version's time, the kernel's registers and spills, and the
+   byte bound;
 5. shootout: the shootout shell's entry (``onehot_bench``, the JAX
    package's ``make_bench_kernel``) once per election candidate at B=256
    and B=64, on the shootout's shape (1,001,472 x 28, BR=512), against its
@@ -242,11 +247,9 @@ def smem_floor_ms(rows, feats, clock_mhz, sms):
             * 1e3)
 
 
-def calls_ms(fn, names, reps: int = 10):
-    """Device time per call of the kernels whose names hold one of
-    ``names`` (torch.profiler over ``reps`` calls): a wrapper's kernels
-    alone, without its host work and allocations.  None when the profiler
-    records no launch of them."""
+def _device_rows(fn, reps: int):
+    """torch.profiler's device rows (kernels, copies, fills) over ``reps``
+    calls of ``fn``, after one call outside the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -255,12 +258,24 @@ def calls_ms(fn, names, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and any(n in e.key for n in names)]
+    return [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+
+
+def calls_ms(fn, names, reps: int = 10):
+    """Device time per call of the kernels whose names hold one of
+    ``names`` (torch.profiler over ``reps`` calls): a wrapper's kernels
+    alone, without its host work and allocations.  None when the profiler
+    records no launch of them."""
+    rows = [e for e in _device_rows(fn, reps)
+            if any(n in e.key for n in names)]
     if not rows:
         return None
     return sum(_device_us(e) for e in rows) / 1e3 / reps
+
+
+def launches_per_call(fn, reps: int = 10) -> float:
+    """Device launches a call of ``fn``, of any kernel, copy or fill."""
+    return sum(e.count for e in _device_rows(fn, reps)) / reps
 
 
 def _skewed_bins(comb):
@@ -590,41 +605,68 @@ def _same_quant(a, b) -> bool:
 
 def phase_quant(card):
     """The int8 quantize kernel, bit-identical to its plain version at the
-    blocks the main path gives it."""
+    blocks the main path gives it, in both input forms: grad, hess and
+    mask, whose products it forms itself (``quantize_int8``, the int8
+    wrappers' pre-pass, one launch a call), and rows prepped by
+    ``prep_f32`` (``quantize_int8_blocks``, the shootout shell's)."""
     from lightgbm_tpu_torch.ops import histogram as hist
     from lightgbm_tpu_torch.ops import onehot_variants as ov
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     n, f, B = N_TRAIN, N_FEAT, 256
-    g, h, m = _rows(gen, n, dev)
-    rows = ov.prep_f32(g, h, m)
+    ghm = _rows(gen, n, dev)
     _, lg, lh, lm, _, _, _ = _leaves_inputs(gen, dev)    # NaN in block 100
-    lrows = ov.prep_f32(lg, lh, lm)
-    cases = {"featmajor": (rows, ov.pallas_block_rows("int8", "featmajor",
-                                                      n, f, B)),
-             "rowmajor": (rows, ov.pallas_block_rows("int8", "rowmajor",
+    cases = {"featmajor": (ghm, ov.pallas_block_rows("int8", "featmajor",
                                                      n, f, B)),
-             "leaves": (lrows, LEAVES_SHAPE["BR"])}
+             "rowmajor": (ghm, ov.pallas_block_rows("int8", "rowmajor",
+                                                    n, f, B)),
+             "leaves": ((lg, lh, lm), LEAVES_SHAPE["BR"])}
     out = {}
     for name, (x, br) in cases.items():
-        got = hist.quantize_int8_blocks(x, br)
-        torch.cuda.synchronize()
-        ref = ov.quantize_int8_blocks_plain(x, br)
-        if not _same_quant(got, ref):
-            raise AssertionError(f"onehot_quant {name} (block {br}): not "
-                                 "bit-identical to the plain version")
-        out[name] = dict(rows=x.shape[1], block_rows=br,
-                         nan_blocks=int(torch.isnan(got[1]).any(1).sum()))
-    x, br = cases["featmajor"]
-    ms = median_ms(lambda: hist.quantize_int8_blocks(x, br))
-    plain_ms = median_ms(lambda: ov.quantize_int8_blocks_plain(x, br))
-    # per element and level: abs, max, divide, round, fused multiply-add,
-    # convert -- 6 operations on each of 3 rows, 3 levels
-    b_ms, b_by = bound(12 * n + 9 * n + 36 * (-(-n // br)), 54 * n)
-    row = dict(shape=[3, n], block_rows=br, bit_identical=True,
-               relerr=0.0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        rows = ov.prep_f32(*x)
+        rn = rows.shape[1]
+        forms = {"fused": lambda x=x, br=br: hist.quantize_int8(*x, br),
+                 "prep_rows": lambda rows=rows, br=br:
+                     hist.quantize_int8_blocks(rows, br)}
+        plain = (lambda x=x, br=br: ov.quantize_int8_blocks_plain(
+            ov.prep_f32(*x), br))
+        ref = plain()
+        # per element and level: abs, max, divide, round, fused
+        # multiply-add, convert -- 6 operations on each of 3 rows, 3 levels
+        b_ms, b_by = bound(21 * rn + 36 * (-(-rn // br)), 54 * rn)
+        case = dict(rows=rn, block_rows=br, bound_ms=b_ms, bound_by=b_by,
+                    plain_ms=median_ms(plain),
+                    **hist.quant_kernel_attributes(br))
+        for form, fn in forms.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not _same_quant(got, ref):
+                raise AssertionError(f"onehot_quant {name} (block {br}, "
+                                     f"{form}): not bit-identical to the "
+                                     "plain version")
+            case[form] = dict(ms=median_ms(fn),
+                              kernel_ms=kernel_ms(fn, "quant_kernel"),
+                              launches_per_call=launches_per_call(fn))
+        if case["fused"]["launches_per_call"] != 1:
+            raise AssertionError(f"onehot_quant {name}: the fused pre-pass "
+                                 f"launched {case['fused']} a call")
+        case["nan_blocks"] = int(torch.isnan(ref[1]).any(1).sum())
+        fu, pr = case["fused"], case["prep_rows"]
+        print(f"quant {name} ({rn} rows per {br}): fused {fu['ms']:.4f} ms "
+              f"a call, kernel {fu['kernel_ms']} ms, "
+              f"{fu['launches_per_call']:g} launch a call; prepped rows "
+              f"{pr['ms']:.4f} / {pr['kernel_ms']} ms; {case['registers']} "
+              f"registers, {case['local_bytes']} spilled bytes; bound "
+              f"{b_ms:.5f} ms", flush=True)
+        out[name] = case
+    fm = out["featmajor"]
+    row = dict(shape=[3, n], block_rows=fm["block_rows"], bit_identical=True,
+               relerr=0.0, max_abs_err=0.0, ms=fm["fused"]["ms"],
+               kernel_ms=fm["fused"]["kernel_ms"], plain_ms=fm["plain_ms"],
+               library_ms=None, bound_ms=fm["bound_ms"],
+               bound_by=fm["bound_by"], registers=fm["registers"],
+               local_bytes=fm["local_bytes"])
     emit({"phase": "quant", "card": card, "cases": out, **row})
     return row
 
@@ -1026,7 +1068,9 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
     rows.append({"name": "onehot_quant", "route": "cuda", "source": src,
                  "replaces": replaces, "jax": jax_fn,
                  "launches": launches["int8"]["onehot_quant"],
-                 **{k: quant[k] for k in keys}, "card": card})
+                 **{k: quant[k] for k in keys + ("kernel_ms", "registers",
+                                                 "local_bytes")},
+                 "card": card})
     src, replaces, jax_fn = BENCH_INFO
     for name, r in bench.items():
         rows.append({"name": name, "route": "cuda", "source": src,

@@ -5,9 +5,11 @@ library with a plain C interface (``<name>_launch``, and for
 ``onehot_full`` also the shootout shell's ``onehot_bench_launch``), loaded
 with ``ctypes``.  The one-hot libraries also export an attribute query
 (``onehot_full_query``, ``onehot_leaves_query``: registers, static and
-dynamic shared memory, spills and CTAs an SM of a body's kernel), and the
-atomic ones a launch plan (``hist_full_plan``, ``hist_leaves_plan``: the
-geometry of a launch and the same attributes of its kernel).
+dynamic shared memory, spills and CTAs an SM of a body's kernel), the
+quantize kernel its registers, spills and geometry at a block size
+(``onehot_quant_query``), and the atomic ones a launch plan
+(``hist_full_plan``, ``hist_leaves_plan``: the geometry of a launch and
+the same attributes of its kernel).
 Libraries are cached in ``ops/_build/`` under a name keyed on a hash of the
 sources and flags, so an edit to a kernel rebuilds it and an unchanged
 kernel is built once per checkout.  ``build()`` starts one ``nvcc`` per
@@ -88,9 +90,11 @@ _ARGTYPES = {
         # variant, nf_max, ld, out[5]
         "onehot_leaves_query": [_INT, _INT, _LL, _INT_P]},
     "onehot_quant": {
-        # device, rows, n, br, q, ldq, s, stream
-        "onehot_quant_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _LL,
-                                _VOID_P, _VOID_P]},
+        # device, x0, x1, x2, prep, n, br, q, s, stream
+        "onehot_quant_launch": [_INT, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,
+                                _INT, _VOID_P, _VOID_P, _VOID_P],
+        # br, out[5]
+        "onehot_quant_query": [_INT, _INT_P]},
 }
 
 # loaded libraries, one per kernel for the life of the process

@@ -22,7 +22,8 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
   (``onehot_variants.py``), in the ``featmajor`` or ``rowmajor`` layout.
   The seven bf16-pair variants compute the same function and share one
   plain version per entry point.  ``int8`` first runs the quantize kernel
-  (``quantize_int8_blocks``) over the Pallas kernels' row blocks, then
+  (``quantize_int8``: one launch that reads grad, hess and mask) over the
+  Pallas kernels' row blocks, then
   multiplies int8 by int8 with exact int32 sums; it has plain versions of
   its own (``hist_onehot_int8_*_plain``).  ``hist_onehot_bench`` is the
   shootout shell's entry (``onehot_variants.make_bench_kernel``).
@@ -367,7 +368,10 @@ def _check_rows(name, mat, grad, hess, mask):
     _check(dev.type == "cuda", f"{name}: tensors must be on a CUDA device")
     _check(mat.dtype == torch.uint8 and mat.dim() == 2 and mat.is_contiguous(),
            f"{name}: bins must be a contiguous 2-D uint8 tensor")
-    n = mat.shape[0]
+    _check_vectors(name, dev, mat.shape[0], grad, hess, mask)
+
+
+def _check_vectors(name, dev, n, grad, hess, mask):
     for label, t in (("grad", grad), ("hess", hess), ("mask", mask)):
         _check(t.device == dev and t.dtype == torch.float32 and t.dim() == 1
                and t.shape[0] == n and t.is_contiguous(),
@@ -535,27 +539,22 @@ def _onehot_geometry(spec, f, max_bin):
 
 
 # most rows one quantization block may hold: the quantize kernel keeps a
-# block's three float32 rows in shared memory (12 bytes a row)
+# block's rows in the registers of at most 1024 threads (16 rows each)
 _QUANT_MAX_ROWS = 16384
 
 
-def quantize_int8_blocks(rows, block_rows):
-    """``(q [9, N] int8, s [nblocks, 9] float32)`` of ``rows [3, N]``
-    float32 by the ``onehot_quant`` CUDA kernel, one block per CTA;
-    bit-identical to ``onehot_variants.quantize_int8_blocks_plain``.  ``q``
-    is a view of a ``[9, ldq]`` buffer, ``ldq`` = ``N`` rounded up to 128,
-    whose columns past ``N`` the kernel sets to zero: the int8 one-hot
-    kernels read it in whole 128-row chunks."""
-    dev = rows.device
-    _check(dev.type == "cuda", "onehot_quant: tensors must be on a CUDA "
-           "device")
-    _check(rows.dtype == torch.float32 and rows.dim() == 2
-           and rows.shape[0] == 3 and rows.is_contiguous(),
-           "onehot_quant: rows must be a contiguous float32 [3, N] tensor")
+def _quantize(x0, x1, x2, prep, block_rows):
+    """The ``onehot_quant`` kernel on three ``[N]`` float32 vectors on one
+    CUDA device: ``grad, hess, mask`` (``prep``: it forms ``g·m`` and
+    ``h·m``) or the three rows of prepped ``[3, N]`` rows.  ``q`` is a view
+    of a ``[9, ldq]`` buffer, ``ldq`` = ``N`` rounded up to 128, whose
+    columns past ``N`` the kernel sets to zero: the int8 one-hot kernels
+    read it in whole 128-row chunks."""
+    dev = x0.device
     _check(block_rows % _OH_CHUNK == 0 and 0 < block_rows <= _QUANT_MAX_ROWS,
            f"onehot_quant: block_rows ({block_rows}) must be a multiple of "
            f"{_OH_CHUNK} and at most {_QUANT_MAX_ROWS}")
-    n = rows.shape[1]
+    n = x0.shape[0]
     nb = -(-n // block_rows)
     ldq = -(-n // _OH_CHUNK) * _OH_CHUNK
     q = torch.empty(9, ldq, dtype=torch.int8, device=dev)
@@ -563,11 +562,46 @@ def quantize_int8_blocks(rows, block_rows):
     if n > 0:
         lib = _build.load("onehot_quant")
         rc = lib.onehot_quant_launch(
-            dev.index, rows.data_ptr(), n, block_rows, q.data_ptr(), ldq,
-            s.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            dev.index, x0.data_ptr(), x1.data_ptr(), x2.data_ptr(), int(prep),
+            n, block_rows, q.data_ptr(), s.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, "onehot_quant", rc)
         launch_counts["onehot_quant"] += 1
     return q[:, :n], s
+
+
+def quantize_int8(grad, hess, mask, block_rows):
+    """The int8 variant's pre-pass: ``(q [9, N] int8, s [nblocks, 9]
+    float32)``, the rows ``(g·m, h·m, m)`` quantized in three levels per
+    block of ``block_rows`` rows, bit-identical to
+    ``quantize_int8_blocks_plain(prep_f32(grad, hess, mask), block_rows)``,
+    which CPU tensors take.  On CUDA tensors (``force_plain`` or not: the
+    int8 kernels read ``q`` as this route lays it out) one launch of the
+    ``onehot_quant`` kernel, which reads ``grad``, ``hess`` and ``mask``
+    and forms the products itself; ``q`` is then a view of a ``[9, ldq]``
+    buffer padded with zeros (``_quantize``)."""
+    dev, n = grad.device, grad.shape[0]
+    if dev.type == "cpu":
+        return ov.quantize_int8_blocks_plain(ov.prep_f32(grad, hess, mask),
+                                             block_rows)
+    _check(dev.type == "cuda", "onehot_quant: tensors must be on a CUDA "
+           "device")
+    _check_vectors("onehot_quant", dev, n, grad, hess, mask)
+    return _quantize(grad, hess, mask, True, block_rows)
+
+
+def quantize_int8_blocks(rows, block_rows):
+    """``(q [9, N] int8, s [nblocks, 9] float32)`` of prepped ``rows [3,
+    N]`` float32 (``prep_f32``'s, as the shootout shell is handed them) by
+    the ``onehot_quant`` kernel, which reads them as given; CUDA tensors
+    only.  Bit-identical to ``onehot_variants.quantize_int8_blocks_plain``;
+    ``q`` as ``quantize_int8`` gives it."""
+    _check(rows.device.type == "cuda", "onehot_quant: tensors must be on a "
+           "CUDA device")
+    _check(rows.dtype == torch.float32 and rows.dim() == 2
+           and rows.shape[0] == 3 and rows.is_contiguous(),
+           "onehot_quant: rows must be a contiguous float32 [3, N] tensor")
+    return _quantize(rows[0], rows[1], rows[2], False, block_rows)
 
 
 def _operands(spec, grad, hess, mask, qbr):
@@ -575,10 +609,10 @@ def _operands(spec, grad, hess, mask, qbr):
     the bf16-pair kernels split ``grad``, ``hess`` and ``mask`` into the
     pair themselves (16-byte aligned: a misaligned view is copied), int8
     reads the quantize kernel's ``q [9, N]`` (rows padded to a multiple of
-    128 with zeros) and its scales per ``qbr`` rows."""
+    128 with zeros) and its scales per ``qbr`` rows, which that kernel
+    makes from ``grad``, ``hess`` and ``mask`` in one launch."""
     if spec.name == "int8":
-        q, s = quantize_int8_blocks(ov.prep_f32(grad, hess, mask), qbr)
-        return None, None, None, q, s
+        return (None, None, None, *quantize_int8(grad, hess, mask, qbr))
     rows = [t if t.data_ptr() % 16 == 0 else t.clone()
             for t in (grad, hess, mask)]
     return (*rows, None, None)
@@ -738,3 +772,17 @@ def onehot_kernel_attributes(kernel: str, variant: str, f: int, max_bin: int,
     _raise_on(lib, f"{kernel} query", rc)
     return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
                      "local_bytes", "ctas_per_sm"), buf))
+
+
+def quant_kernel_attributes(block_rows: int) -> Dict[str, int]:
+    """Registers a thread and spilled bytes a thread of the quantize kernel
+    that serves ``block_rows``-row blocks, from ``cudaFuncGetAttributes``,
+    and its geometry: rows a thread, threads a block, blocks a CTA; builds
+    the kernel first if needed."""
+    import ctypes
+    buf = (ctypes.c_int * 5)()
+    lib = _build.load("onehot_quant")
+    _raise_on(lib, "onehot_quant query",
+              lib.onehot_quant_query(block_rows, buf))
+    return dict(zip(("registers", "local_bytes", "rows_per_thread",
+                     "threads_per_block", "blocks_per_cta"), buf))

@@ -99,8 +99,10 @@ def stack_rows(grad: torch.Tensor, hess: torch.Tensor,
 def prep_f32(grad: torch.Tensor, hess: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
     """``[3, N]`` float32 channel rows ``(g·m, h·m, m)``: the int8
-    variant's rows, quantized per block of rows by the kernel's shell (the
-    scales are per block, so they cannot be computed outside it)."""
+    variant's rows, which its plain versions quantize per block of rows and
+    the shootout shell hands the quantize kernel.  The int8 histogram
+    wrappers do not make them on the card: their quantize kernel forms the
+    products from grad, hess and mask itself (``histogram.quantize_int8``)."""
     return torch.stack([grad * mask, hess * mask, mask]).float().contiguous()
 
 

@@ -6,7 +6,8 @@ with a part of the work taken out, made by text edits of
 ``onehot_common.cuh`` that must each match exactly once.  A change to the
 kernels that one edit no longer matches would only show on the card, so
 each copy's edits are applied here, on the CPU, to a copy of the current
-sources, and so are the register-bound sweep's.
+sources, and so are the register-bound sweep's and those of the quantize
+kernel's copies (``scripts/torch_quant_bench.py --copies``).
 """
 import importlib.util
 import os
@@ -19,16 +20,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_DIR = os.path.join(REPO, "lightgbm_tpu_torch", "ops", "kernels")
 
 
-def _script():
+def _script(name):
     spec = importlib.util.spec_from_file_location(
-        "torch_onehot_ablation",
-        os.path.join(REPO, "scripts", "torch_onehot_ablation.py"))
+        name, os.path.join(REPO, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-ABL = _script()
+ABL = _script("torch_onehot_ablation")
+QUANT = _script("torch_quant_bench")
 
 
 @pytest.mark.parametrize("name", ABL.ABLATIONS + tuple(ABL.SWEEP))
@@ -57,3 +58,15 @@ def test_ablation_edits_refuse_a_source_they_do_not_fit(tmp_path):
         ABL._patched_sources("const_a", ABL.ablation_edits("const_a",
                                                            "lanes"),
                              KERNEL_DIR, str(tmp_path / "x"))
+
+
+@pytest.mark.parametrize("name", tuple(QUANT.EDITS))
+def test_quant_bench_edits_match_the_source_once(name):
+    with open(os.path.join(KERNEL_DIR, "onehot_quant.cu")) as fh:
+        before = fh.read()
+    after = QUANT.patched_source(name, before)
+    for old, new in QUANT.EDITS[name]:
+        assert before.count(old) == 1
+        assert after.count(old) == (1 if old in new else 0)
+    with pytest.raises(RuntimeError, match="not once"):
+        QUANT.patched_source(name, after)

@@ -560,6 +560,14 @@ def test_onehot_wrappers_check_their_inputs(dev):
                                  torch.zeros(16, dtype=torch.int32,
                                              device=dev), 2, 16,
                                  block_rows=64)
+    with pytest.raises(ValueError, match="mask must be"):
+        thist.quantize_int8(z, z, z[:1000], 512)
+    with pytest.raises(ValueError, match="hess must be"):
+        thist.quantize_int8(z, z.double(), z, 512)
+    with pytest.raises(ValueError, match="block_rows"):
+        thist.quantize_int8(z, z, z, 200)
+    with pytest.raises(ValueError, match="block_rows"):
+        thist.quantize_int8(z, z, z, 16384 + 128)
 
 
 @pytest.mark.parametrize("variant,max_bin", [("staged", 255),
@@ -603,8 +611,26 @@ def test_training_force_row_wise_launches_only_onehot(dev, variant,
                                rtol=0, atol=1e-6)
 
 
+def _hold_quant(got, ref, n):
+    """q equal (and zero from n to its row stride, a multiple of 128, which
+    the int8 one-hot kernels read as whole chunks), NaN scales in the same
+    places and every other scale with the same bits."""
+    (q, s), (qp, sp) = got, ref
+    assert torch.equal(q, qp)
+    ldq = -(-n // 128) * 128
+    assert q.stride() == (ldq, 1)
+    assert not q.as_strided((9, ldq), (ldq, 1))[:, n:].any()
+    assert torch.equal(torch.isnan(s), torch.isnan(sp))
+    ok = ~torch.isnan(sp)
+    assert torch.equal(s[ok].view(torch.int32), sp[ok].view(torch.int32))
+
+
 def test_quantize_kernel_is_bit_identical_to_plain(dev):
+    """Both input forms of the quantize kernel: prepped rows [3, N] (the
+    shootout shell's) and grad, hess and mask, whose products it forms
+    itself (the int8 wrappers'), one launch each."""
     rng = np.random.default_rng(3)
+    mrng = np.random.default_rng(4)
     for n, br in ((1_000_003, 1024), (262_144, 512), (5_000, 128),
                   (70_000, 16384)):
         x = (rng.normal(size=(3, n)) * rng.lognormal(0, 3, (3, n))).astype(
@@ -616,19 +642,126 @@ def test_quantize_kernel_is_bit_identical_to_plain(dev):
         x[1, 4 * br - 1] = np.inf
         rows = torch.as_tensor(x).to(dev)
         before = thist.launch_counts["onehot_quant"]
-        q, s = thist.quantize_int8_blocks(rows, br)
+        got = thist.quantize_int8_blocks(rows, br)
         torch.cuda.synchronize()
         assert thist.launch_counts["onehot_quant"] == before + 1
-        qp, sp = ov.quantize_int8_blocks_plain(rows, br)
-        assert torch.equal(q, qp)
-        # q's rows are padded to a multiple of 128 with zeros, which the
-        # int8 one-hot kernels read as whole chunks
-        ldq = -(-n // 128) * 128
-        assert q.stride() == (ldq, 1)
-        assert not q.as_strided((9, ldq), (ldq, 1))[:, n:].any()
-        assert torch.equal(torch.isnan(s), torch.isnan(sp))
-        ok = ~torch.isnan(sp)
-        assert torch.equal(s[ok].view(torch.int32), sp[ok].view(torch.int32))
+        _hold_quant(got, ov.quantize_int8_blocks_plain(rows, br), n)
+        # grad, hess and mask: weights 0, 1 and 2.5, the special blocks
+        # under weight 1, a NaN gradient under weight 0 (NaN·0 is NaN);
+        # at 5,000 rows grad starts 4 bytes past a 16-byte boundary
+        m = np.where(mrng.random(n) < 0.2, 0.0,
+                     np.where(mrng.random(n) < 0.3, 2.5, 1.0)).astype(
+                         np.float32)
+        m[br:5 * br] = 1.0
+        m[3 * br + 11] = 0.0
+        x[0, 3 * br + 11] = np.nan
+        off = int(n == 5_000)
+        g = torch.as_tensor(np.concatenate([np.zeros(off, np.float32),
+                                            x[0]])).to(dev)[off:]
+        h, mt = (torch.as_tensor(a).to(dev) for a in (x[1], m))
+        before = thist.launch_counts["onehot_quant"]
+        got = thist.quantize_int8(g, h, mt, br)
+        torch.cuda.synchronize()
+        assert thist.launch_counts["onehot_quant"] == before + 1
+        _hold_quant(got, ov.quantize_int8_blocks_plain(
+            ov.prep_f32(g, h, mt), br), n)
+
+
+def _frontier_inputs(rng, dev, C, f, BR, nb_short):
+    """One round's gathered rows as ``frontier.py`` makes them: the float32
+    (g, h, m) bytes after the bins in ``comb [C, f + 12]``, grad and hess
+    copied out of it, the mask zeroed past each block's rows (here the
+    last ``nb_short`` rows of the blocks, as a short slot leaves them)."""
+    comb = rng.integers(0, 256, (C, f + 12)).astype(np.uint8)
+    gh = np.stack([rng.normal(size=C), rng.uniform(0.05, 0.25, C),
+                   np.where(rng.random(C) < 0.2, 0.0, 1.0)], 1)
+    comb[:, f:] = gh.astype(np.float32).view(np.uint8).reshape(C, 12)
+    combb = torch.as_tensor(comb).to(dev)
+    ghb = combb[:, f:].contiguous().view(torch.float32)        # [C, 3]
+    okrow = torch.arange(C, device=dev) % BR < BR - nb_short
+    m = torch.where(okrow, ghb[:, 2], 0.0)
+    return combb, ghb[:, 0].contiguous(), ghb[:, 1].contiguous(), m
+
+
+def test_quantize_kernel_takes_the_frontier_inputs(dev):
+    rng = np.random.default_rng(12)
+    C, f, BR = 8 * 512, 28, 512
+    comb, g, h, m = _frontier_inputs(rng, dev, C, f, BR, 100)
+    g[3 * BR + 40] = float("nan")                 # under a zero mask
+    m[3 * BR + 40] = 0.0
+    got = thist.quantize_int8(g, h, m, BR)
+    torch.cuda.synchronize()
+    _hold_quant(got, ov.quantize_int8_blocks_plain(ov.prep_f32(g, h, m),
+                                                   BR), C)
+    nan = torch.isnan(got[1])
+    assert bool(nan[3, [0, 3, 6]].all()) and int(nan.sum()) == 3
+
+
+@pytest.mark.parametrize("br", [384, 4224, 8320])
+def test_quantize_kernel_odd_blocks_match_plain(dev, br):
+    """Blocks whose rows a thread cannot split into whole warps (threads
+    past the block's rows own none), and a 96-thread block alone in its
+    CTA; a ragged last block."""
+    rng = np.random.default_rng(br)
+    n = 3 * br + 77
+    g, h, m = _rows(rng, n, dev)
+    g[br + 5] = float("nan")
+    got = thist.quantize_int8(g, h, m, br)
+    torch.cuda.synchronize()
+    _hold_quant(got, ov.quantize_int8_blocks_plain(ov.prep_f32(g, h, m),
+                                                   br), n)
+
+
+@pytest.mark.parametrize("entry", ["full", "leaves"])
+def test_int8_call_launches_one_quantize_and_no_prep(dev, entry):
+    """An int8 histogram call runs its pre-pass as one launch of the
+    quantize kernel: none of prep_f32's products or its stack."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(13)
+    C, f, BR, k, B = 8 * 512, 28, 512, 3, 256
+    comb, g, h, m = _frontier_inputs(rng, dev, C, f, BR, 100)
+    bl = torch.as_tensor(np.array([0, 2, 1, 0, 2, 2, 1, 0], np.int32)).to(dev)
+    if entry == "full":
+        call = lambda: thist.build_histogram(  # noqa: E731
+            comb, g, h, m, B, f_limit=f, method="onehot", variant="int8")
+    else:
+        call = lambda: thist.build_histogram_leaves(  # noqa: E731
+            comb, g, h, m, bl, k, B, block_rows=BR, f_limit=f,
+            method="onehot", variant="int8")
+
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages()
+                for _ in range(e.count) if e.device_type != DeviceType.CPU]
+
+    prep = set(kernels(lambda: ov.prep_f32(g, h, m)))
+    assert prep                                 # two products and a stack
+    before = dict(thist.launch_counts)
+    names = kernels(call)
+    assert sum("quant_kernel" in x for x in names) == 1, names
+    assert not prep & set(names), names
+    assert thist.launch_counts["onehot_quant"] == before["onehot_quant"] + 2
+    assert thist.launch_counts[f"onehot_{entry}"] == (
+        before[f"onehot_{entry}"] + 2)
+
+
+def test_quantize_kernel_attributes(dev):
+    """No spill at the main path's blocks, 4 rows a thread; blocks below
+    512 rows share a CTA of 128 threads."""
+    for br, rows, tpb, blocks in ((1024, 4, 256, 1), (512, 4, 128, 1),
+                                  (128, 4, 32, 4), (256, 4, 64, 2),
+                                  (4224, 8, 544, 1), (16384, 16, 1024, 1)):
+        a = thist.quant_kernel_attributes(br)
+        assert (a["rows_per_thread"], a["threads_per_block"],
+                a["blocks_per_cta"]) == (rows, tpb, blocks)
+        assert 0 < a["registers"] <= 64
+        if br in (512, 1024):
+            assert a["local_bytes"] == 0
 
 
 BENCH_CASES = [(v, B) for B in (64, 256) for v in ov.AUTO_CANDIDATES

@@ -441,10 +441,10 @@ def _quant_rows(br, nb):
     return x
 
 
-@pytest.mark.parametrize("br", [128, 512])
-def test_quantize_int8_blocks_is_bit_identical_to_jax(br):
-    x = _quant_rows(br, 6)
-    q, s = tov.quantize_int8_blocks_plain(torch.as_tensor(x), br)
+def _hold_jax_chain(q, s, x, br):
+    """``(q, s)`` bit-identical to the JAX ``level`` chain on each block of
+    ``x [3, N]`` (the last one padded with zeros): q equal, NaN scales in
+    the same places, every other scale with the same bits."""
     nb = -(-x.shape[1] // br)
     assert q.shape == (9, x.shape[1]) and q.dtype == torch.int8
     assert s.shape == (nb, 9) and s.dtype == torch.float32
@@ -460,6 +460,13 @@ def test_quantize_int8_blocks_is_bit_identical_to_jax(br):
         ok = ~np.isnan(sj)
         np.testing.assert_array_equal(st[ok].view(np.int32),
                                       sj[ok].view(np.int32))
+
+
+@pytest.mark.parametrize("br", [128, 512])
+def test_quantize_int8_blocks_is_bit_identical_to_jax(br):
+    x = _quant_rows(br, 6)
+    q, s = tov.quantize_int8_blocks_plain(torch.as_tensor(x), br)
+    _hold_jax_chain(q, s, x, br)
     assert (s[1] == np.float32(1e-30)).all() and (q[:, br:2 * br] == 0).all()
     assert (s[2, 0:3] == 1.0).all()                     # the tie block
     ties = q[0:3, 2 * br + 1:3 * br].numpy()
@@ -468,6 +475,31 @@ def test_quantize_int8_blocks_is_bit_identical_to_jax(br):
     assert bool(torch.isinf(s[4, 1]))
     assert bool(torch.isnan(s[4, [4, 7]]).all())
     assert tov.RECIP_127 == float(np.float32(1) / np.float32(127))
+
+
+@pytest.mark.parametrize("br", [128, 512])
+def test_quantize_int8_fused_entry_is_bit_identical_to_jax(br):
+    """The fused pre-pass (``quantize_int8``) on grad, hess and mask, by its
+    plain route on CPU tensors, against the JAX chain on ``jnp.stack([g*m,
+    h*m, m])``: block 1 all zero, a NaN gradient under a zero mask in block
+    3 (NaN·0 is NaN), an infinite hessian in block 4, a ragged last
+    block."""
+    rng = np.random.default_rng(22)
+    nb = 6
+    n = nb * br - 37
+    g, h, m = _rows(rng, n)
+    m[br:2 * br] = 0.0
+    g[3 * br + 9], m[3 * br + 9] = np.nan, 0.0
+    h[4 * br + 3], m[4 * br + 3] = np.inf, 1.0
+    before = dict(thist.launch_counts)
+    q, s = thist.quantize_int8(*map(torch.as_tensor, (g, h, m)), br)
+    gj, hj, mj = map(jnp.asarray, (g, h, m))
+    _hold_jax_chain(q, s, np.asarray(jnp.stack([gj * mj, hj * mj, mj])), br)
+    assert (s[1] == np.float32(1e-30)).all() and (q[:, br:2 * br] == 0).all()
+    assert np.isnan(s[3, [0, 3, 6]].numpy()).all()
+    assert bool(torch.isfinite(s[3, [1, 2, 4, 5, 7, 8]]).all())
+    assert bool(torch.isinf(s[4, 1])) and bool(torch.isnan(s[4, [4, 7]]).all())
+    assert thist.launch_counts == before
 
 
 @pytest.mark.parametrize("n,f,B", [(1000, 6, 64), (5000, 28, 255),
