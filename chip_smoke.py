@@ -64,7 +64,24 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    ``hist_variant`` (so ``auto``) for 5 iterations, which trains with the
    elected variant, and a ``packed`` run at ``max_bin=63`` on 200,000 rows
    for 5 iterations;
-8. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
+8. knobs: the training knobs, objectives and boosting types on the atomic
+   kernels, each run once through the kernels (launch counts from zero
+   around it, ``hist_full`` and ``hist_leaves`` and no other) and once
+   under ``force_plain()``: tree 0 identical, the held-out metric within
+   tolerance of the plain run's and better than the constant model's.
+   First the card's counter-based draws (a 1M-row bagging uniform, a
+   bynode draw) bit-identical to the CPU's.  On the train phase's 1M rows:
+   the binary example's bagging (0.8 every 5, a masked bag) and
+   ``feature_fraction=0.8``, 20 iterations; a compacted bag (0.5 every
+   iteration) with ``feature_fraction_bynode=0.8`` and ``extra_trees``, 10
+   iterations, every ``hist_full`` on ``cap`` rows; GOSS, 10; 5 classes
+   from quantiles of the generator's latent score with the multiclass
+   example's settings, 10 iterations (50 ``hist_full`` launches); L2 with
+   the regression example's, 20.  On 200,000 rows: L1 (leaf renewal), 5
+   iterations; DART and RF, 10 each; monotone-basic (+1 on feature 0), 10,
+   with predictions monotone along it.  Each run prints s/tree,
+   launches/tree and ``cap``;
+9. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
    bit-identically to the booster in memory, for the 1M-row boosters.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
@@ -105,6 +122,8 @@ AUC_TOL = 1e-3
 N_TRAIN, N_VALID, N_FEAT, N_ITERS = 1_000_000, 100_000, 28, 20
 # the packed run: a smaller one at the width packing serves
 N_PACKED, ITERS_PACKED = 200_000, 5
+# the knobs phase's smaller runs (L1, DART, RF, monotone)
+N_SMALL = 200_000
 # one frontier round's batched smaller-child histograms
 LEAVES_SHAPE = dict(C=262_144, NC=40, f=28, k=16, BR=512)
 # the JAX shootout's shape (scripts/bench_onehot_variants.py): 1M rows
@@ -117,14 +136,18 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def higgs_latent(X):
+    """The generator's latent score (its logit before the logistic noise)."""
+    return (1.2 * X[:, 0] - 0.8 * X[:, 1] + X[:, 2] * X[:, 3]
+            + 0.5 * np.sin(3.0 * X[:, 4]) + 0.3 * X[:, 5] ** 2)
+
+
 def make_higgs_like(n_rows: int, n_feat: int = 28, seed: int = 42):
     """Synthetic stand-in with Higgs geometry (dense floats, ~even classes);
     the same generator as the repository's ``bench.py``."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n_rows, n_feat)).astype(np.float32)
-    logit = (1.2 * X[:, 0] - 0.8 * X[:, 1] + X[:, 2] * X[:, 3]
-             + 0.5 * np.sin(3.0 * X[:, 4]) + 0.3 * X[:, 5] ** 2)
-    y = (logit + rng.logistic(size=n_rows) > 0).astype(np.float32)
+    y = (higgs_latent(X) + rng.logistic(size=n_rows) > 0).astype(np.float32)
     return X, y
 
 
@@ -779,10 +802,26 @@ def _train(lgt, ds, params, iters):
     return booster, time.perf_counter() - t0
 
 
-def _train_pair(lgt, hist, ds, params, iters, Xv, yv, expect):
+def auc_holdout(Xv, yv, floor=0.75):
+    """The held-out AUC gate: kernel within ``AUC_TOL`` of plain, above
+    ``floor`` (0.5 is the constant model's)."""
+    return {"name": "auc", "higher": True, "tol": AUC_TOL, "floor": floor,
+            "fn": lambda b: _auc(b.predict(Xv, raw_score=True), yv)}
+
+
+def loss_holdout(name, fn, constant):
+    """A held-out loss gate: kernel within 1e-3 (relative) of plain, below
+    ``constant``, the constant model's loss."""
+    return {"name": name, "higher": False, "tol": 1e-3, "floor": constant,
+            "fn": fn}
+
+
+def _train_pair(lgt, hist, ds, params, iters, Xv, yv, expect, metric=None):
     """Train once through the kernels, with the launch counts set to 0 just
     before and read just after, and once under ``force_plain()``.  Every
-    kernel in ``expect`` must have launched and no other."""
+    kernel in ``expect`` must have launched and no other.  ``metric``
+    (default: the held-out AUC above 0.75) gates both runs' models."""
+    metric = metric or auc_holdout(Xv, yv)
     hist.reset_launch_counts()
     booster, secs = _train(lgt, ds, params, iters)
     launches = dict(hist.launch_counts)
@@ -800,28 +839,35 @@ def _train_pair(lgt, hist, ds, params, iters, Xv, yv, expect):
     same_tree0 = (t_k.num_leaves == t_p.num_leaves
                   and np.array_equal(t_k.split_feature, t_p.split_feature)
                   and np.array_equal(t_k.threshold, t_p.threshold))
-    auc_k = _auc(booster.predict(Xv, raw_score=True), yv)
-    auc_p = _auc(booster_p.predict(Xv, raw_score=True), yv)
+    v_k, v_p = metric["fn"](booster), metric["fn"](booster_p)
+    key = metric["name"] + "_holdout"
     leaves = [t.num_leaves for t in booster._gbdt.models]
+    trees = len(leaves)
     n = ds.num_data()
-    out = {"rows": n, "iterations": iters,
+    out = {"rows": n, "iterations": iters, "trees": trees,
            "hist_method": booster._gbdt._grower_cfg.hist_method,
            "hist_variant": booster._gbdt._grower_cfg.hist_variant,
-           "kernel": {"s_per_tree": secs / iters,
+           "kernel": {"s_per_tree": secs / trees,
                       "mrow_iters_per_s": n * iters / 1e6 / secs,
-                      "auc_holdout": auc_k},
-           "plain": {"s_per_tree": secs_p / iters,
+                      key: v_k},
+           "plain": {"s_per_tree": secs_p / trees,
                      "mrow_iters_per_s": n * iters / 1e6 / secs_p,
-                     "auc_holdout": auc_p},
+                     key: v_p},
            "launches": launches,
+           "launches_per_tree": {k: v / trees for k, v in launches.items()
+                                 if v},
            "per_leaf_launches_per_tree": (launches["hist_leaves"]
-                                          + launches["onehot_leaves"]) / iters,
+                                          + launches["onehot_leaves"]) / trees,
            "leaves_per_tree": [min(leaves), max(leaves)],
            "tree0_identical": bool(same_tree0)}
-    if abs(auc_k - auc_p) > AUC_TOL:
-        raise AssertionError(f"{params}: AUC kernel {auc_k} vs plain {auc_p}")
-    if not auc_k > 0.75:
-        raise AssertionError(f"{params}: held-out AUC {auc_k} below 0.75")
+    tol = metric["tol"] * (1.0 if metric["higher"] else abs(v_p))
+    if abs(v_k - v_p) > tol:
+        raise AssertionError(f"{params}: held-out {metric['name']} kernel "
+                             f"{v_k} vs plain {v_p}")
+    beats = v_k > metric["floor"] if metric["higher"] else v_k < metric["floor"]
+    if not beats:
+        raise AssertionError(f"{params}: held-out {metric['name']} {v_k} "
+                             f"does not beat {metric['floor']}")
     return booster, out
 
 
@@ -873,7 +919,6 @@ def phase_train(card, elected):
                              f", the election chose {elected[256]}")
     print(f"auto trained with the elected variant: {elected[256]}",
           flush=True)
-    del ds, X, y
     # packed at the width it serves, on fewer rows
     packed = dict(base, max_bin=63, force_row_wise=True,
                   hist_variant="packed")
@@ -889,9 +934,175 @@ def phase_train(card, elected):
           "row_wise_int8": int8_run, "row_wise_auto": auto_run,
           "row_wise_packed_max_bin_63": packed_run,
           "onehot_vs_atomic_auc_gap": gaps})
-    return (booster, booster_oh, booster_i8), Xv, {
+    return (booster, booster_oh, booster_i8), (ds, X, Xv, yv), {
         "atomic": atomic["launches"], "staged": row_wise["launches"],
         "int8": int8_run["launches"], "packed": packed_run["launches"]}
+
+
+def _noisy_latent(X, seed):
+    rng = np.random.default_rng(seed)
+    return higgs_latent(X) + 0.5 * rng.normal(size=len(X))
+
+
+def _rng_gate(dev):
+    """The counter-based draws on the card are bit-identical to the CPU's:
+    the bagging draw of 1M rows and a bynode draw of 2k = 32 children."""
+    from lightgbm_tpu_torch.ops.grower import node_feature_mask_for
+    from lightgbm_tpu_torch.utils import random_gen
+    key = random_gen.key_for_iteration(3, 0)
+    u_cpu = random_gen.uniform(key, N_TRAIN)
+    u_card = random_gen.uniform(key.to(dev), N_TRAIN)
+    steps = torch.arange(1, 33)
+    fmask = torch.ones(N_FEAT)
+    fmask[[3, 9, 17, 22, 27]] = 0.0                 # a feature_fraction draw
+    m_cpu = node_feature_mask_for(key, steps, fmask, 0.8)
+    m_card = node_feature_mask_for(key.to(dev), steps.to(dev), fmask.to(dev),
+                                   0.8)
+    same = {"uniform_1m": torch.equal(u_card.cpu(), u_cpu),
+            "bynode_32x28": torch.equal(m_card.cpu(), m_cpu)}
+    if not all(same.values()):
+        raise AssertionError(f"card draws differ from the CPU's: {same}")
+    return {"bit_identical": same, "uniform_mean": float(u_card.mean())}
+
+
+class _RowsSeen:
+    """Records the rows of every ``hist_full``/``hist_leaves`` launch (the
+    kernel wrappers themselves; the plain versions are not patched)."""
+
+    def __init__(self, hist):
+        self.hist = hist
+        self.rows = {"hist_full": [], "hist_leaves": []}
+
+    def __enter__(self):
+        self.orig = {k: getattr(self.hist, k) for k in self.rows}
+        for k, fn in self.orig.items():
+            def rec(mat, *a, _k=k, _fn=fn, **kw):
+                self.rows[_k].append(int(mat.shape[0]))
+                return _fn(mat, *a, **kw)
+            setattr(self.hist, k, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.hist, k, fn)
+
+
+def phase_knobs(card, data):
+    """The training knobs, objectives and boosting types on the card's
+    atomic kernels (the examples' settings, ``examples/*/train.conf``):
+    each run once through the kernels and once under ``force_plain()``,
+    tree 0 identical, the held-out metric within tolerance of the plain
+    run's and better than the constant model's."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    ds, X, Xv, yv = data
+    dev = torch.device("cuda")
+    atomic = {"hist_full", "hist_leaves"}
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+            "learning_rate": 0.1, "verbose": -1}
+    auc = auc_holdout(Xv, yv, floor=0.5)
+    runs = {"rng": _rng_gate(dev)}
+
+    def pair(name, d, params, iters, metric, check_tree0=True):
+        booster, out = _train_pair(lgt, hist, d, params, iters, Xv, yv,
+                                   atomic, metric=metric)
+        if check_tree0 and not out["tree0_identical"]:
+            raise AssertionError(f"{name}: tree 0 differs between kernel "
+                                 "and plain runs")
+        cap = booster._gbdt._bag_subset_capacity()
+        out["cap"] = cap
+        print(f"{name}: s/tree {out['kernel']['s_per_tree']:.4f}, "
+              f"launches/tree {out['launches_per_tree']}, cap {cap}",
+              flush=True)
+        runs[name] = out
+        return booster, out
+
+    # the binary example's knobs: a masked bag (fraction 0.8 is not
+    # compacted), feature_fraction 0.8
+    pair("binary_sampling", ds, dict(base, feature_fraction=0.8,
+                                     bagging_freq=5, bagging_fraction=0.8),
+         20, auc)
+    # the compacted bag, with the per-node draws: every histogram over
+    # cap rows
+    compact = dict(base, bagging_fraction=0.5, bagging_freq=1,
+                   feature_fraction_bynode=0.8, extra_trees=True)
+    with _RowsSeen(hist) as seen:
+        _, out = pair("bag_compaction", ds, compact, 10, auc)
+    cap, k, br = out["cap"], 16, 512
+    if not (cap and set(seen.rows["hist_full"]) == {cap}
+            and max(seen.rows["hist_leaves"]) <= cap // 2 + k * br):
+        raise AssertionError(f"compaction: cap {cap}, hist_full rows "
+                             f"{sorted(set(seen.rows['hist_full']))}, "
+                             f"hist_leaves rows up to "
+                             f"{max(seen.rows['hist_leaves'])}")
+    out["hist_full_rows"] = cap
+    out["hist_leaves_rows_max"] = max(seen.rows["hist_leaves"])
+    with _RowsSeen(hist) as seen:
+        _, out = pair("goss", ds, dict(base, boosting="goss", top_rate=0.2,
+                                       other_rate=0.1), 10, auc)
+    out["hist_full_rows"] = sorted(set(seen.rows["hist_full"]))
+
+    # multiclass: 5 classes from quantiles of the latent score, the
+    # multiclass example's settings
+    lat, lat_v = _noisy_latent(X, 1), _noisy_latent(Xv, 2)
+    q = np.quantile(lat, [0.2, 0.4, 0.6, 0.8])
+    y5, y5v = np.digitize(lat, q), np.digitize(lat_v, q)
+    prior = np.bincount(y5, minlength=5) / len(y5)
+
+    def mlogloss(b):
+        p = np.clip(b.predict(Xv)[np.arange(len(y5v)), y5v], 1e-15, 1.0)
+        return float(-np.mean(np.log(p)))
+    ds.set_field("label", y5.astype(np.float32))
+    multi = {"objective": "multiclass", "num_class": 5, "num_leaves": 31,
+             "learning_rate": 0.05, "min_data_in_leaf": 50, "max_bin": 255,
+             "metric": "multi_logloss", "verbose": -1}
+    _, out = pair("multiclass", ds, multi, 10, loss_holdout(
+        "multi_logloss", mlogloss, float(-np.mean(np.log(prior[y5v])))))
+    if out["launches"]["hist_full"] != 50:
+        raise AssertionError(f"multiclass: hist_full ran "
+                             f"{out['launches']['hist_full']} times, not 50")
+
+    # regression (L2) with the regression example's settings
+    mu, sd = lat.mean(), lat.std()
+    yr, yrv = (lat - mu) / sd, (lat_v - mu) / sd
+    ds.set_field("label", yr.astype(np.float32))
+    reg = {"objective": "regression", "metric": "l2", "num_leaves": 31,
+           "learning_rate": 0.05, "feature_fraction": 0.9,
+           "bagging_freq": 5, "bagging_fraction": 0.8,
+           "min_data_in_leaf": 100, "min_sum_hessian_in_leaf": 5.0,
+           "max_bin": 255, "verbose": -1}
+    pair("regression_l2", ds, reg, 20, loss_holdout(
+        "l2", lambda b: float(np.mean((b.predict(Xv) - yrv) ** 2)),
+        float(np.mean((yrv - yr.mean()) ** 2))))
+
+    # 200k rows: L1 (leaf renewal on the host), DART, RF
+    Xs, ys = make_higgs_like(N_SMALL, N_FEAT, seed=45)
+    lat_s = (_noisy_latent(Xs, 3) - mu) / sd
+    dss = lgt.Dataset(Xs, label=lat_s.astype(np.float32),
+                      params=base).construct(device="cuda")
+    pair("regression_l1", dss, dict(reg, objective="regression_l1",
+                                    metric="l1"), 5, loss_holdout(
+        "l1", lambda b: float(np.mean(np.abs(b.predict(Xv) - yrv))),
+        float(np.mean(np.abs(yrv - np.median(lat_s))))))
+    dss.set_field("label", ys)
+    pair("dart", dss, dict(base, boosting="dart"), 10, auc)
+    pair("rf", dss, dict(base, boosting="rf", bagging_fraction=0.5,
+                         bagging_freq=1, feature_fraction=0.8), 10, auc)
+    # monotone-basic: +1 on feature 0 (the latent score's 1.2 x0)
+    mono = dict(base, monotone_constraints=[1] + [0] * (N_FEAT - 1))
+    dsm = lgt.Dataset(Xs, label=ys, params=mono).construct(device="cuda")
+    booster, out = pair("monotone_basic", dsm, mono, 10, auc)
+    grid = np.linspace(-3.0, 3.0, 41, dtype=np.float32)
+    rows = np.repeat(Xv[:200], len(grid), axis=0)
+    rows[:, 0] = np.tile(grid, 200)
+    p = booster.predict(rows, raw_score=True).reshape(200, len(grid))
+    worst = float(np.diff(p, axis=1).min())
+    if worst < -1e-9:
+        raise AssertionError(f"monotone: a prediction falls by {-worst} "
+                             "along feature 0")
+    out["min_step_along_feature_0"] = worst
+    emit({"phase": "knobs", "card": card, "features": N_FEAT, **runs})
+    return {name: r["launches"] for name, r in runs.items() if name != "rng"}
 
 
 def phase_predict(boosters, Xv):
@@ -1044,6 +1255,8 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
         row = {"name": kname, "route": "cuda", "source": src,
                "replaces": replaces, "jax": jax_fn,
                "launches": launches["atomic"][kname],
+               "launches_by_knob_run": {run: cnt[kname] for run, cnt in
+                                        launches["knobs"].items()},
                **{k: r[k] for k in keys + atomic_keys}, "card": card}
         if "cases" in r:
             row["cases"] = {c: {k: v[k] for k in ("relerr", "ms",
@@ -1102,7 +1315,9 @@ def main() -> int:
     quant = phase_quant(smi)
     bench = phase_shootout(smi)
     elected = phase_elect(smi)
-    boosters, Xv, launches = phase_train(smi, elected)
+    boosters, data, launches = phase_train(smi, elected)
+    launches["knobs"] = phase_knobs(smi, data)
+    Xv = data[2]
     phase_predict(boosters, Xv)
     if args.profile:
         phase_profile(boosters[0], smi)

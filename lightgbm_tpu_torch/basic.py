@@ -111,7 +111,8 @@ class Booster:
             cfg = Config.from_params(self.params)
             train_set.params = dict(self.params)
             train_set.construct(self.device)
-            self._gbdt = GBDT(cfg, train_set._inner, device=self.device)
+            self._gbdt = self._create_engine(cfg, train_set._inner,
+                                             self.device)
         elif model_file is not None:
             with open(model_file) as f:
                 self._load_from_string(f.read())
@@ -119,6 +120,16 @@ class Booster:
             self._load_from_string(model_str)
         else:
             raise LightGBMError("need at least one of train_set / model_file / model_str")
+
+    @staticmethod
+    def _create_engine(cfg: Config, inner_train, device):
+        """The boosting class by ``boosting`` (the JAX package's
+        ``Booster._create_engine``, without its out-of-core routing)."""
+        from .models.dart import DART
+        from .models.goss import GOSS
+        from .models.rf import RF
+        cls = {"gbdt": GBDT, "dart": DART, "goss": GOSS, "rf": RF}[cfg.boosting]
+        return cls(cfg, inner_train, device=device)
 
     def _load_from_string(self, model_str: str) -> None:
         if model_io.parse_pandas_categorical(model_str):

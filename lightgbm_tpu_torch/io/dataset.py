@@ -249,9 +249,6 @@ class Dataset:
         dev = resolve_device(device)
         if dev in self._device:
             return self._device[dev]
-        cfg = self.config
-        if any(v != 0 for v in cfg.monotone_constraints):
-            raise NotPortedError("monotone_constraints are not ported yet")
         feats = self.used_features
         nb = np.array([self.bin_mappers[f].num_bin for f in feats], dtype=np.int32)
         offsets = np.concatenate([[0], np.cumsum(nb)]).astype(np.int32)
@@ -271,6 +268,13 @@ class Dataset:
         nan_bins = np.array([_miss_bin(self.bin_mappers[f]) for f in feats],
                             dtype=np.int32)
 
+        # monotone directions by inner feature, from the real-feature list
+        mono = np.zeros(len(feats), dtype=np.int8)
+        mc = self.config.monotone_constraints
+        for i, f in enumerate(feats):
+            if f < len(mc):
+                mono[i] = mc[f]
+
         def t(a):
             return torch.as_tensor(a).to(dev)
         dd = DeviceData(
@@ -280,7 +284,7 @@ class Dataset:
             default_bins=t(default_bins),
             nan_bins=t(nan_bins),
             is_categorical=torch.zeros(len(feats), dtype=torch.bool, device=dev),
-            monotone=torch.zeros(len(feats), dtype=torch.int8, device=dev),
+            monotone=t(mono),
             total_bins=int(offsets[-1]),
             device=dev,
         )

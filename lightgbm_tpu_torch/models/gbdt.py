@@ -1,16 +1,22 @@
 """GBDT: the boosting engine.
 
-Port of the JAX package's ``models/gbdt.py`` for the main path: binary
-objective, boost-from-average, one tree per iteration grown by the frontier
-grower, device-resident train/valid scores updated by binned traversal
-(``_train_one_iter_fast``, without bagging compaction), host ``Tree``
-objects materialized lazily from a pending list, and prediction through the
-host tree loop or the stacked device ensemble.
+Port of the JAX package's ``models/gbdt.py`` for the frontier grower: every
+objective but the ranking ones, ``num_class`` trees an iteration, boost-from-
+average, bagging (the masked bag, and the compacted bag of ``cap`` rows when
+bagging keeps under 80% of them), per-tree feature sampling, the per-node
+draws keyed by ``random_gen.key_for_iteration`` (``feature_fraction_bynode``,
+``extra_trees``), monotone-basic, device-resident train/valid scores updated
+by binned traversal (``_train_one_iter_fast``), the synchronous per-tree
+path with leaf renewal for L1-style objectives, host ``Tree`` objects
+materialized lazily from a pending list, and prediction through the host
+tree loop or the stacked device ensemble.  ``goss.py``, ``dart.py`` and
+``rf.py`` derive from it.
 
-Not ported yet (raise ``NotPortedError``): other boosting types and tree
-learners, bagging and feature sampling, linear trees, CEGB, interaction
-constraints, forced splits, feature_contri, monotone constraints, custom
-objectives, prediction early stopping, SHAP and refit.
+Not ported yet (raise ``NotPortedError``): other tree learners, the serial
+grower and what only it serves (monotone intermediate/advanced, CEGB,
+interaction constraints, forced splits, linear trees), feature_contri, the
+ranking objectives, custom objectives, prediction early stopping, SHAP and
+refit.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from ..ops.grower import GrowerConfig, grow_tree
 from ..ops.predict import predict_leaf_binned, tree_depth
 from ..ops.split import SplitParams
 from ..utils.log import Log, check
+from ..utils.random_gen import key_for_iteration, uniform
 from .tree import Tree
 
 
@@ -42,28 +49,19 @@ def kernel_backend(device: torch.device) -> str:
 
 def check_ported(cfg: Config) -> None:
     """Raise ``NotPortedError`` for any training parameter whose path the
-    port does not have yet (no silent fallback to another path)."""
+    port does not have yet (no silent fallback to another path); the
+    objective and metric factories refuse the ranking ones."""
     bad = []
-    if cfg.boosting != "gbdt":
-        bad.append(f"boosting={cfg.boosting}")
     if cfg.tree_learner != "serial":
         bad.append(f"tree_learner={cfg.tree_learner}")
     if cfg.tree_grower == "serial":
         bad.append("tree_grower=serial")
-    if cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0
-                                 or cfg.pos_bagging_fraction < 1.0
-                                 or cfg.neg_bagging_fraction < 1.0):
-        bad.append("bagging")
-    if cfg.feature_fraction < 1.0:
-        bad.append("feature_fraction < 1")
-    if cfg.feature_fraction_bynode < 1.0:
-        bad.append("feature_fraction_bynode < 1")
-    if cfg.extra_trees:
-        bad.append("extra_trees")
     if cfg.linear_tree:
         bad.append("linear_tree")
-    if any(v != 0 for v in cfg.monotone_constraints):
-        bad.append("monotone_constraints")
+    if (any(v != 0 for v in cfg.monotone_constraints)
+            and cfg.monotone_constraints_method != "basic"):
+        bad.append("monotone_constraints_method="
+                   + cfg.monotone_constraints_method)
     if cfg.interaction_constraints:
         bad.append("interaction_constraints")
     if cfg.forcedsplits_filename:
@@ -73,14 +71,28 @@ def check_ported(cfg: Config) -> None:
     if (cfg.cegb_penalty_split > 0 or cfg.cegb_penalty_feature_lazy
             or cfg.cegb_penalty_feature_coupled):
         bad.append("CEGB")
-    if cfg.objective not in ("binary",):
-        bad.append(f"objective={cfg.objective}")
     if bad:
         raise NotPortedError("not ported yet: " + ", ".join(bad))
 
 
+def bag_mask_from_uniform(cfg: Config, u: torch.Tensor,
+                          label: torch.Tensor) -> torch.Tensor:
+    """Bernoulli bagging mask from a per-row uniform draw (the JAX
+    package's ``bag_mask_from_uniform``; reference gbdt.cpp:182-262)."""
+    if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+        frac = torch.where(label > 0,
+                           torch.full_like(u, cfg.pos_bagging_fraction),
+                           torch.full_like(u, cfg.neg_bagging_fraction))
+    else:
+        frac = cfg.bagging_fraction
+    return (u < frac).to(torch.float32)
+
+
 class GBDT:
     """Gradient Boosting Decision Tree engine (reference ``gbdt.h:35``)."""
+
+    # a loaded model sets this from its text; RF sets it for itself
+    average_output = False
 
     def __init__(self, config: Config, train_data: Optional[Dataset] = None,
                  objective: Optional[ObjectiveFunction] = None,
@@ -106,6 +118,13 @@ class GBDT:
         self.shrinkage_rate = config.learning_rate
         self._train_score = None       # [K, N] device
         self._valid_scores: List[torch.Tensor] = []
+        # per model: the device tree (unshrunk leaf values), its depth and
+        # its current scale (DART re-weights models through these)
+        self._device_trees: List = []
+        self._tree_depths: List[int] = []
+        self._tree_weights: List[float] = []
+        self._bag_mask = None
+        self._bag_sub = None
         self.train_data_name = "training"
         if train_data is not None:
             self.init_train(train_data)
@@ -221,8 +240,10 @@ class GBDT:
         return GrowerConfig(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth, max_bin=max_bin,
             split=sp, feature_fraction_bynode=cfg.feature_fraction_bynode,
-            extra_trees=cfg.extra_trees,
+            extra_trees=cfg.extra_trees, extra_seed=cfg.extra_seed,
             has_monotone=any(v != 0 for v in cfg.monotone_constraints),
+            monotone_mode=cfg.monotone_constraints_method,
+            monotone_penalty=cfg.monotone_penalty,
             cegb_split_penalty=cfg.cegb_tradeoff * cfg.cegb_penalty_split,
             grower_mode=cfg.tree_grower,
             frontier_k=cfg.frontier_k,
@@ -251,6 +272,94 @@ class GBDT:
         self._valid_scores.append(torch.as_tensor(init).to(self.device))
 
     # ------------------------------------------------------------------
+    # bagging (gbdt.cpp:182-262); subclasses (GOSS) override
+    def _bagging_weights(self, iteration: int, grad, hess):
+        cfg = self.config
+        need = cfg.bagging_freq > 0 and (cfg.bagging_fraction < 1.0 or
+                                         cfg.pos_bagging_fraction < 1.0 or
+                                         cfg.neg_bagging_fraction < 1.0)
+        if not need:
+            return None, grad, hess
+        if iteration % cfg.bagging_freq == 0:
+            key = key_for_iteration(cfg.bagging_seed,
+                                    iteration // cfg.bagging_freq)
+            u = uniform(key.to(self.device), self.train_data.num_data)
+            self._bag_mask = bag_mask_from_uniform(cfg, u, self._label_dev)
+        mask = self._bag_mask
+        return mask, grad * mask, hess * mask
+
+    # -- bagging subset (reference CopySubrow, gbdt.cpp:256): when bagging
+    # drops a material fraction of rows, the survivors are compacted into
+    # a buffer of ``cap`` rows, so every grower pass costs O(cap), not
+    # O(N).  The mask still decides membership: the compaction is exact
+    # while the bag's count is at most cap, which carries a >6-sigma
+    # margin over the Bernoulli mean (the JAX package's rule).
+    _BAG_SUBSET_MAX_FRACTION = 0.8
+
+    def _bag_subset_capacity(self) -> Optional[int]:
+        cfg = self.config
+        n = self.train_data.num_data
+        if (cfg.bagging_freq <= 0 or not (0.0 < cfg.bagging_fraction
+                                          < self._BAG_SUBSET_MAX_FRACTION)
+                or cfg.pos_bagging_fraction < 1.0
+                or cfg.neg_bagging_fraction < 1.0
+                or type(self)._bagging_weights is not GBDT._bagging_weights):
+            return None
+        return self._capacity_with_margin(n * cfg.bagging_fraction, n)
+
+    @staticmethod
+    def _capacity_with_margin(expected_k: float, n: int) -> Optional[int]:
+        """Bag buffer capacity: expected count + a >6-sigma Bernoulli
+        margin, rounded up to 1024; None when it would not beat full width."""
+        cap = int(expected_k + max(64.0, 6.0 * float(np.sqrt(max(1.0, expected_k)))))
+        cap = -(-cap // 1024) * 1024
+        return cap if cap < n else None
+
+    def _bag_subset_refresh(self, iteration: int) -> bool:
+        """True when the bag membership changed this iteration (subclasses
+        that re-bag every iteration override)."""
+        return iteration % self.config.bagging_freq == 0
+
+    def _bag_compact(self, mask: torch.Tensor, cap: int):
+        """``(row_ids [cap], row_weight [cap], bins [cap, F])`` of the bag:
+        the in-bag rows in order, then padding slots that repeat row
+        ``n - 1`` with weight 0.  The rank of each slot is one
+        ``searchsorted`` on the running count (no host read)."""
+        n = self.train_data.num_data
+        cs = torch.cumsum((mask > 0).to(torch.int64), 0)
+        targets = torch.arange(1, cap + 1, dtype=torch.int64,
+                               device=mask.device)
+        row_ids = torch.clamp(torch.searchsorted(cs, targets, right=False),
+                              max=n - 1)
+        filled = targets <= cs[-1]
+        rw = torch.where(filled, mask[row_ids], torch.zeros_like(mask[:1]))
+        return row_ids, rw, self._dd.bins[row_ids]
+
+    def _feature_mask(self, iteration: int) -> torch.Tensor:
+        cfg = self.config
+        f = self.train_data.num_features
+        if cfg.feature_fraction >= 1.0:
+            return torch.ones(f, dtype=torch.float32, device=self.device)
+        # per-tree column sampling (ColSampler::ResetByTree, col_sampler.hpp:74)
+        rng = np.random.default_rng(cfg.feature_fraction_seed + iteration)
+        k = max(1, int(round(cfg.feature_fraction * f)))
+        mask = np.zeros(f, np.float32)
+        mask[rng.choice(f, size=k, replace=False)] = 1.0
+        return torch.as_tensor(mask).to(self.device)
+
+    def _grow(self, bins, g, h, row_weight, fmask, it: int, k: int):
+        """One tree by the frontier grower; the per-node draws are keyed by
+        ``key_for_iteration(seed, it, salt=k + 1)`` (computed on the host:
+        the frontier draws its per-node streams there and ships them)."""
+        gcfg = self._grower_cfg
+        key = (key_for_iteration(self.config.seed, it, salt=k + 1)
+               if gcfg.feature_fraction_bynode < 1.0 or gcfg.extra_trees
+               else None)
+        dd = self._dd
+        return grow_tree(bins, g, h, row_weight, fmask, dd.num_bins,
+                         dd.nan_bins, gcfg, key=key, monotone=dd.monotone)
+
+    # ------------------------------------------------------------------
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference ``GBDT::TrainOneIter``,
         ``gbdt.cpp:369``).  Returns True if training should stop (no splits)."""
@@ -259,42 +368,122 @@ class GBDT:
                         "that meet the split requirements")
             return True
         n = self.train_data.num_data
+        it = self.iter_
+        K = self.num_tree_per_iteration
         g, h = self._compute_gradients(self._train_score)
-        row_weight = torch.ones(n, dtype=torch.float32, device=self.device)
-        fmask = torch.ones(self.train_data.num_features, dtype=torch.float32,
-                           device=self.device)
-        return self._train_one_iter_fast(g, h, row_weight, fmask, self.iter_,
-                                         self.num_tree_per_iteration)
+        bag_mask, g, h = self._bagging_weights(it, g, h)
+        row_weight = (bag_mask if bag_mask is not None else
+                      torch.ones(n, dtype=torch.float32, device=self.device))
+        fmask = self._feature_mask(it)
+        if self.objective.need_renew_tree_output():
+            return self._train_one_iter_renew(g, h, row_weight, fmask, it, K)
+        return self._train_one_iter_fast(g, h, row_weight, fmask, it, K,
+                                         bag_mask=bag_mask)
+
+    def _add_tree_to_scores(self, k: int, tree, node_assign, depth: int,
+                            scale: float) -> None:
+        """Add ``scale`` x the tree's leaf values to the train scores (rows
+        at ``node_assign``) and to every valid set's (binned traversal)."""
+        delta = tree.leaf_value * scale
+        self._train_score[k] += delta[node_assign]
+        for vi, vset in enumerate(self.valid_sets):
+            vleaf = predict_leaf_binned(
+                tree, vset.device_data(self.device).bins, self._dd.nan_bins,
+                depth=depth)
+            self._valid_scores[vi][k] += delta[vleaf]
 
     def _train_one_iter_fast(self, g, h, row_weight, fmask, it: int,
-                             K: int) -> bool:
+                             K: int, bag_mask=None) -> bool:
         """Device-resident iteration: grow, then update train and valid
-        scores on the device; the host ``Tree`` is built lazily."""
+        scores on the device; the host ``Tree`` is built lazily.  With a
+        compacted bag the tree grows over its ``cap`` rows and the full
+        training set is routed through it by one binned traversal."""
         dd = self._dd
+        cap = self._bag_subset_capacity() if bag_mask is not None else None
+        if cap is not None:
+            if self._bag_subset_refresh(it) or self._bag_sub is None:
+                self._bag_sub = self._bag_compact(bag_mask, cap)
+            bag_rows, bag_rw, bag_bins = self._bag_sub
         for k in range(K):
-            tree, node_assign, host = grow_tree(
-                dd.bins, g[k], h[k], row_weight, fmask, dd.num_bins,
-                dd.nan_bins, self._grower_cfg)
+            if cap is not None:
+                tree, _, host = self._grow(bag_bins, g[k][bag_rows],
+                                           h[k][bag_rows], bag_rw, fmask,
+                                           it, k)
+            else:
+                tree, node_assign, host = self._grow(dd.bins, g[k], h[k],
+                                                     row_weight, fmask, it, k)
             bias = (self.init_scores[k]
                     if it == 0 and self.init_scores[k] != 0.0 else 0.0)
             self._pending.append((host, self.shrinkage_rate, bias, it))
             nl = int(host.num_leaves)
+            depth = tree_depth(host.left_child, host.right_child, nl)
             if nl > 1:
-                delta = tree.leaf_value * self.shrinkage_rate
-                self._train_score[k] += delta[node_assign]
-                depth = tree_depth(host.left_child, host.right_child, nl)
-                for vi, vset in enumerate(self.valid_sets):
-                    vleaf = predict_leaf_binned(
-                        tree, vset.device_data(self.device).bins, dd.nan_bins,
-                        depth=depth)
-                    self._valid_scores[vi][k] += delta[vleaf]
+                if cap is not None:
+                    node_assign = predict_leaf_binned(tree, dd.bins,
+                                                      dd.nan_bins, depth=depth)
+                self._add_tree_to_scores(k, tree, node_assign, depth,
+                                         self.shrinkage_rate)
+            self._device_trees.append(tree)
+            self._tree_depths.append(depth)
+            self._tree_weights.append(self.shrinkage_rate)
         self.iter_ += 1
         # one iteration stays pending, so the stop check is one iteration
         # late exactly as in the JAX package (at most K extra constant trees)
         self._drain_pending(keep=K)
         return self._stop_flag
 
+    def _train_one_iter_renew(self, g, h, row_weight, fmask, it: int,
+                              K: int) -> bool:
+        """The synchronous per-tree path (the JAX package's slow path of
+        ``train_one_iter``) for objectives that renew leaf outputs
+        (``RenewTreeOutput``, serial_tree_learner.cpp:684): each tree comes
+        to the host, its leaves are re-fit to percentiles of the residuals,
+        and the renewed values update the scores.  Masked bag, no
+        compaction."""
+        dd = self._dd
+        should_stop = True
+        for k in range(K):
+            tree, node_assign, host = self._grow(dd.bins, g[k], h[k],
+                                                 row_weight, fmask, it, k)
+            nl = int(host.num_leaves)
+            if nl > 1:
+                should_stop = False
+            t = Tree.from_arrays(host, self.train_data, learning_rate=1.0)
+            if nl > 1:
+                new_vals = self.objective.renew_leaf_values(
+                    node_assign.cpu().numpy(),
+                    self._train_score[k].cpu().numpy().astype(np.float64),
+                    t.leaf_value.copy(), nl)
+                t.leaf_value = np.asarray(new_vals, np.float64)
+                tree = tree._replace(leaf_value=torch.as_tensor(
+                    t.leaf_value.astype(np.float32)).to(self.device))
+            t.shrink(self.shrinkage_rate)
+            # the first tree carries the boost-from-average bias; a
+            # split-less first tree becomes a constant tree holding it
+            if it == 0 and self.init_scores[k] != 0.0:
+                if nl > 1:
+                    t.add_bias(self.init_scores[k])
+                else:
+                    t.leaf_value = np.full_like(t.leaf_value,
+                                                self.init_scores[k])
+            depth = tree_depth(host.left_child, host.right_child, nl)
+            if nl > 1:
+                self._add_tree_to_scores(k, tree, node_assign, depth,
+                                         self.shrinkage_rate)
+            self.models.append(t)
+            self._device_trees.append(tree)
+            self._tree_depths.append(depth)
+            self._tree_weights.append(self.shrinkage_rate)
+        self.iter_ += 1
+        if should_stop:
+            Log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+        return should_stop
+
     def _compute_gradients(self, score):
+        if self.num_tree_per_iteration > 1:
+            return self.objective.get_gradients_multi(
+                score, self._label_dev, self._weight_dev)
         g, h = self.objective.get_gradients(score[0], self._label_dev,
                                             self._weight_dev)
         return g[None, :], h[None, :]
@@ -304,13 +493,19 @@ class GBDT:
         """Evaluate all metrics on train (if enabled) + valid sets.
         Returns (dataset_name, metric_name, value, higher_better)."""
         out = []
+        K = self.num_tree_per_iteration
+
+        def host(score):
+            s = score.cpu().numpy().astype(np.float64)
+            return s[0] if K == 1 else s        # [K, N] for multiclass
+
         if self.config.is_provide_training_metric and self.train_metrics:
-            s = self._train_score.cpu().numpy().astype(np.float64)[0]
+            s = host(self._train_score)
             for m in self.train_metrics:
                 for name, val, hib in m.eval(s, self.objective):
                     out.append((self.train_data_name, name, val, hib))
         for vi in range(len(self.valid_sets)):
-            s = self._valid_scores[vi].cpu().numpy().astype(np.float64)[0]
+            s = host(self._valid_scores[vi])
             for m in self.valid_metrics[vi]:
                 for name, val, hib in m.eval(s, self.objective):
                     out.append((self.valid_names[vi], name, val, hib))
@@ -323,7 +518,8 @@ class GBDT:
 
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1,
                     start_iteration: int = 0) -> np.ndarray:
-        """Raw scores [N] (reference ``GBDT::PredictRaw``)."""
+        """Raw scores [N] or [N, K] (reference ``GBDT::PredictRaw``); a
+        model with ``average_output`` (RF) averages over its iterations."""
         if self.config.pred_early_stop:
             raise NotPortedError("pred_early_stop is not ported yet")
         X = np.asarray(X, dtype=np.float64)
@@ -344,6 +540,8 @@ class GBDT:
             out = np.zeros((X.shape[0], K))
             for ti, t in enumerate(models):
                 out[:, ti % K] += t.predict(X)
+        if self.average_output:
+            out = out / max(1, n_iters)
         return out[:, 0] if K == 1 else out
 
     def _predict_raw_device(self, models, start_iteration: int,
@@ -369,6 +567,8 @@ class GBDT:
         raw = self.predict_raw(X, num_iteration, start_iteration)
         if raw_score or self.objective is None:
             return raw
+        if self.num_tree_per_iteration > 1:
+            return np.asarray(self.objective.convert_output(raw.T)).T
         return np.asarray(self.objective.convert_output(raw))
 
     def predict_leaf_index(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:

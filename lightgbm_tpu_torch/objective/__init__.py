@@ -1,21 +1,48 @@
 """Objective factory (reference ``src/objective/objective_function.cpp:16-48``).
-Only the binary objective is ported; every other name raises
-``NotPortedError``."""
+Every objective of the JAX package is ported except the ranking ones
+(``lambdarank``, ``rank_xendcg``: they need query groups) and ``none`` (a
+custom objective), which raise ``NotPortedError``."""
 from __future__ import annotations
 
 from ..config import Config
 from ..device import NotPortedError
+from ..utils.log import Log
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
+from .multiclass import MulticlassOVA, MulticlassSoftmax
+from .regression import (FairLoss, GammaLoss, HuberLoss, MAPELoss,
+                         PoissonLoss, QuantileLoss, RegressionL1Loss,
+                         RegressionL2Loss, TweedieLoss)
+from .xentropy import CrossEntropy, CrossEntropyLambda
 
-_REGISTRY = {"binary": BinaryLogloss}
+_REGISTRY = {
+    "regression": RegressionL2Loss,
+    "regression_l1": RegressionL1Loss,
+    "huber": HuberLoss,
+    "fair": FairLoss,
+    "poisson": PoissonLoss,
+    "quantile": QuantileLoss,
+    "mape": MAPELoss,
+    "gamma": GammaLoss,
+    "tweedie": TweedieLoss,
+    "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
+    "xentropy": CrossEntropy,
+    "xentlambda": CrossEntropyLambda,
+}
+# objectives of the JAX package that this package has not ported yet
+NOT_PORTED = ("lambdarank", "rank_xendcg", "none")
 
 
 def create_objective(config: Config) -> ObjectiveFunction:
     name = config.objective
+    if name in NOT_PORTED:
+        raise NotPortedError(f"objective {name!r} is not ported yet")
     if name not in _REGISTRY:
-        raise NotPortedError(
-            f"objective {name!r} is not ported yet (ported: binary)")
+        Log.fatal("Unknown objective type name: %s", name)
     return _REGISTRY[name](config)
 
 

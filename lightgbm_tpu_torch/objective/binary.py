@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import ObjectiveFunction
+from .base import ObjectiveFunction, as_f32, from_f32
 from ..utils.log import Log
 
 
@@ -72,11 +72,6 @@ class BinaryLogloss(ObjectiveFunction):
         return float(init)
 
     def convert_output(self, score):
-        """Sigmoid of raw scores, computed in float32 like the JAX package
-        (which runs it through jnp with 64-bit mode off); numpy in, numpy
-        out, tensor in, tensor out."""
-        if isinstance(score, torch.Tensor):
-            s = score.to(torch.float32)
-            return 1.0 / (1.0 + torch.exp(-self.sigmoid * s))
-        s = torch.as_tensor(np.asarray(score, np.float64)).to(torch.float32)
-        return (1.0 / (1.0 + torch.exp(-self.sigmoid * s))).numpy()
+        """Sigmoid of raw scores, in float32 (``base.as_f32``)."""
+        s, was_np = as_f32(score)
+        return from_f32(1.0 / (1.0 + torch.exp(-self.sigmoid * s)), was_np)

@@ -1,17 +1,24 @@
 """Level-batched best-first tree growth — the main-path tree learner.
 
 Port of the JAX package's ``ops/frontier.py`` (``grow_tree_frontier``) for
-the serial learner, without EFB, monotone constraints, per-node feature
-sampling or extra-trees.  The algorithm is the same: each round expands the
-top-k pending leaves by ``g_hat(v) = min(gain(v), g_hat(parent(v)))`` with
-one [N]-pass stable partition of the row permutation, ONE leaf-grouped row
-gather feeding the batched histogram kernel (``hist_leaves``, or
-``hist_onehot_leaves`` under ``hist_method='onehot'``) for the k smaller
-children, the larger siblings by subtraction, and one batched split
-search over the 2k children.  Growth stops when no pending ``g_hat`` can
-displace an applied split, and a replay of the leaf-slot argmaxes over the
-applied split records recovers the exact best-first order and the
-reference's node/leaf numbering.
+the serial learner, without EFB, with ``feature_fraction_bynode``,
+``extra_trees`` and monotone-basic.  The algorithm is the same: each round
+expands the top-k pending leaves by ``g_hat(v) = min(gain(v),
+g_hat(parent(v)))`` with one [N]-pass stable partition of the row
+permutation, ONE leaf-grouped row gather feeding the batched histogram
+kernel (``hist_leaves``, or ``hist_onehot_leaves`` under
+``hist_method='onehot'``) for the k smaller children, the larger siblings
+by subtraction, and one batched split search over the 2k children.  Growth
+stops when no pending ``g_hat`` can displace an applied split, and a replay
+of the leaf-slot argmaxes over the applied split records recovers the
+exact best-first order and the reference's node/leaf numbering.
+
+The per-node draws are keyed by split record as in the JAX version: the
+root searches at step 0, both children of the expansion recorded at
+``s_idx`` at step ``s_idx + 1`` (``grower.node_feature_mask_for``,
+``rand_thresholds_for``).  Monotone-basic pinches each child's output
+bounds at the midpoint of the split's outputs down the root path, and the
+child's depth sets the split penalty.
 
 What differs from the JAX version, and why:
 
@@ -34,7 +41,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .grower import GrowerConfig, TreeArrays, _BestSplits
+from .grower import (GrowerConfig, TreeArrays, _BestSplits,
+                     monotone_gain_mult, node_feature_mask_for,
+                     rand_thresholds_for)
 from .histogram import build_histogram, build_histogram_leaves
 from .split import NEG_INF, POS_INF, cat_words, find_best_split, leaf_output
 
@@ -46,10 +55,13 @@ _SP_BOOL = ("sp_is_left", "sp_dleft")
 
 
 def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
-                       nan_bins, cfg: GrowerConfig):
+                       nan_bins, cfg: GrowerConfig, key=None, monotone=None):
     """Grow one tree with round-batched best-first expansion.
 
     ``bins [N, F]`` u8 and the ``[N]`` f32 row vectors live on one device.
+    ``key`` seeds the per-node draws (needed for ``feature_fraction_bynode
+    < 1`` and ``extra_trees``), ``monotone [F]`` the directions (needed
+    when ``cfg.has_monotone``).
     Returns ``(TreeArrays on that device, node_assignment [N] int64,
     TreeArrays of numpy arrays)``."""
     dev = bins.device
@@ -80,15 +92,42 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         torch.uint8)                                        # [N, 12]
     comb = torch.cat([bins, gh_packed], dim=1)              # [N, F + 12]
 
-    def find(hist_b, sum_g, sum_h, count):
+    use_mono = cfg.has_monotone
+    use_pen = use_mono and cfg.monotone_penalty > 0.0
+    # the per-node draws of every step a round can name (0..S+k: a round's
+    # unused slots name steps past S), drawn once a tree on the key's
+    # device (the booster's key is on the host: a few hundred small CPU
+    # ops and one copy a tree, where a draw per round cost as many again
+    # every round) and gathered by step
+    all_steps = torch.arange(S + k + 1)
+    node_masks = (node_feature_mask_for(key, all_steps, feature_mask,
+                                        cfg.feature_fraction_bynode)
+                  if cfg.feature_fraction_bynode < 1.0 else None)
+    node_thr = (rand_thresholds_for(key, all_steps, cfg.extra_seed,
+                                    num_bins, nan_bins)
+                if cfg.extra_trees else None)
+
+    def find(hist_b, sum_g, sum_h, count, steps, lo=NEG_INF, hi=POS_INF,
+             depth=None):
+        """The batched search; ``steps [S]`` keys the per-node draws, ``lo``
+        and ``hi`` are the leaves' monotone bounds, ``depth [S]`` their
+        depth for the monotone penalty."""
+        fmask = node_masks[steps] if node_masks is not None else feature_mask
+        rand = node_thr[steps] if node_thr is not None else None
+        mult = (monotone_gain_mult(depth, monotone, cfg.monotone_penalty)
+                if use_pen else None)
         return find_best_split(hist_b, num_bins, nan_bins, sum_g, sum_h,
-                               count, p, feature_mask)
+                               count, p, fmask, output_lo=lo, output_hi=hi,
+                               monotone=monotone if use_mono else None,
+                               rand_threshold=rand, gain_mult=mult)
 
     # ---- root -------------------------------------------------------------
     root_hist = build_histogram(bins, grad, hess, row_weight, B,
                                 method=cfg.hist_method,
                                 variant=cfg.hist_variant)
-    root_split = find(root_hist[None], tot[0:1], tot[1:2], tot[2:3])
+    root_step = torch.zeros(1, dtype=torch.int64, device=dev)
+    root_split = find(root_hist[None], tot[0:1], tot[1:2], tot[2:3],
+                      root_step, depth=root_step)
 
     pend = _BestSplits.empty(LS, dev).set_rows(
         torch.zeros(1, dtype=torch.int64, device=dev), root_split)
@@ -103,6 +142,9 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
     leaf_cghat = f32(LS, fill=POS_INF)      # creator split g_hat
     leaf_cs = i64(LS, fill=-1)              # creator split idx
     leaf_il = torch.zeros(LS, dtype=torch.bool, device=dev)  # was left child
+    if use_mono:
+        # per-leaf monotone output bounds (basic mode: root-path state only)
+        leaf_lo, leaf_hi = f32(LS, fill=NEG_INF), f32(LS, fill=POS_INF)
     hist = f32(LS, f, B, 3)
     hist[0] = root_hist
     sp = {name: f32(S) for name in _SP_FLOAT}
@@ -206,9 +248,28 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         lg, rg = pend.lg[sel], pend.rg[sel]
         lh, rh = pend.lh[sel], pend.rh[sel]
         lc, rc = pend.lc[sel], pend.rc[sel]
-        s2 = find(torch.cat([lhist, rhist]), torch.cat([lg, rg]),
-                  torch.cat([lh, rh]), torch.cat([lc, rc]))
         depth_c = leaf_depth[sel] + 1
+        # both children of the expansion recorded at s_idx draw at step
+        # s_idx + 1 (siblings share a draw, as in the sequential grower)
+        steps2 = torch.cat([s_idx, s_idx]) + 1
+        if use_mono:
+            # basic mode: pinch both children at the midpoint of the
+            # split's outputs (reference BasicConstraint) -- it depends
+            # only on the expansion's own path, so batching cannot reorder
+            # it
+            mono_sel = monotone[sel_feat]
+            lo_p, hi_p = leaf_lo[sel], leaf_hi[sel]
+            mid = (pend.lout[sel] + pend.rout[sel]) * 0.5
+            l_lo = torch.where(mono_sel < 0, torch.maximum(lo_p, mid), lo_p)
+            l_hi = torch.where(mono_sel > 0, torch.minimum(hi_p, mid), hi_p)
+            r_lo = torch.where(mono_sel > 0, torch.maximum(lo_p, mid), lo_p)
+            r_hi = torch.where(mono_sel < 0, torch.minimum(hi_p, mid), hi_p)
+            lo2, hi2 = torch.cat([l_lo, r_lo]), torch.cat([l_hi, r_hi])
+        else:
+            lo2, hi2 = NEG_INF, POS_INF
+        s2 = find(torch.cat([lhist, rhist]), torch.cat([lg, rg]),
+                  torch.cat([lh, rh]), torch.cat([lc, rc]), steps2, lo2, hi2,
+                  torch.cat([depth_c, depth_c]))
         depth_ok = (cfg.max_depth <= 0) | (depth_c < cfg.max_depth)
         gain2 = torch.where(torch.cat([depth_ok, depth_ok]), s2.gain,
                             torch.full_like(s2.gain, NEG_INF))
@@ -243,6 +304,9 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         upd(leaf_cghat, sp_ghat_i, sp_ghat_i)
         upd(leaf_cs, s_idx, s_idx)
         upd(leaf_il, torch.ones_like(valid), torch.zeros_like(valid))
+        if use_mono:
+            upd(leaf_lo, l_lo, r_lo)
+            upd(leaf_hi, l_hi, r_hi)
         hist[vs] = lhist[:v]
         hist[vr] = rhist[:v]
         sl = type(s2)(*[a[:k] for a in s2])

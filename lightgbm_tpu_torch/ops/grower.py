@@ -1,19 +1,22 @@
 """Leaf-wise (best-first) tree growth: configuration, tree layout, routing.
 
 Port of the parts of the JAX package's ``ops/grower.py`` that the frontier
-grower needs: ``GrowerConfig``, ``TreeArrays``, ``_BestSplits`` and the
-``_frontier_eligible`` gate.  ``grow_tree`` routes to the frontier grower
-(``ops/frontier.py``); the sequential one-split-at-a-time grower is not
-ported yet, so a configuration that would need it raises ``NotPortedError``
-instead of falling back.
+grower needs: ``GrowerConfig``, ``TreeArrays``, ``_BestSplits``, the
+per-node draws and penalty (``node_feature_mask_for``,
+``rand_thresholds_for``, ``monotone_gain_mult``, batched over split steps)
+and the ``_frontier_eligible`` gate.  ``grow_tree`` routes to the frontier
+grower (``ops/frontier.py``); the sequential one-split-at-a-time grower is
+not ported yet, so a configuration that would need it raises
+``NotPortedError`` instead of falling back.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..device import NotPortedError
+from ..utils.random_gen import fold_in, uniform
 from .histogram import _OH_CHUNK, _SMEM_PER_BIN, SMEM_MAX_BYTES
 from .split import NEG_INF, SplitParams, SplitResult
 
@@ -26,7 +29,10 @@ class GrowerConfig(NamedTuple):
     split: SplitParams
     feature_fraction_bynode: float = 1.0
     extra_trees: bool = False
+    extra_seed: int = 6
     has_monotone: bool = False
+    monotone_mode: str = "basic"
+    monotone_penalty: float = 0.0
     cegb_split_penalty: float = 0.0
     # 'auto' takes the frontier grower whenever the features allow (see
     # _frontier_eligible), 'serial' asks for the one-split loop, 'frontier'
@@ -97,11 +103,66 @@ class _BestSplits(NamedTuple):
         return self
 
 
+def node_feature_mask_for(key: torch.Tensor, steps: torch.Tensor,
+                          feature_mask: torch.Tensor,
+                          frac: float) -> torch.Tensor:
+    """Per-node feature subsets ``[S, F]`` for split steps ``steps [S]``
+    (the JAX package's ``node_feature_mask_for``, reference
+    ``col_sampler.hpp:91`` GetByNode): keep ``max(1, round(frac *
+    n_allowed))`` of the features the per-tree mask still allows, the ones
+    with the largest draws of ``uniform(fold_in(key, step), F)``.  The
+    draws run on the key's device and the mask is made on
+    ``feature_mask``'s."""
+    f_full = feature_mask.shape[0]
+    u = uniform(fold_in(key, steps), f_full).to(feature_mask.device)  # [S, F]
+    allowed = feature_mask > 0
+    n_allowed = allowed.sum().to(torch.float32)
+    frac32 = torch.tensor(frac, dtype=torch.float32, device=u.device)
+    n_take = torch.clamp(torch.floor(frac32 * n_allowed + 0.5).long(),
+                         1, f_full)
+    u = torch.where(allowed[None, :], u, torch.full_like(u, float("-inf")))
+    # lax.top_k(u, F)[0][n_take - 1]: the n_take-th largest draw
+    thresh = torch.sort(u, dim=1, descending=True).values[:, n_take - 1]
+    return torch.where(u >= thresh[:, None], feature_mask[None, :],
+                       torch.zeros_like(u))
+
+
+def rand_thresholds_for(key: torch.Tensor, steps: torch.Tensor,
+                        extra_seed: int, num_bins: torch.Tensor,
+                        nan_bins: torch.Tensor) -> torch.Tensor:
+    """extra_trees: one random valid numeric threshold per feature and
+    step, ``[S, F]`` int32 (the JAX package's ``rand_thresholds_for``); a
+    trailing missing bin removes the last real threshold, as in the split
+    search's ``valid_t``."""
+    k = fold_in(fold_in(fold_in(key, 7919), steps), extra_seed)
+    nb = num_bins.long()
+    hi = torch.clamp(nb - 2 - (nan_bins.long() == nb - 1).long(), min=0)
+    u = uniform(k, nb.shape[0]).to(nb.device)                      # [S, F]
+    return torch.floor(u * (hi + 1).to(torch.float32)[None, :]).to(
+        torch.int32)
+
+
+def monotone_gain_mult(depth: torch.Tensor, monotone: torch.Tensor,
+                       pen: float) -> torch.Tensor:
+    """``[S, F]`` monotone split penalty factors at leaves of ``depth
+    [S]`` (the JAX package's ``monotone_gain_mult``, reference
+    ``ComputeMonotoneSplitGainPenalty``, monotone_constraints.hpp:355)."""
+    d = depth.to(torch.float32)[:, None]
+    inner = (1.0 - pen / torch.exp2(d) if pen <= 1.0
+             else 1.0 - torch.exp2(pen - 1.0 - d))
+    factor = torch.where(pen >= d + 1.0, torch.full_like(d, 1e-15),
+                         inner + 1e-15)
+    return torch.where(monotone[None, :] != 0, factor,
+                       torch.ones_like(factor))
+
+
 def _frontier_eligible(cfg: GrowerConfig, n_cols: int) -> bool:
     """True when the round-batched frontier grower (ops/frontier.py) can
-    serve this call.  Cross-leaf-coupled features (monotone bounds, CEGB)
-    and the per-node RNG features (feature_fraction_bynode, extra_trees)
-    are not ported.
+    serve this call.  Cross-leaf-coupled features (monotone intermediate
+    and advanced bounds, CEGB) need the sequential grower, which is not
+    ported; the per-node RNG features (feature_fraction_bynode,
+    extra_trees) and monotone-basic are served by the frontier, as in the
+    JAX package.
 
     The card's budget, by histogram method:
 
@@ -122,10 +183,8 @@ def _frontier_eligible(cfg: GrowerConfig, n_cols: int) -> bool:
                      and cfg.frontier_block_rows % _OH_CHUNK == 0)
     else:
         budget_ok = _SMEM_PER_BIN * cfg.max_bin <= SMEM_MAX_BYTES
-    return (not cfg.has_monotone
+    return ((not cfg.has_monotone or cfg.monotone_mode == "basic")
             and cfg.cegb_split_penalty == 0.0
-            and cfg.feature_fraction_bynode >= 1.0
-            and not cfg.extra_trees
             and n_cols >= 0
             and budget_ok)
 
@@ -133,16 +192,22 @@ def _frontier_eligible(cfg: GrowerConfig, n_cols: int) -> bool:
 def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               row_weight: torch.Tensor, feature_mask: torch.Tensor,
               num_bins: torch.Tensor, nan_bins: torch.Tensor,
-              cfg: GrowerConfig) -> Tuple[TreeArrays, torch.Tensor, "object"]:
+              cfg: GrowerConfig, key: Optional[torch.Tensor] = None,
+              monotone: Optional[torch.Tensor] = None
+              ) -> Tuple[TreeArrays, torch.Tensor, "object"]:
     """Grow one tree.  Returns ``(tree, node_assignment[num_data],
     host_tree)``, where ``host_tree`` is the same tree as numpy arrays (the
-    frontier finishes each tree on the host, so the copy is free)."""
+    frontier finishes each tree on the host, so the copy is free).  ``key``
+    (``[2]``, ``random_gen.key_for_iteration``) seeds the per-node draws of
+    ``feature_fraction_bynode`` and ``extra_trees``; ``monotone [F]`` gives
+    the directions when ``cfg.has_monotone``."""
     if not _frontier_eligible(cfg, bins.shape[1]):
         raise NotPortedError(
             "this configuration needs the sequential (serial) grower, which "
-            "is not ported yet: tree_grower=serial, monotone constraints, "
-            "CEGB, feature_fraction_bynode < 1, extra_trees and a "
-            "histogram width the card's kernels refuse all need it")
+            "is not ported yet: tree_grower=serial, monotone intermediate "
+            "and advanced, CEGB and a histogram width the card's kernels "
+            "refuse all need it")
     from .frontier import grow_tree_frontier
     return grow_tree_frontier(bins, grad, hess, row_weight, feature_mask,
-                              num_bins, nan_bins, cfg)
+                              num_bins, nan_bins, cfg, key=key,
+                              monotone=monotone)

@@ -5,9 +5,12 @@ Port of the numerical path of the JAX package's ``ops/split.py``
 histogram, both missing-value directions evaluated as two cumsum variants,
 leaf output / gain closed forms with L1, L2, ``max_delta_step`` and path
 smoothing, and the ``min_data_in_leaf`` / ``min_sum_hessian_in_leaf`` /
-``min_gain_to_split`` gates.  The arithmetic runs in float32 in the same
-order as the JAX code, so both packages pick the same split wherever the
-best gain is not a near-tie.
+``min_gain_to_split`` gates; monotone-basic (candidates whose child outputs
+violate the feature's direction are rejected, leaf outputs clamped to the
+leaf's bounds), extra-trees (one random threshold per feature) and the
+monotone split penalty (``gain_mult``).  The arithmetic runs in float32 in
+the same order as the JAX code, so both packages pick the same split
+wherever the best gain is not a near-tie.
 
 Everything is batched over a leading dimension: ``hist [S, F, B, 3]`` and
 totals ``[S]`` give an ``[S]``-batched ``SplitResult`` (the frontier's 2k
@@ -98,22 +101,43 @@ def leaf_gain(sum_g, sum_h, p: SplitParams, parent_output=0.0, count=None,
     return g1 * g1 / (sum_h + p.lambda_l2 + 1e-35)
 
 
-def _gain_at(left, right, p: SplitParams, valid, lo, hi):
+def _gain_at(left, right, p: SplitParams, valid, lo, hi, mono):
+    """Candidate gains ``[S, F, B]`` of (left, right) sums ``[S, F, B, 3]``;
+    ``mono [1, F, 1]`` (or None) rejects direction violations (the JAX
+    ``_gain_at``'s monotone-basic check)."""
     gl, hl, cl = left[..., 0], left[..., 1], left[..., 2]
     gr, hr, cr = right[..., 0], right[..., 1], right[..., 2]
-    gain = (leaf_gain(gl, hl, p, 0.0, cl, lo, hi)
-            + leaf_gain(gr, hr, p, 0.0, cr, lo, hi))
+    # the port always passes bounds, so leaf_gain takes its output form:
+    # one leaf_output per side serves the gain and the monotone check
+    lo_o = leaf_output(gl, hl, p, 0.0, cl, lo, hi)
+    ro_o = leaf_output(gr, hr, p, 0.0, cr, lo, hi)
+    gain = (leaf_gain_given_output(gl, hl, lo_o, p)
+            + leaf_gain_given_output(gr, hr, ro_o, p))
     ok = (valid
           & (cl >= p.min_data_in_leaf) & (cr >= p.min_data_in_leaf)
           & (hl >= p.min_sum_hessian_in_leaf) & (hr >= p.min_sum_hessian_in_leaf))
+    if mono is not None:
+        bad = ((mono > 0) & (lo_o > ro_o)) | ((mono < 0) & (lo_o < ro_o))
+        ok = ok & ~bad
     return torch.where(ok, gain, torch.full_like(gain, NEG_INF))
+
+
+def _per_leaf(v, dev):
+    """A bound given as a float stays one; an ``[S]`` tensor becomes
+    ``([S], [S, 1, 1])`` views for the per-leaf and per-candidate math."""
+    if isinstance(v, torch.Tensor):
+        v = v.to(dev, torch.float32)
+        return v, v[:, None, None]
+    return v, v
 
 
 def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                     nan_bins: torch.Tensor, sum_g, sum_h, count,
                     p: SplitParams, feature_mask: torch.Tensor,
-                    output_lo: float = NEG_INF,
-                    output_hi: float = POS_INF) -> SplitResult:
+                    output_lo=NEG_INF, output_hi=POS_INF,
+                    monotone: torch.Tensor = None,
+                    rand_threshold: torch.Tensor = None,
+                    gain_mult: torch.Tensor = None) -> SplitResult:
     """Best numerical split of each leaf of a batch.
 
     Args:
@@ -121,7 +145,13 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
       num_bins/nan_bins: ``[F]`` int32 feature metadata (``nan_bins`` is the
         missing bin per feature, or -1).
       sum_g/sum_h/count: ``[S]`` leaf totals.
-      feature_mask: ``[F]`` f32 — 0 excludes a feature.
+      feature_mask: ``[F]`` or per leaf ``[S, F]`` f32 — 0 excludes a
+        feature.
+      output_lo/output_hi: monotone output bounds, floats or ``[S]``.
+      monotone: ``[F]`` -1/0/+1 directions (None: no constraint).
+      rand_threshold: ``[S, F]`` extra-trees threshold per feature (the
+        only one each feature offers), or None.
+      gain_mult: ``[S, F]`` monotone split penalty factors, or None.
     Returns an ``[S]``-batched ``SplitResult``.
     """
     s_, f, b, _ = hist.shape
@@ -131,6 +161,10 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                          torch.as_tensor(count, dtype=torch.float32)],
                         dim=-1).to(dev)                                # [S, 3]
     bin_ids = torch.arange(b, dtype=torch.int32, device=dev)[None, :]  # [1, B]
+    lo1, lo3 = _per_leaf(output_lo, dev)
+    hi1, hi3 = _per_leaf(output_hi, dev)
+    mono = (monotone.to(dev)[None, :, None] if monotone is not None
+            else None)
 
     # the missing bin (trailing NaN bin, or the zero bin for
     # zero_as_missing) is excluded from the ordered sweep and trialed on
@@ -151,16 +185,29 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     tot4 = total[:, None, None, :]
 
     right_r = tot4 - cum
-    gain_r = _gain_at(cum, right_r, p, valid_t, output_lo, output_hi)  # missing -> right
+    gain_r = _gain_at(cum, right_r, p, valid_t, lo3, hi3, mono)        # missing -> right
     left_l = cum + miss[:, :, None, :]
-    gain_l = _gain_at(left_l, tot4 - left_l, p, valid_t, output_lo,
-                      output_hi)                                       # missing -> left
+    gain_l = _gain_at(left_l, tot4 - left_l, p, valid_t, lo3, hi3,
+                      mono)                                            # missing -> left
     # features without a missing bin add zero: identical to the right sweep
     gain_l = torch.where(has_miss[None, :, None], gain_l, gain_r)
     use_left = gain_l > gain_r
     gain_fb = torch.where(use_left, gain_l, gain_r)                    # [S, F, B]
-    gain_fb = torch.where(feature_mask[None, :, None] > 0, gain_fb,
-                          torch.full_like(gain_fb, NEG_INF))
+    neg = torch.full_like(gain_fb, NEG_INF)
+    if rand_threshold is not None:
+        # extra_trees: each feature offers exactly ONE random threshold
+        keep = bin_ids[None] == rand_threshold.to(dev)[:, :, None]
+        gain_fb = torch.where(keep, gain_fb, neg)
+    fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+    gain_fb = torch.where(fm[:, :, None] > 0, gain_fb, neg)
+    if gain_mult is not None:
+        # monotone split penalty, rebased around parent gain + min_gain so
+        # that the reported improvement is the reference's scaled gain
+        pivot = (leaf_gain(total[:, 0], total[:, 1], p, 0.0, total[:, 2],
+                           lo1, hi1) + p.min_gain_to_split)[:, None, None]
+        gain_fb = torch.where(gain_fb > NEG_INF / 2,
+                              pivot + (gain_fb - pivot) * gain_mult[:, :, None],
+                              gain_fb)
 
     flat = gain_fb.reshape(s_, f * b)
     best_idx = torch.argmax(flat, dim=1)                               # [S]
@@ -175,13 +222,13 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                               miss[rows, best_f.long()], zero)
     right = total - left
     lo_out = leaf_output(left[:, 0], left[:, 1], p, 0.0, left[:, 2],
-                         output_lo, output_hi)
+                         lo1, hi1)
     hi_out = leaf_output(right[:, 0], right[:, 1], p, 0.0, right[:, 2],
-                         output_lo, output_hi)
+                         lo1, hi1)
 
     # parent gain baseline: reported gain is improvement over parent
     parent_gain = leaf_gain(total[:, 0], total[:, 1], p, 0.0, total[:, 2],
-                            output_lo, output_hi)
+                            lo1, hi1)
     improvement = best_gain - parent_gain - p.min_gain_to_split
     ok = improvement > 0.0
     return SplitResult(

@@ -164,15 +164,24 @@ def test_single_leaf_when_nothing_splits():
     assert not assign.any()
 
 
-@pytest.mark.parametrize("field,value", [
-    ("grower_mode", "serial"), ("has_monotone", True),
-    ("extra_trees", True), ("feature_fraction_bynode", 0.5),
-    ("cegb_split_penalty", 1.0)])
-def test_ineligible_configs_raise(field, value):
+@pytest.mark.parametrize("fields", [
+    {"grower_mode": "serial"},
+    {"has_monotone": True, "monotone_mode": "intermediate"},
+    {"has_monotone": True, "monotone_mode": "advanced"},
+    {"hist_method": "onehot", "frontier_block_rows": 192},
+    {"cegb_split_penalty": 1.0}],
+    ids=["grower_mode-serial", "monotone_mode-intermediate",
+         "monotone_mode-advanced", "onehot-frontier_block_rows-192",
+         "cegb_split_penalty-1.0"])
+def test_ineligible_configs_raise(fields):
     cfg = tgrow.GrowerConfig(num_leaves=7, max_depth=-1, max_bin=16,
                              split=tsplit.SplitParams(**SPLIT))
     assert tgrow._frontier_eligible(cfg, 4)
-    bad = cfg._replace(**{field: value})
+    # the frontier serves monotone-basic and the per-node draws
+    for served in ({"has_monotone": True}, {"extra_trees": True},
+                   {"feature_fraction_bynode": 0.5}):
+        assert tgrow._frontier_eligible(cfg._replace(**served), 4)
+    bad = cfg._replace(**fields)
     assert not tgrow._frontier_eligible(bad, 4)
     z = torch.zeros(64)
     with pytest.raises(NotPortedError):

@@ -805,3 +805,90 @@ def test_election_on_the_card_passes_parity_everywhere(dev):
         before = dict(thist.launch_counts)
         assert ov.pick_variant(B, 28, device=dev) == won
         assert thist.launch_counts == before
+
+
+# --------------------------------------------------------------------------
+# the training knobs' inputs: counter-based draws, compacted bags, GOSS
+# --------------------------------------------------------------------------
+
+def test_rng_on_the_card_equals_the_cpu(dev):
+    """The threefry draws are integer ops: bit-identical on the card."""
+    from lightgbm_tpu_torch.ops import grower as tgrow
+    from lightgbm_tpu_torch.utils import random_gen as trng
+    for seed, it, salt, n in ((3, 0, 0, 1_000_000), (42, 7, 1, 70_001)):
+        key = trng.key_for_iteration(seed, it, salt)
+        cpu = trng.uniform(key, n)
+        card = trng.uniform(key.to(dev), n)
+        assert torch.equal(card.cpu(), cpu)
+    key = trng.key_for_iteration(9, 4, 2)
+    steps = torch.arange(0, 64, 3)
+    fmask = torch.ones(28)
+    fmask[[2, 5, 11]] = 0.0
+    cpu = tgrow.node_feature_mask_for(key, steps, fmask, 0.8)
+    card = tgrow.node_feature_mask_for(key.to(dev), steps.to(dev),
+                                       fmask.to(dev), 0.8)
+    assert torch.equal(card.cpu(), cpu)
+    nb = torch.randint(2, 257, (28,), dtype=torch.int32)
+    nan = torch.where(torch.arange(28) % 4 == 0, nb - 1, -1)
+    cpu = tgrow.rand_thresholds_for(key, steps, 6, nb, nan)
+    card = tgrow.rand_thresholds_for(key.to(dev), steps.to(dev), 6,
+                                     nb.to(dev), nan.to(dev))
+    assert torch.equal(card.cpu(), cpu)
+
+
+def _compacted(mask, cap):
+    """The booster's compaction: in-bag rows, then row n - 1 at weight 0."""
+    n = mask.shape[0]
+    cs = torch.cumsum((mask > 0).to(torch.int64), 0)
+    t = torch.arange(1, cap + 1, device=mask.device)
+    rows = torch.clamp(torch.searchsorted(cs, t, right=False), max=n - 1)
+    rw = torch.where(t <= cs[-1], mask[rows], torch.zeros_like(mask[:1]))
+    return rows, rw
+
+
+def test_compacted_bag_histogram_matches_plain(dev):
+    """A compacted bag of cap rows whose padding repeats row n - 1 with
+    weight 0 (grad and hess not zero there): the kernel's histogram equals
+    the plain one, and the padding adds nothing."""
+    rng = np.random.default_rng(11)
+    n, f, B = 200_000, 28, 256
+    bins = torch.as_tensor(rng.integers(0, 255, (n, f)).astype(np.uint8)
+                           ).to(dev)
+    g, h, _ = _rows(rng, n, dev)
+    mask = torch.as_tensor((rng.random(n) < 0.5).astype(np.float32)).to(dev)
+    cap = 101_376
+    rows, rw = _compacted(mask, cap)
+    assert int((rw == 0).sum()) > 0 and int(rows[-1]) == n - 1
+    args = (bins[rows], g[rows] * mask[rows], h[rows] * mask[rows], rw, B)
+    with thist.force_plain():
+        ref = thist.build_histogram(*args)
+    got = thist.build_histogram(*args)
+    torch.cuda.synchronize()
+    assert relerr(got, ref) <= ATOMIC_TOL
+    k = int(mask.sum())
+    with thist.force_plain():
+        bag_only = thist.build_histogram(bins[rows[:k]], args[1][:k],
+                                         args[2][:k], rw[:k], B)
+    assert relerr(got, bag_only) <= ATOMIC_TOL
+
+
+def test_goss_top_k_on_the_card_equals_the_cpu(dev):
+    """GOSS's top rows come from a stable descending sort: with the ties of
+    an early iteration the card picks the lower index first, as the CPU
+    (and lax.top_k) does."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.models.goss import goss_mask_from_importance
+    from lightgbm_tpu_torch.utils import random_gen as trng
+    rng = np.random.default_rng(5)
+    n = 1_000_000
+    imp = rng.choice(np.float32([0.0625, 0.05, 0.125]), n).astype(np.float32)
+    imp[::7] = rng.random(n)[::7].astype(np.float32)
+    cfg = Config.from_params({"boosting": "goss"})
+    u = trng.uniform(trng.key_for_iteration(cfg.bagging_seed, 0), n)
+    k_top = int(cfg.top_rate * n)
+    m_cpu, a_cpu = goss_mask_from_importance(cfg, torch.as_tensor(imp), u,
+                                             k_top)
+    m_card, a_card = goss_mask_from_importance(
+        cfg, torch.as_tensor(imp).to(dev), u.to(dev), k_top)
+    assert torch.equal(m_card.cpu(), m_cpu)
+    assert torch.equal(a_card.cpu(), a_cpu)

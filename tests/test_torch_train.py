@@ -211,11 +211,13 @@ def test_device_none_means_cuda():
 
 
 @pytest.mark.parametrize("params", [
-    {"objective": "regression"}, {"boosting": "dart"},
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"feature_fraction": 0.5}, {"tree_grower": "serial"},
-    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]},
-    {"extra_trees": True}, {"linear_tree": True}])
+    {"objective": "lambdarank"},
+    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
+     "monotone_constraints_method": "intermediate"},
+    {"interaction_constraints": [[0, 1], [2, 3]]},
+    {"cegb_penalty_split": 0.5}, {"tree_grower": "serial"},
+    {"tree_learner": "data"}, {"feature_contri": [1.0] * 8},
+    {"linear_tree": True}])
 def test_untaken_paths_raise(params):
     X, y, _, _ = _data(5, n=800)
     with pytest.raises(NotPortedError):
