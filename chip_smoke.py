@@ -3,14 +3,16 @@
     python3 chip_smoke.py [--profile]
 
 (``--profile`` adds a torch.profiler phase over three more iterations and
-writes its tables to ``chiprun_out/profile_train.txt``).
+writes its tables to ``chiprun_out/profile_train.txt``; the whole output
+is also written to ``chiprun_out/chip_smoke.out``).
 
 Drives ``lightgbm_tpu_torch``'s main path on the card, in phases, printing
 one JSON line per phase; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the five histogram kernels from the sources in this
-   checkout (one ``nvcc`` per source, all at once);
+   checkout (one ``nvcc`` per source, all at once); then the sparse_efb
+   phase's data (made first: the kernels phase uses its bundle matrix);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (max relative error ``|a-b|/(|b|+1)`` <= 1e-5: both
    sum in float64 in different orders and round to float32 once), with
@@ -37,7 +39,12 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    (the occupancy calculator), and ``kernel_ms``, the kernel's own device
    time (torch.profiler), beside ``ms``, the time of the whole call; the
    int8 rows' times, registers and spills are also printed and gathered
-   under ``int8``;
+   under ``int8``.  The atomic kernels' u16 instantiations the same way
+   (relerr, same bits twice, ms, kernel alone, plain, ``index_add_``,
+   the byte bound at 2 bytes a bin, the plan): 1M x 28 at B = 1,024 and
+   one frontier round's comb (28 features + 6 u16 gh columns), bins >= B
+   present; a comb of odd stride (27 + 6 u16); and the sparse_efb phase's
+   own bundle matrix at its bundle width, full and per leaf;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
    the leaves' 262,144 rows per 512 with a NaN block), in both input
@@ -82,7 +89,22 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    with predictions monotone along it.  Each run prints s/tree,
    launches/tree and ``cap``;
 9. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
-   bit-identically to the booster in memory, for the 1M-row boosters.
+   bit-identically to the booster in memory, for the 1M-row boosters;
+10-13. data breadth, each run once through the kernels (launch counts
+   from zero around it: ``hist_full`` and ``hist_leaves`` and no other)
+   and once under ``force_plain()``, tree 0 identical, the held-out
+   metric within 1e-3 of the plain run's and better than the constant
+   model's, the reloaded model predicting bit-identically, each printing
+   s/tree, launches a tree and the kernel width: rank (MS LTR width, 1M x
+   137, queries of ~120 documents and one of 1,251, lambdarank with the
+   Experiments settings for 5 iterations, then rank_xendcg for 3, NDCG@5
+   held out, the card's xendcg draw equal to the CPU's); categorical
+   (the airline data's 1M x 8, six categorical columns, 255 leaves, 5
+   iterations at max_cat_to_onehot 4 and 8: sorted subsets, and
+   DayOfWeek's one-hot splits at 8); wide_bins (Higgs 1M x 28 at
+   max_bin=1023, u16, B = 1,024); sparse_efb (Allstate width, 250k x
+   4,228 CSR, bundled into u16 columns, the kernels at the bundle width,
+   CSR prediction equal to dense).
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the package beside it, it fails
@@ -130,6 +152,25 @@ LEAVES_SHAPE = dict(C=262_144, NC=40, f=28, k=16, BR=512)
 # padded to a multiple of 2048, 28 features, every family at BR=512
 SHOOTOUT_SHAPE = dict(N=1_001_472, rows=1_000_000, f=28, BR=512)
 ITERS_AUTO = 5
+# the data-breadth phases (LightGBM's docs/Experiments.rst shapes, cut in
+# rows): MS LTR (MSLR-WEB30K: 2,270,296 x 137, queries of ~120 documents,
+# the longest 1,251) to 1M rows; the airline on-time data of
+# szilard/benchm-ml (train-1m: 1M x 8, six categorical); Higgs at
+# max_bin=1023; Allstate (13,184,290 x 4,228 one-hot sparse) to 250k rows
+MSLR_SHAPE = dict(rows=1_000_000, valid=100_000, features=137,
+                  longest=1251, docs=(20, 220))
+N_AIRLINE, N_AIRLINE_VALID = 1_000_000, 100_000
+N_ALLSTATE, N_ALLSTATE_VALID = 250_000, 50_000
+# Allstate's one-hot groups (Blind_Submodel, Blind_Model, Blind_Make,
+# Model_Year, NVCat, the Cat columns, OrdCat, Calendar_Year) and its 12
+# numeric columns (Var1-8, NVVar1-4): 4,216 + 12 = 4,228 columns
+ALLSTATE_GROUPS = (2700, 1250, 117, 30, 20, 16, 12, 10, 8, 7, 6, 5, 5, 4, 4,
+                   4, 3, 3, 3, 3, 2, 2, 2)
+ALLSTATE_NUMERIC = 12
+# the seeds of the synthetic effects of categories and levels, the same
+# for the training and held-out samples
+AIRLINE_EFFECT_SEED, ALLSTATE_EFFECT_SEED = 1050, 1046
+ITERS_BREADTH = 5
 
 
 def emit(obj) -> None:
@@ -148,6 +189,98 @@ def make_higgs_like(n_rows: int, n_feat: int = 28, seed: int = 42):
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n_rows, n_feat)).astype(np.float32)
     y = (higgs_latent(X) + rng.logistic(size=n_rows) > 0).astype(np.float32)
+    return X, y
+
+
+def make_mslr_like(n_rows: int, n_feat: int, seed: int, longest: int = 1251,
+                   docs=(20, 220)):
+    """MS LTR geometry: dense float features, queries of ``docs`` documents
+    (uniform, mean ~120) and one of ``longest``, labels 0-4 from a latent
+    score with MSLR's skew (~52% 0, 32% 1, 13% 2, 2% 3, 1% 4).  Returns
+    ``(X, y, query sizes)``."""
+    rng = np.random.default_rng(seed)
+    sizes = [min(longest, n_rows)]
+    left = n_rows - sizes[0]
+    while left > 0:
+        s = min(int(rng.integers(docs[0], docs[1] + 1)), left)
+        sizes.append(s)
+        left -= s
+    X = rng.normal(size=(n_rows, n_feat)).astype(np.float32)
+    # a per-query shift, as real queries differ in how relevant their
+    # candidates are
+    qshift = np.repeat(rng.normal(size=len(sizes)) * 0.5, sizes)
+    lat = (X[:, 0] + 0.7 * X[:, 1] - 0.5 * X[:, 2] * X[:, 3]
+           + 0.4 * np.sin(2.0 * X[:, 4]) + qshift
+           + 0.5 * rng.normal(size=n_rows))
+    y = np.digitize(lat, np.quantile(lat, [0.52, 0.84, 0.97, 0.99]))
+    return X, y.astype(np.float32), np.asarray(sizes, np.int64)
+
+
+def _zipf_choice(rng, k: int, n: int, a: float = 0.8) -> np.ndarray:
+    """``n`` draws of ``k`` levels, level ``i`` with weight 1/(i+1)^a."""
+    p = 1.0 / np.arange(1, k + 1) ** a
+    return rng.choice(k, n, p=p / p.sum())
+
+
+def make_airline_like(n_rows: int, seed: int):
+    """The airline on-time data's 8 columns (szilard/benchm-ml train-1m):
+    Month, DayofMonth, DayOfWeek, UniqueCarrier, Origin, Dest as category
+    codes (12, 31, 7, 22, 300, 300 levels; carriers and airports by
+    popularity), DepTime (hhmm) and Distance; ``dep_delayed_15min`` (~19%
+    positive) from a latent of them."""
+    rng = np.random.default_rng(seed)
+    month = rng.integers(1, 13, n_rows)
+    dom = rng.integers(1, 32, n_rows)
+    dow = rng.integers(1, 8, n_rows)
+    carrier = _zipf_choice(rng, 22, n_rows)
+    origin = _zipf_choice(rng, 300, n_rows)
+    dest = _zipf_choice(rng, 300, n_rows)
+    hour = np.clip(rng.normal(13.5, 4.5, n_rows), 5, 23.98)
+    dep = np.floor(hour) * 100 + np.floor((hour % 1) * 60)
+    dist = np.clip(rng.lognormal(6.4, 0.6, n_rows), 30, 4900)
+    # the categories' effects: one draw for every sample, so a held-out
+    # set follows the training set's law
+    eff = np.random.default_rng(AIRLINE_EFFECT_SEED)
+    e_car, e_apt = eff.normal(0, 0.4, 22), eff.normal(0, 0.5, 300)
+    e_dst, e_mon = eff.normal(0, 0.3, 300), eff.normal(0, 0.3, 13)
+    e_dow = eff.normal(0, 0.2, 8)
+    lat = (0.12 * (hour - 13.5) + e_car[carrier] + e_apt[origin]
+           + e_dst[dest] + e_mon[month] + e_dow[dow]
+           + 0.1 * np.log(dist / 600.0) + rng.logistic(size=n_rows))
+    y = (lat > np.quantile(lat, 0.81)).astype(np.float32)
+    X = np.stack([month, dom, dow, carrier, origin, dest, dep, dist],
+                 1).astype(np.float32)
+    return X, y
+
+
+def make_allstate_like(n_rows: int, seed: int):
+    """Allstate's geometry as CSR: ``ALLSTATE_GROUPS`` one-hot blocks (one
+    level a row, levels by popularity; 5% of rows miss a block) and
+    ``ALLSTATE_NUMERIC`` dense numeric columns, 4,228 columns in all; a
+    binary claim label (~30% positive) from a latent of both."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    eff = np.random.default_rng(ALLSTATE_EFFECT_SEED)    # as the airline's
+    rows, cols, vals, lat, off = [], [], [], np.zeros(n_rows), 0
+    for g in ALLSTATE_GROUPS:
+        lvl = _zipf_choice(rng, g, n_rows)
+        keep = rng.random(n_rows) >= 0.05
+        rows.append(np.flatnonzero(keep))
+        cols.append(off + lvl[keep])
+        vals.append(np.ones(int(keep.sum())))
+        lat += np.where(keep, eff.normal(0, 0.6, g)[lvl], 0.0)
+        off += g
+    num = rng.normal(size=(n_rows, ALLSTATE_NUMERIC))
+    for j in range(ALLSTATE_NUMERIC):
+        rows.append(np.arange(n_rows))
+        cols.append(np.full(n_rows, off + j))
+        vals.append(num[:, j])
+    lat += 0.6 * num[:, 0] - 0.4 * num[:, 1] * num[:, 2]
+    X = sp.csr_matrix((np.concatenate(vals),
+                       (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(n_rows, off + ALLSTATE_NUMERIC))
+    y = (lat + rng.logistic(size=n_rows)
+         > np.quantile(lat, 0.6)).astype(np.float32)
     return X, y
 
 
@@ -310,12 +443,12 @@ def _skewed_bins(comb):
     return out
 
 
-def _atomic_attrs(hist, kernel, dev, units, stride, f, B, k=1):
+def _atomic_attrs(hist, kernel, dev, units, stride, f, B, k=1, esz=1):
     """The launch plan's geometry, its kernel's registers, spills, shared
     bytes and CTAs an SM, and the float64 partials a call writes (one a
     CTA for the full pass; for the leaves one a CTA for each slot its
     blocks may name, min(blocks a CTA, k))."""
-    plan = hist.atomic_plan(kernel, dev, stride, f, B)
+    plan = hist.atomic_plan(kernel, dev, stride, f, B, esz)
     full = kernel == "hist_full"
     grid_x, per = hist.atomic_grid(plan, units,
                                    hist._FULL_ROW_ALIGN if full else 1)
@@ -336,8 +469,9 @@ def _index_add_ms(dev, flat, vals, size):
 
 
 def _full_yardstick(dev, bins, g, h, m, B):
+    from lightgbm_tpu_torch.ops.histogram import widen_bins
     n, f = bins.shape
-    b = bins.long()                  # a uint8 compare with 256 wraps to 0
+    b = widen_bins(bins)             # a uint8 compare with 256 wraps to 0
     keep = (b < B).reshape(-1)
     flat = (b + B * torch.arange(f, device=dev)).reshape(-1)[keep]
     vals = torch.stack([g * m, h * m, m], 1)[:, None, :].expand(n, f, 3) \
@@ -347,8 +481,9 @@ def _full_yardstick(dev, bins, g, h, m, B):
 
 def _leaves_yardstick(dev, comb, g, h, m, block_leaf, k, B, BR, fl):
     C = comb.shape[0]
+    from lightgbm_tpu_torch.ops.histogram import widen_bins
     row_leaf = block_leaf.long().repeat_interleave(BR)
-    b = comb[:, :fl].long()
+    b = widen_bins(comb[:, :fl])
     keep = (b < B).reshape(-1)
     flat = ((row_leaf[:, None] * fl + torch.arange(fl, device=dev)) * B
             + b).reshape(-1)[keep]
@@ -395,7 +530,133 @@ def _leaves_inputs(gen, dev):
     return comb, g, h, m, block_leaf, empty, int(block_leaf[nan_block])
 
 
-def phase_kernels(clock_mhz):
+def _u16(gen, shape, hi, dev):
+    """u16 bins in [0, hi) with a tenth raised to 40,000-65,535 (past any
+    B: dropped), a CUDA uint16 tensor."""
+    b = torch.randint(0, hi, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    high = torch.rand(shape, generator=gen, device=dev) < 0.1
+    b = torch.where(high, torch.randint(40_000, 65_536, shape, generator=gen,
+                                        device=dev, dtype=torch.int32), b)
+    return b.to(torch.int16).view(torch.uint16)
+
+
+def _frontier_comb(bins, g, h, m):
+    """The frontier's row payload: bins, then (g, h, m) as 12 bytes in
+    bin-typed columns (6 u16)."""
+    from lightgbm_tpu_torch.ops.histogram import movable_bins
+    mv = movable_bins(bins)
+    gh = torch.stack([g, h, m], 1).contiguous().view(mv.dtype)
+    return torch.cat([mv, gh], 1).view(bins.dtype)
+
+
+def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
+    """The atomic kernels' u16 instantiations against their plain versions:
+    1M x 28 at B = 1,024 (max_bin=1023) and one frontier round's comb of
+    28 features and 6 gh columns; a comb of odd stride (27 + 6 = 33 u16, 66
+    bytes: rows 2-byte aligned); the sparse_efb phase's own bundle matrix
+    at its bundle width, full and per leaf.  Bins >= B are present in the
+    random cases.  Each: relerr, the same bits twice, ms, kernel alone,
+    plain, index_add_, the byte bound (2 bytes a bin) and the plan."""
+    out = {}
+    k, BR = LEAVES_SHAPE["k"], LEAVES_SHAPE["BR"]
+
+    def hold_full(name, bins, B, f):
+        n = bins.shape[0]
+        g, h, m = _rows(gen, n, dev)
+        with hist.force_plain():
+            ref = hist.build_histogram(bins, g, h, m, B, f_limit=f)
+        got = hist.hist_full(bins, g, h, m, B, f_limit=f)
+        again = hist.hist_full(bins, g, h, m, B, f_limit=f)
+        torch.cuda.synchronize()
+        st = _atomic_stats(got, again, ref)
+        _hold_atomic(name, st)
+
+        def call():
+            return hist.hist_full(bins, g, h, m, B, f_limit=f)
+        with hist.force_plain():
+            plain_ms = median_ms(lambda: hist.build_histogram(
+                bins, g, h, m, B, f_limit=f), reps=5)
+        b_ms, b_by = bound(2 * n * f + 12 * n + f * B * 12,
+                           3 * n * f + 2 * n)
+        ms = median_ms(call)
+        lib = _full_yardstick(dev, bins[:, :f].contiguous(), g, h, m, B)
+        out[name] = dict(
+            shape=[n, bins.shape[1], f, B], dtype="uint16", **st, ms=ms,
+            kernel_ms=calls_ms(call, ATOMIC_KERNELS["hist_full"]),
+            plain_ms=plain_ms, library_ms=lib, vs_index_add=ms / lib,
+            bound_ms=b_ms, bound_by=b_by,
+            smem_floor_ms=smem_floor_ms(n, f, clock_mhz, sms),
+            **_atomic_attrs(hist, "hist_full", dev, n, bins.shape[1], f, B,
+                            esz=2))
+
+    def hold_leaves(name, comb, B, f, timed=True):
+        C = comb.shape[0]
+        nb = C // BR
+        g, h, m = _rows(gen, C, dev)
+        bl = torch.sort(torch.randint(0, k, (nb,), generator=gen,
+                                      device=dev)).values.to(torch.int32)
+        kw = dict(block_rows=BR, f_limit=f)
+        with hist.force_plain():
+            ref = hist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+        got = hist.hist_leaves(comb, g, h, m, bl, k, B, **kw)
+        again = hist.hist_leaves(comb, g, h, m, bl, k, B, **kw)
+        torch.cuda.synchronize()
+        st = _atomic_stats(got, again, ref)
+        _hold_atomic(name, st)
+        out[name] = dict(shape=[C, comb.shape[1], f, k, BR, B],
+                         dtype="uint16", **st)
+        if not timed:
+            return
+
+        def call():
+            return hist.hist_leaves(comb, g, h, m, bl, k, B, **kw)
+        with hist.force_plain():
+            plain_ms = median_ms(lambda: hist.build_histogram_leaves(
+                comb, g, h, m, bl, k, B, **kw), reps=5)
+        b_ms, b_by = bound(2 * C * f + 12 * C + 4 * nb + k * f * B * 12,
+                           3 * C * f + 2 * C)
+        ms = median_ms(call)
+        lib = _leaves_yardstick(dev, comb, g, h, m, bl, k, B, BR, f)
+        out[name].update(
+            ms=ms, kernel_ms=calls_ms(call, ATOMIC_KERNELS["hist_leaves"]),
+            plain_ms=plain_ms, library_ms=lib, vs_index_add=ms / lib,
+            bound_ms=b_ms, bound_by=b_by,
+            smem_floor_ms=smem_floor_ms(C, f, clock_mhz, sms),
+            **_atomic_attrs(hist, "hist_leaves", dev, nb, comb.shape[1], f,
+                            B, k, esz=2))
+
+    n, f, B = N_TRAIN, N_FEAT, 1024
+    hold_full("hist_full/u16/B1024", _u16(gen, (n, f), B + 60, dev), B, f)
+    C = LEAVES_SHAPE["C"]
+    hold_leaves("hist_leaves/u16/B1024",
+                _frontier_comb(_u16(gen, (C, f), B + 60, dev),
+                               *_rows(gen, C, dev)), B, f)
+    hold_leaves("hist_leaves/u16/odd_stride",
+                _frontier_comb(_u16(gen, (C // 4, 27), B + 60, dev),
+                               *_rows(gen, C // 4, dev)), B, 27, timed=False)
+    # the sparse_efb phase's bundle matrix at its own width
+    Bb = int(efb_bins["bundle_bins"])
+    bins = efb_bins["bins"]
+    nc = bins.shape[1]
+    hold_full("hist_full/u16/bundle", bins, Bb, nc)
+    rows = torch.randperm(bins.shape[0], generator=gen, device=dev)[
+        :min(C, bins.shape[0] // BR * BR)]
+    hold_leaves("hist_leaves/u16/bundle",
+                _frontier_comb(hist.take_rows(bins, rows),
+                               *_rows(gen, rows.numel(), dev)), Bb, nc)
+    for name, r in out.items():
+        if "ms" in r:
+            print(f"{name} {r['shape']}: kernel {r['kernel_ms']:.4f} ms, "
+                  f"call {r['ms']:.4f} ms, index_add_ "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                  f"ms, fg {r['fg']}, tile {r['tile']}, "
+                  f"{r['ctas_per_sm']} CTAs an SM, relerr "
+                  f"{r['relerr']:.3g}", flush=True)
+    return out
+
+
+def phase_kernels(clock_mhz, efb_bins):
     """Each atomic kernel against its plain version at the main path's
     shapes, with its kernel-alone time, its attributes, and for the leaves
     three inputs: the random block->slot map, the same blocks slot by slot
@@ -485,6 +746,8 @@ def phase_kernels(clock_mhz):
     for case, r in cases.items():
         print(f"hist_leaves {case}: kernel {r['kernel_ms']:.4f} ms, call "
               f"{r['ms']:.4f} ms, relerr {r['relerr']:.3g}", flush=True)
+    del comb, g, h, m
+    out.update(_u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins))
     emit({"phase": "kernels", "tolerance": ATOMIC_REL_TOL,
           "clock_max_sm_mhz": clock_mhz, **out})
     return out
@@ -1105,6 +1368,218 @@ def phase_knobs(card, data):
     return {name: r["launches"] for name, r in runs.items() if name != "rng"}
 
 
+def breadth_data():
+    """The sparse_efb phase's data, made first: the kernels phase holds the
+    atomic kernels against their plain versions on its bundle matrix.
+    Returns the Allstate-shaped CSR train and held-out sets, the card
+    Dataset (its construct seconds) and its device bundle matrix."""
+    import lightgbm_tpu_torch as lgt
+    X, y = make_allstate_like(N_ALLSTATE, seed=46)
+    Xv, yv = make_allstate_like(N_ALLSTATE_VALID, seed=47)
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, params={"verbose": -1}).construct(
+        device="cuda")
+    construct_s = time.perf_counter() - t0
+    dd = ds._inner.device_data("cuda")
+    if dd.efb is None or dd.bins.dtype != torch.uint16:
+        raise AssertionError(f"Allstate-shaped data: bundles "
+                             f"{dd.efb is not None}, bins {dd.bins.dtype}")
+    return {"X": X, "y": y, "Xv": Xv, "yv": yv, "ds": ds,
+            "construct_s": construct_s, "bins": dd.bins,
+            "bundle_bins": dd.bundle_bins}
+
+
+def _breadth_pair(lgt, hist, name, ds, params, iters, metric, X_pred):
+    """One data-breadth run through the kernels and under force_plain():
+    tree 0 identical, the held-out metric as ``_train_pair`` holds it, and
+    the reloaded model predicting ``X_pred`` bit-identically.  Prints
+    s/tree, launches a tree and the kernel width."""
+    booster, out = _train_pair(lgt, hist, ds, params, iters, None, None,
+                               {"hist_full", "hist_leaves"}, metric=metric)
+    if not out["tree0_identical"]:
+        raise AssertionError(f"{name}: tree 0 differs between kernel and "
+                             "plain runs")
+    gcfg = booster._gbdt._grower_cfg
+    out["kernel_width"] = gcfg.bundle_bins or gcfg.max_bin
+    out["bin_dtype"] = str(ds._inner.bins.dtype)
+    p_mem = booster.predict(X_pred, raw_score=True)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "model.txt")
+        booster.save_model(path)
+        p_file = lgt.Booster(model_file=path, device="cuda").predict(
+            X_pred, raw_score=True)
+    if not (np.isfinite(p_mem).all() and np.array_equal(p_mem, p_file)):
+        raise AssertionError(f"{name}: reloaded predictions differ")
+    out["reload_bit_identical"] = True
+    print(f"{name}: s/tree {out['kernel']['s_per_tree']:.4f} (plain "
+          f"{out['plain']['s_per_tree']:.4f}), launches/tree "
+          f"{out['launches_per_tree']}, kernel width {out['kernel_width']} "
+          f"({out['bin_dtype']}), held-out {metric['name']} "
+          f"{out['kernel'][metric['name'] + '_holdout']:.6f}", flush=True)
+    return booster, out
+
+
+def _ndcg_holdout(Xv, yv, qv, k: int = 5):
+    """NDCG@k of the held-out queries (the port's metric), gated against
+    the constant model's (every score 0: the documents in their order)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.metric.rank import NDCGMetric
+    md = Metadata(len(yv))
+    md.set_field("label", yv)
+    md.set_field("group", qv)
+    m = NDCGMetric(Config.from_params({"eval_at": [k]}))
+    m.init(md, len(yv))
+
+    def ndcg(scores):
+        return m.eval(np.asarray(scores, np.float64))[0][1]
+    return {"name": f"ndcg@{k}", "higher": True, "tol": 1e-3,
+            "floor": ndcg(np.zeros(len(yv))),
+            "fn": lambda b: ndcg(b.predict(Xv, raw_score=True))}
+
+
+def phase_rank(card):
+    """lambdarank at MS LTR width (the Experiments settings: 255 leaves,
+    lr 0.1, min_data_in_leaf=1, min_sum_hessian_in_leaf=100), 5
+    iterations, then rank_xendcg, 3; the card's xendcg draw equal to the
+    CPU's."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    sh = MSLR_SHAPE
+    X, y, q = make_mslr_like(sh["rows"], sh["features"], seed=48,
+                             longest=sh["longest"], docs=sh["docs"])
+    Xv, yv, qv = make_mslr_like(sh["valid"], sh["features"], seed=49,
+                                longest=sh["longest"], docs=sh["docs"])
+    params = {"objective": "lambdarank", "num_leaves": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 1,
+              "min_sum_hessian_in_leaf": 100, "ndcg_eval_at": [1, 3, 5],
+              "max_bin": 255, "verbose": -1}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, group=q, params=params).construct(
+        device="cuda")
+    construct_s = time.perf_counter() - t0
+    metric = _ndcg_holdout(Xv, yv, qv)
+    runs = {}
+    booster, runs["lambdarank"] = _breadth_pair(
+        lgt, hist, "rank lambdarank", ds, params, ITERS_BREADTH, metric, Xv)
+    xe = dict(params, objective="rank_xendcg")
+    booster, runs["rank_xendcg"] = _breadth_pair(
+        lgt, hist, "rank rank_xendcg", ds, xe, 3, metric, Xv)
+    obj = booster._gbdt.objective
+    same = all(torch.equal(obj.draw(it, "cuda").cpu(), obj.draw(it, "cpu"))
+               for it in (0, 2))
+    if not same:
+        raise AssertionError("rank_xendcg: the card's draw differs from "
+                             "the CPU's")
+    emit({"phase": "rank", "card": card, "rows": sh["rows"],
+          "features": sh["features"], "queries": len(q),
+          "longest_query": int(q.max()), "padded_width": obj.L,
+          "construct_s": construct_s, "xendcg_draw_bit_identical": True,
+          "ndcg5_constant": metric["floor"], **runs})
+    return {k: r["launches"] for k, r in runs.items()}
+
+
+def _cat_split_kinds(booster):
+    """(one-hot splits, sorted-subset splits) over the booster's trees."""
+    onehot = subset = 0
+    for t in booster._gbdt.models:
+        for j in range(t.num_leaves - 1):
+            if t.is_categorical_split(j):
+                c = int(t.threshold[j])
+                words = t.cat_threshold[t.cat_boundaries[c]:
+                                        t.cat_boundaries[c + 1]]
+                bits = sum(bin(int(w) & 0xFFFFFFFF).count("1")
+                           for w in words)
+                onehot, subset = onehot + (bits == 1), subset + (bits > 1)
+    return onehot, subset
+
+
+def phase_categorical(card):
+    """The airline data's six categorical columns: binary, 255 leaves, 5
+    iterations at max_cat_to_onehot=4 (every categorical column takes the
+    sorted scan) and at 8 (DayOfWeek's 7 levels take the one-hot
+    splits)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    X, y = make_airline_like(N_AIRLINE, seed=50)
+    Xv, yv = make_airline_like(N_AIRLINE_VALID, seed=51)
+    cats = [0, 1, 2, 3, 4, 5]
+    base = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+            "max_bin": 255, "verbose": -1}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, categorical_feature=cats,
+                     params=base).construct(device="cuda")
+    construct_s = time.perf_counter() - t0
+    runs = {}
+    for cap in (4, 8):
+        params = dict(base, max_cat_to_onehot=cap)
+        booster, out = _breadth_pair(lgt, hist, f"categorical onehot<={cap}",
+                                     ds, params, ITERS_BREADTH,
+                                     auc_holdout(Xv, yv, floor=0.5), Xv)
+        sc = booster._gbdt._grower_cfg.sorted_cat
+        out["sorted_scan_features"] = list(sc)
+        out["onehot_splits"], out["subset_splits"] = _cat_split_kinds(
+            booster)
+        if out["subset_splits"] == 0 or (cap == 8) == (2 in sc):
+            raise AssertionError(f"categorical onehot<={cap}: sorted scan "
+                                 f"on {sc}, splits {out}")
+        runs[f"max_cat_to_onehot_{cap}"] = out
+    emit({"phase": "categorical", "card": card, "rows": N_AIRLINE,
+          "construct_s": construct_s, **runs})
+    return {k: r["launches"] for k, r in runs.items()}
+
+
+def phase_wide_bins(card):
+    """Higgs geometry at max_bin=1023: the u16 bin matrix and the atomic
+    kernels' u16 instantiations at B = 1,024."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=52)
+    Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=43)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 1023,
+              "learning_rate": 0.1, "verbose": -1}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, params=params).construct(device="cuda")
+    construct_s = time.perf_counter() - t0
+    _, out = _breadth_pair(lgt, hist, "wide_bins", ds, params,
+                           ITERS_BREADTH, auc_holdout(Xv, yv), Xv)
+    if out["kernel_width"] != 1024 or out["bin_dtype"] != "uint16":
+        raise AssertionError(f"wide_bins: {out}")
+    emit({"phase": "wide_bins", "card": card, "construct_s": construct_s,
+          **out})
+    return out["launches"]
+
+
+def phase_sparse_efb(card, data):
+    """Allstate geometry as CSR: sparse binning, EFB bundles of u16
+    columns, the atomic kernels at the bundle width, and sparse prediction
+    input (equal to the dense input's)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    ds, Xv, yv = data["ds"], data["Xv"], data["yv"]
+    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+              "enable_bundle": True, "verbose": -1}
+    booster, out = _breadth_pair(lgt, hist, "sparse_efb", ds, params,
+                                 ITERS_BREADTH, auc_holdout(Xv, yv,
+                                                            floor=0.5), Xv)
+    inner = ds._inner
+    if out["kernel_width"] != data["bundle_bins"]:
+        raise AssertionError(f"sparse_efb: kernel width {out}")
+    part = Xv[:2000]
+    if not np.array_equal(booster.predict(part),
+                          booster.predict(part.toarray())):
+        raise AssertionError("sparse_efb: CSR input predicts otherwise "
+                             "than its dense twin")
+    emit({"phase": "sparse_efb", "card": card, "rows": N_ALLSTATE,
+          "columns": data["X"].shape[1], "nnz": int(data["X"].nnz),
+          "features": inner.num_features, "bundles": len(inner.bundles),
+          "bundle_widths_top": sorted(int(w) for w in
+                                      inner.bundle_widths)[-4:],
+          "construct_s": data["construct_s"], "sparse_equals_dense": True,
+          **out})
+    return out["launches"]
+
+
 def phase_predict(boosters, Xv):
     import lightgbm_tpu_torch as lgt
     out = []
@@ -1263,6 +1738,17 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
                                                   "kernel_ms", "library_ms")}
                             for c, v in r["cases"].items()}
         rows.append(row)
+    # the u16 instantiations: at B = 1,024 (the wide_bins run's launches)
+    # and at the sparse_efb run's bundle width (its own launches)
+    for case, run in (("B1024", "wide_bins"), ("bundle", "sparse_efb")):
+        for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
+            r = kern[f"{kname}/u16/{case}"]
+            rows.append({"name": f"{kname}/u16/{case}", "route": "cuda",
+                         "source": src, "replaces": replaces, "jax": jax_fn,
+                         "dtype": "uint16", "shape": r["shape"],
+                         "launches": launches[run][kname],
+                         **{k: r[k] for k in keys + atomic_keys},
+                         "card": card})
     for name, r in onehot.items():
         src, replaces, jax_fn = ONEHOT_SHELLS[(r["kernel"], r["layout"])]
         run = MAIN_PATH_RUNS.get((r["variant"], r["B"]))
@@ -1297,6 +1783,24 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
     return rows
 
 
+class _Tee:
+    """Standard output, and a copy in ``chiprun_out/chip_smoke.out`` (the
+    whole run: the end of standard output may be all a caller keeps)."""
+
+    def __init__(self, stream, path):
+        self.stream = stream
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.copy = open(path, "w")
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.copy.flush()
+        self.stream.flush()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1307,10 +1811,13 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.stdout = _Tee(sys.stdout, os.path.join("chiprun_out",
+                                               "chip_smoke.out"))
     t_start = time.perf_counter()
     name, smi, clock = phase_device()
     phase_build()
-    kern = phase_kernels(clock)
+    breadth = breadth_data()
+    kern = phase_kernels(clock, breadth)
     onehot = phase_kernels_onehot(smi)
     quant = phase_quant(smi)
     bench = phase_shootout(smi)
@@ -1321,6 +1828,11 @@ def main() -> int:
     phase_predict(boosters, Xv)
     if args.profile:
         phase_profile(boosters[0], smi)
+    del data, boosters
+    launches["rank"] = phase_rank(smi)
+    launches["categorical"] = phase_categorical(smi)
+    launches["wide_bins"] = phase_wide_bins(smi)
+    launches["sparse_efb"] = phase_sparse_efb(smi, breadth)
     rows = kernel_rows(kern, onehot, quant, bench, launches, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

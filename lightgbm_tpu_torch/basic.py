@@ -2,8 +2,8 @@
 
 Port of the main-path surface of the JAX package's ``basic.py``: lazy
 Dataset construction with reference alignment for validation data, field
-access, ``Booster`` training (``update``), evaluation, prediction and model
-text IO (``save_model``, ``model_to_string``, loading from ``model_file`` /
+access (query groups included), ``Booster`` training (``update``),
+evaluation, prediction (dense or ``scipy.sparse`` input) and model text IO (``save_model``, ``model_to_string``, loading from ``model_file`` /
 ``model_str``).  Every entry point takes ``device``: ``None`` means the CUDA
 card and raises ``NoCudaDeviceError`` without one; pass ``"cpu"`` to run the
 plain PyTorch path.
@@ -24,12 +24,15 @@ from .utils.log import check, LightGBMError
 
 __all__ = ["Dataset", "Booster", "LightGBMError"]
 
+# rows of a densified block when predicting scipy.sparse input
+_SPARSE_PREDICT_BLOCK = 65536
+
 
 class Dataset:
     """Lazily-constructed dataset (reference ``basic.py:935``)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List[int], List[str]] = "auto",
                  params: Optional[Dict[str, Any]] = None, device=None):
@@ -37,6 +40,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -61,8 +65,9 @@ class Dataset:
                          if self.reference is not None else None)
             self._inner = _InnerDataset.from_data(
                 self.data, cfg, label=self.label, weight=self.weight,
-                init_score=self.init_score, categorical_feature=cats,
-                feature_names=feature_names, reference=ref_inner)
+                group=self.group, init_score=self.init_score,
+                categorical_feature=cats, feature_names=feature_names,
+                reference=ref_inner)
         self._inner.device_data(dev)
         return self
 
@@ -78,6 +83,16 @@ class Dataset:
     def get_label(self):
         return self.get_field("label")
 
+    def set_group(self, group) -> None:
+        self.group = group
+        if self._inner is not None:
+            self._inner.metadata.set_field("group", group)
+
+    def get_group(self):
+        """Query sizes (None without query information)."""
+        qb = self.get_field("group")
+        return None if qb is None else np.diff(qb)
+
     def num_data(self) -> int:
         self.construct()
         return self._inner.num_data
@@ -86,11 +101,19 @@ class Dataset:
         self.construct()
         return self._inner.num_total_features
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def save_binary(self, filename: str) -> "Dataset":
+        self.construct()
+        self._inner.save_binary(filename)
+        return self
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        raise NotPortedError("Dataset.subset is not ported yet")
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params,
-                       device=self.device)
+                       group=group, init_score=init_score,
+                       params=params or self.params, device=self.device)
 
 
 class Booster:
@@ -179,9 +202,8 @@ class Booster:
             num_iteration = self.best_iteration
         if hasattr(data, "values"):
             data = data.values
-        if hasattr(data, "tocsr"):
-            raise NotPortedError("sparse prediction input is not ported yet")
-        data = np.asarray(data, dtype=np.float64)
+        sparse = hasattr(data, "tocsr") and hasattr(data, "nnz")
+        data = data.tocsr() if sparse else np.asarray(data, dtype=np.float64)
         n_feat = self.num_feature()
         data_feat = data.shape[1] if data.ndim == 2 else data.shape[0]
         if data_feat != n_feat and not kwargs.get("predict_disable_shape_check", False):
@@ -190,8 +212,20 @@ class Booster:
                 f"as it was in training data ({n_feat}).\n"
                 "You can set ``predict_disable_shape_check=true`` to discard this error")
         if pred_leaf:
-            return self._gbdt.predict_leaf_index(data, num_iteration)
-        return self._gbdt.predict(data, num_iteration, start_iteration, raw_score)
+            fn = functools.partial(self._gbdt.predict_leaf_index,
+                                   num_iteration=num_iteration)
+        else:
+            fn = functools.partial(self._gbdt.predict,
+                                   num_iteration=num_iteration,
+                                   start_iteration=start_iteration,
+                                   raw_score=raw_score)
+        if sparse:
+            # densified row blocks, as the JAX package predicts sparse input
+            return np.concatenate([
+                fn(np.asarray(data[s:s + _SPARSE_PREDICT_BLOCK].toarray(),
+                              np.float64))
+                for s in range(0, data.shape[0], _SPARSE_PREDICT_BLOCK)])
+        return fn(data)
 
     # ------------------------------------------------------------------
     def save_model(self, filename: str, num_iteration: Optional[int] = None,

@@ -3,7 +3,11 @@
 The parity tests feed both packages identical state through these:
 
 - ``tree_arrays_from_numpy``: a JAX ``TreeArrays`` as
-  ``jax.device_get(tree)._asdict()`` -> the port's ``TreeArrays``;
+  ``jax.device_get(tree)._asdict()`` -> the port's ``TreeArrays`` (the
+  categorical ``is_cat_split`` and ``cat_bits`` fields included);
+- ``efb_layout_from_numpy``: the JAX package's EFB layout
+  (``DeviceData.efb``: ``feat_bundle``, ``feat_off``, ``num_bins``) -> the
+  port's, for ``predict_leaf_binned`` and the grower;
 - ``bin_mappers_from_state``: ``BinMapper.to_state()`` dicts -> the port's
   ``BinMapper`` objects;
 - ``booster_from_model_string``: a model text written by either package ->
@@ -11,7 +15,7 @@ The parity tests feed both packages identical state through these:
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +35,17 @@ def tree_arrays_from_numpy(arrays: Dict[str, np.ndarray],
 
 def tree_arrays_to_numpy(tree: TreeArrays) -> Dict[str, np.ndarray]:
     return {name: getattr(tree, name).cpu().numpy() for name in TreeArrays._fields}
+
+
+def efb_layout_from_numpy(efb) -> Optional[Tuple[np.ndarray, ...]]:
+    """``(feat_bundle, feat_off, num_bins)`` as int32 numpy arrays of one
+    length, or None (no bundles)."""
+    if efb is None:
+        return None
+    out = tuple(np.asarray(a, np.int32).copy() for a in efb)
+    if len(out) != 3 or len({a.shape for a in out}) != 1:
+        raise ValueError("an EFB layout is three [num_features] arrays")
+    return out
 
 
 def bin_mappers_from_state(states: List[dict]) -> List[BinMapper]:

@@ -1,13 +1,23 @@
-"""Exclusive Feature Bundling: the bundle search only.
+"""Exclusive Feature Bundling (EFB): a copy of the JAX package's
+``io/efb.py`` (reference ``FindGroups``, ``src/io/dataset.cpp:60-180``).
 
-A copy of ``find_bundles`` from the JAX package's ``io/efb.py``.  The port
-does not bundle yet; ``io/dataset.py`` runs this search to detect data on
-which the JAX package WOULD bundle, and refuses it with ``NotPortedError``
-so that both packages always train on the same per-feature columns.
+Sparse features that are (almost) never non-default together share one
+dense bin column: bundle value ``off_f + bin_f - 1`` means "feature f is at
+non-default bin ``bin_f``", 0 means every member is at its default bin.  An
+unbundled feature is a singleton bundle with ``off = 1``, where the
+encoding is the identity, so one mapping covers every column:
+
+    feature bin  = col - off + 1   if off <= col < off + (nb - 1)  else  0
+    hist[f, 1:]  = bundle_hist[off : off + nb - 1]
+    hist[f, 0]   = bundle_total - hist[f, 1:].sum()
+
+Only numerical features whose default bin is 0 are bundled; a bundle is at
+most ``MAX_BUNDLE_BINS`` = 4,096 bins wide, and the columns are ``uint16``
+when any bundle is wider than 256 bins.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -81,3 +91,56 @@ def find_bundles(sample_bins: np.ndarray, num_bins: np.ndarray,
                 b_bins.append(MAX_BUNDLE_BINS + 1)
                 b_conflicts.append(budget + 1)
     return bundles
+
+
+def bundle_layout(bundles: List[List[int]], num_bins: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-feature (bundle_id, offset) and per-bundle width arrays."""
+    f_total = int(num_bins.shape[0])
+    feat_bundle = np.zeros(f_total, np.int32)
+    feat_off = np.zeros(f_total, np.int32)
+    widths = np.zeros(len(bundles), np.int32)
+    for gid, grp in enumerate(bundles):
+        off = 1
+        for fi in grp:
+            feat_bundle[fi] = gid
+            feat_off[fi] = off
+            off += int(num_bins[fi]) - 1
+        widths[gid] = off
+    return feat_bundle, feat_off, widths
+
+
+def build_bundle_matrix(bins: np.ndarray, bundles: List[List[int]],
+                        feat_off: np.ndarray, widths: np.ndarray
+                        ) -> np.ndarray:
+    """Pack a per-feature bin matrix ``[N, F]`` into ``[N, n_bundles]``.
+
+    Conflicting rows (two members non-default — within the tolerated budget)
+    resolve last-writer-wins, like the reference's bundle push order."""
+    n = bins.shape[0]
+    dtype = np.uint8 if int(widths.max(initial=1)) <= 256 else np.uint16
+    out = np.zeros((n, len(bundles)), dtype=dtype)
+    for gid, grp in enumerate(bundles):
+        if len(grp) == 1:
+            out[:, gid] = bins[:, grp[0]].astype(dtype)
+            continue
+        col = np.zeros(n, dtype=np.int32)
+        for fi in grp:
+            b = bins[:, fi].astype(np.int32)
+            nzm = b != 0
+            col[nzm] = int(feat_off[fi]) + b[nzm] - 1
+        out[:, gid] = col.astype(dtype)
+    return out
+
+
+def decode_bundle_column(col, off, nb):
+    """Feature bin from a bundle-column value: ``col - off + 1`` inside the
+    feature's range ``[off, off + nb - 1)``, else the default bin 0.
+
+    The single inverse of ``build_bundle_matrix``'s encoding — shared by the
+    grower's split decision, binned prediction, and host-side unbundling.
+    Written with arithmetic (no ``where``) so it serves numpy arrays and
+    torch tensors alike.
+    """
+    in_range = (col >= off) & (col < off + nb - 1)
+    return in_range * (col - off + 1)

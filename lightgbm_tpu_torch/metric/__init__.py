@@ -1,13 +1,12 @@
 """Metric factory (reference ``src/metric/metric.cpp:18-62``), with the JAX
-package's alias table.  Every metric of the JAX package is ported except
-the ranking ones (``ndcg``, ``map``: they need query groups), which raise
-``NotPortedError``; an unknown name is ignored with a warning, as there."""
+package's alias table.  Every metric of the JAX package is ported (the
+ranking ones, ``ndcg`` and ``map``, need query groups); an unknown name is
+ignored with a warning, as there."""
 from __future__ import annotations
 
 from typing import List
 
 from ..config import Config
-from ..device import NotPortedError
 from ..utils.log import Log
 from .base import (Metric, L1Metric, L2Metric, RMSEMetric, QuantileMetric,
                    HuberMetric, FairMetric, PoissonMetric, MAPEMetric,
@@ -15,6 +14,7 @@ from .base import (Metric, L1Metric, L2Metric, RMSEMetric, QuantileMetric,
                    BinaryLoglossMetric, BinaryErrorMetric, AUCMetric,
                    AveragePrecisionMetric, MultiLoglossMetric, MultiErrorMetric,
                    AucMuMetric)
+from .rank import MapMetric, NDCGMetric
 from .xentropy import (CrossEntropyLambdaMetric, CrossEntropyMetric,
                        KullbackLeiblerDivergence)
 
@@ -43,13 +43,12 @@ _REGISTRY = {
     "cross_entropy": CrossEntropyMetric,
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KullbackLeiblerDivergence,
+    "ndcg": NDCGMetric, "map": MapMetric,
 }
 
 
 def create_metric(name: str, config: Config):
     name = _ALIASES.get(name, name)
-    if name in ("ndcg", "map"):
-        raise NotPortedError(f"metric {name!r} is not ported yet")
     if name in ("custom", "none", "null", "na", ""):
         return None
     if name not in _REGISTRY:

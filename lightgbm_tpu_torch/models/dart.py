@@ -36,11 +36,11 @@ class DART(GBDT):
         vals = tree.leaf_value * scale
         nan_bins = self._dd.nan_bins
         self._train_score[k] += vals[predict_leaf_binned(
-            tree, self._dd.bins, nan_bins, depth=depth)]
+            tree, self._dd.bins, nan_bins, depth=depth, efb=self._dd.efb)]
         for vi, vset in enumerate(self.valid_sets):
             leaf = predict_leaf_binned(
                 tree, vset.device_data(self.device).bins, nan_bins,
-                depth=depth)
+                depth=depth, efb=self._dd.efb)
             self._valid_scores[vi][k] += vals[leaf]
 
     def train_one_iter(self):

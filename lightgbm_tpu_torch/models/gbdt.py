@@ -1,8 +1,9 @@
 """GBDT: the boosting engine.
 
 Port of the JAX package's ``models/gbdt.py`` for the frontier grower: every
-objective but the ranking ones, ``num_class`` trees an iteration, boost-from-
-average, bagging (the masked bag, and the compacted bag of ``cap`` rows when
+objective (the ranking ones with query groups), categorical features, u16
+bin matrices and EFB bundle matrices, ``num_class`` trees an iteration,
+boost-from-average, bagging (the masked bag, and the compacted bag of ``cap`` rows when
 bagging keeps under 80% of them), per-tree feature sampling, the per-node
 draws keyed by ``random_gen.key_for_iteration`` (``feature_fraction_bynode``,
 ``extra_trees``), monotone-basic, device-resident train/valid scores updated
@@ -14,9 +15,8 @@ tree loop or the stacked device ensemble.  ``goss.py``, ``dart.py`` and
 
 Not ported yet (raise ``NotPortedError``): other tree learners, the serial
 grower and what only it serves (monotone intermediate/advanced, CEGB,
-interaction constraints, forced splits, linear trees), feature_contri, the
-ranking objectives, custom objectives, prediction early stopping, SHAP and
-refit.
+interaction constraints, forced splits, linear trees), feature_contri,
+custom objectives, prediction early stopping, SHAP and refit.
 """
 from __future__ import annotations
 
@@ -31,7 +31,9 @@ from ..io.dataset import Dataset
 from ..metric import create_metrics
 from ..objective import ObjectiveFunction, create_objective
 from ..ops import onehot_variants
+from ..io.bin import BinType
 from ..ops.grower import GrowerConfig, grow_tree
+from ..ops.histogram import take_rows
 from ..ops.predict import predict_leaf_binned, tree_depth
 from ..ops.split import SplitParams
 from ..utils.log import Log, check
@@ -50,7 +52,7 @@ def kernel_backend(device: torch.device) -> str:
 def check_ported(cfg: Config) -> None:
     """Raise ``NotPortedError`` for any training parameter whose path the
     port does not have yet (no silent fallback to another path); the
-    objective and metric factories refuse the ranking ones."""
+    objective factory refuses a custom objective."""
     bad = []
     if cfg.tree_learner != "serial":
         bad.append(f"tree_learner={cfg.tree_learner}")
@@ -196,6 +198,9 @@ class GBDT:
                 init[k] += s
         self._train_score = torch.as_tensor(init).to(self.device)
         self._grower_cfg = self._make_grower_cfg()
+        # the categorical flags, for the grower only when a feature is one
+        self._is_cat = (self._dd.is_categorical
+                        if bool(self._dd.is_categorical.any()) else None)
 
     def _make_grower_cfg(self) -> GrowerConfig:
         cfg = self.config
@@ -215,6 +220,15 @@ class GBDT:
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             max_cat_threshold=cfg.max_cat_threshold,
             min_data_per_group=cfg.min_data_per_group)
+        # the categorical features that take the sorted many-category scan
+        # (num_bin > max_cat_to_onehot, feature_histogram.hpp:316)
+        ds = self.train_data
+        sorted_cat = tuple(
+            i for i, r in enumerate(ds.used_features)
+            if ds.bin_mappers[r].bin_type == BinType.CATEGORICAL
+            and ds.num_bin(i) > cfg.max_cat_to_onehot)
+        # the kernels' width: the widest EFB bundle when bundling is on
+        kernel_bins = self._dd.bundle_bins or max_bin
         # histogram kernels, as the JAX package picks them by its backend
         # (lightgbm_tpu/models/gbdt.py:264-292): on the card (the TPU's
         # counterpart) force_row_wise takes the one-hot kernels with the
@@ -228,18 +242,22 @@ class GBDT:
         # exactly in float64 and rounds once
         if cfg.force_row_wise and kernel_backend(self.device) == "cuda":
             hist_method = "onehot"
-            if cfg.hist_variant == "auto":
+            if kernel_bins > 256:
+                # no u16 one-hot kernel: grow_tree raises NotPortedError
+                hist_variant = "base"
+            elif cfg.hist_variant == "auto":
                 hist_variant = onehot_variants.pick_variant(
-                    max_bin, self.train_data.num_features,
+                    kernel_bins, self.train_data.num_features,
                     device=self.device)
             else:
                 hist_variant = onehot_variants.resolve(cfg.hist_variant,
-                                                       max_bin)
+                                                       kernel_bins)
         else:
             hist_method, hist_variant = "atomic", "base"
         return GrowerConfig(
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth, max_bin=max_bin,
-            split=sp, feature_fraction_bynode=cfg.feature_fraction_bynode,
+            split=sp, bundle_bins=self._dd.bundle_bins, sorted_cat=sorted_cat,
+            feature_fraction_bynode=cfg.feature_fraction_bynode,
             extra_trees=cfg.extra_trees, extra_seed=cfg.extra_seed,
             has_monotone=any(v != 0 for v in cfg.monotone_constraints),
             monotone_mode=cfg.monotone_constraints_method,
@@ -333,7 +351,7 @@ class GBDT:
                               max=n - 1)
         filled = targets <= cs[-1]
         rw = torch.where(filled, mask[row_ids], torch.zeros_like(mask[:1]))
-        return row_ids, rw, self._dd.bins[row_ids]
+        return row_ids, rw, take_rows(self._dd.bins, row_ids)
 
     def _feature_mask(self, iteration: int) -> torch.Tensor:
         cfg = self.config
@@ -357,7 +375,8 @@ class GBDT:
                else None)
         dd = self._dd
         return grow_tree(bins, g, h, row_weight, fmask, dd.num_bins,
-                         dd.nan_bins, gcfg, key=key, monotone=dd.monotone)
+                         dd.nan_bins, gcfg, key=key, monotone=dd.monotone,
+                         is_categorical=self._is_cat, efb=dd.efb)
 
     # ------------------------------------------------------------------
     def train_one_iter(self) -> bool:
@@ -389,7 +408,7 @@ class GBDT:
         for vi, vset in enumerate(self.valid_sets):
             vleaf = predict_leaf_binned(
                 tree, vset.device_data(self.device).bins, self._dd.nan_bins,
-                depth=depth)
+                depth=depth, efb=self._dd.efb)
             self._valid_scores[vi][k] += delta[vleaf]
 
     def _train_one_iter_fast(self, g, h, row_weight, fmask, it: int,
@@ -420,7 +439,8 @@ class GBDT:
             if nl > 1:
                 if cap is not None:
                     node_assign = predict_leaf_binned(tree, dd.bins,
-                                                      dd.nan_bins, depth=depth)
+                                                      dd.nan_bins, depth=depth,
+                                                      efb=dd.efb)
                 self._add_tree_to_scores(k, tree, node_assign, depth,
                                          self.shrinkage_rate)
             self._device_trees.append(tree)

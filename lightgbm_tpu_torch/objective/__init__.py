@@ -1,7 +1,7 @@
 """Objective factory (reference ``src/objective/objective_function.cpp:16-48``).
-Every objective of the JAX package is ported except the ranking ones
-(``lambdarank``, ``rank_xendcg``: they need query groups) and ``none`` (a
-custom objective), which raise ``NotPortedError``."""
+Every objective of the JAX package is ported (the ranking ones,
+``lambdarank`` and ``rank_xendcg``, need query groups) except ``none`` (a
+custom objective), which raises ``NotPortedError``."""
 from __future__ import annotations
 
 from ..config import Config
@@ -10,6 +10,7 @@ from ..utils.log import Log
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
 from .multiclass import MulticlassOVA, MulticlassSoftmax
+from .rank import LambdarankNDCG, RankXENDCG
 from .regression import (FairLoss, GammaLoss, HuberLoss, MAPELoss,
                          PoissonLoss, QuantileLoss, RegressionL1Loss,
                          RegressionL2Loss, TweedieLoss)
@@ -32,9 +33,11 @@ _REGISTRY = {
     "cross_entropy_lambda": CrossEntropyLambda,
     "xentropy": CrossEntropy,
     "xentlambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
+    "rank_xendcg": RankXENDCG,
 }
 # objectives of the JAX package that this package has not ported yet
-NOT_PORTED = ("lambdarank", "rank_xendcg", "none")
+NOT_PORTED = ("none",)
 
 
 def create_objective(config: Config) -> ObjectiveFunction:

@@ -1,15 +1,18 @@
 """Device batched ensemble prediction over raw feature values.
 
-Port of the JAX package's ``ops/ensemble.py`` for numerical trees: every
-tree's flat arrays are stacked into ``[T, ...]`` tensors on the device, and
-each tree runs a vectorized traversal for all rows at once (a fixed number
-of steps, the tree's depth, known when the trees are stacked).
+Port of the JAX package's ``ops/ensemble.py``: every tree's flat arrays are
+stacked into ``[T, ...]`` tensors on the device, and each tree runs a
+vectorized traversal for all rows at once (a fixed number of steps, the
+tree's depth, known when the trees are stacked).  A categorical split sends
+a row left when its value, as a non-negative integer category, is in the
+split's value bitset (the reference ``Tree::CategoricalDecision``); the
+bitsets of all trees are stacked into one word array.
 
 Exactness: raw inputs are compared in float32.  Each f64 node threshold
 ``t`` is rounded DOWN to the nearest f32, so for any f32-representable
 input ``x``: ``x <= t  <=>  f32(x) <= t32`` — the device decision matches
-the host f64 decision exactly for f32 data.  Categorical and linear trees
-are not ported (``NotPortedError``).
+the host f64 decision exactly for f32 data.  Linear trees are not ported
+(``NotPortedError``).
 """
 from __future__ import annotations
 
@@ -29,11 +32,16 @@ class EnsembleArrays(NamedTuple):
     """Stacked flat trees (device layout of ``List[Tree]``)."""
     split_feature: torch.Tensor    # [T, M] int64 real feature ids
     threshold: torch.Tensor        # [T, M] f32 (f32-down-rounded reals)
+    is_cat: torch.Tensor           # [T, M] bool
     default_left: torch.Tensor     # [T, M] bool
     missing_type: torch.Tensor     # [T, M] int64
     left_child: torch.Tensor       # [T, M] int64 (~leaf encoding)
     right_child: torch.Tensor      # [T, M] int64
     leaf_value: torch.Tensor       # [T, L] f32
+    # categorical bitsets, flattened across all trees
+    cat_lo: torch.Tensor           # [T, M] int64 word offset into cat_words
+    cat_nwords: torch.Tensor       # [T, M] int64
+    cat_words: torch.Tensor        # [W] int64 (uint32 values)
     has_split: List[bool]          # [T] host
     depth: List[int]               # [T] host: traversal steps per tree
 
@@ -52,6 +60,10 @@ def stack_trees(models: List, device) -> EnsembleArrays:
     L = max(1, max(t.num_leaves for t in models))
     sf = np.zeros((T, M), np.int64)
     th = np.zeros((T, M), np.float32)
+    ic = np.zeros((T, M), bool)
+    clo = np.zeros((T, M), np.int64)
+    cnw = np.zeros((T, M), np.int64)
+    words: List[int] = []
     dl = np.zeros((T, M), bool)
     mt = np.zeros((T, M), np.int64)
     lc = np.full((T, M), -1, np.int64)
@@ -70,20 +82,28 @@ def stack_trees(models: List, device) -> EnsembleArrays:
             rc[ti, :m] = t.right_child[:m]
             for j in range(m):
                 if t.is_categorical_split(j):
-                    raise NotPortedError(
-                        "categorical-split prediction is not ported yet")
-                th[ti, j] = _f32_down(np.float64(t.threshold[j]))
-                dl[ti, j] = t.default_left(j)
-                mt[ti, j] = t.missing_type(j)
+                    ic[ti, j] = True
+                    cidx = int(t.threshold[j])
+                    lo, hi = t.cat_boundaries[cidx], t.cat_boundaries[cidx + 1]
+                    clo[ti, j] = len(words)
+                    cnw[ti, j] = hi - lo
+                    words.extend(int(w) for w in t.cat_threshold[lo:hi])
+                else:
+                    th[ti, j] = _f32_down(np.float64(t.threshold[j]))
+                    dl[ti, j] = t.default_left(j)
+                    mt[ti, j] = t.missing_type(j)
         nl = max(1, t.num_leaves)
         lv[ti, :nl] = t.leaf_value[:nl] if len(t.leaf_value) >= nl else 0.0
 
     def d(a):
         return torch.as_tensor(a).to(device)
     return EnsembleArrays(
-        split_feature=d(sf), threshold=d(th), default_left=d(dl),
-        missing_type=d(mt), left_child=d(lc), right_child=d(rc),
-        leaf_value=d(lv), has_split=hs, depth=depth)
+        split_feature=d(sf), threshold=d(th), is_cat=d(ic),
+        default_left=d(dl), missing_type=d(mt), left_child=d(lc),
+        right_child=d(rc), leaf_value=d(lv), cat_lo=d(clo),
+        cat_nwords=d(cnw),
+        cat_words=d(np.asarray(words or [0], np.int64) & 0xFFFFFFFF),
+        has_split=hs, depth=depth)
 
 
 def predict_leaf_raw(ens: EnsembleArrays, X: torch.Tensor, ti: int) -> torch.Tensor:
@@ -94,6 +114,9 @@ def predict_leaf_raw(ens: EnsembleArrays, X: torch.Tensor, ti: int) -> torch.Ten
     sf, th = ens.split_feature[ti], ens.threshold[ti]
     dl, mt = ens.default_left[ti], ens.missing_type[ti]
     lch, rch = ens.left_child[ti], ens.right_child[ti]
+    ic, clo, cnw = ens.is_cat[ti], ens.cat_lo[ti], ens.cat_nwords[ti]
+    words = ens.cat_words
+    has_cat = bool(ic.any())
     rows = torch.arange(n, device=X.device)
     cur = torch.zeros(n, dtype=torch.int64, device=X.device)
     for _ in range(ens.depth[ti]):
@@ -107,6 +130,16 @@ def predict_leaf_raw(ens: EnsembleArrays, X: torch.Tensor, ti: int) -> torch.Ten
             is_nan | (torch.abs(x) <= K_ZERO_THRESHOLD),
             (node_mt == _MT_NAN) & is_nan)
         goes_left = torch.where(is_miss, dl[node], x0 <= th[node])
+        if has_cat:
+            # categorical: the value's bit in the split's bitset
+            iv = torch.where(torch.isfinite(x) & (x >= 0), x,
+                             torch.full_like(x, -1.0)).to(torch.int64)
+            wi = torch.div(iv, 32, rounding_mode="floor")
+            in_range = (iv >= 0) & (wi < cnw[node])
+            widx = torch.clamp(clo[node] + wi, 0, words.shape[0] - 1)
+            bit = (words[widx] >> torch.remainder(iv, 32)) & 1
+            goes_left = torch.where(ic[node], in_range & (bit == 1),
+                                    goes_left)
         nxt = torch.where(goes_left, lch[node], rch[node])
         cur = torch.where(cur >= 0, nxt, cur)
     return ~cur

@@ -1,8 +1,12 @@
 """Level-batched best-first tree growth — the main-path tree learner.
 
 Port of the JAX package's ``ops/frontier.py`` (``grow_tree_frontier``) for
-the serial learner, without EFB, with ``feature_fraction_bynode``,
-``extra_trees`` and monotone-basic.  The algorithm is the same: each round
+the serial learner, with ``feature_fraction_bynode``, ``extra_trees``,
+monotone-basic, categorical splits (one-hot and sorted, each carrying the
+bitset of the bins that go left, decided by that bitset in the partition)
+and EFB (the histograms are kept per bundle column, ``Bb`` bins wide, and
+expanded to per-feature ``[f, B]`` histograms before each split search; the
+partition decodes a feature's bin from its bundle column).  The algorithm is the same: each round
 expands the top-k pending leaves by ``g_hat(v) = min(gain(v),
 g_hat(parent(v)))`` with one [N]-pass stable partition of the row
 permutation, ONE leaf-grouped row gather feeding the batched histogram
@@ -44,30 +48,76 @@ import torch
 from .grower import (GrowerConfig, TreeArrays, _BestSplits,
                      monotone_gain_mult, node_feature_mask_for,
                      rand_thresholds_for)
-from .histogram import build_histogram, build_histogram_leaves
-from .split import NEG_INF, POS_INF, cat_words, find_best_split, leaf_output
+from .histogram import (build_histogram, build_histogram_leaves,
+                        movable_bins, widen_bins)
+from .split import (NEG_INF, POS_INF, bitset_contains, cat_words,
+                    find_best_split, leaf_output)
 
 _SP_FLOAT = ("sp_ghat", "sp_gain", "sp_lout", "sp_rout", "sp_lweight",
              "sp_rweight", "sp_lcount", "sp_rcount", "sp_value", "sp_count")
 _SP_INT = ("sp_parent", "sp_feature", "sp_threshold", "sp_begin", "sp_nrows",
            "sp_nleft")
-_SP_BOOL = ("sp_is_left", "sp_dleft")
+_SP_BOOL = ("sp_is_left", "sp_dleft", "sp_iscat")
+
+
+def _efb_tables(efb, B, Bb, dev):
+    """``(expand_hist, decode_col, col_of_feat)`` for the EFB layout
+    ``efb = (feat_bundle, feat_off, num_bins)`` (host numpy), or identities
+    and None without EFB.  ``expand_hist`` maps ``[S, NC, Bb, 3]`` bundle
+    histograms to ``[S, f, B, 3]`` feature histograms: bins ``1..nb-1`` of
+    feature f are bundle bins ``off .. off + nb - 2``, and bin 0 is the
+    bundle's total less those (the JAX package's ``expand_hist``)."""
+    if efb is None:
+        return (lambda hb: hb), (lambda colv, feat: colv), None
+    fb_np, off_np, nb_np = efb
+    f = int(fb_np.shape[0])
+    spans = nb_np.astype(np.int64) - 1
+    bidx = np.arange(B - 1, dtype=np.int64)[None, :]
+    valid = bidx < spans[:, None]
+    idx = (fb_np.astype(np.int64)[:, None] * Bb
+           + off_np.astype(np.int64)[:, None] + bidx)
+    idx = torch.as_tensor(np.where(valid, idx, 0).reshape(-1)).to(dev)
+    valid_t = torch.as_tensor(valid.astype(np.float32)).to(dev)
+    col_of_feat = torch.as_tensor(fb_np.astype(np.int64)).to(dev)
+    off_of_feat = torch.as_tensor(off_np.astype(np.int64)).to(dev)
+    nb_of_feat = torch.as_tensor(nb_np.astype(np.int64)).to(dev)
+
+    def expand_hist(hb):
+        s_ = hb.shape[0]
+        g = hb.reshape(s_, -1, 3)[:, idx].reshape(s_, f, B - 1, 3)
+        g = g * valid_t[None, :, :, None]
+        totals = hb.sum(2)                                 # [S, NC, 3]
+        bin0 = totals[:, col_of_feat] - g.sum(2)
+        return torch.cat([bin0[:, :, None, :], g], dim=2)
+
+    def decode_col(colv, feat):
+        off = off_of_feat[feat]
+        nbf = nb_of_feat[feat]
+        return torch.where((colv >= off) & (colv < off + nbf - 1),
+                           colv - off + 1, torch.zeros_like(colv))
+    return expand_hist, decode_col, col_of_feat
 
 
 def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
-                       nan_bins, cfg: GrowerConfig, key=None, monotone=None):
+                       nan_bins, cfg: GrowerConfig, key=None, monotone=None,
+                       is_categorical=None, efb=None):
     """Grow one tree with round-batched best-first expansion.
 
-    ``bins [N, F]`` u8 and the ``[N]`` f32 row vectors live on one device.
-    ``key`` seeds the per-node draws (needed for ``feature_fraction_bynode
-    < 1`` and ``extra_trees``), ``monotone [F]`` the directions (needed
-    when ``cfg.has_monotone``).
+    ``bins [N, NC]`` u8 or u16 and the ``[N]`` f32 row vectors live on one
+    device.  ``key`` seeds the per-node draws (needed for
+    ``feature_fraction_bynode < 1`` and ``extra_trees``), ``monotone [F]``
+    the directions (needed when ``cfg.has_monotone``), ``is_categorical
+    [F]`` marks categorical features (None: none), and ``efb`` is the
+    bundle layout ``(feat_bundle, feat_off, num_bins)`` of numpy arrays
+    when ``bins`` holds EFB bundle columns (``cfg.bundle_bins`` wide).
     Returns ``(TreeArrays on that device, node_assignment [N] int64,
     TreeArrays of numpy arrays)``."""
     dev = bins.device
-    n, f = bins.shape
+    n, n_cols = bins.shape
+    f = int(efb[0].shape[0]) if efb is not None else n_cols
     L = cfg.num_leaves
     B = cfg.max_bin
+    Bb = cfg.bundle_bins or B
     cw = cat_words(B)
     p = cfg.split
     k = max(1, min(cfg.frontier_k, L - 1))
@@ -85,12 +135,17 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
                        torch.sum(hess * row_weight), torch.sum(row_weight)])
     if f == 0:
         return _single_leaf(tot, n, L, cw, dev)
+    expand_hist, decode_col, col_of_feat = _efb_tables(efb, B, Bb, dev)
+    sorted_cat = (torch.as_tensor(cfg.sorted_cat, dtype=torch.int64).to(dev)
+                  if cfg.sorted_cat else None)
 
-    # combined row payload: (grad, hess, row_weight) as 12 trailing bytes,
-    # so one row gather moves bins and gradients together
+    # combined row payload: (grad, hess, row_weight) as 12 trailing bytes
+    # in bin-typed columns (12 u8 or 6 u16), so one row gather moves bins
+    # and gradients together; u16 moves as int16 (movable_bins)
+    bins_mv = movable_bins(bins)
     gh_packed = torch.stack([grad, hess, row_weight], 1).contiguous().view(
-        torch.uint8)                                        # [N, 12]
-    comb = torch.cat([bins, gh_packed], dim=1)              # [N, F + 12]
+        bins_mv.dtype)                                      # [N, 12 // esz]
+    comb = torch.cat([bins_mv, gh_packed], dim=1)           # [N, NC + gh]
 
     use_mono = cfg.has_monotone
     use_pen = use_mono and cfg.monotone_penalty > 0.0
@@ -116,20 +171,23 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         rand = node_thr[steps] if node_thr is not None else None
         mult = (monotone_gain_mult(depth, monotone, cfg.monotone_penalty)
                 if use_pen else None)
-        return find_best_split(hist_b, num_bins, nan_bins, sum_g, sum_h,
-                               count, p, fmask, output_lo=lo, output_hi=hi,
+        return find_best_split(expand_hist(hist_b), num_bins, nan_bins,
+                               sum_g, sum_h, count, p, fmask, output_lo=lo,
+                               output_hi=hi,
                                monotone=monotone if use_mono else None,
-                               rand_threshold=rand, gain_mult=mult)
+                               rand_threshold=rand, gain_mult=mult,
+                               is_categorical=is_categorical,
+                               sorted_cat=sorted_cat)
 
     # ---- root -------------------------------------------------------------
-    root_hist = build_histogram(bins, grad, hess, row_weight, B,
+    root_hist = build_histogram(bins, grad, hess, row_weight, Bb,
                                 method=cfg.hist_method,
                                 variant=cfg.hist_variant)
     root_step = torch.zeros(1, dtype=torch.int64, device=dev)
     root_split = find(root_hist[None], tot[0:1], tot[1:2], tot[2:3],
                       root_step, depth=root_step)
 
-    pend = _BestSplits.empty(LS, dev).set_rows(
+    pend = _BestSplits.empty(LS, cw, dev).set_rows(
         torch.zeros(1, dtype=torch.int64, device=dev), root_split)
     pend_ghat = f32(LS, fill=NEG_INF)
     pend_ghat[0] = torch.clamp(root_split.gain[0], max=POS_INF)
@@ -145,9 +203,10 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
     if use_mono:
         # per-leaf monotone output bounds (basic mode: root-path state only)
         leaf_lo, leaf_hi = f32(LS, fill=NEG_INF), f32(LS, fill=POS_INF)
-    hist = f32(LS, f, B, 3)
+    hist = f32(LS, n_cols, Bb, 3)
     hist[0] = root_hist
     sp = {name: f32(S) for name in _SP_FLOAT}
+    sp["sp_catbits"] = torch.zeros(S, cw, dtype=torch.int32, device=dev)
     sp["sp_ghat"].fill_(NEG_INF)
     sp.update({name: i64(S) for name in _SP_INT})
     sp["sp_parent"].fill_(-1)
@@ -179,6 +238,9 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         sel_feat = pend.feature[sel].long()
         sel_thr = pend.threshold[sel].long()
         sel_dleft = pend.default_left[sel]
+        sel_cbits = pend.cat_bits[sel]                      # [k, CW]
+        sel_iscat = (is_categorical[sel_feat] if is_categorical is not None
+                     else torch.zeros_like(sel_dleft))
         sel_gain = pend.gain[sel]
         sp_ghat_i = torch.minimum(sel_gain, leaf_cghat[sel])
         right_slot = applied + 1 + i_ar           # leaf slot of right child
@@ -193,10 +255,15 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         act = si >= 0
         sic = si.clamp(min=0)
         feat_p = sel_feat[sic]
-        colv = bins[perm, feat_p].long()
+        col_p = col_of_feat[feat_p] if col_of_feat is not None else feat_p
+        colv = decode_col(widen_bins(bins_mv[perm, col_p]), feat_p)
         nb_p = nan_bins.long()[feat_p]
         is_miss = (colv == nb_p) & (nb_p >= 0)
         gl = torch.where(is_miss, sel_dleft[sic], colv <= sel_thr[sic])
+        if is_categorical is not None:
+            # categorical: the split's bin bitset decides
+            gl = torch.where(sel_iscat[sic],
+                             bitset_contains(sel_cbits, colv, sic), gl)
         gl_a = gl & act
         zero1 = torch.zeros(1, dtype=torch.int64, device=dev)
         cum_l = torch.cat([zero1, torch.cumsum(gl_a, 0)])
@@ -231,12 +298,13 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         okrow = local < small_n[i_of_q]
         rid = perm_new[torch.clamp(small_beg[i_of_q] + local, 0, n - 1)]
         combb = comb[torch.where(okrow, rid, 0)]
-        ghb = combb[:, f:].contiguous().view(torch.float32)     # [C, 3]
+        ghb = combb[:, n_cols:].contiguous().view(torch.float32)  # [C, 3]
         m = torch.where(okrow, ghb[:, 2], 0.0)
         hist_small = build_histogram_leaves(
-            combb, ghb[:, 0].contiguous(), ghb[:, 1].contiguous(), m,
-            i_of_blk.to(torch.int32), k, B, block_rows=BR, f_limit=f,
-            method=cfg.hist_method, variant=cfg.hist_variant)
+            combb.view(bins.dtype), ghb[:, 0].contiguous(),
+            ghb[:, 1].contiguous(), m, i_of_blk.to(torch.int32), k, Bb,
+            block_rows=BR, f_limit=n_cols, method=cfg.hist_method,
+            variant=cfg.hist_variant)
 
         parent_hist = hist[sel]
         large_hist = parent_hist - hist_small
@@ -281,6 +349,7 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         recs = dict(
             sp_ghat=sp_ghat_i, sp_parent=leaf_cs[sel], sp_is_left=leaf_il[sel],
             sp_feature=sel_feat, sp_threshold=sel_thr, sp_dleft=sel_dleft,
+            sp_iscat=sel_iscat, sp_catbits=sel_cbits,
             sp_gain=sel_gain, sp_lout=pend.lout[sel], sp_rout=pend.rout[sel],
             sp_lweight=lh, sp_rweight=rh, sp_lcount=lc, sp_rcount=rc,
             sp_value=sp_value_i, sp_count=leaf_count[sel], sp_begin=sel_beg,
@@ -418,8 +487,9 @@ def _replay(sp, applied, L, S, cw, n, tot):
         split_feature=np.where(node_on, rec_of("sp_feature"), -1).astype(np.int32),
         threshold=np.where(node_on, rec_of("sp_threshold"), 0).astype(np.int32),
         default_left=node_on & rec_of("sp_dleft"),
-        is_cat_split=np.zeros(L - 1, bool),
-        cat_bits=np.zeros((L - 1, cw), np.int32),
+        is_cat_split=node_on & rec_of("sp_iscat"),
+        cat_bits=np.where(node_on[:, None], rec_of("sp_catbits"),
+                          0).astype(np.int32),
         split_gain=np.where(node_on, rec_of("sp_gain"), zf).astype(np.float32),
         left_child=left_child,
         right_child=right_child,

@@ -25,8 +25,15 @@ class GrowerConfig(NamedTuple):
     """Static grower parameters."""
     num_leaves: int
     max_depth: int            # <=0: unlimited
-    max_bin: int              # histogram width B
+    max_bin: int              # histogram width B of a feature
     split: SplitParams
+    # EFB: the widest bundle column's bins (the kernels' width Bb), or 0
+    # when the bins are per-feature columns (Bb = max_bin)
+    bundle_bins: int = 0
+    # the categorical features (inner ids) wider than max_cat_to_onehot,
+    # which take the sorted many-category scan (the JAX package's static
+    # sorted_cat flag, as the list it is true for)
+    sorted_cat: tuple = ()
     feature_fraction_bynode: float = 1.0
     extra_trees: bool = False
     extra_seed: int = 6
@@ -76,9 +83,10 @@ class _BestSplits(NamedTuple):
     lg: torch.Tensor; lh: torch.Tensor; lc: torch.Tensor
     rg: torch.Tensor; rh: torch.Tensor; rc: torch.Tensor
     lout: torch.Tensor; rout: torch.Tensor
+    cat_bits: torch.Tensor       # [n, CW] i32
 
     @classmethod
-    def empty(cls, n: int, device) -> "_BestSplits":
+    def empty(cls, n: int, cw: int, device) -> "_BestSplits":
         def z():
             return torch.zeros(n, dtype=torch.float32, device=device)
         return cls(gain=torch.full((n,), NEG_INF, dtype=torch.float32,
@@ -87,7 +95,9 @@ class _BestSplits(NamedTuple):
                    threshold=torch.zeros(n, dtype=torch.int32, device=device),
                    default_left=torch.zeros(n, dtype=torch.bool, device=device),
                    lg=z(), lh=z(), lc=z(), rg=z(), rh=z(), rc=z(),
-                   lout=z(), rout=z())
+                   lout=z(), rout=z(),
+                   cat_bits=torch.zeros(n, cw, dtype=torch.int32,
+                                        device=device))
 
     def set_rows(self, idx: torch.Tensor, s: SplitResult) -> "_BestSplits":
         """Write the ``[m]``-batched ``s`` into slots ``idx`` (in place)."""
@@ -97,7 +107,8 @@ class _BestSplits(NamedTuple):
                  (self.lg, s.left_sum_g), (self.lh, s.left_sum_h),
                  (self.lc, s.left_count), (self.rg, s.right_sum_g),
                  (self.rh, s.right_sum_h), (self.rc, s.right_count),
-                 (self.lout, s.left_output), (self.rout, s.right_output))
+                 (self.lout, s.left_output), (self.rout, s.right_output),
+                 (self.cat_bits, s.cat_bits))
         for arr, val in pairs:
             arr[idx] = val
         return self
@@ -156,6 +167,12 @@ def monotone_gain_mult(depth: torch.Tensor, monotone: torch.Tensor,
                        torch.ones_like(factor))
 
 
+def kernel_width(cfg: GrowerConfig) -> int:
+    """The histogram kernels' bin width: the widest EFB bundle, else the
+    widest feature."""
+    return cfg.bundle_bins or cfg.max_bin
+
+
 def _frontier_eligible(cfg: GrowerConfig, n_cols: int) -> bool:
     """True when the round-batched frontier grower (ops/frontier.py) can
     serve this call.  Cross-leaf-coupled features (monotone intermediate
@@ -164,25 +181,28 @@ def _frontier_eligible(cfg: GrowerConfig, n_cols: int) -> bool:
     extra_trees) and monotone-basic are served by the frontier, as in the
     JAX package.
 
-    The card's budget, by histogram method:
+    The card's budget at the kernel width (``kernel_width``), by histogram
+    method:
 
     - atomic: the kernels keep a privatised ``[features, B, 3]`` float64
       histogram of one feature group in shared memory and split wider
       feature sets over ``gridDim.y``, so any feature count fits as long as
       ONE feature does: ``24 * B`` bytes within the 227 KB a CTA may opt
-      into (B <= 9,685; u8 bins give B <= 256).
+      into (B <= 9,685; u16 bins and EFB bundles reach B = 4,096).
     - onehot: the kernels keep their sums in registers and stage 128 rows
       at a time (at most 18 KB of shared memory), so any feature count and
       any u8 width fits; the per-leaf kernel needs whole 128-row chunks in
       a block (``frontier_block_rows`` a multiple of 128, which the config
-      already demands)."""
+      already demands).  Widths above 256 (u16 bins) have no one-hot
+      kernel yet (``grow_tree`` says so)."""
     if cfg.grower_mode == "serial":
         return False
+    width = kernel_width(cfg)
     if cfg.hist_method == "onehot":
-        budget_ok = (cfg.max_bin <= 256
+        budget_ok = (width <= 256
                      and cfg.frontier_block_rows % _OH_CHUNK == 0)
     else:
-        budget_ok = _SMEM_PER_BIN * cfg.max_bin <= SMEM_MAX_BYTES
+        budget_ok = _SMEM_PER_BIN * width <= SMEM_MAX_BYTES
     return ((not cfg.has_monotone or cfg.monotone_mode == "basic")
             and cfg.cegb_split_penalty == 0.0
             and n_cols >= 0
@@ -193,14 +213,24 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               row_weight: torch.Tensor, feature_mask: torch.Tensor,
               num_bins: torch.Tensor, nan_bins: torch.Tensor,
               cfg: GrowerConfig, key: Optional[torch.Tensor] = None,
-              monotone: Optional[torch.Tensor] = None
-              ) -> Tuple[TreeArrays, torch.Tensor, "object"]:
+              monotone: Optional[torch.Tensor] = None,
+              is_categorical: Optional[torch.Tensor] = None,
+              efb=None) -> Tuple[TreeArrays, torch.Tensor, "object"]:
     """Grow one tree.  Returns ``(tree, node_assignment[num_data],
     host_tree)``, where ``host_tree`` is the same tree as numpy arrays (the
     frontier finishes each tree on the host, so the copy is free).  ``key``
     (``[2]``, ``random_gen.key_for_iteration``) seeds the per-node draws of
     ``feature_fraction_bynode`` and ``extra_trees``; ``monotone [F]`` gives
-    the directions when ``cfg.has_monotone``."""
+    the directions when ``cfg.has_monotone``; ``is_categorical [F]`` marks
+    the categorical features (None: none); ``efb`` is the EFB layout when
+    ``bins`` holds bundle columns."""
+    if (cfg.hist_method == "onehot" and kernel_width(cfg) > 256
+            and cfg.grower_mode != "serial"):
+        raise NotPortedError(
+            f"force_row_wise at a kernel width of {kernel_width(cfg)} bins "
+            "needs the u16 one-hot kernels (onehot_full, onehot_leaves over "
+            "u16 bins), which are not ported yet; drop force_row_wise to "
+            "take the atomic kernels")
     if not _frontier_eligible(cfg, bins.shape[1]):
         raise NotPortedError(
             "this configuration needs the sequential (serial) grower, which "
@@ -210,4 +240,5 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     from .frontier import grow_tree_frontier
     return grow_tree_frontier(bins, grad, hess, row_weight, feature_mask,
                               num_bins, nan_bins, cfg, key=key,
-                              monotone=monotone)
+                              monotone=monotone,
+                              is_categorical=is_categorical, efb=efb)

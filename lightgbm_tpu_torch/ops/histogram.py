@@ -2,7 +2,9 @@
 
 Port of the JAX package's ``ops/histogram.py``.  A histogram is
 ``[F, B, 3]`` float32 with channels (sum g*m, sum h*m, sum m) per feature and
-bin; bins >= B match nothing and are dropped.
+bin; bins >= B match nothing and are dropped.  Bins are ``uint8`` or
+``uint16`` (a feature of more than 256 bins, or an EFB bundle up to 4,096
+bins wide); the atomic method takes both, the one-hot method ``uint8``.
 
 Two methods, each with a full-pass and a per-leaf entry point, each entry
 point with a hand-written Hopper kernel (``kernels/*.cu``, built by
@@ -274,15 +276,37 @@ def _gh_rows(grad, hess, mask):
     return torch.stack([grad * mask, hess * mask, mask], dim=-1).double()
 
 
+def widen_bins(t: torch.Tensor) -> torch.Tensor:
+    """Bins as int64, for comparing and indexing: ``uint16`` is a storage
+    type in PyTorch (no ``<`` or ``+``), so its bits go through ``int16``
+    and a mask, which every device supports; an ``int16`` view of u16 bins
+    (``movable_bins``) widens the same way."""
+    if t.dtype in (torch.uint16, torch.int16):
+        return t.view(torch.int16).long() & 0xFFFF
+    return t.long()
+
+
+def movable_bins(t: torch.Tensor) -> torch.Tensor:
+    """A view of bins that every device can gather, index and concatenate:
+    ``uint16`` as ``int16`` (the same bits; view back with
+    ``.view(torch.uint16)``), ``uint8`` as it is."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a ``uint8`` or ``uint16`` bin matrix, same dtype."""
+    return movable_bins(t)[idx].view(t.dtype)
+
+
 def _full_rows(bins, f_limit):
     n, ncols = bins.shape
-    return (bins[:, :_n_feat(ncols, f_limit)].long(),
+    return (widen_bins(bins[:, :_n_feat(ncols, f_limit)]),
             *_row_slots(n, None, 1, 1, bins.device))
 
 
 def _leaves_rows(comb, block_leaf, num_slots, block_rows, f_limit):
     n, nc = comb.shape
-    return (comb[:, :_n_feat(nc, f_limit)].long(),
+    return (widen_bins(comb[:, :_n_feat(nc, f_limit)]),
             *_row_slots(n, block_leaf, num_slots, block_rows, comb.device))
 
 
@@ -363,12 +387,17 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_rows(name, mat, grad, hess, mask):
+def _check_rows(name, mat, grad, hess, mask, dtypes=(torch.uint8,)):
     dev = mat.device
     _check(dev.type == "cuda", f"{name}: tensors must be on a CUDA device")
-    _check(mat.dtype == torch.uint8 and mat.dim() == 2 and mat.is_contiguous(),
-           f"{name}: bins must be a contiguous 2-D uint8 tensor")
+    kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+    _check(mat.dtype in dtypes and mat.dim() == 2 and mat.is_contiguous(),
+           f"{name}: bins must be a contiguous 2-D {kinds} tensor")
     _check_vectors(name, dev, mat.shape[0], grad, hess, mask)
+
+
+# the bin types of the atomic kernels (their template instantiations)
+ATOMIC_BIN_TYPES = (torch.uint8, torch.uint16)
 
 
 def _check_vectors(name, dev, n, grad, hess, mask):
@@ -383,7 +412,7 @@ def _check_vectors(name, dev, n, grad, hess, mask):
 # feature group, tile rows, threads, dynamic shared bytes, CTAs an SM, SMs,
 # registers a thread, static shared bytes, spilled bytes a thread; it
 # depends on the shape only, so it is kept per (kernel, device, stride, f,
-# B) and a call splits its rows or blocks with atomic_grid
+# B, bin size) and a call splits its rows or blocks with atomic_grid
 _PLAN_KEYS = ("fg", "tile", "threads", "dynamic_smem_bytes", "ctas_per_sm",
               "sms", "registers", "static_smem_bytes", "local_bytes")
 _plans: Dict[tuple, Dict[str, int]] = {}
@@ -394,13 +423,13 @@ _FULL_ROW_ALIGN = 16
 
 
 def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
-                max_bin: int) -> Dict[str, int]:
+                max_bin: int, esz: int = 1) -> Dict[str, int]:
     """The launch plan of ``hist_full`` or ``hist_leaves`` over ``f``
-    features of ``max_bin`` bins in rows of ``stride`` bytes; builds the
-    kernel first if needed."""
+    features of ``max_bin`` bins in rows of ``stride`` bins of ``esz``
+    bytes (1: u8, 2: u16); builds the kernel first if needed."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    key = (kernel, index, stride, f, max_bin)
+    key = (kernel, index, stride, f, max_bin, esz)
     plan = _plans.get(key)
     if plan is None:
         import ctypes
@@ -410,7 +439,8 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
                f"per feature, above {SMEM_MAX_BYTES}")
         buf = (ctypes.c_int * len(_PLAN_KEYS))()
         lib = _build.load(kernel)
-        rc = getattr(lib, f"{kernel}_plan")(index, stride, f, max_bin, buf)
+        rc = getattr(lib, f"{kernel}_plan")(index, stride, f, max_bin, esz,
+                                            buf)
         _raise_on(lib, f"{kernel} plan", rc)
         plan = _plans[key] = dict(zip(_PLAN_KEYS, buf))
         plan["groups"] = -(-f // plan["fg"])
@@ -438,21 +468,23 @@ def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
     """``[F, B, 3]`` histogram by the ``hist_full`` CUDA kernel: one launch
     of the kernel over the plan's CTAs, each writing a float64 partial
     into scratch, and one of the reduce kernel, which sums them into the
-    float32 result."""
-    _check_rows("hist_full", bins, grad, hess, mask)
+    float32 result.  ``bins`` is ``uint8`` or ``uint16``."""
+    _check_rows("hist_full", bins, grad, hess, mask, ATOMIC_BIN_TYPES)
     n, ncols = bins.shape
     f = _n_feat(ncols, f_limit)
     dev = bins.device
+    esz = bins.element_size()
     if n == 0 or f == 0:
         return torch.zeros(f, max_bin, 3, device=dev)
-    plan = atomic_plan("hist_full", dev, ncols, f, max_bin)
+    plan = atomic_plan("hist_full", dev, ncols, f, max_bin, esz)
     grid_x, per_cta = atomic_grid(plan, n, _FULL_ROW_ALIGN)
     partial = torch.empty(grid_x, f, max_bin, 3, dtype=torch.float64,
                           device=dev)
     out = torch.empty(f, max_bin, 3, device=dev)
     lib = _build.load("hist_full")
     rc = lib.hist_full_launch(
-        dev.index, bins.data_ptr(), n, ncols, f, max_bin, grad.data_ptr(),
+        dev.index, bins.data_ptr(), n, ncols, f, max_bin, esz,
+        grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), partial.data_ptr(), out.data_ptr(),
         plan["fg"], plan["tile"], plan["threads"], grid_x, per_cta,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -467,11 +499,12 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
     kernel: one launch over the plan's CTAs, each writing one float64
     partial per slot its blocks name into scratch and naming the slot
     there, and one of the reduce kernel, which sums each slot's partials
-    into the float32 result."""
-    _check_rows("hist_leaves", comb, grad, hess, mask)
+    into the float32 result.  ``comb`` is ``uint8`` or ``uint16``."""
+    _check_rows("hist_leaves", comb, grad, hess, mask, ATOMIC_BIN_TYPES)
     c, nc = comb.shape
     f = _n_feat(nc, f_limit)
     dev = comb.device
+    esz = comb.element_size()
     _check(block_rows > 0 and c % block_rows == 0,
            f"hist_leaves: rows ({c}) must be a multiple of block_rows "
            f"({block_rows})")
@@ -483,7 +516,7 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
            f"tensor on {dev}")
     if nb == 0 or f == 0 or num_slots == 0:
         return torch.zeros(num_slots, f, max_bin, 3, device=dev)
-    plan = atomic_plan("hist_leaves", dev, nc, f, max_bin)
+    plan = atomic_plan("hist_leaves", dev, nc, f, max_bin, esz)
     grid_x, bpc = atomic_grid(plan, nb)
     # the partials (float64 [grid x * parts, F, B, 3]: a CTA writes one for
     # each slot its blocks name), then their slots
@@ -494,7 +527,7 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
     out = torch.empty(num_slots, f, max_bin, 3, device=dev)
     lib = _build.load("hist_leaves")
     rc = lib.hist_leaves_launch(
-        dev.index, comb.data_ptr(), c, nc, f, max_bin, grad.data_ptr(),
+        dev.index, comb.data_ptr(), c, nc, f, max_bin, esz, grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), block_leaf.data_ptr(), block_rows,
         num_slots, scratch.data_ptr(), out.data_ptr(), plan["fg"],
         plan["tile"], plan["threads"], grid_x, bpc, parts,

@@ -8,6 +8,13 @@
 // >= B match nothing and are dropped; a row whose three values are all
 // exactly zero adds nothing and is skipped (a NaN is not zero).
 //
+// Bins are u8 or u16 (the template parameter T of the kernels, esz =
+// sizeof(T) bytes a bin): a row of the matrix is `stride` bins, and the
+// staging below counts bytes, so a u16 row of stride bins is 2 * stride
+// bytes and may start at any even offset in its 16-byte piece.  B may be
+// up to the widest EFB bundle (4,096 bins): the plan narrows the feature
+// group until the group's histogram fits (1 feature a CTA at B = 4,096).
+//
 // The design (each point answers what bounded the earlier kernel, which
 // added every (row, feature) into shared memory with three float64
 // atomicAdds -- compare-and-swap loops on this card -- re-read every row
@@ -90,34 +97,37 @@ __host__ __device__ inline long long hist_bytes(int fg, int B) {
 __host__ __device__ inline long long mask_bytes(int warps, int B) {
   return round16(4LL * warps * B);
 }
-// The bytes of the 16-byte pieces that hold fg bytes starting anywhere.
-__host__ __device__ inline int row_pitch(int fg) {
-  return 16 * ((fg + 30) / 16);
+// The bytes of the 16-byte pieces that hold fgb bytes starting anywhere.
+__host__ __device__ inline int row_pitch(int fgb) {
+  return 16 * ((fgb + 30) / 16);
 }
-// How a tile's bins are staged: as one span of the [rows, stride] matrix
-// (0) where a row is no wider than its own pieces, else row by row at
-// this pitch.
-__host__ __device__ inline int stage_pitch(long long stride, int fg) {
-  return stride > row_pitch(fg) ? row_pitch(fg) : 0;
+// How a tile's bins are staged: as one span of the [rows, stride_b]
+// matrix (0) where a row is no wider than its own pieces, else row by row
+// at this pitch.  stride_b and fgb are bytes: a row's, and the group's
+// columns'.
+__host__ __device__ inline int stage_pitch(long long stride_b, int fgb) {
+  return stride_b > row_pitch(fgb) ? row_pitch(fgb) : 0;
 }
 __host__ __device__ inline int val_span(int tile) {
   return (int)round16(4LL * tile) + 32;
 }
-__host__ __device__ inline long long bin_region(int tile, long long stride,
-                                                int fg) {
-  const int pitch = stage_pitch(stride, fg);
+__host__ __device__ inline long long bin_region(int tile, long long stride_b,
+                                                int fgb) {
+  const int pitch = stage_pitch(stride_b, fgb);
   return pitch ? (long long)tile * pitch
-               : round16((long long)(tile - 1) * stride + fg) + 32;
+               : round16((long long)(tile - 1) * stride_b + fgb) + 32;
 }
 // warps of a CTA over fg features: one a feature, up to 32
 __host__ __device__ inline int warps_for(int fg) {
   const int per_warp = (fg + 31) / 32;
   return (fg + per_warp - 1) / per_warp;
 }
+// Over fg features of B bins, tiles of `tile` rows of `stride` bins of
+// esz bytes.
 __host__ __device__ inline long long smem_bytes(int fg, int B, int tile,
-                                                long long stride) {
+                                                long long stride, int esz) {
   return hist_bytes(fg, B) + mask_bytes(warps_for(fg), B) +
-         2LL * (bin_region(tile, stride, fg) + 3 * val_span(tile));
+         2LL * (bin_region(tile, stride * esz, fg * esz) + 3 * val_span(tile));
 }
 
 // ---------------------------------------------------------------------------
@@ -151,26 +161,27 @@ __device__ __forceinline__ void stage_span(uint8_t* dst, const void* src,
     cp_async16(dst + 16 * i, reinterpret_cast<const void*>(a0 + 16 * i));
 }
 
-// The same, row by row: the fg bytes from each of nrows rows `stride`
+// The same, row by row: the fgb bytes from each of nrows rows `stride`
 // bytes apart, row r's pieces at dst + r * pitch.
 __device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* src,
                                           long long stride, int nrows,
-                                          int fg, int pitch) {
+                                          int fgb, int pitch) {
   const int per = pitch >> 4;
   for (int i = threadIdx.x; i < nrows * per; i += blockDim.x) {
     const int r = i / per, j = i - r * per;
     const uintptr_t a = reinterpret_cast<uintptr_t>(src + r * stride);
     const uintptr_t p = (a & ~(uintptr_t)15) + 16 * j;
-    if (p < a + fg)
+    if (p < a + fgb)
       cp_async16(dst + r * pitch + 16 * j, reinterpret_cast<const void*>(p));
   }
 }
 
 // The rows of device memory a CTA reads: the bin matrix (rows of `stride`
-// bytes) and g, h, m.
+// bytes, bins of esz bytes) and g, h, m.
 struct Rows {
   const uint8_t* bins;
   long long stride;
+  int esz;
   const float* g;
   const float* h;
   const float* m;
@@ -182,18 +193,19 @@ struct Stage {
   int tile, pitch, bin_region, val_region;
 };
 
-__host__ __device__ inline Stage stage_of(int tile, long long stride,
-                                          int fg) {
-  return Stage{tile, stage_pitch(stride, fg),
-               (int)bin_region(tile, stride, fg), val_span(tile)};
+__host__ __device__ inline Stage stage_of(int tile, long long stride_b,
+                                          int fgb) {
+  return Stage{tile, stage_pitch(stride_b, fgb),
+               (int)bin_region(tile, stride_b, fgb), val_span(tile)};
 }
 
-// A staged tile: row r's bin of the group's feature f at bins[at(r) + f],
-// its values at g[r], h[r], m[r].
+// A staged tile: row r's bins of the group's columns start at byte
+// bins[at(r)] (an address aligned for the bin type), its values at g[r],
+// h[r], m[r].
 struct Tile {
   const uint8_t* bins;
   uint32_t lo;      // row 0's offset in its first piece
-  uint32_t stride;  // of the matrix
+  uint32_t stride;  // of the matrix, in bytes
   uint32_t pitch;   // of the staged rows, 0 for one span
   const float* g;
   const float* h;
@@ -213,11 +225,12 @@ __device__ __forceinline__ uint8_t* value_at(uint8_t* dst, const void* src) {
 __device__ __forceinline__ void stage_tile(uint8_t* buf, const Stage& st,
                                            const Rows& src, long long r0,
                                            int nrows, int f0, int fg) {
-  const uint8_t* b = src.bins + r0 * src.stride + f0;
+  const uint8_t* b = src.bins + r0 * src.stride + (long long)f0 * src.esz;
+  const int fgb = fg * src.esz;
   if (st.pitch)
-    stage_rows(buf, b, src.stride, nrows, fg, st.pitch);
+    stage_rows(buf, b, src.stride, nrows, fgb, st.pitch);
   else
-    stage_span(buf, b, (long long)(nrows - 1) * src.stride + fg);
+    stage_span(buf, b, (long long)(nrows - 1) * src.stride + fgb);
   uint8_t* vb = buf + st.bin_region;
   stage_span(vb, src.g + r0, 4LL * nrows);
   stage_span(vb + st.val_region, src.h + r0, 4LL * nrows);
@@ -229,8 +242,8 @@ __device__ __forceinline__ void stage_tile(uint8_t* buf, const Stage& st,
 __device__ __forceinline__ Tile tile_at(uint8_t* buf, const Stage& st,
                                         const Rows& src, long long r0,
                                         int f0) {
-  const uintptr_t b = reinterpret_cast<uintptr_t>(src.bins + r0 * src.stride
-                                                  + f0);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(
+      src.bins + r0 * src.stride + (long long)f0 * src.esz);
   uint8_t* vb = buf + st.bin_region;
   return Tile{buf, (uint32_t)(b & 15), (uint32_t)src.stride,
               (uint32_t)st.pitch,
@@ -302,10 +315,12 @@ __device__ __forceinline__ bool load_row(const Tile& t, int r, int nrows,
   return r < nrows && !(v.w == 0.f && v.gw == 0.f && v.hw == 0.f);
 }
 
-// Rows [0, nrows) of a staged tile into the CTA's histogram hist
-// [fg][B][3]: warp `warp` of nw adds features warp, warp + nw, ... (see
-// the top), the row's float64 values widened once for all of them; wm is
-// the warp's B words for group_peers.
+// Rows [0, nrows) of a staged tile of T bins into the CTA's histogram
+// hist [fg][B][3]: warp `warp` of nw adds features warp, warp + nw, ...
+// (see the top), the row's float64 values widened once for all of them;
+// wm is the warp's B words for group_peers.  A bin >= B (a u16 bin may
+// reach 65,535) takes no word and adds nothing.
+template <typename T>
 __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
                                                 const Tile& t, int nrows,
                                                 int fg, int B, int lane,
@@ -320,7 +335,9 @@ __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
       next_live = load_row(t, base + 32 + lane, nrows, next);
     const double g64 = cur.gw, h64 = cur.hw, w64 = cur.w;
     for (int f = warp; f < fg; f += nw) {
-      const uint32_t b = live ? t.bins[cur.at + f] : kNoBin;
+      const uint32_t b =
+          live ? (uint32_t)reinterpret_cast<const T*>(t.bins + cur.at)[f]
+               : kNoBin;
       const uint32_t key = b < (uint32_t)B ? b : kNoBin;
       const uint32_t peers = group_peers(wm, key, below);
       const bool lead = key != kNoBin && (peers & below) == 0;
@@ -348,6 +365,7 @@ __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
 // Rows [r0, r1) of src, columns [f0, f0 + fg), into hist: tiles through
 // two staging buffers, the next tile copied while one is added, one
 // barrier a tile.  Every thread of the CTA calls it.
+template <typename T>
 __device__ __forceinline__ void accumulate_rows(double* hist, uint32_t* wm,
                                                 uint8_t* stage,
                                                 const Stage& st,
@@ -374,7 +392,7 @@ __device__ __forceinline__ void accumulate_rows(double* hist, uint32_t* wm,
       cp_commit();
     }
     const long long ri = r0 + (long long)i * st.tile;
-    accumulate_tile(hist, wm, tile_at(stage + (i & 1) * sb, st, src, ri, f0),
+    accumulate_tile<T>(hist, wm, tile_at(stage + (i & 1) * sb, st, src, ri, f0),
                     rows_of(i), fg, B, lane, warp, nw);
   }
 }
@@ -466,25 +484,28 @@ namespace lgbt {
 // ---------------------------------------------------------------------------
 
 // The most rows (down to min_tile) a tile may take with g features
-// of B bins in rows of `stride` bytes, or 0 when none fits kSmemMax.
-static inline int fit_tile(int g, int B, long long stride, int min_tile) {
+// of B bins in rows of `stride` bins of esz bytes, or 0 when none fits
+// kSmemMax.
+static inline int fit_tile(int g, int B, long long stride, int esz,
+                           int min_tile) {
   for (int t = kMaxTile; t >= min_tile; t -= (t > 32 ? 32 : 1))
-    if (smem_bytes(g, B, t, stride) <= kSmemMax) return t;
+    if (smem_bytes(g, B, t, stride, esz) <= kSmemMax) return t;
   return 0;
 }
 
 // Feature group and tile rows of a launch over f features of B bins in
-// rows of `stride` bytes: the most features a CTA (warps_for) whose
-// histogram, lane words and two staging buffers fit kSmemMax with tiles
-// of at least kMinTile rows, each tile as large as then fits, so a wide
-// matrix takes narrower groups, not smaller tiles.  Returns false when
-// not even one feature fits.
-static inline bool plan_geometry(int f, int B, long long stride, int* fg,
-                                 int* tile) {
+// rows of `stride` bins of esz bytes: the most features a CTA (warps_for)
+// whose histogram, lane words and two staging buffers fit kSmemMax with
+// tiles of at least kMinTile rows, each tile as large as then fits, so a
+// wide matrix or a wide bin range takes narrower groups, not smaller
+// tiles (at B = 4,096 one feature's histogram and words take 112 KB: one
+// feature a CTA).  Returns false when not even one feature fits.
+static inline bool plan_geometry(int f, int B, long long stride, int esz,
+                                 int* fg, int* tile) {
   const int min_tiles[2] = {kMinTile, 1};
   for (int min_tile : min_tiles)
     for (int g = f; g >= 1; --g)
-      if ((*tile = fit_tile(g, B, stride, min_tile)) > 0) {
+      if ((*tile = fit_tile(g, B, stride, esz, min_tile)) > 0) {
         *fg = g;
         return true;
       }
@@ -517,22 +538,24 @@ static inline cudaError_t allow_smem(K kern, int device, int smem) {
 // out[0..8]: fg, tile, threads, dynamic shared bytes, CTAs an SM, SMs,
 // registers a thread, static shared bytes, spilled bytes a thread.  They
 // depend on the shape only (not on the rows), so a caller asks once per
-// shape and splits its rows over ctas_per_sm * SMs itself.
+// shape and splits its rows over ctas_per_sm * SMs itself.  `stride` is
+// in bins of esz bytes.
 template <typename K>
 static inline cudaError_t plan_launch(K kern, int device, long long stride,
-                                      int f, int B, int* out) {
+                                      int f, int B, int esz, int* out) {
   int fg, tile;
-  if (!plan_geometry(f, B, stride, &fg, &tile)) return cudaErrorInvalidValue;
+  if (!plan_geometry(f, B, stride, esz, &fg, &tile))
+    return cudaErrorInvalidValue;
   int per_sm = 0, sms = 0;
   cudaError_t e =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
   for (int pass = 0; pass < 2; ++pass) {
-    e = allow_smem(kern, device, (int)smem_bytes(fg, B, tile, stride));
+    const int smem = (int)smem_bytes(fg, B, tile, stride, esz);
+    e = allow_smem(kern, device, smem);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kern, 32 * warps_for(fg), (int)smem_bytes(fg, B, tile,
-                                                          stride));
+        &per_sm, kern, 32 * warps_for(fg), smem);
     if (e != cudaSuccess) return e;
     // Groups that leave over a quarter of the card idle in their last
     // wave (67 groups of 30 features on 132 SMs fill 51%): take the
@@ -543,7 +566,7 @@ static inline cudaError_t plan_launch(K kern, int device, long long stride,
     while (g >= (fg + 1) / 2 && wave_share((f + g - 1) / g, slots) < 0.9) --g;
     if (g < (fg + 1) / 2) break;
     fg = g;
-    tile = fit_tile(fg, B, stride, 1);
+    tile = fit_tile(fg, B, stride, esz, 1);
   }
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kern);
@@ -551,7 +574,7 @@ static inline cudaError_t plan_launch(K kern, int device, long long stride,
   out[0] = fg;
   out[1] = tile;
   out[2] = 32 * warps_for(fg);
-  out[3] = (int)smem_bytes(fg, B, tile, stride);
+  out[3] = (int)smem_bytes(fg, B, tile, stride, esz);
   out[4] = per_sm;
   out[5] = sms;
   out[6] = a.numRegs;

@@ -18,13 +18,14 @@
 // block_leaf need not be sorted; a block whose slot is outside [0, k) is
 // dropped, as in the Pallas kernel's `where`.  A slot no block names is
 // zero, and a NaN stays in the (slot, feature, bin) entries of the row
-// that carried it.  Only the first `f` columns of each `stride`-byte row
-// are read (the rest are packed g/h/w bytes).
+// that carried it.  comb holds u8 or u16 bins (the template parameter T);
+// only the first `f` columns of each `stride`-bin row are read (the rest
+// are the packed g/h/w columns: 12 u8 or 6 u16).
 //
-// Bound on an H100: C * f bytes of bins, 12 * C bytes of (g, h, m) and
-// 4 * C / BR bytes of block_leaf read once, k * F * B * 12 bytes written:
-// the byte bound is about (f + 12) * C / 3.35 TB/s (0.0035 ms at C =
-// 262,144, f = 28, k = 16).  The update's shared-memory floor is 48 bytes
+// Bound on an H100: C * f * esz bytes of bins (esz = 1 for u8, 2 for
+// u16), 12 * C bytes of (g, h, m) and 4 * C / BR bytes of block_leaf read
+// once, k * F * B * 12 bytes written: the byte bound is about (f * esz +
+// 12) * C / 3.35 TB/s (0.0035 ms at C = 262,144, f = 28 u8, k = 16).  The update's shared-memory floor is 48 bytes
 // per (row, feature) at 128 bytes a clock an SM (about 0.011 ms there).
 // Each partial adds 2 * F * B * 24 bytes of device-memory traffic.
 #include "hist_common.cuh"
@@ -38,8 +39,10 @@ __device__ __forceinline__ bool named_before(const int32_t* block_leaf,
   return false;
 }
 
+// T: the bin type (uint8_t or uint16_t); stride in bins.
+template <typename T>
 __global__ void __launch_bounds__(1024)
-    hist_leaves_kernel(const uint8_t* __restrict__ comb, long long c,
+    hist_leaves_kernel(const T* __restrict__ comb, long long c,
                        long long stride, int f, int B,
                        const float* __restrict__ g,
                        const float* __restrict__ h,
@@ -52,11 +55,13 @@ __global__ void __launch_bounds__(1024)
   const int f0 = blockIdx.y * fg;
   const int fgc = min(fg, f - f0);
   const lgbt::Smem sm = lgbt::carve(smem, fgc, B);
-  const lgbt::Stage st = lgbt::stage_of(tile, stride, fg);
+  const int esz = (int)sizeof(T);
+  const lgbt::Stage st = lgbt::stage_of(tile, stride * esz, fg * esz);
   const int nb = (int)(c / br);
   const int b0 = blockIdx.x * bpc;
   const int b1 = min(nb, b0 + bpc);
-  const lgbt::Rows src{comb, stride, g, h, m};
+  const lgbt::Rows src{reinterpret_cast<const uint8_t*>(comb), stride * esz,
+                        esz, g, h, m};
   int j = 0;
   for (int first = b0; first < b1; ++first) {
     const int slot = block_leaf[first];
@@ -71,7 +76,7 @@ __global__ void __launch_bounds__(1024)
       }
       int end = blk + 1;
       while (end < b1 && block_leaf[end] == slot) ++end;
-      lgbt::accumulate_rows(sm.hist, sm.words, sm.stage, st, src,
+      lgbt::accumulate_rows<T>(sm.hist, sm.words, sm.stage, st, src,
                             (long long)blk * br, (long long)end * br, f0,
                             fgc, B);
       blk = end;
@@ -88,22 +93,48 @@ __global__ void __launch_bounds__(1024)
       pslot[(long long)blockIdx.x * parts + r] = -1;
 }
 
-// The launch plan of a shape (lgbt::plan_launch's nine values).
+// The launch plan of a shape (lgbt::plan_launch's nine values); esz is
+// the bin type's size (1: u8, 2: u16).
 extern "C" int hist_leaves_plan(int device, long long stride, int f, int B,
-                                int* out) {
+                                int esz, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  return (int)lgbt::plan_launch(hist_leaves_kernel, device, stride, f, B,
-                                out);
+  if (esz == 1)
+    return (int)lgbt::plan_launch(hist_leaves_kernel<uint8_t>, device,
+                                  stride, f, B, 1, out);
+  if (esz == 2)
+    return (int)lgbt::plan_launch(hist_leaves_kernel<uint16_t>, device,
+                                  stride, f, B, 2, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static cudaError_t launch_leaves(int device, const void* comb, long long c,
+                                 long long stride, int f, int B,
+                                 const void* g, const void* h, const void* m,
+                                 const void* block_leaf, int br, int k,
+                                 double* partial, int32_t* pslot, int fg,
+                                 int tile, int threads, int grid_x, int bpc,
+                                 int parts, cudaStream_t s) {
+  const int smem = (int)lgbt::smem_bytes(fg, B, tile, stride, sizeof(T));
+  cudaError_t e = lgbt::allow_smem(hist_leaves_kernel<T>, device, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(grid_x, (f + fg - 1) / fg);
+  hist_leaves_kernel<T><<<grid, threads, smem, s>>>(
+      (const T*)comb, c, stride, f, B, (const float*)g, (const float*)h,
+      (const float*)m, (const int32_t*)block_leaf, br, k, partial, pslot, fg,
+      tile, bpc, parts);
+  return cudaGetLastError();
 }
 
 // The main kernel over grid_x CTAs (bpc blocks each) and the feature
 // groups, then the reduce pass over its grid_x * parts partials into out
 // ([k, f, B, 3] float32).  parts >= min(bpc, k); scratch holds the
 // partials ([grid_x * parts, f, B, 3] float64), then their slots (int32
-// each).
+// each).  comb holds u8 (esz 1) or u16 (esz 2) values, rows of `stride`
+// bins.
 extern "C" int hist_leaves_launch(int device, const void* comb, long long c,
-                                  long long stride, int f, int B,
+                                  long long stride, int f, int B, int esz,
                                   const void* g, const void* h, const void* m,
                                   const void* block_leaf, int br, int k,
                                   void* scratch, void* out, int fg, int tile,
@@ -112,19 +143,20 @@ extern "C" int hist_leaves_launch(int device, const void* comb, long long c,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (parts < (bpc < k ? bpc : k)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)lgbt::smem_bytes(fg, B, tile, stride);
-  e = lgbt::allow_smem(hist_leaves_kernel, device, smem);
-  if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(grid_x, (f + fg - 1) / fg);
   const long long E = (long long)f * B * 3;
   double* partial = (double*)scratch;
   int32_t* pslot = (int32_t*)(partial + (long long)grid_x * parts * E);
-  hist_leaves_kernel<<<grid, threads, smem, s>>>(
-      (const uint8_t*)comb, c, stride, f, B, (const float*)g,
-      (const float*)h, (const float*)m, (const int32_t*)block_leaf, br, k,
-      partial, pslot, fg, tile, bpc, parts);
-  e = cudaGetLastError();
+  if (esz == 1)
+    e = launch_leaves<uint8_t>(device, comb, c, stride, f, B, g, h, m,
+                               block_leaf, br, k, partial, pslot, fg, tile,
+                               threads, grid_x, bpc, parts, s);
+  else if (esz == 2)
+    e = launch_leaves<uint16_t>(device, comb, c, stride, f, B, g, h, m,
+                                block_leaf, br, k, partial, pslot, fg, tile,
+                                threads, grid_x, bpc, parts, s);
+  else
+    e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   return (int)lgbt::launch_reduce(partial, pslot, grid_x * parts, E, k,
                                   (float*)out, s);

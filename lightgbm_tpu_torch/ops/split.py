@@ -1,6 +1,6 @@
-"""Best-split search over histograms, numerical features.
+"""Best-split search over histograms.
 
-Port of the numerical path of the JAX package's ``ops/split.py``
+Port of the JAX package's ``ops/split.py``
 (``find_best_split``): vectorized cumulative sums over the whole ``[F, B]``
 histogram, both missing-value directions evaluated as two cumsum variants,
 leaf output / gain closed forms with L1, L2, ``max_delta_step`` and path
@@ -8,15 +8,17 @@ smoothing, and the ``min_data_in_leaf`` / ``min_sum_hessian_in_leaf`` /
 ``min_gain_to_split`` gates; monotone-basic (candidates whose child outputs
 violate the feature's direction are rejected, leaf outputs clamped to the
 leaf's bounds), extra-trees (one random threshold per feature) and the
-monotone split penalty (``gain_mult``).  The arithmetic runs in float32 in
-the same order as the JAX code, so both packages pick the same split
-wherever the best gain is not a near-tie.
+monotone split penalty (``gain_mult``); categorical features by one-hot
+splits (``bin == t`` goes left, up to ``max_cat_to_onehot`` bins) and by the
+sorted many-category scan (``_sorted_cat_best``: bins ordered by
+``sum_g / (sum_h + cat_smooth)``, prefixes from both ends), each split
+carrying the bitset of the bins that go left.  The arithmetic runs in
+float32 in the same order as the JAX code, so both packages pick the same
+split wherever the best gain is not a near-tie.
 
 Everything is batched over a leading dimension: ``hist [S, F, B, 3]`` and
 totals ``[S]`` give an ``[S]``-batched ``SplitResult`` (the frontier's 2k
 child searches in one call; the JAX package ``vmap``s the same function).
-
-The categorical paths (one-hot and sorted many-category) are not ported.
 """
 from __future__ import annotations
 
@@ -65,6 +67,32 @@ class SplitResult(NamedTuple):
 def cat_words(b: int) -> int:
     """Bitset words needed for ``b`` bins."""
     return max(1, -(-b // 32))
+
+
+def pack_bin_bitset(member: torch.Tensor) -> torch.Tensor:
+    """Pack a ``[..., B]`` membership mask into ``[..., ceil(B/32)]``
+    int32 words (bit ``b % 32`` of word ``b // 32``)."""
+    b = member.shape[-1]
+    cw = cat_words(b)
+    pad = cw * 32 - b
+    if pad:
+        member = torch.nn.functional.pad(member, (0, pad))
+    m = member.reshape(member.shape[:-1] + (cw, 32)).long()
+    shifts = torch.arange(32, dtype=torch.int64, device=member.device)
+    packed = (m << shifts).sum(-1)                       # < 2**32
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32,
+                       packed).to(torch.int32)
+
+
+def bitset_contains(bits: torch.Tensor, idx: torch.Tensor,
+                    which: torch.Tensor = None) -> torch.Tensor:
+    """Whether bit ``idx`` is set, per entry of ``idx`` (int64, >= 0): in
+    the bitset ``bits [CW]`` (int32 words), or with ``which`` in bitset
+    ``which`` of ``bits [K, CW]`` (a word past the last reads the last, as
+    the JAX version's clipped ``take``)."""
+    w = torch.clamp(idx >> 5, max=bits.shape[-1] - 1)
+    word = bits.long()[w] if which is None else bits.long()[which, w]
+    return ((word >> (idx & 31)) & 1) == 1
 
 
 def threshold_l1(s, l1):
@@ -131,14 +159,123 @@ def _per_leaf(v, dev):
     return v, v
 
 
+def _sorted_cat_best(hist, num_bins, cat_feats, mono, total, p: SplitParams,
+                     fmask, lo, hi):
+    """The sorted many-category scan (the JAX ``_sorted_cat_best``,
+    reference ``FindBestThresholdCategoricalInner`` sorted branch,
+    feature_histogram.hpp:378-474) over the categorical features
+    ``cat_feats [Fc]`` of every leaf: bins with at least ``cat_smooth``
+    rows sorted by ``sum_g / (sum_h + cat_smooth)``, prefixes of up to
+    ``min(max_cat_threshold, (used + 1) / 2)`` bins from both ends as the
+    left set, ``min_data_per_group`` gating the prefixes.
+
+    ``hist [S, F, B, 3]``, ``total [S, 3]``, ``fmask [S, F]``, ``mono
+    [F]`` or None, ``lo``/``hi`` floats or ``[S]``.  Returns ``(gain [S,
+    F], bits [S, F, CW], left [S, F, 3])``; features outside ``cat_feats``
+    (or not wider than ``max_cat_to_onehot``) have gain ``NEG_INF``."""
+    s_, f, b, _ = hist.shape
+    dev = hist.device
+    cw = cat_words(b)
+    gain_out = torch.full((s_, f), NEG_INF, dtype=torch.float32, device=dev)
+    bits_out = torch.zeros(s_, f, cw, dtype=torch.int32, device=dev)
+    left_out = torch.zeros(s_, f, 3, dtype=torch.float32, device=dev)
+    if cat_feats.numel() == 0:
+        return gain_out, bits_out, left_out
+    maxT = max(1, min(p.max_cat_threshold, b))
+    hc = hist[:, cat_feats]                                      # [S, Fc, B, 3]
+    g, h, c = hc[..., 0], hc[..., 1], hc[..., 2]
+    nb = num_bins[cat_feats].to(torch.int64)                     # [Fc]
+    bin_ids = torch.arange(b, device=dev)[None, None, :]
+    active = ((nb > p.max_cat_to_onehot)[None, :]
+              & (fmask[:, cat_feats] > 0))                       # [S, Fc]
+    elig = ((c >= p.cat_smooth) & (bin_ids >= 1)
+            & (bin_ids < nb[None, :, None]))                     # [S, Fc, B]
+    used_bin = elig.sum(-1)                                      # [S, Fc]
+    max_num_cat = torch.clamp((used_bin + 1) // 2, max=p.max_cat_threshold)
+    inf = torch.tensor(float("inf"), device=dev)
+    score = torch.where(elig, g / (h + p.cat_smooth), inf)
+    p_eff = p._replace(lambda_l2=p.lambda_l2 + p.cat_l2)
+    mono_c = (mono.to(dev)[cat_feats][None, :] if mono is not None
+              else torch.zeros(1, cat_feats.numel(), dtype=torch.int8,
+                               device=dev))
+    lo2 = lo[:, None] if isinstance(lo, torch.Tensor) else lo
+    hi2 = hi[:, None] if isinstance(hi, torch.Tensor) else hi
+    tg, th, tc = (total[:, i:i + 1] for i in range(3))           # [S, 1]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    nc = cat_feats.numel()
+
+    def scan_dir(order_score):
+        idx = torch.sort(order_score, dim=-1, stable=True).indices  # [S, Fc, B]
+
+        def tk(a):
+            return torch.gather(torch.where(elig, a, zero), -1, idx)
+        # every prefix length at once: left sums [S, Fc, T] of the first
+        # i + 1 sorted bins, T = min(maxT, B)
+        lg = torch.cumsum(tk(g), -1)[..., :maxT]
+        lh = torch.cumsum(tk(h), -1)[..., :maxT] + 1e-15          # kEpsilon
+        lc = torch.cumsum(tk(c), -1)[..., :maxT]
+        sc_step = tk(c)[..., :maxT]
+        T = lg.shape[-1]
+        rg, rh, rc = tg[..., None] - lg, th[..., None] - lh, tc[..., None] - lc
+        in_range = (torch.arange(T, device=dev)
+                    < torch.minimum(used_bin, max_num_cat)[..., None])
+        gate1 = (lc >= p.min_data_in_leaf) & (lh >= p.min_sum_hessian_in_leaf)
+        nobrk = ((rc >= p.min_data_in_leaf) & (rc >= p.min_data_per_group)
+                 & (rh >= p.min_sum_hessian_in_leaf))
+        ok = in_range & gate1 & nobrk
+        # the one sequential part: the group count since the last taken
+        # prefix (min_data_per_group), reset where a prefix is taken
+        cnt_grp = torch.zeros_like(tg.expand(s_, nc))
+        taken = []
+        for i in range(T):
+            cnt_grp = cnt_grp + sc_step[..., i]
+            t_i = ok[..., i] & (cnt_grp >= p.min_data_per_group)
+            cnt_grp = torch.where(t_i, zero, cnt_grp)
+            taken.append(t_i)
+        considered = active[..., None] & torch.stack(taken, -1)
+        lo3, hi3 = lo2, hi2
+        if isinstance(lo2, torch.Tensor):
+            lo3, hi3 = lo2[..., None], hi2[..., None]
+        lo_out = leaf_output(lg, lh, p_eff, 0.0, lc, lo3, hi3)
+        ro_out = leaf_output(rg, rh, p_eff, 0.0, rc, lo3, hi3)
+        mono3 = mono_c[..., None]
+        bad = (((mono3 > 0) & (lo_out > ro_out))
+               | ((mono3 < 0) & (lo_out < ro_out)))
+        raw = (leaf_gain(lg, lh, p_eff, 0.0, lc, lo3, hi3)
+               + leaf_gain(rg, rh, p_eff, 0.0, rc, lo3, hi3))
+        gain = torch.where(considered & ~bad, raw,
+                           torch.full_like(raw, NEG_INF))
+        # the first prefix of the largest gain (the sequential scan keeps
+        # a strictly better one); none: NEG_INF at prefix 0
+        best_i = torch.argmax(gain, -1)
+        best_gain = torch.gather(gain, -1, best_i[..., None])[..., 0]
+        return best_gain, best_i, idx
+
+    g_asc, i_asc, idx_asc = scan_dir(score)
+    g_dsc, i_dsc, idx_dsc = scan_dir(torch.where(elig, -score, inf))
+    use_dsc = g_dsc > g_asc
+    best_gain = torch.where(use_dsc, g_dsc, g_asc)
+    best_i = torch.where(use_dsc, i_dsc, i_asc)
+    idx = torch.where(use_dsc[..., None], idx_dsc, idx_asc)
+    memb_sorted = bin_ids <= best_i[..., None]                   # [S, Fc, B]
+    memb = torch.zeros_like(memb_sorted).scatter_(-1, idx, memb_sorted)
+    left = torch.where(memb[..., None], hc, zero).sum(2)         # [S, Fc, 3]
+    gain_out[:, cat_feats] = best_gain
+    bits_out[:, cat_feats] = pack_bin_bitset(memb)
+    left_out[:, cat_feats] = left
+    return gain_out, bits_out, left_out
+
+
 def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                     nan_bins: torch.Tensor, sum_g, sum_h, count,
                     p: SplitParams, feature_mask: torch.Tensor,
                     output_lo=NEG_INF, output_hi=POS_INF,
                     monotone: torch.Tensor = None,
                     rand_threshold: torch.Tensor = None,
-                    gain_mult: torch.Tensor = None) -> SplitResult:
-    """Best numerical split of each leaf of a batch.
+                    gain_mult: torch.Tensor = None,
+                    is_categorical: torch.Tensor = None,
+                    sorted_cat: torch.Tensor = None) -> SplitResult:
+    """Best split of each leaf of a batch.
 
     Args:
       hist: ``[S, F, B, 3]`` (grad, hess, count) histograms.
@@ -152,6 +289,12 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
       rand_threshold: ``[S, F]`` extra-trees threshold per feature (the
         only one each feature offers), or None.
       gain_mult: ``[S, F]`` monotone split penalty factors, or None.
+      is_categorical: ``[F]`` bool (None: every feature numerical); a
+        categorical feature offers the one-hot splits ``bin == t`` when it
+        has at most ``max_cat_to_onehot`` bins.
+      sorted_cat: ``[Fc]`` int64, the categorical features that take the
+        sorted many-category scan (more than ``max_cat_to_onehot`` bins),
+        or None when there are none (the JAX ``sorted_cat`` static).
     Returns an ``[S]``-batched ``SplitResult``.
     """
     s_, f, b, _ = hist.shape
@@ -193,21 +336,46 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     gain_l = torch.where(has_miss[None, :, None], gain_l, gain_r)
     use_left = gain_l > gain_r
     gain_fb = torch.where(use_left, gain_l, gain_r)                    # [S, F, B]
+    p_cat = p._replace(lambda_l2=p.lambda_l2 + p.cat_l2)
+    if is_categorical is not None:
+        # one-hot: left = (bin == t) for features of at most
+        # max_cat_to_onehot bins; bin 0 (the unseen/other/NaN catch-all)
+        # is never a left set
+        is_cat = is_categorical.to(dev)
+        cat_valid = ((bin_ids >= 1) & (bin_ids < num_bins[:, None])
+                     & (num_bins[:, None] <= p.max_cat_to_onehot))
+        cat_gain = _gain_at(hist, tot4 - hist, p_cat, cat_valid, lo3, hi3,
+                            mono)
+        gain_fb = torch.where(is_cat[None, :, None], cat_gain, gain_fb)
     neg = torch.full_like(gain_fb, NEG_INF)
     if rand_threshold is not None:
-        # extra_trees: each feature offers exactly ONE random threshold
+        # extra_trees: each feature offers exactly ONE random threshold;
+        # categorical features keep the full scan
         keep = bin_ids[None] == rand_threshold.to(dev)[:, :, None]
+        if is_categorical is not None:
+            keep = keep | is_cat[None, :, None]
         gain_fb = torch.where(keep, gain_fb, neg)
     fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
     gain_fb = torch.where(fm[:, :, None] > 0, gain_fb, neg)
+    use_sc = sorted_cat is not None and sorted_cat.numel() > 0
+    if use_sc:
+        gain_sorted, bits_sorted, left_sorted = _sorted_cat_best(
+            hist, num_bins, sorted_cat.to(dev), monotone, total, p,
+            fm.expand(s_, f), output_lo, output_hi)
     if gain_mult is not None:
         # monotone split penalty, rebased around parent gain + min_gain so
         # that the reported improvement is the reference's scaled gain
         pivot = (leaf_gain(total[:, 0], total[:, 1], p, 0.0, total[:, 2],
-                           lo1, hi1) + p.min_gain_to_split)[:, None, None]
+                           lo1, hi1) + p.min_gain_to_split)[:, None]
         gain_fb = torch.where(gain_fb > NEG_INF / 2,
-                              pivot + (gain_fb - pivot) * gain_mult[:, :, None],
+                              pivot[..., None]
+                              + (gain_fb - pivot[..., None])
+                              * gain_mult[:, :, None],
                               gain_fb)
+        if use_sc:
+            gain_sorted = torch.where(
+                gain_sorted > NEG_INF / 2,
+                pivot + (gain_sorted - pivot) * gain_mult, gain_sorted)
 
     flat = gain_fb.reshape(s_, f * b)
     best_idx = torch.argmax(flat, dim=1)                               # [S]
@@ -220,11 +388,42 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     left = cum.reshape(s_, f * b, 3)[rows, best_idx]                   # [S, 3]
     left = left + torch.where(bf_missing_left[:, None],
                               miss[rows, best_f.long()], zero)
+    cat_bits = torch.zeros(s_, cat_words(b), dtype=torch.int32, device=dev)
+    if is_categorical is not None:
+        if use_sc:
+            # the sorted subsets compete per feature: the first feature of
+            # the largest sorted gain, where it beats the grid's best
+            sorted_f = torch.argmax(gain_sorted, dim=1)                # [S]
+            g_sf = gain_sorted[rows, sorted_f]
+            use_sorted = g_sf > best_gain
+            best_gain = torch.where(use_sorted, g_sf, best_gain)
+            best_f = torch.where(use_sorted, sorted_f.to(torch.int32), best_f)
+            best_t = torch.where(use_sorted, torch.zeros_like(best_t), best_t)
+        bf_cat = is_cat[best_f.long()]
+        bf_missing_left = bf_missing_left & ~bf_cat
+        onehot_bits = pack_bin_bitset(
+            torch.arange(b, device=dev)[None, :] == best_t[:, None].long())
+        cat_bits = torch.where(bf_cat[:, None], onehot_bits, cat_bits)
+        left_cat = hist.reshape(s_, f * b, 3)[rows, best_idx]
+        left = torch.where(bf_cat[:, None], left_cat, left)
+        if use_sc:
+            cat_bits = torch.where(use_sorted[:, None],
+                                   bits_sorted[rows, sorted_f], cat_bits)
+            left = torch.where(use_sorted[:, None],
+                               left_sorted[rows, sorted_f], left)
     right = total - left
     lo_out = leaf_output(left[:, 0], left[:, 1], p, 0.0, left[:, 2],
                          lo1, hi1)
     hi_out = leaf_output(right[:, 0], right[:, 1], p, 0.0, right[:, 2],
                          lo1, hi1)
+    if is_categorical is not None:
+        # categorical outputs take the categorical L2 (the reference's
+        # CalculateSplittedLeafOutput with l2 += cat_l2)
+        lo_out = torch.where(bf_cat, leaf_output(
+            left[:, 0], left[:, 1], p_cat, 0.0, left[:, 2], lo1, hi1), lo_out)
+        hi_out = torch.where(bf_cat, leaf_output(
+            right[:, 0], right[:, 1], p_cat, 0.0, right[:, 2], lo1, hi1),
+            hi_out)
 
     # parent gain baseline: reported gain is improvement over parent
     parent_gain = leaf_gain(total[:, 0], total[:, 1], p, 0.0, total[:, 2],
@@ -241,5 +440,5 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
         right_sum_g=right[:, 0], right_sum_h=right[:, 1],
         right_count=right[:, 2],
         left_output=lo_out, right_output=hi_out,
-        cat_bits=torch.zeros(s_, cat_words(b), dtype=torch.int32, device=dev),
+        cat_bits=cat_bits,
     )

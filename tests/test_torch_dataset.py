@@ -3,9 +3,9 @@
 The same numpy inputs (made from a seed) go through both packages' dense
 Dataset construction; the bin mappers must agree exactly (upper bounds,
 missing handling) and the bin matrix must be byte-identical, for training
-and validation data.  Paths the port has not taken yet (categorical
-features, EFB bundles, a u16 bin matrix) must raise, never run another
-path.
+and validation data.  Paths the port has not taken yet (data files,
+pandas categorical columns, out-of-core streaming, binary cache files,
+``Dataset.subset``) must raise, never run another path.
 """
 import numpy as np
 import pytest
@@ -86,17 +86,24 @@ def test_bin_mappers_from_state_round_trip():
 
 
 def test_untaken_paths_raise():
+    import pandas as pd
     X, y = _data(seed=1)
-    with pytest.raises(NotPortedError, match="categorical"):
-        lgt.Dataset(X, label=y, categorical_feature=[3]).construct(
+    with pytest.raises(NotPortedError, match="data files"):
+        lgt.Dataset("train.csv").construct(device="cpu")
+    df = pd.DataFrame({"a": X[:, 0], "c": pd.Categorical(
+        np.where(X[:, 3] > 0, "x", "y"))})
+    with pytest.raises(NotPortedError, match="pandas categorical"):
+        lgt.Dataset(df, label=y).construct(device="cpu")
+    with pytest.raises(NotPortedError, match="streaming"):
+        lgt.Dataset(X, label=y, params={"stream_rows": 1024}).construct(
             device="cpu")
+    with pytest.raises(NotPortedError, match="binary cache"):
+        lgt.Dataset(X, label=y, device="cpu").save_binary("train.bin")
+    with pytest.raises(NotPortedError, match="subset"):
+        lgt.Dataset(X, label=y).subset([0, 1, 2])
+    # mutually exclusive zero-heavy columns: both packages bundle them,
+    # and neither does when bundling is off
     rng = np.random.default_rng(0)
-    wide = rng.normal(size=(4000, 2))
-    with pytest.raises(NotPortedError, match="u16"):
-        lgt.Dataset(wide, label=y[:1] .repeat(4000),
-                    params={"max_bin": 400, "verbose": -1}).construct(
-            device="cpu")
-    # mutually exclusive zero-heavy columns: the JAX package bundles them
     n = 4000
     sparse = np.zeros((n, 6))
     for j in range(6):
@@ -105,9 +112,10 @@ def test_untaken_paths_raise():
     ys = (rng.random(n) < 0.5).astype(np.float32)
     dj = lgb.Dataset(sparse, label=ys, params={"verbose": -1}).construct()
     assert dj._inner.device_data().efb is not None
-    with pytest.raises(NotPortedError, match="EFB"):
-        lgt.Dataset(sparse, label=ys, params={"verbose": -1}).construct(
-            device="cpu")
+    dt = lgt.Dataset(sparse, label=ys, params={"verbose": -1}).construct(
+        device="cpu")
+    assert dt._inner.bundles == dj._inner.bundles
+    np.testing.assert_array_equal(dt._inner.bins, dj._inner.bins)
     dt = lgt.Dataset(sparse, label=ys,
                      params={"verbose": -1, "enable_bundle": False}
                      ).construct(device="cpu")

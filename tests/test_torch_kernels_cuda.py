@@ -892,3 +892,123 @@ def test_goss_top_k_on_the_card_equals_the_cpu(dev):
         cfg, torch.as_tensor(imp).to(dev), u.to(dev), k_top)
     assert torch.equal(m_card.cpu(), m_cpu)
     assert torch.equal(a_card.cpu(), a_cpu)
+
+
+# ---------------------------------------------------------------------------
+# u16 bins: the atomic kernels' uint16 instantiations
+# ---------------------------------------------------------------------------
+
+def _u16(rng, shape, hi, dev):
+    """u16 bins in [0, hi), a tenth of them raised to >= 40,000 (above any
+    B: dropped), as a CUDA uint16 tensor."""
+    b = rng.integers(0, hi, shape).astype(np.uint16)
+    high = rng.random(shape) < 0.1
+    b[high] = rng.integers(40_000, 65_536, int(high.sum()))
+    return torch.as_tensor(b).to(dev)
+
+
+# (n, f, ncols, B): B = 1,024 (max_bin=1023) at the main path's feature
+# count, the widest EFB bundle (B = 4,096: one feature a CTA) and a
+# bundle width at which a CTA holds two features (B = 3,072); rows of an
+# odd stride (2 * ncols bytes: rows 2-byte, not 16-byte, aligned)
+FULL_U16 = [(100_003, 28, 28, 1024), (30_001, 5, 7, 4096),
+            (30_001, 5, 5, 3072), (20_011, 13, 19, 1024)]
+
+
+@pytest.mark.parametrize("n,f,ncols,B", FULL_U16)
+def test_hist_full_u16_matches_plain(dev, n, f, ncols, B):
+    rng = np.random.default_rng(n + B)
+    bins = _u16(rng, (n, ncols), B + 100, dev)      # bins >= B present
+    g, h, m = _rows(rng, n, dev)
+    g[7] = float("nan")
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    before = thist.launch_counts["hist_full"]
+    got = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    again = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["hist_full"] == before + 2
+    assert got.shape == (f, B, 3)
+    _hold_atomic(got, again, ref)
+
+
+# (k, BR, nb, f, nc, B): the frontier's comb of u16 bins and 6 gh columns
+# (nc = f + 6) at B = 1,024 and 4,096, and an odd nc
+LEAVES_U16 = [(16, 512, 64, 28, 34, 1024), (16, 512, 40, 5, 11, 4096),
+              (8, 256, 50, 13, 19, 1024)]
+
+
+@pytest.mark.parametrize("k,BR,nb,f,nc,B", LEAVES_U16)
+def test_hist_leaves_u16_matches_plain(dev, k, BR, nb, f, nc, B):
+    rng = np.random.default_rng(nb * k + B)
+    C = nb * BR
+    comb = _u16(rng, (C, nc), B + 100, dev)
+    g, h, m = _rows(rng, C, dev)
+    bl = torch.as_tensor(_leaf_map(rng, "random", nb, k)).to(dev)
+    kw = dict(block_rows=BR, f_limit=f)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (k, f, B, 3)
+    _hold_atomic(got, again, ref)
+
+
+@pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
+def test_atomic_plan_narrows_groups_at_bundle_widths(dev, kernel):
+    """Wide bin ranges take narrow groups, not a refusal: one feature a CTA
+    at B = 4,096 (a feature's histogram and lane words are 112 KB), two at
+    B = 3,072, with tiles of at least 128 rows and no spill."""
+    for B, fg in ((4096, 1), (3072, 2)):
+        plan = thist.atomic_plan(kernel, dev, 66, 60, B, esz=2)
+        assert plan["fg"] == fg and plan["tile"] >= 128
+        assert plan["local_bytes"] == 0
+        assert plan["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
+
+
+def test_training_u16_and_efb_match_plain(dev):
+    """max_bin=1023 (u16 bins) and an EFB bundle matrix of u16 columns:
+    the trees grown through the kernels are those grown under
+    force_plain()."""
+    import scipy.sparse as sp
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(3)
+    n = 30_000
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] ** 2 > 0.5).astype(np.float32)
+    cats = rng.integers(0, 400, n)                   # a 400-level one-hot
+    Xs = sp.hstack([sp.csr_matrix((np.ones(n), (np.arange(n), cats)),
+                                  shape=(n, 400)), sp.csr_matrix(X)]).tocsr()
+    ys = ((cats % 7 < 3) ^ (X[:, 0] > 0)).astype(np.float32)
+    for data, label, params in (
+            (X, y, {"max_bin": 1023}), (Xs, ys, {})):
+        params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+                  **params}
+        ds = lgt.Dataset(data, label=label, params=params).construct(dev)
+        assert ds._inner.bins.dtype == np.uint16
+        thist.reset_launch_counts()
+        bk = lgt.train(params, ds, 3, verbose_eval=False, device="cuda")
+        assert thist.launch_counts["hist_full"] == 3
+        with thist.force_plain():
+            bp = lgt.train(params, ds, 3, verbose_eval=False, device="cuda")
+        for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
+            assert np.array_equal(tk.split_feature, tp.split_feature)
+            assert np.array_equal(tk.threshold, tp.threshold)
+
+
+def test_xendcg_draw_on_the_card_equals_the_cpu(dev):
+    """rank_xendcg's per-iteration [Q, L] uniforms are integer ops: the
+    card's are the CPU's bit for bit."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.objective.rank import RankXENDCG
+    rng = np.random.default_rng(11)
+    sizes = rng.integers(1, 300, 500)
+    md = Metadata(int(sizes.sum()))
+    md.set_field("label", rng.integers(0, 5, int(sizes.sum())))
+    md.set_field("group", sizes)
+    obj = RankXENDCG(Config.from_params({"objective": "rank_xendcg"}))
+    obj.init(md, int(sizes.sum()))
+    for it in (0, 3):
+        assert torch.equal(obj.draw(it, dev).cpu(), obj.draw(it, "cpu"))

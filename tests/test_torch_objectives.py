@@ -32,7 +32,7 @@ from lightgbm_tpu.io.dataset import Metadata as JMeta
 from lightgbm_tpu.metric import create_metric as jcreate_metric
 from lightgbm_tpu.objective import create_objective as jcreate_objective
 from lightgbm_tpu_torch.config import Config as TConfig
-from lightgbm_tpu_torch.device import NotPortedError
+from lightgbm_tpu_torch.utils.log import LightGBMError
 from lightgbm_tpu_torch.io.dataset import Metadata as TMeta
 from lightgbm_tpu_torch.metric import create_metric as tcreate_metric
 from lightgbm_tpu_torch.objective import create_objective as tcreate_objective
@@ -274,14 +274,21 @@ def test_metric_matches_jax(metric, weighted):
         assert a == pytest.approx(b, rel=1e-6, abs=1e-9)
 
 
-@pytest.mark.parametrize("params", [
-    {"objective": "lambdarank"}, {"objective": "rank_xendcg"},
-    {"metric": "ndcg"}, {"metric": "map"}])
-def test_ranking_raises(params):
+@pytest.mark.parametrize("params,msg", [
+    ({"objective": "lambdarank"}, "Ranking tasks require query"),
+    ({"objective": "rank_xendcg"}, "Ranking tasks require query"),
+    ({"metric": "ndcg"}, "NDCG metric requires query"),
+    ({"metric": "map"}, "MAP metric, there should be query")])
+def test_ranking_raises(params, msg):
+    """The ranking objectives and metrics without query groups raise the
+    JAX package's error (ranking itself: tests/test_torch_rank.py)."""
     X, y, _, _ = _data(5, n=800)
-    with pytest.raises(NotPortedError):
-        lgt.train({"num_leaves": 7, "verbose": -1, **params},
-                  lgt.Dataset(X, label=y), 1, verbose_eval=False,
+    y = np.floor(np.abs(y) * 3)
+    params = {"num_leaves": 7, "verbose": -1, **params}
+    with pytest.raises(lgb.basic.LightGBMError, match=msg):
+        lgb.train(params, lgb.Dataset(X, label=y), 1, verbose_eval=False)
+    with pytest.raises(LightGBMError, match=msg):
+        lgt.train(params, lgt.Dataset(X, label=y), 1, verbose_eval=False,
                   device="cpu")
 
 

@@ -211,7 +211,7 @@ def test_device_none_means_cuda():
 
 
 @pytest.mark.parametrize("params", [
-    {"objective": "lambdarank"},
+    {"objective": "none"},
     {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
      "monotone_constraints_method": "intermediate"},
     {"interaction_constraints": [[0, 1], [2, 3]]},
