@@ -39,9 +39,15 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    (the occupancy calculator), and ``kernel_ms``, the kernel's own device
    time (torch.profiler), beside ``ms``, the time of the whole call; the
    int8 rows' times, registers and spills are also printed and gathered
-   under ``int8``.  The atomic kernels' u16 instantiations the same way
-   (relerr, same bits twice, ms, kernel alone, plain, ``index_add_``,
-   the byte bound at 2 bytes a bin, the plan): 1M x 28 at B = 1,024 and
+   under ``int8``.  The one-hot kernels' u16 instantiations for the four
+   bodies that serve widths above 256 (base, i16cmp, staged, int8), the
+   same way plus the tensor-core floor: 1M x 28 at B = 1,024 in both
+   layouts, one frontier round's comb at B = 1,024 (28 features + 6 u16
+   gh columns, k = 16, an empty slot and a NaN block), and the sparse_efb
+   phase's bundle matrix (featmajor) at its bundle width.  The atomic
+   kernels' u16 instantiations the same way (relerr, same bits twice, ms,
+   kernel alone, plain, ``index_add_``, the byte bound at 2 bytes a bin,
+   the plan): 1M x 28 at B = 1,024 and
    one frontier round's comb (28 features + 6 u16 gh columns), bins >= B
    present; a comb of odd stride (27 + 6 u16); and the sparse_efb phase's
    own bundle matrix at its bundle width, full and per leaf;
@@ -54,12 +60,13 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    the plain version's time, the kernel's registers and spills, and the
    byte bound;
 5. shootout: the shootout shell's entry (``onehot_bench``, the JAX
-   package's ``make_bench_kernel``) once per election candidate at B=256
-   and B=64, on the shootout's shape (1,001,472 x 28, BR=512), against its
-   plain version, with the same ratio and attributes;
-6. elect: ``hist_variant=auto``'s election at B=256 and B=64: every
-   candidate's time and error (none may be disqualified), the winner, and
-   a second call served from the cache without a launch;
+   package's ``make_bench_kernel``) once per election candidate at B=256,
+   B=64 and B=1,024 (u16 bins), on the shootout's shape (1,001,472 x 28,
+   BR=512), against its plain version, with the same ratio and
+   attributes;
+6. elect: ``hist_variant=auto``'s election at B=256, B=64 and B=1,024:
+   every candidate's time and error (none may be disqualified), the
+   winner, and a second call served from the cache without a launch;
 7. train: binary GBDT on 1,000,000 x 28 Higgs-shaped rows, 255 leaves,
    ``max_bin=255``, 20 iterations, three times: by default (the atomic
    kernels), with ``force_row_wise=True, hist_variant="staged"`` and with
@@ -91,7 +98,8 @@ one JSON line per phase; any failure raises and the script exits non-zero:
 9. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
    bit-identically to the booster in memory, for the 1M-row boosters;
 10-13. data breadth, each run once through the kernels (launch counts
-   from zero around it: ``hist_full`` and ``hist_leaves`` and no other)
+   from zero around it: ``hist_full`` and ``hist_leaves`` and no other;
+   the force_row_wise runs the one-hot kernels named below)
    and once under ``force_plain()``, tree 0 identical, the held-out
    metric within 1e-3 of the plain run's and better than the constant
    model's, the reloaded model predicting bit-identically, each printing
@@ -102,9 +110,14 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    (the airline data's 1M x 8, six categorical columns, 255 leaves, 5
    iterations at max_cat_to_onehot 4 and 8: sorted subsets, and
    DayOfWeek's one-hot splits at 8); wide_bins (Higgs 1M x 28 at
-   max_bin=1023, u16, B = 1,024); sparse_efb (Allstate width, 250k x
-   4,228 CSR, bundled into u16 columns, the kernels at the bundle width,
-   CSR prediction equal to dense).
+   max_bin=1023, u16, B = 1,024; then ``force_row_wise`` with staged and
+   int8, 5 iterations each, and auto, 3: ``onehot_full`` once a tree and
+   ``onehot_leaves``, held-out AUC also within 1e-3 of the atomic run's
+   at the same iterations); sparse_efb (Allstate width, 250k x 4,228 CSR,
+   bundled into u16 columns, the kernels at the bundle width, CSR
+   prediction equal to dense; then ``force_row_wise`` staged, 3
+   iterations: ``onehot_full`` once a tree, its per-leaf histograms by
+   ``hist_leaves``, outside the leaves cut).
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the package beside it, it fails
@@ -171,6 +184,10 @@ ALLSTATE_NUMERIC = 12
 # for the training and held-out samples
 AIRLINE_EFFECT_SEED, ALLSTATE_EFFECT_SEED = 1050, 1046
 ITERS_BREADTH = 5
+# the force_row_wise runs of the data-breadth phases: auto at max_bin=1023,
+# and staged on the sparse_efb bundles
+ITERS_WIDE_AUTO = 3
+ITERS_EFB_ROW_WISE = 3
 
 
 def emit(obj) -> None:
@@ -762,10 +779,138 @@ def onehot_cases():
             and ov.VARIANTS[v].supports(B)]
 
 
-def phase_kernels_onehot(card):
+# the one-hot bodies that serve widths above 256 (u16 bins)
+ONEHOT_U16_BODIES = ("base", "i16cmp", "staged", "int8")
+
+
+def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
+    """The one-hot kernels' u16 instantiations against their plain versions
+    on the card, for the four bodies that serve widths above 256: 1M x 28
+    at B = 1,024 (the wide_bins run's root) in both layouts, one frontier
+    round's comb at B = 1,024 (28 features + 6 u16 gh columns, k = 16,
+    inside the leaves cut: an empty slot and a NaN block), and the
+    sparse_efb phase's own bundle matrix at its bundle width (its
+    force_row_wise run's root; its per-leaf histograms lie outside the
+    cut).  Bins >= B present in the random cases.  Each row: relerr, the
+    same bits twice, the launch of the one-hot kernel, ms a call, kernel
+    alone, plain, index_add_, the byte bound (2 bytes a bin), the
+    tensor-core floor and the kernel's attributes."""
+    rows = {}
+    n, f, B = N_TRAIN, N_FEAT, 1024
+    C, k, BR = (LEAVES_SHAPE[x] for x in ("C", "k", "BR"))
+    nb = C // BR
+    _, lg, lh, lm, block_leaf, empty, nan_slot = _leaves_inputs(gen, dev)
+    comb = _frontier_comb(_u16(gen, (C, f), B + 60, dev), lg, lh, lm)
+    others = [s for s in range(k) if s != nan_slot]
+    if not hist.onehot_leaves_fits(f, k, B):
+        raise AssertionError("the u16 leaves case lies outside the cut")
+    full_cases = (("B1024", (_u16(gen, (n, f), B + 60, dev),
+                             *_rows(gen, n, dev)), B,
+                   ("featmajor", "rowmajor")),
+                  ("bundle", (efb_bins["bins"],
+                              *_rows(gen, efb_bins["bins"].shape[0], dev)),
+                   int(efb_bins["bundle_bins"]), ("featmajor",)))
+
+    def hold(name, kernel, fn, ref, leaves=False):
+        before = hist.launch_counts[kernel]
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        ok = hist.launch_counts[kernel] == before + 2
+        if leaves:
+            fin = torch.isfinite(ref)
+            ok = (ok and bool((got[empty] == 0).all())
+                  and bool(torch.isnan(got[nan_slot][..., 0]).all())
+                  and bool(torch.isfinite(got[others]).all())
+                  and torch.equal(torch.isnan(got), torch.isnan(ref))
+                  and torch.equal(got[others], again[others]))
+            got, ref = got[fin], ref[fin]
+        else:
+            ok = ok and torch.equal(got, again)
+        err = relerr(got, ref)
+        if not (ok and err <= REL_TOL):
+            raise AssertionError(f"{name}: relerr {err}, checks {ok}")
+        return dict(relerr=err, max_abs_err=float((got - ref).abs().max()))
+
+    for case, (bins, g, h, m), Bc, layouts in full_cases:
+        nc, fc = bins.shape[0], bins.shape[1]
+
+        def full(v, layout, bins=bins, g=g, h=h, m=m, Bc=Bc):
+            return hist.build_histogram(bins, g, h, m, Bc, method="onehot",
+                                        variant=v, layout=layout)
+        ref, plain_ms = {}, {}
+        with hist.force_plain():
+            for fam in ("base", "int8"):
+                for layout in layouts:
+                    ref[fam, layout] = full(fam, layout)
+                plain_ms[fam] = median_ms(lambda: full(fam, "featmajor"),
+                                          reps=5)
+        lib = _full_yardstick(dev, bins, g, h, m, Bc)
+        b_ms, b_by = bound(2 * nc * fc + 12 * nc + fc * Bc * 12,
+                           3 * nc * fc + 2 * nc)
+        for v in ONEHOT_U16_BODIES:
+            fam = "int8" if v == "int8" else "base"
+            lanes = ov.total_lanes(v, fc, Bc)
+            for layout in layouts:
+                name = f"onehot_full/{layout}/{v}/u16/{case}"
+                fn = (lambda v=v, layout=layout: full(v, layout))
+                rows[name] = _vs_library(dict(
+                    kernel="onehot_full", layout=layout, variant=v, B=Bc,
+                    case=case, dtype="uint16", shape=[nc, fc, Bc],
+                    lanes=lanes,
+                    **hold(name, "onehot_full", fn, ref[fam, layout]),
+                    ms=median_ms(fn), plain_ms=plain_ms[fam],
+                    library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                    tensor_core_floor_ms=tensor_core_floor_ms(lanes, nc, v)),
+                    hist.onehot_kernel_attributes("onehot_full", v, fc, Bc,
+                                                  layout),
+                    fn, _kernel_name("onehot_full", v))
+
+    def leaves(v):
+        return hist.build_histogram_leaves(
+            comb, lg, lh, lm, block_leaf, k, B, block_rows=BR, f_limit=f,
+            method="onehot", variant=v)
+    ref, plain_ms = {}, {}
+    with hist.force_plain():
+        for fam in ("base", "int8"):
+            ref[fam] = leaves(fam)
+            plain_ms[fam] = median_ms(lambda: leaves(fam), reps=5)
+    lib = _leaves_yardstick(dev, comb, lg, lh, lm, block_leaf, k, B, BR, f)
+    b_ms, b_by = bound(2 * C * f + 12 * C + 4 * nb + k * f * B * 12,
+                       3 * C * f + 2 * C)
+    for v in ONEHOT_U16_BODIES:
+        lanes = ov.total_lanes(v, f, B)
+        name = f"onehot_leaves/rowmajor/{v}/u16/B1024"
+        fn = (lambda v=v: leaves(v))
+        rows[name] = _vs_library(dict(
+            kernel="onehot_leaves", layout="rowmajor", variant=v, B=B,
+            case="B1024", dtype="uint16", shape=[C, comb.shape[1], f, k, BR],
+            lanes=lanes,
+            **hold(name, "onehot_leaves", fn,
+                   ref["int8" if v == "int8" else "base"], leaves=True),
+            ms=median_ms(fn), plain_ms=plain_ms["int8" if v == "int8"
+                                                else "base"],
+            library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+            tensor_core_floor_ms=tensor_core_floor_ms(lanes, C, v),
+            empty_slot_zero=True, nan_confined=True),
+            hist.onehot_kernel_attributes("onehot_leaves", v, f, B,
+                                          ld=comb.shape[1]),
+            fn, _kernel_name("onehot_leaves", v))
+    for name, r in rows.items():
+        print(f"{name} {r['shape']}: kernel {r['kernel_ms']:.4f} ms, call "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, index_add_ "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms, tc "
+              f"floor {r['tensor_core_floor_ms']:.4f} ms, "
+              f"{r['registers']} registers, {r['local_bytes']} spilled "
+              f"bytes, {r['ctas_per_sm']} CTAs an SM, relerr "
+              f"{r['relerr']:.3g}", flush=True)
+    return rows
+
+
+def phase_kernels_onehot(card, efb_bins):
     """Every one-hot kernel, layout and variant against the plain version
-    on the card, at the main path's shapes; returns one row per (kernel,
-    layout, variant, width)."""
+    on the card, at the main path's shapes (u8 at B = 256 and 64; u16,
+    ``_onehot_u16_cases``); returns one row per (kernel, layout, variant,
+    width)."""
     from lightgbm_tpu_torch.ops import histogram as hist
     from lightgbm_tpu_torch.ops import onehot_variants as ov
     dev = torch.device("cuda")
@@ -873,6 +1018,8 @@ def phase_kernels_onehot(card):
               f"{r['ms']:.4f} ms, {r['registers']} registers, "
               f"{r['local_bytes']} spilled bytes, {r['ctas_per_sm']} CTAs "
               "an SM", flush=True)
+    del bins256, comb256, bins, comb, g, h, m, lg, lh, lm
+    rows.update(_onehot_u16_cases(hist, ov, gen, dev, efb_bins))
     emit({"phase": "kernels_onehot", "card": card, "tolerance": REL_TOL,
           "int8": int8, "rows": rows})
     return rows
@@ -958,26 +1105,30 @@ def phase_quant(card):
 
 
 def phase_shootout(card):
-    """The shootout shell (K4) once per election candidate at both widths,
-    on the JAX shootout's shape; each candidate's launches are counted
-    from zero around its own run, then it is held against its plain
-    version and timed."""
+    """The shootout shell (K4) once per election candidate at B = 256, 64
+    and 1,024 (u16 bins: base, staged, int8), on the JAX shootout's shape;
+    each candidate's launches are counted from zero around its own run,
+    then it is held against its plain version and timed."""
     from lightgbm_tpu_torch.ops import histogram as hist
     from lightgbm_tpu_torch.ops import onehot_variants as ov
     dev = torch.device("cuda")
     N, nrows, f, BR = (SHOOTOUT_SHAPE[x] for x in ("N", "rows", "f", "BR"))
     rng = np.random.default_rng(0)
     rows_out = {}
-    for B in (256, 64):
+    for B in (256, 64, 1024):
+        dtype = np.uint8 if B <= 256 else np.uint16
         bins = torch.as_tensor(rng.integers(0, B, size=(N, f),
-                                            dtype=np.uint8)).to(dev)
+                                            dtype=dtype)).to(dev)
         g = torch.as_tensor(rng.normal(size=N).astype(np.float32)).to(dev)
         g[nrows:] = 0.0
         h = torch.full((N,), 0.25, device=dev)
         m = (torch.arange(N, device=dev) < nrows).float()
-        bins_t = bins.t().contiguous()                    # [F, N], once
+        # [F, N], once (u16 moves as int16)
+        bins_t = hist.movable_bins(bins).t().contiguous().view(bins.dtype)
         lib_ms = _full_yardstick(dev, bins, g, h, m, B)
-        b_ms, b_by = bound(N * f + 12 * N + f * B * 12, 3 * N * f + 2 * N)
+        esz = bins.element_size()
+        b_ms, b_by = bound(esz * N * f + 12 * N + f * B * 12,
+                           3 * N * f + 2 * N)
         for v in ov.AUTO_CANDIDATES:
             if not ov.VARIANTS[v].supports(B):
                 continue
@@ -1014,14 +1165,15 @@ def phase_shootout(card):
 
 
 def phase_elect(card):
-    """hist_variant=auto's election at both widths, from an empty cache;
-    then again, served from the cache with no launch."""
+    """hist_variant=auto's election at B = 256, 64 and 1,024 (u16 bins),
+    from an empty cache; then again, served from the cache with no
+    launch."""
     from lightgbm_tpu_torch.ops import histogram as hist
     from lightgbm_tpu_torch.ops import onehot_variants as ov
     dev = torch.device("cuda", torch.cuda.current_device())
     name = torch.cuda.get_device_name(dev)
     out = {}
-    for B in (256, 64):
+    for B in (256, 64, 1024):
         ov._AUTO_CACHE.pop((name, B), None)
         t0 = time.perf_counter()
         won = ov.pick_variant(B, N_FEAT, device=dev)
@@ -1041,7 +1193,7 @@ def phase_elect(card):
                         "second_call_from_cache": True}
     emit({"phase": "elect", "card": card, "rows": 262144,
           "features": N_FEAT, **out})
-    return {B: out[f"B{B}"]["winner"] for B in (256, 64)}
+    return {B: out[f"B{B}"]["winner"] for B in (256, 64, 1024)}
 
 
 def _auc(scores, labels):
@@ -1389,13 +1541,15 @@ def breadth_data():
             "bundle_bins": dd.bundle_bins}
 
 
-def _breadth_pair(lgt, hist, name, ds, params, iters, metric, X_pred):
-    """One data-breadth run through the kernels and under force_plain():
-    tree 0 identical, the held-out metric as ``_train_pair`` holds it, and
-    the reloaded model predicting ``X_pred`` bit-identically.  Prints
-    s/tree, launches a tree and the kernel width."""
+def _breadth_pair(lgt, hist, name, ds, params, iters, metric, X_pred,
+                  expect=("hist_full", "hist_leaves")):
+    """One data-breadth run through the kernels (``expect``: the kernels
+    it must launch, and no other) and under force_plain(): tree 0
+    identical, the held-out metric as ``_train_pair`` holds it, and the
+    reloaded model predicting ``X_pred`` bit-identically.  Prints s/tree,
+    launches a tree and the kernel width."""
     booster, out = _train_pair(lgt, hist, ds, params, iters, None, None,
-                               {"hist_full", "hist_leaves"}, metric=metric)
+                               set(expect), metric=metric)
     if not out["tree0_identical"]:
         raise AssertionError(f"{name}: tree 0 differs between kernel and "
                              "plain runs")
@@ -1529,9 +1683,34 @@ def phase_categorical(card):
     return {k: r["launches"] for k, r in runs.items()}
 
 
-def phase_wide_bins(card):
+def _row_wise_vs_atomic(lgt, hist, name, ds, params, iters, atomic, Xv,
+                        yv, floor, expect, used):
+    """A force_row_wise run of a data-breadth phase (``_breadth_pair``:
+    tree 0 identical to the plain run's, held-out AUC within 1e-3 of it,
+    reload bit-identical) with the one-hot body ``used`` and one
+    ``onehot_full`` a tree, its held-out AUC also within 1e-3 of the
+    atomic booster's at the same iterations."""
+    _, out = _breadth_pair(lgt, hist, name, ds, params, iters,
+                           auc_holdout(Xv, yv, floor=floor), Xv,
+                           expect=expect)
+    if (out["hist_method"], out["hist_variant"]) != ("onehot", used) or \
+            out["launches"]["onehot_full"] != iters:
+        raise AssertionError(f"{name}: {out}")
+    gap = abs(out["kernel"]["auc_holdout"]
+              - _auc(atomic.predict(Xv, raw_score=True, num_iteration=iters),
+                     yv))
+    if gap > AUC_TOL:
+        raise AssertionError(f"{name}: AUC {gap} from the atomic run's")
+    out["vs_atomic_auc_gap"] = gap
+    return out
+
+
+def phase_wide_bins(card, elected):
     """Higgs geometry at max_bin=1023: the u16 bin matrix and the atomic
-    kernels' u16 instantiations at B = 1,024."""
+    kernels' u16 instantiations at B = 1,024; then force_row_wise with
+    staged and int8 (5 iterations each) and auto (3, the elected body):
+    the one-hot kernels' u16 instantiations, every per-leaf call inside
+    the leaves cut (28 x 1,024 lanes)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import histogram as hist
     X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=52)
@@ -1541,19 +1720,36 @@ def phase_wide_bins(card):
     t0 = time.perf_counter()
     ds = lgt.Dataset(X, label=y, params=params).construct(device="cuda")
     construct_s = time.perf_counter() - t0
-    _, out = _breadth_pair(lgt, hist, "wide_bins", ds, params,
-                           ITERS_BREADTH, auc_holdout(Xv, yv), Xv)
+    booster, out = _breadth_pair(lgt, hist, "wide_bins", ds, params,
+                                 ITERS_BREADTH, auc_holdout(Xv, yv), Xv)
     if out["kernel_width"] != 1024 or out["bin_dtype"] != "uint16":
         raise AssertionError(f"wide_bins: {out}")
+    one_hot = ("onehot_full", "onehot_leaves")
+    row_wise = {}
+    for tag, variant, iters in (("staged", "staged", ITERS_BREADTH),
+                                ("int8", "int8", ITERS_BREADTH),
+                                ("auto", None, ITERS_WIDE_AUTO)):
+        p = dict(params, force_row_wise=True)
+        if variant is not None:
+            p["hist_variant"] = variant
+        used = variant or elected[1024]
+        row_wise[tag] = _row_wise_vs_atomic(
+            lgt, hist, f"wide_bins row_wise {tag}", ds, p, iters, booster,
+            Xv, yv, 0.75, one_hot + (("onehot_quant",) if used == "int8"
+                                     else ()), used)
     emit({"phase": "wide_bins", "card": card, "construct_s": construct_s,
-          **out})
-    return out["launches"]
+          **out, "row_wise": row_wise})
+    return {"wide_bins": out["launches"],
+            **{f"wide_{t}": r["launches"] for t, r in row_wise.items()}}
 
 
 def phase_sparse_efb(card, data):
     """Allstate geometry as CSR: sparse binning, EFB bundles of u16
     columns, the atomic kernels at the bundle width, and sparse prediction
-    input (equal to the dense input's)."""
+    input (equal to the dense input's); then force_row_wise staged (3
+    iterations): the one-hot root at the bundle width, and the per-leaf
+    histograms by hist_leaves (35 bundle columns x 2,688 lanes lie outside
+    the leaves cut)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import histogram as hist
     ds, Xv, yv = data["ds"], data["Xv"], data["yv"]
@@ -1570,14 +1766,19 @@ def phase_sparse_efb(card, data):
                           booster.predict(part.toarray())):
         raise AssertionError("sparse_efb: CSR input predicts otherwise "
                              "than its dense twin")
+    rw = _row_wise_vs_atomic(
+        lgt, hist, "sparse_efb row_wise staged", ds,
+        dict(params, force_row_wise=True, hist_variant="staged"),
+        ITERS_EFB_ROW_WISE, booster, Xv, yv, 0.5,
+        ("onehot_full", "hist_leaves"), "staged")
     emit({"phase": "sparse_efb", "card": card, "rows": N_ALLSTATE,
           "columns": data["X"].shape[1], "nnz": int(data["X"].nnz),
           "features": inner.num_features, "bundles": len(inner.bundles),
           "bundle_widths_top": sorted(int(w) for w in
                                       inner.bundle_widths)[-4:],
           "construct_s": data["construct_s"], "sparse_equals_dense": True,
-          **out})
-    return out["launches"]
+          **out, "row_wise_staged": rw})
+    return {"sparse_efb": out["launches"], "efb_staged": rw["launches"]}
 
 
 def phase_predict(boosters, Xv):
@@ -1699,9 +1900,14 @@ ONEHOT_SHELLS = {
 }
 ONEHOT_BODIES = {"base": 178, "bf16cmp": 187, "i16cmp": 196, "u8cmp": 205,
                  "sub1abs": 214, "staged": 227, "packed": 250, "int8": 267}
-# which training run of the train phase drives each (variant, width)
+# which training run drives each (variant, width) of the u8 rows (the
+# train phase's), and each (variant, case) of the u16 rows (the data-breadth
+# phases' force_row_wise runs; the sparse_efb run's per-leaf histograms
+# take hist_leaves, outside the cut)
 MAIN_PATH_RUNS = {("staged", 256): "staged", ("packed", 64): "packed",
-                  ("int8", 256): "int8"}
+                  ("int8", 256): "int8", ("staged", "B1024"): "wide_staged",
+                  ("int8", "B1024"): "wide_int8",
+                  ("staged", "bundle"): "efb_staged"}
 # the int8 quantize kernel (the `level` chain of the int8 body) and the
 # shootout shell's entry
 QUANT_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_quant.cu",
@@ -1751,7 +1957,7 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
                          "card": card})
     for name, r in onehot.items():
         src, replaces, jax_fn = ONEHOT_SHELLS[(r["kernel"], r["layout"])]
-        run = MAIN_PATH_RUNS.get((r["variant"], r["B"]))
+        run = MAIN_PATH_RUNS.get((r["variant"], r.get("case", r["B"])))
         on_path = run is not None and (r["kernel"], r["layout"]) != (
             "onehot_full", "rowmajor")
         n = launches[run][r["kernel"]] if on_path else 0
@@ -1762,6 +1968,8 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
                      "body_replaces": "lightgbm_tpu/ops/onehot_variants.py:"
                                       f"{ONEHOT_BODIES[r['variant']]}",
                      "launches": n, **{k: r[k] for k in keys},
+                     **({"dtype": "uint16", "shape": r["shape"]}
+                        if r.get("dtype") == "uint16" else {}),
                      "card": card})
     src, replaces, jax_fn = QUANT_INFO
     rows.append({"name": "onehot_quant", "route": "cuda", "source": src,
@@ -1818,7 +2026,7 @@ def main() -> int:
     phase_build()
     breadth = breadth_data()
     kern = phase_kernels(clock, breadth)
-    onehot = phase_kernels_onehot(smi)
+    onehot = phase_kernels_onehot(smi, breadth)
     quant = phase_quant(smi)
     bench = phase_shootout(smi)
     elected = phase_elect(smi)
@@ -1831,8 +2039,8 @@ def main() -> int:
     del data, boosters
     launches["rank"] = phase_rank(smi)
     launches["categorical"] = phase_categorical(smi)
-    launches["wide_bins"] = phase_wide_bins(smi)
-    launches["sparse_efb"] = phase_sparse_efb(smi, breadth)
+    launches.update(phase_wide_bins(smi, elected))
+    launches.update(phase_sparse_efb(smi, breadth))
     rows = kernel_rows(kern, onehot, quant, bench, launches, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

@@ -17,7 +17,7 @@ import numpy as np
 
 from .config import Config
 from .device import NotPortedError, resolve_device
-from .io.dataset import Dataset as _InnerDataset
+from .io.dataset import Dataset as _InnerDataset, _is_dataframe
 from .models import model_io
 from .models.gbdt import GBDT
 from .utils.log import check, LightGBMError
@@ -57,10 +57,19 @@ class Dataset:
             if isinstance(self.data, str):
                 raise NotPortedError("loading data files is not ported yet")
             cfg = Config.from_params(self.params)
+            # a DataFrame names its features by its columns (the JAX
+            # package's _pandas_to_numpy), and categorical features given
+            # by name resolve against those names
+            if self.feature_name == "auto" and _is_dataframe(self.data):
+                self.feature_name = [str(c) for c in self.data.columns]
             feature_names = (None if self.feature_name == "auto"
                              else list(self.feature_name))
             cats = (None if self.categorical_feature == "auto"
                     else self.categorical_feature)
+            if cats is not None and feature_names is not None \
+                    and not isinstance(cats, str):
+                cats = [feature_names.index(c) if isinstance(c, str) else c
+                        for c in cats]
             ref_inner = (self.reference.construct(dev)._inner
                          if self.reference is not None else None)
             self._inner = _InnerDataset.from_data(

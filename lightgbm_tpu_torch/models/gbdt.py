@@ -242,10 +242,7 @@ class GBDT:
         # exactly in float64 and rounds once
         if cfg.force_row_wise and kernel_backend(self.device) == "cuda":
             hist_method = "onehot"
-            if kernel_bins > 256:
-                # no u16 one-hot kernel: grow_tree raises NotPortedError
-                hist_variant = "base"
-            elif cfg.hist_variant == "auto":
+            if cfg.hist_variant == "auto":
                 hist_variant = onehot_variants.pick_variant(
                     kernel_bins, self.train_data.num_features,
                     device=self.device)

@@ -68,27 +68,28 @@ _ARGTYPES = {
                                _INT, _VOID_P, _VOID_P, _INT, _INT, _INT,
                                _INT, _INT, _INT, _VOID_P]},
     "onehot_full": {
-        # device, bins, ld, n, f, layout, g, h, m, q, scales, qbr, out,
-        # variant, lpf_log2, lanes, nf_max, stream
-        "onehot_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _VOID_P,
-                               _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT,
-                               _VOID_P, _INT, _INT, _INT, _INT, _VOID_P],
-        # device, bins_t, n, f, rows (or q), scales, qbr, out, variant,
-        # lpf_log2, lanes, nf_max, stream
-        "onehot_bench_launch": [_INT, _VOID_P, _LL, _INT, _VOID_P, _VOID_P,
-                                _INT, _VOID_P, _INT, _INT, _INT, _INT,
-                                _VOID_P],
-        # variant, layout, nf_max, ld, out[5]
-        "onehot_full_query": [_INT, _INT, _INT, _LL, _INT_P]},
+        # device, bins, ld, n, f, layout, esz, g, h, m, q, scales, qbr,
+        # out, variant, lpf, lanes, nf_max, stream
+        "onehot_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _INT,
+                               _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
+                               _INT, _VOID_P, _INT, _INT, _INT, _INT,
+                               _VOID_P],
+        # device, bins_t, n, f, esz, rows (or q), scales, qbr, out,
+        # variant, lpf, lanes, nf_max, stream
+        "onehot_bench_launch": [_INT, _VOID_P, _LL, _INT, _INT, _VOID_P,
+                                _VOID_P, _INT, _VOID_P, _INT, _INT, _INT,
+                                _INT, _VOID_P],
+        # variant, layout, nf_max, ld, esz, out[5]
+        "onehot_full_query": [_INT, _INT, _INT, _LL, _INT, _INT_P]},
     "onehot_leaves": {
-        # device, comb, ld, c, f, g, h, m, q, scales, block_leaf, br, k,
-        # out, variant, lpf_log2, lanes, nf_max, stream
-        "onehot_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _VOID_P,
+        # device, comb, ld, c, f, esz, g, h, m, q, scales, block_leaf, br,
+        # k, out, variant, lpf, lanes, nf_max, stream
+        "onehot_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT,
                                  _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
-                                 _INT, _INT, _VOID_P, _INT, _INT, _INT, _INT,
-                                 _VOID_P],
-        # variant, nf_max, ld, out[5]
-        "onehot_leaves_query": [_INT, _INT, _LL, _INT_P]},
+                                 _VOID_P, _INT, _INT, _VOID_P, _INT, _INT,
+                                 _INT, _INT, _VOID_P],
+        # variant, nf_max, ld, esz, out[5]
+        "onehot_leaves_query": [_INT, _INT, _LL, _INT, _INT_P]},
     "onehot_quant": {
         # device, x0, x1, x2, prep, n, br, q, s, stream
         "onehot_quant_launch": [_INT, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,

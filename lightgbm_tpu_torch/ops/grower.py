@@ -190,19 +190,19 @@ def _frontier_eligible(cfg: GrowerConfig, n_cols: int) -> bool:
       ONE feature does: ``24 * B`` bytes within the 227 KB a CTA may opt
       into (B <= 9,685; u16 bins and EFB bundles reach B = 4,096).
     - onehot: the kernels keep their sums in registers and stage 128 rows
-      at a time (at most 18 KB of shared memory), so any feature count and
-      any u8 width fits; the per-leaf kernel needs whole 128-row chunks in
-      a block (``frontier_block_rows`` a multiple of 128, which the config
-      already demands).  Widths above 256 (u16 bins) have no one-hot
-      kernel yet (``grow_tree`` says so)."""
+      at a time, whose shared memory does not grow with the width, so any
+      feature count and any u8 or u16 width fits (u16 through ``base``,
+      ``i16cmp``, ``staged`` and ``int8``); the per-leaf kernel needs whole
+      128-row chunks in a block (``frontier_block_rows`` a multiple of
+      128, which the config already demands), and outside the JAX
+      package's cut the per-leaf histograms take the atomic kernel
+      (``histogram.onehot_leaves_fits``), so the atomic budget holds too."""
     if cfg.grower_mode == "serial":
         return False
     width = kernel_width(cfg)
+    budget_ok = _SMEM_PER_BIN * width <= SMEM_MAX_BYTES
     if cfg.hist_method == "onehot":
-        budget_ok = (width <= 256
-                     and cfg.frontier_block_rows % _OH_CHUNK == 0)
-    else:
-        budget_ok = _SMEM_PER_BIN * width <= SMEM_MAX_BYTES
+        budget_ok = budget_ok and cfg.frontier_block_rows % _OH_CHUNK == 0
     return ((not cfg.has_monotone or cfg.monotone_mode == "basic")
             and cfg.cegb_split_penalty == 0.0
             and n_cols >= 0
@@ -224,13 +224,6 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     the directions when ``cfg.has_monotone``; ``is_categorical [F]`` marks
     the categorical features (None: none); ``efb`` is the EFB layout when
     ``bins`` holds bundle columns."""
-    if (cfg.hist_method == "onehot" and kernel_width(cfg) > 256
-            and cfg.grower_mode != "serial"):
-        raise NotPortedError(
-            f"force_row_wise at a kernel width of {kernel_width(cfg)} bins "
-            "needs the u16 one-hot kernels (onehot_full, onehot_leaves over "
-            "u16 bins), which are not ported yet; drop force_row_wise to "
-            "take the atomic kernels")
     if not _frontier_eligible(cfg, bins.shape[1]):
         raise NotPortedError(
             "this configuration needs the sequential (serial) grower, which "

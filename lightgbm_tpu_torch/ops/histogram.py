@@ -4,7 +4,8 @@ Port of the JAX package's ``ops/histogram.py``.  A histogram is
 ``[F, B, 3]`` float32 with channels (sum g*m, sum h*m, sum m) per feature and
 bin; bins >= B match nothing and are dropped.  Bins are ``uint8`` or
 ``uint16`` (a feature of more than 256 bins, or an EFB bundle up to 4,096
-bins wide); the atomic method takes both, the one-hot method ``uint8``.
+bins wide); every kernel takes both, as a second instantiation of its
+template on the bin type.
 
 Two methods, each with a full-pass and a per-leaf entry point, each entry
 point with a hand-written Hopper kernel (``kernels/*.cu``, built by
@@ -28,7 +29,12 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
   Pallas kernels' row blocks, then
   multiplies int8 by int8 with exact int32 sums; it has plain versions of
   its own (``hist_onehot_int8_*_plain``).  ``hist_onehot_bench`` is the
-  shootout shell's entry (``onehot_variants.make_bench_kernel``).
+  shootout shell's entry (``onehot_variants.make_bench_kernel``).  Above
+  256 bins (u16) four bodies serve: ``base``, ``i16cmp``, ``staged`` and
+  ``int8`` (``VariantSpec.supports``).  The per-leaf entry takes the
+  one-hot kernel only inside the JAX package's cut
+  (``onehot_leaves_fits``); outside it, the atomic kernel, as the JAX
+  package takes its scatter there.
 
 A non-finite value makes its whole channel NaN in the one-hot product
 (``0·NaN`` and ``0·inf`` are NaN) -- in a full pass everywhere, per leaf
@@ -51,6 +57,7 @@ wrapper counts its launches in ``launch_counts``.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -144,7 +151,12 @@ def build_histogram_leaves(comb: torch.Tensor, grad: torch.Tensor,
                            variant: str = "base") -> torch.Tensor:
     """Per-slot histograms ``[num_slots, F, B, 3]`` of ``comb [C, NC]`` laid
     out as consecutive ``block_rows`` blocks, block ``i`` belonging to slot
-    ``block_leaf[i]`` (need not be sorted; a slot with no block is zero)."""
+    ``block_leaf[i]`` (need not be sorted; a slot with no block is zero).
+    ``method="onehot"`` outside ``onehot_leaves_fits`` takes the atomic
+    method, on the CPU and on the card alike."""
+    if method == "onehot" and not onehot_leaves_fits(
+            _n_feat(comb.shape[1], f_limit), num_slots, max_bin):
+        method = "atomic"
     if method == "onehot":
         _onehot_spec(variant, max_bin, "rowmajor")
         if _plain(comb) and variant == "int8":
@@ -166,6 +178,25 @@ def build_histogram_leaves(comb: torch.Tensor, grad: torch.Tensor,
                                  f_limit=f_limit)
     return hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
                        block_rows=block_rows, f_limit=f_limit)
+
+
+# the JAX package's cut for its Pallas leaves kernel
+# (lightgbm_tpu/ops/histogram.py::build_histogram_leaves, the constants
+# _PALLAS_ROWMAJOR_MAX_LANES and _PALLAS_LEAFACC_BYTES): at most this many
+# lanes f * Bp, and a [num_slots, 6, f * Bp] float32 accumulator of at
+# most this many bytes; above either it takes its scatter
+ONEHOT_LEAVES_MAX_LANES = 32768
+ONEHOT_LEAVES_ACC_BYTES = 48 * 1024 * 1024
+
+
+def onehot_leaves_fits(f: int, num_slots: int, max_bin: int) -> bool:
+    """Whether the per-leaf histograms of ``f`` features at ``max_bin``
+    over ``num_slots`` slots take the one-hot kernel under
+    ``method="onehot"``: the JAX package's cut, on its lanes ``f * Bp``
+    (whatever the variant's lane packing)."""
+    lanes = f * ov.padded_bins(max_bin)
+    return (lanes <= ONEHOT_LEAVES_MAX_LANES
+            and num_slots * 6 * lanes * 4 <= ONEHOT_LEAVES_ACC_BYTES)
 
 
 def subtract_histogram(parent: torch.Tensor, child: torch.Tensor) -> torch.Tensor:
@@ -368,7 +399,7 @@ def hist_onehot_bench_plain(bins_t, rows, max_bin, variant="base",
     """The shootout shell's function: ``bins_t [f, N]`` against the
     variant's prepped ``rows`` (``onehot_variants.VariantSpec.prep``),
     quantized per ``block_rows`` for int8."""
-    b = bins_t.t().long()
+    b = widen_bins(bins_t.t())
     slot, ok = _row_slots(b.shape[0], None, 1, 1, b.device)
     if variant == "int8":
         out = _int8_plain(b, rows, block_rows, slot, ok, 1, max_bin)
@@ -387,17 +418,17 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_rows(name, mat, grad, hess, mask, dtypes=(torch.uint8,)):
+# the bin types every kernel takes (its template instantiations)
+BIN_TYPES = (torch.uint8, torch.uint16)
+
+
+def _check_rows(name, mat, grad, hess, mask, dtypes=BIN_TYPES):
     dev = mat.device
     _check(dev.type == "cuda", f"{name}: tensors must be on a CUDA device")
     kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
     _check(mat.dtype in dtypes and mat.dim() == 2 and mat.is_contiguous(),
            f"{name}: bins must be a contiguous 2-D {kinds} tensor")
     _check_vectors(name, dev, mat.shape[0], grad, hess, mask)
-
-
-# the bin types of the atomic kernels (their template instantiations)
-ATOMIC_BIN_TYPES = (torch.uint8, torch.uint16)
 
 
 def _check_vectors(name, dev, n, grad, hess, mask):
@@ -469,7 +500,7 @@ def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
     of the kernel over the plan's CTAs, each writing a float64 partial
     into scratch, and one of the reduce kernel, which sums them into the
     float32 result.  ``bins`` is ``uint8`` or ``uint16``."""
-    _check_rows("hist_full", bins, grad, hess, mask, ATOMIC_BIN_TYPES)
+    _check_rows("hist_full", bins, grad, hess, mask)
     n, ncols = bins.shape
     f = _n_feat(ncols, f_limit)
     dev = bins.device
@@ -500,7 +531,7 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
     partial per slot its blocks name into scratch and naming the slot
     there, and one of the reduce kernel, which sums each slot's partials
     into the float32 result.  ``comb`` is ``uint8`` or ``uint16``."""
-    _check_rows("hist_leaves", comb, grad, hess, mask, ATOMIC_BIN_TYPES)
+    _check_rows("hist_leaves", comb, grad, hess, mask)
     c, nc = comb.shape
     f = _n_feat(nc, f_limit)
     dev = comb.device
@@ -546,6 +577,9 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
 # to the CTAs the card holds at once
 _OH_BLOCK_LANES = 512
 _OH_CHUNK = 128
+# the widest bin range the one-hot kernels take: any u16 bin (the bodies
+# that serve it: VariantSpec.supports)
+ONEHOT_MAX_BIN = 65536
 
 
 def _onehot_spec(variant: str, max_bin: int, layout: str) -> ov.VariantSpec:
@@ -556,19 +590,31 @@ def _onehot_spec(variant: str, max_bin: int, layout: str) -> ov.VariantSpec:
     _check(variant in ov.VARIANTS, f"unknown hist_variant {variant!r}; "
            f"known: {', '.join(ov.VARIANT_NAMES)}")
     spec = ov.VARIANTS[variant]
-    _check(0 < max_bin <= 256 and spec.supports(max_bin),
+    _check(0 < max_bin <= ONEHOT_MAX_BIN and spec.supports(max_bin),
            f"hist variant {variant!r} does not support max_bin={max_bin} "
            "(resolve the variant with onehot_variants.resolve first)")
     return spec
 
 
 def _onehot_geometry(spec, f, max_bin):
-    """(Bp, lanes, log2 of the lanes per feature, most features one CTA's
-    512 lanes read)."""
+    """(Bp, lanes, lanes per feature ``lpf``, most features one CTA's 512
+    lanes read).  The kernels map lane ``l`` to feature ``l // lpf`` and
+    bin ``l % lpf``; ``lpf`` is a multiple of 128 (Bp) or, packed, a power
+    of two that divides 128."""
     Bp = ov.padded_bins(max_bin)
     lanes = ov.feat_geometry(spec, f, max_bin, Bp)[1]
     lpf = ov.lanes_per_feature(spec, max_bin)
-    return Bp, lanes, lpf.bit_length() - 1, min(f, _OH_BLOCK_LANES // lpf)
+    return Bp, lanes, lpf, _cta_features_max(f, lpf, lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def _cta_features_max(f, lpf, lanes):
+    """The most features a CTA's lanes ``[l, l + 512)`` touch, over the
+    CTAs of ``lanes`` (kernels/onehot_common.cuh::cta_features): it sizes
+    their shared bin buffers.  At least 1: from Bp = 1,024 on, one CTA's
+    lanes hold part of one feature."""
+    return max(1, max(min(f, (lb + _OH_BLOCK_LANES - 1) // lpf + 1) - lb // lpf
+                      for lb in range(0, lanes, _OH_BLOCK_LANES)))
 
 
 # most rows one quantization block may hold: the quantize kernel keeps a
@@ -661,12 +707,13 @@ def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
     variant's one-hot body, reading a ``[F, N]`` transposed copy of the bins
     (``featmajor``, as the Pallas path does) or the ``[N, NC]`` matrix as
     stored (``rowmajor``).  ``int8`` first runs the quantize kernel over
-    the JAX package's row blocks for that layout."""
+    the JAX package's row blocks for that layout.  ``bins`` is ``uint8``
+    or ``uint16``."""
     _check_rows("onehot_full", bins, grad, hess, mask)
     spec = _onehot_spec(variant, max_bin, layout)
     n, ncols = bins.shape
     f = _n_feat(ncols, f_limit)
-    Bp, lanes, lpf_log2, nf_max = _onehot_geometry(spec, f, max_bin)
+    Bp, lanes, lpf, nf_max = _onehot_geometry(spec, f, max_bin)
     out = torch.zeros(6, lanes, dtype=torch.float64, device=bins.device)
     if n > 0 and f > 0:
         qbr = ov.pallas_block_rows(variant, layout, n, f, max_bin)
@@ -674,18 +721,20 @@ def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
         if layout == "featmajor":
             # the kernel copies whole 128-row chunks of each feature, so
             # the copy's rows reach the last chunk's end (the rows past n
-            # have zero weight and are never summed)
+            # have zero weight and are never summed); u16 moves as int16
             ld = -(-n // _OH_CHUNK) * _OH_CHUNK
-            src = bins.new_empty(f, ld)
-            src[:, :n] = bins[:, :f].t()
+            mv = movable_bins(bins)
+            src = mv.new_empty(f, ld)
+            src[:, :n] = mv[:, :f].t()
             lay = 0
         else:
             src, ld, lay = bins, ncols, 1
         lib = _build.load("onehot_full")
         rc = lib.onehot_full_launch(
             bins.device.index, src.data_ptr(), ld, n, f, lay,
-            *map(_ptr, ops), qbr, out.data_ptr(), spec.kernel_id, lpf_log2,
-            lanes, nf_max, torch.cuda.current_stream(bins.device).cuda_stream)
+            bins.element_size(), *map(_ptr, ops), qbr, out.data_ptr(),
+            spec.kernel_id, lpf, lanes, nf_max,
+            torch.cuda.current_stream(bins.device).cuda_stream)
         _raise_on(lib, "onehot_full", rc)
         launch_counts["onehot_full"] += 1
     return ov.finish_hist(out, f, max_bin, Bp, spec).float()
@@ -695,8 +744,10 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
                        max_bin, block_rows=512, f_limit=None,
                        variant="base"):
     """``[num_slots, F, B, 3]`` histograms by the ``onehot_leaves`` CUDA
-    kernel, reading ``comb [C, NC]`` as the frontier gathers it; ``int8``
-    quantizes per ``block_rows`` block (one slot's rows)."""
+    kernel, reading ``comb [C, NC]`` (``uint8`` or ``uint16``) as the
+    frontier gathers it; ``int8`` quantizes per ``block_rows`` block (one
+    slot's rows).  Any width: the cut (``onehot_leaves_fits``) is
+    ``build_histogram_leaves``'s."""
     _check_rows("onehot_leaves", comb, grad, hess, mask)
     spec = _onehot_spec(variant, max_bin, "rowmajor")
     c, nc = comb.shape
@@ -711,16 +762,17 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
            and block_leaf.is_contiguous(),
            f"onehot_leaves: block_leaf must be a contiguous int32 [{nb}] "
            f"tensor on {comb.device}")
-    Bp, lanes, lpf_log2, nf_max = _onehot_geometry(spec, f, max_bin)
+    Bp, lanes, lpf, nf_max = _onehot_geometry(spec, f, max_bin)
     out = torch.zeros(num_slots, 6, lanes, dtype=torch.float64,
                       device=comb.device)
     if nb > 0 and f > 0 and num_slots > 0:
         ops = _operands(spec, grad, hess, mask, block_rows)
         lib = _build.load("onehot_leaves")
         rc = lib.onehot_leaves_launch(
-            comb.device.index, comb.data_ptr(), nc, c, f, *map(_ptr, ops),
-            block_leaf.data_ptr(), block_rows, num_slots, out.data_ptr(),
-            spec.kernel_id, lpf_log2, lanes, nf_max,
+            comb.device.index, comb.data_ptr(), nc, c, f,
+            comb.element_size(), *map(_ptr, ops), block_leaf.data_ptr(),
+            block_rows, num_slots, out.data_ptr(), spec.kernel_id, lpf,
+            lanes, nf_max,
             torch.cuda.current_stream(comb.device).cuda_stream)
         _raise_on(lib, "onehot_leaves", rc)
         launch_counts["onehot_leaves"] += 1
@@ -730,10 +782,10 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
 def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
                       block_rows=1024):
     """The shootout shell (``make_bench_kernel``'s ``run``): ``[f, B, 3]``
-    histograms of ``bins_t [f, N]`` u8, transposed by the caller and read
-    as given, against the variant's prepped ``[3, N]`` float32 ``rows``
-    (``VariantSpec.prep``); ``N`` a multiple of ``block_rows``, the
-    quantization block of int8.  The ``onehot_bench`` entry of the
+    histograms of ``bins_t [f, N]`` u8 or u16, transposed by the caller
+    and read as given, against the variant's prepped ``[3, N]`` float32
+    ``rows`` (``VariantSpec.prep``); ``N`` a multiple of ``block_rows``,
+    the quantization block of int8.  The ``onehot_bench`` entry of the
     ``onehot_full`` kernel, which launches the main path's featmajor
     kernel, on CUDA tensors (after the quantize kernel, for int8); the
     plain version on CPU tensors."""
@@ -754,15 +806,17 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
     dev = bins_t.device
     _check(dev.type == "cuda" and rows.device == dev,
            "onehot_bench: tensors must be on one CUDA device")
-    _check(bins_t.dtype == torch.uint8 and bins_t.is_contiguous()
+    _check(bins_t.dtype in BIN_TYPES and bins_t.is_contiguous()
            and rows.is_contiguous(),
-           "onehot_bench: bins_t must be contiguous uint8, rows contiguous")
-    Bp, lanes, lpf_log2, nf_max = _onehot_geometry(spec, f, max_bin)
+           "onehot_bench: bins_t must be contiguous uint8 or uint16, rows "
+           "contiguous")
+    Bp, lanes, lpf, nf_max = _onehot_geometry(spec, f, max_bin)
     out = torch.zeros(6, lanes, dtype=torch.float64, device=dev)
     if n > 0 and f > 0:
-        # the kernel's 16-byte copies need 16-byte aligned rows
+        # the kernel's 16-byte copies need 16-byte aligned rows (u16 moves
+        # as int16)
         if bins_t.data_ptr() % 16:
-            bins_t = bins_t.clone()
+            bins_t = movable_bins(bins_t).clone().view(bins_t.dtype)
         if rows.data_ptr() % 16:
             rows = rows.clone()
         if variant == "int8":
@@ -771,9 +825,10 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
             scales = None
         lib = _build.load("onehot_full")
         rc = lib.onehot_bench_launch(
-            dev.index, bins_t.data_ptr(), n, f, rows.data_ptr(), _ptr(scales),
-            block_rows, out.data_ptr(), spec.kernel_id, lpf_log2, lanes,
-            nf_max, torch.cuda.current_stream(dev).cuda_stream)
+            dev.index, bins_t.data_ptr(), n, f, bins_t.element_size(),
+            rows.data_ptr(), _ptr(scales), block_rows, out.data_ptr(),
+            spec.kernel_id, lpf, lanes, nf_max,
+            torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, "onehot_bench", rc)
         launch_counts["onehot_bench"] += 1
     return ov.finish_hist(out, f, max_bin, Bp, spec).float()
@@ -784,24 +839,26 @@ def onehot_kernel_attributes(kernel: str, variant: str, f: int, max_bin: int,
                              ld: Optional[int] = None) -> Dict[str, int]:
     """Registers a thread, static shared bytes and spilled bytes a thread
     of the ``onehot_full`` (per ``layout``) or ``onehot_leaves`` kernel of
-    ``variant``, from ``cudaFuncGetAttributes``, and the dynamic shared
-    bytes of its launch over ``f`` features at ``max_bin`` (row-major rows
-    of ``ld`` bytes, ``f`` by default, 16-byte aligned) and the CTAs an SM
-    then holds (the occupancy calculator's count, which sizes the grid);
-    builds the kernel first if needed."""
+    ``variant`` over the bins a matrix of ``max_bin`` bins holds (u8 up to
+    256, u16 above), from ``cudaFuncGetAttributes``, and
+    the dynamic shared bytes of its launch over ``f`` features at
+    ``max_bin`` (row-major rows of ``ld`` bins, ``f`` by default, 16-byte
+    aligned) and the CTAs an SM then holds (the occupancy calculator's
+    count, which sizes the grid); builds the kernel first if needed."""
     import ctypes
     spec = _onehot_spec(variant, max_bin, layout)
     nf_max = _onehot_geometry(spec, f, max_bin)[3]
     ld = f if ld is None else ld
+    esz = 1 if max_bin <= 256 else 2
     buf = (ctypes.c_int * 5)()
     lib = _build.load(kernel)
     if kernel == "onehot_full":
         rc = lib.onehot_full_query(spec.kernel_id, LAYOUTS.index(layout),
-                                   nf_max, ld, buf)
+                                   nf_max, ld, esz, buf)
     else:
         _check(kernel == "onehot_leaves" and layout == "rowmajor",
                f"no attribute query for {kernel} ({layout})")
-        rc = lib.onehot_leaves_query(spec.kernel_id, nf_max, ld, buf)
+        rc = lib.onehot_leaves_query(spec.kernel_id, nf_max, ld, esz, buf)
     _raise_on(lib, f"{kernel} query", rc)
     return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
                      "local_bytes", "ctas_per_sm"), buf))

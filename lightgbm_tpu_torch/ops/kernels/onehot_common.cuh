@@ -8,9 +8,17 @@
 // where gh is the [6, N] bf16 (hi, lo) split of (g*m, h*m, m) and
 // onehot(lane, r) is 1 when row r's bin for the lane's feature equals the
 // lane's bin id.  The lane map is lane = feature * lpf + bin, lpf being the
-// lanes of one feature (Bp = 128 or 256 for the unpacked variants, B for
-// `packed`), always a power of two.  A bin that no lane of its feature
-// carries (>= Bp, or >= B under packing) matches nothing.
+// lanes of one feature (Bp, a multiple of 128, for the unpacked variants;
+// B, a power of two that divides 128, for `packed`), so feature = lane /
+// lpf and bin = lane % lpf.  A bin that no lane of its feature carries (>=
+// Bp, or >= B under packing) matches nothing.
+//
+// Bins are u8 or u16 (a feature of more than 256 bins, or an EFB bundle):
+// every kernel is a template on the bin type T, and u16 serves the four
+// bodies the JAX package admits above 256 bins (base, i16cmp, staged,
+// int8).  At u16 a step's four rows are one 64-bit word; base and i16cmp
+// compare its halfwords, staged and int8 first map each bin to its place
+// in the warp's 128 lanes as a byte (rel_bytes) and then build as at u8.
 //
 // Tile product: mma.sync.m16n8k16, bf16 inputs, f32 sums.  The one-hot
 // lanes go on M (16 lanes a tile, 8 tiles a warp), the rows on K (16 rows
@@ -27,9 +35,10 @@
 //   4t..4t+3 of the step for both fragments: A's k = 2t, 2t+1 are rows
 //   4t, 4t+1 and k = 2t+8, 2t+9 are rows 4t+2, 4t+3, and B's two
 //   registers are one 64-bit load of gh at row 4t.  One 32-bit shared
-//   load then gives the thread its four bins of the step.  A warp's 128
-//   lanes are 128-aligned and an unpacked feature has >= 128 lanes, so
-//   that word serves all 8 tiles; the lane bin ids follow from the tile
+//   load (u16: 64-bit) then gives the thread its four bins of the step.
+//   A warp's 128 lanes are 128-aligned and an unpacked feature's lanes are
+//   a multiple of 128, so the warp's lanes lie in one feature and that
+//   word serves all 8 tiles; the lane bin ids follow from the tile
 //   index (tile tl, thread g: j = jb + 16 tl and j + 8, jb = the warp's
 //   first bin + g).  `packed` loads a word per feature of the warp when
 //   B >= 16 (a tile lies in one feature) and builds its tiles as base
@@ -140,6 +149,48 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t sel) {
   return d;
 }
 
+// prmt of {b, a}: selector nibbles 0..3 pick a byte of a, 4..7 of b
+__device__ __forceinline__ uint32_t prmt2(uint32_t a, uint32_t b,
+                                          uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// u16: four rows' bins (w.x rows 0, 1; w.y rows 2, 3; the earlier row in
+// the low half) as their places in the warp's 128 lanes, one byte a row:
+// bin - base (base: the warp's first bin, in both halfwords), or 0xFF
+// where that is not below 256 -- a bin below base wraps to a halfword
+// above it, so the min catches both sides.  A byte >= 128 has a hi digit
+// >= 8, which no tile of the warp takes, and a lane's lo digit is g or g +
+// 8 as at u8 (base is a multiple of 128), so staged and int8 build from
+// these bytes as they build from u8 bins, on the warp's first hi digit 0.
+__device__ __forceinline__ uint32_t rel_bytes(uint2 w, uint32_t base) {
+  const uint32_t x = __vminu2(__vsub2(w.x, base), 0x00FF00FFu);
+  const uint32_t y = __vminu2(__vsub2(w.y, base), 0x00FF00FFu);
+  return prmt2(x, y, 0x6420);
+}
+
+// A step's bins of rows 4t..4t+3: one 32-bit word of u8 bins (byte i is
+// row 4t+i), or one 64-bit word of u16 bins
+template <typename T>
+struct Word4;
+template <>
+struct Word4<uint8_t> {
+  using type = uint32_t;
+};
+template <>
+struct Word4<uint16_t> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ uint32_t load4(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint2 load4(const uint16_t* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+
 // d += A(16 x 16, bf16, row) * B(16 x 8, bf16, col), f32 sums; with
 // kFirst, d = A * B (a zero accumulator operand, so a chunk's sums need
 // no zeroing first)
@@ -177,16 +228,19 @@ __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
 // per-thread constants of the unpacked bodies, derived from jb
 struct Ids {
   int jb;                 // lane g's bin id in tile 0
-  uint32_t hb;            // staged: the warp's first hi digit, in each byte
+  uint32_t hb;            // staged u8: the warp's first hi digit, each byte
   uint32_t lo_g;          // staged: g in each byte
+  uint32_t base;          // staged u16: the warp's first bin, each halfword
   __nv_bfloat162 jg, j8;  // bf16cmp, sub1abs: {jb, jb}, {jb + 8, jb + 8}
 };
 
 __device__ __forceinline__ Ids make_ids(int jb) {
+  const int g = (threadIdx.x & 31) >> 2;
   Ids d;
   d.jb = jb;
-  d.hb = (uint32_t)(jb >> 4) * kRep;     // jb - g is 0 or 128: 0 or 8
+  d.hb = (uint32_t)(jb >> 4) * kRep;     // u8: jb - g is 0 or 128: 0 or 8
   d.lo_g = (uint32_t)(jb & 15) * kRep;   // = g
+  d.base = (uint32_t)(jb - g) * 0x00010001u;
   d.jg = __float2bfloat162_rn((float)jb);
   d.j8 = __float2bfloat162_rn((float)(jb + 8));
   return d;
@@ -207,6 +261,13 @@ struct Step<kBase> {
   }
   __device__ __forceinline__ Step(uint32_t w, const Ids& ids)
       : Step(w, ids.jb) {}
+  // u16: the four halfwords
+  __device__ __forceinline__ Step(uint2 w, const Ids& ids) {
+    d0 = (int)(w.x & 0xFFFFu) - ids.jb;
+    d1 = (int)(w.x >> 16) - ids.jb;
+    d2 = (int)(w.y & 0xFFFFu) - ids.jb;
+    d3 = (int)(w.y >> 16) - ids.jb;
+  }
   __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
     const int c = 16 * tl, c8 = c + 8;
     a[0] = pair(d0 == c, d1 == c);
@@ -244,6 +305,7 @@ struct Step<kBf16Cmp> {
 };
 
 // i16cmp: two rows' bins as the halves of one word, compared as int16
+// (u16: the halfwords as loaded; jb + 16 tl + 8 < 2^15 at B <= 32,768)
 template <>
 struct Step<kI16Cmp> {
   uint32_t p01, p23;
@@ -252,6 +314,8 @@ struct Step<kI16Cmp> {
     p01 = prmt(w, 0x4140);               // {b0, 0, b1, 0}
     p23 = prmt(w, 0x4342);
   }
+  __device__ __forceinline__ Step(uint2 w, const Ids& ids)
+      : p01(w.x), p23(w.y), jb(ids.jb) {}
   __device__ __forceinline__ void tile(int tl, uint32_t (&a)[4]) const {
     const uint32_t j = (uint32_t)(jb + 16 * tl) * 0x00010001u;
     const uint32_t k = j + 8 * 0x00010001u;
@@ -319,14 +383,22 @@ template <>
 struct Step<kStaged> {
   uint32_t lo[4], hi;
   __device__ __forceinline__ Step(uint32_t w, const Ids& ids) {
-    const uint32_t xg = (w & 0x0F0F0F0Fu) ^ ids.lo_g;     // 0 where lo == g
+    init(w, ids.lo_g, ids.hb);
+  }
+  // u16: the rows' places in the warp's lanes, as bytes
+  __device__ __forceinline__ Step(uint2 w, const Ids& ids) {
+    init(rel_bytes(w, ids.base), ids.lo_g, 0u);
+  }
+  __device__ __forceinline__ void init(uint32_t w, uint32_t lo_g,
+                                       uint32_t hb) {
+    const uint32_t xg = (w & 0x0F0F0F0Fu) ^ lo_g;         // 0 where lo == g
     const uint32_t ng = nonzero_bytes(xg);
     const uint32_t n8 = nonzero_bytes(xg ^ 0x08080808u);  // lo == g + 8
     lo[0] = ~prmt(ng, 0x9988) & kOnes;
     lo[1] = ~prmt(n8, 0x9988) & kOnes;
     lo[2] = ~prmt(ng, 0xBBAA) & kOnes;
     lo[3] = ~prmt(n8, 0xBBAA) & kOnes;
-    hi = ((w >> 4) & 0x0F0F0F0Fu) ^ ids.hb;
+    hi = ((w >> 4) & 0x0F0F0F0Fu) ^ hb;
   }
   // the rows whose hi digit is >= tl: hi + (0x80 - tl) has its top bit
   // set exactly there (bytes <= 15, no carry)
@@ -358,24 +430,45 @@ __device__ __forceinline__ uint32_t packed_pair(uint32_t w, int shift,
 // The CTA's geometry and the per-chunk tile product.
 // ---------------------------------------------------------------------------
 
-// The CTA's lanes [lb0, lb0 + kBlockLanes) read features [fa, fa + nf).
-__device__ __forceinline__ void cta_features(int lb0, int f, int lpf_log2,
-                                             int* fa, int* nf) {
-  *fa = lb0 >> lpf_log2;
-  const int fb = min(f, ((lb0 + kBlockLanes - 1) >> lpf_log2) + 1);
+// lane / lpf.  At u8 lpf is a power of two (128, 256, or packed B), and
+// the kernels shift by lpf_log2, their argument: a value the compiler
+// reads where it needs it (a quotient it computes stays in a register,
+// which pushed the packed leaves kernel into spilling).  At u16 lpf is
+// any multiple of 128: a division.
+template <typename T>
+__device__ __forceinline__ int lane_feature(int lane, int lpf,
+                                            int lpf_log2) {
+  if constexpr (sizeof(T) == 1)
+    return lane >> lpf_log2;
+  else
+    return lane / lpf;
+}
+
+// The CTA's lanes [lb0, lb0 + kBlockLanes) read features [fa, fa + nf)
+// (at lpf >= 1,024 part of one feature; the wrapper sizes the shared bin
+// buffers by the largest nf of any CTA, histogram._cta_features_max).
+template <typename T>
+__device__ __forceinline__ void cta_features(int lb0, int f, int lpf,
+                                             int lpf_log2, int* fa,
+                                             int* nf) {
+  *fa = lane_feature<T>(lb0, lpf, lpf_log2);
+  const int fb =
+      min(f, lane_feature<T>(lb0 + kBlockLanes - 1, lpf, lpf_log2) + 1);
   *nf = max(0, fb - *fa);
 }
 
 // What a thread needs about its lanes: its warp's first lane wl0, and the
 // CTA's first feature fa.  Unpacked bodies: the warp's feature row in the
-// staged bins (or -1: the warp's lanes have no feature) and jb.
+// staged bins (or -1: the warp's lanes have no feature) and jb.  packed
+// (u8) reads lpf_log2.
 struct Geo {
   int wl0, fa, f, lanes, lpf_log2;
   int frow;
   int jb;
 };
 
-__device__ __forceinline__ Geo make_geo(int lb0, int lanes, int f,
+template <typename T>
+__device__ __forceinline__ Geo make_geo(int lb0, int lanes, int f, int lpf,
                                         int lpf_log2, int fa) {
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   Geo G;
@@ -384,20 +477,20 @@ __device__ __forceinline__ Geo make_geo(int lb0, int lanes, int f,
   G.f = f;
   G.lanes = lanes;
   G.lpf_log2 = lpf_log2;
-  const int feat = G.wl0 >> lpf_log2;
+  const int feat = lane_feature<T>(G.wl0, lpf, lpf_log2);
   G.frow = (G.wl0 < lanes && feat < f) ? feat - fa : -1;
-  G.jb = (G.wl0 & ((1 << lpf_log2) - 1)) + g;
+  G.jb = G.wl0 - feat * lpf + g;
   return G;
 }
 
 // One 16-row step of the unpacked bodies: gp, bp point at the thread's
 // rows 4t..4t+3 of the step in the staged gh and bins.
-template <int V, bool kFirst>
+template <int V, bool kFirst, typename T>
 __device__ __forceinline__ void step(float (&c)[kTiles][4],
-                                     const uint16_t* gp, const uint8_t* bp,
+                                     const uint16_t* gp, const T* bp,
                                      const Ids& ids) {
   const uint2 b = *reinterpret_cast<const uint2*>(gp);
-  const Step<V> s(*reinterpret_cast<const uint32_t*>(bp), ids);
+  const Step<V> s(load4(bp), ids);
 #pragma unroll
   for (int tl = 0; tl < kTiles; ++tl) {
     uint32_t a[4];
@@ -406,22 +499,6 @@ __device__ __forceinline__ void step(float (&c)[kTiles][4],
   }
 }
 
-// The staged chunk's tile sums (replacing c): sg is the chunk's gh
-// ([8][kGhStride] bf16), sb its bins ([feature][kChunk]).  Called only by
-// a warp whose lanes have a feature (G.frow >= 0).
-template <int V>
-__device__ __forceinline__ void mma_chunk(float (&c)[kTiles][4],
-                                          const uint16_t* sg,
-                                          const uint8_t* sb, const Geo& G,
-                                          const Ids& ids) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const uint16_t* gp = sg + g * kGhStride + 4 * t;
-  const uint8_t* bp = sb + G.frow * kChunk + 4 * t;
-  step<V, true>(c, gp, bp, ids);
-#pragma unroll kUnroll
-  for (int ks = 16; ks < kChunk; ks += 16)
-    step<V, false>(c, gp + ks, bp + ks, ids);
-}
 
 // packed at B >= 16: a warp's 128 lanes start at a feature and hold
 // kFeats = 128 / B features of kTpf = B / 16 tiles each, so a step loads
@@ -474,12 +551,10 @@ __device__ __forceinline__ void mma_chunk_packed(float (&c)[kTiles][4],
 // of a tile may read different features.  Each tile reads the word of
 // lane g's feature and of lane g + 8's; the lane table is rebuilt per
 // chunk from the tile index.
-template <>
-__device__ __forceinline__ void mma_chunk<kPacked>(float (&c)[kTiles][4],
-                                                   const uint16_t* sg,
-                                                   const uint8_t* sb,
-                                                   const Geo& G,
-                                                   const Ids&) {
+__device__ __forceinline__ void packed_chunk(float (&c)[kTiles][4],
+                                             const uint16_t* sg,
+                                             const uint8_t* sb,
+                                             const Geo& G) {
   if (G.lpf_log2 >= 6) return mma_chunk_packed<4>(c, sg, sb, G);
   if (G.lpf_log2 == 5) return mma_chunk_packed<2>(c, sg, sb, G);
   if (G.lpf_log2 == 4) return mma_chunk_packed<1>(c, sg, sb, G);
@@ -516,6 +591,26 @@ __device__ __forceinline__ void mma_chunk<kPacked>(float (&c)[kTiles][4],
       else
         mma16816(c[tl], a0, a1, a2, a3, b.x, b.y);
     }
+  }
+}
+
+// The staged chunk's tile sums (replacing c): sg is the chunk's gh
+// ([8][kGhStride] bf16), sb its bins ([feature][kChunk] of T).  Called
+// only by a warp whose lanes have a feature (G.frow >= 0).
+template <int V, typename T>
+__device__ __forceinline__ void mma_chunk(float (&c)[kTiles][4],
+                                          const uint16_t* sg, const T* sb,
+                                          const Geo& G, const Ids& ids) {
+  if constexpr (V == kPacked) {
+    packed_chunk(c, sg, sb, G);             // u8 only
+  } else {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const uint16_t* gp = sg + g * kGhStride + 4 * t;
+    const T* bp = sb + G.frow * kChunk + 4 * t;
+    step<V, true>(c, gp, bp, ids);
+#pragma unroll kUnroll
+    for (int ks = 16; ks < kChunk; ks += 16)
+      step<V, false>(c, gp + ks, bp + ks, ids);
   }
 }
 
@@ -566,13 +661,14 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// What a CTA reads.  bins: [f, ld] (kFeatMajor; ld a multiple of 16 and at
-// least the rows rounded up to kChunk) or [n, ld] (kRowMajor); grad, hess
-// and mask: [n] float32 each, 16-byte aligned, split into the (hi, lo)
-// bf16 pair of (g*m, h*m, m) in shared memory as each chunk lands; the
-// CTA's features [fa, fa + nf).  raw: the bytes of one row-major chunk
-// staged as it lies (kChunk * ld), or 0 to read the bins straight from
-// global memory.
+// What a CTA reads.  bins: [f, ld] (kFeatMajor; rows of a multiple of 16
+// bytes, at least the rows rounded up to kChunk) or [n, ld] (kRowMajor) of
+// the kernel's bin type T, addressed in bytes here; grad, hess and mask:
+// [n] float32 each, 16-byte aligned, split into the (hi, lo) bf16 pair of
+// (g*m, h*m, m) in shared memory as each chunk lands; the CTA's features
+// [fa, fa + nf).  raw: the bytes of one row-major chunk staged as it lies
+// (kChunk * ld * sizeof(T)), or 0 to read the bins straight from global
+// memory.
 struct Src {
   const uint8_t* bins;
   int64_t ld, n;
@@ -584,26 +680,26 @@ struct Src {
 
 // Shared memory: kStages buffers of [float rows | bins], then the current
 // chunk's bf16 rows ([8][kGhStride]) and (row-major only) its transposed
-// bins, [nf_max][kChunk].
+// bins, [nf_max][kChunk] of esz-byte bins.
 constexpr int kRowsBytes = 3 * kChunk * 4;
 
 __host__ __device__ __forceinline__ int stage_bytes(int layout, int nf_max,
-                                                    int raw) {
-  return kRowsBytes + (layout == kFeatMajor ? nf_max * kChunk : raw);
+                                                    int raw, int esz) {
+  return kRowsBytes + (layout == kFeatMajor ? nf_max * kChunk * esz : raw);
 }
 
 __host__ __device__ __forceinline__ int smem_bytes(int layout, int nf_max,
-                                                   int raw) {
-  return kStages * stage_bytes(layout, nf_max, raw) + kGhStageBytes +
-         (layout == kRowMajor ? nf_max * kChunk : 0);
+                                                   int raw, int esz) {
+  return kStages * stage_bytes(layout, nf_max, raw, esz) + kGhStageBytes +
+         (layout == kRowMajor ? nf_max * kChunk * esz : 0);
 }
 
 // One thread's share of a chunk's copies, fixed for the kernel: its
 // 16-byte piece of the rows (bf16 shells: 4 rows of grad, hess or mask;
 // int8: 16 rows of one q row), and its first piece of the feature-major
-// bins (16 rows of one feature), at an offset in the bins' part of the
-// stage buffer; the chunk adds its row offset.  A thread without a piece
-// holds a null source.
+// bins (16 bytes of one feature: 16 u8 rows or 8 u16 rows), at an offset
+// in the bins' part of the stage buffer; the chunk adds its row offset.
+// A thread without a piece holds a null source.
 struct Copies {
   const void* rsrc;   // rows: source at chunk 0
   int rdst;           // rows: byte offset in the stage buffer
@@ -612,15 +708,21 @@ struct Copies {
   int bdst;
 };
 
+// 16-byte pieces of one feature's chunk of feature-major bins
+template <typename T>
+constexpr int kBinPieces = kChunk * (int)sizeof(T) / 16;
+
+template <typename T>
 __device__ __forceinline__ void bin_copies(const Src& S, int L, Copies& K) {
   const int i = threadIdx.x;
-  if (L == kFeatMajor && i < S.nf * (kChunk / 16)) {
-    const int fl = i >> 3, q = i & 7;
-    K.bsrc = S.bins + (int64_t)(S.fa + fl) * S.ld + 16 * q;
-    K.bdst = fl * kChunk + 16 * q;
+  if (L == kFeatMajor && i < S.nf * kBinPieces<T>) {
+    const int fl = i / kBinPieces<T>, q = i % kBinPieces<T>;
+    K.bsrc = S.bins + (int64_t)(S.fa + fl) * S.ld * sizeof(T) + 16 * q;
+    K.bdst = fl * kChunk * (int)sizeof(T) + 16 * q;
   }
 }
 
+template <typename T>
 __device__ __forceinline__ Copies make_copies(const Src& S, int L) {
   const int i = threadIdx.x;
   Copies K{nullptr, 0, 0, nullptr, 0};
@@ -630,33 +732,34 @@ __device__ __forceinline__ Copies make_copies(const Src& S, int L) {
     K.rdst = (c * kChunk + 4 * q) * 4;
     K.rrow = 4 * q;
   }
-  bin_copies(S, L, K);
+  bin_copies<T>(S, L, K);
   return K;
 }
 
 // Start the copies of chunk ci's bins into sb, the bins' part of a stage
 // buffer.  The feature-major bins are copied whole (they reach the last
 // chunk's end); the row-major rows as they lie, when S.raw > 0.
-template <int L>
+template <int L, typename T>
 __device__ __forceinline__ void issue_bins(const Src& S, const Copies& K,
                                            uint8_t* sb, int64_t ci) {
+  constexpr int kEsz = sizeof(T);
   const int64_t r0 = ci * kChunk;
   if (L == kFeatMajor) {
-    if (K.bsrc != nullptr) cp16(sb + K.bdst, K.bsrc + r0);
+    if (K.bsrc != nullptr) cp16(sb + K.bdst, K.bsrc + r0 * kEsz);
     // more features than a chunk's pieces per thread (packed, B <= 8)
-    for (int i = threadIdx.x + kThreads; i < S.nf * (kChunk / 16);
+    for (int i = threadIdx.x + kThreads; i < S.nf * kBinPieces<T>;
          i += kThreads) {
-      const int fl = i >> 3, q = i & 7;
-      cp16(sb + fl * kChunk + 16 * q,
-           S.bins + (int64_t)(S.fa + fl) * S.ld + r0 + 16 * q);
+      const int fl = i / kBinPieces<T>, q = i % kBinPieces<T>;
+      cp16(sb + fl * kChunk * kEsz + 16 * q,
+           S.bins + ((int64_t)(S.fa + fl) * S.ld + r0) * kEsz + 16 * q);
     }
   } else if (S.raw > 0) {
-    // the chunk's rows as they lie: kChunk * ld contiguous bytes, a
-    // multiple of 16 from a 16-aligned start; a ragged last chunk copies
+    // the chunk's rows as they lie: kChunk * ld * kEsz contiguous bytes,
+    // a multiple of 16 from a 16-aligned start; a ragged last chunk copies
     // its whole 16-byte pieces and then its tail byte by byte
     const int64_t left = S.n - r0;
-    const int bytes = (int)((left < kChunk ? left : kChunk) * S.ld);
-    const uint8_t* src = S.bins + r0 * S.ld;
+    const int bytes = (int)((left < kChunk ? left : kChunk) * S.ld * kEsz);
+    const uint8_t* src = S.bins + r0 * S.ld * kEsz;
     const int whole = bytes >> 4;
     for (int i = threadIdx.x; i < whole; i += kThreads)
       cp16(sb + 16 * i, src + 16 * i);
@@ -668,7 +771,7 @@ __device__ __forceinline__ void issue_bins(const Src& S, const Copies& K,
 // Start the copies of chunk ci into one stage buffer.  A ragged last
 // chunk copies the float rows' whole pieces below n and its tail row by
 // row (rows >= n are never read).
-template <int L>
+template <int L, typename T>
 __device__ __forceinline__ void issue(const Src& S, const Copies& K,
                                       uint8_t* st, int64_t ci) {
   const int64_t r0 = ci * kChunk;
@@ -681,7 +784,7 @@ __device__ __forceinline__ void issue(const Src& S, const Copies& K,
     if (r < left)
       reinterpret_cast<float*>(st)[c * kChunk + r] = src[r0 + r];
   }
-  issue_bins<L>(S, K, st + kRowsBytes, ci);
+  issue_bins<L, T>(S, K, st + kRowsBytes, ci);
 }
 
 // The chunk's six bf16 rows from its staged float rows: hi = bf16(x) and
@@ -707,34 +810,37 @@ __device__ __forceinline__ void split_rows(const Src& S, const float* sf,
 }
 
 // The bins of rows r..r+3 of row-major chunk ci for the CTA's feature fl,
-// as one word: from the staged rows, or (S.raw == 0) from global memory;
-// rows >= n read as 0.
-__device__ __forceinline__ uint32_t transpose_word(const Src& S,
-                                                  const uint8_t* raw,
-                                                  int64_t ci, int fl,
-                                                  int r) {
-  uint32_t w = 0;
+// as one step word (Word4): from the staged rows, or (S.raw == 0) from
+// global memory; rows >= n read as 0.
+template <typename T>
+__device__ __forceinline__ typename Word4<T>::type transpose_word(
+    const Src& S, const uint8_t* raw, int64_t ci, int fl, int r) {
+  const T* rb = reinterpret_cast<const T*>(raw);
+  const T* gb = reinterpret_cast<const T*>(S.bins);
+  uint32_t v[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    uint32_t v;
     if (S.raw > 0) {
-      v = raw[(r + k) * S.ld + S.fa + fl];
+      v[k] = rb[(r + k) * S.ld + S.fa + fl];
     } else {
       const int64_t row = ci * kChunk + r + k;
-      v = row < S.n ? S.bins[row * S.ld + S.fa + fl] : 0u;
+      v[k] = row < S.n ? gb[row * S.ld + S.fa + fl] : 0u;
     }
-    w |= v << (8 * k);
   }
-  return w;
+  if constexpr (sizeof(T) == 1)
+    return v[0] | (v[1] << 8) | (v[2] << 16) | (v[3] << 24);
+  else
+    return make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
 }
 
-// Row-major bins of chunk ci as [feature][row] bytes in tb.
+// Row-major bins of chunk ci as [feature][row] bins in tb.
+template <typename T>
 __device__ __forceinline__ void transpose(const Src& S, const uint8_t* raw,
-                                          uint8_t* tb, int64_t ci) {
+                                          T* tb, int64_t ci) {
   for (int i = threadIdx.x; i < S.nf * (kChunk / 4); i += kThreads) {
     const int fl = i >> 5, r = (i & 31) * 4;
-    *reinterpret_cast<uint32_t*>(tb + fl * kChunk + r) =
-        transpose_word(S, raw, ci, fl, r);
+    *reinterpret_cast<typename Word4<T>::type*>(tb + fl * kChunk + r) =
+        transpose_word<T>(S, raw, ci, fl, r);
   }
 }
 
@@ -742,7 +848,7 @@ __device__ __forceinline__ void transpose(const Src& S, const uint8_t* raw,
 // in flight while one multiplies.  use(ci), called once per chunk in
 // order, says whether chunk ci counts (the same answer in every thread);
 // it may flush and zero acc first.  Every thread of the CTA must call it.
-template <int V, int L, typename Use>
+template <int V, int L, typename T, typename Use>
 __device__ __forceinline__ void run_chunks(const Src& S, uint8_t* smem,
                                            int sbytes, int64_t c0,
                                            int64_t c1, const Geo& geo,
@@ -751,14 +857,14 @@ __device__ __forceinline__ void run_chunks(const Src& S, uint8_t* smem,
                                            Use use) {
   // after the stages: the split rows, then the transposed bins
   uint16_t* sg = reinterpret_cast<uint16_t*>(smem + kStages * sbytes);
-  uint8_t* tb = smem + kStages * sbytes + kGhStageBytes;
+  T* tb = reinterpret_cast<T*>(smem + kStages * sbytes + kGhStageBytes);
   // rows 6, 7 of the bf16 rows: mma's N padding
   for (int i = threadIdx.x; i < 2 * kGhStride; i += kThreads)
     sg[6 * kGhStride + i] = 0;
-  const Copies K = make_copies(S, L);
+  const Copies K = make_copies<T>(S, L);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (c0 + s < c1) issue<L>(S, K, smem + s * sbytes, c0 + s);
+    if (c0 + s < c1) issue<L, T>(S, K, smem + s * sbytes, c0 + s);
     cp_commit();
   }
   int s = 0;
@@ -768,20 +874,21 @@ __device__ __forceinline__ void run_chunks(const Src& S, uint8_t* smem,
     int sn = s + kStages - 1;
     if (sn >= kStages) sn -= kStages;
     if (ci + kStages - 1 < c1)
-      issue<L>(S, K, smem + sn * sbytes, ci + kStages - 1);
+      issue<L, T>(S, K, smem + sn * sbytes, ci + kStages - 1);
     cp_commit();
     uint8_t* st = smem + s * sbytes;
-    const uint8_t* sb = st + kRowsBytes;
     const bool on = use(ci);
     if (on) {
       split_rows(S, reinterpret_cast<const float*>(st), sg, ci);
-      if (L == kRowMajor) transpose(S, sb, tb, ci);
+      if (L == kRowMajor) transpose<T>(S, st + kRowsBytes, tb, ci);
     }
     __syncthreads();
-    if (L == kRowMajor) sb = tb;
+    const T* sb = L == kRowMajor
+                      ? tb
+                      : reinterpret_cast<const T*>(st + kRowsBytes);
     if (on && geo.frow >= 0) {
       float c[kTiles][4];
-      mma_chunk<V>(c, sg, sb, geo, ids);
+      mma_chunk<V, T>(c, sg, sb, geo, ids);
 #pragma unroll
       for (int tl = 0; tl < kTiles; ++tl)
 #pragma unroll
@@ -807,6 +914,14 @@ static inline int resident_ctas(K kern, int smem, int device) {
   return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
 }
 
+// log2 of a power of two (the lanes of a feature at u8); at u16 the
+// kernels divide and do not read it
+static inline int ilog2(int x) {
+  int l = 0;
+  while ((2 << l) <= x) ++l;
+  return l;
+}
+
 // Split `units` units of rows over grid.x so that the whole grid (grid.y =
 // nlb lane blocks) is resident at once: no second, partly empty wave.
 // Returns the units per CTA; *gx the grid's x.
@@ -830,13 +945,14 @@ static inline cudaError_t allow_smem(K kern, int smem) {
              : cudaSuccess;
 }
 
-// The bytes of one row-major chunk staged as it lies (rows of ld bytes),
-// or 0 when the bins are read straight from global memory: rows wider
-// than kMaxRawLd, a matrix that is not 16-byte aligned, or feature-major
-// bins (staged by feature).
-static inline int raw_bytes(int layout, long long ld, bool aligned) {
-  return (layout == kRowMajor && ld <= kMaxRawLd && aligned)
-             ? (int)(kChunk * ld)
+// The bytes of one row-major chunk staged as it lies (rows of ld bins of
+// esz bytes), or 0 when the bins are read straight from global memory:
+// rows wider than kMaxRawLd bytes, a matrix that is not 16-byte aligned,
+// or feature-major bins (staged by feature).
+static inline int raw_bytes(int layout, long long ld, bool aligned,
+                            int esz) {
+  return (layout == kRowMajor && ld * esz <= kMaxRawLd && aligned)
+             ? (int)(kChunk * ld * esz)
              : 0;
 }
 
@@ -878,9 +994,10 @@ static inline cudaError_t kernel_attrs(K kern, int smem, int* out) {
 // * Rows inside a step may go in any order, so thread (g, t) takes rows
 //   8t..8t+7 of the step: A's k = 4t..4t+3 are rows 8t..8t+3 and k =
 //   16+4t..16+4t+3 rows 8t+4..8t+7, and B's two registers are the same
-//   rows of q row g.  One 64-bit load gives the step's two bin words, one
-//   64-bit load its q fragment.  A warp's 128 lanes lie in one feature (an
-//   int8 feature has Bp >= 128 lanes), so the words serve all 8 tiles, and
+//   rows of q row g.  One 64-bit load gives the step's two bin words (u16:
+//   one 128-bit load, mapped to two byte words by rel_bytes), one 64-bit
+//   load its q fragment.  A warp's 128 lanes lie in one feature (an int8
+//   feature's Bp is a multiple of 128), so the words serve all 8 tiles, and
 //   the lane bin ids follow from the tile index: tile tl, thread g takes
 //   bins jb + 16 tl and jb + 16 tl + 8 (jb = the warp's first bin + g).
 // * The one-hot as `staged` builds it (bin = 16 hi + lo): the lo-digit
@@ -938,21 +1055,22 @@ __host__ __device__ __forceinline__ int q_channel(int r) {
 
 __host__ __device__ __forceinline__ int stage_bytes_int8(int layout,
                                                          int nf_max,
-                                                         int raw) {
-  return kQStageBytes + (layout == kFeatMajor ? nf_max * kChunk : raw);
+                                                         int raw, int esz) {
+  return kQStageBytes + (layout == kFeatMajor ? nf_max * kChunk * esz : raw);
 }
 
 // Dynamic shared bytes of a launch of a variant's kernel with nf_max
-// features a CTA (row-major rows of ld bytes, 16-byte aligned or not).
-// int8: the float64 sums, the stage buffers, then (row-major) each warp's
-// transposed bins.
+// features a CTA (row-major rows of ld bins of esz bytes, 16-byte aligned
+// or not).  int8: the float64 sums, the stage buffers, then (row-major)
+// each warp's transposed bins.
 static inline int launch_smem(int variant, int layout, int nf_max,
-                              long long ld, bool aligned) {
-  const int raw = raw_bytes(layout, ld, aligned);
+                              long long ld, bool aligned, int esz) {
+  const int raw = raw_bytes(layout, ld, aligned, esz);
   if (variant == kInt8)
-    return kFaccBytes + kStages * stage_bytes_int8(layout, nf_max, raw) +
-           (layout == kRowMajor ? kWarps * kChunk : 0);
-  return smem_bytes(layout, nf_max, raw);
+    return kFaccBytes +
+           kStages * stage_bytes_int8(layout, nf_max, raw, esz) +
+           (layout == kRowMajor ? kWarps * kChunk * esz : 0);
+  return smem_bytes(layout, nf_max, raw, esz);
 }
 
 // d += A(16 x 32, u8, row) * B(32 x 8, s8, col), s32 sums
@@ -972,6 +1090,12 @@ __device__ __forceinline__ uint2 ld64(const uint8_t* p) {
   return *reinterpret_cast<const uint2*>(p);
 }
 
+// A step's bins of rows 8t..8t+7: two u8 words, or four of u16
+__device__ __forceinline__ uint2 load8(const uint8_t* p) { return ld64(p); }
+__device__ __forceinline__ uint4 load8(const uint16_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
 // a & b & ~c in one instruction (lop3's table: 0xF0 & 0xCC & ~0xAA).  Left
 // to itself nvcc computed ~c by a second, negated add and the AND of b and
 // ~c apart, which cost five instructions a tile and word where this
@@ -986,7 +1110,8 @@ __device__ __forceinline__ uint32_t and_andnot(uint32_t a, uint32_t b,
 // per-thread constants of the int8 body, from jb
 struct Int8Ids {
   uint32_t lo_g, lo_g8;   // g and g + 8 in each byte
-  uint32_t hb;            // the warp's first hi digit (0 or 8), each byte
+  uint32_t hb;            // u8: the warp's first hi digit (0 or 8), each byte
+  uint32_t base;          // u16: the warp's first bin, each halfword
 };
 
 __device__ __forceinline__ Int8Ids make_int8_ids(int jb) {
@@ -995,6 +1120,7 @@ __device__ __forceinline__ Int8Ids make_int8_ids(int jb) {
   d.lo_g = (uint32_t)g * kRep;
   d.lo_g8 = (uint32_t)(g + 8) * kRep;
   d.hb = (uint32_t)((jb - g) >> 4) * kRep;
+  d.base = (uint32_t)(jb - g) * 0x00010001u;
   return d;
 }
 
@@ -1005,13 +1131,22 @@ __device__ __forceinline__ Int8Ids make_int8_ids(int jb) {
 struct Int8Step {
   uint32_t lg[2], lh[2], hi[2];
   __device__ __forceinline__ Int8Step(uint2 w, const Int8Ids& d) {
-    const uint32_t v[2] = {w.x, w.y};
+    init(w.x, w.y, d, d.hb);
+  }
+  // u16: the rows' places in the warp's lanes, as bytes
+  __device__ __forceinline__ Int8Step(uint4 w, const Int8Ids& d) {
+    init(rel_bytes(make_uint2(w.x, w.y), d.base),
+         rel_bytes(make_uint2(w.z, w.w), d.base), d, 0u);
+  }
+  __device__ __forceinline__ void init(uint32_t w0, uint32_t w1,
+                                       const Int8Ids& d, uint32_t hb) {
+    const uint32_t v[2] = {w0, w1};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const uint32_t lo = v[i] & 0x0F0F0F0Fu;
       lg[i] = ~nonzero_bytes(lo ^ d.lo_g) & kTop;
       lh[i] = ~nonzero_bytes(lo ^ d.lo_g8) & kTop;
-      hi[i] = ((v[i] >> 4) & 0x0F0F0F0Fu) ^ d.hb;
+      hi[i] = ((v[i] >> 4) & 0x0F0F0F0Fu) ^ hb;
     }
   }
   // the rows of word i whose hi digit is >= tl, as each byte's top bit:
@@ -1034,21 +1169,22 @@ struct Int8Step {
 
 // Add the staged chunk's products to c[tile][n-tile][fragment]: sq the
 // chunk's q ([9][kQStride] bytes), fb the warp's feature row of its bins
-// ([kChunk] bytes).
+// ([kChunk] of T).
+template <typename T>
 __device__ __forceinline__ void mma_chunk_int8(int (&c)[kTiles][2][4],
                                                const uint8_t* sq,
-                                               const uint8_t* fb,
+                                               const T* fb,
                                                const Int8Ids& ids) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const uint8_t* qp = sq + g * kQStride + 8 * t;
   const uint8_t* q8 = sq + 8 * kQStride + 8 * t;
-  const uint8_t* bp = fb + 8 * t;
+  const T* bp = fb + 8 * t;
 #pragma unroll
   for (int ks = 0; ks < kChunk; ks += 32) {
     const uint2 b = ld64(qp + ks);
     uint2 b8 = make_uint2(0u, 0u);           // column 8 and seven zeros
     if (g == 0) b8 = ld64(q8 + ks);
-    const Int8Step o(ld64(bp + ks), ids);
+    const Int8Step o(load8(bp + ks), ids);
 #pragma unroll
     for (int tl = 0; tl < kTiles; ++tl) {
       uint32_t a[4];
@@ -1138,6 +1274,7 @@ __device__ __forceinline__ void flush_int8(double* __restrict__ out,
 
 // A thread's copies of q (staged row r's 16-byte piece p, from q row
 // q_channel(r): threads 9 * 8) and of the feature-major bins.
+template <typename T>
 __device__ __forceinline__ Copies make_copies_int8(const Src& S, int L,
                                                    const int8_t* q,
                                                    int64_t ldq) {
@@ -1148,16 +1285,16 @@ __device__ __forceinline__ Copies make_copies_int8(const Src& S, int L,
     K.rsrc = q + q_channel(r) * ldq + 16 * p;
     K.rdst = r * kQStride + 16 * p;
   }
-  bin_copies(S, L, K);
+  bin_copies<T>(S, L, K);
   return K;
 }
 
-template <int L>
+template <int L, typename T>
 __device__ __forceinline__ void issue_int8(const Src& S, const Copies& K,
                                            uint8_t* st, int64_t ci) {
   if (K.rsrc != nullptr)
     cp16(st + K.rdst, reinterpret_cast<const int8_t*>(K.rsrc) + ci * kChunk);
-  issue_bins<L>(S, K, st + kQStageBytes, ci);
+  issue_bins<L, T>(S, K, st + kQStageBytes, ci);
 }
 
 // Multiply the CTA's chunks [c0, c1) in int32, kStages - 1 chunks' copies
@@ -1166,17 +1303,18 @@ __device__ __forceinline__ void issue_int8(const Src& S, const Copies& K,
 // use(blk), called in order at the first chunk of each block the range
 // touches, says whether block blk counts (the same answer in every thread);
 // it may flush facc first.  Every thread of the CTA must call it.
-template <int L, typename Use>
+template <int L, typename T, typename Use>
 __device__ __forceinline__ void run_chunks_int8(
     const Src& S, const int8_t* q, const float* __restrict__ scales, int cpb,
     uint8_t* smem, int sbytes, int64_t c0, int64_t c1, const Geo& geo,
     const Int8Ids& ids, double* facc, Use use) {
-  uint8_t* tb = smem + kStages * sbytes;    // row-major: the warps' bins
+  // row-major: the warps' bins
+  T* tb = reinterpret_cast<T*>(smem + kStages * sbytes);
   const int64_t ldq = (S.n + kChunk - 1) / kChunk * kChunk;
-  const Copies K = make_copies_int8(S, L, q, ldq);
+  const Copies K = make_copies_int8<T>(S, L, q, ldq);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (c0 + s < c1) issue_int8<L>(S, K, smem + s * sbytes, c0 + s);
+    if (c0 + s < c1) issue_int8<L, T>(S, K, smem + s * sbytes, c0 + s);
     cp_commit();
   }
   int c[kTiles][2][4];
@@ -1191,18 +1329,19 @@ __device__ __forceinline__ void run_chunks_int8(
     int sn = s + kStages - 1;
     if (sn >= kStages) sn -= kStages;
     if (ci + kStages - 1 < c1)
-      issue_int8<L>(S, K, smem + sn * sbytes, ci + kStages - 1);
+      issue_int8<L, T>(S, K, smem + sn * sbytes, ci + kStages - 1);
     cp_commit();
     const uint8_t* st = smem + s * sbytes;
-    const uint8_t* fb = st + kQStageBytes + geo.frow * kChunk;
+    const T* fb =
+        reinterpret_cast<const T*>(st + kQStageBytes) + geo.frow * kChunk;
     if (ci == c0 || sub == 0) on = use(blk);
     const bool last = ++sub == cpb || ci + 1 == c1;
     if (on && geo.frow >= 0) {
       if (L == kRowMajor) {
         const int lane = threadIdx.x & 31;
-        uint8_t* wb = tb + (threadIdx.x >> 5) * kChunk;
-        *reinterpret_cast<uint32_t*>(wb + 4 * lane) = transpose_word(
-            S, st + kQStageBytes, ci, geo.frow, 4 * lane);
+        T* wb = tb + (threadIdx.x >> 5) * kChunk;
+        *reinterpret_cast<typename Word4<T>::type*>(wb + 4 * lane) =
+            transpose_word<T>(S, st + kQStageBytes, ci, geo.frow, 4 * lane);
         __syncwarp();
         fb = wb;
       }

@@ -26,27 +26,34 @@
 // atomics.  The kernels read grad, hess and mask and split them into the
 // bf16 pair themselves.
 //
-// Bound on an H100: it must read n * f bytes of bins and 12 * n bytes of
-// gh once and write 48 * lanes bytes; the tensor cores must do
+// Bins are u8 or u16 (the template's T; u16 serves base, i16cmp, staged
+// and int8, the bodies the JAX package admits above 256 bins).  At u16
+// widths (Bp = 384 .. 4,096 and beyond) a CTA's 512 lanes hold parts of
+// one or two features, so each CTA stages one or two features' bins a
+// chunk and the grid has f * Bp / 512 lane blocks.
+//
+// Bound on an H100: it must read n * f bins (1 or 2 bytes each) and 12 * n
+// bytes of gh once and write 48 * lanes bytes; the tensor cores must do
 // 2 * 8 * lanes * n flops (6 of mma's 8 N columns are used) -- at
 // n = 1M, lanes = 7168 that is 0.12 ms at 989 TFLOP/s, ten times the bytes'
 // time, so the one-hot design is bounded by operations (int8: 2 * 16 *
 // lanes * n operations, two n8 tiles for 9 channels, at 1979 TOP/s, the
-// same 0.12 ms).  It uses mma.sync (not wgmma) and builds the one-hot
-// fragments with integer or bf16 instructions, which take a large part of
-// its time and keep it well above that (scripts/torch_onehot_ablation.py).
+// same 0.12 ms); at B = 1,024 (lanes = 28,672) 0.46 ms.  It uses mma.sync
+// (not wgmma) and builds the one-hot fragments with integer or bf16
+// instructions, which take a large part of its time and keep it well
+// above that (scripts/torch_onehot_ablation.py).
 #include "onehot_common.cuh"
 
 using namespace lgbt_oh;
 
-template <int V, int L>
+template <int V, int L, typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    onehot_full_kernel(Src S, int f, double* __restrict__ out, int lpf_log2,
-                       int lanes, int64_t cps, int nf_max) {
+    onehot_full_kernel(Src S, int f, double* __restrict__ out, int lpf,
+                       int lpf_log2, int lanes, int64_t cps, int nf_max) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lb0 = blockIdx.y * kBlockLanes;
-  cta_features(lb0, f, lpf_log2, &S.fa, &S.nf);
-  const Geo geo = make_geo(lb0, lanes, f, lpf_log2, S.fa);
+  cta_features<T>(lb0, f, lpf, lpf_log2, &S.fa, &S.nf);
+  const Geo geo = make_geo<T>(lb0, lanes, f, lpf, lpf_log2, S.fa);
   const Ids ids = make_ids(geo.jb);
   double acc[kTiles][4];
   zero_acc(acc);
@@ -54,34 +61,35 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int64_t c0 = (int64_t)blockIdx.x * cps;
   const int64_t c1 = (c0 + cps < chunks) ? c0 + cps : chunks;
   if (c0 < c1)
-    run_chunks<V, L>(S, smem, stage_bytes(L, nf_max, S.raw), c0, c1, geo,
-                     ids, acc, [](int64_t) { return true; });
+    run_chunks<V, L, T>(S, smem, stage_bytes(L, nf_max, S.raw, sizeof(T)),
+                        c0, c1, geo, ids, acc, [](int64_t) { return true; });
   flush(out, acc, lb0, lanes);
 }
 
 // The int8 body: q [9, ldq] int8 (ldq = n rounded up to kChunk, zero past
 // n) and scales [blocks of cpb chunks, 9] float32.  A CTA's chunk range may
 // start and end inside a block: the sums fold by the block of each chunk.
-template <int L>
+template <int L, typename T>
 __global__ void __launch_bounds__(kThreads, kInt8MinBlocks)
     onehot_full_int8_kernel(Src S, int f, const int8_t* __restrict__ q,
                             const float* __restrict__ scales, int cpb,
-                            double* __restrict__ out, int lpf_log2,
-                            int lanes, int64_t cps, int nf_max) {
+                            double* __restrict__ out, int lpf,
+                            int lpf_log2, int lanes, int64_t cps,
+                            int nf_max) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* facc = reinterpret_cast<double*>(smem);
   const int lb0 = blockIdx.y * kBlockLanes;
-  cta_features(lb0, f, lpf_log2, &S.fa, &S.nf);
-  const Geo geo = make_geo(lb0, lanes, f, lpf_log2, S.fa);
+  cta_features<T>(lb0, f, lpf, lpf_log2, &S.fa, &S.nf);
+  const Geo geo = make_geo<T>(lb0, lanes, f, lpf, lpf_log2, S.fa);
   const Int8Ids ids = make_int8_ids(geo.jb);
   zero_facc(facc);
   const int64_t chunks = (S.n + kChunk - 1) / kChunk;
   const int64_t c0 = (int64_t)blockIdx.x * cps;
   const int64_t c1 = (c0 + cps < chunks) ? c0 + cps : chunks;
   if (c0 < c1)
-    run_chunks_int8<L>(S, q, scales, cpb, smem + kFaccBytes,
-                       stage_bytes_int8(L, nf_max, S.raw), c0, c1, geo, ids,
-                       facc, [](int64_t) { return true; });
+    run_chunks_int8<L, T>(S, q, scales, cpb, smem + kFaccBytes,
+                          stage_bytes_int8(L, nf_max, S.raw, sizeof(T)), c0,
+                          c1, geo, ids, facc, [](int64_t) { return true; });
   flush_int8(out, facc, lb0, lanes);
 }
 
@@ -89,32 +97,39 @@ __global__ void __launch_bounds__(kThreads, kInt8MinBlocks)
 struct Args {
   int device;
   const void* bins;
-  long long ld, n;
+  long long ld, n;            // ld in bins
   int f;
   const float *g, *h, *m;
   const void* q;              // int8: [9, n]
   const void* scales;         // int8
   int qbr;                    // int8
   void* out;
-  int lpf_log2, lanes, nf_max;
+  int lpf, lanes, nf_max;
   cudaStream_t stream;
 };
 
 static bool aligned16(const void* p) { return !((uintptr_t)p & 15); }
 
-template <int V, int L>
+// the feature-major bins' rows start 16-byte aligned and reach past the
+// last chunk (the kernels copy whole chunks in 16-byte pieces)
+template <typename T>
+static bool featmajor_ok(const Args& a, long long chunks) {
+  return aligned16(a.bins) && (a.ld * (long long)sizeof(T)) % 16 == 0 &&
+         a.ld >= chunks * kChunk;
+}
+
+template <int V, int L, typename T>
 static int launch(const Args& a) {
   const long long chunks = (a.n + kChunk - 1) / kChunk;
   // 16-byte copies: the rows, and the feature-major bins' rows, must start
-  // 16-byte aligned (and the feature-major bins reach past the last chunk)
+  // 16-byte aligned
   if (!(aligned16(a.g) && aligned16(a.h) && aligned16(a.m)))
     return (int)cudaErrorInvalidValue;
-  if (L == kFeatMajor &&
-      (!aligned16(a.bins) || a.ld % 16 || a.ld < chunks * kChunk))
+  if (L == kFeatMajor && !featmajor_ok<T>(a, chunks))
     return (int)cudaErrorInvalidValue;
   const bool aligned = aligned16(a.bins);
-  const int smem = launch_smem(V, L, a.nf_max, a.ld, aligned);
-  auto kern = onehot_full_kernel<V, L>;
+  const int smem = launch_smem(V, L, a.nf_max, a.ld, aligned, sizeof(T));
+  auto kern = onehot_full_kernel<V, L, T>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const int nlb = (a.lanes + kBlockLanes - 1) / kBlockLanes;
@@ -122,13 +137,14 @@ static int launch(const Args& a) {
   const long long cps =
       split_units(chunks, nlb, resident_ctas(kern, smem, a.device), &gx);
   const Src S{(const uint8_t*)a.bins, (int64_t)a.ld, (int64_t)a.n, a.g, a.h,
-              a.m, 0, 0, raw_bytes(L, a.ld, aligned)};
+              a.m, 0, 0, raw_bytes(L, a.ld, aligned, sizeof(T))};
   kern<<<dim3(gx, nlb), kThreads, smem, a.stream>>>(
-      S, a.f, (double*)a.out, a.lpf_log2, a.lanes, (int64_t)cps, a.nf_max);
+      S, a.f, (double*)a.out, a.lpf, ilog2(a.lpf), a.lanes, (int64_t)cps,
+      a.nf_max);
   return (int)cudaGetLastError();
 }
 
-template <int L>
+template <int L, typename T>
 static int launch_int8(const Args& a) {
   const long long chunks = (a.n + kChunk - 1) / kChunk;
   // 16-byte copies: q's rows start 16-byte aligned (its row stride is a
@@ -137,12 +153,11 @@ static int launch_int8(const Args& a) {
   if (a.q == nullptr || a.scales == nullptr || a.qbr <= 0 ||
       a.qbr % kChunk != 0 || !aligned16(a.q))
     return (int)cudaErrorInvalidValue;
-  if (L == kFeatMajor &&
-      (!aligned16(a.bins) || a.ld % 16 || a.ld < chunks * kChunk))
+  if (L == kFeatMajor && !featmajor_ok<T>(a, chunks))
     return (int)cudaErrorInvalidValue;
   const bool aligned = aligned16(a.bins);
-  const int smem = launch_smem(kInt8, L, a.nf_max, a.ld, aligned);
-  auto kern = onehot_full_int8_kernel<L>;
+  const int smem = launch_smem(kInt8, L, a.nf_max, a.ld, aligned, sizeof(T));
+  auto kern = onehot_full_int8_kernel<L, T>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const int nlb = (a.lanes + kBlockLanes - 1) / kBlockLanes;
@@ -150,98 +165,140 @@ static int launch_int8(const Args& a) {
   const long long cps =
       split_units(chunks, nlb, resident_ctas(kern, smem, a.device), &gx);
   const Src S{(const uint8_t*)a.bins, (int64_t)a.ld, (int64_t)a.n, nullptr,
-              nullptr, nullptr, 0, 0, raw_bytes(L, a.ld, aligned)};
+              nullptr, nullptr, 0, 0, raw_bytes(L, a.ld, aligned, sizeof(T))};
   kern<<<dim3(gx, nlb), kThreads, smem, a.stream>>>(
       S, a.f, (const int8_t*)a.q, (const float*)a.scales, a.qbr / kChunk,
-      (double*)a.out, a.lpf_log2, a.lanes, (int64_t)cps, a.nf_max);
+      (double*)a.out, a.lpf, ilog2(a.lpf), a.lanes, (int64_t)cps,
+      a.nf_max);
   return (int)cudaGetLastError();
 }
 
+// a body with no u16 instantiation (bf16cmp, u8cmp, sub1abs, packed: the
+// JAX package admits them at B <= 256 only)
+static int refuse(const Args&) { return (int)cudaErrorInvalidValue; }
+
 typedef int (*LaunchFn)(const Args&);
 
-// by (variant, layout)
-static const LaunchFn kLaunch[kNumVariants][2] = {
-    {launch<kBase, kFeatMajor>, launch<kBase, kRowMajor>},
-    {launch<kBf16Cmp, kFeatMajor>, launch<kBf16Cmp, kRowMajor>},
-    {launch<kI16Cmp, kFeatMajor>, launch<kI16Cmp, kRowMajor>},
-    {launch<kU8Cmp, kFeatMajor>, launch<kU8Cmp, kRowMajor>},
-    {launch<kSub1Abs, kFeatMajor>, launch<kSub1Abs, kRowMajor>},
-    {launch<kStaged, kFeatMajor>, launch<kStaged, kRowMajor>},
-    {launch<kPacked, kFeatMajor>, launch<kPacked, kRowMajor>},
-    {launch_int8<kFeatMajor>, launch_int8<kRowMajor>},
+// by (bin bytes - 1, variant, layout)
+static const LaunchFn kLaunch[2][kNumVariants][2] = {
+    {{launch<kBase, kFeatMajor, uint8_t>, launch<kBase, kRowMajor, uint8_t>},
+     {launch<kBf16Cmp, kFeatMajor, uint8_t>,
+      launch<kBf16Cmp, kRowMajor, uint8_t>},
+     {launch<kI16Cmp, kFeatMajor, uint8_t>,
+      launch<kI16Cmp, kRowMajor, uint8_t>},
+     {launch<kU8Cmp, kFeatMajor, uint8_t>, launch<kU8Cmp, kRowMajor, uint8_t>},
+     {launch<kSub1Abs, kFeatMajor, uint8_t>,
+      launch<kSub1Abs, kRowMajor, uint8_t>},
+     {launch<kStaged, kFeatMajor, uint8_t>,
+      launch<kStaged, kRowMajor, uint8_t>},
+     {launch<kPacked, kFeatMajor, uint8_t>,
+      launch<kPacked, kRowMajor, uint8_t>},
+     {launch_int8<kFeatMajor, uint8_t>, launch_int8<kRowMajor, uint8_t>}},
+    {{launch<kBase, kFeatMajor, uint16_t>,
+      launch<kBase, kRowMajor, uint16_t>},
+     {refuse, refuse},
+     {launch<kI16Cmp, kFeatMajor, uint16_t>,
+      launch<kI16Cmp, kRowMajor, uint16_t>},
+     {refuse, refuse},
+     {refuse, refuse},
+     {launch<kStaged, kFeatMajor, uint16_t>,
+      launch<kStaged, kRowMajor, uint16_t>},
+     {refuse, refuse},
+     {launch_int8<kFeatMajor, uint16_t>, launch_int8<kRowMajor, uint16_t>}},
 };
 
-// bins: [f, ld] (featmajor: ld a multiple of 16 covering n rounded up to
-// 128) or [n, ld] (rowmajor) u8; g, h, m: [n] float32 (grad, hess, mask),
-// or for int8 q [9, ldq] int8 (ldq = n rounded up to 128, zero past n)
-// with scales [ceil(n / qbr), 9] float32 (g, h and m are not read by
-// int8, q, scales and qbr not by the other variants); out: zeroed [6,
-// lanes] float64.
+// bins: [f, ld] (featmajor: rows of a multiple of 16 bytes covering n
+// rounded up to 128) or [n, ld] (rowmajor) of esz-byte bins (1: u8, 2:
+// u16); g, h, m: [n] float32 (grad, hess, mask), or for int8 q [9, ldq]
+// int8 (ldq = n rounded up to 128, zero past n) with scales [ceil(n /
+// qbr), 9] float32 (g, h and m are not read by int8, q, scales and qbr
+// not by the other variants); lpf: the lanes of one feature; out: zeroed
+// [6, lanes] float64.
 extern "C" int onehot_full_launch(int device, const void* bins,
                                   long long ld, long long n, int f,
-                                  int layout, const void* g, const void* h,
-                                  const void* m, const void* q,
-                                  const void* scales, int qbr, void* out,
-                                  int variant, int lpf_log2, int lanes,
+                                  int layout, int esz, const void* g,
+                                  const void* h, const void* m,
+                                  const void* q, const void* scales, int qbr,
+                                  void* out, int variant, int lpf, int lanes,
                                   int nf_max, void* stream) {
-  if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1)
+  if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1 ||
+      esz < 1 || esz > 2 || lpf <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Args a{device, bins, ld, n, f, (const float*)g, (const float*)h,
-               (const float*)m, q, scales, qbr, out, lpf_log2, lanes,
+               (const float*)m, q, scales, qbr, out, lpf, lanes,
                nf_max > 0 ? nf_max : 1, (cudaStream_t)stream};
-  return kLaunch[variant][layout](a);
+  return kLaunch[esz - 1][variant][layout](a);
 }
 
-// The shootout shell's entry (K4): bins_t [f, n] u8 as the caller
-// transposed it; rows [3, n] float32, the rows grad, hess and mask (or for
-// int8 q [9, n] int8 with its scales per qbr rows: n is q's row stride);
-// n a multiple of 128 (and of qbr).  The main path's featmajor kernels.
+// The shootout shell's entry (K4): bins_t [f, n] u8 or u16 (esz bytes) as
+// the caller transposed it; rows [3, n] float32, the rows grad, hess and
+// mask (or for int8 q [9, n] int8 with its scales per qbr rows: n is q's
+// row stride); n a multiple of 128 (and of qbr).  The main path's
+// featmajor kernels.
 extern "C" int onehot_bench_launch(int device, const void* bins_t,
-                                   long long n, int f, const void* rows,
-                                   const void* scales, int qbr, void* out,
-                                   int variant, int lpf_log2, int lanes,
-                                   int nf_max, void* stream) {
-  if (variant < 0 || variant >= kNumVariants || n % kChunk)
+                                   long long n, int f, int esz,
+                                   const void* rows, const void* scales,
+                                   int qbr, void* out, int variant, int lpf,
+                                   int lanes, int nf_max, void* stream) {
+  if (variant < 0 || variant >= kNumVariants || n % kChunk || esz < 1 ||
+      esz > 2 || lpf <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const float* r = (const float*)rows;
   const Args a{device, bins_t, n, n, f, r, r + n, r + 2 * n, rows, scales,
-               qbr, out, lpf_log2, lanes, nf_max > 0 ? nf_max : 1,
+               qbr, out, lpf, lanes, nf_max > 0 ? nf_max : 1,
                (cudaStream_t)stream};
-  return kLaunch[variant][kFeatMajor](a);
+  return kLaunch[esz - 1][variant][kFeatMajor](a);
 }
 
-template <int V, int L>
+template <int V, int L, typename T>
 static cudaError_t attrs(int smem, int* out) {
   if constexpr (V == kInt8)
-    return kernel_attrs(onehot_full_int8_kernel<L>, smem, out);
+    return kernel_attrs(onehot_full_int8_kernel<L, T>, smem, out);
   else
-    return kernel_attrs(onehot_full_kernel<V, L>, smem, out);
+    return kernel_attrs(onehot_full_kernel<V, L, T>, smem, out);
 }
 
+static cudaError_t no_attrs(int, int*) { return cudaErrorInvalidValue; }
+
 typedef cudaError_t (*AttrFn)(int, int*);
-static const AttrFn kAttrs[kNumVariants][2] = {
-    {attrs<kBase, kFeatMajor>, attrs<kBase, kRowMajor>},
-    {attrs<kBf16Cmp, kFeatMajor>, attrs<kBf16Cmp, kRowMajor>},
-    {attrs<kI16Cmp, kFeatMajor>, attrs<kI16Cmp, kRowMajor>},
-    {attrs<kU8Cmp, kFeatMajor>, attrs<kU8Cmp, kRowMajor>},
-    {attrs<kSub1Abs, kFeatMajor>, attrs<kSub1Abs, kRowMajor>},
-    {attrs<kStaged, kFeatMajor>, attrs<kStaged, kRowMajor>},
-    {attrs<kPacked, kFeatMajor>, attrs<kPacked, kRowMajor>},
-    {attrs<kInt8, kFeatMajor>, attrs<kInt8, kRowMajor>},
+static const AttrFn kAttrs[2][kNumVariants][2] = {
+    {{attrs<kBase, kFeatMajor, uint8_t>, attrs<kBase, kRowMajor, uint8_t>},
+     {attrs<kBf16Cmp, kFeatMajor, uint8_t>,
+      attrs<kBf16Cmp, kRowMajor, uint8_t>},
+     {attrs<kI16Cmp, kFeatMajor, uint8_t>, attrs<kI16Cmp, kRowMajor, uint8_t>},
+     {attrs<kU8Cmp, kFeatMajor, uint8_t>, attrs<kU8Cmp, kRowMajor, uint8_t>},
+     {attrs<kSub1Abs, kFeatMajor, uint8_t>,
+      attrs<kSub1Abs, kRowMajor, uint8_t>},
+     {attrs<kStaged, kFeatMajor, uint8_t>, attrs<kStaged, kRowMajor, uint8_t>},
+     {attrs<kPacked, kFeatMajor, uint8_t>, attrs<kPacked, kRowMajor, uint8_t>},
+     {attrs<kInt8, kFeatMajor, uint8_t>, attrs<kInt8, kRowMajor, uint8_t>}},
+    {{attrs<kBase, kFeatMajor, uint16_t>, attrs<kBase, kRowMajor, uint16_t>},
+     {no_attrs, no_attrs},
+     {attrs<kI16Cmp, kFeatMajor, uint16_t>,
+      attrs<kI16Cmp, kRowMajor, uint16_t>},
+     {no_attrs, no_attrs},
+     {no_attrs, no_attrs},
+     {attrs<kStaged, kFeatMajor, uint16_t>,
+      attrs<kStaged, kRowMajor, uint16_t>},
+     {no_attrs, no_attrs},
+     {attrs<kInt8, kFeatMajor, uint16_t>, attrs<kInt8, kRowMajor, uint16_t>}},
 };
 
-// The kernel of (variant, layout): out[0] registers a thread, out[1]
-// static shared bytes, out[2] the dynamic shared bytes of a launch with
-// nf_max features a CTA (rowmajor: rows of ld bytes, 16-byte aligned),
-// out[3] local (spill) bytes a thread, out[4] CTAs an SM at that launch.
+// The kernel of (variant, layout) over esz-byte bins: out[0] registers a
+// thread, out[1] static shared bytes, out[2] the dynamic shared bytes of a
+// launch with nf_max features a CTA (rowmajor: rows of ld bins, 16-byte
+// aligned), out[3] local (spill) bytes a thread, out[4] CTAs an SM at that
+// launch.
 extern "C" int onehot_full_query(int variant, int layout, int nf_max,
-                                 long long ld, int* out) {
-  if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1)
+                                 long long ld, int esz, int* out) {
+  if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1 ||
+      esz < 1 || esz > 2)
     return (int)cudaErrorInvalidValue;
-  return (int)kAttrs[variant][layout](
-      launch_smem(variant, layout, nf_max > 0 ? nf_max : 1, ld, true), out);
+  return (int)kAttrs[esz - 1][variant][layout](
+      launch_smem(variant, layout, nf_max > 0 ? nf_max : 1, ld, true, esz),
+      out);
 }

@@ -23,23 +23,30 @@
 // its CTAs own runs of whole blocks, keep a block's int32 sums in registers
 // and fold them into float64 shared memory at the block's end.
 //
-// Bound on an H100: C * f bytes of bins, 12 * C bytes of gh and 4 * C / BR
-// of block_leaf read once, k * 48 * lanes bytes written; the tensor cores
-// must do 2 * 8 * lanes * C flops, which dominates (0.030 ms at C = 262,144,
-// lanes = 7168, 989 TFLOP/s).
+// Bins are u8 or u16 (the template's T, as in onehot_full.cu).  The
+// wrapper takes this kernel only inside the JAX package's cut for its
+// Pallas leaves kernel (f * Bp <= 32,768 lanes, a [k, 6, f * Bp] float32
+// accumulator <= 48 MB: histogram.onehot_leaves_fits), and the atomic
+// hist_leaves outside it, as the JAX package takes its scatter there.
+//
+// Bound on an H100: C * f bins (1 or 2 bytes each), 12 * C bytes of gh and
+// 4 * C / BR of block_leaf read once, k * 48 * lanes bytes written; the
+// tensor cores must do 2 * 8 * lanes * C flops, which dominates (0.030 ms
+// at C = 262,144, lanes = 7168, 989 TFLOP/s; 0.12 ms at lanes = 28,672,
+// B = 1,024).
 #include "onehot_common.cuh"
 
 using namespace lgbt_oh;
 
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     onehot_leaves_kernel(Src S, int f, const int32_t* __restrict__ block_leaf,
-                         int br, int k, double* __restrict__ out,
+                         int br, int k, double* __restrict__ out, int lpf,
                          int lpf_log2, int lanes, int64_t cpc, int nf_max) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lb0 = blockIdx.y * kBlockLanes;
-  cta_features(lb0, f, lpf_log2, &S.fa, &S.nf);
-  const Geo geo = make_geo(lb0, lanes, f, lpf_log2, S.fa);
+  cta_features<T>(lb0, f, lpf, lpf_log2, &S.fa, &S.nf);
+  const Geo geo = make_geo<T>(lb0, lanes, f, lpf, lpf_log2, S.fa);
   const Ids ids = make_ids(geo.jb);
   double acc[kTiles][4];
   zero_acc(acc);
@@ -54,9 +61,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   int64_t blk = c0 / cpb;
   int sub = (int)(c0 - blk * cpb);
   if (c0 < c1)
-    run_chunks<V, kRowMajor>(
-        S, smem, stage_bytes(kRowMajor, nf_max, S.raw), c0, c1, geo, ids,
-        acc, [&](int64_t) {
+    run_chunks<V, kRowMajor, T>(
+        S, smem, stage_bytes(kRowMajor, nf_max, S.raw, sizeof(T)), c0, c1,
+        geo, ids, acc, [&](int64_t) {
           const int slot = block_leaf[blk];
           if (++sub == cpb) {
             sub = 0;
@@ -79,18 +86,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // (cpb chunks) quantized on its own and owned by one slot: a CTA owns a run
 // of whole blocks, folds each block's int32 sums into its float64 sums at
 // the block's end, and flushes those when the slot changes.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kInt8LeavesMinBlocks)
     onehot_leaves_int8_kernel(Src S, int f, const int8_t* __restrict__ q,
                               const float* __restrict__ scales,
                               const int32_t* __restrict__ block_leaf,
                               int cpb, int k, double* __restrict__ out,
-                              int lpf_log2, int lanes, int64_t bpc,
+                              int lpf, int lpf_log2, int lanes, int64_t bpc,
                               int nf_max) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* facc = reinterpret_cast<double*>(smem);
   const int lb0 = blockIdx.y * kBlockLanes;
-  cta_features(lb0, f, lpf_log2, &S.fa, &S.nf);
-  const Geo geo = make_geo(lb0, lanes, f, lpf_log2, S.fa);
+  cta_features<T>(lb0, f, lpf, lpf_log2, &S.fa, &S.nf);
+  const Geo geo = make_geo<T>(lb0, lanes, f, lpf, lpf_log2, S.fa);
   const Int8Ids ids = make_int8_ids(geo.jb);
   zero_facc(facc);
   const int64_t nb = S.n / ((int64_t)cpb * kChunk);
@@ -99,10 +107,10 @@ __global__ void __launch_bounds__(kThreads, kInt8LeavesMinBlocks)
   const int64_t slot_size = (int64_t)6 * lanes;
   int cur = -1;
   if (b0 < b1)
-    run_chunks_int8<kRowMajor>(
+    run_chunks_int8<kRowMajor, T>(
         S, q, scales, cpb, smem + kFaccBytes,
-        stage_bytes_int8(kRowMajor, nf_max, S.raw), b0 * cpb, b1 * cpb, geo,
-        ids, facc, [&](int64_t blk) {
+        stage_bytes_int8(kRowMajor, nf_max, S.raw, sizeof(T)), b0 * cpb,
+        b1 * cpb, geo, ids, facc, [&](int64_t blk) {
           const int slot = block_leaf[blk];
           if (slot < 0 || slot >= k) return false;
           if (slot != cur) {
@@ -116,17 +124,18 @@ __global__ void __launch_bounds__(kThreads, kInt8LeavesMinBlocks)
 
 static bool aligned16(const void* p) { return !((uintptr_t)p & 15); }
 
-template <int V>
+template <int V, typename T>
 static int launch(const void* comb, long long ld, long long c, int f,
                   const float* g, const float* h, const float* m,
                   const void*, const void*, const void* block_leaf, int br,
-                  int k, void* out, int lpf_log2, int lanes, int nf_max,
+                  int k, void* out, int lpf, int lanes, int nf_max,
                   int device, cudaStream_t stream) {
   if (!(aligned16(g) && aligned16(h) && aligned16(m)))
     return (int)cudaErrorInvalidValue;
   const bool aligned = aligned16(comb);
-  const int smem = launch_smem(V, kRowMajor, nf_max, ld, aligned);
-  auto kern = onehot_leaves_kernel<V>;
+  const int smem =
+      launch_smem(V, kRowMajor, nf_max, ld, aligned, sizeof(T));
+  auto kern = onehot_leaves_kernel<V, T>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const int nlb = (lanes + kBlockLanes - 1) / kBlockLanes;
@@ -134,18 +143,19 @@ static int launch(const void* comb, long long ld, long long c, int f,
   const long long cpc = split_units(c / kChunk, nlb,
                                     resident_ctas(kern, smem, device), &gx);
   const Src S{(const uint8_t*)comb, (int64_t)ld, (int64_t)c, g, h, m, 0, 0,
-              raw_bytes(kRowMajor, ld, aligned)};
+              raw_bytes(kRowMajor, ld, aligned, sizeof(T))};
   kern<<<dim3(gx, nlb), kThreads, smem, stream>>>(
-      S, f, (const int32_t*)block_leaf, br, k, (double*)out, lpf_log2, lanes,
-      (int64_t)cpc, nf_max);
+      S, f, (const int32_t*)block_leaf, br, k, (double*)out, lpf, ilog2(lpf),
+      lanes, (int64_t)cpc, nf_max);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 static int launch_int8(const void* comb, long long ld, long long c, int f,
                        const float*, const float*, const float*,
                        const void* q, const void* scales,
                        const void* block_leaf, int br, int k, void* out,
-                       int lpf_log2, int lanes, int nf_max, int device,
+                       int lpf, int lanes, int nf_max, int device,
                        cudaStream_t stream) {
   // whole chunks a block; q's rows start 16-byte aligned (C, its row
   // stride, is a multiple of kChunk)
@@ -153,8 +163,9 @@ static int launch_int8(const void* comb, long long ld, long long c, int f,
       c % br != 0 || !aligned16(q))
     return (int)cudaErrorInvalidValue;
   const bool aligned = aligned16(comb);
-  const int smem = launch_smem(kInt8, kRowMajor, nf_max, ld, aligned);
-  auto kern = onehot_leaves_int8_kernel;
+  const int smem =
+      launch_smem(kInt8, kRowMajor, nf_max, ld, aligned, sizeof(T));
+  auto kern = onehot_leaves_int8_kernel<T>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const int nlb = (lanes + kBlockLanes - 1) / kBlockLanes;
@@ -162,11 +173,12 @@ static int launch_int8(const void* comb, long long ld, long long c, int f,
   const long long bpc =
       split_units(c / br, nlb, resident_ctas(kern, smem, device), &gx);
   const Src S{(const uint8_t*)comb, (int64_t)ld, (int64_t)c, nullptr,
-              nullptr, nullptr, 0, 0, raw_bytes(kRowMajor, ld, aligned)};
+              nullptr, nullptr, 0, 0,
+              raw_bytes(kRowMajor, ld, aligned, sizeof(T))};
   kern<<<dim3(gx, nlb), kThreads, smem, stream>>>(
       S, f, (const int8_t*)q, (const float*)scales,
-      (const int32_t*)block_leaf, br / kChunk, k, (double*)out, lpf_log2,
-      lanes, (int64_t)bpc, nf_max);
+      (const int32_t*)block_leaf, br / kChunk, k, (double*)out, lpf,
+      ilog2(lpf), lanes, (int64_t)bpc, nf_max);
   return (int)cudaGetLastError();
 }
 
@@ -175,57 +187,80 @@ typedef int (*LaunchFn)(const void*, long long, long long, int, const float*,
                         const void*, int, int, void*, int, int, int, int,
                         cudaStream_t);
 
-static const LaunchFn kLaunch[kNumVariants] = {
-    launch<kBase>, launch<kBf16Cmp>, launch<kI16Cmp>, launch<kU8Cmp>,
-    launch<kSub1Abs>, launch<kStaged>, launch<kPacked>, launch_int8,
+// a body with no u16 instantiation (the JAX package admits it at B <= 256
+// only)
+static int refuse(const void*, long long, long long, int, const float*,
+                  const float*, const float*, const void*, const void*,
+                  const void*, int, int, void*, int, int, int, int,
+                  cudaStream_t) {
+  return (int)cudaErrorInvalidValue;
+}
+
+// by (bin bytes - 1, variant)
+static const LaunchFn kLaunch[2][kNumVariants] = {
+    {launch<kBase, uint8_t>, launch<kBf16Cmp, uint8_t>,
+     launch<kI16Cmp, uint8_t>, launch<kU8Cmp, uint8_t>,
+     launch<kSub1Abs, uint8_t>, launch<kStaged, uint8_t>,
+     launch<kPacked, uint8_t>, launch_int8<uint8_t>},
+    {launch<kBase, uint16_t>, refuse, launch<kI16Cmp, uint16_t>, refuse,
+     refuse, launch<kStaged, uint16_t>, refuse, launch_int8<uint16_t>},
 };
 
-// comb: [C, ld] u8, row-major; g, h, m: [C] float32 (grad, hess, mask), or
-// for int8 q [9, C] int8 with scales [C / br, 9] float32 (g, h and m are
-// not read by int8, q and scales not by the other variants); block_leaf:
-// [C / br] i32; out: zeroed [k, 6, lanes] float64.  br must be a multiple
-// of 128.
+// comb: [C, ld] of esz-byte bins (1: u8, 2: u16), row-major; g, h, m: [C]
+// float32 (grad, hess, mask), or for int8 q [9, C] int8 with scales [C /
+// br, 9] float32 (g, h and m are not read by int8, q and scales not by the
+// other variants); block_leaf: [C / br] i32; lpf: the lanes of one
+// feature; out: zeroed [k, 6, lanes] float64.  br must be a multiple of
+// 128.
 extern "C" int onehot_leaves_launch(int device, const void* comb,
                                     long long ld, long long c, int f,
-                                    const void* g, const void* h,
+                                    int esz, const void* g, const void* h,
                                     const void* m, const void* q,
                                     const void* scales,
                                     const void* block_leaf, int br, int k,
-                                    void* out, int variant, int lpf_log2,
+                                    void* out, int variant, int lpf,
                                     int lanes, int nf_max, void* stream) {
-  if (variant < 0 || variant >= kNumVariants || br <= 0 || br % kChunk != 0)
+  if (variant < 0 || variant >= kNumVariants || br <= 0 ||
+      br % kChunk != 0 || esz < 1 || esz > 2 || lpf <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  return kLaunch[variant](comb, ld, c, f, (const float*)g, (const float*)h,
-                          (const float*)m, q, scales, block_leaf, br, k, out,
-                          lpf_log2, lanes, nf_max > 0 ? nf_max : 1, device,
-                          (cudaStream_t)stream);
+  return kLaunch[esz - 1][variant](
+      comb, ld, c, f, (const float*)g, (const float*)h, (const float*)m, q,
+      scales, block_leaf, br, k, out, lpf, lanes, nf_max > 0 ? nf_max : 1,
+      device, (cudaStream_t)stream);
 }
 
-template <int V>
+template <int V, typename T>
 static cudaError_t attrs(int smem, int* out) {
   if constexpr (V == kInt8)
-    return kernel_attrs(onehot_leaves_int8_kernel, smem, out);
+    return kernel_attrs(onehot_leaves_int8_kernel<T>, smem, out);
   else
-    return kernel_attrs(onehot_leaves_kernel<V>, smem, out);
+    return kernel_attrs(onehot_leaves_kernel<V, T>, smem, out);
 }
 
+static cudaError_t no_attrs(int, int*) { return cudaErrorInvalidValue; }
+
 typedef cudaError_t (*AttrFn)(int, int*);
-static const AttrFn kAttrs[kNumVariants] = {
-    attrs<kBase>,    attrs<kBf16Cmp>, attrs<kI16Cmp>, attrs<kU8Cmp>,
-    attrs<kSub1Abs>, attrs<kStaged>,  attrs<kPacked>, attrs<kInt8>,
+static const AttrFn kAttrs[2][kNumVariants] = {
+    {attrs<kBase, uint8_t>, attrs<kBf16Cmp, uint8_t>,
+     attrs<kI16Cmp, uint8_t>, attrs<kU8Cmp, uint8_t>,
+     attrs<kSub1Abs, uint8_t>, attrs<kStaged, uint8_t>,
+     attrs<kPacked, uint8_t>, attrs<kInt8, uint8_t>},
+    {attrs<kBase, uint16_t>, no_attrs, attrs<kI16Cmp, uint16_t>, no_attrs,
+     no_attrs, attrs<kStaged, uint16_t>, no_attrs, attrs<kInt8, uint16_t>},
 };
 
-// The kernel of a variant: out[0] registers a thread, out[1] static shared
-// bytes, out[2] the dynamic shared bytes of a launch with nf_max features
-// a CTA over rows of ld bytes, 16-byte aligned, out[3] local (spill) bytes
-// a thread, out[4] CTAs an SM at that launch.
+// The kernel of a variant over esz-byte bins: out[0] registers a thread,
+// out[1] static shared bytes, out[2] the dynamic shared bytes of a launch
+// with nf_max features a CTA over rows of ld bins, 16-byte aligned, out[3]
+// local (spill) bytes a thread, out[4] CTAs an SM at that launch.
 extern "C" int onehot_leaves_query(int variant, int nf_max, long long ld,
-                                   int* out) {
-  if (variant < 0 || variant >= kNumVariants)
+                                   int esz, int* out) {
+  if (variant < 0 || variant >= kNumVariants || esz < 1 || esz > 2)
     return (int)cudaErrorInvalidValue;
-  return (int)kAttrs[variant](
-      launch_smem(variant, kRowMajor, nf_max > 0 ? nf_max : 1, ld, true),
+  return (int)kAttrs[esz - 1][variant](
+      launch_smem(variant, kRowMajor, nf_max > 0 ? nf_max : 1, ld, true,
+                  esz),
       out);
 }

@@ -164,8 +164,9 @@ def total_lanes(name: str, f: int, max_bin: int) -> int:
 
 
 def lanes_per_feature(spec: VariantSpec, B: int) -> int:
-    """Output lanes of one feature: ``Bp``, or ``B`` under lane packing.
-    Always a power of two here (Bp is 128 or 256; a packed B divides 128)."""
+    """Output lanes of one feature: ``Bp``, a multiple of 128 (not a power
+    of two above 256 bins: 384 at B = 300, 2,688 at B = 2,599), or ``B``
+    under lane packing (a power of two that divides 128)."""
     Bp = padded_bins(B)
     return spec.group_lanes(B, Bp) // spec.group_feats(B, Bp)
 
@@ -318,10 +319,14 @@ AUTO_RESULTS: Dict[tuple, dict] = {}
 def _auto_bench_data(max_bin: int, f: int, device: torch.device,
                      rows: int = 262144):
     """Synthetic (bins, g, h, m) for the election, the JAX package's: the
-    width is clipped to 8..128, since the ranking is what matters."""
+    width is clipped to 8..128, since the ranking is what matters.  Bins
+    are ``uint8`` up to 256 bins and ``uint16`` above, as the bin matrix
+    holds them (the JAX package draws ``uint8`` at every width, which
+    numpy refuses above 256)."""
     f = max(8, min(f, 128))
     rng = np.random.default_rng(0)
-    bins = rng.integers(0, max_bin, size=(rows, f), dtype=np.uint8)
+    dtype = np.uint8 if max_bin <= 256 else np.uint16
+    bins = rng.integers(0, max_bin, size=(rows, f), dtype=dtype)
     g = rng.normal(size=rows).astype(np.float32)
     h = np.full(rows, 0.25, np.float32)
     m = np.ones(rows, np.float32)

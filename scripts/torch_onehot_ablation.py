@@ -1,8 +1,9 @@
 """Where the time of the PyTorch port's one-hot kernels goes, on one
 NVIDIA card.
 
-    python3 scripts/torch_onehot_ablation.py [--sweep]
-        [--int8-body words|lanes] [--out PATH]
+    python3 scripts/torch_onehot_ablation.py [--copies NAME,...] [--sweep]
+        [--bodies NAME,...] [--width B] [--int8-body words|lanes]
+        [--out PATH]
 
 Builds ``onehot_full`` and ``onehot_leaves`` (``lightgbm_tpu_torch/ops/
 kernels``) from the sources as they are and from copies with one part of
@@ -22,6 +23,13 @@ is wrong on purpose, only its time is read.
               operands into its first sum: the one-hot build stays live,
               the tensor cores do nothing
   skeleton    const_a and no_mma together: staging, split, loop and fold
+
+``--copies`` names the copies to build and time (default: all four);
+``--bodies`` and ``--width`` the bodies and the bin width B (default the
+four above at 256; ``packed`` needs a width it serves, such as 64);
+``--copies repo`` edits nothing, so copied into an older checkout it
+times that checkout's kernels through its own wrappers, side by side
+with this one in the same call.
 
 With ``--sweep`` it also times int8 alone from copies of the sources as
 they are whose int8 kernels bound their registers for 2, 3 or 4 resident
@@ -62,8 +70,7 @@ import torch  # noqa: E402
 
 # (old, new) text edits of onehot_common.cuh, each matching exactly once
 _CONST_A = [
-    ("  const Step<V> s(*reinterpret_cast<const uint32_t*>(bp), ids);\n",
-     ""),
+    ("  const Step<V> s(load4(bp), ids);\n", ""),
     ("    s.tile(tl, a);\n",
      "    a[0] = a[1] = a[2] = a[3] = kOneLo * (uint32_t)(tl + 1);\n"),
 ]
@@ -172,6 +179,12 @@ def build_all(_build, names, int8_body="words"):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--copies", default=",".join(ABLATIONS),
+                    help="the copies to build and time")
+    ap.add_argument("--bodies", default=",".join(BODIES),
+                    help="the one-hot bodies to time")
+    ap.add_argument("--width", type=int, default=B,
+                    help="the bin width B (u8: at most 256)")
     ap.add_argument("--int8-body", default="words", choices=INT8_BODIES,
                     help="the int8 body the sources hold (for its edits)")
     ap.add_argument("--sweep", action="store_true",
@@ -180,7 +193,13 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                   "onehot_ablation.json"))
     args = ap.parse_args()
-    names = ABLATIONS + (tuple(SWEEP) if args.sweep else ())
+    names = tuple(args.copies.split(",")) + (tuple(SWEEP) if args.sweep
+                                             else ())
+    bad = [n for n in names if n not in ABLATIONS and n not in SWEEP]
+    if bad:
+        print(f"torch_onehot_ablation: unknown copies {bad}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("torch_onehot_ablation: no CUDA device", file=sys.stderr)
         return 1
@@ -193,35 +212,38 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     libs = build_all(_build, names, args.int8_body)
+    bodies, width = tuple(args.bodies.split(",")), args.width
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     n, f = cs.N_TRAIN, cs.N_FEAT
-    bins = torch.randint(0, B, (n, f), generator=gen, device=dev,
+    bins = torch.randint(0, width, (n, f), generator=gen, device=dev,
                          dtype=torch.uint8)
     g, h, m = cs._rows(gen, n, dev)
     k, BR, fl, nc = (cs.LEAVES_SHAPE[x] for x in ("k", "BR", "f", "NC"))
     comb, lg, lh, lm, block_leaf, _, _ = cs._leaves_inputs(gen, dev)
+    if width < 256:                        # bins as a width-B matrix has
+        comb = comb % width
     calls = {
         ("onehot_full", "featmajor"): lambda v: hist.hist_onehot_full(
-            bins, g, h, m, B, variant=v, layout="featmajor"),
+            bins, g, h, m, width, variant=v, layout="featmajor"),
         ("onehot_full", "rowmajor"): lambda v: hist.hist_onehot_full(
-            bins, g, h, m, B, variant=v, layout="rowmajor"),
+            bins, g, h, m, width, variant=v, layout="rowmajor"),
         ("onehot_leaves", "rowmajor"): lambda v: hist.hist_onehot_leaves(
-            comb, lg, lh, lm, block_leaf, k, B, block_rows=BR, f_limit=fl,
-            variant=v),
+            comb, lg, lh, lm, block_leaf, k, width, block_rows=BR,
+            f_limit=fl, variant=v),
     }
     rows = []
     saved = dict(_build._LIBS)
     try:
         for name in names:
-            row = {"ablation": name, "card": smi, "B": B,
+            row = {"ablation": name, "card": smi, "B": width,
                    "int8_body": args.int8_body}
             for kern in KERNELS:
                 _build._LIBS[kern] = libs[name, kern]
             for (kern, layout), fn in calls.items():
                 full = kern == "onehot_full"
-                for v in BODIES:
+                for v in bodies:
                     if name in SWEEP and v != "int8":
                         continue
                     key = f"{kern}/{layout}/{v}"
@@ -231,7 +253,7 @@ def main() -> int:
                     if name == "repo" or name in SWEEP:
                         row[f"{key}/ms"] = cs.median_ms(lambda: fn(v))
                     a = hist.onehot_kernel_attributes(
-                        kern, v, f if full else fl, B, layout,
+                        kern, v, f if full else fl, width, layout,
                         ld=f if full else nc)
                     row[f"{key}/registers"] = a["registers"]
                     row[f"{key}/local_bytes"] = a["local_bytes"]

@@ -204,3 +204,29 @@ def test_categorical_models_load_across_packages(tmp_path):
     jt = lgb.Booster(model_file=str(pt))
     np.testing.assert_allclose(jt.predict(Xv), bt.predict(Xv), rtol=0,
                                atol=5e-6)
+
+
+def test_dataframe_names_and_categorical_names_match_jax():
+    """A DataFrame's column names are the features' names, and a
+    categorical feature given by column name trains as categorical: the
+    JAX package's model text (``feature_names=``, ``decision_type``) and
+    predictions within 5e-6."""
+    import pandas as pd
+    X, y = _cat_data(4)
+    Xv, _ = _cat_data(5, n=1000)
+    cols = ["lvl4", "code", "x2", "x3", "x4", "x5"]
+    df, dfv = pd.DataFrame(X, columns=cols), pd.DataFrame(Xv, columns=cols)
+    cats = ["lvl4", "code"]
+    bj = lgb.train(CAT_PARAMS, lgb.Dataset(df, label=y,
+                                           categorical_feature=cats), 5,
+                   verbose_eval=False)
+    dt = lgt.Dataset(df, label=y, categorical_feature=cats)
+    bt = lgt.train(CAT_PARAMS, dt, 5, verbose_eval=False, device="cpu")
+    assert dt._inner.device_data("cpu").is_categorical.tolist() == \
+        [True, True, False, False, False, False]
+    tj, tt = bj.model_to_string(), bt.model_to_string()
+    assert "feature_names=" + " ".join(cols) in tt
+    assert "cat_threshold=" in tt
+    _assert_same_models(tj, tt)
+    np.testing.assert_allclose(bt.predict(dfv), bj.predict(dfv), rtol=0,
+                               atol=5e-6)

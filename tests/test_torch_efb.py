@@ -191,9 +191,9 @@ def test_data_breadth_trains_like_jax(case):
 def test_kernel_width_gates_the_grower():
     """The grower decides on the kernel width (the widest bundle, else
     the widest feature): the atomic kernels take any width one feature's
-    histogram fits, and force_row_wise above 256 bins names the missing
-    u16 one-hot kernels."""
-    from lightgbm_tpu_torch.device import NotPortedError
+    histogram fits, and force_row_wise takes the same widths, u16 bins
+    included (the one-hot kernels' u16 instantiations); a tree over u16
+    bins grows through the one-hot path."""
     from lightgbm_tpu_torch.ops import grower as tgrow
     from lightgbm_tpu_torch.ops import split as tsplit
     sp_ = tsplit.SplitParams(
@@ -206,11 +206,75 @@ def test_kernel_width_gates_the_grower():
     assert tgrow.kernel_width(cfg) == 4096
     assert tgrow._frontier_eligible(cfg, 40)
     assert not tgrow._frontier_eligible(cfg._replace(bundle_bins=20_000), 4)
-    z = torch.zeros(64)
-    for bad in (cfg._replace(hist_method="onehot", bundle_bins=300),
-                cfg._replace(hist_method="onehot", bundle_bins=0,
-                             max_bin=1024)):
-        with pytest.raises(NotPortedError, match="u16 one-hot kernels"):
-            tgrow.grow_tree(torch.zeros(64, 4, dtype=torch.uint16), z, z, z,
-                            torch.ones(4), torch.full((4,), 16),
-                            torch.full((4,), -1), bad)
+    for ok in (cfg._replace(hist_method="onehot", bundle_bins=300),
+               cfg._replace(hist_method="onehot"),
+               cfg._replace(hist_method="onehot", bundle_bins=0,
+                            max_bin=1024)):
+        assert tgrow._frontier_eligible(ok, 4)
+    assert not tgrow._frontier_eligible(
+        cfg._replace(hist_method="onehot", bundle_bins=20_000), 4)
+    rng = np.random.default_rng(0)
+    n = 512
+    bins = torch.as_tensor(rng.integers(0, 1024, (n, 4)).astype(np.uint16))
+    grad = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    one = torch.ones(n)
+    u16 = cfg._replace(hist_method="onehot", hist_variant="staged",
+                       bundle_bins=0, max_bin=1024)
+    tree, _, _ = tgrow.grow_tree(bins, grad, one, one, torch.ones(4),
+                                 torch.full((4,), 1024, dtype=torch.int32),
+                                 torch.full((4,), -1, dtype=torch.int32),
+                                 u16)
+    assert int(tree.num_leaves) == 7
+
+
+_ROW_WISE_SCRIPT = r"""
+import sys, numpy as np, jax
+from unittest import mock
+jax.config.update("jax_platforms", "cpu")
+import lightgbm_tpu as lgb
+d = np.load(sys.argv[1])
+p = {"objective": "binary", "num_leaves": 15, "verbose": -1,
+     "min_data_in_leaf": 100, "force_row_wise": True,
+     "hist_variant": "staged"}
+ds = lgb.Dataset(d["X"], label=d["y"], params=p)
+# force_row_wise picks the Pallas kernels only on a TPU backend; they then
+# run in interpret mode once the patch is gone
+with mock.patch.object(jax, "default_backend", return_value="tpu"):
+    bst = lgb.Booster(params=p, train_set=ds)
+cfg = bst._gbdt._grower_cfg
+assert (cfg.hist_method, cfg.hist_variant) == ("pallas", "staged"), cfg
+for _ in range(int(d["iters"])):
+    bst.update()
+np.savez(sys.argv[2], model=np.array(bst.model_to_string()),
+         pred=bst.predict(d["Xv"]), bundle_bins=cfg.bundle_bins)
+"""
+
+
+def test_row_wise_on_a_wide_bundle_trains_like_jax(monkeypatch, tmp_path):
+    """force_row_wise on EFB bundles whose widest is above 256 bins (a
+    300-level one-hot group: u16 bundle columns): with the port dispatching
+    as on the card (the one-hot path, its plain versions here) and the JAX
+    trainer seeing a TPU (its Pallas kernels in interpret mode), ``staged``
+    grows the JAX package's trees."""
+    from test_torch_onehot import _run_clean
+    from lightgbm_tpu_torch.models import gbdt as tgbdt
+    X, y = _one_hot(9, groups=(300, 20, 12))
+    Xv = _one_hot(10, n=1000, groups=(300, 20, 12))[0]
+    X, Xv = X.toarray(), Xv.toarray()
+    src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(src, X=X, y=y, Xv=Xv, iters=4)
+    _run_clean(_ROW_WISE_SCRIPT, [str(src), str(dst)])
+    ref = dict(np.load(dst))
+    monkeypatch.setattr(tgbdt, "kernel_backend", lambda device: "cuda")
+    params = {"objective": "binary", "num_leaves": 15, "verbose": -1,
+              "min_data_in_leaf": 100, "force_row_wise": True,
+              "hist_variant": "staged"}
+    bt = lgt.train(params, lgt.Dataset(X, label=y), 4, verbose_eval=False,
+                   device="cpu")
+    cfg = bt._gbdt._grower_cfg
+    assert (cfg.hist_method, cfg.hist_variant) == ("onehot", "staged")
+    assert cfg.bundle_bins == int(ref["bundle_bins"]) > 256
+    assert bt._gbdt._dd.bins.dtype == torch.uint16
+    _assert_same_models(str(ref["model"]), bt.model_to_string())
+    np.testing.assert_allclose(bt.predict(Xv), ref["pred"], rtol=0,
+                               atol=5e-6)

@@ -1012,3 +1012,313 @@ def test_xendcg_draw_on_the_card_equals_the_cpu(dev):
     obj.init(md, int(sizes.sum()))
     for it in (0, 3):
         assert torch.equal(obj.draw(it, dev).cpu(), obj.draw(it, "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# u16 bins: the one-hot kernels' uint16 instantiations (base, i16cmp,
+# staged, int8) at B = 300 (Bp = 384, not a power of two), 1,024 and
+# 2,599 (Bp = 2,688: a CTA's 512 lanes hold part of one feature)
+# ---------------------------------------------------------------------------
+
+U16_BODIES = ("base", "i16cmp", "staged", "int8")
+U16_WIDTHS = (300, 1024, 2599)
+ONEHOT_U16 = [(v, B) for B in U16_WIDTHS for v in U16_BODIES]
+
+
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+@pytest.mark.parametrize("variant,B", ONEHOT_U16)
+def test_onehot_full_u16_matches_plain(dev, variant, B, layout):
+    rng = np.random.default_rng(B + 5)
+    n, f, ncols = 50_003, 13, 16               # ragged rows, f_limit < NC
+    bins = _u16(rng, (n, ncols), B + 100, dev)  # bins >= B are dropped
+    g, h, m = _rows(rng, n, dev)
+    kw = dict(f_limit=f, method="onehot", variant=variant, layout=layout)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, **kw)
+    before = dict(thist.launch_counts)
+    got = thist.build_histogram(bins, g, h, m, B, **kw)
+    again = thist.build_histogram(bins, g, h, m, B, **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_full"] == before["onehot_full"] + 2
+    assert thist.launch_counts["hist_full"] == before["hist_full"]
+    assert got.shape == (f, B, 3) and got.dtype == torch.float32
+    assert relerr(got, ref) <= TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+@pytest.mark.parametrize("variant,B", ONEHOT_U16)
+def test_onehot_full_u16_nan_matches_plain(dev, variant, B, layout):
+    rng = np.random.default_rng(B + 6)
+    n, f = 20_000, 5
+    bins = _u16(rng, (n, f), B, dev)
+    g, h, m = _rows(rng, n, dev)
+    g[12_345] = float("nan")
+    kw = dict(method="onehot", variant=variant, layout=layout)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, **kw)
+    got = thist.build_histogram(bins, g, h, m, B, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[..., 0]).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert relerr(got[..., 1:], ref[..., 1:]) <= TOL
+
+
+@pytest.mark.parametrize("variant,B", ONEHOT_U16)
+def test_onehot_leaves_u16_matches_plain(dev, variant, B):
+    """The frontier's comb of u16 bins and 6 gh columns, inside the leaves
+    cut: an empty slot stays zero, a NaN stays in its slot."""
+    rng = np.random.default_rng(B + 7)
+    k, BR, f = 6, 512, 8
+    nc = f + 6
+    block_leaf = np.array([4, 0, 2, 4, 1, 5, 0, 2, 1, 4], np.int32)  # 3 empty
+    C = block_leaf.size * BR
+    comb = _u16(rng, (C, nc), B + 100, dev)
+    g, h, m = _rows(rng, C, dev)
+    nan_block = 5
+    g[nan_block * BR + 3] = float("nan")
+    bl = torch.as_tensor(block_leaf).to(dev)
+    assert thist.onehot_leaves_fits(f, k, B)
+    kw = dict(block_rows=BR, f_limit=f, method="onehot", variant=variant)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    before = dict(thist.launch_counts)
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_leaves"] == before["onehot_leaves"] + 2
+    assert thist.launch_counts["hist_leaves"] == before["hist_leaves"]
+    assert got.shape == (k, f, B, 3)
+    assert bool((got[3] == 0).all())
+    nan_slot = int(block_leaf[nan_block])
+    assert bool(torch.isnan(got[nan_slot][..., 0]).all())
+    others = [s for s in range(k) if s != nan_slot]
+    assert bool(torch.isfinite(got[others]).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = torch.isfinite(ref)
+    assert relerr(got[fin], ref[fin]) <= TOL
+    assert torch.equal(got[others], again[others])
+
+
+def _edge_u16(rng, case, n, ncols, B, dev):
+    if case == "one_bin":                       # every row in the last bin
+        return torch.full((n, ncols), B - 1, dtype=torch.int16,
+                          device=dev).view(torch.uint16)
+    if case == "narrow":                        # 16 bins mid-range
+        lo = B // 2
+        return torch.as_tensor(rng.integers(lo, lo + 16, (n, ncols)).astype(
+            np.uint16)).to(dev)
+    return _u16(rng, (n, ncols), B + 100, dev)
+
+
+# (case, n, f, ncols): fewer rows than one chunk; a ragged last chunk; one
+# bin (the last lane of the last warp); 16 bins mid-range (one warp's
+# lanes: the other warps see only bins below or above theirs); rows wider
+# than the kernels stage as they lie (300 u16 = 600 bytes)
+FULL_EDGES_U16 = [("tiny", 100, 3, 5), ("ragged", 1037, 5, 7),
+                  ("one_bin", 700, 5, 5), ("narrow", 515, 5, 6),
+                  ("wide", 400, 5, 300)]
+
+
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+@pytest.mark.parametrize("case,n,f,ncols", FULL_EDGES_U16)
+@pytest.mark.parametrize("variant,B", ONEHOT_U16)
+def test_onehot_full_u16_edges_match_plain(dev, variant, B, case, n, f,
+                                           ncols, layout):
+    rng = np.random.default_rng(n + B)
+    bins = _edge_u16(rng, case, n, ncols, B, dev)
+    g, h, m = _rows(rng, n, dev)
+    kw = dict(f_limit=f, method="onehot", variant=variant, layout=layout)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, **kw)
+    got = thist.build_histogram(bins, g, h, m, B, **kw)
+    again = thist.build_histogram(bins, g, h, m, B, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (f, B, 3)
+    assert relerr(got, ref) <= TOL
+    assert torch.equal(got, again)
+
+
+# (case, f, nc): a row of 19 u16 (38 bytes, no multiple of 16); a NaN
+# block; rows wider than the kernels stage as they lie; a matrix that
+# does not start 16-byte aligned
+LEAVES_EDGES_U16 = [("ld19", 11, 19), ("nan_block", 11, 19),
+                    ("wide", 7, 300), ("unaligned", 11, 19)]
+
+
+@pytest.mark.parametrize("case,f,nc", LEAVES_EDGES_U16)
+@pytest.mark.parametrize("variant,B", ONEHOT_U16)
+def test_onehot_leaves_u16_edges_match_plain(dev, variant, B, case, f, nc):
+    rng = np.random.default_rng(nc + B)
+    k, BR = 5, 256
+    block_leaf = np.array([3, 0, 3, 1, 4, 0, 2], np.int32)
+    C = block_leaf.size * BR
+    raw = _u16(rng, (C + 1, nc), B + 100, dev)
+    comb = raw[1:] if case == "unaligned" else raw[:C]
+    assert comb.is_contiguous()
+    g, h, m = _rows(rng, C, dev)
+    nan_slot = None
+    if case == "nan_block":
+        g[4 * BR + 9] = float("nan")
+        nan_slot = int(block_leaf[4])
+    bl = torch.as_tensor(block_leaf).to(dev)
+    assert thist.onehot_leaves_fits(f, k, B)
+    kw = dict(block_rows=BR, f_limit=f, method="onehot", variant=variant)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    before = thist.launch_counts["onehot_leaves"]
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_leaves"] == before + 2
+    assert got.shape == (k, f, B, 3)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    if nan_slot is not None:
+        assert bool(torch.isnan(got[nan_slot][..., 0]).all())
+        others = [s for s in range(k) if s != nan_slot]
+        assert bool(torch.isfinite(got[others]).all())
+    fin = torch.isfinite(ref)
+    assert relerr(got[fin], ref[fin]) <= TOL
+    assert torch.equal(got[fin], again[fin])
+
+
+def test_onehot_leaves_outside_the_cut_take_hist_leaves(dev):
+    """33 features at B = 1,024 (33,792 lanes) lie outside the JAX
+    package's cut: the one-hot method's per-leaf call launches the atomic
+    kernel, and gives its bits."""
+    rng = np.random.default_rng(33)
+    k, BR, f = 4, 512, 33
+    block_leaf = np.array([1, 0, 3, 2, 1], np.int32)
+    C = block_leaf.size * BR
+    comb = _u16(rng, (C, f + 6), 1100, dev)
+    g, h, m = _rows(rng, C, dev)
+    bl = torch.as_tensor(block_leaf).to(dev)
+    assert not thist.onehot_leaves_fits(f, k, 1024)
+    kw = dict(block_rows=BR, f_limit=f)
+    before = dict(thist.launch_counts)
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, 1024,
+                                       method="onehot", variant="staged",
+                                       **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["hist_leaves"] == before["hist_leaves"] + 1
+    assert thist.launch_counts["onehot_leaves"] == before["onehot_leaves"]
+    assert torch.equal(got, thist.hist_leaves(comb, g, h, m, bl, k, 1024,
+                                              **kw))
+
+
+@pytest.mark.parametrize("variant,B", [(v, B) for B in U16_WIDTHS
+                                       for v in ("base", "staged", "int8")])
+def test_bench_kernel_u16_matches_plain(dev, variant, B):
+    """K4 on u16 bins as the caller transposed them."""
+    rng = np.random.default_rng(B + 9)
+    n, f, BR = 65_536, 28, 512
+    bins_t = _u16(rng, (f, n), B, dev)
+    g, h, m = _rows(rng, n, dev)
+    prep, run = ov.make_bench_kernel(variant, f, B, BR)
+    rows = prep(g, h, m)
+    with thist.force_plain():
+        ref = run(bins_t, rows)
+    before = dict(thist.launch_counts)
+    got = run(bins_t, rows)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_bench"] == before["onehot_bench"] + 1
+    assert got.shape == (f, B, 3)
+    assert relerr(got, ref) <= TOL
+
+
+def test_onehot_u16_kernel_attributes_and_refusals(dev):
+    """Each u16 body's kernels report their attributes; a body with no u16
+    instantiation is refused by the wrapper, and by the C entry."""
+    for v in U16_BODIES:
+        for kernel, layout in (("onehot_full", "featmajor"),
+                               ("onehot_full", "rowmajor"),
+                               ("onehot_leaves", "rowmajor")):
+            a = thist.onehot_kernel_attributes(kernel, v, 28, 1024, layout,
+                                               ld=34)
+            assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1
+            assert a["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
+    bins = torch.zeros(1024, 4, dtype=torch.uint16, device=dev)
+    z = torch.zeros(1024, device=dev)
+    for v in ("bf16cmp", "u8cmp", "sub1abs", "packed"):
+        with pytest.raises(ValueError, match="does not support"):
+            thist.hist_onehot_full(bins, z, z, z, 1024, variant=v)
+        # u16 bins at a width the body serves: the C entry refuses
+        with pytest.raises(RuntimeError, match="launch failed"):
+            thist.hist_onehot_full(bins, z, z, z, 64, variant=v)
+
+
+def test_election_on_the_card_at_u16(dev):
+    """At B = 1,024 the election times base, staged and int8 on u16 bins,
+    and every one passes parity."""
+    name = torch.cuda.get_device_name(dev)
+    ov._AUTO_CACHE.pop((name, 1024), None)
+    won = ov.pick_variant(1024, 28, device=dev)
+    res = ov.AUTO_RESULTS[(name, 1024)]
+    assert set(res) == {"base", "staged", "int8"}
+    assert all(r["qualified"] for r in res.values()), res
+    assert won == min(res, key=lambda v: res[v]["ms"])
+
+
+@pytest.mark.parametrize("variant,nf", [("staged", 10), ("int8", 10),
+                                        ("base", 40), ("auto", 10)])
+def test_training_force_row_wise_u16_launches_onehot(dev, variant, nf):
+    """force_row_wise at max_bin=1023: the root through onehot_full, and
+    the per-leaf histograms through onehot_leaves inside the leaves cut
+    (10 features: 10,240 lanes) or hist_leaves outside it (40 features);
+    the trees of the same run under force_plain() on the card."""
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(nf)
+    X = rng.normal(size=(30_000, nf)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=30_000)
+         > 0).astype(np.float32)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "force_row_wise": True, "hist_variant": variant,
+              "max_bin": 1023}
+    if variant == "auto":                      # elect outside the count
+        elected = ov.pick_variant(1024, nf, device=dev)
+    ds = lgt.Dataset(X, label=y, params=params).construct(dev)
+    assert ds._inner.bins.dtype == np.uint16
+    thist.reset_launch_counts()
+    bk = lgt.train(params, ds, 5, verbose_eval=False, device="cuda")
+    used = bk._gbdt._grower_cfg.hist_variant
+    assert used == (elected if variant == "auto" else variant)
+    inside = thist.onehot_leaves_fits(nf, bk._gbdt._grower_cfg.frontier_k,
+                                      1024)
+    assert inside == (nf == 10)
+    assert (thist.launch_counts["onehot_quant"] > 0) == (used == "int8")
+    assert thist.launch_counts["onehot_full"] == 5
+    assert thist.launch_counts["hist_full"] == 0
+    assert (thist.launch_counts["onehot_leaves"] >= 5) == inside
+    assert (thist.launch_counts["hist_leaves"] >= 5) == (not inside)
+    with thist.force_plain():
+        bp = lgt.train(params, ds, 5, verbose_eval=False, device="cuda")
+    for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
+        assert np.array_equal(tk.split_feature, tp.split_feature)
+        assert np.array_equal(tk.threshold, tp.threshold)
+
+
+def test_training_force_row_wise_on_a_wide_bundle(dev):
+    """EFB bundles wider than 256 bins (a 400-level one-hot) under
+    force_row_wise staged: one-hot kernels, the trees of force_plain()."""
+    import scipy.sparse as sp
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(4)
+    n = 30_000
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    cats = rng.integers(0, 400, n)
+    Xs = sp.hstack([sp.csr_matrix((np.ones(n), (np.arange(n), cats)),
+                                  shape=(n, 400)), sp.csr_matrix(X)]).tocsr()
+    y = ((cats % 7 < 3) ^ (X[:, 0] > 0)).astype(np.float32)
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+              "force_row_wise": True, "hist_variant": "staged"}
+    ds = lgt.Dataset(Xs, label=y, params=params).construct(dev)
+    thist.reset_launch_counts()
+    bk = lgt.train(params, ds, 3, verbose_eval=False, device="cuda")
+    assert bk._gbdt._grower_cfg.bundle_bins > 256
+    assert thist.launch_counts["onehot_full"] == 3
+    assert thist.launch_counts["hist_full"] == 0
+    with thist.force_plain():
+        bp = lgt.train(params, ds, 3, verbose_eval=False, device="cuda")
+    for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
+        assert np.array_equal(tk.split_feature, tp.split_feature)
+        assert np.array_equal(tk.threshold, tp.threshold)

@@ -503,7 +503,8 @@ def test_quantize_int8_fused_entry_is_bit_identical_to_jax(br):
 
 
 @pytest.mark.parametrize("n,f,B", [(1000, 6, 64), (5000, 28, 255),
-                                   (300, 28, 255), (20_000, 300, 64)])
+                                   (300, 28, 255), (20_000, 300, 64),
+                                   (5000, 28, 1024), (250_000, 35, 2599)])
 def test_pallas_block_rows_match_jax_arithmetic(n, f, B):
     """The quantization blocks are the Pallas kernels' BR, recomputed here
     from the JAX package's own constants (``_hist_pallas``)."""
@@ -532,6 +533,11 @@ def test_pallas_block_rows_match_jax_arithmetic(n, f, B):
                                  64) == 1024
     assert tov.pallas_block_rows("int8", "rowmajor", 1_000_000, 28,
                                  256) == 512
+    # u16 widths: BR is capped by the 8 MiB one-hot tile
+    assert tov.pallas_block_rows("int8", "featmajor", 1_000_000, 28,
+                                 1024) == 512
+    assert tov.pallas_block_rows("int8", "featmajor", 250_000, 35,
+                                 2599) == 128
 
 
 _BLOCKS_SCRIPT = r"""
