@@ -117,7 +117,24 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    bundled into u16 columns, the kernels at the bundle width, CSR
    prediction equal to dense; then ``force_row_wise`` staged, 3
    iterations: ``onehot_full`` once a tree, its per-leaf histograms by
-   ``hist_leaves``, outside the leaves cut).
+   ``hist_leaves``, outside the leaves cut);
+14. engine: the engine surface on the generator's 1M x 28 (``max_bin``
+   255), each float32 value written to nine digits as TSV with the label
+   in column 0 and a ``.weight`` sidecar (in a temporary directory; the
+   writing and the native parse timed apart, as set-up): the command line
+   (``application.main``) on ``examples/binary_classification/train.conf``
+   with ``num_trees=20``, its ``hist_full``/``hist_leaves`` launches
+   counted from zero around it; its trees equal line for line to
+   ``lgt.train`` on the parsed matrix and the weights; the predict task's
+   file bit for bit ``Booster.predict`` on the held-out file; held-out AUC
+   within 1e-3 of a ``force_plain()`` run and above 0.5; the native
+   library used, its parse equal to numpy's; convert_model writes code;
+   the binary cache trains tree 0 again; 10 + 10 iterations from a saved
+   model within 1e-5 of 20, and a rollback plus an update reproduce the
+   last tree; a custom logloss within 1e-3 AUC of the builtin one without
+   boost-from-average; 3-fold ``cv`` on 300k rows within 1e-3 of plain;
+   ``pred_contrib`` on 10k rows summing to the raw score within 1e-5; and
+   refit on the held-out rows.
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the package beside it, it fails
@@ -1781,6 +1798,231 @@ def phase_sparse_efb(card, data):
     return {"sparse_efb": out["launches"], "efb_staged": rw["launches"]}
 
 
+# the engine phase: the binary example's parameters (train.conf) on Higgs
+# geometry through the command line and the rest of the engine surface
+ENGINE_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "binary_classification", "train.conf")
+N_ENGINE, N_ENGINE_CV, ENGINE_ITERS = 1_000_000, 300_000, 20
+N_CONTRIB = 10_000
+
+
+def _write_tsv(path, X, y):
+    """examples/generate_data.py's layout: TSV, the label in column 0; each
+    float32 value to nine digits, which name it exactly."""
+    np.savetxt(path, np.column_stack([y, X]), delimiter="\t", fmt="%.9g")
+
+
+def _tree_lines(text):
+    return [line for line in text.split("end of trees")[0].splitlines()
+            if not line.startswith(("tree_sizes", "feature_infos"))]
+
+
+def _same_trees(a, b):
+    """Model texts with the same trees: every header and tree line equal
+    (the sizes and feature ranges aside)."""
+    for x, z in zip(_tree_lines(a), _tree_lines(b)):
+        if x != z:
+            raise AssertionError(f"tree lines differ: {x[:80]} / {z[:80]}")
+    if len(_tree_lines(a)) != len(_tree_lines(b)):
+        raise AssertionError("the models have different lengths")
+
+
+def _timed(steps, name, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    steps[name] = time.perf_counter() - t0
+    return out
+
+
+def phase_engine(card):
+    """The engine surface on the card: the command line on the binary
+    example's train.conf (1M x 28 TSV with a .weight sidecar, 20 trees),
+    its predict, convert_model and refit tasks, the binary cache,
+    init_model and rollback, a custom objective, cv and pred_contrib."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import application, native
+    from lightgbm_tpu_torch.io.dataset import Dataset as Inner
+    from lightgbm_tpu_torch.io.loader import load_file
+    from lightgbm_tpu_torch.ops import histogram as hist
+    setup, steps, out = {}, {}, {}
+    X, y = make_higgs_like(N_ENGINE, N_FEAT, seed=45)
+    Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=46)
+    w = np.random.default_rng(47).uniform(0.5, 1.5, N_ENGINE).round(4)
+    conf = application.parse_config_file(ENGINE_CONF)
+    params = {k: v for k, v in conf.items()
+              if k not in ("task", "data", "valid_data", "output_model",
+                           "num_trees")}
+    params["verbose"] = -1
+    res = os.path.join("chiprun_out", "engine")
+    os.makedirs(res, exist_ok=True)
+    with tempfile.TemporaryDirectory() as td:
+        train_f, test_f = (os.path.join(td, n)
+                           for n in ("binary.train", "binary.test"))
+        t0 = time.perf_counter()
+        _write_tsv(train_f, X, y)
+        np.savetxt(train_f + ".weight", w, fmt="%.4f")
+        _write_tsv(test_f, Xv, yv)
+        setup["write_files_s"] = time.perf_counter() - t0
+        # the native parser, timed alone, and its matrix held to the arrays
+        # (training file: nine digits name each float32, so the parse
+        # rounds back to it) and to the numpy loader (held-out file).  The
+        # API trains on the parsed matrix, the values the file holds: a
+        # double within 1e-9 of a float32 can fall in another bin than the
+        # float32 itself when a bin bound lies between them
+        calls = dict(native.native_calls)
+        t0 = time.perf_counter()
+        Xp, yp = load_file(train_f)[:2]
+        setup["parse_1m_rows_s"] = time.perf_counter() - t0
+        if not (np.array_equal(Xp.astype(np.float32), X)
+                and np.array_equal(yp, y)):
+            raise AssertionError("the parsed file is not its arrays")
+        Xv_native = load_file(test_f)[0]
+        Xv_numpy = np.genfromtxt(test_f, delimiter="\t", dtype=np.float64)
+        if not np.allclose(Xv_native, Xv_numpy[:, 1:], rtol=1e-14, atol=0):
+            raise AssertionError("native and numpy parses differ")
+        model_f = os.path.join(res, "model.txt")
+        hist.reset_launch_counts()
+        rc = _timed(steps, "cli_train", lambda: application.main([
+            f"config={ENGINE_CONF}", f"data={train_f}",
+            f"valid_data={test_f}", f"num_trees={ENGINE_ITERS}",
+            f"output_model={model_f}", "verbose=-1"]))
+        launches = dict(hist.launch_counts)
+        if rc != 0:
+            raise AssertionError(f"the train task returned {rc}")
+        if not (launches["hist_full"] == ENGINE_ITERS
+                and launches["hist_leaves"] > 0
+                and sum(launches.values()) == launches["hist_full"]
+                + launches["hist_leaves"]):
+            raise AssertionError(f"the CLI run launched {launches}")
+        used = {k: native.native_calls[k] - calls[k] for k in calls}
+        if not (used["parse_delimited"] >= 4 and used["bin_values"] >= 2):
+            raise AssertionError(f"the native library served {used}")
+        out["native_calls"] = used
+        cli_text = open(model_f).read()
+        # the file's matrix and weights through the API, kernels and plain
+        ds = lgt.Dataset(Xp, label=y, weight=w)
+        api = _timed(steps, "api_train", lambda: lgt.train(
+            params, ds, ENGINE_ITERS, verbose_eval=False, device="cuda"))
+        _same_trees(api.model_to_string(), cli_text)
+        with hist.force_plain():
+            plain = _timed(steps, "api_train_plain", lambda: lgt.train(
+                params, ds, ENGINE_ITERS, verbose_eval=False, device="cuda"))
+        # the predict task, bit for bit Booster.predict on the file
+        pred_f = os.path.join(res, "predictions.txt")
+        rc = _timed(steps, "cli_predict", lambda: application.main([
+            "task=predict", f"data={test_f}", f"input_model={model_f}",
+            f"output_result={pred_f}"]))
+        loaded = lgt.Booster(model_file=model_f, device="cuda")
+        p_file, p_api = np.loadtxt(pred_f), loaded.predict(test_f)
+        if rc != 0 or not np.array_equal(p_file, p_api):
+            raise AssertionError("the predict task's file is not "
+                                 "Booster.predict's")
+        auc_cli = _auc(p_file, yv)
+        auc_plain = _auc(plain.predict(Xv), yv)
+        if not (auc_cli > 0.5 and abs(auc_cli - auc_plain) <= AUC_TOL):
+            raise AssertionError(f"held-out AUC {auc_cli} (plain "
+                                 f"{auc_plain})")
+        cpp_f = os.path.join(res, "model.cpp")
+        rc = _timed(steps, "cli_convert_model", lambda: application.main([
+            "task=convert_model", f"input_model={model_f}",
+            f"convert_model={cpp_f}"]))
+        if rc != 0 or "PredictRaw" not in open(cpp_f).read():
+            raise AssertionError("convert_model wrote no model code")
+        # the binary cache: tree 0 of the cache's training is the arrays'
+        cache_f = os.path.join(td, "train.bin")
+        _timed(steps, "save_binary", lambda: ds.save_binary(cache_f))
+        cached = lgt.Dataset(None, params=params)
+        cached._inner = _timed(steps, "load_binary",
+                               lambda: Inner.load_binary(cache_f))
+        one = lgt.train(params, cached, 1, verbose_eval=False, device="cuda")
+        if one._gbdt.models[0].to_text(0) != api._gbdt.models[0].to_text(0):
+            raise AssertionError("the cache trains another tree 0")
+        # init_model: 10 + 10 iterations from a saved model; then a
+        # rollback and one more update reproduce the last tree
+        half = os.path.join(td, "half.txt")
+        lgt.train(params, ds, ENGINE_ITERS // 2, verbose_eval=False,
+                  device="cuda").save_model(half)
+        cont = _timed(steps, "init_model_train", lambda: lgt.train(
+            params, ds, ENGINE_ITERS // 2, init_model=half,
+            verbose_eval=False, device="cuda"))
+        gap = float(np.max(np.abs(cont.predict(Xv) - api.predict(Xv))))
+        if cont.num_trees() != ENGINE_ITERS or gap > 1e-5:
+            raise AssertionError(f"init_model predicts {gap} from the "
+                                 "single run")
+        last = cont.model_to_string()
+        _timed(steps, "rollback_update",
+               lambda: (cont.rollback_one_iter(), cont.update()))
+        if cont.model_to_string() != last:
+            raise AssertionError("rollback + update changed the last tree")
+        # fobj: binary logloss as a function of the host scores
+        base = {k: v for k, v in params.items() if k != "objective"}
+
+        def fobj(score, dataset):
+            p = 1.0 / (1.0 + np.exp(-score))
+            return (p - y) * w, p * (1.0 - p) * w
+
+        hist.reset_launch_counts()
+        custom = _timed(steps, "fobj_train", lambda: lgt.train(
+            base, ds, ENGINE_ITERS // 2, fobj=fobj, verbose_eval=False,
+            device="cuda"))
+        fobj_launches = dict(hist.launch_counts)
+        builtin = lgt.train(dict(params, boost_from_average=False), ds,
+                            ENGINE_ITERS // 2, verbose_eval=False,
+                            device="cuda")
+        auc_fobj = _auc(custom.predict(Xv, raw_score=True), yv)
+        auc_builtin = _auc(builtin.predict(Xv, raw_score=True), yv)
+        if abs(auc_fobj - auc_builtin) > AUC_TOL:
+            raise AssertionError(f"fobj AUC {auc_fobj} vs {auc_builtin}")
+        # cv: 3 folds of 300k rows, 10 iterations, kernels and plain
+        cv_params = dict(params, metric="auc")
+        cv_ds = lgt.Dataset(X[:N_ENGINE_CV], label=y[:N_ENGINE_CV])
+        hist.reset_launch_counts()
+        cv_k = _timed(steps, "cv", lambda: lgt.cv(
+            cv_params, cv_ds, ENGINE_ITERS // 2, nfold=3, device="cuda"))
+        cv_launches = dict(hist.launch_counts)
+        with hist.force_plain():
+            cv_p = _timed(steps, "cv_plain", lambda: lgt.cv(
+                cv_params, lgt.Dataset(X[:N_ENGINE_CV], label=y[:N_ENGINE_CV]),
+                ENGINE_ITERS // 2, nfold=3, device="cuda"))
+        cv_auc, cv_auc_plain = (r["valid auc-mean"][-1] for r in (cv_k, cv_p))
+        if abs(cv_auc - cv_auc_plain) > AUC_TOL:
+            raise AssertionError(f"cv AUC {cv_auc} vs plain {cv_auc_plain}")
+        # TreeSHAP: the contributions sum to the raw score
+        contrib = _timed(steps, "pred_contrib", lambda: loaded.predict(
+            Xv[:N_CONTRIB], pred_contrib=True))
+        sum_gap = float(np.max(np.abs(
+            contrib.sum(axis=1) - loaded.predict(Xv[:N_CONTRIB],
+                                                 raw_score=True))))
+        if contrib.shape != (N_CONTRIB, N_FEAT + 1) or sum_gap > 1e-5:
+            raise AssertionError(f"pred_contrib sums off by {sum_gap}")
+        # refit on the held-out rows
+        _timed(steps, "refit", lambda: loaded.refit(Xv, yv))
+        auc_refit = _auc(loaded.predict(Xv), yv)
+    trees = ENGINE_ITERS
+    emit({"phase": "engine", "card": card, "rows": N_ENGINE,
+          "valid_rows": N_VALID, "features": N_FEAT, "trees": trees,
+          "params": params, "setup": setup, "steps_s": steps,
+          "s_per_tree": {"cli": steps["cli_train"] / trees,
+                         "api": steps["api_train"] / trees,
+                         "api_plain": steps["api_train_plain"] / trees,
+                         "init_model": steps["init_model_train"]
+                         / (trees // 2),
+                         "fobj": steps["fobj_train"] / (trees // 2),
+                         "cv_per_fold_tree": steps["cv"] / (3 * trees // 2)},
+          "cli_launches": launches, "fobj_launches": fobj_launches,
+          "cv_launches": cv_launches, "auc_holdout": {
+              "cli": auc_cli, "plain": auc_plain, "fobj": auc_fobj,
+              "binary_no_boost_from_average": auc_builtin, "cv": cv_auc,
+              "cv_plain": cv_auc_plain, "after_refit": auc_refit},
+          "init_model_max_gap": gap, "contrib_sum_gap": sum_gap,
+          "cli_trees_equal_api": True, "predict_file_bit_identical": True,
+          "cache_tree0_equal": True, "rollback_reproduces_last_tree": True,
+          **out})
+    return {"engine_cli": launches}
+
+
 def phase_predict(boosters, Xv):
     import lightgbm_tpu_torch as lgt
     out = []
@@ -1938,6 +2180,7 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
                "launches": launches["atomic"][kname],
                "launches_by_knob_run": {run: cnt[kname] for run, cnt in
                                         launches["knobs"].items()},
+               "launches_by_engine_cli_run": launches["engine_cli"][kname],
                **{k: r[k] for k in keys + atomic_keys}, "card": card}
         if "cases" in r:
             row["cases"] = {c: {k: v[k] for k in ("relerr", "ms",
@@ -2041,6 +2284,7 @@ def main() -> int:
     launches["categorical"] = phase_categorical(smi)
     launches.update(phase_wide_bins(smi, elected))
     launches.update(phase_sparse_efb(smi, breadth))
+    launches.update(phase_engine(smi))
     rows = kernel_rows(kern, onehot, quant, bench, launches, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})

@@ -9,12 +9,15 @@ or ``uint16`` when a feature or an EFB bundle has more than 256 bins; EFB
 (``io/efb.py``) packs mutually exclusive sparse features into shared
 columns.  A ``scipy.sparse`` matrix is binned feature by feature over its
 stored values (numpy), never densified.  The bin matrix and the bundles are
-byte-identical to the JAX package's (same samplers, same
-``BinMapper.value_to_bin``, same bundle search).
+byte-identical to the JAX package's (same samplers, the same native
+binner, ``native/parser.cpp``, with ``BinMapper.value_to_bin`` where it is
+unavailable, same bundle search).  The binary cache (``save_binary``,
+``load_binary``) has the JAX package's ``.npz`` layout, so a cache written
+by either package loads in the other; ``subset`` takes rows and shares the
+bin mappers; pandas ``category`` columns become their codes against the
+training data's category lists (``_pandas_to_numpy``).
 
-Not ported yet (each raises ``NotPortedError``): loading data files (the
-native parser), binary cache files (``save_binary``/``load_binary``),
-``Dataset.subset``, pandas categoricals and out-of-core streaming.
+Not ported yet (raises ``NotPortedError``): out-of-core streaming.
 """
 from __future__ import annotations
 
@@ -148,10 +151,6 @@ class Dataset:
             raise NotPortedError("linear_tree is not ported yet")
         if config.stream_rows or config.max_bin_matrix_bytes:
             raise NotPortedError("out-of-core streaming is not ported yet")
-        if _is_dataframe(data) and _df_has_category_columns(data):
-            raise NotPortedError("pandas categorical columns are not ported "
-                                 "yet (pass their codes as a numeric matrix "
-                                 "with categorical_feature)")
         self = cls(config)
         sparse = _is_sparse(data)
         data = data.tocsr() if sparse else _to_2d_float(data)
@@ -264,6 +263,12 @@ class Dataset:
     def _bin_data(self, data: np.ndarray) -> None:
         max_nb = max((self.bin_mappers[f].num_bin for f in self.used_features), default=1)
         dtype = np.uint8 if max_nb <= 256 else np.uint16
+        # native threaded binning (parser.cpp BinValues); numpy fallback
+        from ..native import bin_values
+        native = bin_values(data, self.bin_mappers, self.used_features)
+        if native is not None:
+            self.bins = native.astype(dtype, copy=False)
+            return
         bins = np.empty((self.num_data, len(self.used_features)), dtype=dtype)
         for i, f in enumerate(self.used_features):
             bins[:, i] = self.bin_mappers[f].value_to_bin(data[:, f]).astype(dtype)
@@ -424,16 +429,87 @@ class Dataset:
 
     # ------------------------------------------------------------------
     def save_binary(self, path: str) -> None:
-        raise NotPortedError("binary cache files (save_binary/load_binary) "
-                             "are not ported yet")
+        """Binary cache (reference ``Dataset::SaveBinaryFile``) in the JAX
+        package's ``.npz`` layout: the bin matrix, the mappers' state as
+        JSON, the bundles and the metadata."""
+        import json
+        md = self.metadata
+        np.savez_compressed(
+            path if path.endswith(".npz") else path + ".npz",
+            bins=self.bins,
+            meta=json.dumps({
+                "num_data": self.num_data,
+                "num_total_features": self.num_total_features,
+                "used_features": self.used_features,
+                "feature_names": self.feature_names,
+                "mappers": [m.to_state() for m in self.bin_mappers],
+                "bundles": self.bundles,
+            }),
+            label=md.label if md.label is not None else np.empty(0),
+            weight=md.weight if md.weight is not None else np.empty(0),
+            query=(md.query_boundaries if md.query_boundaries is not None
+                   else np.empty(0, dtype=np.int64)),
+            init_score=(md.init_score if md.init_score is not None
+                        else np.empty(0)),
+        )
 
     @classmethod
-    def load_binary(cls, path: str, config: Optional[Config] = None):
-        raise NotPortedError("binary cache files (save_binary/load_binary) "
-                             "are not ported yet")
+    def load_binary(cls, path: str, config: Optional[Config] = None) -> "Dataset":
+        import json
+        z = np.load(path if path.endswith(".npz") else path + ".npz",
+                    allow_pickle=False)
+        meta = json.loads(str(z["meta"]))
+        self = cls(config)
+        self.num_data = int(meta["num_data"])
+        self.num_total_features = int(meta["num_total_features"])
+        self.used_features = [int(f) for f in meta["used_features"]]
+        self.real_to_inner = {f: i for i, f in enumerate(self.used_features)}
+        self.feature_names = list(meta["feature_names"])
+        self.bin_mappers = [BinMapper.from_state(st) for st in meta["mappers"]]
+        self.bins = z["bins"]
+        if meta.get("bundles"):
+            self.bundles = [[int(x) for x in g] for g in meta["bundles"]]
+            nb = np.array([self.bin_mappers[f].num_bin
+                           for f in self.used_features], np.int64)
+            self.feat_bundle, self.feat_off, self.bundle_widths = \
+                bundle_layout(self.bundles, nb)
+        self.metadata = Metadata(self.num_data)
+        if z["label"].size:
+            self.metadata.label = z["label"].astype(np.float32)
+        if z["weight"].size:
+            self.metadata.weight = z["weight"].astype(np.float32)
+        if z["query"].size:
+            self.metadata.query_boundaries = z["query"].astype(np.int64)
+        if z["init_score"].size:
+            self.metadata.init_score = z["init_score"].astype(np.float64)
+        return self
 
     def subset(self, indices) -> "Dataset":
-        raise NotPortedError("Dataset.subset is not ported yet")
+        """Row subset sharing the bin mappers and bundles (reference
+        ``Dataset::CopySubrow``; ``engine.cv`` builds its folds with it).
+        Query boundaries do not carry over, as in the JAX package."""
+        indices = np.asarray(indices, dtype=np.int64)
+        sub = Dataset(self.config)
+        sub.num_data = len(indices)
+        sub.num_total_features = self.num_total_features
+        sub.bin_mappers = self.bin_mappers
+        sub.used_features = self.used_features
+        sub.real_to_inner = self.real_to_inner
+        sub.feature_names = self.feature_names
+        sub.bins = self.bins[indices]
+        sub._share_bundles(self)
+        sub.reference = self
+        sub.metadata = Metadata(sub.num_data)
+        md = self.metadata
+        if md.label is not None:
+            sub.metadata.label = md.label[indices]
+        if md.weight is not None:
+            sub.metadata.weight = md.weight[indices]
+        if md.init_score is not None:
+            ns = len(md.init_score) // self.num_data
+            sub.metadata.init_score = md.init_score.reshape(
+                ns, self.num_data)[:, indices].ravel()
+        return sub
 
     # ------------------------------------------------------------------
     def device_data(self, device=None) -> DeviceData:
@@ -512,6 +588,75 @@ def _is_dataframe(data) -> bool:
 def _df_has_category_columns(df) -> bool:
     import pandas as pd
     return any(isinstance(dt, pd.CategoricalDtype) for dt in df.dtypes)
+
+
+def _require_pandas_mapping(df, pandas_categorical, what: str) -> None:
+    """Raise when ``df`` carries category-dtype columns but no training
+    mapping exists to code them against: coding against the frame's own
+    level order would silently misalign with the training values."""
+    if pandas_categorical is None and _df_has_category_columns(df):
+        raise LightGBMError(
+            f"{what} has category-dtype columns but no pandas_categorical "
+            "mapping is available (the training data was not a pandas "
+            "DataFrame with category columns)")
+
+
+def _pandas_to_numpy(df, categorical_feature="auto", pandas_categorical=None):
+    """A pandas DataFrame -> the float64 matrix the binner takes (the JAX
+    package's ``_pandas_to_numpy``; reference ``_data_from_pandas``,
+    ``python-package/lightgbm/basic.py:391``).
+
+    ``category`` columns become their category codes (float, missing ->
+    NaN) against a per-column category list: for training data
+    (``pandas_categorical is None``) the lists come from the frame and are
+    returned, to be stored on the Booster and in the model file, and the
+    category columns join ``categorical_feature`` when it is ``"auto"``;
+    for validation and prediction data the caller passes the stored lists,
+    and a value outside them becomes NaN.
+
+    Returns ``(arr, feature_names, categorical_feature, pandas_categorical)``.
+    """
+    import pandas as pd
+
+    names = [str(c) for c in df.columns]
+    cat_pos = [j for j, c in enumerate(df.columns)
+               if isinstance(df.dtypes.iloc[j], pd.CategoricalDtype)]
+    bad_cols = [names[j] for j in range(df.shape[1])
+                if j not in cat_pos
+                and not pd.api.types.is_numeric_dtype(df.dtypes.iloc[j])
+                and not pd.api.types.is_bool_dtype(df.dtypes.iloc[j])]
+    if bad_cols:
+        raise ValueError(
+            f"DataFrame column(s) {bad_cols} have a non-numeric (object/"
+            "string/datetime) dtype; cast them to a numeric or category "
+            "dtype first")
+    if not cat_pos and not pandas_categorical:
+        # all-numeric frame: one bulk conversion (the predict hot path)
+        return (np.ascontiguousarray(df.to_numpy(dtype=np.float64)),
+                names, categorical_feature, pandas_categorical)
+    if pandas_categorical is None:
+        pandas_categorical = [list(df.iloc[:, j].cat.categories)
+                              for j in cat_pos]
+    else:
+        check(len(cat_pos) == len(pandas_categorical),
+              "DataFrame categorical columns do not match the training "
+              f"data ({len(cat_pos)} vs {len(pandas_categorical)})")
+
+    arr = np.empty((len(df), df.shape[1]), dtype=np.float64)
+    for j in range(df.shape[1]):
+        col = df.iloc[:, j]
+        if j in cat_pos:
+            cats = pandas_categorical[cat_pos.index(j)]
+            codes = col.cat.set_categories(cats).cat.codes.to_numpy()
+            vals = codes.astype(np.float64)
+            vals[codes < 0] = np.nan          # unseen/missing -> missing
+        else:
+            vals = col.to_numpy().astype(np.float64)
+        arr[:, j] = vals
+
+    if categorical_feature == "auto":
+        categorical_feature = list(cat_pos) if cat_pos else "auto"
+    return arr, names, categorical_feature, pandas_categorical
 
 
 def _to_2d_float(data) -> np.ndarray:

@@ -43,7 +43,7 @@ class DART(GBDT):
                 depth=depth, efb=self._dd.efb)
             self._valid_scores[vi][k] += vals[leaf]
 
-    def train_one_iter(self):
+    def train_one_iter(self, grad=None, hess=None):
         cfg = self.config
         K = self.num_tree_per_iteration
         n_iters_done = len(self.models) // max(1, K)
@@ -72,7 +72,7 @@ class DART(GBDT):
                                    -self._tree_weights[it * K + k])
 
         n_before = len(self.models)
-        stop = super().train_one_iter()
+        stop = super().train_one_iter(grad, hess)
 
         # --- normalize (dart.hpp:158) ---
         k_drop = len(drop_iters)

@@ -10,13 +10,17 @@ draws keyed by ``random_gen.key_for_iteration`` (``feature_fraction_bynode``,
 by binned traversal (``_train_one_iter_fast``), the synchronous per-tree
 path with leaf renewal for L1-style objectives, host ``Tree`` objects
 materialized lazily from a pending list, and prediction through the host
-tree loop or the stacked device ensemble.  ``goss.py``, ``dart.py`` and
-``rf.py`` derive from it.
+tree loop or the stacked device ensemble.  Custom gradients
+(``train_one_iter(grad, hess)``, objective ``none``), continued training
+from a model (``continue_from``), ``refit``, ``rollback_one_iter`` and
+TreeSHAP contributions (``predict_contrib``, ``ops/shap.py``) as in the
+JAX package.  ``goss.py``, ``dart.py`` and ``rf.py`` derive from it.
 
 Not ported yet (raise ``NotPortedError``): other tree learners, the serial
 grower and what only it serves (monotone intermediate/advanced, CEGB,
-interaction constraints, forced splits, linear trees), feature_contri,
-custom objectives, prediction early stopping, SHAP and refit.
+interaction constraints, forced splits, linear trees, and so refit and
+continued training of a linear-tree model), feature_contri and
+prediction early stopping.
 """
 from __future__ import annotations
 
@@ -27,18 +31,37 @@ import torch
 
 from ..config import Config
 from ..device import NotPortedError, resolve_device
-from ..io.dataset import Dataset
+from ..io.dataset import Dataset, _is_sparse as _is_sparse_mat
 from ..metric import create_metrics
 from ..objective import ObjectiveFunction, create_objective
 from ..ops import onehot_variants
 from ..io.bin import BinType
-from ..ops.grower import GrowerConfig, grow_tree
+from ..ops.grower import GrowerConfig, TreeArrays, grow_tree
 from ..ops.histogram import take_rows
 from ..ops.predict import predict_leaf_binned, tree_depth
 from ..ops.split import SplitParams
-from ..utils.log import Log, check
+from ..utils.log import LightGBMError, Log, check
 from ..utils.random_gen import key_for_iteration, uniform
 from .tree import Tree
+
+# rows of a densified block when predicting scipy.sparse input
+_SPARSE_PREDICT_BLOCK = 65536
+
+
+def _blockwise_sparse(X, fn):
+    """Apply ``fn`` (a dense-matrix predict) over densified row blocks of a
+    scipy.sparse matrix and concatenate the results."""
+    X = X.tocsr()
+    if X.shape[0] == 0:
+        return fn(np.zeros((0, X.shape[1]), np.float64))
+    outs = [fn(np.asarray(X[s:s + _SPARSE_PREDICT_BLOCK].toarray(), np.float64))
+            for s in range(0, X.shape[0], _SPARSE_PREDICT_BLOCK)]
+    return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
+
+
+def host_scores(score: torch.Tensor) -> np.ndarray:
+    """A ``[K, N]`` device score tensor as float64 numpy."""
+    return score.cpu().numpy().astype(np.float64)
 
 
 def kernel_backend(device: torch.device) -> str:
@@ -127,6 +150,8 @@ class GBDT:
         self._tree_weights: List[float] = []
         self._bag_mask = None
         self._bag_sub = None
+        # the scores before the last iteration (rollback_one_iter)
+        self._prev_scores = None
         self.train_data_name = "training"
         if train_data is not None:
             self.init_train(train_data)
@@ -171,8 +196,12 @@ class GBDT:
         self.train_data = train_data
         if self.objective is None:
             self.objective = create_objective(cfg)
-        self.objective.init(train_data.metadata, train_data.num_data)
-        self.num_tree_per_iteration = self.objective.num_model_per_iteration
+        if self.objective is not None:
+            self.objective.init(train_data.metadata, train_data.num_data)
+            self.num_tree_per_iteration = self.objective.num_model_per_iteration
+        else:
+            # objective "none": the caller's gradients, num_class trees
+            self.num_tree_per_iteration = max(1, cfg.num_class)
         self.max_feature_idx = train_data.num_total_features - 1
         self.train_metrics = create_metrics(cfg)
         for m in self.train_metrics:
@@ -191,7 +220,7 @@ class GBDT:
         self.init_scores = [0.0] * K
         if md.init_score is not None:
             init += md.init_score.reshape(-1, n).astype(np.float32)
-        elif cfg.boost_from_average:
+        elif cfg.boost_from_average and self.objective is not None:
             for k in range(K):
                 s = self.objective.boost_from_score(k)
                 self.init_scores[k] = s
@@ -376,9 +405,13 @@ class GBDT:
                          is_categorical=self._is_cat, efb=dd.efb)
 
     # ------------------------------------------------------------------
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad: Optional[np.ndarray] = None,
+                       hess: Optional[np.ndarray] = None) -> bool:
         """One boosting iteration (reference ``GBDT::TrainOneIter``,
-        ``gbdt.cpp:369``).  Returns True if training should stop (no splits)."""
+        ``gbdt.cpp:369``).  Returns True if training should stop (no splits).
+        ``grad``/``hess`` (host arrays of ``K * N`` values, class-major)
+        replace the objective's gradients; they are copied to the model's
+        device once."""
         if self._stop_flag:
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
@@ -386,12 +419,20 @@ class GBDT:
         n = self.train_data.num_data
         it = self.iter_
         K = self.num_tree_per_iteration
-        g, h = self._compute_gradients(self._train_score)
+        if grad is None or hess is None:
+            g, h = self._compute_gradients(self._train_score)
+        else:
+            g, h = (torch.as_tensor(np.asarray(a, np.float32).reshape(K, n)
+                                    ).to(self.device) for a in (grad, hess))
         bag_mask, g, h = self._bagging_weights(it, g, h)
         row_weight = (bag_mask if bag_mask is not None else
                       torch.ones(n, dtype=torch.float32, device=self.device))
         fmask = self._feature_mask(it)
-        if self.objective.need_renew_tree_output():
+        # the scores are updated in place: the rollback history is a copy
+        self._prev_scores = (self._train_score.clone(),
+                             [v.clone() for v in self._valid_scores])
+        if (self.objective is not None
+                and self.objective.need_renew_tree_output()):
             return self._train_one_iter_renew(g, h, row_weight, fmask, it, K)
         return self._train_one_iter_fast(g, h, row_weight, fmask, it, K,
                                          bag_mask=bag_mask)
@@ -498,6 +539,8 @@ class GBDT:
         return should_stop
 
     def _compute_gradients(self, score):
+        if self.objective is None:
+            raise LightGBMError("objective is None; provide custom grad/hess")
         if self.num_tree_per_iteration > 1:
             return self.objective.get_gradients_multi(
                 score, self._label_dev, self._weight_dev)
@@ -539,6 +582,9 @@ class GBDT:
         model with ``average_output`` (RF) averages over its iterations."""
         if self.config.pred_early_stop:
             raise NotPortedError("pred_early_stop is not ported yet")
+        if _is_sparse_mat(X):
+            return _blockwise_sparse(
+                X, lambda d: self.predict_raw(d, num_iteration, start_iteration))
         X = np.asarray(X, dtype=np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
@@ -588,7 +634,83 @@ class GBDT:
             return np.asarray(self.objective.convert_output(raw.T)).T
         return np.asarray(self.objective.convert_output(raw))
 
+    def predict_contrib(self, X: np.ndarray, num_iteration: int = -1,
+                        start_iteration: int = 0, sparse: bool = False,
+                        sparse_format: Optional[str] = None):
+        """TreeSHAP feature contributions (reference ``GBDT::PredictContrib``
+        via ``Tree::TreeSHAP``, ``tree.cpp:887``): per row, per class,
+        ``[num_features + 1]`` with the bias (expected value) last.
+        ``sparse=True`` returns scipy matrices (one, or a list of K for
+        multiclass) in ``sparse_format`` (csr or csc), built block by
+        block."""
+        from ..ops.shap import expected_value, tree_shap
+        if any(getattr(t, "is_linear", False) for t in self.models):
+            raise LightGBMError(
+                "pred_contrib (TreeSHAP) is not supported for linear trees")
+        if sparse:
+            return self._predict_contrib_sparse(X, num_iteration,
+                                                start_iteration,
+                                                sparse_format)
+        if _is_sparse_mat(X):
+            return _blockwise_sparse(
+                X, lambda d: self.predict_contrib(d, num_iteration,
+                                                  start_iteration))
+        X = np.asarray(X, dtype=np.float64)
+        if X.ndim == 1:
+            X = X.reshape(1, -1)
+        n, F = X.shape
+        K = self.num_tree_per_iteration
+        n_iters = len(self.models) // K
+        if num_iteration is not None and num_iteration > 0:
+            n_iters = min(n_iters, num_iteration)
+        out = np.zeros((n, K, F + 1))
+        for i in range(start_iteration, start_iteration + n_iters):
+            for k in range(K):
+                ti = i * K + k
+                if ti < len(self.models):
+                    t = self.models[ti]
+                    out[:, k, :F] += tree_shap(t, X)
+                    out[:, k, F] += expected_value(t)
+        return out[:, 0, :] if K == 1 else out.reshape(n, K * (F + 1))
+
+    def _predict_contrib_sparse(self, X, num_iteration: int,
+                                start_iteration: int,
+                                sparse_format: Optional[str] = None):
+        """Blockwise sparse TreeSHAP: CSR per block, stacked; a block's row
+        count is capped by its elements, so the dense scratch stays bounded
+        on wide input."""
+        import scipy.sparse as sp
+        K = self.num_tree_per_iteration
+        Xc = X.tocsr() if _is_sparse_mat(X) else np.asarray(X, np.float64)
+        n, F = Xc.shape
+        block = max(1, min(_SPARSE_PREDICT_BLOCK,
+                           (64 << 20) // max(1, (F + 1) * K)))
+        blocks: List[list] = [[] for _ in range(K)]
+        for s in range(0, max(n, 1), block):
+            xb = Xc[s:s + block]
+            if _is_sparse_mat(xb):
+                xb = np.asarray(xb.toarray(), np.float64)
+            dense = self.predict_contrib(xb, num_iteration, start_iteration)
+            if K == 1:
+                blocks[0].append(sp.csr_matrix(dense))
+            else:
+                F1 = dense.shape[1] // K
+                for k in range(K):
+                    blocks[k].append(
+                        sp.csr_matrix(dense[:, k * F1:(k + 1) * F1]))
+        # the input's format (csr or csc) is the output's
+        fmt = sparse_format or (getattr(X, "format", "csr")
+                                if _is_sparse_mat(X) else "csr")
+        fmt = fmt if fmt in ("csr", "csc") else "csr"
+        mats = [sp.vstack(b, format=fmt) if len(b) > 1
+                else (b[0] if fmt == "csr" else b[0].tocsc())
+                for b in blocks]
+        return mats[0] if K == 1 else mats
+
     def predict_leaf_index(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
+        if _is_sparse_mat(X):
+            return _blockwise_sparse(
+                X, lambda d: self.predict_leaf_index(d, num_iteration))
         X = np.asarray(X, dtype=np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
@@ -602,6 +724,179 @@ class GBDT:
         return out
 
     # ------------------------------------------------------------------
+    def continue_from(self, prev: "GBDT") -> None:
+        """Continued training from an existing model (reference CLI
+        ``input_model`` / Python ``init_model``, ``boosting.cpp:35-60``):
+        adopt the previous ensemble and warm the train and valid scores
+        with its predictions over the binned data.
+
+        The warm replays the float32 score updates of a single run on the
+        device: each tree's unshrunk float32 leaf values are recovered from
+        its host values (``(value - bias) / shrinkage``, exact for values
+        that a float32 leaf times the shrinkage made) and added in tree
+        order to this model's starting scores at the leaves of the binned
+        traversal (``predict_leaf_binned``), as training added them.  So a
+        run continued from a model of the same data and parameters sees the
+        scores, and grows the trees, of one run.  The first iteration's
+        trees carry the boost-from-average bias, which the starting scores
+        already hold.  (The JAX package sums the host values in float64 on
+        the host and rounds once, within float32 rounding of this.)"""
+        import copy
+        check(prev.num_tree_per_iteration == self.num_tree_per_iteration,
+              "init_model has a different number of tree per iteration")
+        if any(getattr(t, "is_linear", False) for t in prev.models):
+            raise NotPortedError("continued training from a linear-tree "
+                                 "model is not ported yet")
+        self.models = [copy.deepcopy(t) for t in prev.models]
+        self._tree_weights = (list(prev._tree_weights)
+                              or [1.0] * len(self.models))
+        self._device_trees = []
+        self._tree_depths = []
+        self._ens_cache = None
+        K = self.num_tree_per_iteration
+        self.iter_ = len(self.models) // K
+        ds = self.train_data
+        dd = self._dd
+        sets = [(dd.bins, self._train_score)] + [
+            (v.device_data(self.device).bins, self._valid_scores[i])
+            for i, v in enumerate(self.valid_sets)]
+        for i, t in enumerate(self.models):
+            k = i % K
+            bias = self.init_scores[k] if i < K else 0.0
+            # a tree that took the bias prints shrinkage 1 (Tree.add_bias)
+            rate = (self.shrinkage_rate if bias and t.shrinkage == 1.0
+                    else t.shrinkage)
+            unshrunk = ((t.leaf_value - bias) / rate).astype(np.float32)
+            delta = torch.as_tensor(unshrunk).to(self.device) * rate
+            if t.num_leaves <= 1:
+                for _, score in sets:
+                    score[k] += delta[0]
+                continue
+            tree, depth = self._binned_tree(t, ds)
+            for bins, score in sets:
+                leaf = predict_leaf_binned(tree, bins, dd.nan_bins,
+                                           depth=depth, efb=dd.efb)
+                score[k] += delta[leaf]
+        self._prev_scores = None
+
+    def _binned_tree(self, t: Tree, ds: Dataset):
+        """A host tree as the device ``TreeArrays`` that
+        ``predict_leaf_binned`` reads (inner features, bin thresholds, bin
+        bitsets), and its depth.  A text-loaded tree names real features
+        and value thresholds: they map to ``ds``'s inner features and
+        bins."""
+        if len(t.cat_boundaries) > 1:
+            t.bin_cat_bitsets(ds.bin_mappers)
+        t.bin_numeric_thresholds(ds.bin_mappers)
+        m = t.num_leaves - 1
+        inner = np.array([ds.real_to_inner[int(f)] for f in t.split_feature[:m]],
+                         np.int32)
+        words = max((len(w) for w in t.cat_bits_bin.values()), default=1)
+        cat = np.zeros((m, words), np.int32)
+        for j, w in t.cat_bits_bin.items():
+            cat[j, :len(w)] = np.asarray(w, np.uint32).view(np.int32)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a)).to(self.device)
+        zeros = dev(np.zeros(m, np.float32))
+        tree = TreeArrays(
+            split_feature=dev(inner), threshold=dev(t.threshold_bin[:m].astype(np.int32)),
+            default_left=dev(np.array([t.default_left(j) for j in range(m)])),
+            is_cat_split=dev(np.array([t.is_categorical_split(j)
+                                       for j in range(m)])),
+            cat_bits=dev(cat), split_gain=zeros,
+            left_child=dev(t.left_child[:m].astype(np.int32)),
+            right_child=dev(t.right_child[:m].astype(np.int32)),
+            leaf_value=dev(np.zeros(m + 1, np.float32)), leaf_count=zeros,
+            leaf_weight=zeros, internal_value=zeros, internal_count=zeros,
+            num_leaves=dev(np.int32(m + 1)))
+        return tree, tree_depth(t.left_child, t.right_child, m + 1)
+
+    # ------------------------------------------------------------------
+    def refit(self, X: np.ndarray, y: np.ndarray, decay_rate: float = 0.9) -> None:
+        """Refit the existing tree structures on new data (reference
+        ``GBDT::RefitTree`` (``gbdt.cpp:285``) + ``FitByExistingTree``
+        (``serial_tree_learner.cpp:211-250``)): per iteration, gradients at
+        the progressive score are re-aggregated per leaf and
+        ``new = output*shrinkage``, ``leaf = decay*old + (1-decay)*new``.
+        The gradients run on the model's device, the sums on the host."""
+        from ..io.dataset import Metadata
+        if any(getattr(t, "is_linear", False) for t in self.models):
+            raise NotPortedError("refit of a linear-tree model is not "
+                                 "ported yet")
+        cfg = self.config
+        X = np.asarray(X, np.float64)
+        n = X.shape[0]
+        obj = self.objective
+        if obj is None:
+            obj = create_objective(cfg)
+        if obj is None:
+            raise LightGBMError("cannot refit without an objective")
+        md = Metadata(n)
+        md.set_field("label", y)
+        obj.init(md, n)
+        K = self.num_tree_per_iteration
+        n_iters = len(self.models) // K
+        label_dev = torch.as_tensor(md.label).to(self.device)
+        score = np.zeros((K, n), np.float32)
+        leaf_idx = [t.predict_leaf_index(X) for t in self.models]
+        lam1, lam2, mds = cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step
+
+        def out_of(sg, sh):
+            thr = np.sign(sg) * np.maximum(np.abs(sg) - lam1, 0.0)
+            o = -thr / (sh + lam2 + 1e-35)
+            if mds > 0:
+                o = np.clip(o, -mds, mds)
+            return o
+
+        for it in range(n_iters):
+            sc = torch.as_tensor(score).to(self.device)
+            if K > 1:
+                g, h = obj.get_gradients_multi(sc, label_dev, None)
+            else:
+                g0, h0 = obj.get_gradients(sc[0], label_dev, None)
+                g, h = g0[None, :], h0[None, :]
+            g, h = host_scores(g), host_scores(h)
+            for k in range(K):
+                t = self.models[it * K + k]
+                lp = leaf_idx[it * K + k]
+                nl = t.num_leaves
+                sg = np.bincount(lp, weights=g[k], minlength=nl)[:nl]
+                sh = np.bincount(lp, weights=h[k], minlength=nl)[:nl] + 1e-15
+                new_out = out_of(sg, sh) * t.shrinkage
+                t.leaf_value = (decay_rate * t.leaf_value
+                                + (1.0 - decay_rate) * new_out)
+                score[k] += t.leaf_value[lp].astype(np.float32)
+        self._device_trees = []            # host trees changed; drop caches
+        self._ens_cache = None
+
+    # ------------------------------------------------------------------
+    def rollback_one_iter(self) -> None:
+        """Reference ``GBDT::RollbackOneIter`` (``gbdt.cpp:454``): undo the
+        last iteration's trees and restore the scores copied before it (a
+        one-step history)."""
+        if self.iter_ <= 0:
+            return
+        if self._prev_scores is None:
+            raise LightGBMError("rollback history exhausted (only one step kept)")
+        K = self.num_tree_per_iteration
+        if len(self._pending) >= K:
+            # the last iteration's host trees are still pending
+            del self._pending[-K:]
+        else:
+            self._models = self.models[:-K]
+        self._device_trees = self._device_trees[:-K]
+        self._tree_depths = self._tree_depths[:-K]
+        self._tree_weights = self._tree_weights[:-K]
+        self._ens_cache = None
+        self.iter_ -= 1
+        # the rolled-back iteration's empty-tree accounting must not leak
+        # into a retrain of the same iteration (or pin _stop_flag)
+        self._empty_by_iter.pop(self.iter_, None)
+        self._stop_flag = False
+        self._train_score, self._valid_scores = self._prev_scores
+        self._prev_scores = None
+
     @property
     def num_trees(self) -> int:
         return len(self.models)

@@ -1,11 +1,12 @@
 """Objective factory (reference ``src/objective/objective_function.cpp:16-48``).
 Every objective of the JAX package is ported (the ranking ones,
-``lambdarank`` and ``rank_xendcg``, need query groups) except ``none`` (a
-custom objective), which raises ``NotPortedError``."""
+``lambdarank`` and ``rank_xendcg``, need query groups); ``none`` (a custom
+objective: the caller passes the gradients) makes no objective."""
 from __future__ import annotations
 
+from typing import Optional
+
 from ..config import Config
-from ..device import NotPortedError
 from ..utils.log import Log
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
@@ -36,14 +37,12 @@ _REGISTRY = {
     "lambdarank": LambdarankNDCG,
     "rank_xendcg": RankXENDCG,
 }
-# objectives of the JAX package that this package has not ported yet
-NOT_PORTED = ("none",)
 
 
-def create_objective(config: Config) -> ObjectiveFunction:
+def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     name = config.objective
-    if name in NOT_PORTED:
-        raise NotPortedError(f"objective {name!r} is not ported yet")
+    if name == "none":
+        return None
     if name not in _REGISTRY:
         Log.fatal("Unknown objective type name: %s", name)
     return _REGISTRY[name](config)

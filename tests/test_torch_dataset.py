@@ -3,9 +3,8 @@
 The same numpy inputs (made from a seed) go through both packages' dense
 Dataset construction; the bin mappers must agree exactly (upper bounds,
 missing handling) and the bin matrix must be byte-identical, for training
-and validation data.  Paths the port has not taken yet (data files,
-pandas categorical columns, out-of-core streaming, binary cache files,
-``Dataset.subset``) must raise, never run another path.
+and validation data.  Out-of-core streaming, which the port has not taken
+yet, must raise, never run another path.
 """
 import numpy as np
 import pytest
@@ -85,22 +84,36 @@ def test_bin_mappers_from_state_round_trip():
                                       mj.value_to_bin(X[:, f]))
 
 
-def test_untaken_paths_raise():
+def test_untaken_paths_raise(tmp_path):
+    """Streaming stays unported and raises; data files, pandas category
+    columns, the binary cache and ``subset`` are ported and give the JAX
+    package's Dataset (their parity tests: test_torch_loader.py,
+    test_torch_pandas.py)."""
     import pandas as pd
     X, y = _data(seed=1)
-    with pytest.raises(NotPortedError, match="data files"):
-        lgt.Dataset("train.csv").construct(device="cpu")
-    df = pd.DataFrame({"a": X[:, 0], "c": pd.Categorical(
-        np.where(X[:, 3] > 0, "x", "y"))})
-    with pytest.raises(NotPortedError, match="pandas categorical"):
-        lgt.Dataset(df, label=y).construct(device="cpu")
     with pytest.raises(NotPortedError, match="streaming"):
         lgt.Dataset(X, label=y, params={"stream_rows": 1024}).construct(
             device="cpu")
-    with pytest.raises(NotPortedError, match="binary cache"):
-        lgt.Dataset(X, label=y, device="cpu").save_binary("train.bin")
-    with pytest.raises(NotPortedError, match="subset"):
-        lgt.Dataset(X, label=y).subset([0, 1, 2])
+    path = tmp_path / "train.csv"
+    np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.17g")
+    dt = lgt.Dataset(str(path)).construct(device="cpu")
+    dj = lgb.Dataset(str(path)).construct()
+    np.testing.assert_array_equal(dt._inner.bins, dj._inner.bins)
+    np.testing.assert_array_equal(dt.get_label(), y)
+    df = pd.DataFrame({"a": X[:, 0], "c": pd.Categorical(
+        np.where(X[:, 3] > 0, "x", "y"))})
+    dt = lgt.Dataset(df, label=y).construct(device="cpu")
+    assert dt.pandas_categorical == [["x", "y"]]
+    assert dt._inner.bins.tobytes() == \
+        lgb.Dataset(df, label=y).construct()._inner.bins.tobytes()
+    cache = str(tmp_path / "train.bin")
+    full = lgt.Dataset(X, label=y, device="cpu").save_binary(cache)
+    from lightgbm_tpu_torch.io.dataset import Dataset as TInner
+    loaded = TInner.load_binary(cache)
+    assert loaded.bins.tobytes() == full._inner.bins.tobytes()
+    sub = full.subset([0, 1, 2]).construct(device="cpu")
+    np.testing.assert_array_equal(sub._inner.bins, full._inner.bins[:3])
+    np.testing.assert_array_equal(sub.get_label(), y[:3])
     # mutually exclusive zero-heavy columns: both packages bundle them,
     # and neither does when bundling is off
     rng = np.random.default_rng(0)

@@ -1322,3 +1322,109 @@ def test_training_force_row_wise_on_a_wide_bundle(dev):
     for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
         assert np.array_equal(tk.split_feature, tp.split_feature)
         assert np.array_equal(tk.threshold, tp.threshold)
+
+
+def _engine_data(n=20_000, seed=5):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 10)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + rng.logistic(size=n) > 0
+         ).astype(np.float32)
+    return X, y
+
+
+ENGINE_PARAMS = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+                 "feature_fraction": 0.8, "bagging_freq": 2,
+                 "bagging_fraction": 0.8}
+
+
+def test_file_dataset_trains_the_trees_of_its_arrays(dev, tmp_path):
+    """A TSV with a .weight sidecar, parsed by the native parser, trains on
+    the card (through hist_full and hist_leaves) the trees of the matrix
+    the file holds given in memory (its float32 values to nine digits)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.io.loader import load_file
+    X, y = _engine_data()
+    w = np.random.default_rng(6).uniform(0.5, 1.5, len(y)).round(4)
+    path = tmp_path / "binary.train"
+    np.savetxt(path, np.column_stack([y, X]), delimiter="\t", fmt="%.9g")
+    np.savetxt(str(path) + ".weight", w, fmt="%.4f")
+    calls = native.native_calls["parse_delimited"]
+    thist.reset_launch_counts()
+    bf = lgt.train(ENGINE_PARAMS, lgt.Dataset(str(path)), 4,
+                   verbose_eval=False, device="cuda")
+    assert native.native_calls["parse_delimited"] == calls + 1
+    assert thist.launch_counts["hist_full"] == 4
+    assert thist.launch_counts["hist_leaves"] > 0
+    Xf = load_file(str(path))[0]
+    assert np.array_equal(Xf.astype(np.float32), X)
+    ba = lgt.train(ENGINE_PARAMS, lgt.Dataset(Xf, label=y, weight=w), 4,
+                   verbose_eval=False, device="cuda")
+    assert bf.model_to_string() == ba.model_to_string()
+
+
+def test_continue_from_warms_device_scores_like_a_single_run(dev, tmp_path):
+    import lightgbm_tpu_torch as lgt
+    X, y = _engine_data()
+    ds = lgt.Dataset(X, label=y)
+    first = lgt.train(ENGINE_PARAMS, ds, 3, verbose_eval=False,
+                      device="cuda")
+    path = str(tmp_path / "m.txt")
+    first.save_model(path)
+    cont = lgt.Booster(params=ENGINE_PARAMS, train_set=lgt.Dataset(X, label=y),
+                       device="cuda")
+    cont._gbdt.continue_from(lgt.Booster(model_file=path,
+                                         device="cuda")._gbdt)
+    score = cont._gbdt._train_score
+    assert score.device.type == "cuda"
+    # the warm replays the single run's float32 updates: bit for bit
+    assert torch.equal(score, first._gbdt._train_score)
+
+
+def test_rollback_restores_device_scores_bit_for_bit(dev):
+    import lightgbm_tpu_torch as lgt
+    X, y = _engine_data()
+    ds = lgt.Dataset(X, label=y)
+    b = lgt.Booster(params=ENGINE_PARAMS, train_set=ds, device="cuda")
+    b.add_valid(ds.create_valid(X[:5000], label=y[:5000]), "valid")
+    for _ in range(3):
+        b.update()
+    g = b._gbdt
+    before = g._train_score.clone(), g._valid_scores[0].clone()
+    text = b.model_to_string()
+    b.update()
+    again = b.model_to_string()
+    b.rollback_one_iter()
+    assert torch.equal(g._train_score, before[0])
+    assert torch.equal(g._valid_scores[0], before[1])
+    assert b.model_to_string() == text
+    b.update()
+    assert b.model_to_string() == again
+
+
+def test_fobj_gradients_arrive_on_the_models_device(dev):
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+    X, y = _engine_data()
+    seen = []
+    real = gbdt_mod.GBDT._bagging_weights
+
+    def spy(self, iteration, grad, hess):
+        seen.append((grad.device, hess.device, grad.dtype, tuple(grad.shape)))
+        return real(self, iteration, grad, hess)
+
+    def fobj(score, dataset):
+        p = 1.0 / (1.0 + np.exp(-score))
+        return p - y, p * (1.0 - p)
+
+    gbdt_mod.GBDT._bagging_weights = spy
+    try:
+        thist.reset_launch_counts()
+        bt = lgt.train({"num_leaves": 31, "verbose": -1}, lgt.Dataset(X, label=y),
+                       3, fobj=fobj, verbose_eval=False, device="cuda")
+    finally:
+        gbdt_mod.GBDT._bagging_weights = real
+    assert bt.num_trees() == 3 and thist.launch_counts["hist_full"] == 3
+    assert all(d1.type == "cuda" and d2.type == "cuda"
+               and dt == torch.float32 and shape == (1, len(y))
+               for d1, d2, dt, shape in seen) and len(seen) == 3
