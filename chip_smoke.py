@@ -78,7 +78,30 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    ``hist_variant`` (so ``auto``) for 5 iterations, which trains with the
    elected variant, and a ``packed`` run at ``max_bin=63`` on 200,000 rows
    for 5 iterations;
-8. knobs: the training knobs, objectives and boosting types on the atomic
+8. serial: ``tree_grower=serial`` (the sequential grower) on the train
+   phase's 1M rows at 63 leaves, 5 iterations, by default (``hist_full``)
+   and with ``force_row_wise=True, hist_variant="staged"``
+   (``onehot_full``): one launch for the root and one a split, never a
+   per-leaf kernel, the same leaf for every held-out row as the default
+   frontier run; then on 200,000 rows, 3 iterations each, interaction
+   constraints, a forced-splits file (the forced nodes land), CEGB (the
+   split and coupled penalties), monotone intermediate and advanced
+   (monotone along feature 0), ``linear_tree`` and ``feature_contri`` on
+   the frontier.  Each run once through the kernels and once under
+   ``force_plain()``, tree 0 identical, held-out AUC within 1e-3 and
+   above 0.5, printing s/tree and launches/tree.  Then K1 on the serial
+   grower's own inputs: two split histograms' arguments recorded from a
+   1M-row serial tree (the root's first child and split 40: a permuted,
+   ragged parent segment of 40-byte rows, 28 bin columns and g, h, w,
+   the side as the mask, ``f_limit=28``), ``hist_full`` within
+   ``ATOMIC_REL_TOL`` and ``onehot_full`` staged within 1e-5 of their
+   plain versions, timed (``serial_blocks`` in the K1 rows of the
+   ``kernels`` line); and torch.profiler over two serial iterations at
+   1M and 200k rows (device busy and ``hist_full`` time a tree, idle
+   share, device launches and copies to the host a tree).  Last,
+   ``LGBMClassifier(device="cuda")`` (the stand-in bases where sklearn is
+   absent) fits and predicts 200,000 rows bit for bit as ``train``;
+9. knobs: the training knobs, objectives and boosting types on the atomic
    kernels, each run once through the kernels (launch counts from zero
    around it, ``hist_full`` and ``hist_leaves`` and no other) and once
    under ``force_plain()``: tree 0 identical, the held-out metric within
@@ -95,9 +118,9 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    iterations; DART and RF, 10 each; monotone-basic (+1 on feature 0), 10,
    with predictions monotone along it.  Each run prints s/tree,
    launches/tree and ``cap``;
-9. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
+10. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
    bit-identically to the booster in memory, for the 1M-row boosters;
-10-13. data breadth, each run once through the kernels (launch counts
+11-14. data breadth, each run once through the kernels (launch counts
    from zero around it: ``hist_full`` and ``hist_leaves`` and no other;
    the force_row_wise runs the one-hot kernels named below)
    and once under ``force_plain()``, tree 0 identical, the held-out
@@ -118,7 +141,7 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    prediction equal to dense; then ``force_row_wise`` staged, 3
    iterations: ``onehot_full`` once a tree, its per-leaf histograms by
    ``hist_leaves``, outside the leaves cut);
-14. engine: the engine surface on the generator's 1M x 28 (``max_bin``
+15. engine: the engine surface on the generator's 1M x 28 (``max_bin``
    255), each float32 value written to nine digits as TSV with the label
    in column 0 and a ``.weight`` sidecar (in a temporary directory; the
    writing and the native parse timed apart, as set-up): the command line
@@ -129,8 +152,9 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    file bit for bit ``Booster.predict`` on the held-out file; held-out AUC
    within 1e-3 of a ``force_plain()`` run and above 0.5; the native
    library used, its parse equal to numpy's; convert_model writes code;
-   the binary cache trains tree 0 again; 10 + 10 iterations from a saved
-   model within 1e-5 of 20, and a rollback plus an update reproduce the
+   the binary cache trains tree 0 again; 7 + 13 iterations from a saved
+   model (the split inside a bagging period) within 1e-5 of 20, and a
+   rollback plus an update reproduce the
    last tree; a custom logloss within 1e-3 AUC of the builtin one without
    boost-from-average; 3-fold ``cv`` on 300k rows within 1e-3 of plain;
    ``pred_contrib`` on 10k rows summing to the raw score within 1e-5; and
@@ -437,18 +461,41 @@ def smem_floor_ms(rows, feats, clock_mhz, sms):
             * 1e3)
 
 
-def _device_rows(fn, reps: int):
+# torch.profiler on the card now and then closes a window without the
+# kernels that ran in it (no device event at all, or none of the kernel
+# asked for): such a window is taken again, up to this many times in all
+PROFILE_TRIES = 5
+
+
+def _window_ok(rows, want, tries_left):
+    """True when a profile window's device rows are usable: not empty, and
+    holding a kernel whose name holds one of ``want`` (if given).  A
+    window that is not is reported on standard error."""
+    if rows and (not want or any(n in e.key for e in rows for n in want)):
+        return True
+    print(f"torch.profiler: a window held {len(rows)} device rows and none "
+          f"of {list(want) or 'any'}; {tries_left} more tries",
+          file=sys.stderr, flush=True)
+    return False
+
+
+def _device_rows(fn, reps: int, want=()):
     """torch.profiler's device rows (kernels, copies, fills) over ``reps``
     calls of ``fn``, after one call outside the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    for t in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU]
+        if _window_ok(rows, want, PROFILE_TRIES - 1 - t):
+            break
+    return rows
 
 
 def calls_ms(fn, names, reps: int = 10):
@@ -456,16 +503,17 @@ def calls_ms(fn, names, reps: int = 10):
     ``names`` (torch.profiler over ``reps`` calls): a wrapper's kernels
     alone, without its host work and allocations.  None when the profiler
     records no launch of them."""
-    rows = [e for e in _device_rows(fn, reps)
+    rows = [e for e in _device_rows(fn, reps, names)
             if any(n in e.key for n in names)]
     if not rows:
         return None
     return sum(_device_us(e) for e in rows) / 1e3 / reps
 
 
-def launches_per_call(fn, reps: int = 10) -> float:
-    """Device launches a call of ``fn``, of any kernel, copy or fill."""
-    return sum(e.count for e in _device_rows(fn, reps)) / reps
+def launches_per_call(fn, reps: int = 10, want=()) -> float:
+    """Device launches a call of ``fn``, of any kernel, copy or fill
+    (``want``: the kernels the window must show, as in ``_device_rows``)."""
+    return sum(e.count for e in _device_rows(fn, reps, want)) / reps
 
 
 def _skewed_bins(comb):
@@ -524,6 +572,12 @@ def _leaves_yardstick(dev, comb, g, h, m, block_leaf, k, B, BR, fl):
     vals = torch.stack([g * m, h * m, m], 1)[:, None, :].expand(C, fl, 3) \
         .reshape(-1, 3)[keep].contiguous()
     return _index_add_ms(dev, flat, vals, k * fl * B)
+
+
+def _f4(ms):
+    """A kernel-alone time for a log line ("not measured" when the
+    profiler never showed the kernel)."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def kernel_ms(fn, match: str, reps: int = 10):
@@ -681,7 +735,7 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
                                *_rows(gen, rows.numel(), dev)), Bb, nc)
     for name, r in out.items():
         if "ms" in r:
-            print(f"{name} {r['shape']}: kernel {r['kernel_ms']:.4f} ms, "
+            print(f"{name} {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, "
                   f"call {r['ms']:.4f} ms, index_add_ "
                   f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
                   f"ms, fg {r['fg']}, tile {r['tile']}, "
@@ -773,12 +827,12 @@ def phase_kernels(clock_mhz, efb_bins):
         **_atomic_attrs(hist, "hist_leaves", dev, nb, NC, fl, B, k),
         cases=cases, empty_slot_zero=True, nan_confined=True)
     for name, r in out.items():
-        print(f"{name}: kernel {r['kernel_ms']:.4f} ms, call {r['ms']:.4f} "
+        print(f"{name}: kernel {_f4(r['kernel_ms'])} ms, call {r['ms']:.4f} "
               f"ms, index_add_ {r['library_ms']:.4f} ms, {r['registers']} "
               f"registers, {r['local_bytes']} spilled bytes, "
               f"{r['ctas_per_sm']} CTAs an SM", flush=True)
     for case, r in cases.items():
-        print(f"hist_leaves {case}: kernel {r['kernel_ms']:.4f} ms, call "
+        print(f"hist_leaves {case}: kernel {_f4(r['kernel_ms'])} ms, call "
               f"{r['ms']:.4f} ms, relerr {r['relerr']:.3g}", flush=True)
     del comb, g, h, m
     out.update(_u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins))
@@ -913,7 +967,7 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
                                           ld=comb.shape[1]),
             fn, _kernel_name("onehot_leaves", v))
     for name, r in rows.items():
-        print(f"{name} {r['shape']}: kernel {r['kernel_ms']:.4f} ms, call "
+        print(f"{name} {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, call "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, index_add_ "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms, tc "
               f"floor {r['tensor_core_floor_ms']:.4f} ms, "
@@ -1031,7 +1085,7 @@ def phase_kernels_onehot(card, efb_bins):
                                      "local_bytes", "ctas_per_sm")}
             for name, r in rows.items() if r["variant"] == "int8"}
     for name, r in int8.items():
-        print(f"{name}: kernel {r['kernel_ms']:.4f} ms, call "
+        print(f"{name}: kernel {_f4(r['kernel_ms'])} ms, call "
               f"{r['ms']:.4f} ms, {r['registers']} registers, "
               f"{r['local_bytes']} spilled bytes, {r['ctas_per_sm']} CTAs "
               "an SM", flush=True)
@@ -1097,7 +1151,8 @@ def phase_quant(card):
                                      "plain version")
             case[form] = dict(ms=median_ms(fn),
                               kernel_ms=kernel_ms(fn, "quant_kernel"),
-                              launches_per_call=launches_per_call(fn))
+                              launches_per_call=launches_per_call(
+                                  fn, want=("quant_kernel",)))
         if case["fused"]["launches_per_call"] != 1:
             raise AssertionError(f"onehot_quant {name}: the fused pre-pass "
                                  f"launched {case['fused']} a call")
@@ -1369,6 +1424,273 @@ def phase_train(card, elected):
     return (booster, booster_oh, booster_i8), (ds, X, Xv, yv), {
         "atomic": atomic["launches"], "staged": row_wise["launches"],
         "int8": int8_run["launches"], "packed": packed_run["launches"]}
+
+
+# the serial phase: the sequential grower at Higgs width (63 leaves) and
+# the features only it serves, on the train phase's rows and a smaller set
+SERIAL_LEAVES, ITERS_SERIAL = 63, 5
+N_SERIAL_SMALL, ITERS_SERIAL_SMALL = 200_000, 3
+# a forced root on x0 (the latent's largest weight), x1 on its left and
+# the x2 * x3 interaction's x2 on its right
+SERIAL_FORCED = {"feature": 0, "threshold": 0.0,
+                 "left": {"feature": 1, "threshold": 0.0},
+                 "right": {"feature": 2, "threshold": 0.0}}
+
+
+def _monotone_along(booster, Xv, feat, sign):
+    """The smallest step of the raw prediction along ``feat`` (times
+    ``sign``) over a grid, for 200 held-out rows: >= 0 when monotone."""
+    grid = np.linspace(-3.0, 3.0, 41, dtype=np.float32)
+    rows = np.repeat(Xv[:200], len(grid), axis=0)
+    rows[:, feat] = np.tile(grid, 200)
+    p = booster.predict(rows, raw_score=True).reshape(200, len(grid))
+    return float((sign * np.diff(p, axis=1)).min())
+
+
+# the splits of tree 0 whose K1 inputs the serial phase records: the root's
+# first child (a ragged, permuted segment of most rows) and a deep one
+SERIAL_BLOCK_SPLITS = (1, 40)
+
+
+def _serial_blocks(lgt, ds, params):
+    """The serial grower's own K1 inputs: the arguments of the split
+    histograms numbered ``SERIAL_BLOCK_SPLITS`` in tree 0 of a one-
+    iteration run (the parent segment's gathered rows, its NC bin columns
+    followed by 12 bytes of g, h and w a row, the side as the mask,
+    ``f_limit=NC``), recorded as ``grow_tree_serial`` passes them to
+    ``build_histogram``.  The root's call takes no ``f_limit``."""
+    from lightgbm_tpu_torch.ops import grower
+    orig = grower.build_histogram
+    blocks, n_split = {}, [0]
+
+    def record(bins, grad, hess, mask, max_bin, **kw):
+        if kw.get("f_limit") is not None:
+            if n_split[0] in SERIAL_BLOCK_SPLITS:
+                blocks[f"split{n_split[0]}"] = (
+                    bins.clone(), grad.clone(), hess.clone(), mask.clone(),
+                    max_bin, kw["f_limit"])
+            n_split[0] += 1
+        return orig(bins, grad, hess, mask, max_bin, **kw)
+    grower.build_histogram = record
+    try:
+        _train(lgt, ds, params, 1)
+    finally:
+        grower.build_histogram = orig
+    if len(blocks) != len(SERIAL_BLOCK_SPLITS):
+        raise AssertionError(f"serial blocks: recorded {sorted(blocks)} of "
+                             f"{n_split[0]} splits")
+    return blocks
+
+
+def _hold_serial_block(hist, dev, name, blk):
+    """K1 on one recorded serial block against its plain version on the
+    same inputs: ``hist_full`` within ``ATOMIC_REL_TOL`` (and the same
+    bits twice), ``onehot_full`` featmajor ``staged`` (what
+    ``force_row_wise`` launches) within ``REL_TOL``; each with its call
+    time, kernel-alone time, plain time, ``index_add_`` and bound."""
+    bins, g, h, m, B, f = blk
+    r = bins.shape[0]
+    esz = bins.element_size()
+    oh = dict(method="onehot", variant="staged")
+    with hist.force_plain():
+        ref = hist.build_histogram(bins, g, h, m, B, f_limit=f)
+        ref_oh = hist.build_histogram(bins, g, h, m, B, f_limit=f, **oh)
+        plain_ms = median_ms(lambda: hist.build_histogram(
+            bins, g, h, m, B, f_limit=f), reps=5)
+        plain_oh_ms = median_ms(lambda: hist.build_histogram(
+            bins, g, h, m, B, f_limit=f, **oh), reps=5)
+
+    def atomic():
+        return hist.hist_full(bins, g, h, m, B, f_limit=f)
+
+    def onehot():
+        return hist.build_histogram(bins, g, h, m, B, f_limit=f, **oh)
+    got, again = atomic(), atomic()
+    torch.cuda.synchronize()
+    st = _atomic_stats(got, again, ref)
+    _hold_atomic(f"hist_full serial {name}", st)
+    got_oh, again_oh = onehot(), onehot()
+    torch.cuda.synchronize()
+    err = relerr(got_oh, ref_oh)
+    if not (err <= REL_TOL and torch.equal(got_oh, again_oh)):
+        raise AssertionError(f"onehot_full serial {name}: relerr {err}")
+    b_ms, b_by = bound(esz * r * f + 12 * r + f * B * 12, 3 * r * f + 2 * r)
+    lib = _full_yardstick(dev, bins[:, :f].contiguous(), g, h, m, B)
+    shape = [r, bins.shape[1], f, B]
+    return (
+        dict(shape=shape, **st, ms=median_ms(atomic),
+             kernel_ms=calls_ms(atomic, ATOMIC_KERNELS["hist_full"]),
+             plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+             bound_by=b_by),
+        dict(shape=shape, relerr=err,
+             max_abs_err=float((got_oh - ref_oh).abs().max()),
+             ms=median_ms(onehot),
+             kernel_ms=kernel_ms(onehot, _kernel_name("onehot_full",
+                                                      "staged")),
+             plain_ms=plain_oh_ms, library_ms=lib, bound_ms=b_ms,
+             bound_by=b_by))
+
+
+def _serial_profile(lgt, d, params, iters=2):
+    """torch.profiler (the device only) over ``iters`` serial iterations:
+    s/tree with the profiler on, the device's busy time a tree and its
+    idle share of the wall time, K1's device time a tree (its kernel and
+    its reduce), and the device's kernels, copies and fills a tree, of
+    them the copies to the host (a split's row counts come back so)."""
+    wall_s, dev_rows, _ = _profiled(lambda: _train(lgt, d, params, iters),
+                                    host=False)
+    busy_us = sum(_device_us(e) for e in dev_rows)
+    k1_us = sum(_device_us(e) for e in dev_rows
+                if any(n in e.key for n in ATOMIC_KERNELS["hist_full"]))
+    dtoh = sum(e.count for e in dev_rows if "DtoH" in e.key)
+    return {"iterations": iters, "wall_s_per_tree": wall_s / iters,
+            "device_busy_ms_per_tree": busy_us / 1e3 / iters,
+            "hist_full_ms_per_tree": k1_us / 1e3 / iters,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+            "device_launches_per_tree": sum(e.count for e in dev_rows)
+            / iters,
+            "dtoh_copies_per_tree": dtoh / iters}
+
+
+def phase_serial(card, data):
+    """``tree_grower=serial`` on the card at Higgs width: the default
+    (atomic) path and ``force_row_wise`` staged on the train phase's 1M
+    rows, 63 leaves, 5 iterations, the same trees as the frontier's; then
+    on 200k rows, 3 iterations each, the features that need the split
+    order (interaction constraints, forced splits, CEGB, monotone
+    intermediate and advanced), linear trees, and ``feature_contri`` on
+    the frontier.  Each run once through the kernels (launch counts from
+    zero: a serial run launches one full histogram for the root and one a
+    split, never a per-leaf kernel) and once under ``force_plain()``, tree
+    0 identical, held-out AUC within 1e-3 and above 0.5; the monotone runs
+    monotone along feature 0.  Then K1 on the serial grower's own inputs
+    (two recorded split blocks, ``_serial_blocks``) against its plain
+    version, and a profile of the default serial run at 1M and 200k rows
+    (``_serial_profile``).  Last, ``LGBMClassifier(device="cuda")``
+    predicts the ``train`` API's model bit for bit.  Returns the runs'
+    launch counts and the block checks."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    ds, X, Xv, yv = data
+    base = {"objective": "binary", "num_leaves": SERIAL_LEAVES,
+            "max_bin": 255, "learning_rate": 0.1, "verbose": -1}
+    serial = dict(base, tree_grower="serial")
+    auc = auc_holdout(Xv, yv, floor=0.5)
+    runs, launches = {}, {}
+
+    def pair(name, d, params, iters, kernels, serial_run=True):
+        booster, out = _train_pair(lgt, hist, d, params, iters, Xv, yv,
+                                   kernels, metric=auc)
+        if not out["tree0_identical"]:
+            raise AssertionError(f"serial {name}: tree 0 differs between "
+                                 "kernel and plain runs")
+        leaves = sum(t.num_leaves for t in booster._gbdt.models)
+        if serial_run:
+            (kname,) = kernels
+            if out["launches"][kname] != leaves:
+                raise AssertionError(
+                    f"serial {name}: {kname} ran {out['launches'][kname]} "
+                    f"times for {leaves} leaves (the root and one a split)")
+        out["leaves"] = leaves
+        print(f"serial {name}: s/tree {out['kernel']['s_per_tree']:.4f}, "
+              f"launches/tree {out['launches_per_tree']}", flush=True)
+        runs[name], launches[name] = out, out["launches"]
+        return booster
+
+    # 1M x 28, 63 leaves: the default path, then force_row_wise staged
+    b_serial = pair("default", ds, serial, ITERS_SERIAL, {"hist_full"})
+    pair("row_wise_staged", ds, dict(serial, force_row_wise=True,
+                                     hist_variant="staged"),
+         ITERS_SERIAL, {"onehot_full"})
+    # the frontier grows the same trees: the same leaf for every row
+    b_front, _ = _train(lgt, ds, base, ITERS_SERIAL)
+    same = np.array_equal(b_serial.predict(Xv, pred_leaf=True),
+                          b_front.predict(Xv, pred_leaf=True))
+    if not same:
+        raise AssertionError("serial and frontier trees differ at 63 leaves")
+    runs["serial_equals_frontier_pred_leaf"] = same
+
+    # 200k rows, 3 iterations: the features only the serial grower serves
+    Xs, ys = make_higgs_like(N_SERIAL_SMALL, N_FEAT, seed=48)
+    dss = lgt.Dataset(Xs, label=ys, params=base).construct(device="cuda")
+    it = ITERS_SERIAL_SMALL
+    pair("interaction_constraints", dss, dict(
+        base, interaction_constraints=[[0, 1, 4], [2, 3, 5],
+                                       list(range(6, N_FEAT))]),
+         it, {"hist_full"})
+    with tempfile.TemporaryDirectory() as td:
+        forced_f = os.path.join(td, "forced.json")
+        with open(forced_f, "w") as fh:
+            json.dump(SERIAL_FORCED, fh)
+        b = pair("forced_splits", dss, dict(base,
+                                            forcedsplits_filename=forced_f),
+                 it, {"hist_full"})
+    root = b.dump_model()["tree_info"][0]["tree_structure"]
+    if (root["split_feature"], root["left_child"]["split_feature"],
+            root["right_child"]["split_feature"]) != (0, 1, 2):
+        raise AssertionError("the forced splits did not land")
+    pair("cegb", dss, dict(base, cegb_penalty_split=1e-5,
+                           cegb_penalty_feature_coupled=[50.0] * N_FEAT),
+         it, {"hist_full"})
+    # the directions are the Dataset's (its device metadata), as in the
+    # knobs phase's monotone run
+    mono = dict(base, monotone_constraints=[1] + [0] * (N_FEAT - 1))
+    dsm = lgt.Dataset(Xs, label=ys, params=mono).construct(device="cuda")
+    for method in ("intermediate", "advanced"):
+        b = pair(f"monotone_{method}", dsm, dict(
+            mono, monotone_constraints_method=method), it, {"hist_full"})
+        step = _monotone_along(b, Xv, 0, +1)
+        if step < -1e-9:
+            raise AssertionError(f"monotone {method}: a prediction falls "
+                                 f"by {-step} along feature 0")
+        runs[f"monotone_{method}"]["min_step_along_feature_0"] = step
+    lin = dict(base, linear_tree=True, tree_grower="serial")
+    dsl = lgt.Dataset(Xs, label=ys, params=lin).construct(device="cuda")
+    pair("linear_tree", dsl, lin, it, {"hist_full"})
+    pair("feature_contri_frontier", dss, dict(
+        base, feature_contri=[1.0, 0.5] + [1.0] * (N_FEAT - 2)), it,
+         {"hist_full", "hist_leaves"}, serial_run=False)
+
+    # K1 on the serial grower's own inputs, and where a serial tree's time
+    # goes (the profiler on)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    blocks = {"hist_full": {}, "onehot_full": {}}
+    for name, blk in _serial_blocks(lgt, ds, serial).items():
+        a, o = _hold_serial_block(hist, dev, name, blk)
+        blocks["hist_full"][name], blocks["onehot_full"][name] = a, o
+        for kname, r in (("hist_full", a), ("onehot_full staged", o)):
+            print(f"serial block {name} {r['shape']}: {kname} relerr "
+                  f"{r['relerr']:.3g}, kernel {_f4(r['kernel_ms'])} ms, call "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"index_add_ {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms", flush=True)
+    runs["blocks"] = blocks
+    runs["profile"] = {"default_1m": _serial_profile(lgt, ds, serial),
+                       "default_200k": _serial_profile(lgt, dss, serial)}
+    for pname, pr in runs["profile"].items():
+        print(f"serial profile {pname}: {pr}", flush=True)
+
+    # the sklearn estimator on the card (this machine may lack sklearn:
+    # the estimators then derive from stand-in bases)
+    from lightgbm_tpu_torch.sklearn import LGBMClassifier, _SKLBase
+    clf = LGBMClassifier(n_estimators=it, num_leaves=SERIAL_LEAVES,
+                         max_bin=255, device="cuda")
+    t0 = time.perf_counter()
+    clf.fit(Xs, ys.astype(int))
+    p_clf = clf.predict_proba(Xv)[:, 1]
+    fit_predict_s = time.perf_counter() - t0
+    api = lgt.train(dict(base, learning_rate=0.1), lgt.Dataset(Xs, label=ys),
+                    it, verbose_eval=False, device="cuda")
+    if not np.array_equal(p_clf, api.predict(Xv)):
+        raise AssertionError("LGBMClassifier predicts another model than "
+                             "train")
+    runs["sklearn_classifier"] = {
+        "rows": N_SERIAL_SMALL, "fit_predict_s": fit_predict_s,
+        "sklearn_present": _SKLBase is not object,
+        "predictions_equal_train_api": True}
+    emit({"phase": "serial", "card": card, "features": N_FEAT,
+          "num_leaves": SERIAL_LEAVES, **runs})
+    return launches, blocks
 
 
 def _noisy_latent(X, seed):
@@ -1803,6 +2125,9 @@ def phase_sparse_efb(card, data):
 ENGINE_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "examples", "binary_classification", "train.conf")
 N_ENGINE, N_ENGINE_CV, ENGINE_ITERS = 1_000_000, 300_000, 20
+# continued training starts from a model of this many trees, inside the
+# binary example's bagging period of 5
+ENGINE_INIT_ITERS = 7
 N_CONTRIB = 10_000
 
 
@@ -1939,13 +2264,13 @@ def phase_engine(card):
         one = lgt.train(params, cached, 1, verbose_eval=False, device="cuda")
         if one._gbdt.models[0].to_text(0) != api._gbdt.models[0].to_text(0):
             raise AssertionError("the cache trains another tree 0")
-        # init_model: 10 + 10 iterations from a saved model; then a
+        # init_model: 7 + 13 iterations from a saved model; then a
         # rollback and one more update reproduce the last tree
         half = os.path.join(td, "half.txt")
-        lgt.train(params, ds, ENGINE_ITERS // 2, verbose_eval=False,
+        lgt.train(params, ds, ENGINE_INIT_ITERS, verbose_eval=False,
                   device="cuda").save_model(half)
         cont = _timed(steps, "init_model_train", lambda: lgt.train(
-            params, ds, ENGINE_ITERS // 2, init_model=half,
+            params, ds, ENGINE_ITERS - ENGINE_INIT_ITERS, init_model=half,
             verbose_eval=False, device="cuda"))
         gap = float(np.max(np.abs(cont.predict(Xv) - api.predict(Xv))))
         if cont.num_trees() != ENGINE_ITERS or gap > 1e-5:
@@ -2049,33 +2374,46 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _profiled(fn, host=True):
+    """torch.profiler over one call of ``fn``: its wall time with the
+    profiler on, the device rows (kernels, copies, fills) and, with
+    ``host``, the host rows (ops, runtime calls; tracing them costs the
+    most).  An op's own row repeats its kernels' device time, so only
+    device rows are summed for device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    torch.cuda.synchronize()
+    for t in range(PROFILE_TRIES):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        ka = prof.key_averages()
+        dev_rows = [e for e in ka if e.device_type != DeviceType.CPU]
+        if _window_ok(dev_rows, (), PROFILE_TRIES - 1 - t):
+            break
+    return wall_s, dev_rows, [e for e in ka
+                              if e.device_type == DeviceType.CPU]
+
+
 def phase_profile(booster, card, iters: int = 3):
     """torch.profiler over a few more boosting iterations of the trained
     booster: device busy time by kernel, host time by op, kernel launches,
     host reads of device values, and the device's idle share of the wall
     time (with the profiler on).  The full tables go to
     ``chiprun_out/profile_train.txt``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from lightgbm_tpu_torch.ops import histogram as hist
     booster._gbdt.models                       # drain the pending trees
-    torch.cuda.synchronize()
     hist.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def more():
         for _ in range(iters):
             booster.update()
         booster._gbdt.models
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    wall_s, dev_rows, host_rows = _profiled(more)
     rounds = hist.launch_counts["hist_leaves"]
-    ka = prof.key_averages()
-    # device rows (kernels, copies) and host rows (ops, runtime calls); an
-    # op's own row repeats its kernels' device time, so only device rows
-    # are summed
-    dev_rows = [e for e in ka if e.device_type != DeviceType.CPU]
-    host_rows = [e for e in ka if e.device_type == DeviceType.CPU]
     busy_us = sum(_device_us(e) for e in dev_rows)
     by_dev = sorted(dev_rows, key=_device_us, reverse=True)
     by_cpu = sorted(host_rows, key=lambda e: e.self_cpu_time_total,
@@ -2160,13 +2498,15 @@ BENCH_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_full.cu",
               "lightgbm_tpu/ops/onehot_variants.py::make_bench_kernel")
 
 
-def kernel_rows(kern, onehot, quant, bench, launches, card):
+def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
     """The ``{"kernels": [...]}`` rows: the atomic kernels, one row per
     one-hot (kernel, layout, variant, width), the quantize kernel, and one
     row per shootout (variant, width).  ``launches`` is the count from the
     run that drives the row's kernel: a training run (0 for the row-major
     layout and the variants no run trains with), or for the shootout shell
-    its own run in the shootout phase."""
+    its own run in the shootout phase.  The K1 rows the serial grower
+    launches (``hist_full``; ``onehot_full`` featmajor ``staged`` at 256
+    bins) carry its recorded blocks' checks as ``serial_blocks``."""
     keys = ("max_abs_err", "relerr", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     rows = []
@@ -2181,7 +2521,11 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
                "launches_by_knob_run": {run: cnt[kname] for run, cnt in
                                         launches["knobs"].items()},
                "launches_by_engine_cli_run": launches["engine_cli"][kname],
+               "launches_by_serial_run": {run: cnt[kname] for run, cnt in
+                                          launches["serial"].items()},
                **{k: r[k] for k in keys + atomic_keys}, "card": card}
+        if kname in serial_blocks:
+            row["serial_blocks"] = serial_blocks[kname]
         if "cases" in r:
             row["cases"] = {c: {k: v[k] for k in ("relerr", "ms",
                                                   "kernel_ms", "library_ms")}
@@ -2204,13 +2548,18 @@ def kernel_rows(kern, onehot, quant, bench, launches, card):
         on_path = run is not None and (r["kernel"], r["layout"]) != (
             "onehot_full", "rowmajor")
         n = launches[run][r["kernel"]] if on_path else 0
+        serial = ({"launches_by_serial_run": launches["serial"][
+            "row_wise_staged"]["onehot_full"],
+                   "serial_blocks": serial_blocks["onehot_full"]}
+                  if (r["kernel"], r["layout"], r["variant"], r["B"]) == (
+                      "onehot_full", "featmajor", "staged", 256) else {})
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "jax": jax_fn,
                      "body": "lightgbm_tpu_torch/ops/kernels/"
                              "onehot_common.cuh",
                      "body_replaces": "lightgbm_tpu/ops/onehot_variants.py:"
                                       f"{ONEHOT_BODIES[r['variant']]}",
-                     "launches": n, **{k: r[k] for k in keys},
+                     "launches": n, **serial, **{k: r[k] for k in keys},
                      **({"dtype": "uint16", "shape": r["shape"]}
                         if r.get("dtype") == "uint16" else {}),
                      "card": card})
@@ -2265,28 +2614,39 @@ def main() -> int:
     sys.stdout = _Tee(sys.stdout, os.path.join("chiprun_out",
                                                "chip_smoke.out"))
     t_start = time.perf_counter()
-    name, smi, clock = phase_device()
-    phase_build()
-    breadth = breadth_data()
-    kern = phase_kernels(clock, breadth)
-    onehot = phase_kernels_onehot(smi, breadth)
-    quant = phase_quant(smi)
-    bench = phase_shootout(smi)
-    elected = phase_elect(smi)
-    boosters, data, launches = phase_train(smi, elected)
-    launches["knobs"] = phase_knobs(smi, data)
+    seconds = {}
+
+    def timed(label, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[label] = time.perf_counter() - t0
+        return out
+    name, smi, clock = timed("device", phase_device)
+    timed("build", phase_build)
+    breadth = timed("breadth_data", breadth_data)
+    kern = timed("kernels", phase_kernels, clock, breadth)
+    onehot = timed("kernels_onehot", phase_kernels_onehot, smi, breadth)
+    quant = timed("quant", phase_quant, smi)
+    bench = timed("shootout", phase_shootout, smi)
+    elected = timed("elect", phase_elect, smi)
+    boosters, data, launches = timed("train", phase_train, smi, elected)
+    launches["serial"], serial_blocks = timed("serial", phase_serial, smi,
+                                              data)
+    launches["knobs"] = timed("knobs", phase_knobs, smi, data)
     Xv = data[2]
-    phase_predict(boosters, Xv)
+    timed("predict", phase_predict, boosters, Xv)
     if args.profile:
-        phase_profile(boosters[0], smi)
+        timed("profile", phase_profile, boosters[0], smi)
     del data, boosters
-    launches["rank"] = phase_rank(smi)
-    launches["categorical"] = phase_categorical(smi)
-    launches.update(phase_wide_bins(smi, elected))
-    launches.update(phase_sparse_efb(smi, breadth))
-    launches.update(phase_engine(smi))
-    rows = kernel_rows(kern, onehot, quant, bench, launches, smi)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    launches["rank"] = timed("rank", phase_rank, smi)
+    launches["categorical"] = timed("categorical", phase_categorical, smi)
+    launches.update(timed("wide_bins", phase_wide_bins, smi, elected))
+    launches.update(timed("sparse_efb", phase_sparse_efb, smi, breadth))
+    launches.update(timed("engine", phase_engine, smi))
+    rows = kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
+                       smi)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

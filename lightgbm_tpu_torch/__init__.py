@@ -3,7 +3,9 @@ H100.
 
 The same module layout and names as the JAX package, in PyTorch; the
 histogram kernels of the training path are hand-written CUDA for Hopper
-(``ops/kernels``).  Entry points run on the CUDA card unless the caller
+(``ops/kernels``).  Entry points (``train``, ``cv``, ``Booster``,
+``Dataset.construct`` and the sklearn estimators ``LGBMRegressor``,
+``LGBMClassifier``, ``LGBMRanker``) run on the CUDA card unless the caller
 passes ``device="cpu"``; the command line (``python -m lightgbm_tpu_torch``)
 reads ``device_type``.  This package imports neither jax nor lightgbm_tpu.
 """
@@ -22,3 +24,15 @@ __all__ = ["Booster", "Dataset", "Config", "CVBooster", "cv", "train",
            "NotPortedError", "early_stopping", "print_evaluation",
            "log_evaluation", "record_evaluation", "reset_parameter",
            "__version__"]
+
+
+def __getattr__(name):
+    # the optional API surfaces load on first use, as in the JAX package
+    if name in ("LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker"):
+        from . import sklearn as _sk
+        return getattr(_sk, name)
+    if name.startswith("plot_") or name in ("create_tree_digraph", "plotting"):
+        import importlib
+        _pl = importlib.import_module(".plotting", __name__)
+        return _pl if name == "plotting" else getattr(_pl, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

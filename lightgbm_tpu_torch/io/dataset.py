@@ -15,7 +15,8 @@ unavailable, same bundle search).  The binary cache (``save_binary``,
 ``load_binary``) has the JAX package's ``.npz`` layout, so a cache written
 by either package loads in the other; ``subset`` takes rows and shares the
 bin mappers; pandas ``category`` columns become their codes against the
-training data's category lists (``_pandas_to_numpy``).
+training data's category lists (``_pandas_to_numpy``).  With
+``linear_tree`` the dense raw values are kept as ``raw_data`` (float32).
 
 Not ported yet (raises ``NotPortedError``): out-of-core streaming.
 """
@@ -120,6 +121,9 @@ class Dataset:
         self.feature_names: List[str] = []
         self.reference: Optional["Dataset"] = None
         self._device: Dict[torch.device, DeviceData] = {}
+        # raw feature values, kept only for linear trees (the reference
+        # keeps Dataset::raw_data_ when linear_tree=true, dataset.h:717)
+        self.raw_data: Optional[np.ndarray] = None
         # EFB state (io/efb.py): None when bundling is off / had no effect
         self.bundles: Optional[List[List[int]]] = None
         self.feat_bundle: Optional[np.ndarray] = None   # [num_features] i32
@@ -147,12 +151,12 @@ class Dataset:
         its bin mappers come from a densified row sample and its binning
         and EFB packing stream over row blocks (``_bin_data_sparse``)."""
         config = config or Config()
-        if config.linear_tree:
-            raise NotPortedError("linear_tree is not ported yet")
         if config.stream_rows or config.max_bin_matrix_bytes:
             raise NotPortedError("out-of-core streaming is not ported yet")
         self = cls(config)
         sparse = _is_sparse(data)
+        check(not (sparse and config.linear_tree),
+              "linear_tree with sparse input is not supported")
         data = data.tocsr() if sparse else _to_2d_float(data)
         self.num_data, self.num_total_features = data.shape
         self.feature_names = _sanitize_feature_names(
@@ -180,6 +184,9 @@ class Dataset:
                 self._adopt_bundling(reference)
             else:
                 self._apply_bundling()
+        if config.linear_tree or (reference is not None
+                                  and reference.raw_data is not None):
+            self.raw_data = np.asarray(data, np.float32)
         md = Metadata(self.num_data)
         self.metadata = md
         if label is not None:

@@ -11,8 +11,9 @@ bitsets of all trees are stacked into one word array.
 Exactness: raw inputs are compared in float32.  Each f64 node threshold
 ``t`` is rounded DOWN to the nearest f32, so for any f32-representable
 input ``x``: ``x <= t  <=>  f32(x) <= t32`` — the device decision matches
-the host f64 decision exactly for f32 data.  Linear trees are not ported
-(``NotPortedError``).
+the host f64 decision exactly for f32 data.  A linear tree's leaf adds
+``const + sum(coeff * x)`` over its leaf's features, or its constant leaf
+value when one of them is NaN (reference ``PredictionFunLinear``).
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from ..device import NotPortedError
 from ..utils.common import K_ZERO_THRESHOLD
 from .predict import tree_depth
 
@@ -44,6 +44,10 @@ class EnsembleArrays(NamedTuple):
     cat_words: torch.Tensor        # [W] int64 (uint32 values)
     has_split: List[bool]          # [T] host
     depth: List[int]               # [T] host: traversal steps per tree
+    # linear trees (None when no tree of the stack is linear)
+    leaf_const: torch.Tensor = None    # [T, L] f32
+    leaf_coeff: torch.Tensor = None    # [T, L, K] f32
+    leaf_feats: torch.Tensor = None    # [T, L, K] int64 (-1 = unused)
 
 
 def _f32_down(t: np.ndarray) -> np.ndarray:
@@ -70,9 +74,15 @@ def stack_trees(models: List, device) -> EnsembleArrays:
     rc = np.full((T, M), -1, np.int64)
     lv = np.zeros((T, L), np.float32)
     hs, depth = [], []
+    any_linear = any(getattr(t, "is_linear", False) for t in models)
+    K = 1
+    if any_linear:
+        K = max([1] + [len(fs) for t in models if t.is_linear
+                       for fs in t.leaf_features])
+    const = np.zeros((T, L), np.float32)
+    coeff = np.zeros((T, L, K), np.float32)
+    feats = np.full((T, L, K), -1, np.int64)
     for ti, t in enumerate(models):
-        if getattr(t, "is_linear", False):
-            raise NotPortedError("linear-tree prediction is not ported yet")
         m = t.num_internal if t.num_leaves > 1 else 0
         hs.append(t.num_leaves > 1)
         depth.append(tree_depth(t.left_child, t.right_child, t.num_leaves))
@@ -94,6 +104,15 @@ def stack_trees(models: List, device) -> EnsembleArrays:
                     mt[ti, j] = t.missing_type(j)
         nl = max(1, t.num_leaves)
         lv[ti, :nl] = t.leaf_value[:nl] if len(t.leaf_value) >= nl else 0.0
+        if any_linear and getattr(t, "is_linear", False):
+            ncl = min(nl, len(t.leaf_const))
+            const[ti, :ncl] = t.leaf_const[:ncl]
+            for li in range(min(nl, len(t.leaf_features))):
+                fs, cs = t.leaf_features[li], t.leaf_coeff[li]
+                feats[ti, li, :len(fs)] = fs
+                coeff[ti, li, :len(cs)] = cs
+        elif any_linear:
+            const[ti, :nl] = lv[ti, :nl]
 
     def d(a):
         return torch.as_tensor(a).to(device)
@@ -103,7 +122,9 @@ def stack_trees(models: List, device) -> EnsembleArrays:
         right_child=d(rc), leaf_value=d(lv), cat_lo=d(clo),
         cat_nwords=d(cnw),
         cat_words=d(np.asarray(words or [0], np.int64) & 0xFFFFFFFF),
-        has_split=hs, depth=depth)
+        has_split=hs, depth=depth,
+        **(dict(leaf_const=d(const), leaf_coeff=d(coeff),
+                leaf_feats=d(feats)) if any_linear else {}))
 
 
 def predict_leaf_raw(ens: EnsembleArrays, X: torch.Tensor, ti: int) -> torch.Tensor:
@@ -155,7 +176,17 @@ def predict_raw_ensemble(ens: EnsembleArrays, X: torch.Tensor,
     acc = torch.zeros(K, X.shape[0], dtype=torch.float32, device=X.device)
     comp = torch.zeros_like(acc)
     for ti in range(T):
-        delta = ens.leaf_value[ti][predict_leaf_raw(ens, X, ti)]
+        leaf = predict_leaf_raw(ens, X, ti)
+        delta = ens.leaf_value[ti][leaf]
+        if ens.leaf_const is not None:
+            fs = ens.leaf_feats[ti][leaf]                    # [N, Kc]
+            used = fs >= 0
+            xv = torch.gather(X, 1, fs.clamp(min=0))
+            nan_found = (used & torch.isnan(xv)).any(1)
+            lin = ens.leaf_const[ti][leaf] + torch.where(
+                used, torch.nan_to_num(xv) * ens.leaf_coeff[ti][leaf],
+                torch.zeros((), device=X.device)).sum(1)
+            delta = torch.where(nan_found, delta, lin)
         k = ti % K
         y = delta - comp[k]
         t = acc[k] + y

@@ -2,8 +2,9 @@
 
 Port of the JAX package's ``ops/frontier.py`` (``grow_tree_frontier``) for
 the serial learner, with ``feature_fraction_bynode``, ``extra_trees``,
-monotone-basic, categorical splits (one-hot and sorted, each carrying the
-bitset of the bins that go left, decided by that bitset in the partition)
+monotone-basic, ``feature_contri``, categorical splits (one-hot and
+sorted, each carrying the bitset of the bins that go left, decided by that
+bitset in the partition)
 and EFB (the histograms are kept per bundle column, ``Bb`` bins wide, and
 expanded to per-feature ``[f, B]`` histograms before each split search; the
 partition decodes a feature's bin from its bundle column).  The algorithm is the same: each round
@@ -100,7 +101,7 @@ def _efb_tables(efb, B, Bb, dev):
 
 def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
                        nan_bins, cfg: GrowerConfig, key=None, monotone=None,
-                       is_categorical=None, efb=None):
+                       is_categorical=None, efb=None, feature_contri=None):
     """Grow one tree with round-batched best-first expansion.
 
     ``bins [N, NC]`` u8 or u16 and the ``[N]`` f32 row vectors live on one
@@ -109,7 +110,8 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
     the directions (needed when ``cfg.has_monotone``), ``is_categorical
     [F]`` marks categorical features (None: none), and ``efb`` is the
     bundle layout ``(feat_bundle, feat_off, num_bins)`` of numpy arrays
-    when ``bins`` holds EFB bundle columns (``cfg.bundle_bins`` wide).
+    when ``bins`` holds EFB bundle columns (``cfg.bundle_bins`` wide);
+    ``feature_contri [F]`` scales each feature's gains (None: all 1).
     Returns ``(TreeArrays on that device, node_assignment [N] int64,
     TreeArrays of numpy arrays)``."""
     dev = bins.device
@@ -177,7 +179,7 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
                                monotone=monotone if use_mono else None,
                                rand_threshold=rand, gain_mult=mult,
                                is_categorical=is_categorical,
-                               sorted_cat=sorted_cat)
+                               sorted_cat=sorted_cat, contri=feature_contri)
 
     # ---- root -------------------------------------------------------------
     root_hist = build_histogram(bins, grad, hess, row_weight, Bb,

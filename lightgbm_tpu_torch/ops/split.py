@@ -160,7 +160,7 @@ def _per_leaf(v, dev):
 
 
 def _sorted_cat_best(hist, num_bins, cat_feats, mono, total, p: SplitParams,
-                     fmask, lo, hi):
+                     fmask, lo, hi, contri=None, penalty=None):
     """The sorted many-category scan (the JAX ``_sorted_cat_best``,
     reference ``FindBestThresholdCategoricalInner`` sorted branch,
     feature_histogram.hpp:378-474) over the categorical features
@@ -172,7 +172,9 @@ def _sorted_cat_best(hist, num_bins, cat_feats, mono, total, p: SplitParams,
     ``hist [S, F, B, 3]``, ``total [S, 3]``, ``fmask [S, F]``, ``mono
     [F]`` or None, ``lo``/``hi`` floats or ``[S]``.  Returns ``(gain [S,
     F], bits [S, F, CW], left [S, F, 3])``; features outside ``cat_feats``
-    (or not wider than ``max_cat_to_onehot``) have gain ``NEG_INF``."""
+    (or not wider than ``max_cat_to_onehot``) have gain ``NEG_INF``.
+    ``contri`` and ``penalty`` (``[S, F]`` or None) scale, then lower, each
+    prefix's gain as in the grid search."""
     s_, f, b, _ = hist.shape
     dev = hist.device
     cw = cat_words(b)
@@ -203,6 +205,12 @@ def _sorted_cat_best(hist, num_bins, cat_feats, mono, total, p: SplitParams,
     tg, th, tc = (total[:, i:i + 1] for i in range(3))           # [S, 1]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     nc = cat_feats.numel()
+    if contri is not None:
+        pivot = (leaf_gain(tg, th, p, 0.0, tc, lo2, hi2)
+                 + p.min_gain_to_split)[..., None]               # [S, 1, 1]
+        contri_c = contri[:, cat_feats, None]
+    if penalty is not None:
+        pen_c = penalty[:, cat_feats, None]
 
     def scan_dir(order_score):
         idx = torch.sort(order_score, dim=-1, stable=True).indices  # [S, Fc, B]
@@ -243,6 +251,10 @@ def _sorted_cat_best(hist, num_bins, cat_feats, mono, total, p: SplitParams,
                | ((mono3 < 0) & (lo_out < ro_out)))
         raw = (leaf_gain(lg, lh, p_eff, 0.0, lc, lo3, hi3)
                + leaf_gain(rg, rh, p_eff, 0.0, rc, lo3, hi3))
+        if contri is not None:
+            raw = pivot + (raw - pivot) * contri_c
+        if penalty is not None:
+            raw = raw - pen_c
         gain = torch.where(considered & ~bad, raw,
                            torch.full_like(raw, NEG_INF))
         # the first prefix of the largest gain (the sequential scan keeps
@@ -274,7 +286,9 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                     rand_threshold: torch.Tensor = None,
                     gain_mult: torch.Tensor = None,
                     is_categorical: torch.Tensor = None,
-                    sorted_cat: torch.Tensor = None) -> SplitResult:
+                    sorted_cat: torch.Tensor = None,
+                    contri: torch.Tensor = None,
+                    gain_penalty: torch.Tensor = None) -> SplitResult:
     """Best split of each leaf of a batch.
 
     Args:
@@ -295,6 +309,10 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
       sorted_cat: ``[Fc]`` int64, the categorical features that take the
         sorted many-category scan (more than ``max_cat_to_onehot`` bins),
         or None when there are none (the JAX ``sorted_cat`` static).
+      contri: ``[F]`` or ``[S, F]`` ``feature_contri`` multipliers of the
+        min-gain-shifted improvement, or None.
+      gain_penalty: ``[S, F]`` CEGB penalties subtracted from every
+        candidate of a feature after ``contri``, or None.
     Returns an ``[S]``-batched ``SplitResult``.
     """
     s_, f, b, _ = hist.shape
@@ -347,6 +365,21 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
         cat_gain = _gain_at(hist, tot4 - hist, p_cat, cat_valid, lo3, hi3,
                             mono)
         gain_fb = torch.where(is_cat[None, :, None], cat_gain, gain_fb)
+    if contri is not None:
+        # feature_contri scales the min-gain-shifted improvement BEFORE the
+        # CEGB penalty is subtracted (the JAX _split_gain_matrix order,
+        # reference feature_histogram.hpp:94 then
+        # serial_tree_learner.cpp:740)
+        contri = contri.to(dev).expand(s_, f)
+        pivot = (leaf_gain(total[:, 0], total[:, 1], p, 0.0, total[:, 2],
+                           lo1, hi1) + p.min_gain_to_split)[:, None, None]
+        gain_fb = torch.where(gain_fb > NEG_INF / 2,
+                              pivot + (gain_fb - pivot) * contri[:, :, None],
+                              gain_fb)
+    if gain_penalty is not None:
+        gain_penalty = gain_penalty.to(dev).expand(s_, f)
+        gain_fb = torch.where(gain_fb > NEG_INF / 2,
+                              gain_fb - gain_penalty[:, :, None], gain_fb)
     neg = torch.full_like(gain_fb, NEG_INF)
     if rand_threshold is not None:
         # extra_trees: each feature offers exactly ONE random threshold;
@@ -361,7 +394,8 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     if use_sc:
         gain_sorted, bits_sorted, left_sorted = _sorted_cat_best(
             hist, num_bins, sorted_cat.to(dev), monotone, total, p,
-            fm.expand(s_, f), output_lo, output_hi)
+            fm.expand(s_, f), output_lo, output_hi, contri=contri,
+            penalty=gain_penalty)
     if gain_mult is not None:
         # monotone split penalty, rebased around parent gain + min_gain so
         # that the reported improvement is the reference's scaled gain

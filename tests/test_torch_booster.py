@@ -224,10 +224,12 @@ def test_dataset_methods_match_jax():
     assert bt.num_trees() == 3
 
 
-def test_unported_paths_raise(tmp_path):
-    """What stays unported raises NotPortedError: multi-process training,
-    the obs-report subcommand, and refit or continued training of a
-    linear-tree model."""
+def test_unported_paths_raise():
+    """What stays unported raises NotPortedError: multi-process training
+    and the obs-report subcommand.  Refit and pred_contrib of a linear-tree
+    model raise the JAX package's LightGBMError: neither package has that
+    path (continued training from one is ported,
+    tests/test_torch_linear_tree.py)."""
     from lightgbm_tpu_torch.application import main
     X, y, _, _ = _data()
     bt = lgt.train(PARAMS, lgt.Dataset(X, label=y), 2, verbose_eval=False,
@@ -242,13 +244,10 @@ def test_unported_paths_raise(tmp_path):
                        lgb.Dataset(X[:500], label=y[:500]), 1,
                        verbose_eval=False)
     lin = lgt.Booster(model_str=linear.model_to_string(), device="cpu")
-    with pytest.raises(NotPortedError, match="linear-tree"):
+    with pytest.raises(lgt.LightGBMError, match="linear-tree"):
         lin.refit(X, y)
-    path = str(tmp_path / "linear.txt")
-    linear.save_model(path)
-    with pytest.raises(NotPortedError, match="linear-tree"):
-        lgt.train(PARAMS, lgt.Dataset(X, label=y), 1, init_model=path,
-                  verbose_eval=False, device="cpu")
+    with pytest.raises(lgt.LightGBMError, match="linear trees"):
+        lin.predict(X, pred_contrib=True)
 
 
 def test_positional_order_is_the_jax_packages():

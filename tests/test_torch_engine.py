@@ -122,6 +122,25 @@ def test_init_model_matches_jax_and_single_run(tmp_path):
     np.testing.assert_array_equal(bt.predict(Xv), whole.predict(Xv))
 
 
+def test_init_model_mid_bagging_period_equals_single_run(tmp_path):
+    """A run continued from a model at an iteration that is no multiple of
+    ``bagging_freq`` draws its period's bag (the JAX package reads a bag
+    it never drew there and fails): 3 + 4 iterations with a bag every 2
+    are the 7 iterations of one run."""
+    X, y, Xv, _ = _data()
+    params = {**PARAMS, "bagging_fraction": 0.7, "bagging_freq": 2}
+    first = lgt.train(params, lgt.Dataset(X, label=y), 3, verbose_eval=False,
+                      device="cpu")
+    path = str(tmp_path / "first.txt")
+    first.save_model(path)
+    cont = lgt.train(params, lgt.Dataset(X, label=y), 4, init_model=path,
+                     verbose_eval=False, device="cpu")
+    whole = lgt.train(params, lgt.Dataset(X, label=y), 7, verbose_eval=False,
+                      device="cpu")
+    assert cont.model_to_string() == whole.model_to_string()
+    np.testing.assert_array_equal(cont.predict(Xv), whole.predict(Xv))
+
+
 def test_snapshot_freq_writes_checkpoints(tmp_path):
     X, y, Xv, _ = _data()
     out = str(tmp_path / "m.txt")

@@ -183,11 +183,15 @@ def test_ineligible_configs_raise(fields):
         assert tgrow._frontier_eligible(cfg._replace(**served), 4)
     bad = cfg._replace(**fields)
     assert not tgrow._frontier_eligible(bad, 4)
+    # an ineligible configuration takes the sequential grower (as in the
+    # JAX package); a width the card's kernels refuse raises in both
     z = torch.zeros(64)
+    args = (torch.zeros(64, 4, dtype=torch.uint8), z, z, z, torch.ones(4),
+            torch.full((4,), 16), torch.full((4,), -1))
+    _, assign, host = tgrow.grow_tree(*args, bad)
+    assert int(host.num_leaves) == 1 and not assign.any()
     with pytest.raises(NotPortedError):
-        tgrow.grow_tree(torch.zeros(64, 4, dtype=torch.uint8), z, z, z,
-                        torch.ones(4), torch.full((4,), 16), torch.full(
-                            (4,), -1), bad)
+        tgrow.grow_tree(*args, bad._replace(max_bin=20_000))
 
 
 def test_eligibility_budget_is_shared_memory():

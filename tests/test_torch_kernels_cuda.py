@@ -1428,3 +1428,91 @@ def test_fobj_gradients_arrive_on_the_models_device(dev):
     assert all(d1.type == "cuda" and d2.type == "cuda"
                and dt == torch.float32 and shape == (1, len(y))
                for d1, d2, dt, shape in seen) and len(seen) == 3
+
+
+def _partitioned_block(rng, n, nc, dev, esz=1):
+    """A parent segment as the serial grower gathers it: rows of a
+    permuted bin matrix, its packed (grad, hess, weight) bytes, and the
+    stable-partition side of each row."""
+    hi = 256 if esz == 1 else 1024
+    dt = np.uint8 if esz == 1 else np.uint16
+    bins = torch.as_tensor(rng.integers(0, hi, (n, nc)).astype(dt)).to(dev)
+    g, h, m = _rows(rng, n, dev)
+    mv = thist.movable_bins(bins)
+    comb = torch.cat([mv, torch.stack([g, h, m], 1).contiguous().view(
+        mv.dtype)], 1)
+    perm = torch.as_tensor(rng.permutation(n)).to(dev)
+    seg = perm[n // 7: n // 7 + (n * 3) // 5]
+    combb = comb[seg]
+    ghb = combb[:, nc:].contiguous().view(torch.float32)
+    side = thist.widen_bins(combb[:, 2]) <= hi // 3
+    return combb.view(bins.dtype), ghb, side
+
+
+@pytest.mark.parametrize("esz,B", [(1, 256), (2, 1024)])
+def test_serial_grower_block_histogram_matches_plain(dev, esz, B):
+    """The serial grower's smaller-child histogram: ``hist_full`` over a
+    gathered parent segment (bins plus trailing gh columns, ``f_limit``
+    the bin columns) with the child's side as mask, held against
+    ``hist_full_plain`` on the same block, and the sibling by subtraction
+    against the other side's plain histogram."""
+    rng = np.random.default_rng(13 + esz)
+    nc = 28
+    combb, ghb, side = _partitioned_block(rng, 200_003, nc, dev, esz)
+    g, h = ghb[:, 0].contiguous(), ghb[:, 1].contiguous()
+    m_small = torch.where(side, ghb[:, 2], 0.0)
+    m_other = torch.where(~side, ghb[:, 2], 0.0)
+    before = thist.launch_counts["hist_full"]
+    got = thist.build_histogram(combb, g, h, m_small, B, f_limit=nc)
+    parent = thist.build_histogram(combb, g, h, ghb[:, 2].contiguous(), B,
+                                   f_limit=nc)
+    assert thist.launch_counts["hist_full"] == before + 2
+    ref = thist.hist_full_plain(combb, g, h, m_small, B, f_limit=nc)
+    ref_other = thist.hist_full_plain(combb, g, h, m_other, B, f_limit=nc)
+    assert got.shape == (nc, B, 3)
+    assert relerr(got, ref) <= TOL
+    assert relerr(parent - got, ref_other) <= 1e-4
+
+
+@pytest.mark.parametrize("params", [
+    {},
+    {"force_row_wise": True, "hist_variant": "staged"},
+    {"interaction_constraints": [[0, 1, 2], [2, 3, 4, 5]]},
+    {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0, 0, -1],
+     "monotone_constraints_method": "advanced"},
+    {"cegb_penalty_split": 1e-4,
+     "cegb_penalty_feature_coupled": [2.0] * 10}],
+    ids=["atomic", "row_wise_staged", "interaction", "monotone_advanced",
+         "cegb"])
+def test_serial_training_launches_one_histogram_a_split(dev, params):
+    """``tree_grower=serial`` on the card: one full-histogram launch for
+    the root and one a split (``hist_full``, or ``onehot_full`` under
+    ``force_row_wise``), no per-leaf kernel, and the trees of the same run
+    under force_plain(); with no serial-only feature, the frontier's trees
+    (the same leaves for every row)."""
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(30_000, 10)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=30_000)
+         > 0).astype(np.float32)
+    p = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+         "tree_grower": "serial", **params}
+    kernel = "onehot_full" if p.get("force_row_wise") else "hist_full"
+    thist.reset_launch_counts()
+    bk = lgt.train(p, lgt.Dataset(X, label=y), 4, verbose_eval=False,
+                   device="cuda")
+    leaves = sum(t.num_leaves for t in bk._gbdt.models)
+    launched = {k: v for k, v in thist.launch_counts.items() if v}
+    assert launched == {kernel: leaves}, launched
+    with thist.force_plain():
+        bp = lgt.train(p, lgt.Dataset(X, label=y), 4, verbose_eval=False,
+                       device="cuda")
+    for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
+        assert np.array_equal(tk.split_feature, tp.split_feature)
+        assert np.array_equal(tk.threshold, tp.threshold)
+    if set(params) <= {"force_row_wise", "hist_variant"}:
+        p.pop("tree_grower")
+        bf = lgt.train(p, lgt.Dataset(X, label=y), 4, verbose_eval=False,
+                       device="cuda")
+        np.testing.assert_array_equal(bk.predict(X[:3000], pred_leaf=True),
+                                      bf.predict(X[:3000], pred_leaf=True))

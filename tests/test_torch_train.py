@@ -213,15 +213,21 @@ def test_device_none_means_cuda():
 @pytest.mark.parametrize("params", [
     {"objective": "none"},
     {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
-     "monotone_constraints_method": "intermediate"},
-    {"interaction_constraints": [[0, 1], [2, 3]]},
-    {"cegb_penalty_split": 0.5}, {"tree_grower": "serial"},
-    {"tree_learner": "data"}, {"feature_contri": [1.0] * 8},
-    {"linear_tree": True}])
+     "monotone_constraints_method": "intermediate", "tree_learner": "feature"},
+    {"interaction_constraints": [[0, 1], [2, 3]], "tree_learner": "voting"},
+    {"cegb_penalty_split": 0.5, "stream_rows": 256},
+    {"tree_grower": "serial", "tree_learner": "data"},
+    {"tree_learner": "data"},
+    {"feature_contri": [1.0] * 8, "tree_learner": "feature"},
+    {"linear_tree": True, "max_bin_matrix_bytes": 1 << 20}])
 def test_untaken_paths_raise(params):
     X, y, _, _ = _data(5, n=800)
-    # objective "none" is ported (custom gradients, test_torch_engine.py):
-    # without the caller's gradients it raises as the JAX package does
+    # the serial grower's features are ported (tests/test_torch_serial.py,
+    # test_torch_constraints.py, test_torch_linear_tree.py): with an
+    # unported tree learner or out-of-core streaming they still raise,
+    # never falling back.  Objective "none" is ported (custom gradients,
+    # test_torch_engine.py): without the caller's gradients it raises as
+    # the JAX package does
     err, match = ((lgt.LightGBMError, "custom grad")
                   if params.get("objective") == "none"
                   else (NotPortedError, None))
@@ -237,6 +243,8 @@ import lightgbm_tpu_torch.interop, lightgbm_tpu_torch.ops.frontier
 import lightgbm_tpu_torch.ops.ensemble, lightgbm_tpu_torch.ops.shap
 import lightgbm_tpu_torch.native, lightgbm_tpu_torch.io.loader
 import lightgbm_tpu_torch.models.convert, lightgbm_tpu_torch.application
+import lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.plotting
+import lightgbm_tpu_torch.ops.linear
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
