@@ -47,10 +47,11 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    phase's bundle matrix (featmajor) at its bundle width.  The atomic
    kernels' u16 instantiations the same way (relerr, same bits twice, ms,
    kernel alone, plain, ``index_add_``, the byte bound at 2 bytes a bin,
-   the plan): 1M x 28 at B = 1,024 and
-   one frontier round's comb (28 features + 6 u16 gh columns), bins >= B
-   present; a comb of odd stride (27 + 6 u16); and the sparse_efb phase's
-   own bundle matrix at its bundle width, full and per leaf;
+   the plan with its design, feature group, warps a feature and warps an
+   SM): 1M x 28 at B = 1,024 with random bins and with Zipf-skewed bins,
+   and one frontier round's comb (28 features + 6 u16 gh columns), bins
+   >= B present; a comb of odd stride (27 + 6 u16); and the sparse_efb
+   phase's own bundle matrix at its bundle width, full and per leaf;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
    the leaves' 262,144 rows per 512 with a NaN block), in both input
@@ -526,19 +527,26 @@ def _skewed_bins(comb):
 
 
 def _atomic_attrs(hist, kernel, dev, units, stride, f, B, k=1, esz=1):
-    """The launch plan's geometry, its kernel's registers, spills, shared
-    bytes and CTAs an SM, and the float64 partials a call writes (one a
-    CTA for the full pass; for the leaves one a CTA for each slot its
-    blocks may name, min(blocks a CTA, k))."""
+    """The launch plan's geometry and design, its kernel's registers,
+    spills, shared bytes and CTAs an SM, the warps an SM and the warps
+    that add rows a feature (``W``: the owned design's warps own whole
+    features; the dealt design's item warps share the group's features),
+    and the float64 partials a call writes (one a CTA for the full pass;
+    for the leaves one a CTA for each slot its blocks may name, min(blocks
+    a CTA, k))."""
     plan = hist.atomic_plan(kernel, dev, stride, f, B, esz)
     full = kernel == "hist_full"
     grid_x, per = hist.atomic_grid(plan, units,
                                    hist._FULL_ROW_ALIGN if full else 1)
     partials = grid_x * (1 if full else min(per, k))
+    warps = plan["threads"] // 32
     return {**{x: plan[x] for x in ("registers", "local_bytes",
                                     "static_smem_bytes",
                                     "dynamic_smem_bytes", "ctas_per_sm",
-                                    "fg", "tile", "threads")},
+                                    "fg", "tile", "threads", "stagers")},
+            "design": hist.ATOMIC_DESIGNS[plan["design"]],
+            "warps_per_sm": warps * plan["ctas_per_sm"],
+            "W": (warps - plan["stagers"]) / plan["fg"],
             "grid_x": grid_x, "partials": partials,
             "scratch_mb": partials * f * B * 3 * 8 / 1e6}
 
@@ -629,6 +637,15 @@ def _u16(gen, shape, hi, dev):
     return b.to(torch.int16).view(torch.uint16)
 
 
+def _zipf_u16(gen, shape, B, dev, a=1.1):
+    """u16 bins in [0, B), bin i drawn with weight 1/(i+1)^a: a few bins
+    hold most rows, as an EFB bundle's do."""
+    p = 1.0 / torch.arange(1, B + 1, device=dev, dtype=torch.float64) ** a
+    idx = torch.multinomial(p.float(), shape[0] * shape[1], replacement=True,
+                            generator=gen)
+    return idx.view(shape).to(torch.int16).view(torch.uint16)
+
+
 def _frontier_comb(bins, g, h, m):
     """The frontier's row payload: bins, then (g, h, m) as 12 bytes in
     bin-typed columns (6 u16)."""
@@ -640,12 +657,14 @@ def _frontier_comb(bins, g, h, m):
 
 def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
     """The atomic kernels' u16 instantiations against their plain versions:
-    1M x 28 at B = 1,024 (max_bin=1023) and one frontier round's comb of
-    28 features and 6 gh columns; a comb of odd stride (27 + 6 = 33 u16, 66
-    bytes: rows 2-byte aligned); the sparse_efb phase's own bundle matrix
-    at its bundle width, full and per leaf.  Bins >= B are present in the
-    random cases.  Each: relerr, the same bits twice, ms, kernel alone,
-    plain, index_add_, the byte bound (2 bytes a bin) and the plan."""
+    1M x 28 at B = 1,024 (max_bin=1023) with random bins and with
+    Zipf-skewed bins, and one frontier round's comb of 28 features and 6
+    gh columns; a comb of odd stride (27 + 6 = 33 u16, 66 bytes: rows
+    2-byte aligned); the sparse_efb phase's own bundle matrix at its
+    bundle width, full and per leaf.  Bins >= B are present in the random
+    cases.  Each: relerr, the same bits twice, ms, kernel alone, plain,
+    index_add_, the byte bound (2 bytes a bin) and the plan with its
+    design, feature group, warps a feature (W) and warps an SM."""
     out = {}
     k, BR = LEAVES_SHAPE["k"], LEAVES_SHAPE["BR"]
 
@@ -716,6 +735,8 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
 
     n, f, B = N_TRAIN, N_FEAT, 1024
     hold_full("hist_full/u16/B1024", _u16(gen, (n, f), B + 60, dev), B, f)
+    hold_full("hist_full/u16/B1024/zipf", _zipf_u16(gen, (n, f), B, dev), B,
+              f)
     C = LEAVES_SHAPE["C"]
     hold_leaves("hist_leaves/u16/B1024",
                 _frontier_comb(_u16(gen, (C, f), B + 60, dev),
@@ -738,8 +759,9 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
             print(f"{name} {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, "
                   f"call {r['ms']:.4f} ms, index_add_ "
                   f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
-                  f"ms, fg {r['fg']}, tile {r['tile']}, "
-                  f"{r['ctas_per_sm']} CTAs an SM, relerr "
+                  f"ms, {r['design']} design, fg {r['fg']}, W "
+                  f"{r['W']:.3g}, {r['warps_per_sm']} warps an SM, tile "
+                  f"{r['tile']}, {r['ctas_per_sm']} CTAs an SM, relerr "
                   f"{r['relerr']:.3g}", flush=True)
     return out
 
@@ -2512,7 +2534,7 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
     rows = []
     atomic_keys = ("kernel_ms", "vs_index_add", "smem_floor_ms",
                    "registers", "local_bytes", "dynamic_smem_bytes",
-                   "ctas_per_sm")
+                   "ctas_per_sm", "design", "fg", "W", "warps_per_sm")
     for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
         r = kern[kname]
         row = {"name": kname, "route": "cuda", "source": src,
@@ -2531,10 +2553,14 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
                                                   "kernel_ms", "library_ms")}
                             for c, v in r["cases"].items()}
         rows.append(row)
-    # the u16 instantiations: at B = 1,024 (the wide_bins run's launches)
-    # and at the sparse_efb run's bundle width (its own launches)
-    for case, run in (("B1024", "wide_bins"), ("bundle", "sparse_efb")):
+    # the u16 instantiations: at B = 1,024 (the wide_bins run's launches;
+    # the full pass also on Zipf-skewed bins) and at the sparse_efb run's
+    # bundle width (its own launches)
+    for case, run in (("B1024", "wide_bins"), ("B1024/zipf", "wide_bins"),
+                      ("bundle", "sparse_efb")):
         for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
+            if f"{kname}/u16/{case}" not in kern:
+                continue
             r = kern[f"{kname}/u16/{case}"]
             rows.append({"name": f"{kname}/u16/{case}", "route": "cuda",
                          "source": src, "replaces": replaces, "jax": jax_fn,

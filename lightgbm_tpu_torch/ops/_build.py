@@ -51,22 +51,23 @@ _INT_P = ctypes.POINTER(ctypes.c_int)
 # argument types of each library's entry points
 _ARGTYPES = {
     "hist_full": {
-        # device, stride, f, B, esz, out[9]
-        "hist_full_plan": [_INT, _LL, _INT, _INT, _INT, _INT_P],
+        # device, stride, f, B, esz, design, out[11]
+        "hist_full_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT_P],
         # device, bins, n, stride, f, B, esz, g, h, m, partial, out, fg,
-        # tile, threads, grid_x, rows_per_cta, stream
+        # tile, threads, design, grid_x, rows_per_cta, stream
         "hist_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _INT,
                              _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
-                             _INT, _INT, _INT, _INT, _LL, _VOID_P]},
+                             _INT, _INT, _INT, _INT, _INT, _LL, _VOID_P]},
     "hist_leaves": {
-        # device, stride, f, B, esz, out[9]
-        "hist_leaves_plan": [_INT, _LL, _INT, _INT, _INT, _INT_P],
+        # device, stride, f, B, esz, design, out[11]
+        "hist_leaves_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT_P],
         # device, comb, c, stride, f, B, esz, g, h, m, block_leaf, br, k,
-        # scratch, out, fg, tile, threads, grid_x, bpc, parts, stream
+        # scratch, out, fg, tile, threads, design, grid_x, bpc, parts,
+        # stream
         "hist_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _INT,
                                _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT,
                                _INT, _VOID_P, _VOID_P, _INT, _INT, _INT,
-                               _INT, _INT, _INT, _VOID_P]},
+                               _INT, _INT, _INT, _INT, _VOID_P]},
     "onehot_full": {
         # device, bins, ld, n, f, layout, esz, g, h, m, q, scales, qbr,
         # out, variant, lpf, lanes, nf_max, stream

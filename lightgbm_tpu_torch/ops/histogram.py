@@ -14,9 +14,12 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
 - ``method="atomic"`` (the default; ``force_col_wise``):
   ``build_histogram`` -> ``hist_full``, ``build_histogram_leaves`` ->
   ``hist_leaves``: rows scattered into float64 shared-memory histograms
-  whose features each warp owns (no atomics), one float64 partial per CTA
-  (per slot run for the leaves) summed by a second kernel in a fixed
-  order.  The counterpart of the JAX package's scatter method, the card's
+  with no atomics -- each warp owning whole features (``owned``, the
+  main path at B = 256), or at wide bins every warp taking (step,
+  feature) items whose lanes a warp sort groups by bin (``dealt``; the
+  plan picks, ``ATOMIC_DESIGNS``) -- one float64 partial per CTA (per
+  slot run for the leaves) summed by a second kernel in a fixed order.
+  The counterpart of the JAX package's scatter method, the card's
   counterpart of a known winner.
 - ``method="onehot"`` (``force_row_wise``): ``hist_onehot_full`` and
   ``hist_onehot_leaves``, the tensor-core port of the Pallas one-hot
@@ -76,12 +79,17 @@ HIST_PARITY_TOL = 5e-4
 
 # bytes of one CTA's privatised float64 histogram per (feature, bin); at
 # F=28, B=256 the whole [F, B, 3] histogram (172,032 bytes) fits one CTA
-# beside its staging buffers (kernels/hist_common.cuh::plan_geometry)
+# beside its staging buffers (kernels/hist_common.cuh::plan_geometry); the
+# dealt design, which the plan takes at wide bins, adds no bytes a bin
 _SMEM_PER_BIN = 24
 # largest dynamic shared memory a CTA may opt into on Hopper
 SMEM_MAX_BYTES = 227 * 1024
 
 _force_plain = False
+# the atomic kernels' two designs of the update, in the plan's numbering
+# (kernels/hist_common.cuh), and the one atomic_design() asks for
+ATOMIC_DESIGNS = ("owned", "dealt")
+_atomic_design: Optional[str] = None
 
 
 def reset_launch_counts() -> None:
@@ -100,6 +108,22 @@ def force_plain():
         yield
     finally:
         _force_plain = prev
+
+
+@contextlib.contextmanager
+def atomic_design(design: str):
+    """Plan the atomic kernels in this design of the update (one of
+    ``ATOMIC_DESIGNS``) in place of the plan's own choice, to time one
+    design against the other on the card; not a training parameter."""
+    global _atomic_design
+    _check(design in ATOMIC_DESIGNS, f"unknown atomic design {design!r}; "
+           f"known: {', '.join(ATOMIC_DESIGNS)}")
+    prev = _atomic_design
+    _atomic_design = design
+    try:
+        yield
+    finally:
+        _atomic_design = prev
 
 
 def _plain(t: torch.Tensor) -> bool:
@@ -422,30 +446,39 @@ def _check(cond: bool, msg: str) -> None:
 BIN_TYPES = (torch.uint8, torch.uint16)
 
 
+# The checks below format their messages only when they fail: a wrapper
+# runs them on every call, and the formatting would cost more host time
+# than the checks.
 def _check_rows(name, mat, grad, hess, mask, dtypes=BIN_TYPES):
     dev = mat.device
-    _check(dev.type == "cuda", f"{name}: tensors must be on a CUDA device")
-    kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
-    _check(mat.dtype in dtypes and mat.dim() == 2 and mat.is_contiguous(),
-           f"{name}: bins must be a contiguous 2-D {kinds} tensor")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on a CUDA device")
+    if not (mat.dtype in dtypes and mat.dim() == 2 and mat.is_contiguous()):
+        kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{name}: bins must be a contiguous 2-D {kinds} "
+                         "tensor")
     _check_vectors(name, dev, mat.shape[0], grad, hess, mask)
 
 
 def _check_vectors(name, dev, n, grad, hess, mask):
     for label, t in (("grad", grad), ("hess", hess), ("mask", mask)):
-        _check(t.device == dev and t.dtype == torch.float32 and t.dim() == 1
-               and t.shape[0] == n and t.is_contiguous(),
-               f"{name}: {label} must be a contiguous float32 [{n}] tensor "
-               f"on {dev}")
+        if not (t.device == dev and t.dtype == torch.float32
+                and t.dim() == 1 and t.shape[0] == n and t.is_contiguous()):
+            raise ValueError(f"{name}: {label} must be a contiguous float32 "
+                             f"[{n}] tensor on {dev}")
 
 
 # the atomic kernels' launch plan (kernels/hist_common.cuh::plan_launch):
 # feature group, tile rows, threads, dynamic shared bytes, CTAs an SM, SMs,
-# registers a thread, static shared bytes, spilled bytes a thread; it
-# depends on the shape only, so it is kept per (kernel, device, stride, f,
-# B, bin size) and a call splits its rows or blocks with atomic_grid
+# registers a thread, static shared bytes, spilled bytes a thread, the
+# design of the update (0 owned: a warp a feature; 1 dealt: every warp
+# but the staging ones takes (step, feature) items, sorted by bin) and its
+# staging warps (0: every warp stages); it depends on the shape only, so
+# it is kept per (kernel, device, stride, f, B, bin size, design asked)
+# and a call splits its rows or blocks with atomic_grid
 _PLAN_KEYS = ("fg", "tile", "threads", "dynamic_smem_bytes", "ctas_per_sm",
-              "sms", "registers", "static_smem_bytes", "local_bytes")
+              "sms", "registers", "static_smem_bytes", "local_bytes",
+              "design", "stagers")
 _plans: Dict[tuple, Dict[str, int]] = {}
 # rows a hist_full CTA takes are a multiple of this (16 rows of any
 # stride are whole 16-byte pieces, so every CTA's span starts at the
@@ -457,10 +490,14 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
                 max_bin: int, esz: int = 1) -> Dict[str, int]:
     """The launch plan of ``hist_full`` or ``hist_leaves`` over ``f``
     features of ``max_bin`` bins in rows of ``stride`` bins of ``esz``
-    bytes (1: u8, 2: u16); builds the kernel first if needed."""
+    bytes (1: u8, 2: u16); builds the kernel first if needed.  The plan
+    picks the design of the update, unless ``atomic_design`` asks for
+    one."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    key = (kernel, index, stride, f, max_bin, esz)
+    want = (-1 if _atomic_design is None
+            else ATOMIC_DESIGNS.index(_atomic_design))
+    key = (kernel, index, stride, f, max_bin, esz, want)
     plan = _plans.get(key)
     if plan is None:
         import ctypes
@@ -471,7 +508,7 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
         buf = (ctypes.c_int * len(_PLAN_KEYS))()
         lib = _build.load(kernel)
         rc = getattr(lib, f"{kernel}_plan")(index, stride, f, max_bin, esz,
-                                            buf)
+                                            want, buf)
         _raise_on(lib, f"{kernel} plan", rc)
         plan = _plans[key] = dict(zip(_PLAN_KEYS, buf))
         plan["groups"] = -(-f // plan["fg"])
@@ -517,7 +554,8 @@ def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
         dev.index, bins.data_ptr(), n, ncols, f, max_bin, esz,
         grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        plan["fg"], plan["tile"], plan["threads"], grid_x, per_cta,
+        plan["fg"], plan["tile"], plan["threads"], plan["design"], grid_x,
+        per_cta,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_full", rc)
     launch_counts["hist_full"] += 1
@@ -536,15 +574,15 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
     f = _n_feat(nc, f_limit)
     dev = comb.device
     esz = comb.element_size()
-    _check(block_rows > 0 and c % block_rows == 0,
-           f"hist_leaves: rows ({c}) must be a multiple of block_rows "
-           f"({block_rows})")
+    if not (block_rows > 0 and c % block_rows == 0):
+        raise ValueError(f"hist_leaves: rows ({c}) must be a multiple of "
+                         f"block_rows ({block_rows})")
     nb = c // block_rows
-    _check(block_leaf.device == dev and block_leaf.dtype == torch.int32
-           and block_leaf.dim() == 1 and block_leaf.shape[0] == nb
-           and block_leaf.is_contiguous(),
-           f"hist_leaves: block_leaf must be a contiguous int32 [{nb}] "
-           f"tensor on {dev}")
+    if not (block_leaf.device == dev and block_leaf.dtype == torch.int32
+            and block_leaf.dim() == 1 and block_leaf.shape[0] == nb
+            and block_leaf.is_contiguous()):
+        raise ValueError(f"hist_leaves: block_leaf must be a contiguous "
+                         f"int32 [{nb}] tensor on {dev}")
     if nb == 0 or f == 0 or num_slots == 0:
         return torch.zeros(num_slots, f, max_bin, 3, device=dev)
     plan = atomic_plan("hist_leaves", dev, nc, f, max_bin, esz)
@@ -561,7 +599,7 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
         dev.index, comb.data_ptr(), c, nc, f, max_bin, esz, grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), block_leaf.data_ptr(), block_rows,
         num_slots, scratch.data_ptr(), out.data_ptr(), plan["fg"],
-        plan["tile"], plan["threads"], grid_x, bpc, parts,
+        plan["tile"], plan["threads"], plan["design"], grid_x, bpc, parts,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_leaves", rc)
     launch_counts["hist_leaves"] += 1

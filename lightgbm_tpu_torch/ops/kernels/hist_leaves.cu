@@ -7,8 +7,9 @@
 // Here each CTA takes `bpc` consecutive BR-row blocks and one feature
 // group.  It takes the slots its blocks name one at a time, in the order
 // each first appears, and adds every run of that slot's blocks (a
-// contiguous stretch of rows) into a float64 shared-memory histogram in
-// which each warp owns whole features (hist_common.cuh); then it writes
+// contiguous stretch of rows) into a float64 shared-memory histogram
+// (hist_common.cuh: each warp owning whole features, or at wide bins all
+// warps dealt (step, feature) items in turn); then it writes
 // that histogram once into its partial blockIdx.x * parts + j for its
 // j-th slot, naming the slot in pslot (-1 for the partials it leaves
 // unused).  So a CTA holds at most parts = min(bpc, k) partials, and
@@ -39,9 +40,10 @@ __device__ __forceinline__ bool named_before(const int32_t* block_leaf,
   return false;
 }
 
-// T: the bin type (uint8_t or uint16_t); stride in bins.
-template <typename T>
-__global__ void __launch_bounds__(1024)
+// T: the bin type (uint8_t or uint16_t); stride in bins; kDealt: the
+// design (hist_common.cuh).
+template <typename T, bool kDealt>
+__global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
     hist_leaves_kernel(const T* __restrict__ comb, long long c,
                        long long stride, int f, int B,
                        const float* __restrict__ g,
@@ -54,7 +56,7 @@ __global__ void __launch_bounds__(1024)
   extern __shared__ __align__(16) uint8_t smem[];
   const int f0 = blockIdx.y * fg;
   const int fgc = min(fg, f - f0);
-  const lgbt::Smem sm = lgbt::carve(smem, fgc, B);
+  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, B);
   const int esz = (int)sizeof(T);
   const lgbt::Stage st = lgbt::stage_of(tile, stride * esz, fg * esz);
   const int nb = (int)(c / br);
@@ -63,6 +65,7 @@ __global__ void __launch_bounds__(1024)
   const lgbt::Rows src{reinterpret_cast<const uint8_t*>(comb), stride * esz,
                         esz, g, h, m};
   int j = 0;
+  uint32_t ring = 0;  // tiles through the dealt design's ring
   for (int first = b0; first < b1; ++first) {
     const int slot = block_leaf[first];
     if (slot < 0 || slot >= k || named_before(block_leaf, b0, first, slot))
@@ -76,9 +79,8 @@ __global__ void __launch_bounds__(1024)
       }
       int end = blk + 1;
       while (end < b1 && block_leaf[end] == slot) ++end;
-      lgbt::accumulate_rows<T>(sm.hist, sm.words, sm.stage, st, src,
-                            (long long)blk * br, (long long)end * br, f0,
-                            fgc, B);
+      lgbt::accumulate_rows<T, kDealt>(sm, st, src, (long long)blk * br,
+                                       (long long)end * br, f0, fgc, B, ring);
       blk = end;
     }
     __syncthreads();
@@ -93,19 +95,44 @@ __global__ void __launch_bounds__(1024)
       pslot[(long long)blockIdx.x * parts + r] = -1;
 }
 
-// The launch plan of a shape (lgbt::plan_launch's nine values); esz is
-// the bin type's size (1: u8, 2: u16).
+// The launch plan of a shape (lgbt::plan_launch's eleven values); esz is
+// the bin type's size (1: u8, 2: u16); design -1 (the plan's choice), 0
+// (owned) or 1 (dealt).
 extern "C" int hist_leaves_plan(int device, long long stride, int f, int B,
-                                int esz, int* out) {
+                                int esz, int design, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (esz == 1)
-    return (int)lgbt::plan_launch(hist_leaves_kernel<uint8_t>, device,
-                                  stride, f, B, 1, out);
+    return (int)lgbt::plan_launch(hist_leaves_kernel<uint8_t, false>,
+                                  hist_leaves_kernel<uint8_t, true>, device,
+                                  stride, f, B, 1, design, out);
   if (esz == 2)
-    return (int)lgbt::plan_launch(hist_leaves_kernel<uint16_t>, device,
-                                  stride, f, B, 2, out);
+    return (int)lgbt::plan_launch(hist_leaves_kernel<uint16_t, false>,
+                                  hist_leaves_kernel<uint16_t, true>, device,
+                                  stride, f, B, 2, design, out);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool kDealt>
+static cudaError_t launch_leaves_as(int device, const void* comb,
+                                    long long c, long long stride, int f,
+                                    int B, const void* g, const void* h,
+                                    const void* m, const void* block_leaf,
+                                    int br, int k, double* partial,
+                                    int32_t* pslot, int fg, int tile,
+                                    int threads, int grid_x, int bpc,
+                                    int parts, cudaStream_t s) {
+  const int smem =
+      (int)lgbt::smem_bytes(fg, B, tile, stride, sizeof(T), kDealt);
+  cudaError_t e =
+      lgbt::allow_smem(hist_leaves_kernel<T, kDealt>, device, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(grid_x, (f + fg - 1) / fg);
+  hist_leaves_kernel<T, kDealt><<<grid, threads, smem, s>>>(
+      (const T*)comb, c, stride, f, B, (const float*)g, (const float*)h,
+      (const float*)m, (const int32_t*)block_leaf, br, k, partial, pslot, fg,
+      tile, bpc, parts);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -114,17 +141,18 @@ static cudaError_t launch_leaves(int device, const void* comb, long long c,
                                  const void* g, const void* h, const void* m,
                                  const void* block_leaf, int br, int k,
                                  double* partial, int32_t* pslot, int fg,
-                                 int tile, int threads, int grid_x, int bpc,
-                                 int parts, cudaStream_t s) {
-  const int smem = (int)lgbt::smem_bytes(fg, B, tile, stride, sizeof(T));
-  cudaError_t e = lgbt::allow_smem(hist_leaves_kernel<T>, device, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(grid_x, (f + fg - 1) / fg);
-  hist_leaves_kernel<T><<<grid, threads, smem, s>>>(
-      (const T*)comb, c, stride, f, B, (const float*)g, (const float*)h,
-      (const float*)m, (const int32_t*)block_leaf, br, k, partial, pslot, fg,
-      tile, bpc, parts);
-  return cudaGetLastError();
+                                 int tile, int threads, int design,
+                                 int grid_x, int bpc, int parts,
+                                 cudaStream_t s) {
+  if (design == 0)
+    return launch_leaves_as<T, false>(device, comb, c, stride, f, B, g, h, m,
+                                      block_leaf, br, k, partial, pslot, fg,
+                                      tile, threads, grid_x, bpc, parts, s);
+  if (design == 1)
+    return launch_leaves_as<T, true>(device, comb, c, stride, f, B, g, h, m,
+                                     block_leaf, br, k, partial, pslot, fg,
+                                     tile, threads, grid_x, bpc, parts, s);
+  return cudaErrorInvalidValue;
 }
 
 // The main kernel over grid_x CTAs (bpc blocks each) and the feature
@@ -132,14 +160,14 @@ static cudaError_t launch_leaves(int device, const void* comb, long long c,
 // ([k, f, B, 3] float32).  parts >= min(bpc, k); scratch holds the
 // partials ([grid_x * parts, f, B, 3] float64), then their slots (int32
 // each).  comb holds u8 (esz 1) or u16 (esz 2) values, rows of `stride`
-// bins.
+// bins; fg, tile, threads and design are the plan's.
 extern "C" int hist_leaves_launch(int device, const void* comb, long long c,
                                   long long stride, int f, int B, int esz,
                                   const void* g, const void* h, const void* m,
                                   const void* block_leaf, int br, int k,
                                   void* scratch, void* out, int fg, int tile,
-                                  int threads, int grid_x, int bpc, int parts,
-                                  void* stream) {
+                                  int threads, int design, int grid_x,
+                                  int bpc, int parts, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (parts < (bpc < k ? bpc : k)) return (int)cudaErrorInvalidValue;
@@ -150,11 +178,11 @@ extern "C" int hist_leaves_launch(int device, const void* comb, long long c,
   if (esz == 1)
     e = launch_leaves<uint8_t>(device, comb, c, stride, f, B, g, h, m,
                                block_leaf, br, k, partial, pslot, fg, tile,
-                               threads, grid_x, bpc, parts, s);
+                               threads, design, grid_x, bpc, parts, s);
   else if (esz == 2)
     e = launch_leaves<uint16_t>(device, comb, c, stride, f, B, g, h, m,
                                 block_leaf, br, k, partial, pslot, fg, tile,
-                                threads, grid_x, bpc, parts, s);
+                                threads, design, grid_x, bpc, parts, s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

@@ -48,14 +48,46 @@ def _t(*arrs):
     return [torch.as_tensor(a) for a in arrs]
 
 
-@pytest.mark.parametrize("max_bin", [64, 256])
-def test_build_histogram_plain_matches_scatter(max_bin):
+def _zipf_u16(rng, shape, B, a=1.1, past=0.03):
+    """u16 bins in [0, B), bin i drawn with weight 1/(i+1)^a (an EFB
+    bundle's skew: a few bins hold most rows), and a share ``past`` of them
+    raised to B..65,535 (past the kernels' range: dropped)."""
+    p = 1.0 / np.arange(1, B + 1) ** a
+    b = rng.choice(B, shape, p=p / p.sum()).astype(np.uint16)
+    high = rng.random(shape) < past
+    b[high] = rng.integers(B, 65_536, int(high.sum()))
+    return b
+
+
+def _scatter_in_range(bins, g, h, m, B):
+    """The JAX scatter per feature over the rows whose bin for it is below
+    B: it clips the others into bin B - 1, where the port drops them (as
+    the Pallas kernels do), so those rows are given no weight."""
+    return np.concatenate([np.asarray(jhist._hist_scatter(
+        bins[:, j:j + 1], g, h, np.where(bins[:, j] < B, m, 0.0)
+        .astype(np.float32), B)) for j in range(bins.shape[1])])
+
+
+# (max_bin, bin type): u8 at 64 and 256 bins; u16 at B = 1,024
+# (max_bin=1023) and at the sparse_efb bundle width (2,599), with
+# Zipf-skewed bins, some of them past B
+HIST_WIDTHS = [pytest.param(64, "u8", id="64"),
+               pytest.param(256, "u8", id="256"),
+               (1024, "u16"), (2599, "u16")]
+
+
+@pytest.mark.parametrize("max_bin,kind", HIST_WIDTHS)
+def test_build_histogram_plain_matches_scatter(max_bin, kind):
     rng = np.random.default_rng(max_bin)
     n, f = 3000, 7
-    bins = rng.integers(0, max_bin, (n, f)).astype(np.uint8)
     g, h, m = _rows(rng, n)
-    ref = np.asarray(jax.jit(jhist._hist_scatter, static_argnums=4)(
-        bins, g, h, m, max_bin))
+    if kind == "u8":
+        bins = rng.integers(0, max_bin, (n, f)).astype(np.uint8)
+        ref = np.asarray(jax.jit(jhist._hist_scatter, static_argnums=4)(
+            bins, g, h, m, max_bin))
+    else:
+        bins = _zipf_u16(rng, (n, f), max_bin)
+        ref = _scatter_in_range(bins, g, h, m, max_bin)
     got = thist.build_histogram(*_t(bins, g, h, m), max_bin)
     assert got.shape == (f, max_bin, 3) and got.dtype == torch.float32
     assert relerr(got.numpy(), ref) <= PLAIN_TOL
@@ -92,12 +124,35 @@ def _leaves_case(rng, nb=9, BR=128, f=6, extra=12, k=5, nan_block=4):
     return comb, g, h, m, block_leaf, k, BR, f
 
 
-def test_build_histogram_leaves_plain_matches_xla():
+def _leaves_scatter_in_range(comb, g, h, m, bl, k, B, BR, f):
+    """The JAX per-leaf scatter per feature, the rows whose bin for it is
+    past B given no weight (see _scatter_in_range)."""
+    return np.concatenate([np.asarray(jhist.build_histogram_leaves(
+        comb[:, j:j + 1], g, h, np.where(comb[:, j] < B, m, 0.0)
+        .astype(np.float32), bl, k, B, method="scatter", block_rows=BR,
+        f_limit=1)) for j in range(f)], axis=1)
+
+
+# (B, bin type): u8 at 64 bins; u16 at 1,024 and 2,599 (Zipf-skewed, some
+# bins past B; the frontier's 6 u16 gh columns past f_limit)
+LEAVES_WIDTHS = [pytest.param(64, "u8", id="64"), (1024, "u16"),
+                 (2599, "u16")]
+
+
+@pytest.mark.parametrize("B,kind", LEAVES_WIDTHS)
+def test_build_histogram_leaves_plain_matches_xla(B, kind):
     rng = np.random.default_rng(11)
     comb, g, h, m, bl, k, BR, f = _leaves_case(rng)
-    B = 64
-    ref = np.asarray(jhist.build_histogram_leaves(
-        comb, g, h, m, bl, k, B, method="scatter", block_rows=BR, f_limit=f))
+    if kind == "u8":
+        ref = np.asarray(jhist.build_histogram_leaves(
+            comb, g, h, m, bl, k, B, method="scatter", block_rows=BR,
+            f_limit=f))
+    else:
+        comb = np.concatenate([_zipf_u16(rng, (comb.shape[0], f), B),
+                               rng.integers(0, 65_536, (comb.shape[0], 6))
+                               .astype(np.uint16)], axis=1)
+        comb[4 * BR + 5, :f] = 0            # the NaN row's bins in range
+        ref = _leaves_scatter_in_range(comb, g, h, m, bl, k, B, BR, f)
     got = thist.build_histogram_leaves(*_t(comb, g, h, m, bl), k, B,
                                        block_rows=BR, f_limit=f).numpy()
     assert got.shape == (k, f, B, 3)
@@ -215,6 +270,22 @@ def test_force_plain_is_scoped():
     with thist.force_plain():
         assert thist._force_plain
     assert not thist._force_plain
+
+
+def test_atomic_design_is_scoped_and_checked():
+    """The atomic kernels' design override (for timing one design against
+    the other) holds inside its block only and names a known design."""
+    assert thist._atomic_design is None
+    with thist.atomic_design("dealt"):
+        assert thist._atomic_design == "dealt"
+        with thist.atomic_design("owned"):
+            assert thist._atomic_design == "owned"
+        assert thist._atomic_design == "dealt"
+    assert thist._atomic_design is None
+    with pytest.raises(ValueError, match="unknown atomic design"):
+        with thist.atomic_design("shared"):
+            pass
+    assert thist._atomic_design is None
 
 
 @pytest.mark.parametrize("units,align,ctas_per_sm,sms,groups", [

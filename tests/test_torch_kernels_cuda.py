@@ -957,14 +957,91 @@ def test_hist_leaves_u16_matches_plain(dev, k, BR, nb, f, nc, B):
 
 @pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
 def test_atomic_plan_narrows_groups_at_bundle_widths(dev, kernel):
-    """Wide bin ranges take narrow groups, not a refusal: one feature a CTA
-    at B = 4,096 (a feature's histogram and lane words are 112 KB), two at
-    B = 3,072, with tiles of at least 128 rows and no spill."""
-    for B, fg in ((4096, 1), (3072, 2)):
+    """Wide bin ranges take narrow groups in the dealt design, not a
+    refusal: two features a CTA at B = 4,096 (a feature's histogram is 96
+    KB) and at B = 3,072, with tiles of at least 128 rows and no spill;
+    the owned design would hold one feature at B = 4,096 (its lane words
+    take 16 KB more)."""
+    for B, fg in ((4096, 2), (3072, 2)):
         plan = thist.atomic_plan(kernel, dev, 66, 60, B, esz=2)
-        assert plan["fg"] == fg and plan["tile"] >= 128
-        assert plan["local_bytes"] == 0
+        assert plan["design"] == 1 and plan["fg"] == fg
+        assert plan["tile"] >= 128 and plan["local_bytes"] == 0
         assert plan["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
+    with thist.atomic_design("owned"):
+        plan = thist.atomic_plan(kernel, dev, 66, 60, 4096, esz=2)
+    assert plan["design"] == 0 and plan["fg"] == 1
+
+
+@pytest.mark.parametrize("kernel,stride", (("hist_full", 35),
+                                           ("hist_leaves", 41)))
+def test_atomic_plan_deals_warps_at_the_bundle_width(dev, kernel, stride):
+    """At the sparse_efb bundle width (35 bundle columns, B = 2,599; the
+    leaves' rows carry 6 u16 gh columns more) a CTA holds 3 features: the
+    owned design would run 3 warps an SM, the dealt design runs 24, 22 of
+    them adding rows and 2 staging, with no spill."""
+    plan = thist.atomic_plan(kernel, dev, stride, 35, 2599, esz=2)
+    assert plan["design"] == 1 and plan["fg"] == 3
+    assert plan["threads"] == 768 and plan["ctas_per_sm"] == 1
+    warps = plan["threads"] // 32 * plan["ctas_per_sm"]
+    assert warps >= 16 and warps - plan["stagers"] >= 16
+    assert plan["local_bytes"] == 0
+    with thist.atomic_design("owned"):
+        owned = thist.atomic_plan(kernel, dev, stride, 35, 2599, esz=2)
+    assert owned["threads"] // 32 * owned["ctas_per_sm"] <= 3
+
+
+def _crafted_u16(B, rows=2048):
+    """Columns whose 32-row steps are the grouping's edge cases: 31 lanes
+    in one bin and one in another; 16 and 16; 32 distinct bins; every bin
+    >= B (dropped); one bin a step, changing from step to step."""
+    r = np.arange(rows)
+    return np.stack([np.where(r % 32 == 5, 7, 3),
+                     np.where(r % 2 == 0, B - 1, 17),
+                     (r * 37) % B,
+                     B + r % 500,
+                     (r // 32) % 3], 1).astype(np.uint16)
+
+
+@pytest.mark.parametrize("design", thist.ATOMIC_DESIGNS)
+@pytest.mark.parametrize("B", (1024, 2599, 4096))
+@pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
+def test_atomic_u16_crafted_steps_match_plain(dev, kernel, B, design):
+    """Both designs at u16 widths on crafted steps, a NaN row among them:
+    within one rounding step of the plain version, the NaN in its own
+    entries, the same bits twice."""
+    rng = np.random.default_rng(B)
+    bins = _crafted_u16(B)
+    n, f = bins.shape
+    g, h, m = _rows(rng, n, dev)
+    g[77] = float("nan")
+    with thist.atomic_design(design):
+        if kernel == "hist_full":
+            def call():
+                return thist.build_histogram(torch.as_tensor(bins).to(dev),
+                                             g, h, m, B)
+        else:
+            gh = rng.integers(0, 65_536, (n, 6)).astype(np.uint16)
+            comb = torch.as_tensor(np.concatenate([bins, gh], 1)).to(dev)
+            bl = torch.tensor([0, 1, 0, 2], dtype=torch.int32, device=dev)
+
+            def call():
+                return thist.build_histogram_leaves(comb, g, h, m, bl, 3, B,
+                                                    block_rows=512, f_limit=f)
+        with thist.force_plain():
+            ref = call()
+        before = thist.launch_counts[kernel]
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        plan = next(p for key, p in thist._plans.items()
+                    if key[0] == kernel and key[-1] == _design_id(design))
+    assert thist.launch_counts[kernel] == before + 2
+    assert plan["design"] == _design_id(design)
+    _hold_atomic(got, again, ref)
+    assert 0 < int(torch.isnan(got).sum()) <= 3 * f
+
+
+def _design_id(design):
+    return thist.ATOMIC_DESIGNS.index(design)
 
 
 def test_training_u16_and_efb_match_plain(dev):
