@@ -588,12 +588,14 @@ def _f4(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def kernel_ms(fn, match: str, reps: int = 10):
+def kernel_ms(fn, match, reps: int = 10):
     """Mean device time of one launch of the kernel whose name holds
-    ``match`` (one a call): the kernel alone, without the wrapper's host
-    work and small torch ops that ``ms`` includes.  None when the profiler
-    records no launch of it."""
-    return calls_ms(fn, (match,), reps)
+    ``match`` (a name, or a tuple of names of which a call launches one):
+    the kernel alone, without the wrapper's host work and small torch ops
+    that ``ms`` includes.  None when the profiler records no launch of
+    it."""
+    return calls_ms(fn, match if isinstance(match, tuple) else (match,),
+                    reps)
 
 
 def _vs_library(row, attrs, fn, match):
@@ -606,8 +608,12 @@ def _vs_library(row, attrs, fn, match):
 
 
 def _kernel_name(kernel, variant):
-    """The CUDA function a one-hot row launches (int8: its own kernel)."""
-    return (kernel + ("_int8_kernel" if variant == "int8" else "_kernel"))
+    """The CUDA functions a one-hot row may launch, one a call: the dense
+    design's (int8: its own kernel) and the bucketed design's (u16 bins;
+    int8 is its template's body 7)."""
+    return (kernel + ("_int8_kernel" if variant == "int8" else "_kernel"),
+            kernel + ("_bucket_kernel<7" if variant == "int8"
+                      else "_bucket_kernel<"))
 
 
 def _leaves_inputs(gen, dev):
@@ -887,19 +893,30 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
     cut).  Bins >= B present in the random cases.  Each row: relerr, the
     same bits twice, the launch of the one-hot kernel, ms a call, kernel
     alone, plain, index_add_, the byte bound (2 bytes a bin), the
-    tensor-core floor and the kernel's attributes."""
+    tensor-core floor of the dense design (every row through every
+    128-lane bucket) and of the bucketed one (through its own), the
+    kernel's design (``histogram.onehot_plan``: bucketed at u16) and its
+    attributes.  The Zipf-skewed cases (bin i with weight 1/(i+1)^1.1, as
+    an EFB bundle's default bin skews its rows) hold the bucketed design's
+    dealing of a hot bucket's rows across warps: the full pass at 1M x 28
+    and the leaves, both at B = 1,024."""
     rows = {}
     n, f, B = N_TRAIN, N_FEAT, 1024
     C, k, BR = (LEAVES_SHAPE[x] for x in ("C", "k", "BR"))
     nb = C // BR
     _, lg, lh, lm, block_leaf, empty, nan_slot = _leaves_inputs(gen, dev)
-    comb = _frontier_comb(_u16(gen, (C, f), B + 60, dev), lg, lh, lm)
+    combs = {"B1024": _frontier_comb(_u16(gen, (C, f), B + 60, dev), lg, lh,
+                                     lm),
+             "zipf": _frontier_comb(_zipf_u16(gen, (C, f), B, dev), lg, lh,
+                                    lm)}
     others = [s for s in range(k) if s != nan_slot]
     if not hist.onehot_leaves_fits(f, k, B):
         raise AssertionError("the u16 leaves case lies outside the cut")
-    full_cases = (("B1024", (_u16(gen, (n, f), B + 60, dev),
-                             *_rows(gen, n, dev)), B,
+    g, h, m = _rows(gen, n, dev)
+    full_cases = (("B1024", (_u16(gen, (n, f), B + 60, dev), g, h, m), B,
                    ("featmajor", "rowmajor")),
+                  ("zipf", (_zipf_u16(gen, (n, f), B, dev), g, h, m), B,
+                   ("featmajor",)),
                   ("bundle", (efb_bins["bins"],
                               *_rows(gen, efb_bins["bins"].shape[0], dev)),
                    int(efb_bins["bundle_bins"]), ("featmajor",)))
@@ -953,49 +970,55 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
                     **hold(name, "onehot_full", fn, ref[fam, layout]),
                     ms=median_ms(fn), plain_ms=plain_ms[fam],
                     library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                    tensor_core_floor_ms=tensor_core_floor_ms(lanes, nc, v)),
+                    tensor_core_floor_ms=tensor_core_floor_ms(lanes, nc, v),
+                    bucket_floor_ms=tensor_core_floor_ms(128 * fc, nc, v)),
                     hist.onehot_kernel_attributes("onehot_full", v, fc, Bc,
                                                   layout),
                     fn, _kernel_name("onehot_full", v))
 
-    def leaves(v):
-        return hist.build_histogram_leaves(
-            comb, lg, lh, lm, block_leaf, k, B, block_rows=BR, f_limit=f,
-            method="onehot", variant=v)
-    ref, plain_ms = {}, {}
-    with hist.force_plain():
-        for fam in ("base", "int8"):
-            ref[fam] = leaves(fam)
-            plain_ms[fam] = median_ms(lambda: leaves(fam), reps=5)
-    lib = _leaves_yardstick(dev, comb, lg, lh, lm, block_leaf, k, B, BR, f)
-    b_ms, b_by = bound(2 * C * f + 12 * C + 4 * nb + k * f * B * 12,
-                       3 * C * f + 2 * C)
-    for v in ONEHOT_U16_BODIES:
-        lanes = ov.total_lanes(v, f, B)
-        name = f"onehot_leaves/rowmajor/{v}/u16/B1024"
-        fn = (lambda v=v: leaves(v))
-        rows[name] = _vs_library(dict(
-            kernel="onehot_leaves", layout="rowmajor", variant=v, B=B,
-            case="B1024", dtype="uint16", shape=[C, comb.shape[1], f, k, BR],
-            lanes=lanes,
-            **hold(name, "onehot_leaves", fn,
-                   ref["int8" if v == "int8" else "base"], leaves=True),
-            ms=median_ms(fn), plain_ms=plain_ms["int8" if v == "int8"
-                                                else "base"],
-            library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-            tensor_core_floor_ms=tensor_core_floor_ms(lanes, C, v),
-            empty_slot_zero=True, nan_confined=True),
-            hist.onehot_kernel_attributes("onehot_leaves", v, f, B,
-                                          ld=comb.shape[1]),
-            fn, _kernel_name("onehot_leaves", v))
+    for case, comb in combs.items():
+        def leaves(v, comb=comb):
+            return hist.build_histogram_leaves(
+                comb, lg, lh, lm, block_leaf, k, B, block_rows=BR, f_limit=f,
+                method="onehot", variant=v)
+        ref, plain_ms = {}, {}
+        with hist.force_plain():
+            for fam in ("base", "int8"):
+                ref[fam] = leaves(fam)
+                plain_ms[fam] = median_ms(lambda: leaves(fam), reps=5)
+        lib = _leaves_yardstick(dev, comb, lg, lh, lm, block_leaf, k, B, BR,
+                                f)
+        b_ms, b_by = bound(2 * C * f + 12 * C + 4 * nb + k * f * B * 12,
+                           3 * C * f + 2 * C)
+        for v in ONEHOT_U16_BODIES:
+            lanes = ov.total_lanes(v, f, B)
+            name = f"onehot_leaves/rowmajor/{v}/u16/{case}"
+            fn = (lambda v=v: leaves(v))
+            rows[name] = _vs_library(dict(
+                kernel="onehot_leaves", layout="rowmajor", variant=v, B=B,
+                case=case, dtype="uint16",
+                shape=[C, comb.shape[1], f, k, BR], lanes=lanes,
+                **hold(name, "onehot_leaves", fn,
+                       ref["int8" if v == "int8" else "base"], leaves=True),
+                ms=median_ms(fn), plain_ms=plain_ms["int8" if v == "int8"
+                                                    else "base"],
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                tensor_core_floor_ms=tensor_core_floor_ms(lanes, C, v),
+                bucket_floor_ms=tensor_core_floor_ms(128 * f, C, v),
+                empty_slot_zero=True, nan_confined=True),
+                hist.onehot_kernel_attributes("onehot_leaves", v, f, B,
+                                              ld=comb.shape[1]),
+                fn, _kernel_name("onehot_leaves", v))
     for name, r in rows.items():
-        print(f"{name} {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, call "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, index_add_ "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms, tc "
-              f"floor {r['tensor_core_floor_ms']:.4f} ms, "
-              f"{r['registers']} registers, {r['local_bytes']} spilled "
-              f"bytes, {r['ctas_per_sm']} CTAs an SM, relerr "
-              f"{r['relerr']:.3g}", flush=True)
+        print(f"{name} {r['shape']}: {r['design']} design, kernel "
+              f"{_f4(r['kernel_ms'])} ms, call {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.5f} ms, tc floor "
+              f"{r['tensor_core_floor_ms']:.4f} ms (bucketed "
+              f"{r['bucket_floor_ms']:.4f}), {r['registers']} registers, "
+              f"{r['local_bytes']} spilled bytes, "
+              f"{r['dynamic_smem_bytes']} shared bytes, {r['ctas_per_sm']} "
+              f"CTAs an SM, relerr {r['relerr']:.3g}", flush=True)
     return rows
 
 
@@ -2586,6 +2609,7 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
                      "body_replaces": "lightgbm_tpu/ops/onehot_variants.py:"
                                       f"{ONEHOT_BODIES[r['variant']]}",
                      "launches": n, **serial, **{k: r[k] for k in keys},
+                     "design": r["design"],
                      **({"dtype": "uint16", "shape": r["shape"]}
                         if r.get("dtype") == "uint16" else {}),
                      "card": card})
@@ -2604,7 +2628,7 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
                              "onehot_common.cuh",
                      "body_replaces": "lightgbm_tpu/ops/onehot_variants.py:"
                                       f"{ONEHOT_BODIES[r['variant']]}",
-                     "launches": r["launches"],
+                     "launches": r["launches"], "design": r["design"],
                      **{k: r[k] for k in keys}, "card": card})
     return rows
 

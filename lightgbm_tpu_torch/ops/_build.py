@@ -40,8 +40,8 @@ KERNELS = {"hist_full": "hist_full.cu", "hist_leaves": "hist_leaves.cu",
 # one rebuilds every kernel that includes it
 _HEADERS = {"hist_full": ("hist_common.cuh",),
             "hist_leaves": ("hist_common.cuh",),
-            "onehot_full": ("onehot_common.cuh",),
-            "onehot_leaves": ("onehot_common.cuh",),
+            "onehot_full": ("onehot_common.cuh", "onehot_bucket.cuh"),
+            "onehot_leaves": ("onehot_common.cuh", "onehot_bucket.cuh"),
             "onehot_quant": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,27 +70,27 @@ _ARGTYPES = {
                                _INT, _INT, _INT, _INT, _VOID_P]},
     "onehot_full": {
         # device, bins, ld, n, f, layout, esz, g, h, m, q, scales, qbr,
-        # out, variant, lpf, lanes, nf_max, stream
+        # out, variant, lpf, lanes, nf_max, design, stream
         "onehot_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _INT,
                                _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
-                               _INT, _VOID_P, _INT, _INT, _INT, _INT,
+                               _INT, _VOID_P, _INT, _INT, _INT, _INT, _INT,
                                _VOID_P],
         # device, bins_t, n, f, esz, rows (or q), scales, qbr, out,
-        # variant, lpf, lanes, nf_max, stream
+        # variant, lpf, lanes, nf_max, design, stream
         "onehot_bench_launch": [_INT, _VOID_P, _LL, _INT, _INT, _VOID_P,
                                 _VOID_P, _INT, _VOID_P, _INT, _INT, _INT,
-                                _INT, _VOID_P],
-        # variant, layout, nf_max, ld, esz, out[5]
-        "onehot_full_query": [_INT, _INT, _INT, _LL, _INT, _INT_P]},
+                                _INT, _INT, _VOID_P],
+        # variant, layout, nf_max, ld, esz, design, out[5]
+        "onehot_full_query": [_INT, _INT, _INT, _LL, _INT, _INT, _INT_P]},
     "onehot_leaves": {
         # device, comb, ld, c, f, esz, g, h, m, q, scales, block_leaf, br,
-        # k, out, variant, lpf, lanes, nf_max, stream
+        # k, out, variant, lpf, lanes, nf_max, design, stream
         "onehot_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT,
                                  _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
                                  _VOID_P, _INT, _INT, _VOID_P, _INT, _INT,
-                                 _INT, _INT, _VOID_P],
-        # variant, nf_max, ld, esz, out[5]
-        "onehot_leaves_query": [_INT, _INT, _LL, _INT, _INT_P]},
+                                 _INT, _INT, _INT, _VOID_P],
+        # variant, nf_max, ld, esz, design, out[5]
+        "onehot_leaves_query": [_INT, _INT, _LL, _INT, _INT, _INT_P]},
     "onehot_quant": {
         # device, x0, x1, x2, prep, n, br, q, s, stream
         "onehot_quant_launch": [_INT, _VOID_P, _VOID_P, _VOID_P, _INT, _LL,

@@ -34,8 +34,11 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
   its own (``hist_onehot_int8_*_plain``).  ``hist_onehot_bench`` is the
   shootout shell's entry (``onehot_variants.make_bench_kernel``).  Above
   256 bins (u16) four bodies serve: ``base``, ``i16cmp``, ``staged`` and
-  ``int8`` (``VariantSpec.supports``).  The per-leaf entry takes the
-  one-hot kernel only inside the JAX package's cut
+  ``int8`` (``VariantSpec.supports``), in the bucketed design (rows
+  sorted by their 128-lane bucket, so that a warp multiplies only the
+  rows whose bins fall in its lanes; ``onehot_plan`` picks it at u16
+  widths, and ``onehot_design`` asks for the dense one).  The per-leaf
+  entry takes the one-hot kernel only inside the JAX package's cut
   (``onehot_leaves_fits``); outside it, the atomic kernel, as the JAX
   package takes its scatter there.
 
@@ -90,6 +93,12 @@ _force_plain = False
 # (kernels/hist_common.cuh), and the one atomic_design() asks for
 ATOMIC_DESIGNS = ("owned", "dealt")
 _atomic_design: Optional[str] = None
+# the one-hot kernels' two designs, in the kernels' numbering
+# (kernels/onehot_bucket.cuh): dense, every warp over every row of its
+# lanes' features; bucketed, the rows sorted by their 128-lane bucket
+# (u16 bins only); and the one onehot_design() asks for
+ONEHOT_DESIGNS = ("dense", "bucketed")
+_onehot_design: Optional[str] = None
 
 
 def reset_launch_counts() -> None:
@@ -124,6 +133,24 @@ def atomic_design(design: str):
         yield
     finally:
         _atomic_design = prev
+
+
+@contextlib.contextmanager
+def onehot_design(design: str):
+    """Run the one-hot kernels in this design (one of
+    ``ONEHOT_DESIGNS``) in place of ``onehot_plan``'s choice, to time or
+    test one design against the other on the card; a width the design
+    does not serve is refused (``onehot_plan``); not a training
+    parameter."""
+    global _onehot_design
+    _check(design in ONEHOT_DESIGNS, f"unknown one-hot design {design!r}; "
+           f"known: {', '.join(ONEHOT_DESIGNS)}")
+    prev = _onehot_design
+    _onehot_design = design
+    try:
+        yield
+    finally:
+        _onehot_design = prev
 
 
 def _plain(t: torch.Tensor) -> bool:
@@ -634,6 +661,64 @@ def _onehot_spec(variant: str, max_bin: int, layout: str) -> ov.VariantSpec:
     return spec
 
 
+# the bucketed kernels' geometry (kernels/onehot_bucket.cuh): CTAs of 8
+# warps, each CTA owning up to 8 buckets of 128 lanes of one feature, and
+# their dynamic shared bytes per body family (a constant: a segment's
+# compacted rows, a region a bucket, the helper runs' slots, the counts
+# and places, and int8's float64 sums)
+_OH_BUCKET_THREADS = 256
+_OH_BUCKETS_PER_CTA = 8
+_OH_BUCKET_SMEM = {"bf16": 110560, "int8": 111680}
+_OH_GRID_Y_MAX = 65535
+# the bucketed kernels sort a segment of up to 512 rows at a time, and an
+# int8 segment never spans two quantization blocks: blocks of fewer rows
+# leave each sort too little work (a block of 128 rows made the bucketed
+# int8 kernel slower than the dense one on the card), so int8 keeps the
+# dense design there
+_OH_BUCKET_INT8_MIN_BLOCK = 512
+
+
+def onehot_plan(variant: str, f: int, max_bin: int,
+                block_rows: Optional[int] = None) -> Dict[str, int]:
+    """The one-hot kernels' plan for ``f`` features of ``max_bin`` bins
+    (``int8``: quantized per ``block_rows`` rows): its design
+    (``ONEHOT_DESIGNS``), threads a CTA, dynamic shared bytes, and for the
+    bucketed design the buckets of a feature, the CTAs a feature takes
+    (``gpf``) and the buckets each owns (``bpg``).  Every u8 width
+    (``max_bin`` <= 256) takes the dense design of PRs 5-6; every u16 width
+    the bucketed one, but for int8 over blocks of fewer than 512 rows, and
+    unless ``onehot_design`` asks for the dense one.  A design the width
+    does not serve (bucketed at u8) is refused.  Computed from the kernels'
+    constants alone (no card): the card tests hold it against the kernels'
+    own query."""
+    allowed = ONEHOT_DESIGNS if max_bin > 256 else ONEHOT_DESIGNS[:1]
+    small_blocks = (variant == "int8" and block_rows is not None
+                    and block_rows < _OH_BUCKET_INT8_MIN_BLOCK)
+    design = ((allowed[0] if small_blocks else allowed[-1])
+              if _onehot_design is None else _onehot_design)
+    _check(design in allowed, f"the {design} one-hot design does not "
+           f"serve max_bin={max_bin} (u8 bins take the dense design)")
+    if design == "dense":
+        return {"design": "dense", "threads": 128}
+    nb = ov.padded_bins(max_bin) // 128
+    gpf = -(-nb // _OH_BUCKETS_PER_CTA)
+    _check(f * gpf <= _OH_GRID_Y_MAX, f"{f} features of {max_bin} bins "
+           f"need {f * gpf} CTAs along y, above {_OH_GRID_Y_MAX}")
+    return {"design": "bucketed", "threads": _OH_BUCKET_THREADS,
+            "dynamic_smem_bytes": _OH_BUCKET_SMEM[
+                "int8" if variant == "int8" else "bf16"],
+            "buckets": nb, "gpf": gpf, "bpg": -(-nb // gpf)}
+
+
+def _onehot_out(plan, lead, lanes, device):
+    """The zeroed float64 accumulator a one-hot kernel adds into: ``[...,
+    6, lanes]`` (hi and lo rows), or ``[..., 3, lanes]`` for the bucketed
+    design, which adds hi and lo itself."""
+    rows = 3 if plan["design"] == "bucketed" else 6
+    return torch.zeros(*lead, rows, lanes, dtype=torch.float64,
+                       device=device)
+
+
 def _onehot_geometry(spec, f, max_bin):
     """(Bp, lanes, lanes per feature ``lpf``, most features one CTA's 512
     lanes read).  The kernels map lane ``l`` to feature ``l // lpf`` and
@@ -744,19 +829,22 @@ def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
     """``[F, B, 3]`` histogram by the ``onehot_full`` CUDA kernel: the
     variant's one-hot body, reading a ``[F, N]`` transposed copy of the bins
     (``featmajor``, as the Pallas path does) or the ``[N, NC]`` matrix as
-    stored (``rowmajor``).  ``int8`` first runs the quantize kernel over
-    the JAX package's row blocks for that layout.  ``bins`` is ``uint8``
-    or ``uint16``."""
+    stored (``rowmajor``).  The bucketed design (u16, ``onehot_plan``)
+    gathers each CTA's feature from the rows itself, so it reads the
+    matrix as stored in both layouts and no copy is made.  ``int8`` first
+    runs the quantize kernel over the JAX package's row blocks for the
+    layout asked for.  ``bins`` is ``uint8`` or ``uint16``."""
     _check_rows("onehot_full", bins, grad, hess, mask)
     spec = _onehot_spec(variant, max_bin, layout)
     n, ncols = bins.shape
     f = _n_feat(ncols, f_limit)
     Bp, lanes, lpf, nf_max = _onehot_geometry(spec, f, max_bin)
-    out = torch.zeros(6, lanes, dtype=torch.float64, device=bins.device)
+    qbr = ov.pallas_block_rows(variant, layout, n, f, max_bin)
+    plan = onehot_plan(variant, f, max_bin, qbr)
+    out = _onehot_out(plan, (), lanes, bins.device)
     if n > 0 and f > 0:
-        qbr = ov.pallas_block_rows(variant, layout, n, f, max_bin)
         ops = _operands(spec, grad, hess, mask, qbr)
-        if layout == "featmajor":
+        if layout == "featmajor" and plan["design"] == "dense":
             # the kernel copies whole 128-row chunks of each feature, so
             # the copy's rows reach the last chunk's end (the rows past n
             # have zero weight and are never summed); u16 moves as int16
@@ -772,6 +860,7 @@ def hist_onehot_full(bins, grad, hess, mask, max_bin, f_limit=None,
             bins.device.index, src.data_ptr(), ld, n, f, lay,
             bins.element_size(), *map(_ptr, ops), qbr, out.data_ptr(),
             spec.kernel_id, lpf, lanes, nf_max,
+            ONEHOT_DESIGNS.index(plan["design"]),
             torch.cuda.current_stream(bins.device).cuda_stream)
         _raise_on(lib, "onehot_full", rc)
         launch_counts["onehot_full"] += 1
@@ -801,8 +890,8 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
            f"onehot_leaves: block_leaf must be a contiguous int32 [{nb}] "
            f"tensor on {comb.device}")
     Bp, lanes, lpf, nf_max = _onehot_geometry(spec, f, max_bin)
-    out = torch.zeros(num_slots, 6, lanes, dtype=torch.float64,
-                      device=comb.device)
+    plan = onehot_plan(variant, f, max_bin, block_rows)
+    out = _onehot_out(plan, (num_slots,), lanes, comb.device)
     if nb > 0 and f > 0 and num_slots > 0:
         ops = _operands(spec, grad, hess, mask, block_rows)
         lib = _build.load("onehot_leaves")
@@ -810,7 +899,7 @@ def hist_onehot_leaves(comb, grad, hess, mask, block_leaf, num_slots,
             comb.device.index, comb.data_ptr(), nc, c, f,
             comb.element_size(), *map(_ptr, ops), block_leaf.data_ptr(),
             block_rows, num_slots, out.data_ptr(), spec.kernel_id, lpf,
-            lanes, nf_max,
+            lanes, nf_max, ONEHOT_DESIGNS.index(plan["design"]),
             torch.cuda.current_stream(comb.device).cuda_stream)
         _raise_on(lib, "onehot_leaves", rc)
         launch_counts["onehot_leaves"] += 1
@@ -849,7 +938,8 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
            "onehot_bench: bins_t must be contiguous uint8 or uint16, rows "
            "contiguous")
     Bp, lanes, lpf, nf_max = _onehot_geometry(spec, f, max_bin)
-    out = torch.zeros(6, lanes, dtype=torch.float64, device=dev)
+    plan = onehot_plan(variant, f, max_bin, block_rows)
+    out = _onehot_out(plan, (), lanes, dev)
     if n > 0 and f > 0:
         # the kernel's 16-byte copies need 16-byte aligned rows (u16 moves
         # as int16)
@@ -866,6 +956,7 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
             dev.index, bins_t.data_ptr(), n, f, bins_t.element_size(),
             rows.data_ptr(), _ptr(scales), block_rows, out.data_ptr(),
             spec.kernel_id, lpf, lanes, nf_max,
+            ONEHOT_DESIGNS.index(plan["design"]),
             torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, "onehot_bench", rc)
         launch_counts["onehot_bench"] += 1
@@ -874,32 +965,45 @@ def hist_onehot_bench(bins_t, rows, max_bin, variant="base",
 
 def onehot_kernel_attributes(kernel: str, variant: str, f: int, max_bin: int,
                              layout: str = "rowmajor",
-                             ld: Optional[int] = None) -> Dict[str, int]:
-    """Registers a thread, static shared bytes and spilled bytes a thread
+                             ld: Optional[int] = None,
+                             block_rows: Optional[int] = None
+                             ) -> Dict[str, int]:
+    """The design (``onehot_plan``'s, or ``onehot_design``'s) and
+    registers a thread, static shared bytes and spilled bytes a thread
     of the ``onehot_full`` (per ``layout``) or ``onehot_leaves`` kernel of
-    ``variant`` over the bins a matrix of ``max_bin`` bins holds (u8 up to
-    256, u16 above), from ``cudaFuncGetAttributes``, and
+    ``variant`` in that design over the bins a matrix of ``max_bin`` bins
+    holds (u8 up to 256, u16 above), from ``cudaFuncGetAttributes``, and
     the dynamic shared bytes of its launch over ``f`` features at
     ``max_bin`` (row-major rows of ``ld`` bins, ``f`` by default, 16-byte
     aligned) and the CTAs an SM then holds (the occupancy calculator's
-    count, which sizes the grid); builds the kernel first if needed."""
+    count, which sizes the grid); builds the kernel first if needed.
+    ``block_rows``: int8's quantization block, by default the main path's
+    (the full pass's ``pallas_block_rows`` at a large ``N``, or the
+    frontier's 512 rows a leaves block), which the plan reads."""
     import ctypes
     spec = _onehot_spec(variant, max_bin, layout)
     nf_max = _onehot_geometry(spec, f, max_bin)[3]
+    if block_rows is None:
+        block_rows = (ov.pallas_block_rows(variant, layout, 1 << 20, f,
+                                           max_bin)
+                      if kernel == "onehot_full" else 512)
+    design = onehot_plan(variant, f, max_bin, block_rows)["design"]
     ld = f if ld is None else ld
     esz = 1 if max_bin <= 256 else 2
     buf = (ctypes.c_int * 5)()
     lib = _build.load(kernel)
     if kernel == "onehot_full":
         rc = lib.onehot_full_query(spec.kernel_id, LAYOUTS.index(layout),
-                                   nf_max, ld, esz, buf)
+                                   nf_max, ld, esz,
+                                   ONEHOT_DESIGNS.index(design), buf)
     else:
         _check(kernel == "onehot_leaves" and layout == "rowmajor",
                f"no attribute query for {kernel} ({layout})")
-        rc = lib.onehot_leaves_query(spec.kernel_id, nf_max, ld, esz, buf)
+        rc = lib.onehot_leaves_query(spec.kernel_id, nf_max, ld, esz,
+                                     ONEHOT_DESIGNS.index(design), buf)
     _raise_on(lib, f"{kernel} query", rc)
     return dict(zip(("registers", "static_smem_bytes", "dynamic_smem_bytes",
-                     "local_bytes", "ctas_per_sm"), buf))
+                     "local_bytes", "ctas_per_sm"), buf), design=design)
 
 
 def quant_kernel_attributes(block_rows: int) -> Dict[str, int]:

@@ -906,9 +906,10 @@ __device__ __forceinline__ void run_chunks(const Src& S, uint8_t* smem,
 // CTAs of kern, with smem bytes of dynamic shared memory, that the card
 // holds at once.
 template <typename K>
-static inline int resident_ctas(K kern, int smem, int device) {
+static inline int resident_ctas(K kern, int smem, int device,
+                                int threads = kThreads) {
   int per_sm = 0, sms = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
                                                 smem);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   return (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
@@ -961,14 +962,15 @@ static inline int raw_bytes(int layout, long long ld, bool aligned,
 // out[0] registers a thread, out[1] static shared bytes, out[2] smem,
 // out[3] local (spill) bytes a thread, out[4] CTAs an SM.
 template <typename K>
-static inline cudaError_t kernel_attrs(K kern, int smem, int* out) {
+static inline cudaError_t kernel_attrs(K kern, int smem, int* out,
+                                       int threads = kThreads) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, kern);
   if (e != cudaSuccess) return e;
   e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
                                                     smem);
   if (e != cudaSuccess) return e;
   out[0] = a.numRegs;

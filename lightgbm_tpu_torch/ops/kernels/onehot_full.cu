@@ -42,7 +42,17 @@
 // (not wgmma) and builds the one-hot fragments with integer or bf16
 // instructions, which take a large part of its time and keep it well
 // above that (scripts/torch_onehot_ablation.py).
-#include "onehot_common.cuh"
+//
+// At u16 widths the dense design's work grows with Bp, and the bucketed
+// design (onehot_bucket.cuh: rows sorted by their 128-lane bucket, each
+// warp multiplying only its bucket's rows) replaces it on the main path
+// (onehot_full_bucket_kernel; int8 only over quantization blocks of 512
+// rows or more, histogram.onehot_plan).  It gathers each CTA's feature
+// from the rows itself, so the wrapper hands it the matrix as stored in
+// both layouts (no transposed copy); K4's entry hands it the caller's
+// transposed bins.  The design argument of the entries picks (0 dense, 1
+// bucketed; bucketed serves u16 bins only).
+#include "onehot_bucket.cuh"
 
 using namespace lgbt_oh;
 
@@ -91,6 +101,27 @@ __global__ void __launch_bounds__(kThreads, kInt8MinBlocks)
                           stage_bytes_int8(L, nf_max, S.raw, sizeof(T)), c0,
                           c1, geo, ids, facc, [](int64_t) { return true; });
   flush_int8(out, facc, lb0, lanes);
+}
+
+// The bucketed design over u16 bins: grid (row splits, f * gpf), CTA y
+// owning feature y / gpf and the buckets from (y % gpf) * bpg; a CTA's
+// chunk range may start and end inside a quantization block of cpb chunks
+// (int8; the bf16 bodies pass a cpb no range reaches).  out: zeroed [3,
+// lanes] float64.
+template <int V, int L>
+__global__ void __launch_bounds__(kBThreads, kBMinBlocks)
+    onehot_full_bucket_kernel(BSrc S, double* __restrict__ out, int nb,
+                              int gpf, int bpg, int lanes, int64_t cps,
+                              int cpb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int fa = blockIdx.y / gpf, b0 = (blockIdx.y % gpf) * bpg;
+  const int nbc = min(bpg, nb - b0);
+  const int64_t chunks = (S.n + kChunk - 1) / kChunk;
+  const int64_t c0 = (int64_t)blockIdx.x * cps;
+  const int64_t c1 = (c0 + cps < chunks) ? c0 + cps : chunks;
+  const Segs G{c1, cpb, nullptr, 0};
+  bucket_cta<V, L>(smem, S, G, c0, fa, b0, nbc, out,
+                   ((int64_t)fa * nb + b0) * kWarpLanes, lanes, 0);
 }
 
 // What one launch is given (the C entries' arguments).
@@ -173,6 +204,39 @@ static int launch_int8(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int V, int L>
+static int launch_bucket(const Args& a) {
+  const long long chunks = (a.n + kChunk - 1) / kChunk;
+  if (V == kInt8) {
+    if (a.q == nullptr || a.scales == nullptr || a.qbr <= 0 ||
+        a.qbr % kChunk != 0 || !aligned16(a.q))
+      return (int)cudaErrorInvalidValue;
+  } else if (!(aligned16(a.g) && aligned16(a.h) && aligned16(a.m))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (L == kFeatMajor && !featmajor_ok<uint16_t>(a, chunks))
+    return (int)cudaErrorInvalidValue;
+  if (a.lpf % kWarpLanes != 0) return (int)cudaErrorInvalidValue;
+  const BucketGeo bg = bucket_geo(a.lpf);
+  const int nlb = a.f * bg.gpf;
+  if (nlb > 65535) return (int)cudaErrorInvalidValue;
+  constexpr int smem = bucket_smem<V>();
+  auto kern = onehot_full_bucket_kernel<V, L>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  int gx;
+  const long long cps = split_units(
+      chunks, nlb, resident_ctas(kern, smem, a.device, kBThreads),
+      &gx);
+  const BSrc S{(const uint16_t*)a.bins, (int64_t)a.ld, (int64_t)a.n,
+               a.g, a.h, a.m, (const int8_t*)a.q,
+               (int64_t)(chunks * kChunk), (const float*)a.scales};
+  kern<<<dim3(gx, nlb), kBThreads, smem, a.stream>>>(
+      S, (double*)a.out, bg.nb, bg.gpf, bg.bpg, a.lanes, (int64_t)cps,
+      V == kInt8 ? a.qbr / kChunk : (1 << 30));
+  return (int)cudaGetLastError();
+}
+
 // a body with no u16 instantiation (bf16cmp, u8cmp, sub1abs, packed: the
 // JAX package admits them at B <= 256 only)
 static int refuse(const Args&) { return (int)cudaErrorInvalidValue; }
@@ -207,43 +271,67 @@ static const LaunchFn kLaunch[2][kNumVariants][2] = {
      {launch_int8<kFeatMajor, uint16_t>, launch_int8<kRowMajor, uint16_t>}},
 };
 
+// the bucketed design (u16 bins), by (variant, layout)
+static const LaunchFn kBucket[kNumVariants][2] = {
+    {launch_bucket<kBase, kFeatMajor>, launch_bucket<kBase, kRowMajor>},
+    {refuse, refuse},
+    {launch_bucket<kI16Cmp, kFeatMajor>, launch_bucket<kI16Cmp, kRowMajor>},
+    {refuse, refuse},
+    {refuse, refuse},
+    {launch_bucket<kStaged, kFeatMajor>, launch_bucket<kStaged, kRowMajor>},
+    {refuse, refuse},
+    {launch_bucket<kInt8, kFeatMajor>, launch_bucket<kInt8, kRowMajor>},
+};
+
+// The launch of (design, bin bytes, variant, layout); design 1 (bucketed)
+// serves u16 bins only
+static int dispatch(const Args& a, int design, int esz, int variant,
+                    int layout) {
+  if (design == 1)
+    return esz == 2 ? kBucket[variant][layout](a)
+                    : (int)cudaErrorInvalidValue;
+  return kLaunch[esz - 1][variant][layout](a);
+}
+
 // bins: [f, ld] (featmajor: rows of a multiple of 16 bytes covering n
 // rounded up to 128) or [n, ld] (rowmajor) of esz-byte bins (1: u8, 2:
 // u16); g, h, m: [n] float32 (grad, hess, mask), or for int8 q [9, ldq]
 // int8 (ldq = n rounded up to 128, zero past n) with scales [ceil(n /
 // qbr), 9] float32 (g, h and m are not read by int8, q, scales and qbr
-// not by the other variants); lpf: the lanes of one feature; out: zeroed
-// [6, lanes] float64.
+// not by the other variants); lpf: the lanes of one feature; design: 0
+// dense, 1 bucketed; out: zeroed [6, lanes] float64 (bucketed: [3,
+// lanes], hi + lo).
 extern "C" int onehot_full_launch(int device, const void* bins,
                                   long long ld, long long n, int f,
                                   int layout, int esz, const void* g,
                                   const void* h, const void* m,
                                   const void* q, const void* scales, int qbr,
                                   void* out, int variant, int lpf, int lanes,
-                                  int nf_max, void* stream) {
+                                  int nf_max, int design, void* stream) {
   if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1 ||
-      esz < 1 || esz > 2 || lpf <= 0)
+      esz < 1 || esz > 2 || lpf <= 0 || design < 0 || design > 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Args a{device, bins, ld, n, f, (const float*)g, (const float*)h,
                (const float*)m, q, scales, qbr, out, lpf, lanes,
                nf_max > 0 ? nf_max : 1, (cudaStream_t)stream};
-  return kLaunch[esz - 1][variant][layout](a);
+  return dispatch(a, design, esz, variant, layout);
 }
 
 // The shootout shell's entry (K4): bins_t [f, n] u8 or u16 (esz bytes) as
 // the caller transposed it; rows [3, n] float32, the rows grad, hess and
 // mask (or for int8 q [9, n] int8 with its scales per qbr rows: n is q's
 // row stride); n a multiple of 128 (and of qbr).  The main path's
-// featmajor kernels.
+// featmajor kernels, of the design asked for.
 extern "C" int onehot_bench_launch(int device, const void* bins_t,
                                    long long n, int f, int esz,
                                    const void* rows, const void* scales,
                                    int qbr, void* out, int variant, int lpf,
-                                   int lanes, int nf_max, void* stream) {
+                                   int lanes, int nf_max, int design,
+                                   void* stream) {
   if (variant < 0 || variant >= kNumVariants || n % kChunk || esz < 1 ||
-      esz > 2 || lpf <= 0)
+      esz > 2 || lpf <= 0 || design < 0 || design > 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -251,7 +339,7 @@ extern "C" int onehot_bench_launch(int device, const void* bins_t,
   const Args a{device, bins_t, n, n, f, r, r + n, r + 2 * n, rows, scales,
                qbr, out, lpf, lanes, nf_max > 0 ? nf_max : 1,
                (cudaStream_t)stream};
-  return kLaunch[esz - 1][variant][kFeatMajor](a);
+  return dispatch(a, design, esz, variant, kFeatMajor);
 }
 
 template <int V, int L, typename T>
@@ -263,6 +351,12 @@ static cudaError_t attrs(int smem, int* out) {
 }
 
 static cudaError_t no_attrs(int, int*) { return cudaErrorInvalidValue; }
+
+template <int V, int L>
+static cudaError_t bucket_attrs(int, int* out) {
+  return kernel_attrs(onehot_full_bucket_kernel<V, L>, bucket_smem<V>(), out,
+                      kBThreads);
+}
 
 typedef cudaError_t (*AttrFn)(int, int*);
 static const AttrFn kAttrs[2][kNumVariants][2] = {
@@ -287,17 +381,30 @@ static const AttrFn kAttrs[2][kNumVariants][2] = {
      {no_attrs, no_attrs},
      {attrs<kInt8, kFeatMajor, uint16_t>, attrs<kInt8, kRowMajor, uint16_t>}},
 };
+static const AttrFn kBucketAttrs[kNumVariants][2] = {
+    {bucket_attrs<kBase, kFeatMajor>, bucket_attrs<kBase, kRowMajor>},
+    {no_attrs, no_attrs},
+    {bucket_attrs<kI16Cmp, kFeatMajor>, bucket_attrs<kI16Cmp, kRowMajor>},
+    {no_attrs, no_attrs},
+    {no_attrs, no_attrs},
+    {bucket_attrs<kStaged, kFeatMajor>, bucket_attrs<kStaged, kRowMajor>},
+    {no_attrs, no_attrs},
+    {bucket_attrs<kInt8, kFeatMajor>, bucket_attrs<kInt8, kRowMajor>},
+};
 
-// The kernel of (variant, layout) over esz-byte bins: out[0] registers a
-// thread, out[1] static shared bytes, out[2] the dynamic shared bytes of a
-// launch with nf_max features a CTA (rowmajor: rows of ld bins, 16-byte
-// aligned), out[3] local (spill) bytes a thread, out[4] CTAs an SM at that
-// launch.
+// The kernel of (design, variant, layout) over esz-byte bins: out[0]
+// registers a thread, out[1] static shared bytes, out[2] the dynamic shared
+// bytes of a launch with nf_max features a CTA (rowmajor: rows of ld bins,
+// 16-byte aligned; bucketed: a constant of the body), out[3] local (spill)
+// bytes a thread, out[4] CTAs an SM at that launch.
 extern "C" int onehot_full_query(int variant, int layout, int nf_max,
-                                 long long ld, int esz, int* out) {
+                                 long long ld, int esz, int design,
+                                 int* out) {
   if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1 ||
-      esz < 1 || esz > 2)
+      esz < 1 || esz > 2 || design < 0 || design > 1 ||
+      (design == 1 && esz != 2))
     return (int)cudaErrorInvalidValue;
+  if (design == 1) return (int)kBucketAttrs[variant][layout](0, out);
   return (int)kAttrs[esz - 1][variant][layout](
       launch_smem(variant, layout, nf_max > 0 ? nf_max : 1, ld, true, esz),
       out);

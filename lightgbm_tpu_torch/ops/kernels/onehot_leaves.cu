@@ -34,7 +34,16 @@
 // tensor cores must do 2 * 8 * lanes * C flops, which dominates (0.030 ms
 // at C = 262,144, lanes = 7168, 989 TFLOP/s; 0.12 ms at lanes = 28,672,
 // B = 1,024).
-#include "onehot_common.cuh"
+//
+// At u16 widths the bucketed design (onehot_bucket.cuh) replaces the dense
+// one on the main path (onehot_leaves_bucket_kernel): a CTA of 8 warps owns
+// up to 8 buckets of one feature and a run of whole blocks, sorts each
+// block's rows (in segments of at most 512) by bucket and 16-lane tile,
+// multiplies each bucket's rows on its own warp, and adds its sums to
+// slot block_leaf[blk] of the zeroed [k, 3, lanes] float64 accumulator
+// whenever the slot changes; the design argument of the entries picks (0
+// dense, 1 bucketed; bucketed serves u16 bins only).
+#include "onehot_bucket.cuh"
 
 using namespace lgbt_oh;
 
@@ -122,6 +131,29 @@ __global__ void __launch_bounds__(kThreads, kInt8LeavesMinBlocks)
   if (cur >= 0) flush_int8(out + cur * slot_size, facc, lb0, lanes);
 }
 
+// The bucketed design over u16 bins: grid (block splits, f * gpf) as in
+// onehot_full_bucket_kernel; a CTA owns blocks [bpc x, bpc (x + 1)) of cpb
+// chunks each, skips a block whose slot is outside [0, k), and keeps a
+// block's rows apart from the next block's (int8: one quantization block).
+template <int V>
+__global__ void __launch_bounds__(kBThreads, kBMinBlocks)
+    onehot_leaves_bucket_kernel(BSrc S,
+                                const int32_t* __restrict__ block_leaf,
+                                int cpb, int k, double* __restrict__ out,
+                                int nb, int gpf, int bpg, int lanes,
+                                int64_t bpc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int fa = blockIdx.y / gpf, b0 = (blockIdx.y % gpf) * bpg;
+  const int nbc = min(bpg, nb - b0);
+  const int64_t nblk = S.n / ((int64_t)cpb * kChunk);
+  const int64_t blk0 = (int64_t)blockIdx.x * bpc;
+  const int64_t blk1 = (blk0 + bpc < nblk) ? blk0 + bpc : nblk;
+  const Segs G{blk1 * cpb, cpb, block_leaf, k};
+  bucket_cta<V, kRowMajor>(smem, S, G, blk0 * cpb, fa, b0, nbc, out,
+                           ((int64_t)fa * nb + b0) * kWarpLanes, lanes,
+                           (int64_t)3 * lanes);
+}
+
 static bool aligned16(const void* p) { return !((uintptr_t)p & 15); }
 
 template <int V, typename T>
@@ -182,6 +214,41 @@ static int launch_int8(const void* comb, long long ld, long long c, int f,
   return (int)cudaGetLastError();
 }
 
+template <int V>
+static int launch_bucket(const void* comb, long long ld, long long c, int f,
+                         const float* g, const float* h, const float* m,
+                         const void* q, const void* scales,
+                         const void* block_leaf, int br, int k, void* out,
+                         int lpf, int lanes, int, int device,
+                         cudaStream_t stream) {
+  if (V == kInt8) {
+    // whole chunks a block; q's rows start 16-byte aligned (C, its row
+    // stride, is a multiple of kChunk)
+    if (q == nullptr || scales == nullptr || c % br != 0 || !aligned16(q))
+      return (int)cudaErrorInvalidValue;
+  } else if (!(aligned16(g) && aligned16(h) && aligned16(m))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (lpf % kWarpLanes != 0) return (int)cudaErrorInvalidValue;
+  const BucketGeo bg = bucket_geo(lpf);
+  const int nlb = f * bg.gpf;
+  if (nlb > 65535) return (int)cudaErrorInvalidValue;
+  constexpr int smem = bucket_smem<V>();
+  auto kern = onehot_leaves_bucket_kernel<V>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  int gx;
+  const long long bpc = split_units(
+      c / br, nlb, resident_ctas(kern, smem, device, kBThreads),
+      &gx);
+  const BSrc S{(const uint16_t*)comb, (int64_t)ld, (int64_t)c, g, h, m,
+               (const int8_t*)q, (int64_t)c, (const float*)scales};
+  kern<<<dim3(gx, nlb), kBThreads, smem, stream>>>(
+      S, (const int32_t*)block_leaf, br / kChunk, k, (double*)out, bg.nb,
+      bg.gpf, bg.bpg, lanes, (int64_t)bpc);
+  return (int)cudaGetLastError();
+}
+
 typedef int (*LaunchFn)(const void*, long long, long long, int, const float*,
                         const float*, const float*, const void*, const void*,
                         const void*, int, int, void*, int, int, int, int,
@@ -205,13 +272,18 @@ static const LaunchFn kLaunch[2][kNumVariants] = {
     {launch<kBase, uint16_t>, refuse, launch<kI16Cmp, uint16_t>, refuse,
      refuse, launch<kStaged, uint16_t>, refuse, launch_int8<uint16_t>},
 };
+// the bucketed design (u16 bins), by variant
+static const LaunchFn kBucket[kNumVariants] = {
+    launch_bucket<kBase>, refuse, launch_bucket<kI16Cmp>, refuse, refuse,
+    launch_bucket<kStaged>, refuse, launch_bucket<kInt8>};
 
 // comb: [C, ld] of esz-byte bins (1: u8, 2: u16), row-major; g, h, m: [C]
 // float32 (grad, hess, mask), or for int8 q [9, C] int8 with scales [C /
 // br, 9] float32 (g, h and m are not read by int8, q and scales not by the
 // other variants); block_leaf: [C / br] i32; lpf: the lanes of one
-// feature; out: zeroed [k, 6, lanes] float64.  br must be a multiple of
-// 128.
+// feature; design: 0 dense, 1 bucketed (u16 only); out: zeroed [k, 6,
+// lanes] float64 (bucketed: [k, 3, lanes], hi + lo).  br must be a
+// multiple of 128.
 extern "C" int onehot_leaves_launch(int device, const void* comb,
                                     long long ld, long long c, int f,
                                     int esz, const void* g, const void* h,
@@ -219,13 +291,15 @@ extern "C" int onehot_leaves_launch(int device, const void* comb,
                                     const void* scales,
                                     const void* block_leaf, int br, int k,
                                     void* out, int variant, int lpf,
-                                    int lanes, int nf_max, void* stream) {
+                                    int lanes, int nf_max, int design,
+                                    void* stream) {
   if (variant < 0 || variant >= kNumVariants || br <= 0 ||
-      br % kChunk != 0 || esz < 1 || esz > 2 || lpf <= 0)
+      br % kChunk != 0 || esz < 1 || esz > 2 || lpf <= 0 || design < 0 ||
+      design > 1 || (design == 1 && esz != 2))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  return kLaunch[esz - 1][variant](
+  return (design == 1 ? kBucket[variant] : kLaunch[esz - 1][variant])(
       comb, ld, c, f, (const float*)g, (const float*)h, (const float*)m, q,
       scales, block_leaf, br, k, out, lpf, lanes, nf_max > 0 ? nf_max : 1,
       device, (cudaStream_t)stream);
@@ -241,6 +315,12 @@ static cudaError_t attrs(int smem, int* out) {
 
 static cudaError_t no_attrs(int, int*) { return cudaErrorInvalidValue; }
 
+template <int V>
+static cudaError_t bucket_attrs(int, int* out) {
+  return kernel_attrs(onehot_leaves_bucket_kernel<V>, bucket_smem<V>(), out,
+                      kBThreads);
+}
+
 typedef cudaError_t (*AttrFn)(int, int*);
 static const AttrFn kAttrs[2][kNumVariants] = {
     {attrs<kBase, uint8_t>, attrs<kBf16Cmp, uint8_t>,
@@ -250,15 +330,21 @@ static const AttrFn kAttrs[2][kNumVariants] = {
     {attrs<kBase, uint16_t>, no_attrs, attrs<kI16Cmp, uint16_t>, no_attrs,
      no_attrs, attrs<kStaged, uint16_t>, no_attrs, attrs<kInt8, uint16_t>},
 };
+static const AttrFn kBucketAttrs[kNumVariants] = {
+    bucket_attrs<kBase>, no_attrs, bucket_attrs<kI16Cmp>, no_attrs, no_attrs,
+    bucket_attrs<kStaged>, no_attrs, bucket_attrs<kInt8>};
 
-// The kernel of a variant over esz-byte bins: out[0] registers a thread,
-// out[1] static shared bytes, out[2] the dynamic shared bytes of a launch
-// with nf_max features a CTA over rows of ld bins, 16-byte aligned, out[3]
-// local (spill) bytes a thread, out[4] CTAs an SM at that launch.
+// The kernel of (design, variant) over esz-byte bins: out[0] registers a
+// thread, out[1] static shared bytes, out[2] the dynamic shared bytes of a
+// launch with nf_max features a CTA over rows of ld bins, 16-byte aligned
+// (bucketed: a constant of the body), out[3] local (spill) bytes a thread,
+// out[4] CTAs an SM at that launch.
 extern "C" int onehot_leaves_query(int variant, int nf_max, long long ld,
-                                   int esz, int* out) {
-  if (variant < 0 || variant >= kNumVariants || esz < 1 || esz > 2)
+                                   int esz, int design, int* out) {
+  if (variant < 0 || variant >= kNumVariants || esz < 1 || esz > 2 ||
+      design < 0 || design > 1 || (design == 1 && esz != 2))
     return (int)cudaErrorInvalidValue;
+  if (design == 1) return (int)kBucketAttrs[variant](0, out);
   return (int)kAttrs[esz - 1][variant](
       launch_smem(variant, kRowMajor, nf_max > 0 ? nf_max : 1, ld, true,
                   esz),

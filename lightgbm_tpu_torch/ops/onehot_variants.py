@@ -190,14 +190,18 @@ def finish_hist(out: torch.Tensor, f: int, B: int, Bp: int,
                 spec: VariantSpec) -> torch.Tensor:
     """``[..., 6, lanes]`` kernel output -> ``[..., f, B, 3]`` histograms:
     sum the (hi, lo) triples and undo the lane layout (plain ``Bp``-wide
-    slots, or the packed ``group*128 + f_local*B + bin`` layout).  Keeps
-    the input's dtype."""
+    slots, or the packed ``group*128 + f_local*B + bin`` layout).  A
+    ``[..., 3, lanes]`` output (the bucketed kernels', which add hi and lo
+    themselves) is taken as the sums.  Keeps the input's dtype."""
     gl = spec.group_lanes(B, Bp)
     gf = spec.group_feats(B, Bp)
     lead = tuple(out.shape[:-2])
     ng = out.shape[-1] // gl
-    o = out.reshape(lead + (2, 3, ng, gl))
-    hist = o[..., 0, :, :, :] + o[..., 1, :, :, :]       # [..., 3, ng, gl]
+    if out.shape[-2] == 3:
+        hist = out.reshape(lead + (3, ng, gl))
+    else:
+        o = out.reshape(lead + (2, 3, ng, gl))
+        hist = o[..., 0, :, :, :] + o[..., 1, :, :, :]   # [..., 3, ng, gl]
     hist = hist[..., :gf * B].reshape(lead + (3, ng * gf, B))
     hist = hist[..., :f, :]
     return torch.movedim(hist, -3, -1)                   # [..., f, B, 3]

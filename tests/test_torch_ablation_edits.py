@@ -6,7 +6,7 @@ with a part of the work taken out, made by text edits of
 ``onehot_common.cuh`` that must each match exactly once.  A change to the
 kernels that one edit no longer matches would only show on the card, so
 each copy's edits are applied here, on the CPU, to a copy of the current
-sources, and so are the register-bound sweep's and those of the quantize
+sources (an edit may fall in either edited header), and so are the register-bound sweep's and those of the quantize
 kernel's copies (``scripts/torch_quant_bench.py --copies``).
 """
 import importlib.util
@@ -34,19 +34,24 @@ QUANT = _script("torch_quant_bench")
 
 @pytest.mark.parametrize("name", ABL.ABLATIONS + tuple(ABL.SWEEP))
 def test_ablation_edits_match_the_sources_once(tmp_path, name):
+    """Each edit matches exactly once in the edited sources taken together
+    (``onehot_common.cuh`` and ``onehot_bucket.cuh``)."""
     edits = ABL.ablation_edits(name)
     assert bool(edits) == (name != "repo")
     out = tmp_path / name
     ABL._patched_sources(name, edits, KERNEL_DIR, str(out))
-    with open(os.path.join(KERNEL_DIR, "onehot_common.cuh")) as fh:
-        before = fh.read()
-    after = (out / "onehot_common.cuh").read_text()
+    before, after = {}, {}
+    for fn in ABL.EDITED:
+        with open(os.path.join(KERNEL_DIR, fn)) as fh:
+            before[fn] = fh.read()
+        after[fn] = (out / fn).read_text()
     for old, new in edits:
-        assert before.count(old) == 1
-        assert after.count(old) == (1 if old in new else 0)
+        assert sum(t.count(old) for t in before.values()) == 1
+        assert sum(t.count(old) for t in after.values()) == (
+            1 if old in new else 0)
     # the other sources are copied as they are
     for fn in os.listdir(KERNEL_DIR):
-        if fn != "onehot_common.cuh":
+        if fn not in ABL.EDITED:
             with open(os.path.join(KERNEL_DIR, fn), "rb") as fh:
                 assert (out / fn).read_bytes() == fh.read()
 

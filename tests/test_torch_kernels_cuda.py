@@ -1324,6 +1324,135 @@ def test_onehot_u16_kernel_attributes_and_refusals(dev):
             thist.hist_onehot_full(bins, z, z, z, 64, variant=v)
 
 
+# ---------------------------------------------------------------------------
+# u16 bins: the one-hot kernels' two designs (histogram.onehot_plan: the
+# bucketed design at u16, rows sorted by their 128-lane bucket; the dense
+# one by override) on crafted bins
+# ---------------------------------------------------------------------------
+
+def _crafted_onehot_u16(rng, case, n, f, B, dev):
+    """u16 bins [n, f] of one crafted case."""
+    nb = ov.padded_bins(B) // 128
+    if case == "one_bucket":                  # every row in bucket 2
+        b = rng.integers(256, 384, (n, f))
+    elif case == "ragged_counts":             # buckets of 1, 2, ... rows
+        bucket = np.minimum(np.arange(n)[:, None] % 37 // 3 % nb, nb - 1)
+        b = bucket * 128 + rng.integers(0, 128, (n, f))
+    elif case == "pad_lanes":                 # bins in [B, Bp) and >= Bp
+        b = rng.integers(B - 60, ov.padded_bins(B) + 200, (n, f))
+    elif case == "zipf":
+        p = 1.0 / np.arange(1, B + 1) ** 1.1
+        b = rng.choice(B, size=(n, f), p=p / p.sum())
+    else:                                     # "bundle": a default bin
+        b = np.where(rng.random((n, f)) < 0.9, 0, rng.integers(0, B, (n, f)))
+    return torch.as_tensor(b.astype(np.uint16)).to(dev)
+
+
+# (case, B, f): f = 3 at B = 2,599 (Bp = 2,688) ends its last feature
+# inside a dense CTA's 512 lanes, and takes 3 bucketed CTAs a feature
+CRAFTED_U16 = [("one_bucket", 1024, 5), ("ragged_counts", 1024, 5),
+               ("pad_lanes", 1000, 5), ("zipf", 1024, 5),
+               ("bundle", 2599, 3), ("nan", 1024, 5)]
+
+
+@pytest.mark.parametrize("design", thist.ONEHOT_DESIGNS)
+@pytest.mark.parametrize("case,B,f", CRAFTED_U16)
+@pytest.mark.parametrize("variant", U16_BODIES)
+def test_onehot_full_u16_designs_match_plain(dev, variant, case, B, f,
+                                             design):
+    """K1 feature-major in both designs: every crafted case within TOL of
+    plain, a NaN in one chunk over its whole channel, the same bits from
+    two calls, one launch each."""
+    rng = np.random.default_rng(B + f + len(case))
+    n = 20_011
+    bins = _crafted_onehot_u16(rng, "ragged_counts" if case == "nan"
+                               else case, n, f, B, dev)
+    g, h, m = _rows(rng, n, dev)
+    if case == "nan":
+        g[5_000] = float("nan")
+    kw = dict(method="onehot", variant=variant, layout="featmajor")
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, **kw)
+    with thist.onehot_design(design):
+        assert thist.onehot_kernel_attributes(
+            "onehot_full", variant, f, B, "featmajor")["design"] == design
+        before = thist.launch_counts["onehot_full"]
+        got = thist.build_histogram(bins, g, h, m, B, **kw)
+        again = thist.build_histogram(bins, g, h, m, B, **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_full"] == before + 2
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    if case == "nan":
+        assert bool(torch.isnan(got[..., 0]).all())
+    fin = torch.isfinite(ref)
+    assert relerr(got[fin], ref[fin]) <= TOL
+    assert torch.equal(got[fin], again[fin])
+
+
+@pytest.mark.parametrize("design", thist.ONEHOT_DESIGNS)
+@pytest.mark.parametrize("case,B,f", CRAFTED_U16)
+@pytest.mark.parametrize("variant", U16_BODIES)
+def test_onehot_leaves_u16_designs_match_plain(dev, variant, case, B, f,
+                                               design):
+    """K2 in both designs on the frontier's comb (f u16 features and 6 gh
+    columns): every crafted case within TOL of plain, an empty slot zero,
+    a NaN block confined to its slot, the same bits from two calls."""
+    rng = np.random.default_rng(B + f + len(case) + 1)
+    k, BR = 6, 512
+    block_leaf = np.array([4, 0, 2, 4, 1, 5, 0, 2, 1, 4], np.int32)  # 3 empty
+    C = block_leaf.size * BR
+    bins = _crafted_onehot_u16(rng, "ragged_counts" if case == "nan"
+                               else case, C, f, B, dev)
+    g, h, m = _rows(rng, C, dev)
+    nan_slot = None
+    if case == "nan":
+        g[5 * BR + 77] = float("nan")
+        nan_slot = int(block_leaf[5])
+    mv = thist.movable_bins(bins)
+    gh = torch.stack([g, h, m], 1).contiguous().view(torch.int16)
+    comb = torch.cat([mv, gh], 1).view(torch.uint16)
+    bl = torch.as_tensor(block_leaf).to(dev)
+    assert thist.onehot_leaves_fits(f, k, B)
+    kw = dict(block_rows=BR, f_limit=f, method="onehot", variant=variant)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    with thist.onehot_design(design):
+        before = thist.launch_counts["onehot_leaves"]
+        got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+        again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_leaves"] == before + 2
+    assert bool((got[3] == 0).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    if nan_slot is not None:
+        assert bool(torch.isnan(got[nan_slot][..., 0]).all())
+        others = [s for s in range(k) if s != nan_slot]
+        assert bool(torch.isfinite(got[others]).all())
+    fin = torch.isfinite(ref)
+    assert relerr(got[fin], ref[fin]) <= TOL
+    assert torch.equal(got[fin], again[fin])
+
+
+def test_onehot_plan_matches_the_kernels_query(dev):
+    """The plan's design and shared bytes are the kernels' own: bucketed at
+    u16 (each body, both layouts and the leaves, over 512-row int8 blocks),
+    dense at u8 and for int8 over the row-major layout's 128-row blocks."""
+    for v in U16_BODIES:
+        plan = thist.onehot_plan(v, 28, 1024)
+        for kernel, layout in (("onehot_full", "featmajor"),
+                               ("onehot_full", "rowmajor"),
+                               ("onehot_leaves", "rowmajor")):
+            a = thist.onehot_kernel_attributes(kernel, v, 28, 1024, layout,
+                                               ld=34, block_rows=512)
+            assert a["design"] == plan["design"] == "bucketed"
+            assert a["dynamic_smem_bytes"] == plan["dynamic_smem_bytes"]
+            assert a["ctas_per_sm"] >= 1
+    assert thist.onehot_kernel_attributes(
+        "onehot_full", "staged", 28, 255, "featmajor")["design"] == "dense"
+    assert thist.onehot_kernel_attributes(
+        "onehot_full", "int8", 28, 1024, "rowmajor")["design"] == "dense"
+
+
 def test_election_on_the_card_at_u16(dev):
     """At B = 1,024 the election times base, staged and int8 on u16 bins,
     and every one passes parity."""
