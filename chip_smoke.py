@@ -50,8 +50,13 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    the plan with its design, feature group, warps a feature and warps an
    SM): 1M x 28 at B = 1,024 with random bins and with Zipf-skewed bins,
    and one frontier round's comb (28 features + 6 u16 gh columns), bins
-   >= B present; a comb of odd stride (27 + 6 u16); and the sparse_efb
-   phase's own bundle matrix at its bundle width, full and per leaf;
+   >= B present; a comb of odd stride (27 + 6 u16); the sparse_efb
+   phase's own bundle matrix at its bundle width, full and per leaf; and
+   the widths at which not even one feature's histogram fits a CTA, B =
+   12,000, 16,384 and 65,536 (bin tiles), 1M x 28 and one round's comb,
+   with random bins (bin 65,535 present) and Zipf-skewed ones, bit for bit
+   the plain version, each with its bin tiles and scratch bytes; one-hot
+   ``staged`` at B = 65,536 on 1M x 28 beside them;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
    the leaves' 262,144 rows per 512 with a NaN block), in both input
@@ -121,7 +126,7 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    launches/tree and ``cap``;
 10. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
    bit-identically to the booster in memory, for the 1M-row boosters;
-11-14. data breadth, each run once through the kernels (launch counts
+11-15. data breadth, each run once through the kernels (launch counts
    from zero around it: ``hist_full`` and ``hist_leaves`` and no other;
    the force_row_wise runs the one-hot kernels named below)
    and once under ``force_plain()``, tree 0 identical, the held-out
@@ -141,8 +146,13 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    bundled into u16 columns, the kernels at the bundle width, CSR
    prediction equal to dense; then ``force_row_wise`` staged, 3
    iterations: ``onehot_full`` once a tree, its per-leaf histograms by
-   ``hist_leaves``, outside the leaves cut);
-15. engine: the engine surface on the generator's 1M x 28 (``max_bin``
+   ``hist_leaves``, outside the leaves cut); widest_bins (Higgs 1M x 28
+   at max_bin=65535, the JAX package's widest: the atomic kernels at B =
+   65,536 in 8 bin tiles of 8,192 a feature, 255 leaves, 5 iterations,
+   then ``force_row_wise`` staged, 3: ``onehot_full`` at B = 65,536 once a
+   tree and the per-leaf histograms by ``hist_leaves``; the plans' scratch
+   bytes and the phase's peak device memory);
+16. engine: the engine surface on the generator's 1M x 28 (``max_bin``
    255), each float32 value written to nine digits as TSV with the label
    in column 0 and a ``.weight`` sidecar (in a temporary directory; the
    writing and the native parse timed apart, as set-up): the command line
@@ -230,6 +240,12 @@ ITERS_BREADTH = 5
 # and staged on the sparse_efb bundles
 ITERS_WIDE_AUTO = 3
 ITERS_EFB_ROW_WISE = 3
+# the atomic kernels' widths above one feature's CTA (bin tiles), held in
+# the kernels phase; the widest_bins phase trains at the widest
+# (max_bin=65535: B = 65,536), atomic and by force_row_wise staged
+WIDE_WIDTHS = (12_000, 16_384, 65_536)
+MAX_BIN_WIDEST = 65_535
+ITERS_WIDEST_ROW_WISE = 3
 
 
 def emit(obj) -> None:
@@ -531,24 +547,23 @@ def _atomic_attrs(hist, kernel, dev, units, stride, f, B, k=1, esz=1):
     spills, shared bytes and CTAs an SM, the warps an SM and the warps
     that add rows a feature (``W``: the owned design's warps own whole
     features; the dealt design's item warps share the group's features),
-    and the float64 partials a call writes (one a CTA for the full pass;
-    for the leaves one a CTA for each slot its blocks may name, min(blocks
-    a CTA, k))."""
+    the bin tiles of a feature and the bins each holds, and the float64
+    partials a call writes (one a CTA along x for the full pass; for the
+    leaves one a CTA for each slot its blocks may name, min(blocks a CTA,
+    k)) with their scratch bytes."""
     plan = hist.atomic_plan(kernel, dev, stride, f, B, esz)
-    full = kernel == "hist_full"
-    grid_x, per = hist.atomic_grid(plan, units,
-                                   hist._FULL_ROW_ALIGN if full else 1)
-    partials = grid_x * (1 if full else min(per, k))
+    grid_x, _, partials = hist.atomic_partials(kernel, plan, units, k)
     warps = plan["threads"] // 32
     return {**{x: plan[x] for x in ("registers", "local_bytes",
                                     "static_smem_bytes",
                                     "dynamic_smem_bytes", "ctas_per_sm",
-                                    "fg", "tile", "threads", "stagers")},
+                                    "fg", "tile", "threads", "stagers",
+                                    "tiles", "tile_bins")},
             "design": hist.ATOMIC_DESIGNS[plan["design"]],
             "warps_per_sm": warps * plan["ctas_per_sm"],
             "W": (warps - plan["stagers"]) / plan["fg"],
             "grid_x": grid_x, "partials": partials,
-            "scratch_mb": partials * f * B * 3 * 8 / 1e6}
+            "scratch_bytes": partials * f * B * 3 * 8}
 
 
 def _index_add_ms(dev, flat, vals, size):
@@ -652,6 +667,27 @@ def _zipf_u16(gen, shape, B, dev, a=1.1):
     return idx.view(shape).to(torch.int16).view(torch.uint16)
 
 
+def _wide_u16(gen, shape, B, dev, kind):
+    """u16 bins for a width above one feature's CTA (bin tiles): uniform
+    over [0, B) with a tenth raised to [min(B, 65,535), 65,536) (dropped
+    below B = 65,536; at 65,536 the top bin, the dealt design's sentinel
+    value), or Zipf-skewed over [0, B) (bin i with weight 1/(i+1)^1.1: most
+    rows in a few low bins, so most steps of a high bin tile hold no row
+    of it); every column holds bin 65,535 (row 3) and bin B - 1 (row 11)."""
+    if kind == "zipf":
+        p = 1.0 / torch.arange(1, B + 1, device=dev,
+                               dtype=torch.float64) ** 1.1
+        b = torch.multinomial(p.float(), shape[0] * shape[1],
+                              replacement=True, generator=gen).view(shape)
+    else:
+        b = torch.randint(0, B, shape, generator=gen, device=dev)
+        high = torch.rand(shape, generator=gen, device=dev) < 0.1
+        b = torch.where(high, torch.randint(min(B, 65_535), 65_536, shape,
+                                            generator=gen, device=dev), b)
+    b[3], b[11] = 65_535, B - 1
+    return b.to(torch.int32).to(torch.int16).view(torch.uint16)
+
+
 def _frontier_comb(bins, g, h, m):
     """The frontier's row payload: bins, then (g, h, m) as 12 bytes in
     bin-typed columns (6 u16)."""
@@ -667,14 +703,23 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
     Zipf-skewed bins, and one frontier round's comb of 28 features and 6
     gh columns; a comb of odd stride (27 + 6 = 33 u16, 66 bytes: rows
     2-byte aligned); the sparse_efb phase's own bundle matrix at its
-    bundle width, full and per leaf.  Bins >= B are present in the random
-    cases.  Each: relerr, the same bits twice, ms, kernel alone, plain,
-    index_add_, the byte bound (2 bytes a bin) and the plan with its
-    design, feature group, warps a feature (W) and warps an SM."""
+    bundle width, full and per leaf; and at the widths above one feature's
+    CTA, B = 12,000, 16,384 and 65,536 (bin tiles: 2, 2 and 8 a feature),
+    1M x 28 and one round's comb with random and Zipf-skewed bins
+    (``_wide_u16``), bit for bit the plain version.  Bins >= B are present
+    in the random cases.  Each: relerr, the same bits twice, ms, kernel
+    alone, plain, index_add_, the byte bound (2 bytes a bin) and the plan
+    with its design, feature group, warps a feature (W), warps an SM, bin
+    tiles and scratch bytes."""
     out = {}
     k, BR = LEAVES_SHAPE["k"], LEAVES_SHAPE["BR"]
 
-    def hold_full(name, bins, B, f):
+    def exact(name, st):
+        if st["bit_identical_share"] != 1.0:
+            raise AssertionError(f"{name}: not bit for bit the plain "
+                                 f"version: {st}")
+
+    def hold_full(name, bins, B, f, bits=False):
         n = bins.shape[0]
         g, h, m = _rows(gen, n, dev)
         with hist.force_plain():
@@ -684,6 +729,8 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
         torch.cuda.synchronize()
         st = _atomic_stats(got, again, ref)
         _hold_atomic(name, st)
+        if bits:
+            exact(name, st)
 
         def call():
             return hist.hist_full(bins, g, h, m, B, f_limit=f)
@@ -703,7 +750,7 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
             **_atomic_attrs(hist, "hist_full", dev, n, bins.shape[1], f, B,
                             esz=2))
 
-    def hold_leaves(name, comb, B, f, timed=True):
+    def hold_leaves(name, comb, B, f, timed=True, bits=False):
         C = comb.shape[0]
         nb = C // BR
         g, h, m = _rows(gen, C, dev)
@@ -717,6 +764,8 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
         torch.cuda.synchronize()
         st = _atomic_stats(got, again, ref)
         _hold_atomic(name, st)
+        if bits:
+            exact(name, st)
         out[name] = dict(shape=[C, comb.shape[1], f, k, BR, B],
                          dtype="uint16", **st)
         if not timed:
@@ -760,15 +809,31 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
     hold_leaves("hist_leaves/u16/bundle",
                 _frontier_comb(hist.take_rows(bins, rows),
                                *_rows(gen, rows.numel(), dev)), Bb, nc)
+    del bins, rows
+    # the widths above one feature's CTA: bin tiles
+    for Bw in WIDE_WIDTHS:
+        for kind in ("random", "zipf"):
+            tag = f"B{Bw}" + ("/zipf" if kind == "zipf" else "")
+            hold_full(f"hist_full/u16/{tag}",
+                      _wide_u16(gen, (n, f), Bw, dev, kind), Bw, f,
+                      bits=True)
+            hold_leaves(f"hist_leaves/u16/{tag}",
+                        _frontier_comb(_wide_u16(gen, (C, f), Bw, dev, kind),
+                                       *_rows(gen, C, dev)), Bw, f,
+                        bits=True)
+            torch.cuda.empty_cache()
     for name, r in out.items():
         if "ms" in r:
             print(f"{name} {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, "
-                  f"call {r['ms']:.4f} ms, index_add_ "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
-                  f"ms, {r['design']} design, fg {r['fg']}, W "
-                  f"{r['W']:.3g}, {r['warps_per_sm']} warps an SM, tile "
-                  f"{r['tile']}, {r['ctas_per_sm']} CTAs an SM, relerr "
-                  f"{r['relerr']:.3g}", flush=True)
+                  f"call {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"index_add_ {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms, {r['design']} design, fg "
+                  f"{r['fg']}, W {r['W']:.3g}, {r['warps_per_sm']} warps "
+                  f"an SM, tile {r['tile']}, {r['tiles']} bin tiles of "
+                  f"{r['tile_bins']}, scratch {r['scratch_bytes']} bytes, "
+                  f"{r['ctas_per_sm']} CTAs an SM, relerr "
+                  f"{r['relerr']:.3g}, bit-identical share "
+                  f"{r['bit_identical_share']}", flush=True)
     return out
 
 
@@ -899,7 +964,9 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
     attributes.  The Zipf-skewed cases (bin i with weight 1/(i+1)^1.1, as
     an EFB bundle's default bin skews its rows) hold the bucketed design's
     dealing of a hot bucket's rows across warps: the full pass at 1M x 28
-    and the leaves, both at B = 1,024."""
+    and the leaves, both at B = 1,024.  At B = 65,536, ``staged`` alone
+    (the widest_bins phase's force_row_wise run's root, 1M x 28 in 512
+    buckets a feature)."""
     rows = {}
     n, f, B = N_TRAIN, N_FEAT, 1024
     C, k, BR = (LEAVES_SHAPE[x] for x in ("C", "k", "BR"))
@@ -914,12 +981,16 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
         raise AssertionError("the u16 leaves case lies outside the cut")
     g, h, m = _rows(gen, n, dev)
     full_cases = (("B1024", (_u16(gen, (n, f), B + 60, dev), g, h, m), B,
-                   ("featmajor", "rowmajor")),
+                   ("featmajor", "rowmajor"), ONEHOT_U16_BODIES),
                   ("zipf", (_zipf_u16(gen, (n, f), B, dev), g, h, m), B,
-                   ("featmajor",)),
+                   ("featmajor",), ONEHOT_U16_BODIES),
                   ("bundle", (efb_bins["bins"],
                               *_rows(gen, efb_bins["bins"].shape[0], dev)),
-                   int(efb_bins["bundle_bins"]), ("featmajor",)))
+                   int(efb_bins["bundle_bins"]), ("featmajor",),
+                   ONEHOT_U16_BODIES),
+                  (f"B{WIDE_WIDTHS[-1]}",
+                   (_wide_u16(gen, (n, f), WIDE_WIDTHS[-1], dev, "random"),
+                    g, h, m), WIDE_WIDTHS[-1], ("featmajor",), ("staged",)))
 
     def hold(name, kernel, fn, ref, leaves=False):
         before = hist.launch_counts[kernel]
@@ -941,7 +1012,7 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
             raise AssertionError(f"{name}: relerr {err}, checks {ok}")
         return dict(relerr=err, max_abs_err=float((got - ref).abs().max()))
 
-    for case, (bins, g, h, m), Bc, layouts in full_cases:
+    for case, (bins, g, h, m), Bc, layouts, bodies in full_cases:
         nc, fc = bins.shape[0], bins.shape[1]
 
         def full(v, layout, bins=bins, g=g, h=h, m=m, Bc=Bc):
@@ -949,7 +1020,7 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
                                         variant=v, layout=layout)
         ref, plain_ms = {}, {}
         with hist.force_plain():
-            for fam in ("base", "int8"):
+            for fam in {"int8" if v == "int8" else "base" for v in bodies}:
                 for layout in layouts:
                     ref[fam, layout] = full(fam, layout)
                 plain_ms[fam] = median_ms(lambda: full(fam, "featmajor"),
@@ -957,7 +1028,7 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
         lib = _full_yardstick(dev, bins, g, h, m, Bc)
         b_ms, b_by = bound(2 * nc * fc + 12 * nc + fc * Bc * 12,
                            3 * nc * fc + 2 * nc)
-        for v in ONEHOT_U16_BODIES:
+        for v in bodies:
             fam = "int8" if v == "int8" else "base"
             lanes = ov.total_lanes(v, fc, Bc)
             for layout in layouts:
@@ -2165,6 +2236,63 @@ def phase_sparse_efb(card, data):
     return {"sparse_efb": out["launches"], "efb_staged": rw["launches"]}
 
 
+def phase_widest_bins(card):
+    """Higgs geometry at max_bin=65535, the JAX package's widest: every
+    feature 65,535 bins, the atomic kernels at B = 65,536 in bin tiles (8
+    of 8,192 a feature), 255 leaves, 5 iterations; then force_row_wise
+    staged for 3: K1's bucketed one-hot kernel at B = 65,536 and the
+    per-leaf histograms by hist_leaves (28 x 65,536 lanes lie outside the
+    leaves cut).  Each run as ``_breadth_pair`` holds it (tree 0 identical
+    to force_plain()'s, held-out AUC within 1e-3 of plain and above 0.75,
+    reload bit-identical), the row-wise run's AUC also within 1e-3 of the
+    atomic run's; with the plans' bin tiles and scratch bytes and the
+    phase's peak device memory (the frontier's leaf store alone is 255 x
+    28 x 65,536 x 3 float32, 5.6 GB)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=53)
+    Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=43)
+    params = {"objective": "binary", "num_leaves": 255,
+              "max_bin": MAX_BIN_WIDEST, "learning_rate": 0.1, "verbose": -1}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(X, label=y, params=params).construct(device="cuda")
+    construct_s = time.perf_counter() - t0
+    del X
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    booster, out = _breadth_pair(lgt, hist, "widest_bins", ds, params,
+                                 ITERS_BREADTH, auc_holdout(Xv, yv), Xv)
+    width = out["kernel_width"]
+    if width != WIDE_WIDTHS[-1] or out["bin_dtype"] != "uint16":
+        raise AssertionError(f"widest_bins: {out}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    LS = LEAVES_SHAPE
+    plans = {"hist_full": _atomic_attrs(hist, "hist_full", dev, N_TRAIN,
+                                        N_FEAT, N_FEAT, width, esz=2),
+             "hist_leaves": _atomic_attrs(hist, "hist_leaves", dev,
+                                          LS["C"] // LS["BR"], N_FEAT + 6,
+                                          N_FEAT, width, LS["k"], esz=2)}
+    if any(p["tiles"] < 2 for p in plans.values()):
+        raise AssertionError(f"widest_bins: untiled plans {plans}")
+    rw = _row_wise_vs_atomic(
+        lgt, hist, "widest_bins row_wise staged", ds,
+        dict(params, force_row_wise=True, hist_variant="staged"),
+        ITERS_WIDEST_ROW_WISE, booster, Xv, yv, 0.75,
+        ("onehot_full", "hist_leaves"), "staged")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"widest_bins: kernel width {width}, bin tiles "
+          f"{plans['hist_full']['tiles']} of "
+          f"{plans['hist_full']['tile_bins']}, scratch a call "
+          f"{plans['hist_full']['scratch_bytes']} bytes (K1, 1M rows), "
+          f"{plans['hist_leaves']['scratch_bytes']} (K2, 262,144 rows), "
+          f"peak device memory {peak} bytes, construct {construct_s:.3f} s",
+          flush=True)
+    emit({"phase": "widest_bins", "card": card, "construct_s": construct_s,
+          **out, "plans": plans, "peak_memory_bytes": peak,
+          "row_wise_staged": rw})
+    return {"widest_bins": out["launches"], "widest_staged": rw["launches"]}
+
+
 # the engine phase: the binary example's parameters (train.conf) on Higgs
 # geometry through the command line and the rest of the engine surface
 ENGINE_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2532,7 +2660,8 @@ ONEHOT_BODIES = {"base": 178, "bf16cmp": 187, "i16cmp": 196, "u8cmp": 205,
 MAIN_PATH_RUNS = {("staged", 256): "staged", ("packed", 64): "packed",
                   ("int8", 256): "int8", ("staged", "B1024"): "wide_staged",
                   ("int8", "B1024"): "wide_int8",
-                  ("staged", "bundle"): "efb_staged"}
+                  ("staged", "bundle"): "efb_staged",
+                  ("staged", f"B{WIDE_WIDTHS[-1]}"): "widest_staged"}
 # the int8 quantize kernel (the `level` chain of the int8 body) and the
 # shootout shell's entry
 QUANT_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_quant.cu",
@@ -2557,7 +2686,8 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
     rows = []
     atomic_keys = ("kernel_ms", "vs_index_add", "smem_floor_ms",
                    "registers", "local_bytes", "dynamic_smem_bytes",
-                   "ctas_per_sm", "design", "fg", "W", "warps_per_sm")
+                   "ctas_per_sm", "design", "fg", "W", "warps_per_sm",
+                   "tiles", "tile_bins", "scratch_bytes")
     for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
         r = kern[kname]
         row = {"name": kname, "route": "cuda", "source": src,
@@ -2577,10 +2707,14 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
                             for c, v in r["cases"].items()}
         rows.append(row)
     # the u16 instantiations: at B = 1,024 (the wide_bins run's launches;
-    # the full pass also on Zipf-skewed bins) and at the sparse_efb run's
-    # bundle width (its own launches)
+    # the full pass also on Zipf-skewed bins), at the sparse_efb run's
+    # bundle width (its own launches), and in bin tiles at the wide widths
+    # (B = 65,536: the widest_bins run's launches; no run trains at the
+    # others)
+    wide = [(f"B{w}{z}", "widest_bins" if w == WIDE_WIDTHS[-1] else None)
+            for w in WIDE_WIDTHS for z in ("", "/zipf")]
     for case, run in (("B1024", "wide_bins"), ("B1024/zipf", "wide_bins"),
-                      ("bundle", "sparse_efb")):
+                      ("bundle", "sparse_efb"), *wide):
         for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
             if f"{kname}/u16/{case}" not in kern:
                 continue
@@ -2588,7 +2722,7 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
             rows.append({"name": f"{kname}/u16/{case}", "route": "cuda",
                          "source": src, "replaces": replaces, "jax": jax_fn,
                          "dtype": "uint16", "shape": r["shape"],
-                         "launches": launches[run][kname],
+                         "launches": launches[run][kname] if run else 0,
                          **{k: r[k] for k in keys + atomic_keys},
                          "card": card})
     for name, r in onehot.items():
@@ -2692,6 +2826,7 @@ def main() -> int:
     launches["categorical"] = timed("categorical", phase_categorical, smi)
     launches.update(timed("wide_bins", phase_wide_bins, smi, elected))
     launches.update(timed("sparse_efb", phase_sparse_efb, smi, breadth))
+    launches.update(timed("widest_bins", phase_widest_bins, smi))
     launches.update(timed("engine", phase_engine, smi))
     rows = kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
                        smi)

@@ -46,7 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .grower import (GrowerConfig, TreeArrays, _BestSplits,
+from .grower import (GrowerConfig, TreeArrays, _BestSplits, kernel_width,
                      monotone_gain_mult, node_feature_mask_for,
                      rand_thresholds_for)
 from .histogram import (build_histogram, build_histogram_leaves,
@@ -119,7 +119,7 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
     f = int(efb[0].shape[0]) if efb is not None else n_cols
     L = cfg.num_leaves
     B = cfg.max_bin
-    Bb = cfg.bundle_bins or B
+    Bb = kernel_width(cfg)
     cw = cat_words(B)
     p = cfg.split
     k = max(1, min(cfg.frontier_k, L - 1))

@@ -9,8 +9,9 @@ penalty (``node_feature_mask_for``, ``rand_thresholds_for``,
 round-batched frontier grower (``ops/frontier.py``) or to the sequential
 one-split-at-a-time grower (``grow_tree_serial``) that serves what depends
 on the split order: interaction constraints, forced splits, CEGB and the
-intermediate and advanced monotone modes.  A histogram width the card's
-kernels refuse raises ``NotPortedError``; nothing falls back.
+intermediate and advanced monotone modes.  Both take every histogram
+width the bin types allow, on the CPU and on the card; nothing falls
+back.
 """
 from __future__ import annotations
 
@@ -19,11 +20,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import NotPortedError
 from ..utils.log import Log
 from ..utils.random_gen import fold_in, uniform
-from .histogram import (_OH_CHUNK, _SMEM_PER_BIN, SMEM_MAX_BYTES,
-                        build_histogram, movable_bins, widen_bins)
+from .histogram import (_OH_CHUNK, build_histogram, movable_bins,
+                        widen_bins)
 from .split import (NEG_INF, POS_INF, SplitParams, SplitResult,
                     bitset_contains, cat_words, find_best_split, leaf_gain,
                     leaf_output, pack_bin_bitset)
@@ -181,24 +181,6 @@ def kernel_width(cfg: GrowerConfig) -> int:
     return cfg.bundle_bins or cfg.max_bin
 
 
-def kernel_fits(cfg: GrowerConfig) -> bool:
-    """Whether the card's histogram kernels take this width, for either
-    grower, by histogram method:
-
-    - atomic: the kernels keep a privatised ``[features, B, 3]`` float64
-      histogram of one feature group in shared memory and split wider
-      feature sets over ``gridDim.y``, so any feature count fits as long as
-      ONE feature does: ``24 * B`` bytes within the 227 KB a CTA may opt
-      into (B <= 9,685; u16 bins and EFB bundles reach B = 4,096).
-    - onehot: the kernels keep their sums in registers and stage 128 rows
-      at a time, whose shared memory does not grow with the width, so any
-      feature count and any u8 or u16 width fits (u16 through ``base``,
-      ``i16cmp``, ``staged`` and ``int8``); outside the JAX package's cut
-      the frontier's per-leaf histograms take the atomic kernel
-      (``histogram.onehot_leaves_fits``), so the atomic budget holds too."""
-    return _SMEM_PER_BIN * kernel_width(cfg) <= SMEM_MAX_BYTES
-
-
 def _frontier_eligible(cfg: GrowerConfig, n_cols: int, interaction_sets=None,
                        cegb_coupled=None, cegb_lazy=None,
                        forced=()) -> bool:
@@ -210,8 +192,7 @@ def _frontier_eligible(cfg: GrowerConfig, n_cols: int, interaction_sets=None,
     per-node RNG features (feature_fraction_bynode, extra_trees) and
     monotone-basic are served by the frontier.  Its per-leaf one-hot
     kernel needs whole 128-row chunks in a block (``frontier_block_rows``
-    a multiple of 128), and both growers need a width the kernels take
-    (``kernel_fits``).  ``tree_grower=frontier`` with a feature the
+    a multiple of 128).  ``tree_grower=frontier`` with a feature the
     frontier cannot serve logs the JAX package's warning."""
     if cfg.grower_mode == "serial":
         return False
@@ -221,7 +202,6 @@ def _frontier_eligible(cfg: GrowerConfig, n_cols: int, interaction_sets=None,
           and not forced
           and cfg.cegb_split_penalty == 0.0
           and n_cols >= 0
-          and kernel_fits(cfg)
           and (cfg.hist_method != "onehot"
                or cfg.frontier_block_rows % _OH_CHUNK == 0))
     if not ok and cfg.grower_mode == "frontier":
@@ -253,11 +233,6 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     ``efb`` is the EFB layout when ``bins`` holds bundle columns.  The
     feature-gating state is the JAX package's (``grow_tree_serial``);
     ``feature_contri [F]`` scales each feature's gains in both growers."""
-    if not kernel_fits(cfg):
-        raise NotPortedError(
-            f"a histogram width of {kernel_width(cfg)} bins is wider than "
-            "the card's kernels take (one feature's [B, 3] float64 "
-            "histogram must fit a CTA's shared memory)")
     if _frontier_eligible(cfg, bins.shape[1], interaction_sets,
                           cegb_coupled, cegb_lazy, forced):
         from .frontier import grow_tree_frontier
@@ -391,7 +366,7 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
     f = int(efb[0].shape[0]) if efb is not None else n_cols
     L = cfg.num_leaves
     B = cfg.max_bin
-    Bb = cfg.bundle_bins or B
+    Bb = kernel_width(cfg)
     cw = cat_words(B)
     p = cfg.split
     tot = torch.stack([torch.sum(grad * row_weight),

@@ -3,9 +3,10 @@
 Port of the JAX package's ``ops/histogram.py``.  A histogram is
 ``[F, B, 3]`` float32 with channels (sum g*m, sum h*m, sum m) per feature and
 bin; bins >= B match nothing and are dropped.  Bins are ``uint8`` or
-``uint16`` (a feature of more than 256 bins, or an EFB bundle up to 4,096
-bins wide); every kernel takes both, as a second instantiation of its
-template on the bin type.
+``uint16`` (a feature of more than 256 bins, up to 65,536, or an EFB
+bundle up to 4,096 bins wide); every kernel takes both, as a second
+instantiation of its template on the bin type, at every width a u16 bin
+reaches.
 
 Two methods, each with a full-pass and a per-leaf entry point, each entry
 point with a hand-written Hopper kernel (``kernels/*.cu``, built by
@@ -19,6 +20,9 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
   feature) items whose lanes a warp sort groups by bin (``dealt``; the
   plan picks, ``ATOMIC_DESIGNS``) -- one float64 partial per CTA (per
   slot run for the leaves) summed by a second kernel in a fixed order.
+  Where one feature's histogram does not fit a CTA (above ~8,900 bins),
+  the plan splits each feature's bins into bin tiles, a grid axis beside
+  the feature groups (``atomic_geometry``).
   The counterpart of the JAX package's scatter method, the card's
   counterpart of a known winner.
 - ``method="onehot"`` (``force_row_wise``): ``hist_onehot_full`` and
@@ -80,19 +84,19 @@ launch_counts: Dict[str, int] = {name: 0 for name in
 # package's HIST_PARITY_TOL): the bf16 pair's, and int8's, own error
 HIST_PARITY_TOL = 5e-4
 
-# bytes of one CTA's privatised float64 histogram per (feature, bin); at
-# F=28, B=256 the whole [F, B, 3] histogram (172,032 bytes) fits one CTA
-# beside its staging buffers (kernels/hist_common.cuh::plan_geometry); the
-# dealt design, which the plan takes at wide bins, adds no bytes a bin
-_SMEM_PER_BIN = 24
 # largest dynamic shared memory a CTA may opt into on Hopper
 SMEM_MAX_BYTES = 227 * 1024
+# the widest histogram the atomic kernels take: every u16 bin
+ATOMIC_MAX_BIN = 65536
 
 _force_plain = False
 # the atomic kernels' two designs of the update, in the plan's numbering
 # (kernels/hist_common.cuh), and the one atomic_design() asks for
 ATOMIC_DESIGNS = ("owned", "dealt")
 _atomic_design: Optional[str] = None
+# the fewest bin tiles atomic_tiles() asks the plan for (1: as the width
+# needs)
+_atomic_min_tiles = 1
 # the one-hot kernels' two designs, in the kernels' numbering
 # (kernels/onehot_bucket.cuh): dense, every warp over every row of its
 # lanes' features; bucketed, the rows sorted by their 128-lane bucket
@@ -133,6 +137,21 @@ def atomic_design(design: str):
         yield
     finally:
         _atomic_design = prev
+
+
+@contextlib.contextmanager
+def atomic_tiles(tiles: int):
+    """Plan the atomic kernels with at least this many bin tiles a feature
+    even where the width needs fewer, to test the tiled path against the
+    untiled one on the card; not a training parameter."""
+    global _atomic_min_tiles
+    _check(tiles >= 1, f"bin tiles must be at least 1, not {tiles}")
+    prev = _atomic_min_tiles
+    _atomic_min_tiles = tiles
+    try:
+        yield
+    finally:
+        _atomic_min_tiles = prev
 
 
 @contextlib.contextmanager
@@ -499,13 +518,14 @@ def _check_vectors(name, dev, n, grad, hess, mask):
 # feature group, tile rows, threads, dynamic shared bytes, CTAs an SM, SMs,
 # registers a thread, static shared bytes, spilled bytes a thread, the
 # design of the update (0 owned: a warp a feature; 1 dealt: every warp
-# but the staging ones takes (step, feature) items, sorted by bin) and its
-# staging warps (0: every warp stages); it depends on the shape only, so
-# it is kept per (kernel, device, stride, f, B, bin size, design asked)
-# and a call splits its rows or blocks with atomic_grid
+# but the staging ones takes (step, feature) items, sorted by bin), its
+# staging warps (0: every warp stages), the bin tiles of a feature and the
+# bins a bin tile holds; it depends on the shape only, so it is kept per
+# (kernel, device, stride, f, B, bin size, tiles and design asked) and a
+# call splits its rows or blocks with atomic_grid
 _PLAN_KEYS = ("fg", "tile", "threads", "dynamic_smem_bytes", "ctas_per_sm",
               "sms", "registers", "static_smem_bytes", "local_bytes",
-              "design", "stagers")
+              "design", "stagers", "tiles", "tile_bins")
 _plans: Dict[tuple, Dict[str, int]] = {}
 # rows a hist_full CTA takes are a multiple of this (16 rows of any
 # stride are whole 16-byte pieces, so every CTA's span starts at the
@@ -518,24 +538,25 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
     """The launch plan of ``hist_full`` or ``hist_leaves`` over ``f``
     features of ``max_bin`` bins in rows of ``stride`` bins of ``esz``
     bytes (1: u8, 2: u16); builds the kernel first if needed.  The plan
-    picks the design of the update, unless ``atomic_design`` asks for
-    one."""
+    picks the design of the update, unless ``atomic_design`` asks for one,
+    and the bin tiles, at least ``atomic_tiles``'s.  A width above
+    ``ATOMIC_MAX_BIN`` (no u16 bin reaches it) is refused before any
+    kernel is built."""
+    _check(0 < max_bin <= ATOMIC_MAX_BIN, f"max_bin={max_bin} is outside "
+           f"the atomic kernels' widths (1 to {ATOMIC_MAX_BIN}: every u16 "
+           "bin)")
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     want = (-1 if _atomic_design is None
             else ATOMIC_DESIGNS.index(_atomic_design))
-    key = (kernel, index, stride, f, max_bin, esz, want)
+    key = (kernel, index, stride, f, max_bin, esz, _atomic_min_tiles, want)
     plan = _plans.get(key)
     if plan is None:
         import ctypes
-        per_feat = _SMEM_PER_BIN * max_bin
-        _check(per_feat <= SMEM_MAX_BYTES,
-               f"max_bin={max_bin} needs {per_feat} bytes of shared memory "
-               f"per feature, above {SMEM_MAX_BYTES}")
         buf = (ctypes.c_int * len(_PLAN_KEYS))()
         lib = _build.load(kernel)
         rc = getattr(lib, f"{kernel}_plan")(index, stride, f, max_bin, esz,
-                                            want, buf)
+                                            want, _atomic_min_tiles, buf)
         _raise_on(lib, f"{kernel} plan", rc)
         plan = _plans[key] = dict(zip(_PLAN_KEYS, buf))
         plan["groups"] = -(-f // plan["fg"])
@@ -544,13 +565,109 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
 
 def atomic_grid(plan: Dict[str, int], units: int, align: int = 1):
     """``(CTAs along x, units a CTA)``: ``units`` rows or blocks split over
-    the CTAs the card holds at once, each feature group a column of the
-    grid, the units a CTA rounded up to a multiple of ``align``."""
+    the CTAs the card holds at once, each feature group's bin tile a
+    column of the grid, the units a CTA rounded up to a multiple of
+    ``align``."""
     splits = max(1, max(1, plan["ctas_per_sm"]) * plan["sms"]
-                 // plan["groups"])
+                 // (plan["groups"] * plan.get("tiles", 1)))
     per = -(-units // splits)
     per = -(-per // align) * align
     return -(-units // per), per
+
+
+def atomic_partials(kernel: str, plan: Dict[str, int], units: int,
+                    num_slots: int = 1):
+    """``(CTAs along x, units a CTA, partials)`` of a call of ``kernel``
+    over ``units`` rows (``hist_full``) or blocks (``hist_leaves``): the
+    float64 ``[F, B, 3]`` partials its scratch holds, one a CTA along x for
+    the full pass and, for the leaves, one for each slot a CTA's blocks may
+    name, ``min(blocks a CTA, num_slots)``.  Each CTA writes only its own
+    feature group's bin tile of them."""
+    full = kernel == "hist_full"
+    grid_x, per = atomic_grid(plan, units, _FULL_ROW_ALIGN if full else 1)
+    return grid_x, per, grid_x * (1 if full else min(per, num_slots))
+
+
+# the atomic kernels' constants (kernels/hist_common.cuh): the dealt
+# design's ring buffers, the group below which the plan deals, and the
+# tile rows, at most and at least
+_DEALT_STAGES, _OWNED_MIN_GROUP, _MAX_TILE, _MIN_TILE = 3, 16, 512, 128
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _smem_bytes(fg, B, tile, stride, esz, dealt):
+    """``hist_common.cuh::smem_bytes``: the histogram ``[fg][B][3]``
+    float64, the lane words (owned) or the tickets and ring barriers
+    (dealt), and the staging buffers of ``tile`` rows."""
+    if dealt:
+        aux = _round16(4 * fg) + 16 * _DEALT_STAGES
+    else:
+        per_warp = -(-fg // 32)
+        aux = _round16(4 * -(-fg // per_warp) * B)
+    stride_b, fgb = stride * esz, fg * esz
+    pitch = 16 * ((fgb + 30) // 16)
+    if stride_b > pitch:
+        bins = tile * pitch
+    else:
+        bins = _round16((tile - 1) * stride_b + fgb) + 32
+    vals = _round16(4 * tile) + 32
+    return (_round16(24 * fg * B) + aux
+            + (_DEALT_STAGES if dealt else 2) * (bins + 3 * vals))
+
+
+def _fit_tile(g, B, stride, esz, dealt, min_tile):
+    """``hist_common.cuh::fit_tile``: the most tile rows that fit."""
+    t = _MAX_TILE
+    while t >= min_tile:
+        if _smem_bytes(g, B, t, stride, esz, dealt) <= SMEM_MAX_BYTES:
+            return t
+        t -= 32 if t > 32 else 1
+    return 0
+
+
+def _plan_geometry(f, B, stride, esz, dealt, min_tiles):
+    """``hist_common.cuh::plan_geometry``: ``(fg, tile rows, tiles, tile
+    bins)`` or None."""
+    for t in range(max(1, min_tiles), B + 1):
+        bt = -(-B // t)
+        for g in range(f, 0, -1):
+            tile = _fit_tile(g, bt, stride, esz, dealt, _MIN_TILE)
+            if tile:
+                return g, tile, -(-B // bt), bt
+    return None
+
+
+def atomic_geometry(f: int, max_bin: int, stride: int, esz: int = 1,
+                    design: Optional[str] = None,
+                    min_tiles: int = 1) -> Dict[str, int]:
+    """The atomic kernels' plan geometry without a card: the C plan's
+    arithmetic (``kernels/hist_common.cuh::plan_launch``) up to the
+    occupancy it asks the card for -- the design, the feature group and
+    tile rows, the bin tiles of a feature and the bins each holds, and the
+    dynamic shared bytes.  The plan itself may then narrow an untiled
+    group to fill the card's last wave; a tiled plan holds one feature a
+    CTA and keeps it.  Card tests hold it against ``atomic_plan``."""
+    if design is None:
+        owned = _plan_geometry(f, max_bin, stride, esz, False, min_tiles)
+        pick = (owned is not None and owned[2] == 1
+                and owned[0] >= min(f, _OWNED_MIN_GROUP))
+        design = ATOMIC_DESIGNS[0 if pick else 1]
+    dealt = design == "dealt"
+    geo = _plan_geometry(f, max_bin, stride, esz, dealt, min_tiles)
+    _check(geo is not None, f"no plan for {f} features of {max_bin} bins")
+    fg, tile, tiles, bt = geo
+    if dealt:
+        groups = -(-f // fg)
+        g = -(-f // groups)
+        if g < fg:
+            fg, tile = g, _fit_tile(g, bt, stride, esz, True, _MIN_TILE)
+    return {"design": ATOMIC_DESIGNS.index(design), "fg": fg, "tile": tile,
+            "tiles": tiles, "tile_bins": bt, "groups": -(-f // fg),
+            "dynamic_smem_bytes": _smem_bytes(fg, bt, tile, stride, esz,
+                                              dealt)}
 
 
 def _raise_on(lib, name: str, rc: int) -> None:
@@ -572,7 +689,7 @@ def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
     if n == 0 or f == 0:
         return torch.zeros(f, max_bin, 3, device=dev)
     plan = atomic_plan("hist_full", dev, ncols, f, max_bin, esz)
-    grid_x, per_cta = atomic_grid(plan, n, _FULL_ROW_ALIGN)
+    grid_x, per_cta, _ = atomic_partials("hist_full", plan, n)
     partial = torch.empty(grid_x, f, max_bin, 3, dtype=torch.float64,
                           device=dev)
     out = torch.empty(f, max_bin, 3, device=dev)
@@ -581,8 +698,8 @@ def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
         dev.index, bins.data_ptr(), n, ncols, f, max_bin, esz,
         grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        plan["fg"], plan["tile"], plan["threads"], plan["design"], grid_x,
-        per_cta,
+        plan["fg"], plan["tile"], plan["tiles"], plan["tile_bins"],
+        plan["threads"], plan["design"], grid_x, per_cta,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_full", rc)
     launch_counts["hist_full"] += 1
@@ -613,11 +730,11 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
     if nb == 0 or f == 0 or num_slots == 0:
         return torch.zeros(num_slots, f, max_bin, 3, device=dev)
     plan = atomic_plan("hist_leaves", dev, nc, f, max_bin, esz)
-    grid_x, bpc = atomic_grid(plan, nb)
     # the partials (float64 [grid x * parts, F, B, 3]: a CTA writes one for
     # each slot its blocks name), then their slots
-    parts = min(bpc, num_slots)
-    n_partial = grid_x * parts
+    grid_x, bpc, n_partial = atomic_partials("hist_leaves", plan, nb,
+                                             num_slots)
+    parts = n_partial // grid_x
     scratch = torch.empty(n_partial * (f * max_bin * 3 * 8 + 4),
                           dtype=torch.uint8, device=dev)
     out = torch.empty(num_slots, f, max_bin, 3, device=dev)
@@ -626,7 +743,8 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
         dev.index, comb.data_ptr(), c, nc, f, max_bin, esz, grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), block_leaf.data_ptr(), block_rows,
         num_slots, scratch.data_ptr(), out.data_ptr(), plan["fg"],
-        plan["tile"], plan["threads"], plan["design"], grid_x, bpc, parts,
+        plan["tile"], plan["tiles"], plan["tile_bins"], plan["threads"],
+        plan["design"], grid_x, bpc, parts,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_leaves", rc)
     launch_counts["hist_leaves"] += 1

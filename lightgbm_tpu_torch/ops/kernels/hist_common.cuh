@@ -12,8 +12,16 @@
 // sizeof(T) bytes a bin): a row of the matrix is `stride` bins, and the
 // staging below counts bytes, so a u16 row of stride bins is 2 * stride
 // bytes and may start at any even offset in its 16-byte piece.  B may be
-// up to the widest EFB bundle (4,096 bins) and beyond: the plan narrows
-// the feature group until the group's histogram fits.
+// any width a u16 bin reaches (65,536): the plan narrows the feature
+// group until the group's histogram fits, and where not even one
+// feature's [B, 3] histogram fits (24 bytes a bin: above ~8,900 bins with
+// its staging) it splits each feature's bins into tiles of tile_bins
+// bins, a grid axis beside the feature groups.  A CTA of tile t adds only
+// the rows whose bin lies in [t * tile_bins, (t + 1) * tile_bins), at the
+// local index bin - t * tile_bins; each bin lies in one tile, so its adds
+// come in row order as without tiles, and give the same bits.  Every
+// tile re-reads the rows (a cluster of the tiles' CTAs sharing one staged
+// tile by TMA multicast would read them once).
 //
 // Common to both designs (each point answers what bounded the first
 // kernel, which added every (row, feature) into shared memory with three
@@ -33,7 +41,8 @@
 //   the group's columns, so a wide matrix is not read whole once per
 //   group.  Where the group's histogram and staging fit the 227 KB a CTA
 //   may hold (F = 28 at B = 256), one CTA holds all features and every
-//   row is read once; wider problems split features over gridDim.y.
+//   row is read once; wider problems split features (and, where one
+//   feature does not fit, its bins) over gridDim.y.
 // * No flush with atomics: each CTA writes its histogram (for the
 //   leaves, one per slot its blocks name) once, with plain 16-byte
 //   stores, into a float64 partial of a scratch buffer, and a second
@@ -116,7 +125,8 @@ namespace lgbt {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNoBin = 0xffffffffu;  // a lane with nothing to add
 // the dealt design: a lane with nothing to add sorts by this key, above
-// any bin the plan takes (B <= SMEM_MAX / 24)
+// any local bin index (a CTA's histogram of at most SMEM_MAX / 24 bins;
+// keys are tile-local, so a u16 bin of 65,535 never meets it)
 constexpr uint32_t kNoKey = 0xffffu;
 // warps of a dealt CTA: 768 threads leave the leaves kernel the ~80
 // registers a thread it needs without spilling
@@ -426,16 +436,24 @@ __device__ __forceinline__ bool load_row(const Tile& t, int r, int nrows,
   return r < nrows && !(v.w == 0.f && v.gw == 0.f && v.hw == 0.f);
 }
 
+// The local index of bin b in the bin tile [b0, b0 + bw), or kNoBin
+// outside it (kNoBin itself, a bin >= B and a bin below b0 included: the
+// unsigned difference wraps).
+__device__ __forceinline__ uint32_t local_bin(uint32_t b, uint32_t b0,
+                                              uint32_t bw) {
+  return b - b0 < bw ? b - b0 : kNoBin;
+}
+
 // Rows [0, nrows) of a staged tile of T bins into the CTA's histogram
-// hist [fg][B][3]: warp `warp` of nw adds features warp, warp + nw, ...
-// (see the top), the row's float64 values widened once for all of them;
-// wm is the warp's B words for group_peers.  A bin >= B (a u16 bin may
-// reach 65,535) takes no word and adds nothing.
+// hist [fg][bw][3] of bins [b0, b0 + bw): warp `warp` of nw adds features
+// warp, warp + nw, ... (see the top), the row's float64 values widened
+// once for all of them; wm is the warp's bw words for group_peers.  A bin
+// outside the bin tile takes no word and adds nothing.
 template <typename T>
 __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
                                                 const Tile& t, int nrows,
-                                                int fg, int B, int lane,
-                                                int warp, int nw) {
+                                                int fg, int b0, int bw,
+                                                int lane, int warp, int nw) {
   const unsigned below = (1u << lane) - 1u;
   StepRow next;
   bool next_live = load_row(t, lane, nrows, next);
@@ -446,10 +464,10 @@ __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
       next_live = load_row(t, base + 32 + lane, nrows, next);
     const double g64 = cur.gw, h64 = cur.hw, w64 = cur.w;
     for (int f = warp; f < fg; f += nw) {
-      const uint32_t b =
+      const uint32_t key = local_bin(
           live ? (uint32_t)reinterpret_cast<const T*>(t.bins + cur.at)[f]
-               : kNoBin;
-      const uint32_t key = b < (uint32_t)B ? b : kNoBin;
+               : kNoBin,
+          (uint32_t)b0, (uint32_t)bw);
       const uint32_t peers = group_peers(wm, key, below);
       const bool lead = key != kNoBin && (peers & below) == 0;
       const unsigned leaders = __ballot_sync(kFull, lead);
@@ -467,7 +485,7 @@ __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
       } else if (lead) {
         add_peers(t, base, peers & (peers - 1), v0, v1, v2);
       }
-      if (lead) add_entry(hist + ((long long)f * B + key) * 3, v0, v1, v2);
+      if (lead) add_entry(hist + ((long long)f * bw + key) * 3, v0, v1, v2);
       __syncwarp();
     }
   }
@@ -553,15 +571,18 @@ struct Run {
   double v0, v1, v2;
 };
 
-// Row r's key for feature f (kNoKey past nrows, for a row of no weight
-// and for a bin >= B), and its values in row.
+// Row r's key for feature f: its bin's local index in the bin tile [b0,
+// b0 + bw), or kNoKey past nrows, for a row of no weight and for a bin
+// outside the tile; and its values in row.
 template <typename T>
 __device__ __forceinline__ uint32_t key_of(const Tile& t, int r, int nrows,
-                                           int f, int B, StepRow& row) {
+                                           int f, int b0, int bw,
+                                           StepRow& row) {
   const bool live = load_row(t, r, nrows, row);
-  const uint32_t b =
-      live ? (uint32_t)reinterpret_cast<const T*>(t.bins + row.at)[f] : kNoBin;
-  return b < (uint32_t)B ? b : kNoKey;
+  const uint32_t k = local_bin(
+      live ? (uint32_t)reinterpret_cast<const T*>(t.bins + row.at)[f] : kNoBin,
+      (uint32_t)b0, (uint32_t)bw);
+  return k == kNoBin ? kNoKey : k;
 }
 
 // After the sort: the runs of sorted word w, and the values of its row
@@ -599,17 +620,19 @@ __device__ __forceinline__ void scan_round(Run& a, int start, int lane,
 
 // Item p * fg + f of a staged tile: steps 2p and 2p + 1 (rows 64p + l and
 // 64p + 32 + l on lane l) for feature f, the two sorts interleaved, added
-// into feature f's histogram in that order once ticket[f] says pair s0 + p
-// is next; then the ticket passes to pair s0 + p + 1.
+// into feature f's histogram of bins [b0, b0 + bw) in that order once
+// ticket[f] says pair s0 + p is next; then the ticket passes to pair s0 +
+// p + 1.  A pair with no row in the bin tile (most pairs of a tile on
+// skewed bins) skips the sort and only passes the ticket on.
 template <typename T>
 __device__ __forceinline__ void dealt_item(double* hist, uint32_t* tickets,
                                            const Tile& t, int nrows, int p,
-                                           int f, int B, int lane,
+                                           int f, int b0, int bw, int lane,
                                            uint32_t s0) {
   StepRow ra, rb;
   const int r0 = p * 64 + lane;
-  const uint32_t ka = key_of<T>(t, r0, nrows, f, B, ra);
-  const uint32_t kb = key_of<T>(t, r0 + 32, nrows, f, B, rb);
+  const uint32_t ka = key_of<T>(t, r0, nrows, f, b0, bw, ra);
+  const uint32_t kb = key_of<T>(t, r0 + 32, nrows, f, b0, bw, rb);
   Run a{kNoKey, false, 0.0, 0.0, 0.0}, b{kNoKey, false, 0.0, 0.0, 0.0};
   if (__ballot_sync(kFull, ka != kNoKey || kb != kNoKey) != 0) {
     uint32_t wa = ka << 5 | (uint32_t)lane, wb = kb << 5 | (uint32_t)lane;
@@ -626,10 +649,10 @@ __device__ __forceinline__ void dealt_item(double* hist, uint32_t* tickets,
   while (ld_acquire(tickets + f) != s) {
   }
   if (a.tail && a.key != kNoKey)
-    add_entry(hist + ((long long)f * B + a.key) * 3, a.v0, a.v1, a.v2);
+    add_entry(hist + ((long long)f * bw + a.key) * 3, a.v0, a.v1, a.v2);
   __syncwarp();
   if (b.tail && b.key != kNoKey)
-    add_entry(hist + ((long long)f * B + b.key) * 3, b.v0, b.v1, b.v2);
+    add_entry(hist + ((long long)f * bw + b.key) * 3, b.v0, b.v1, b.v2);
   __syncwarp();
   if (lane == 0) st_release(tickets + f, s + 1);
 }
@@ -646,13 +669,15 @@ struct Smem {
   uint8_t* stage;
 };
 
-// Rows [r0, r1) of src, columns [f0, f0 + fg), into hist, in the owned
-// design: tiles through two staging buffers, the next tile copied while
-// one is added, one barrier a tile.  Every thread of the CTA calls it.
+// Rows [r0, r1) of src, columns [f0, f0 + fg), bins [b0, b0 + bw), into
+// hist, in the owned design: tiles through two staging buffers, the next
+// tile copied while one is added, one barrier a tile.  Every thread of the
+// CTA calls it.
 template <typename T>
 __device__ __forceinline__ void accumulate_rows_owned(
     double* hist, uint32_t* wm, uint8_t* stage, const Stage& st,
-    const Rows& src, long long r0, long long r1, int f0, int fg, int B) {
+    const Rows& src, long long r0, long long r1, int f0, int fg, int b0,
+    int bw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int sb = st.bin_region + 3 * st.val_region;
@@ -673,7 +698,7 @@ __device__ __forceinline__ void accumulate_rows_owned(
     }
     const long long ri = r0 + (long long)i * st.tile;
     accumulate_tile<T>(hist, wm, tile_at(stage + (i & 1) * sb, st, src, ri, f0),
-                    rows_of(i), fg, B, lane, warp, nw);
+                       rows_of(i), fg, b0, bw, lane, warp, nw);
   }
 }
 
@@ -692,7 +717,7 @@ __device__ __forceinline__ void accumulate_rows_owned(
 template <typename T>
 __device__ __forceinline__ void accumulate_rows_dealt(
     const Smem& sm, const Stage& st, const Rows& src, long long r0,
-    long long r1, int f0, int fg, int B, uint32_t& ring) {
+    long long r1, int f0, int fg, int b0, int bw, uint32_t& ring) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwi = (blockDim.x >> 5) - kStagers;  // item warps; the last
                                                  // kStagers stage
@@ -729,8 +754,8 @@ __device__ __forceinline__ void accumulate_rows_dealt(
       const int items = ((nrows + 63) >> 6) * fg;
       for (; it < items; it += nwi) {
         const int p = it / fg;
-        dealt_item<T>(sm.hist, sm.aux, t, nrows, p, it - p * fg, B, lane,
-                      (uint32_t)(i * tile_pairs));
+        dealt_item<T>(sm.hist, sm.aux, t, nrows, p, it - p * fg, b0, bw,
+                      lane, (uint32_t)(i * tile_pairs));
       }
       it -= items;
       __syncwarp();
@@ -740,20 +765,21 @@ __device__ __forceinline__ void accumulate_rows_dealt(
   ring += ntiles;
 }
 
-// Rows [r0, r1) of src, columns [f0, f0 + fg), into the CTA's histogram
-// in either design.
+// Rows [r0, r1) of src, columns [f0, f0 + fg), bins [b0, b0 + bw), into
+// the CTA's histogram in either design.
 template <typename T, bool kDealt>
 __device__ __forceinline__ void accumulate_rows(const Smem& sm,
                                                 const Stage& st,
                                                 const Rows& src, long long r0,
                                                 long long r1, int f0, int fg,
-                                                int B, uint32_t& ring) {
+                                                int b0, int bw,
+                                                uint32_t& ring) {
   if (r0 >= r1) return;
   if (kDealt)
-    accumulate_rows_dealt<T>(sm, st, src, r0, r1, f0, fg, B, ring);
+    accumulate_rows_dealt<T>(sm, st, src, r0, r1, f0, fg, b0, bw, ring);
   else
     accumulate_rows_owned<T>(sm.hist, sm.aux, sm.stage, st, src, r0, r1, f0,
-                             fg, B);
+                             fg, b0, bw);
 }
 
 __device__ __forceinline__ void zero_hist(double* hist, int n) {
@@ -779,10 +805,11 @@ __device__ __forceinline__ Smem carve(uint8_t* smem, int fg, int B) {
               nullptr, smem + hist_bytes(fg, B) + mask_bytes(nw, B)};
 }
 
-// The CTA's histogram (n float64 values) into its partial, plain stores.
+// n float64 values of the CTA's histogram into its partial, plain stores.
 __device__ __forceinline__ void write_partial(double* __restrict__ dst,
                                               const double* src, int n) {
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) &
+       15) == 0) {
     const int n2 = n >> 1;
     const double2* src2 = reinterpret_cast<const double2*>(src);
     double2* dst2 = reinterpret_cast<double2*>(dst);
@@ -791,6 +818,32 @@ __device__ __forceinline__ void write_partial(double* __restrict__ dst,
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
+}
+
+// The CTA's histogram [fg][bw][3] of bins [b0, b0 + bw) into its part of
+// a partial [.., B, 3] whose feature f0 starts at dst: the bin tile's
+// entries of each feature, and nothing else of the partial.
+__device__ __forceinline__ void write_tile(double* __restrict__ dst,
+                                           const double* hist, int fg, int B,
+                                           int b0, int bw) {
+  if (bw == B) {
+    write_partial(dst, hist, 3 * fg * B);
+    return;
+  }
+  for (int i = 0; i < fg; ++i)
+    write_partial(dst + ((long long)i * B + b0) * 3, hist + 3LL * i * bw,
+                  3 * bw);
+}
+
+// The bin tile of a CTA: tile blockIdx.y % tiles of its feature group,
+// bins [b0, b0 + bw) of B, tiles of tile_bins bins (the last narrower).
+struct BinTile {
+  int group, b0, bw;
+};
+__device__ __forceinline__ BinTile bin_tile(int tiles, int tile_bins, int B) {
+  const int group = blockIdx.y / tiles;
+  const int b0 = (blockIdx.y - group * tiles) * tile_bins;
+  return BinTile{group, b0, min(tile_bins, B - b0)};
 }
 
 }  // namespace lgbt
@@ -855,23 +908,39 @@ static inline int fit_tile(int g, int B, long long stride, int esz,
   return 0;
 }
 
-// Feature group and tile rows of a launch over f features of B bins in
-// rows of `stride` bins of esz bytes, in one design: the most features a
-// CTA whose histogram, lane words or tickets and two staging buffers fit
-// kSmemMax with tiles of at least kMinTile rows, each tile as large as
-// then fits, so a wide matrix or a wide bin range takes narrower groups,
-// not smaller tiles (at B = 4,096 a feature's histogram takes 96 KB, and
-// in the owned design its words 16 KB more: two features a dealt CTA, one
-// an owned one).  Returns false when not even one feature fits.
+// The bins a bin tile holds where B bins are split into `tiles` tiles, and
+// the tiles that width takes (the last one narrower, none empty).
+__host__ __device__ inline int tile_width(int B, int tiles) {
+  return (B + tiles - 1) / tiles;
+}
+__host__ __device__ inline int tiles_of(int B, int tile_bins) {
+  return (B + tile_bins - 1) / tile_bins;
+}
+
+// Feature group, tile rows and bin tiles of a launch over f features of B
+// bins in rows of `stride` bins of esz bytes, in one design: the fewest
+// bin tiles (at least min_tiles) at whose width a CTA holds one feature's
+// histogram, its lane words or tickets and two staging buffers within
+// kSmemMax with tiles of at least kMinTile rows; at that width the most
+// features a CTA holds so; each tile as large as then fits.  So a wide
+// matrix or a wide bin range takes narrower groups, not smaller tiles (at
+// B = 4,096 a feature's histogram takes 96 KB, and in the owned design its
+// words 16 KB more: two features a dealt CTA, one an owned one), and a
+// width at which not even one feature fits takes bin tiles (8 of 8,192
+// bins at B = 65,536).  Returns false when not even one bin fits.
 static inline bool plan_geometry(int f, int B, long long stride, int esz,
-                                 bool dealt, int* fg, int* tile) {
-  const int min_tiles[2] = {kMinTile, 1};
-  for (int min_tile : min_tiles)
+                                 bool dealt, int min_tiles, int* fg,
+                                 int* tile, int* tiles, int* tile_bins) {
+  for (int t = min_tiles > 1 ? min_tiles : 1; t <= B; ++t) {
+    const int bt = tile_width(B, t);
     for (int g = f; g >= 1; --g)
-      if ((*tile = fit_tile(g, B, stride, esz, dealt, min_tile)) > 0) {
+      if ((*tile = fit_tile(g, bt, stride, esz, dealt, kMinTile)) > 0) {
         *fg = g;
+        *tile_bins = bt;
+        *tiles = tiles_of(B, bt);
         return true;
       }
+  }
   return false;
 }
 
@@ -911,28 +980,37 @@ static inline cudaError_t allow_smem(K kern, int device, int smem) {
   return e;
 }
 
-// out[0..10]: fg, tile, threads, dynamic shared bytes, CTAs an SM, SMs,
+// out[0..12]: fg, tile, threads, dynamic shared bytes, CTAs an SM, SMs,
 // registers a thread, static shared bytes, spilled bytes a thread, the
-// design (0 owned, 1 dealt) and its staging warps (0: all warps stage).  They depend on the shape only (not on
-// the rows), so a caller asks once per shape and splits its rows over
-// ctas_per_sm * SMs itself.  `stride` is in bins of esz bytes.  design:
-// -1 lets the plan choose (owned while its group holds
+// design (0 owned, 1 dealt), its staging warps (0: all warps stage), the
+// bin tiles of a feature and the bins a tile holds.  They depend on the
+// shape only (not on the rows), so a caller asks once per shape and
+// splits its rows over ctas_per_sm * SMs / (groups * tiles) itself.
+// `stride` is in bins of esz bytes.  design: -1 lets the plan choose
+// (owned while one bin tile holds the whole width and the group holds
 // min(f, kOwnedMinGroup) features, else dealt), 0 or 1 asks for one.
-// owned and dealt are the kernel's two instantiations.
+// min_tiles: the fewest bin tiles (1: as the width needs; more only to
+// test the tiled path at a width that needs none).  owned and dealt are
+// the kernel's two instantiations.  (histogram.py::atomic_geometry
+// mirrors the geometry for the tests that run without a card.)
 template <typename K>
 static inline cudaError_t plan_launch(K owned, K dealt_kern, int device,
                                       long long stride, int f, int B,
-                                      int esz, int design, int* out) {
-  int fg, tile;
+                                      int esz, int design, int min_tiles,
+                                      int* out) {
+  int fg, tile, tiles, bt;
   if (design > 1) return cudaErrorInvalidValue;
   if (design < 0) {
-    if (!plan_geometry(f, B, stride, esz, false, &fg, &tile))
-      fg = 0;
-    design = fg >= (f < kOwnedMinGroup ? f : kOwnedMinGroup) ? 0 : 1;
+    if (!plan_geometry(f, B, stride, esz, false, min_tiles, &fg, &tile,
+                       &tiles, &bt))
+      fg = tiles = 0;
+    design =
+        tiles == 1 && fg >= (f < kOwnedMinGroup ? f : kOwnedMinGroup) ? 0 : 1;
   }
   const bool dealt = design == 1;
   const K kern = dealt ? dealt_kern : owned;
-  if (!plan_geometry(f, B, stride, esz, dealt, &fg, &tile))
+  if (!plan_geometry(f, B, stride, esz, dealt, min_tiles, &fg, &tile, &tiles,
+                     &bt))
     return cudaErrorInvalidValue;
   if (dealt) {
     // the narrowest group that keeps the number of groups: the shared
@@ -941,7 +1019,7 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, int device,
     const int g = (f + (f + fg - 1) / fg - 1) / ((f + fg - 1) / fg);
     if (g < fg) {
       fg = g;
-      tile = fit_tile(fg, B, stride, esz, true, kMinTile);
+      tile = fit_tile(fg, bt, stride, esz, true, kMinTile);
     }
   }
   int per_sm = 0, sms = 0;
@@ -949,7 +1027,7 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, int device,
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
   for (int pass = 0; pass < 2; ++pass) {
-    const int smem = (int)smem_bytes(fg, B, tile, stride, esz, dealt);
+    const int smem = (int)smem_bytes(fg, bt, tile, stride, esz, dealt);
     e = allow_smem(kern, device, smem);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -959,12 +1037,15 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, int device,
     // wave (67 groups of 30 features on 132 SMs fill 51%): take the
     // widest group down to half as wide that leaves at most a tenth idle.
     const int slots = (per_sm > 0 ? per_sm : 1) * sms;
-    if (pass > 0 || wave_share((f + fg - 1) / fg, slots) >= 0.75) break;
+    if (pass > 0 || wave_share((f + fg - 1) / fg * tiles, slots) >= 0.75)
+      break;
     int g = fg - 1;
-    while (g >= (fg + 1) / 2 && wave_share((f + g - 1) / g, slots) < 0.9) --g;
+    while (g >= (fg + 1) / 2 &&
+           wave_share((f + g - 1) / g * tiles, slots) < 0.9)
+      --g;
     if (g < (fg + 1) / 2) break;
     fg = g;
-    tile = fit_tile(fg, B, stride, esz, dealt, 1);
+    tile = fit_tile(fg, bt, stride, esz, dealt, 1);
   }
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kern);
@@ -972,7 +1053,7 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, int device,
   out[0] = fg;
   out[1] = tile;
   out[2] = 32 * warps_for(fg, dealt);
-  out[3] = (int)smem_bytes(fg, B, tile, stride, esz, dealt);
+  out[3] = (int)smem_bytes(fg, bt, tile, stride, esz, dealt);
   out[4] = per_sm;
   out[5] = sms;
   out[6] = a.numRegs;
@@ -980,6 +1061,8 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, int device,
   out[8] = (int)a.localSizeBytes;
   out[9] = design;
   out[10] = dealt ? kStagers : 0;
+  out[11] = tiles;
+  out[12] = bt;
   return cudaSuccess;
 }
 

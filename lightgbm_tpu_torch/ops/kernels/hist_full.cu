@@ -11,7 +11,10 @@
 // feature) items whose lanes a warp sort groups by bin (hist_common.cuh);
 // it writes that histogram once into its float64 partial, and
 // hist_reduce_kernel sums the partials in a fixed order into the float32
-// output.
+// output.  Where one feature's histogram does not fit a CTA (B above
+// ~8,900), each feature's bins are split into bin tiles along gridDim.y
+// (8 of 8,192 bins at B = 65,536), and a CTA adds and writes only its
+// tile's bins.
 //
 // Bound on an H100: it must read N * f * esz bytes of bins (esz = 1 for
 // u8, 2 for u16) and 12 * N bytes of (g, h, m) once and write F * B * 12
@@ -21,69 +24,83 @@
 // feature), 48 bytes through shared memory at 128 bytes a clock an SM
 // (about 0.04 ms at 1M x 28).  The partials add 2 * (grid x) * F * B * 24
 // bytes of device-memory traffic (about 45 MB at 1M x 28 with one CTA an
-// SM).
+// SM).  With bin tiles every tile re-reads the rows: (f * esz + 12) * N
+// bytes a tile, mostly from L2.
 #include "hist_common.cuh"
 
 // T: the bin type (uint8_t or uint16_t); stride in bins; kDealt: the
-// design (hist_common.cuh).
+// design (hist_common.cuh).  Grid (grid_x, groups * tiles): CTA (x, y)
+// takes rows [x * rows_per_cta, ...) and bin tile y % tiles of feature
+// group y / tiles.
 template <typename T, bool kDealt>
 __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
     hist_full_kernel(const T* __restrict__ bins, long long n,
                      long long stride, int f, int B,
                      const float* __restrict__ g, const float* __restrict__ h,
                      const float* __restrict__ m, double* __restrict__ partial,
-                     int fg, int tile, long long rows_per_cta) {
+                     int fg, int tile, int tiles, int tile_bins,
+                     long long rows_per_cta) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int f0 = blockIdx.y * fg;
+  const lgbt::BinTile bt = lgbt::bin_tile(tiles, tile_bins, B);
+  const int f0 = bt.group * fg;
   const int fgc = min(fg, f - f0);
-  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, B);
+  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, bt.bw);
   const int esz = (int)sizeof(T);
   const lgbt::Stage st = lgbt::stage_of(tile, stride * esz, fg * esz);
   const long long r0 = (long long)blockIdx.x * rows_per_cta;
   const long long r1 = min(n, r0 + rows_per_cta);
-  lgbt::zero_hist(sm.hist, 3 * fgc * B);
+  lgbt::zero_hist(sm.hist, 3 * fgc * bt.bw);
   const lgbt::Rows src{reinterpret_cast<const uint8_t*>(bins), stride * esz,
                         esz, g, h, m};
   uint32_t ring = 0;
-  lgbt::accumulate_rows<T, kDealt>(sm, st, src, r0, r1, f0, fgc, B, ring);
+  lgbt::accumulate_rows<T, kDealt>(sm, st, src, r0, r1, f0, fgc, bt.b0,
+                                   bt.bw, ring);
   __syncthreads();
-  lgbt::write_partial(partial + ((long long)blockIdx.x * f + f0) * B * 3,
-                      sm.hist, 3 * fgc * B);
+  lgbt::write_tile(partial + ((long long)blockIdx.x * f + f0) * B * 3,
+                   sm.hist, fgc, B, bt.b0, bt.bw);
 }
 
-// The launch plan of a shape (lgbt::plan_launch's eleven values); esz is
-// the bin type's size (1: u8, 2: u16); design -1 (the plan's choice), 0
-// (owned) or 1 (dealt).
+// The launch plan of a shape (lgbt::plan_launch's thirteen values); esz
+// is the bin type's size (1: u8, 2: u16); design -1 (the plan's choice),
+// 0 (owned) or 1 (dealt); min_tiles the fewest bin tiles (1: as the
+// width needs).
 extern "C" int hist_full_plan(int device, long long stride, int f, int B,
-                              int esz, int design, int* out) {
+                              int esz, int design, int min_tiles, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (esz == 1)
     return (int)lgbt::plan_launch(hist_full_kernel<uint8_t, false>,
                                   hist_full_kernel<uint8_t, true>, device,
-                                  stride, f, B, 1, design, out);
+                                  stride, f, B, 1, design, min_tiles, out);
   if (esz == 2)
     return (int)lgbt::plan_launch(hist_full_kernel<uint16_t, false>,
                                   hist_full_kernel<uint16_t, true>, device,
-                                  stride, f, B, 2, design, out);
+                                  stride, f, B, 2, design, min_tiles, out);
   return (int)cudaErrorInvalidValue;
 }
+
+// The launch geometry: the plan's feature group, tile rows, bin tiles,
+// bins a bin tile and threads; the CTAs along x and the rows each takes.
+struct FullGrid {
+  int fg, tile, tiles, tile_bins, threads, grid_x;
+  long long rows_per_cta;
+};
 
 template <typename T, bool kDealt>
 static cudaError_t launch_full_as(int device, const void* bins, long long n,
                                   long long stride, int f, int B,
                                   const void* g, const void* h,
-                                  const void* m, void* partial, int fg,
-                                  int tile, int threads, int grid_x,
-                                  long long rows_per_cta, cudaStream_t s) {
-  const int smem =
-      (int)lgbt::smem_bytes(fg, B, tile, stride, sizeof(T), kDealt);
+                                  const void* m, void* partial,
+                                  const FullGrid& q, cudaStream_t s) {
+  const int smem = (int)lgbt::smem_bytes(q.fg, q.tile_bins, q.tile, stride,
+                                         sizeof(T), kDealt);
   cudaError_t e = lgbt::allow_smem(hist_full_kernel<T, kDealt>, device, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(grid_x, (f + fg - 1) / fg);
-  hist_full_kernel<T, kDealt><<<grid, threads, smem, s>>>(
+  const dim3 grid(q.grid_x, (f + q.fg - 1) / q.fg * q.tiles);
+  hist_full_kernel<T, kDealt><<<grid, q.threads, smem, s>>>(
       (const T*)bins, n, stride, f, B, (const float*)g, (const float*)h,
-      (const float*)m, (double*)partial, fg, tile, rows_per_cta);
+      (const float*)m, (double*)partial, q.fg, q.tile, q.tiles, q.tile_bins,
+      q.rows_per_cta);
   return cudaGetLastError();
 }
 
@@ -91,42 +108,42 @@ template <typename T>
 static cudaError_t launch_full(int device, const void* bins, long long n,
                                long long stride, int f, int B, const void* g,
                                const void* h, const void* m, void* partial,
-                               int fg, int tile, int threads, int design,
-                               int grid_x, long long rows_per_cta,
+                               int design, const FullGrid& q,
                                cudaStream_t s) {
   if (design == 0)
     return launch_full_as<T, false>(device, bins, n, stride, f, B, g, h, m,
-                                    partial, fg, tile, threads, grid_x,
-                                    rows_per_cta, s);
+                                    partial, q, s);
   if (design == 1)
     return launch_full_as<T, true>(device, bins, n, stride, f, B, g, h, m,
-                                   partial, fg, tile, threads, grid_x,
-                                   rows_per_cta, s);
+                                   partial, q, s);
   return cudaErrorInvalidValue;
 }
 
-// The main kernel over grid_x CTAs (rows_per_cta rows each) and the
-// feature groups, then the reduce pass over its grid_x partials
-// ([grid_x, f, B, 3] float64) into out ([f, B, 3] float32).  bins holds
-// u8 (esz 1) or u16 (esz 2) values, rows of `stride` bins; fg, tile,
-// threads and design are the plan's.
+// The main kernel over grid_x CTAs (rows_per_cta rows each) by the
+// feature groups' bin tiles, then the reduce pass over its grid_x
+// partials ([grid_x, f, B, 3] float64) into out ([f, B, 3] float32).
+// bins holds u8 (esz 1) or u16 (esz 2) values, rows of `stride` bins; fg,
+// tile, tiles, tile_bins, threads and design are the plan's.
 extern "C" int hist_full_launch(int device, const void* bins, long long n,
                                 long long stride, int f, int B, int esz,
                                 const void* g, const void* h, const void* m,
                                 void* partial, void* out, int fg, int tile,
-                                int threads, int design, int grid_x,
+                                int tiles, int tile_bins, int threads,
+                                int design, int grid_x,
                                 long long rows_per_cta, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (tiles < 1 || tile_bins < 1 || (long long)tiles * tile_bins < B ||
+      (long long)(tiles - 1) * tile_bins >= B)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const FullGrid q{fg, tile, tiles, tile_bins, threads, grid_x, rows_per_cta};
   if (esz == 1)
     e = launch_full<uint8_t>(device, bins, n, stride, f, B, g, h, m, partial,
-                             fg, tile, threads, design, grid_x, rows_per_cta,
-                             s);
+                             design, q, s);
   else if (esz == 2)
     e = launch_full<uint16_t>(device, bins, n, stride, f, B, g, h, m,
-                              partial, fg, tile, threads, design, grid_x,
-                              rows_per_cta, s);
+                              partial, design, q, s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

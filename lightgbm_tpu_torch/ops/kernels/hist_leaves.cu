@@ -21,14 +21,18 @@
 // zero, and a NaN stays in the (slot, feature, bin) entries of the row
 // that carried it.  comb holds u8 or u16 bins (the template parameter T);
 // only the first `f` columns of each `stride`-bin row are read (the rest
-// are the packed g/h/w columns: 12 u8 or 6 u16).
+// are the packed g/h/w columns: 12 u8 or 6 u16).  Where one feature's
+// histogram does not fit a CTA (B above ~8,900), each feature's bins are
+// split into bin tiles along gridDim.y, and a CTA adds and writes only its
+// tile's bins of each slot.
 //
 // Bound on an H100: C * f * esz bytes of bins (esz = 1 for u8, 2 for
 // u16), 12 * C bytes of (g, h, m) and 4 * C / BR bytes of block_leaf read
 // once, k * F * B * 12 bytes written: the byte bound is about (f * esz +
 // 12) * C / 3.35 TB/s (0.0035 ms at C = 262,144, f = 28 u8, k = 16).  The update's shared-memory floor is 48 bytes
 // per (row, feature) at 128 bytes a clock an SM (about 0.011 ms there).
-// Each partial adds 2 * F * B * 24 bytes of device-memory traffic.
+// Each partial adds 2 * F * B * 24 bytes of device-memory traffic.  With
+// bin tiles every tile re-reads the rows, mostly from L2.
 #include "hist_common.cuh"
 
 // Whether a block of [b0, blk) names `slot` (nearest first, so a block
@@ -41,7 +45,9 @@ __device__ __forceinline__ bool named_before(const int32_t* block_leaf,
 }
 
 // T: the bin type (uint8_t or uint16_t); stride in bins; kDealt: the
-// design (hist_common.cuh).
+// design (hist_common.cuh).  Grid (grid_x, groups * tiles): CTA (x, y)
+// takes blocks [x * bpc, ...) and bin tile y % tiles of feature group y /
+// tiles.
 template <typename T, bool kDealt>
 __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
     hist_leaves_kernel(const T* __restrict__ comb, long long c,
@@ -52,11 +58,12 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
                        const int32_t* __restrict__ block_leaf, int br, int k,
                        double* __restrict__ partial,
                        int32_t* __restrict__ pslot, int fg, int tile,
-                       int bpc, int parts) {
+                       int tiles, int tile_bins, int bpc, int parts) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int f0 = blockIdx.y * fg;
+  const lgbt::BinTile bt = lgbt::bin_tile(tiles, tile_bins, B);
+  const int f0 = bt.group * fg;
   const int fgc = min(fg, f - f0);
-  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, B);
+  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, bt.bw);
   const int esz = (int)sizeof(T);
   const lgbt::Stage st = lgbt::stage_of(tile, stride * esz, fg * esz);
   const int nb = (int)(c / br);
@@ -71,7 +78,7 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
     if (slot < 0 || slot >= k || named_before(block_leaf, b0, first, slot))
       continue;
     __syncthreads();  // the last slot's partial is written
-    lgbt::zero_hist(sm.hist, 3 * fgc * B);
+    lgbt::zero_hist(sm.hist, 3 * fgc * bt.bw);
     for (int blk = first; blk < b1;) {  // each run of the slot
       if (block_leaf[blk] != slot) {
         ++blk;
@@ -80,13 +87,14 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
       int end = blk + 1;
       while (end < b1 && block_leaf[end] == slot) ++end;
       lgbt::accumulate_rows<T, kDealt>(sm, st, src, (long long)blk * br,
-                                       (long long)end * br, f0, fgc, B, ring);
+                                       (long long)end * br, f0, fgc, bt.b0,
+                                       bt.bw, ring);
       blk = end;
     }
     __syncthreads();
     const long long p = (long long)blockIdx.x * parts + j;
-    lgbt::write_partial(partial + (p * f + f0) * B * 3, sm.hist,
-                        3 * fgc * B);
+    lgbt::write_tile(partial + (p * f + f0) * B * 3, sm.hist, fgc, B, bt.b0,
+                     bt.bw);
     if (blockIdx.y == 0 && threadIdx.x == 0) pslot[p] = slot;
     ++j;
   }
@@ -95,23 +103,32 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
       pslot[(long long)blockIdx.x * parts + r] = -1;
 }
 
-// The launch plan of a shape (lgbt::plan_launch's eleven values); esz is
-// the bin type's size (1: u8, 2: u16); design -1 (the plan's choice), 0
-// (owned) or 1 (dealt).
+// The launch plan of a shape (lgbt::plan_launch's thirteen values); esz
+// is the bin type's size (1: u8, 2: u16); design -1 (the plan's choice),
+// 0 (owned) or 1 (dealt); min_tiles the fewest bin tiles (1: as the
+// width needs).
 extern "C" int hist_leaves_plan(int device, long long stride, int f, int B,
-                                int esz, int design, int* out) {
+                                int esz, int design, int min_tiles,
+                                int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (esz == 1)
     return (int)lgbt::plan_launch(hist_leaves_kernel<uint8_t, false>,
                                   hist_leaves_kernel<uint8_t, true>, device,
-                                  stride, f, B, 1, design, out);
+                                  stride, f, B, 1, design, min_tiles, out);
   if (esz == 2)
     return (int)lgbt::plan_launch(hist_leaves_kernel<uint16_t, false>,
                                   hist_leaves_kernel<uint16_t, true>, device,
-                                  stride, f, B, 2, design, out);
+                                  stride, f, B, 2, design, min_tiles, out);
   return (int)cudaErrorInvalidValue;
 }
+
+// The launch geometry: the plan's feature group, tile rows, bin tiles,
+// bins a bin tile and threads; the CTAs along x, the blocks each takes
+// and the partials each may write.
+struct LeavesGrid {
+  int fg, tile, tiles, tile_bins, threads, grid_x, bpc, parts;
+};
 
 template <typename T, bool kDealt>
 static cudaError_t launch_leaves_as(int device, const void* comb,
@@ -119,19 +136,18 @@ static cudaError_t launch_leaves_as(int device, const void* comb,
                                     int B, const void* g, const void* h,
                                     const void* m, const void* block_leaf,
                                     int br, int k, double* partial,
-                                    int32_t* pslot, int fg, int tile,
-                                    int threads, int grid_x, int bpc,
-                                    int parts, cudaStream_t s) {
-  const int smem =
-      (int)lgbt::smem_bytes(fg, B, tile, stride, sizeof(T), kDealt);
+                                    int32_t* pslot, const LeavesGrid& q,
+                                    cudaStream_t s) {
+  const int smem = (int)lgbt::smem_bytes(q.fg, q.tile_bins, q.tile, stride,
+                                         sizeof(T), kDealt);
   cudaError_t e =
       lgbt::allow_smem(hist_leaves_kernel<T, kDealt>, device, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(grid_x, (f + fg - 1) / fg);
-  hist_leaves_kernel<T, kDealt><<<grid, threads, smem, s>>>(
+  const dim3 grid(q.grid_x, (f + q.fg - 1) / q.fg * q.tiles);
+  hist_leaves_kernel<T, kDealt><<<grid, q.threads, smem, s>>>(
       (const T*)comb, c, stride, f, B, (const float*)g, (const float*)h,
-      (const float*)m, (const int32_t*)block_leaf, br, k, partial, pslot, fg,
-      tile, bpc, parts);
+      (const float*)m, (const int32_t*)block_leaf, br, k, partial, pslot,
+      q.fg, q.tile, q.tiles, q.tile_bins, q.bpc, q.parts);
   return cudaGetLastError();
 }
 
@@ -140,49 +156,51 @@ static cudaError_t launch_leaves(int device, const void* comb, long long c,
                                  long long stride, int f, int B,
                                  const void* g, const void* h, const void* m,
                                  const void* block_leaf, int br, int k,
-                                 double* partial, int32_t* pslot, int fg,
-                                 int tile, int threads, int design,
-                                 int grid_x, int bpc, int parts,
-                                 cudaStream_t s) {
+                                 double* partial, int32_t* pslot, int design,
+                                 const LeavesGrid& q, cudaStream_t s) {
   if (design == 0)
     return launch_leaves_as<T, false>(device, comb, c, stride, f, B, g, h, m,
-                                      block_leaf, br, k, partial, pslot, fg,
-                                      tile, threads, grid_x, bpc, parts, s);
+                                      block_leaf, br, k, partial, pslot, q, s);
   if (design == 1)
     return launch_leaves_as<T, true>(device, comb, c, stride, f, B, g, h, m,
-                                     block_leaf, br, k, partial, pslot, fg,
-                                     tile, threads, grid_x, bpc, parts, s);
+                                     block_leaf, br, k, partial, pslot, q, s);
   return cudaErrorInvalidValue;
 }
 
-// The main kernel over grid_x CTAs (bpc blocks each) and the feature
-// groups, then the reduce pass over its grid_x * parts partials into out
-// ([k, f, B, 3] float32).  parts >= min(bpc, k); scratch holds the
-// partials ([grid_x * parts, f, B, 3] float64), then their slots (int32
-// each).  comb holds u8 (esz 1) or u16 (esz 2) values, rows of `stride`
-// bins; fg, tile, threads and design are the plan's.
+// The main kernel over grid_x CTAs (bpc blocks each) by the feature
+// groups' bin tiles, then the reduce pass over its grid_x * parts
+// partials into out ([k, f, B, 3] float32).  parts >= min(bpc, k);
+// scratch holds the partials ([grid_x * parts, f, B, 3] float64), then
+// their slots (int32 each).  comb holds u8 (esz 1) or u16 (esz 2) values,
+// rows of `stride` bins; fg, tile, tiles, tile_bins, threads and design
+// are the plan's.
 extern "C" int hist_leaves_launch(int device, const void* comb, long long c,
                                   long long stride, int f, int B, int esz,
                                   const void* g, const void* h, const void* m,
                                   const void* block_leaf, int br, int k,
                                   void* scratch, void* out, int fg, int tile,
-                                  int threads, int design, int grid_x,
-                                  int bpc, int parts, void* stream) {
+                                  int tiles, int tile_bins, int threads,
+                                  int design, int grid_x, int bpc, int parts,
+                                  void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (parts < (bpc < k ? bpc : k)) return (int)cudaErrorInvalidValue;
+  if (tiles < 1 || tile_bins < 1 || (long long)tiles * tile_bins < B ||
+      (long long)(tiles - 1) * tile_bins >= B)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long E = (long long)f * B * 3;
   double* partial = (double*)scratch;
   int32_t* pslot = (int32_t*)(partial + (long long)grid_x * parts * E);
+  const LeavesGrid q{fg, tile, tiles, tile_bins, threads, grid_x, bpc, parts};
   if (esz == 1)
     e = launch_leaves<uint8_t>(device, comb, c, stride, f, B, g, h, m,
-                               block_leaf, br, k, partial, pslot, fg, tile,
-                               threads, design, grid_x, bpc, parts, s);
+                               block_leaf, br, k, partial, pslot, design, q,
+                               s);
   else if (esz == 2)
     e = launch_leaves<uint16_t>(device, comb, c, stride, f, B, g, h, m,
-                                block_leaf, br, k, partial, pslot, fg, tile,
-                                threads, design, grid_x, bpc, parts, s);
+                                block_leaf, br, k, partial, pslot, design, q,
+                                s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

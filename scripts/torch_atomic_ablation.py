@@ -84,15 +84,15 @@ import chip_smoke as cs  # noqa: E402
 EDITS = {
     "no_update": [(
         "hist_common.cuh",
-        "      if (lead) add_entry(hist + ((long long)f * B + key) * 3, v0, v1, "
+        "      if (lead) add_entry(hist + ((long long)f * bw + key) * 3, v0, v1, "
         "v2);\n",
         "      if (lead && v0 == -1234.5) hist[0] = v1 + v2;\n"), (
         "hist_common.cuh",
-        "    add_entry(hist + ((long long)f * B + a.key) * 3, a.v0, a.v1, "
+        "    add_entry(hist + ((long long)f * bw + a.key) * 3, a.v0, a.v1, "
         "a.v2);\n",
         "    if (a.v0 == -1234.5) hist[0] = a.v1 + a.v2;\n"), (
         "hist_common.cuh",
-        "    add_entry(hist + ((long long)f * B + b.key) * 3, b.v0, b.v1, "
+        "    add_entry(hist + ((long long)f * bw + b.key) * 3, b.v0, b.v1, "
         "b.v2);\n",
         "    if (b.v0 == -1234.5) hist[0] = b.v1 + b.v2;\n")],
     "no_atomic": [(

@@ -190,10 +190,11 @@ def test_data_breadth_trains_like_jax(case):
 
 def test_kernel_width_gates_the_grower():
     """The grower decides on the kernel width (the widest bundle, else
-    the widest feature): the atomic kernels take any width one feature's
-    histogram fits, and force_row_wise takes the same widths, u16 bins
-    included (the one-hot kernels' u16 instantiations); a tree over u16
-    bins grows through the one-hot path."""
+    the widest feature): the atomic kernels take every u16 width (in bin
+    tiles where one feature's histogram does not fit a CTA), and
+    force_row_wise takes the same widths, u16 bins included (the one-hot
+    kernels' u16 instantiations); a tree over u16 bins grows through the
+    one-hot path."""
     from lightgbm_tpu_torch.ops import grower as tgrow
     from lightgbm_tpu_torch.ops import split as tsplit
     sp_ = tsplit.SplitParams(
@@ -205,13 +206,13 @@ def test_kernel_width_gates_the_grower():
                              split=sp_, bundle_bins=4096)
     assert tgrow.kernel_width(cfg) == 4096
     assert tgrow._frontier_eligible(cfg, 40)
-    assert not tgrow._frontier_eligible(cfg._replace(bundle_bins=20_000), 4)
+    assert tgrow._frontier_eligible(cfg._replace(bundle_bins=20_000), 4)
     for ok in (cfg._replace(hist_method="onehot", bundle_bins=300),
                cfg._replace(hist_method="onehot"),
                cfg._replace(hist_method="onehot", bundle_bins=0,
                             max_bin=1024)):
         assert tgrow._frontier_eligible(ok, 4)
-    assert not tgrow._frontier_eligible(
+    assert tgrow._frontier_eligible(
         cfg._replace(hist_method="onehot", bundle_bins=20_000), 4)
     rng = np.random.default_rng(0)
     n = 512

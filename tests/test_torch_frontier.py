@@ -24,7 +24,6 @@ from lightgbm_tpu.ops import grower as jgrow
 from lightgbm_tpu.ops import predict as jpred
 from lightgbm_tpu.ops import split as jsplit
 from lightgbm_tpu_torch import interop
-from lightgbm_tpu_torch.device import NotPortedError
 from lightgbm_tpu_torch.ops import grower as tgrow
 from lightgbm_tpu_torch.ops import predict as tpred
 from lightgbm_tpu_torch.ops import split as tsplit
@@ -184,20 +183,23 @@ def test_ineligible_configs_raise(fields):
     bad = cfg._replace(**fields)
     assert not tgrow._frontier_eligible(bad, 4)
     # an ineligible configuration takes the sequential grower (as in the
-    # JAX package); a width the card's kernels refuse raises in both
+    # JAX package); so does every width, in both (the kernels take any u16
+    # width in bin tiles)
     z = torch.zeros(64)
     args = (torch.zeros(64, 4, dtype=torch.uint8), z, z, z, torch.ones(4),
             torch.full((4,), 16), torch.full((4,), -1))
     _, assign, host = tgrow.grow_tree(*args, bad)
     assert int(host.num_leaves) == 1 and not assign.any()
-    with pytest.raises(NotPortedError):
-        tgrow.grow_tree(*args, bad._replace(max_bin=20_000))
+    _, assign, host = tgrow.grow_tree(*args, bad._replace(max_bin=20_000))
+    assert int(host.num_leaves) == 1 and not assign.any()
 
 
 def test_eligibility_budget_is_shared_memory():
-    """One feature's [B, 3] f32 histogram must fit a CTA's shared memory."""
+    """A CTA's shared memory no longer bounds the width: where one
+    feature's [B, 3] histogram does not fit, the kernels split its bins
+    into tiles, so the frontier serves every width a u16 bin reaches."""
     cfg = tgrow.GrowerConfig(num_leaves=7, max_depth=-1, max_bin=256,
                              split=tsplit.SplitParams(**SPLIT))
     assert tgrow._frontier_eligible(cfg, 10_000)
-    too_wide = cfg._replace(max_bin=20_000)
-    assert not tgrow._frontier_eligible(too_wide, 4)
+    for wide in (20_000, 65_536):
+        assert tgrow._frontier_eligible(cfg._replace(max_bin=wide), 4)

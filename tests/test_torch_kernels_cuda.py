@@ -258,7 +258,7 @@ def test_wrappers_check_their_inputs(dev):
                           torch.zeros(2, dtype=torch.int32, device=dev), 2,
                           16, block_rows=512)
     with pytest.raises(ValueError, match="max_bin"):
-        thist.hist_full(bins, z, z, z, 20_000)
+        thist.hist_full(bins, z, z, z, 70_000)
 
 
 def test_training_launches_both_kernels_and_matches_plain(dev):
@@ -1072,6 +1072,188 @@ def test_training_u16_and_efb_match_plain(dev):
         for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
             assert np.array_equal(tk.split_feature, tp.split_feature)
             assert np.array_equal(tk.threshold, tp.threshold)
+
+
+# ---------------------------------------------------------------------------
+# wide u16 widths: bin tiles (a feature's bins split over CTAs)
+# ---------------------------------------------------------------------------
+
+def _wide_u16(rng, shape, B, kind, dev):
+    """u16 bins for a width B above one feature's CTA: uniform over [0,
+    65,536) (bins >= B dropped) or Zipf-skewed over [0, B) (a few bins
+    hold most rows, so most steps of a bin tile hold no row of it); every
+    column holds bin 65,535 and bin B - 1."""
+    if kind == "zipf":
+        p = 1.0 / np.arange(1, B + 1) ** 1.1
+        b = rng.choice(B, size=shape, p=p / p.sum()).astype(np.uint16)
+    else:
+        b = rng.integers(0, 65_536, shape).astype(np.uint16)
+    b[3], b[11] = 65_535, B - 1
+    return torch.as_tensor(b).to(dev)
+
+
+def _hold_bits(got, again, ref):
+    """Bit for bit the plain version's result, and the same bits twice."""
+    assert _same_bits(got, ref)
+    assert _same_bits(got, again)
+
+
+# (B, kind): widths of two, two and eight bin tiles a feature, with
+# uniform and Zipf-skewed bins
+WIDE_U16 = [(B, kind) for B in (12_000, 16_384, 65_536)
+            for kind in ("random", "zipf")]
+
+
+@pytest.mark.parametrize("B,kind", WIDE_U16)
+def test_hist_full_wide_bins_match_plain_bit_for_bit(dev, B, kind):
+    """K1 above 9,685 bins: each feature's bins in bin tiles, each CTA
+    adding only its tile's rows, bit for bit the plain version and the
+    same bits twice; the plan's tiles are the geometry's."""
+    rng = np.random.default_rng(B)
+    n, f, ncols = 100_003, 5, 7
+    bins = _wide_u16(rng, (n, ncols), B, kind, dev)
+    g, h, m = _rows(rng, n, dev)
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    before = thist.launch_counts["hist_full"]
+    got = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    again = thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["hist_full"] == before + 2
+    assert got.shape == (f, B, 3)
+    _hold_bits(got, again, ref)
+    plan = thist.atomic_plan("hist_full", dev, ncols, f, B, esz=2)
+    geo = thist.atomic_geometry(f, B, ncols, 2)
+    assert plan["tiles"] > 1
+    for key in ("design", "fg", "tile", "tiles", "tile_bins"):
+        assert plan[key] == geo[key], key
+
+
+@pytest.mark.parametrize("B,kind", WIDE_U16)
+def test_hist_leaves_wide_bins_match_plain_bit_for_bit(dev, B, kind):
+    """K2 above 9,685 bins: the frontier's comb (5 features + 6 u16 gh
+    columns), random slots with two never named, bit for bit the plain
+    version and the same bits twice."""
+    rng = np.random.default_rng(B + 1)
+    k, BR, nb, f = 8, 512, 40, 5
+    C = nb * BR
+    comb = torch.cat([_wide_u16(rng, (C, f), B, kind, dev),
+                      torch.as_tensor(rng.integers(0, 65_536, (C, 6))
+                                      .astype(np.uint16)).to(dev)], 1)
+    g, h, m = _rows(rng, C, dev)
+    bl = torch.as_tensor(_leaf_map(rng, "random", nb, k)).to(dev)
+    kw = dict(block_rows=BR, f_limit=f)
+    with thist.force_plain():
+        ref = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    got = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    again = thist.build_histogram_leaves(comb, g, h, m, bl, k, B, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (k, f, B, 3)
+    _hold_bits(got, again, ref)
+    assert thist.atomic_plan("hist_leaves", dev, f + 6, f, B,
+                             esz=2)["tiles"] > 1
+
+
+@pytest.mark.parametrize("tiles", (2, 3))
+@pytest.mark.parametrize("design", thist.ATOMIC_DESIGNS)
+@pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
+def test_atomic_forced_tiles_match_the_untiled_kernel(dev, kernel, design,
+                                                      tiles):
+    """Bin tiles forced at B = 1,024, where one feature fits a CTA, in
+    both designs: the same bits as the untiled kernel, which itself
+    equals the plain version bit for bit; the crafted steps' edge cases
+    (one bin a step, bins >= B, a NaN row) included."""
+    B = 1024
+    rng = np.random.default_rng(tiles)
+    bins = np.concatenate([_crafted_u16(B, rows=4096),
+                           rng.integers(0, B + 50, (4096, 3))
+                           .astype(np.uint16)], 1)
+    n, f = bins.shape
+    g, h, m = _rows(rng, n, dev)
+    g[77] = float("nan")
+    if kernel == "hist_full":
+        x = torch.as_tensor(bins).to(dev)
+
+        def call():
+            return thist.build_histogram(x, g, h, m, B)
+    else:
+        gh = rng.integers(0, 65_536, (n, 6)).astype(np.uint16)
+        comb = torch.as_tensor(np.concatenate([bins, gh], 1)).to(dev)
+        bl = torch.tensor([0, 1, 0, 2, 2, 1, 0, 3], dtype=torch.int32,
+                          device=dev)
+
+        def call():
+            return thist.build_histogram_leaves(comb, g, h, m, bl, 4, B,
+                                                block_rows=512, f_limit=f)
+    with thist.force_plain():
+        ref = call()
+    with thist.atomic_design(design):
+        untiled = call()
+        with thist.atomic_tiles(tiles):
+            got, again = call(), call()
+            stride = f if kernel == "hist_full" else f + 6
+            plan = thist.atomic_plan(kernel, dev, stride, f, B, esz=2)
+    torch.cuda.synchronize()
+    geo = thist.atomic_geometry(f, B, stride, 2, design, tiles)
+    assert plan["tiles"] == tiles and plan["design"] == _design_id(design)
+    for key in ("design", "tiles", "tile_bins"):
+        assert plan[key] == geo[key], key
+    _hold_atomic(untiled, untiled, ref)
+    fin = torch.isfinite(ref)
+    assert _same_bits(untiled[fin], ref[fin])
+    assert _same_bits(got, untiled) and _same_bits(got, again)
+
+
+def test_atomic_plan_tiles_every_u16_width(dev):
+    """The plan at the main path's shape (28 features, the frontier's comb
+    of 34 columns): untiled to B = 8,192, in bin tiles above, 8 of 8,192
+    bins at B = 65,536, every tile within the shared memory a CTA may
+    hold and no spill; a width no u16 bin reaches is refused."""
+    for B in (1024, 8192, 9686, 20_000, 65_536):
+        for kernel, stride in (("hist_full", 28), ("hist_leaves", 34)):
+            plan = thist.atomic_plan(kernel, dev, stride, 28, B, esz=2)
+            assert (plan["tiles"] > 1) == (B > 8192), (B, plan)
+            assert plan["tiles"] * plan["tile_bins"] >= B
+            assert (plan["tiles"] - 1) * plan["tile_bins"] < B
+            assert plan["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
+            assert plan["local_bytes"] == 0
+    assert plan["tiles"] == 8 and plan["tile_bins"] == 8192
+    with pytest.raises(ValueError, match="max_bin=70000"):
+        thist.atomic_plan("hist_full", dev, 28, 28, 70_000, esz=2)
+
+
+def test_training_wide_bins_launches_both_kernels_and_matches_plain(dev):
+    """max_bin=12000 (a width above one feature's CTA) on both growers:
+    the kernels launch (the root and every frontier round; the serial
+    grower's one K1 a split) and grow force_plain()'s trees."""
+    import lightgbm_tpu_torch as lgt
+    rng = np.random.default_rng(12)
+    n = 40_000
+    X = rng.normal(size=(n, 3)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=n)
+         > 0).astype(np.float32)
+    for grower in ("frontier", "serial"):
+        params = {"objective": "binary", "num_leaves": 15, "max_bin": 12000,
+                  "tree_grower": grower, "verbose": -1}
+        ds = lgt.Dataset(X, label=y, params=params).construct(dev)
+        thist.reset_launch_counts()
+        bk = lgt.train(params, ds, 3, verbose_eval=False, device="cuda")
+        width = bk._gbdt._grower_cfg.max_bin
+        assert width > 9685
+        assert thist.atomic_geometry(3, width, 3, 2)["tiles"] > 1
+        if grower == "frontier":
+            assert thist.launch_counts["hist_full"] == 3
+            assert thist.launch_counts["hist_leaves"] >= 3
+        else:
+            assert thist.launch_counts["hist_full"] > 3
+            assert thist.launch_counts["hist_leaves"] == 0
+        with thist.force_plain():
+            bp = lgt.train(params, ds, 3, verbose_eval=False, device="cuda")
+        for tk, tp in zip(bk._gbdt.models, bp._gbdt.models):
+            assert np.array_equal(tk.split_feature, tp.split_feature)
+            assert np.array_equal(tk.threshold, tp.threshold)
+        np.testing.assert_array_equal(bk.predict(X[:2000]),
+                                      bp.predict(X[:2000]))
 
 
 def test_xendcg_draw_on_the_card_equals_the_cpu(dev):

@@ -226,3 +226,62 @@ def test_linear_tree_contrib_and_refit_raise():
         bt.predict(X, pred_contrib=True)
     with pytest.raises(lgt.LightGBMError, match="linear-tree"):
         bt.refit(X, y)
+
+
+def test_leaf_constant_integer_feature_solves_in_float64(monkeypatch):
+    """Integer-valued columns that are not declared categorical, split on
+    twice, are constant in a leaf: with ``linear_lambda=0`` that column is
+    collinear with the intercept and the leaf's normal equations are
+    singular but for the 1e-10 jitter.  The JAX package builds and solves
+    them in float32, below whose resolution the jitter lies, and gives
+    ``inf`` (ROADMAP C10); the port solves in float64, as the reference's
+    double buffers do, and stays finite.  Each fit equals a float64 numpy
+    solve of the same system: the coefficients of the features that vary
+    in the leaf and the fitted values on the leaf's rows to 1e-9, while the
+    constant column and the intercept, determined only up to the
+    singular direction, trade within 1e-3."""
+    rng = np.random.default_rng(0)
+    n = 3000
+    X = rng.uniform(-2, 2, size=(n, 8)).astype(np.float32)
+    X[:, 6] = rng.integers(0, 12, n)
+    X[:, 7] = rng.integers(0, 40, n)
+    y = (3 * np.sin(1.7 * X[:, 6]) + np.cos(0.9 * X[:, 7]) + X[:, 0]
+         + 0.1 * rng.normal(size=n))
+    calls = []
+    fit = tlin.fit_leaf_linear
+
+    def recorded(*args):
+        out = fit(*args)
+        calls.append((args, out))
+        return out
+    monkeypatch.setattr(tlin, "fit_leaf_linear", recorded)
+    params = {"objective": "regression", "linear_tree": True,
+              "num_leaves": 15, "min_data_in_leaf": 20, "verbose": -1}
+    bt = lgt.train(params, lgt.Dataset(X, label=y, params=params), 5,
+                   verbose_eval=False, device="cpu")
+    assert np.isfinite(bt.predict(X)).all()
+    assert len(calls) == 4                      # every tree but the first
+    constant_leaves = 0
+    for (raw, g, h, na, rw, feat, lam), (co, cs, ok) in calls:
+        assert lam == 0.0
+        raw, na, feat = raw.numpy(), na.numpy(), feat.numpy()
+        nco, ncs, nok = _numpy_fit(raw, g.numpy(), h.numpy(), na, rw.numpy(),
+                                   feat, lam)
+        np.testing.assert_array_equal(ok.numpy(), nok)
+        co, cs = co.numpy(), cs.numpy()
+        for leaf in np.nonzero(nok)[0]:
+            fs = feat[leaf][feat[leaf] >= 0]
+            x = raw[na == leaf][:, fs].astype(np.float64)
+            x = x[~np.isnan(x).any(1)]
+            k = len(fs)
+            np.testing.assert_allclose(x @ co[leaf, :k] + cs[leaf],
+                                       x @ nco[leaf, :k] + ncs[leaf],
+                                       rtol=0, atol=1e-9)
+            varies = (x != x[:1]).any(0)
+            constant_leaves += int(not varies.all())
+            np.testing.assert_allclose(co[leaf, :k][varies],
+                                       nco[leaf, :k][varies], rtol=0,
+                                       atol=1e-9)
+            np.testing.assert_allclose(co[leaf], nco[leaf], rtol=0, atol=1e-3)
+            assert abs(cs[leaf] - ncs[leaf]) <= 1e-3
+    assert constant_leaves > 0
