@@ -84,6 +84,24 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    ``hist_variant`` (so ``auto``) for 5 iterations, which trains with the
    elected variant, and a ``packed`` run at ``max_bin=63`` on 200,000 rows
    for 5 iterations;
+7b. obs: the observability plane on the train phase's rows, 255 leaves,
+   ``max_bin=255``, 10 iterations, once with telemetry off and once with
+   ``obs_telemetry=True, obs_health_check_iters=1, obs_health_port=<a
+   free port>`` (journal and flight dumps in a temporary directory):
+   the same model text (the parameters section aside) and the same
+   ``hist_full``/``hist_leaves`` launches, s/tree of both and the
+   overhead (not gated); one ``train_iter`` an iteration with its phase
+   seconds and device memory (peak >= in use > 0), one ``train_tree`` a
+   tree, one passing ``numeric_health`` an iteration; the
+   ``train.grow_tree`` roofline on the ``h100`` row (``hbm_util`` <=
+   1.05); ``/metrics`` and ``/healthz`` fetched over HTTP from a callback
+   at two iterations, the second's ``iteration`` later; ``python -m
+   lightgbm_tpu_torch obs-report --roofline`` renders the grow row and
+   ``--regressions --gate`` exits 0; a NaN-gradient objective under
+   ``LGBM_FLIGHT_DIR`` raises ``DivergenceError`` at iteration 0 with a
+   flight dump; a torch.profiler window over 2 iterations with
+   ``obs_trace_device=True`` shows the ``lgbm/hist`` and
+   ``lgbm/split_search`` ranges;
 8. serial: ``tree_grower=serial`` (the sequential grower) on the train
    phase's 1M rows at 63 leaves, 5 iterations, by default (``hist_full``)
    and with ``force_row_wise=True, hist_variant="staged"``
@@ -187,12 +205,9 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 outside the
-# tensor cores, and dense bf16 and int8 in the tensor cores
-HBM_TB_PER_S = 3.35
-F32_TFLOP_PER_S = 67.0
-BF16_TFLOP_PER_S = 989.0
-INT8_TOP_PER_S = 1979.0
+# the H100 SXM's peaks (HBM3 bandwidth, f32 outside the tensor cores,
+# dense bf16 and int8 in them) come from the port's one peak table,
+# lightgbm_tpu_torch/obs/costs.py:PEAK_RATES["h100"] (peak_rates())
 REL_TOL = 1e-5
 # the atomic kernels sum in float64 and round once, as their plain
 # versions do: at most one float32 rounding step apart
@@ -379,9 +394,16 @@ def median_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def peak_rates() -> dict:
+    """The H100 row of the port's peak table (per second)."""
+    from lightgbm_tpu_torch.obs import costs
+    return costs.PEAK_RATES["h100"]
+
+
 def bound(nbytes: float, nflops: float):
-    t_bytes = nbytes / (HBM_TB_PER_S * 1e12) * 1e3
-    t_ops = nflops / (F32_TFLOP_PER_S * 1e12) * 1e3
+    peak = peak_rates()
+    t_bytes = nbytes / peak["bytes_per_sec"] * 1e3
+    t_ops = nflops / peak["f32_flops"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -390,9 +412,10 @@ def tensor_core_floor_ms(lanes: int, rows: int, variant: str) -> float:
     its N columns, each lane and each row, at the dense peak of its type:
     8 columns (6 channel rows used) in bf16, or for int8 two n8 tiles (9
     channel rows used) at the int8 peak."""
+    peak = peak_rates()
     if variant == "int8":
-        return 32.0 * lanes * rows / (INT8_TOP_PER_S * 1e12) * 1e3
-    return 16.0 * lanes * rows / (BF16_TFLOP_PER_S * 1e12) * 1e3
+        return 32.0 * lanes * rows / peak["int8_ops"] * 1e3
+    return 16.0 * lanes * rows / peak["flops"] * 1e3
 
 
 def phase_device():
@@ -1540,6 +1563,212 @@ def phase_train(card, elected):
     return (booster, booster_oh, booster_i8), (ds, X, Xv, yv), {
         "atomic": atomic["launches"], "staged": row_wise["launches"],
         "int8": int8_run["launches"], "packed": packed_run["launches"]}
+
+
+# the obs phase: the train phase's rows and model, telemetry off and on
+N_OBS_ITERS = 10
+# the iterations at which the callback fetches /metrics and /healthz
+OBS_SCRAPE_AT = (1, N_OBS_ITERS - 1)
+# a profiler window of this many iterations with obs_trace_device on
+OBS_TRACE_ITERS = 2
+# the device ranges that window must show (the growers' lgbm/* phases)
+OBS_RANGES = ("lgbm/hist", "lgbm/split_search")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http_get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _model_trees(booster):
+    """The model text before its parameters section (which records the
+    obs_* knobs themselves): the header, every tree and the importances."""
+    return booster.model_to_string().split("\nparameters:\n")[0]
+
+
+def _obs_report(args, want):
+    """``python -m lightgbm_tpu_torch obs-report ...`` in its own process
+    from this checkout: it must exit 0 and print ``want``."""
+    p = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                        "obs-report", *args], capture_output=True,
+                       text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    if p.returncode or want not in p.stdout:
+        raise AssertionError(f"obs-report {args}: rc {p.returncode}\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+
+
+def _check_journal(events, iters):
+    """The telemetry run's journal: one train_iter an iteration and one
+    train_tree a tree, each iteration with its phase seconds and device
+    memory (peak >= in use > 0), one passing numeric check an iteration,
+    and the grow program's roofline on the H100 row."""
+    kinds = [e["event"] for e in events]
+    its = [e for e in events if e["event"] == "train_iter"]
+    trees = [e for e in events if e["event"] == "train_tree"]
+    checks = [e for e in events if e["event"] == "numeric_health"]
+    if ([e["iteration"] for e in its] != list(range(iters))
+            or [e["iteration"] for e in trees] != list(range(iters))):
+        raise AssertionError(f"journal events {kinds}")
+    for e in its:
+        wm = e.get("device_memory", {})
+        if not (set(e["phase_seconds"]) >= {"gradients", "grow_tree",
+                                             "update_score"}
+                and wm.get("peak_bytes_in_use", 0)
+                >= wm.get("bytes_in_use", 0) > 0):
+            raise AssertionError(f"train_iter without phases or memory: {e}")
+    if len(checks) != iters or not all(e["ok"] for e in checks):
+        raise AssertionError(f"numeric checks {checks}")
+    costs_ = [e for e in events if e["event"] == "program_cost"]
+    if ([e["program"] for e in costs_] != ["train.grow_tree"]
+            or costs_[0]["chip"] != "h100"
+            or not 0.0 < costs_[0]["hbm_util"] <= 1.05):
+        raise AssertionError(f"program_cost events {costs_}")
+    return its, trees, costs_[0]
+
+
+def phase_obs(card, data):
+    """The observability plane on the train phase's data and model (1M x
+    28, 255 leaves, ``max_bin=255``): the same model with telemetry off
+    and on (s/tree of both, not gated), the journal, the roofline, the
+    live /metrics and /healthz, the divergence sentinel, the obs-report
+    command line and the device ranges of ``obs_trace_device``.  Every
+    file goes to a temporary directory."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.obs import costs, flight, health
+    from lightgbm_tpu_torch.obs.tracer import get_tracer
+    from lightgbm_tpu_torch.ops import histogram as hist
+    from lightgbm_tpu_torch.utils.timer import global_timer
+    from torch.profiler import ProfilerActivity, profile
+    ds = data[0]
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+            "learning_rate": 0.1, "verbose": -1}
+    out = {"phase": "obs", "card": card, "iterations": N_OBS_ITERS}
+    with tempfile.TemporaryDirectory() as td:
+        journal = os.path.join(td, "journal.jsonl")
+        hist.reset_launch_counts()
+        off, secs_off = _train(lgt, ds, base, N_OBS_ITERS)
+        launches_off = dict(hist.launch_counts)
+
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        scrapes = []
+
+        def scrape(env):
+            if env.iteration in OBS_SCRAPE_AT:
+                code_m, text = _http_get(url + "/metrics")
+                code_h, body = _http_get(url + "/healthz")
+                scrapes.append({"at": env.iteration, "metrics": code_m,
+                                "healthz": code_h,
+                                "iteration": json.loads(body)["iteration"],
+                                "counter": "lgbtpu_train_iterations" in text})
+        on_params = dict(base, obs_telemetry=True, obs_health_check_iters=1,
+                         obs_health_port=port, obs_events_path=journal)
+        costs.reset_ledger()
+        hist.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on = lgt.train(on_params, ds, N_OBS_ITERS, verbose_eval=False,
+                       device="cuda", callbacks=[scrape])
+        on._gbdt.models                        # drain: the last tree event
+        torch.cuda.synchronize()
+        secs_on = time.perf_counter() - t0
+        launches_on = dict(hist.launch_counts)
+        costs.get_ledger().emit(on._gbdt._obs.log)
+        on._gbdt._obs.close()
+        health.stop_health_server()
+        flight.uninstall()
+        # off once more, so the overhead stands against two timings that
+        # bracket the telemetry run
+        _, secs_off2 = _train(lgt, ds, base, N_OBS_ITERS)
+        if _model_trees(on) != _model_trees(off):
+            raise AssertionError("telemetry changed the model")
+        if launches_on != launches_off or launches_on["hist_full"] != (
+                N_OBS_ITERS) or {k for k, v in launches_on.items() if v} != {
+                    "hist_full", "hist_leaves"}:
+            raise AssertionError(f"launches with telemetry {launches_on}, "
+                                 f"without {launches_off}")
+        if (len(scrapes) != len(OBS_SCRAPE_AT)
+                or any(s["metrics"] != 200 or s["healthz"] != 200
+                       or not s["counter"] for s in scrapes)
+                or scrapes[0]["iteration"] >= scrapes[1]["iteration"]):
+            raise AssertionError(f"live scrapes {scrapes}")
+        with open(journal) as fh:
+            events = [json.loads(line) for line in fh]
+        its, trees, cost = _check_journal(events, N_OBS_ITERS)
+        _obs_report(["--path", journal, "--roofline"], "train.grow_tree")
+        _obs_report(["--path", journal, "--regressions", "--gate"],
+                    "gate: clean")
+
+        # the divergence sentinel: a supervised run (LGBM_FLIGHT_DIR) with
+        # a NaN-gradient objective stops at iteration 0 with a flight dump
+        def nan_fobj(preds, train_set):
+            return np.full(len(preds), np.nan), np.ones(len(preds))
+        os.environ["LGBM_FLIGHT_DIR"] = td
+        try:
+            lgt.train(dict(base, objective="none", obs_health_check_iters=1),
+                      ds, 3, fobj=nan_fobj, verbose_eval=False,
+                      device="cuda")
+            raise AssertionError("NaN gradients trained without "
+                                 "DivergenceError")
+        except health.DivergenceError as e:
+            diverged = {"iteration": e.iteration, "message": str(e),
+                        "flight_dump": os.path.basename(e.flight_path or "")}
+            if e.iteration != 0 or not (e.flight_path and os.path.exists(
+                    e.flight_path)):
+                raise AssertionError(f"divergence {diverged}")
+        finally:
+            del os.environ["LGBM_FLIGHT_DIR"]
+            flight.uninstall()
+
+        # the device ranges: a profiler window over obs_trace_device
+        # iterations
+        traced = dict(base, obs_telemetry=True, obs_trace_device=True,
+                      obs_events_path=os.path.join(td, "traced.jsonl"))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tb = lgt.train(traced, ds, OBS_TRACE_ITERS, verbose_eval=False,
+                           device="cuda")
+            tb._gbdt.models
+            torch.cuda.synchronize()
+        tb._gbdt._obs.close()
+        get_tracer().annotate_device = False
+        global_timer.detach_tracer()
+        flight.uninstall()
+        keys = {e.key: e.count for e in prof.key_averages()}
+        ranges = {k: v for k, v in keys.items()
+                  if k.startswith(("lgbm/", "train/", "GBDT::"))}
+        if not all(k in ranges for k in OBS_RANGES):
+            raise AssertionError(f"profiler ranges {sorted(ranges)}")
+    trees_n = len(on._gbdt.models)
+    out.update(
+        s_per_tree_off=[secs_off / trees_n, secs_off2 / trees_n],
+        s_per_tree_on=secs_on / trees_n,
+        overhead=2.0 * secs_on / (secs_off + secs_off2) - 1.0,
+        same_model=True,
+        launches=launches_on,
+        launches_per_tree={k: v / trees_n for k, v in launches_on.items()
+                           if v},
+        scrapes=scrapes, journal_events=len(events),
+        phase_seconds_iter0=its[0]["phase_seconds"],
+        device_memory_last=its[-1]["device_memory"],
+        split_gain_tree0=trees[0]["split_gain"],
+        roofline={k: cost.get(k) for k in ("chip", "calls",
+                                           "seconds_per_call",
+                                           "bytes_accessed", "hbm_util",
+                                           "bound", "flops_source",
+                                           "memory")},
+        divergence=diverged, trace_ranges=ranges)
+    emit(out)
+    return launches_on
 
 
 # the serial phase: the sequential grower at Higgs width (63 leaves) and
@@ -2696,6 +2925,7 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
                "launches_by_knob_run": {run: cnt[kname] for run, cnt in
                                         launches["knobs"].items()},
                "launches_by_engine_cli_run": launches["engine_cli"][kname],
+               "launches_by_obs_run": launches["obs"][kname],
                "launches_by_serial_run": {run: cnt[kname] for run, cnt in
                                           launches["serial"].items()},
                **{k: r[k] for k in keys + atomic_keys}, "card": card}
@@ -2814,6 +3044,7 @@ def main() -> int:
     bench = timed("shootout", phase_shootout, smi)
     elected = timed("elect", phase_elect, smi)
     boosters, data, launches = timed("train", phase_train, smi, elected)
+    launches["obs"] = timed("obs", phase_obs, smi, data)
     launches["serial"], serial_blocks = timed("serial", phase_serial, smi,
                                               data)
     launches["knobs"] = timed("knobs", phase_knobs, smi, data)

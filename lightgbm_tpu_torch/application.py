@@ -7,8 +7,9 @@ convert_model and refit (``config.h:29``), in the reference's ``key = value``
 config-file grammar (``#`` comments), so the ``examples/*/train.conf`` files
 run unchanged.  LightGBM's ``device_type`` picks the device: ``cpu`` the
 CPU, and ``tpu`` (the default), ``cuda`` or ``gpu`` the CUDA card, which
-raises ``NoCudaDeviceError`` when there is none.  The JAX package's
-``obs-report`` subcommand is not ported.
+raises ``NoCudaDeviceError`` when there is none.  ``python -m
+lightgbm_tpu_torch obs-report [...]`` renders the perf journal
+(``obs/report.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ import numpy as np
 
 from .basic import Booster, Dataset
 from .config import Config
-from .device import NotPortedError
 from .engine import train as train_fn
 from .utils.log import Log, LightGBMError
 
@@ -154,10 +154,16 @@ class Application:
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "obs-report":
-        raise NotPortedError("the obs-report subcommand is not ported yet")
+        # observability subcommand: render the perf journal + telemetry
+        # snapshot (docs/OBSERVABILITY.md) — not a key=value task
+        from .obs.report import main as obs_report_main
+        return obs_report_main(argv[1:])
     if not argv:
         print("usage: python -m lightgbm_tpu_torch config=<file> "
-              "[key=value ...]   (device_type=cpu for the CPU)")
+              "[key=value ...]   (device_type=cpu for the CPU)\n"
+              "       python -m lightgbm_tpu_torch obs-report "
+              "[--format md|json] [--roofline] [--regressions [--gate]] "
+              "[--health [--health-url HOST:PORT]]")
         return 1
     try:
         Application(parse_argv(argv)).run()

@@ -14,7 +14,12 @@ path (``_train_one_iter_sync``: leaf renewal for L1-style objectives, the
 model-level CEGB state, linear leaves), host ``Tree`` objects
 materialized lazily from a pending list, and prediction through the host
 tree loop (with margin-based early stopping) or the stacked device
-ensemble.  Custom gradients (``train_one_iter(grad, hess)``, objective
+ensemble.  The observability plane as in the JAX package: per-iteration
+and per-tree telemetry (``obs_telemetry``), the numeric sentinels
+(``obs_health_check_iters``; on the fast path launched on the device and
+copied behind a CUDA event, judged when the tree is drained), the
+``/metrics``//``/healthz`` server (``obs_health_port``), the flight
+recorder, and the ``train.grow_tree`` cost record.  Custom gradients (``train_one_iter(grad, hess)``, objective
 ``none``), continued training from a model (``continue_from``), ``refit``,
 ``rollback_one_iter`` and TreeSHAP contributions (``predict_contrib``,
 ``ops/shap.py``) as in the JAX package.  ``goss.py``, ``dart.py`` and
@@ -25,9 +30,9 @@ Not ported yet (raise ``NotPortedError``): the other tree learners.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
-
 import json
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +45,16 @@ from ..objective import ObjectiveFunction, create_objective
 from ..ops import onehot_variants
 from ..io.bin import BinType
 from ..ops.grower import GrowerConfig, TreeArrays, grow_tree
+from ..obs import TrainTelemetry
+from ..obs import costs as obs_costs
+from ..obs import health as obs_health
+from ..ops import histogram
 from ..ops.histogram import take_rows
 from ..ops.predict import predict_leaf_binned, tree_depth
 from ..ops.split import SplitParams
 from ..utils.log import LightGBMError, Log, check
 from ..utils.random_gen import key_for_iteration, uniform
+from ..utils.timer import global_timer
 from .tree import Tree
 
 # rows of a densified block when predicting scipy.sparse input
@@ -110,9 +120,26 @@ class GBDT:
         self.device = resolve_device(device)
         self.train_data: Optional[Dataset] = None
         self.objective = objective
+        # telemetry hook (obs_telemetry): None keeps the off path at one
+        # attribute check per iteration
+        self._obs = (TrainTelemetry(config, device=self.device)
+                     if config.obs_telemetry else None)
+        # live health plane: numeric sentinels every N rounds + the
+        # /metrics and /healthz server (obs_health_port, or the
+        # LGBM_OBS_HEALTH_PORT environment variable)
+        self._health_every = int(config.obs_health_check_iters or 0)
+        server = obs_health.maybe_start(config.obs_health_port)
+        self._health_enabled = bool(server is not None or self._health_every)
+        if self._health_enabled and os.environ.get("LGBM_FLIGHT_DIR"):
+            # a supervised run: arm the flight recorder so a divergence or
+            # a kill leaves forensics even when obs_telemetry is off
+            from ..obs import flight as obs_flight
+            obs_flight.install()
+        self._grow_cost_recorded = False
         self._models: List[Tree] = []
-        # deferred host trees: (numpy TreeArrays, shrinkage, bias, iter)
-        # materialized into Tree objects when `models` is read
+        # deferred host trees: (numpy TreeArrays, shrinkage, bias, iter,
+        # sentinels or None) materialized into Tree objects when `models`
+        # is read
         self._pending: List[tuple] = []
         self._stop_flag = False
         self._empty_by_iter: Dict[int, int] = {}
@@ -155,8 +182,15 @@ class GBDT:
         """Materialize pending host trees (oldest first), leaving at most
         ``keep`` pending."""
         while len(self._pending) > keep:
-            host, shrink, bias, it = self._pending.pop(0)
+            host, shrink, bias, it, health = self._pending.pop(0)
+            if health is not None:
+                # the sentinels' copy rode behind the tree's: by now it has
+                # landed, so judging them adds no device sync
+                self._run_numeric_check(it, health)
             nl = int(host.num_leaves)
+            if self._obs is not None:
+                self._obs.tree_event(it, num_leaves=nl, split_gains=[
+                    float(v) for v in host.split_gain[:max(0, nl - 1)]])
             tree = Tree.from_arrays(host, self.train_data, learning_rate=1.0)
             tree.shrink(shrink)
             if bias:
@@ -292,7 +326,8 @@ class GBDT:
             grower_mode=cfg.tree_grower,
             frontier_k=cfg.frontier_k,
             frontier_block_rows=cfg.frontier_block_rows,
-            hist_method=hist_method, hist_variant=hist_variant)
+            hist_method=hist_method, hist_variant=hist_variant,
+            trace_device=cfg.obs_trace_device)
 
     # ------------------------------------------------------------------
     # feature-gating state: interaction constraints, forced splits, CEGB,
@@ -603,13 +638,37 @@ class GBDT:
                if gcfg.feature_fraction_bynode < 1.0 or gcfg.extra_trees
                else None)
         dd = self._dd
-        return grow_tree(bins, g, h, row_weight, fmask, dd.num_bins,
-                         dd.nan_bins, gcfg, key=key, monotone=dd.monotone,
-                         is_categorical=self._is_cat, efb=dd.efb,
-                         interaction_sets=self._inter,
-                         cegb_coupled=cegb_coupled, cegb_lazy=self._cegb_lazy,
-                         cegb_used_data=cegb_used, forced=self._forced,
-                         feature_contri=self._contri)
+        record = self._obs is not None and not self._grow_cost_recorded
+        if record:
+            bytes0 = sum(histogram.hist_bytes.values())
+            if self.device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(self.device)
+        out = grow_tree(bins, g, h, row_weight, fmask, dd.num_bins,
+                        dd.nan_bins, gcfg, key=key, monotone=dd.monotone,
+                        is_categorical=self._is_cat, efb=dd.efb,
+                        interaction_sets=self._inter,
+                        cegb_coupled=cegb_coupled, cegb_lazy=self._cegb_lazy,
+                        cegb_used_data=cegb_used, forced=self._forced,
+                        feature_contri=self._contri)
+        if record:
+            self._ledger_grow_cost(
+                sum(histogram.hist_bytes.values()) - bytes0, bins)
+        return out
+
+    def _ledger_grow_cost(self, nbytes: int, bins) -> None:
+        """Record ``train.grow_tree`` in the obs cost ledger once a fit,
+        from the first tree: the bytes its histogram calls read and wrote
+        (``histogram.hist_bytes``, the kernels' byte rule; no flops, the
+        atomic path does no tensor-core work) and, on the card, the
+        allocator's peak over the tree.  The telemetry loop joins each
+        iteration's grow seconds against it."""
+        self._grow_cost_recorded = True
+        memory = ({"peak_bytes": torch.cuda.max_memory_allocated(self.device)}
+                  if self.device.type == "cuda" else None)
+        obs_costs.get_ledger().record(
+            "train.grow_tree", cost={"bytes_accessed": nbytes},
+            memory=memory, chip=obs_costs.current_chip(self.device),
+            rows=int(bins.shape[0]), features=int(bins.shape[1]))
 
     # ------------------------------------------------------------------
     def train_one_iter(self, grad: Optional[np.ndarray] = None,
@@ -626,11 +685,19 @@ class GBDT:
         n = self.train_data.num_data
         it = self.iter_
         K = self.num_tree_per_iteration
-        if grad is None or hess is None:
-            g, h = self._compute_gradients(self._train_score)
-        else:
-            g, h = (torch.as_tensor(np.asarray(a, np.float32).reshape(K, n)
-                                    ).to(self.device) for a in (grad, hess))
+        obs = self._obs
+        if obs is not None:
+            obs.phase_mark()
+            # the global_timer scopes below nest under this span (the
+            # timer->tracer bridge)
+            obs.tracer.begin("train/iteration", step=it)
+        with global_timer.scope("GBDT::gradients"):
+            if grad is None or hess is None:
+                g, h = self._compute_gradients(self._train_score)
+            else:
+                g, h = (torch.as_tensor(
+                    np.asarray(a, np.float32).reshape(K, n)).to(self.device)
+                    for a in (grad, hess))
         bag_mask, g, h = self._bagging_weights(it, g, h)
         row_weight = (bag_mask if bag_mask is not None else
                       torch.ones(n, dtype=torch.float32, device=self.device))
@@ -691,29 +758,43 @@ class GBDT:
                 self._bag_sub = self._bag_compact(bag_mask, cap)
             bag_rows, bag_rw, bag_bins = self._bag_sub
         for k in range(K):
-            if cap is not None:
-                tree, _, host = self._grow(bag_bins, g[k][bag_rows],
-                                           h[k][bag_rows], bag_rw, fmask,
-                                           it, k)
-            else:
-                tree, node_assign, host = self._grow(dd.bins, g[k], h[k],
-                                                     row_weight, fmask, it, k)
+            with global_timer.scope("GBDT::grow_tree"):
+                if cap is not None:
+                    tree, _, host = self._grow(bag_bins, g[k][bag_rows],
+                                               h[k][bag_rows], bag_rw, fmask,
+                                               it, k)
+                else:
+                    tree, node_assign, host = self._grow(
+                        dd.bins, g[k], h[k], row_weight, fmask, it, k)
+            # sentinel reductions: launched now, copied behind an event,
+            # judged when the tree is drained (no new device sync)
+            health = (self._health_launch(g[k], h[k], tree.leaf_value)
+                      if self._health_due(it, k) else None)
             bias = (self.init_scores[k]
                     if it == 0 and self.init_scores[k] != 0.0 else 0.0)
-            self._pending.append((host, self.shrinkage_rate, bias, it))
+            self._pending.append((host, self.shrinkage_rate, bias, it,
+                                  health))
             nl = int(host.num_leaves)
             depth = tree_depth(host.left_child, host.right_child, nl)
-            if nl > 1:
-                if cap is not None:
-                    node_assign = predict_leaf_binned(tree, dd.bins,
-                                                      dd.nan_bins, depth=depth,
-                                                      efb=dd.efb)
-                self._add_tree_to_scores(k, tree, node_assign, depth,
-                                         self.shrinkage_rate)
+            with global_timer.scope("GBDT::update_score"):
+                if nl > 1:
+                    if cap is not None:
+                        node_assign = predict_leaf_binned(
+                            tree, dd.bins, dd.nan_bins, depth=depth,
+                            efb=dd.efb)
+                    self._add_tree_to_scores(k, tree, node_assign, depth,
+                                             self.shrinkage_rate)
             self._device_trees.append(tree)
             self._tree_depths.append(depth)
             self._tree_weights.append(self.shrinkage_rate)
         self.iter_ += 1
+        if self._obs is not None:
+            # the iteration event here, the per-tree events from
+            # _drain_pending: telemetry adds no device sync
+            self._obs.tracer.end("train/iteration")
+            self._obs.iteration_event(it, trees=K)
+        elif self._health_enabled:
+            obs_health.set_status(stage="train", iteration=it)
         # one iteration stays pending, so the stop check is one iteration
         # late exactly as in the JAX package (at most K extra constant trees)
         self._drain_pending(keep=K)
@@ -732,13 +813,22 @@ class GBDT:
         dd = self._dd
         cfg = self.config
         should_stop = True
+        obs = self._obs
         for k in range(K):
-            cegb_coupled, cegb_used = self._cegb_state()
-            tree, node_assign, host = self._grow(dd.bins, g[k], h[k],
-                                                 row_weight, fmask, it, k,
-                                                 cegb_coupled, cegb_used)
+            with global_timer.scope("GBDT::grow_tree"):
+                cegb_coupled, cegb_used = self._cegb_state()
+                tree, node_assign, host = self._grow(dd.bins, g[k], h[k],
+                                                     row_weight, fmask, it, k,
+                                                     cegb_coupled, cegb_used)
+            if self._health_due(it, k):
+                # this path already syncs a tree: judge in line
+                self._run_numeric_check(it, (self._health_stats(
+                    g[k], h[k], tree.leaf_value), None))
             self._cegb_update(host, node_assign, bag_mask)
             nl = int(host.num_leaves)
+            if obs is not None:
+                obs.tree_event(it, num_leaves=nl, split_gains=[
+                    float(v) for v in host.split_gain[:max(0, nl - 1)]])
             if nl > 1:
                 should_stop = False
             t = Tree.from_arrays(host, self.train_data, learning_rate=1.0)
@@ -774,21 +864,77 @@ class GBDT:
                         t.leaf_const = np.asarray(t.leaf_value,
                                                   np.float64).copy()
             depth = tree_depth(host.left_child, host.right_child, nl)
-            if linear_dev is not None:
-                self._add_linear_tree_to_scores(k, tree, node_assign, depth,
-                                                linear_dev)
-            elif nl > 1:
-                self._add_tree_to_scores(k, tree, node_assign, depth,
-                                         self.shrinkage_rate)
+            with global_timer.scope("GBDT::update_score"):
+                if linear_dev is not None:
+                    self._add_linear_tree_to_scores(k, tree, node_assign,
+                                                    depth, linear_dev)
+                elif nl > 1:
+                    self._add_tree_to_scores(k, tree, node_assign, depth,
+                                             self.shrinkage_rate)
             self.models.append(t)
             self._device_trees.append(tree)
             self._tree_depths.append(depth)
             self._tree_weights.append(self.shrinkage_rate)
         self.iter_ += 1
+        if obs is not None:
+            obs.tracer.end("train/iteration")
+            obs.iteration_event(it, trees=K)
+        elif self._health_enabled:
+            obs_health.set_status(stage="train", iteration=it)
         if should_stop:
             Log.warning("Stopped training because there are no more leaves "
                         "that meet the split requirements")
         return should_stop
+
+    # ------------------------------------------------------------------
+    # numeric health sentinels (obs_health_check_iters): small device-side
+    # isfinite/max-abs reductions over gradients, hessians and leaf values
+    @staticmethod
+    def _health_stats(g, h, leaf) -> torch.Tensor:
+        """``[3, 2]`` float32 on the arrays' device: for the gradients, the
+        hessians and the leaf values, the finite fraction and the largest
+        ``|x|`` over the finite entries (the JAX package's
+        ``_health_stats_fn``)."""
+        def s(x):
+            xf = x.to(torch.float32).reshape(-1)
+            finite = torch.isfinite(xf)
+            return torch.stack([finite.to(torch.float32).mean(),
+                                torch.where(finite, xf.abs(), 0.0).max()])
+        return torch.stack([s(g), s(h), s(leaf)])
+
+    @staticmethod
+    def _health_launch(g, h, leaf) -> tuple:
+        """The sentinels launched on the device and, on a CUDA device,
+        copied without blocking into pinned host memory behind an event:
+        ``(stats, event or None)``, judged by ``_run_numeric_check``."""
+        stats = GBDT._health_stats(g, h, leaf)
+        if stats.device.type != "cuda":
+            return stats, None
+        out = torch.empty(stats.shape, dtype=torch.float32, pin_memory=True)
+        out.copy_(stats, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return out, done
+
+    def _health_due(self, it: int, k: int) -> bool:
+        """Sample one tree (k==0) every ``obs_health_check_iters`` rounds."""
+        return bool(self._health_every and k == 0
+                    and it % self._health_every == 0)
+
+    def _run_numeric_check(self, it: int, health: tuple) -> None:
+        """Judge the sentinel scalars (after their copy's event); raises
+        ``DivergenceError`` on NaN/Inf (with a flight dump) through
+        ``obs.health.check_numeric``."""
+        stats, done = health
+        if done is not None:
+            done.synchronize()
+        (g0, g1), (h0, h1), (l0, l1) = stats.tolist()
+        obs_health.check_numeric(
+            {"grad": {"finite_frac": g0, "max_abs": g1},
+             "hess": {"finite_frac": h0, "max_abs": h1},
+             "leaf_value": {"finite_frac": l0, "max_abs": l1}},
+            iteration=it, kind="train",
+            log=self._obs.log if self._obs is not None else None)
 
     def _compute_gradients(self, score):
         if self.objective is None:

@@ -46,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.tracer import DeviceRange, device_ranged
 from .grower import (GrowerConfig, TreeArrays, _BestSplits, kernel_width,
                      monotone_gain_mult, node_feature_mask_for,
                      rand_thresholds_for)
@@ -181,10 +182,19 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
                                is_categorical=is_categorical,
                                sorted_cat=sorted_cat, contri=feature_contri)
 
+    # obs_trace_device: the phases as profiler ranges (the JAX package's
+    # lgbm/* named scopes); off, nothing more is called
+    trace = cfg.trace_device
+    nvtx = trace and dev.type == "cuda"
+    build_full, build_leaves = build_histogram, build_histogram_leaves
+    if trace:
+        build_full = device_ranged("lgbm/hist", build_full, nvtx)
+        build_leaves = device_ranged("lgbm/hist", build_leaves, nvtx)
+        find = device_ranged("lgbm/split_search", find, nvtx)
+
     # ---- root -------------------------------------------------------------
-    root_hist = build_histogram(bins, grad, hess, row_weight, Bb,
-                                method=cfg.hist_method,
-                                variant=cfg.hist_variant)
+    root_hist = build_full(bins, grad, hess, row_weight, Bb,
+                           method=cfg.hist_method, variant=cfg.hist_variant)
     root_step = torch.zeros(1, dtype=torch.int64, device=dev)
     root_split = find(root_hist[None], tot[0:1], tot[1:2], tot[2:3],
                       root_step, depth=root_step)
@@ -221,6 +231,8 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
     applied = 0
 
     while applied < S:
+        if trace:
+            rnd = DeviceRange("lgbm/frontier_round", nvtx).open()
         # expansion priority: g_hat primary, RAW gain secondary, index last
         # (the JAX lexsort, as two stable sorts)
         o1 = torch.argsort(-pend.gain, stable=True)
@@ -235,6 +247,8 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         # device->host sync per mask) out of the round.
         v = int(valid.sum())
         if v == 0:
+            if trace:
+                rnd.close()
             break
 
         sel_feat = pend.feature[sel].long()
@@ -302,7 +316,7 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         combb = comb[torch.where(okrow, rid, 0)]
         ghb = combb[:, n_cols:].contiguous().view(torch.float32)  # [C, 3]
         m = torch.where(okrow, ghb[:, 2], 0.0)
-        hist_small = build_histogram_leaves(
+        hist_small = build_leaves(
             combb.view(bins.dtype), ghb[:, 0].contiguous(),
             ghb[:, 1].contiguous(), m, i_of_blk.to(torch.int32), k, Bb,
             block_rows=BR, f_limit=n_cols, method=cfg.hist_method,
@@ -388,6 +402,8 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
             torch.minimum(sr.gain, sp_ghat_i))
         perm, pos_leaf = perm_new, pos_leaf_new
         applied += v
+        if trace:
+            rnd.close()
 
     host = {name: t.cpu().numpy() for name, t in sp.items()}
     tot_h = tot.cpu().numpy()

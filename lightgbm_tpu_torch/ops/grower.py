@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.tracer import DeviceRange, device_ranged
 from ..utils.log import Log
 from ..utils.random_gen import fold_in, uniform
 from .histogram import (_OH_CHUNK, build_histogram, movable_bins,
@@ -59,6 +60,10 @@ class GrowerConfig(NamedTuple):
     # (force_row_wise) with a resolved one-hot body (ops/onehot_variants.py)
     hist_method: str = "atomic"
     hist_variant: str = "base"
+    # obs_trace_device: label the phases (lgbm/hist, lgbm/split_search,
+    # lgbm/partition, lgbm/apply_split, lgbm/frontier_round) as profiler
+    # ranges; off, the growers call nothing more
+    trace_device: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -479,10 +484,16 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
             gain_mult=mult, is_categorical=is_categorical,
             sorted_cat=sorted_cat, contri=feature_contri, gain_penalty=pen)
 
+    trace = cfg.trace_device
+    nvtx = trace and dev.type == "cuda"
+    hist_of = (device_ranged("lgbm/hist", build_histogram, nvtx) if trace
+               else build_histogram)
+    if trace:
+        find = device_ranged("lgbm/split_search", find, nvtx)
+
     # ---- root -------------------------------------------------------------
-    root_hist = build_histogram(bins, grad, hess, row_weight, Bb,
-                                method=cfg.hist_method,
-                                variant=cfg.hist_variant)
+    root_hist = hist_of(bins, grad, hess, row_weight, Bb,
+                        method=cfg.hist_method, variant=cfg.hist_variant)
     tot_h = tot.cpu().numpy().astype(np.float32)
     zero_branch = np.zeros(f, np.float32)
     fmask0 = fmask_of(0, zero_branch)[None]
@@ -597,6 +608,8 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         node_count[j] = leaf_count[leaf]
 
         # ---- partition the parent's segment; histogram the smaller child
+        if trace:
+            part = DeviceRange("lgbm/partition", nvtx).open()
         left_smaller = bool(lc <= rc)
         b0, r0 = int(leaf_begin[leaf]), int(leaf_nrows[leaf])
         seg = perm[b0:b0 + r0].clone()     # perm's segment is rewritten
@@ -617,8 +630,10 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         new_seg = torch.empty_like(seg)
         new_seg[pos] = seg
         perm[b0:b0 + r0] = new_seg
+        if trace:
+            part.close()
         m = torch.where(gl == left_smaller, ghb[:, 2], 0.0)
-        small_hist = build_histogram(
+        small_hist = hist_of(
             combb.view(bins.dtype), ghb[:, 0].contiguous(),
             ghb[:, 1].contiguous(), m, Bb, f_limit=n_cols,
             method=cfg.hist_method, variant=cfg.hist_variant)
@@ -744,6 +759,9 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         leaf_begin[new_id] = b0 + nl
         leaf_nrows[new_id] = r0 - nl
         num_leaves += 1
+
+    if trace:
+        apply_split = device_ranged("lgbm/apply_split", apply_split, nvtx)
 
     # ---- forced splits first (BFS prefix; leaf ids resolved as they land)
     forced_ok, forced_leaf, forced_right = [], [], []

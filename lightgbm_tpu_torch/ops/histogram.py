@@ -62,7 +62,9 @@ Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises.  The only way to run the plain
 version on the card is the explicit ``force_plain()`` context, which the
 chip smoke test and the card-only tests use to compare the two.  Each kernel
-wrapper counts its launches in ``launch_counts``.
+wrapper counts its launches in ``launch_counts``, and ``build_histogram``
+and ``build_histogram_leaves`` count the bytes each call moves in
+``hist_bytes`` (the cost record of the observability plane).
 """
 from __future__ import annotations
 
@@ -79,6 +81,14 @@ from . import onehot_variants as ov
 # one per library, and the shootout shell's own entry into onehot_full's
 launch_counts: Dict[str, int] = {name: 0 for name in
                                  (*_build.KERNELS, "onehot_bench")}
+
+# bytes the build_histogram* calls have read and written, by wrapper
+# ("full", "leaves"), counted from each
+# call's shape on the CPU and the card alike by the byte rule of the
+# kernels' bound: each input byte read once (the F bin columns of every
+# row; grad, hess and mask; the leaves' block map), each output bin
+# written once (three float32)
+hist_bytes: Dict[str, int] = {"full": 0, "leaves": 0}
 
 # tolerance of every one-hot variant against the exact scatter (the JAX
 # package's HIST_PARITY_TOL): the bf16 pair's, and int8's, own error
@@ -193,6 +203,10 @@ def build_histogram(bins: torch.Tensor, grad: torch.Tensor,
     first ``F = f_limit or NC`` columns.  ``variant`` and ``layout`` select
     the one-hot kernel's body and how it reads the bins; the atomic method
     ignores them."""
+    n, ncols = bins.shape
+    f = _n_feat(ncols, f_limit)
+    hist_bytes["full"] += (bins.element_size() * n * f + 12 * n
+                           + f * max_bin * 12)
     if method == "onehot":
         _onehot_spec(variant, max_bin, layout)
         if _plain(bins) and variant == "int8":
@@ -224,8 +238,11 @@ def build_histogram_leaves(comb: torch.Tensor, grad: torch.Tensor,
     ``block_leaf[i]`` (need not be sorted; a slot with no block is zero).
     ``method="onehot"`` outside ``onehot_leaves_fits`` takes the atomic
     method, on the CPU and on the card alike."""
-    if method == "onehot" and not onehot_leaves_fits(
-            _n_feat(comb.shape[1], f_limit), num_slots, max_bin):
+    c, f = comb.shape[0], _n_feat(comb.shape[1], f_limit)
+    hist_bytes["leaves"] += (comb.element_size() * c * f + 12 * c
+                             + 4 * block_leaf.numel()
+                             + num_slots * f * max_bin * 12)
+    if method == "onehot" and not onehot_leaves_fits(f, num_slots, max_bin):
         method = "atomic"
     if method == "onehot":
         _onehot_spec(variant, max_bin, "rowmajor")

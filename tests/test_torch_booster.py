@@ -224,12 +224,12 @@ def test_dataset_methods_match_jax():
     assert bt.num_trees() == 3
 
 
-def test_unported_paths_raise():
-    """What stays unported raises NotPortedError: multi-process training
-    and the obs-report subcommand.  Refit and pred_contrib of a linear-tree
-    model raise the JAX package's LightGBMError: neither package has that
-    path (continued training from one is ported,
-    tests/test_torch_linear_tree.py)."""
+def test_unported_paths_raise(tmp_path, capsys):
+    """What stays unported raises NotPortedError: multi-process training.
+    The obs-report subcommand is ported: it renders a small journal and
+    exits 0.  Refit and pred_contrib of a linear-tree model raise the JAX
+    package's LightGBMError: neither package has that path (continued
+    training from one is ported, tests/test_torch_linear_tree.py)."""
     from lightgbm_tpu_torch.application import main
     X, y, _, _ = _data()
     bt = lgt.train(PARAMS, lgt.Dataset(X, label=y), 2, verbose_eval=False,
@@ -238,8 +238,10 @@ def test_unported_paths_raise():
         bt.set_network(["127.0.0.1:12400"])
     with pytest.raises(NotPortedError, match="free_network"):
         bt.free_network()
-    with pytest.raises(NotPortedError, match="obs-report"):
-        main(["obs-report"])
+    journal = tmp_path / "journal.jsonl"
+    journal.write_text('{"metric": "m", "value": 1.0}\n')
+    assert main(["obs-report", "--path", str(journal), "--no-metrics"]) == 0
+    assert "1 legacy" in capsys.readouterr().out
     linear = lgb.train(dict(PARAMS, linear_tree=True),
                        lgb.Dataset(X[:500], label=y[:500]), 1,
                        verbose_eval=False)

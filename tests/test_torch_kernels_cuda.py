@@ -1904,3 +1904,71 @@ def test_serial_training_launches_one_histogram_a_split(dev, params):
                        device="cuda")
         np.testing.assert_array_equal(bk.predict(X[:3000], pred_leaf=True),
                                       bf.predict(X[:3000], pred_leaf=True))
+
+
+# ---------------------------------------------------------------------------
+# the observability plane on the card
+def test_record_watermarks_read_the_allocator(dev):
+    """``obs.costs.record_watermarks`` on a CUDA device: the caching
+    allocator's bytes in use and their peak, mirrored into the registry;
+    the card's name prices against the H100 row or raises."""
+    from lightgbm_tpu_torch.obs import costs, metrics
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    x = torch.empty(1 << 22, device=dev)
+    reg = metrics.MetricsRegistry()
+    wm = costs.record_watermarks("train", reg, dev)
+    assert wm["peak_bytes_in_use"] >= wm["bytes_in_use"] >= x.numel() * 4
+    snap = reg.snapshot()
+    assert snap["train.device_bytes_in_use"]["value"] == wm["bytes_in_use"]
+    assert (snap["train.device_peak_bytes_in_use"]["value"]
+            == wm["peak_bytes_in_use"])
+    name = torch.cuda.get_device_name(dev)
+    if "H100" in name and "HBM3" in name:
+        assert costs.current_chip(dev) == "h100"
+    else:
+        with pytest.raises(LightGBMError, match=name):
+            costs.current_chip(dev)
+
+
+def test_sentinels_copy_behind_a_cuda_event(dev):
+    """The fast path's numeric sentinels: launched on the card, copied
+    without blocking into pinned host memory behind an event, equal to the
+    same reductions read synchronously."""
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.randn(1_000_003, device=dev, generator=gen)
+    g[::7] = float("nan")
+    h = torch.rand(1_000_003, device=dev, generator=gen)
+    leaf = torch.randn(255, device=dev, generator=gen)
+    stats, done = GBDT._health_launch(g, h, leaf)
+    assert isinstance(done, torch.cuda.Event)
+    assert stats.device.type == "cpu" and stats.is_pinned()
+    done.synchronize()
+    want = GBDT._health_stats(g, h, leaf).cpu()
+    assert torch.equal(stats, want)
+    assert stats[0, 0] < 1.0 and stats[1, 0] == 1.0
+
+
+def test_nan_gradients_raise_divergence_on_the_card(dev, tmp_path):
+    """C11 on the card: a NaN-gradient objective with
+    ``obs_health_check_iters=1`` raises ``DivergenceError`` at iteration 0
+    and leaves a flight dump beside the journal."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.obs import flight, health
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(20_000, 8)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+
+    def nan_fobj(preds, ds):
+        return np.full(len(preds), np.nan), np.ones(len(preds))
+    params = {"objective": "none", "num_leaves": 15, "verbose": -1,
+              "obs_telemetry": True, "obs_health_check_iters": 1,
+              "obs_events_path": str(tmp_path / "journal.jsonl")}
+    try:
+        with pytest.raises(health.DivergenceError) as ei:
+            lgt.train(params, lgt.Dataset(X, label=y), 3, fobj=nan_fobj,
+                      verbose_eval=False, device="cuda")
+    finally:
+        flight.uninstall()
+    assert ei.value.iteration == 0
+    assert ei.value.flight_path.startswith(str(tmp_path))
