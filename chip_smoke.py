@@ -144,6 +144,29 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    launches/tree and ``cap``;
 10. predict: ``save_model`` -> ``Booster(model_file=...)`` predicts
    bit-identically to the booster in memory, for the 1M-row boosters;
+10b. serve: the train phase's default model frozen into a
+   ``PredictorArtifact`` with the default buckets (1,024, 16,384 and
+   262,144 rows, one captured CUDA graph each): raw and transformed
+   predictions bit for bit ``Booster.predict`` (``pred_device=device``)
+   at 1, 1,023, 1,024, 1,025, 16,384 and 300,000 rows, a padded row as in
+   its full bucket, three captures before and after every request,
+   save/load, the parity gate; a ``MicroBatcher`` under 8 threads x 200
+   requests of 1-64 rows (every answer the artifact's, more than one
+   request a batch), a hot swap under that load to a 10-iteration model
+   (nothing dropped or failed), an artifact with doubled leaf values
+   refused by the gate and rolled back; each bucket's p50/p99 ms against
+   the eager ``Booster.predict``, launch calls a request (torch.profiler),
+   capture seconds and graph pool bytes;
+10c. stream: the train phase's rows out of core under an 8 MB budget
+   (17 blocks of 60,544 rows, prefetch 2), 255 leaves, 3 iterations: the
+   trees of ``tree_grower=serial`` in memory (splits, thresholds,
+   counts), predictions within 1e-5, peak block bytes within the budget,
+   puts + skipped = passes x 17, ``hist_full`` on a streamed block bit
+   for bit its plain version, a repeat run with the same trees (timed on
+   both streams: the share of copy time hidden behind compute);
+   ``force_row_wise`` staged and u16 (``max_bin=1023``) streamed runs on
+   200k rows, 63 leaves, 1 iteration, within 1e-3 AUC of their in-memory
+   runs (``--only serve,stream`` runs these two phases alone);
 11-15. data breadth, each run once through the kernels (launch counts
    from zero around it: ``hist_full`` and ``hist_leaves`` and no other;
    the force_row_wise runs the one-hot kernels named below)
@@ -2750,6 +2773,481 @@ def phase_engine(card):
     return {"engine_cli": launches}
 
 
+# the serve phase: the train phase's atomic model frozen into one captured
+# CUDA graph per default bucket (1,024, 16,384, 262,144 rows)
+SERVE_ROWS = (1, 1023, 1024, 1025, 16_384, 300_000)
+SERVE_TIMED_CALLS, SERVE_EAGER_CALLS = 50, 5
+SERVE_THREADS, SERVE_REQUESTS, SERVE_MAX_ROWS = 8, 200, 64
+SERVE_SWAP_ITERS = 10
+
+
+def _pcts(ms):
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _host_ms(fn, calls):
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _launch_calls(fn):
+    """Runtime launch calls (``cudaLaunchKernel``/``cuLaunchKernel`` and
+    ``cudaGraphLaunch``, host rows) and device kernels of one call of
+    ``fn`` under torch.profiler."""
+    _, dev_rows, host_rows = _profiled(fn, host=True)
+    calls = {k: sum(e.count for e in host_rows if k in e.key)
+             for k in ("LaunchKernel", "GraphLaunch")}
+    kernels = sum(e.count for e in dev_rows
+                  if "Memcpy" not in e.key and "Memset" not in e.key)
+    return {"kernel_launch_calls": calls["LaunchKernel"],
+            "graph_launch_calls": calls["GraphLaunch"],
+            "device_kernels": kernels}
+
+
+def _serve_load(srv_or_art, X, seed, check):
+    """``SERVE_THREADS`` threads of ``SERVE_REQUESTS`` requests of 1 to
+    ``SERVE_MAX_ROWS`` rows each through ``srv_or_art.predict`` (a batcher
+    or a Predictor): every answer must pass ``check(rows, out)``.
+    Returns (requests, errors)."""
+    import threading
+    errors, done = [], [0]
+    lock = threading.Lock()
+
+    def client(t):
+        rng = np.random.default_rng(seed + t)
+        for _ in range(SERVE_REQUESTS):
+            a = int(rng.integers(0, len(X) - SERVE_MAX_ROWS))
+            rows = slice(a, a + int(rng.integers(1, SERVE_MAX_ROWS + 1)))
+            try:
+                out = srv_or_art.predict(X[rows], timeout=60)
+                if not check(rows, out):
+                    raise AssertionError(f"wrong answer for rows {rows}")
+                with lock:
+                    done[0] += 1
+            except Exception as e:      # a drop or an error fails the gate
+                with lock:
+                    errors.append(repr(e))
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_THREADS)]
+    for t in threads:
+        t.start()
+    return threads, done, errors
+
+
+def phase_serve(card, booster, data):
+    """The serving artifact on the train phase's model (1M x 28 Higgs
+    rows, 255 leaves, ``max_bin=255``, 20 iterations, atomic kernels),
+    frozen with the default buckets: raw and transformed predictions bit
+    for bit ``Booster.predict`` with ``pred_device=device`` at 1, 1,023,
+    1,024, 1,025, 16,384 and 300,000 rows; a padded row as in a full
+    bucket; three captures before and after every request; ``save``/
+    ``load`` the same bits and captures; the parity gate passes.  A
+    ``MicroBatcher`` under 8 threads x 200 requests of 1-64 rows answers
+    every request as the artifact does and coalesces more than one
+    request a batch; a ``Predictor`` hot-swaps under that load to a
+    10-iteration model with no request dropped or failed; an artifact
+    with its leaf values doubled fails the gate and is rolled back.
+    Prints each bucket's p50/p99 ms (host clock, 50 calls) beside the
+    eager ``Booster.predict``'s, the launch calls of a request (graph
+    against eager, torch.profiler), and each bucket's capture seconds and
+    graph pool bytes."""
+    from lightgbm_tpu_torch import LightGBMError
+    from lightgbm_tpu_torch.serve import (MicroBatcher, Predictor,
+                                          PredictorArtifact)
+    _, X, Xv, _ = data
+    Xs = np.concatenate([Xv, X[:SERVE_ROWS[-1] - len(Xv)]])
+    gb = booster._gbdt
+    gb.config.pred_device = "device"
+    t0 = time.perf_counter()
+    art = PredictorArtifact.freeze(booster)
+    freeze_s = time.perf_counter() - t0
+    if art.buckets != (1024, 16_384, 262_144):
+        raise AssertionError(f"default buckets {art.buckets}")
+
+    def captures():
+        if art.compile_count != 3 or len(art._graphs) != 3:
+            raise AssertionError(f"{art.compile_count} captures")
+    bits = {}
+    for n in SERVE_ROWS:
+        captures()
+        for raw in (False, True):
+            got = art.predict(Xs[:n], raw_score=raw)
+            want = booster.predict(Xs[:n], raw_score=raw)
+            if not (got.shape == want.shape and np.array_equal(got, want)):
+                raise AssertionError(f"serve: {n} rows (raw={raw}) differ "
+                                     "from Booster.predict")
+        captures()
+        bits[n] = True
+    full = art.predict(Xs[:1024])
+    if not np.array_equal(art.predict(Xs[7:8]), full[7:8]):
+        raise AssertionError("serve: a padded row differs from its bucket")
+    captures()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "artifact.txt")
+        art.save(path)
+        loaded = PredictorArtifact.load(path)
+    if loaded.compile_count != 3 or not np.array_equal(
+            loaded.predict(Xs[:20_000]), art.predict(Xs[:20_000])):
+        raise AssertionError("serve: save/load changed the predictions")
+    ok, reason = art.parity_check(Xv[:10_000])
+    if not ok:
+        raise AssertionError(f"serve: parity gate {reason}")
+
+    # the buckets' latency, graph against eager, and launches a request
+    buckets = {}
+    for b in art.buckets:
+        st = art.capture_stats[b]
+        buckets[b] = {"graph": _pcts(_host_ms(lambda: art.predict(Xs[:b]),
+                                              SERVE_TIMED_CALLS)),
+                      "eager": _pcts(_host_ms(lambda: booster.predict(
+                          Xs[:b]), SERVE_EAGER_CALLS)),
+                      "capture_s": st["seconds"],
+                      "graph_pool_bytes": st["pool_bytes"]}
+        print(f"serve bucket {b}: graph p50 "
+              f"{buckets[b]['graph']['p50_ms']:.3f} ms p99 "
+              f"{buckets[b]['graph']['p99_ms']:.3f} ms, eager p50 "
+              f"{buckets[b]['eager']['p50_ms']:.3f} ms, capture "
+              f"{st['seconds']:.3f} s, pool {st['pool_bytes']} bytes "
+              f"({card})", flush=True)
+    launches = {"graph": _launch_calls(lambda: art.predict(Xs[:1024])),
+                "eager": _launch_calls(lambda: booster.predict(Xs[:1024]))}
+    print(f"serve launches a 1,024-row request: {launches}", flush=True)
+    captures()
+
+    # the micro-batcher under load: every answer the artifact's
+    direct = art.predict(Xs[:len(Xs)])
+    mb = MicroBatcher(art.predict, max_batch_rows=art.buckets[-1],
+                      deadline_ms=2.0, queue_depth=4096, name="smoke",
+                      num_features=art.num_features)
+    try:
+        threads, done, errors = _serve_load(
+            mb, Xs, 100, lambda rows, out: np.array_equal(out, direct[rows]))
+        for t in threads:
+            t.join(timeout=300)
+        alive = any(t.is_alive() for t in threads)
+    finally:
+        mb.close()
+    stats = dict(mb.stats)
+    per_batch = stats["requests"] / max(1, stats["batches"])
+    want = SERVE_THREADS * SERVE_REQUESTS
+    if alive or errors or done[0] != want or per_batch <= 1.0:
+        raise AssertionError(f"batcher: {done[0]}/{want} answered, errors "
+                             f"{errors[:3]}, {per_batch} requests a batch")
+    captures()
+
+    # a hot swap under that load, then a failed gate rolled back
+    art10 = PredictorArtifact.freeze(booster, num_iteration=SERVE_SWAP_ITERS)
+    exp10 = art10.predict(Xs[:len(Xs)])
+    srv = Predictor(art, batching=True, deadline_ms=2.0, queue_depth=4096)
+    try:
+        threads, sdone, serrors = _serve_load(
+            srv, Xs, 200, lambda rows, out: (np.array_equal(out, direct[rows])
+                                             or np.array_equal(out,
+                                                               exp10[rows])))
+        time.sleep(0.05)
+        srv.stage("default", art10)
+        gen = srv.swap("default", parity_X=Xv[:2048])
+        after = srv.predict(Xs[:64])
+        for t in threads:
+            t.join(timeout=300)
+        alive = any(t.is_alive() for t in threads)
+        bad = PredictorArtifact.freeze(booster, num_iteration=SERVE_SWAP_ITERS)
+        bad._ens.leaf_value.mul_(2.0)     # the captured graphs read it
+        srv.stage("default", bad)
+        try:
+            srv.swap("default", parity_X=Xv[:2048])
+            rolled_back = False
+        except LightGBMError as e:
+            rolled_back = "mismatch" in str(e)
+        still = srv.predict(Xs[:64])
+        info = srv.models()["default"]
+    finally:
+        srv.close()
+    if (alive or serrors or sdone[0] != want or gen != 2
+            or not np.array_equal(after, exp10[:64])):
+        raise AssertionError(f"hot swap: {sdone[0]}/{want} answered, errors "
+                             f"{serrors[:3]}, generation {gen}")
+    if not (rolled_back and np.array_equal(still, exp10[:64])
+            and info["generation"] == 2 and not info["staged"]):
+        raise AssertionError("the doubled artifact was not rolled back")
+    out = {"phase": "serve", "card": card, "trees": art.num_trees,
+           "buckets": list(art.buckets), "freeze_s": freeze_s,
+           "bit_identical_rows": bits, "captures": art.compile_count,
+           "latency_by_bucket": buckets, "launches_1024_rows": launches,
+           "batcher": {"requests": stats["requests"],
+                       "batches": stats["batches"],
+                       "requests_per_batch": per_batch,
+                       "max_batch_requests": stats["max_batch_requests"]},
+           "hot_swap": {"requests": sdone[0], "errors": len(serrors),
+                        "generation": gen},
+           "gate_rolled_back": rolled_back}
+    emit(out)
+    return out
+
+
+# the stream phase: the train phase's rows out of core.  The real case is a
+# bin matrix larger than the card's 80 GB; the run's time limit forces a
+# smaller one, so an 8 MB budget stands in for the card and cuts the 28 MB
+# u8 matrix into 17 blocks of 60,544 rows (8e6 // (3 x (28 + 16)) =
+# 60,606, floored to a multiple of 128)
+STREAM_BUDGET, STREAM_PREFETCH, STREAM_BLOCKS = 8_000_000, 2, 17
+STREAM_LEAVES, ITERS_STREAM = 255, 3
+# the force_row_wise and u16 runs: 200k rows, 63 leaves, 1 iteration, a
+# 2 MB budget (14 and 22 blocks)
+N_STREAM_SMALL, STREAM_SMALL_LEAVES, STREAM_SMALL_BUDGET = 200_000, 63, \
+    2_000_000
+
+
+def _structure(booster):
+    return [ln for ln in booster.model_to_string().splitlines()
+            if ln.startswith(("split_feature=", "threshold=", "left_child=",
+                              "right_child=", "leaf_count="))]
+
+
+def _hidden_share(events, ref):
+    """The share of the copies' device time that ran while the compute
+    stream was busy with a block: ``events`` holds one (copy start, copy
+    end, compute start, compute end) tuple of CUDA events a block, times
+    from ``ref`` recorded before all of them."""
+    spans = [[ref.elapsed_time(e) for e in ev] for ev in events]
+    copies = sorted((a, b) for a, b, _, _ in spans)
+    merged = []                 # the compute intervals' union, in order
+    for c, d in sorted((c, d) for _, _, c, d in spans):
+        if merged and c <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], d)
+        else:
+            merged.append([c, d])
+    total = sum(b - a for a, b in copies)
+    hidden, j = 0.0, 0
+    for a, b in copies:         # both in start order: one sweep
+        while j < len(merged) and merged[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(merged) and merged[k][0] < b:
+            hidden += min(b, merged[k][1]) - max(a, merged[k][0])
+            k += 1
+    return hidden / total if total > 0 else 0.0, total
+
+
+def _stream_block_check(hist, dev, matrix, g, h, w, B):
+    """K1 on the first streamed block of the matrix (a pinned slot copied
+    on the copy stream) against its plain version on the same device
+    block, bit for bit, with its times beside the plain version's,
+    ``index_add_``'s and the byte bound."""
+    from lightgbm_tpu_torch.stream.pipeline import RowBlockPipeline
+    pipe = RowBlockPipeline(matrix, STREAM_PREFETCH, device=dev)
+    it = pipe.blocks({"g": g, "h": h, "rw": w})
+    blk = next(it)
+    args = (blk.bins, blk.extras["g"], blk.extras["h"], blk.extras["rw"], B)
+
+    def kernel():
+        return hist.hist_full(*args)
+    got, again = kernel(), kernel()
+    with hist.force_plain():
+        ref = hist.build_histogram(*args)
+        plain_ms = median_ms(lambda: hist.build_histogram(*args), reps=5)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, ref) and torch.equal(got, again)):
+        raise AssertionError(f"hist_full on a streamed block: relerr "
+                             f"{relerr(got, ref)}")
+    r, f = blk.bins.shape
+    b_ms, b_by = bound(r * f + 12 * r + f * B * 12, 3 * r * f + 2 * r)
+    out = {"shape": [r, f, B], "bit_identical": True,
+           "max_abs_err": float((got - ref).abs().max()),
+           "relerr": relerr(got, ref), "ms": median_ms(kernel),
+           "kernel_ms": calls_ms(kernel, ATOMIC_KERNELS["hist_full"]),
+           "plain_ms": plain_ms,
+           "library_ms": _full_yardstick(dev, blk.bins, *args[1:4], B),
+           "bound_ms": b_ms, "bound_by": b_by}
+    it.close()
+    return out
+
+
+# --profile: cProfile over one more streamed tree (host time by function,
+# chiprun_out/profile_stream.txt)
+PROFILE_STREAM = False
+
+
+def _profile_stream(booster):
+    import cProfile
+    import io
+    import pstats
+    events = booster._gbdt.stream_stats.events
+    booster._gbdt.stream_stats.events = None
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    booster.update()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    booster.rollback_one_iter()
+    booster._gbdt.stream_stats.events = events
+    out = io.StringIO()
+    st = pstats.Stats(prof, stream=out)
+    st.sort_stats("tottime").print_stats(40)
+    st.sort_stats("cumulative").print_stats(40)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_stream.txt"), "w") as f:
+        f.write(f"one streamed tree under cProfile: {wall:.3f} s\n")
+        f.write(out.getvalue())
+    print(f"stream profile: one tree {wall:.3f} s under cProfile "
+          "(chiprun_out/profile_stream.txt)", flush=True)
+
+
+def phase_stream(card, data):
+    """Out-of-core training on the train phase's rows (1M x 28,
+    ``max_bin=255``, 255 leaves, 3 iterations) under an 8 MB budget with
+    prefetch 2 (17 blocks of 60,544 rows, ``STREAM_BUDGET``), against the
+    in-memory ``tree_grower=serial`` run on the card: the same splits,
+    thresholds and counts in every tree, predictions within 1e-5, peak
+    block bytes within the budget, the blocks put plus skipped equal to
+    the passes x 17, K1 on a streamed block bit for bit its plain version,
+    and a repeat run (timed on both streams) the same trees.  Then a
+    ``force_row_wise`` (staged) run and a u16 run (``max_bin=1023``), 200k
+    rows, 63 leaves, 1 iteration, each within 1e-3 AUC of its in-memory
+    run, launching the one-hot and the u16 K1.  Prints s/tree against the
+    in-memory run, H2D bytes and GB/s, K1 launches a tree and the share of
+    copy time hidden behind compute.  Returns the runs' launch counts and
+    the block check."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    ds, X, Xv, yv = data
+    y = ds.get_label()
+    steps, last = {}, [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - last[0]
+        last[0] = now
+    base = {"objective": "binary", "num_leaves": STREAM_LEAVES,
+            "max_bin": 255, "learning_rate": 0.1, "verbose": -1,
+            "tree_grower": "serial"}
+    ref, ref_s = _train(lgt, ds, base, ITERS_STREAM)
+    step("memory_serial_run")
+    sp = dict(base, max_bin_matrix_bytes=STREAM_BUDGET,
+              stream_prefetch=STREAM_PREFETCH)
+    dss = lgt.Dataset(X, label=y, params=sp).construct(device="cuda")
+    step("construct")
+    plan = dss._inner.stream_plan()
+    if (plan is None or plan.num_blocks != STREAM_BLOCKS
+            or plan.block_rows != 60_544):
+        raise AssertionError(f"stream plan {plan}")
+    hist.reset_launch_counts()
+    st, st_s = _train(lgt, dss, sp, ITERS_STREAM)
+    launches = dict(hist.launch_counts)
+    step("stream_run")
+    eng = st._gbdt
+    if type(eng).__name__ != "StreamGBDT":
+        raise AssertionError(f"routed to {type(eng).__name__}")
+    stats = eng.stream_stats.as_dict()
+    if _structure(st) != _structure(ref):
+        raise AssertionError("streamed trees differ from the serial trees")
+    pdiff = float(np.abs(st.predict(Xv) - ref.predict(Xv)).max())
+    if pdiff > 1e-5:
+        raise AssertionError(f"streamed predictions differ by {pdiff}")
+    if stats["peak_block_bytes"] > STREAM_BUDGET:
+        raise AssertionError(f"peak block bytes {stats}")
+    if stats["puts"] + stats["blocks_skipped"] != \
+            stats["passes"] * STREAM_BLOCKS:
+        raise AssertionError(f"block accounting {stats}")
+    if launches["hist_full"] != stats["puts"] or any(
+            v for k, v in launches.items() if k != "hist_full"):
+        raise AssertionError(f"stream launches {launches}, {stats}")
+    trees = len(st._gbdt.models)
+    step("gates")
+
+    # K1 on a streamed block, bit for bit
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = (0.5 - y).astype(np.float32)
+    block = _stream_block_check(hist, dev, eng._matrix, g,
+                                np.full(len(y), 0.25, np.float32),
+                                np.ones(len(y), np.float32),
+                                eng._grower_cfg.max_bin)
+    print(f"stream block {block['shape']}: hist_full bit for bit, kernel "
+          f"{_f4(block['kernel_ms'])} ms, call {block['ms']:.4f} ms, plain "
+          f"{block['plain_ms']:.4f} ms, index_add_ "
+          f"{block['library_ms']:.4f} ms, bound {block['bound_ms']:.5f} ms",
+          flush=True)
+
+    step("block_check")
+    # the repeat run, its copies and compute timed on both streams
+    ref_evt = torch.cuda.Event(enable_timing=True)
+    ref_evt.record()
+    torch.cuda.synchronize()
+    b2 = lgt.Booster(params=sp, train_set=dss, device="cuda")
+    b2._gbdt.stream_stats.events = []
+    for _ in range(ITERS_STREAM):
+        b2.update()
+    torch.cuda.synchronize()
+    _same_trees(b2.model_to_string(), st.model_to_string())
+    step("repeat_run")
+    if PROFILE_STREAM:
+        _profile_stream(b2)
+    hidden, copy_ms = _hidden_share(b2._gbdt.stream_stats.events, ref_evt)
+    if not copy_ms > 0:
+        raise AssertionError("the repeat run timed no copies")
+    step("hidden_share")
+    h2d = stats["bytes_h2d"]
+    run = {"rows": len(y), "iterations": ITERS_STREAM, "trees": trees,
+           "plan": plan._asdict(), "stats": stats,
+           "s_per_tree": st_s / trees, "serial_s_per_tree": ref_s / trees,
+           "h2d_bytes_per_tree": h2d / trees,
+           "h2d_run_gb_s": h2d / st_s / 1e9,
+           "h2d_copy_gb_s": (b2._gbdt.stream_stats.bytes_h2d
+                             / (copy_ms / 1e3) / 1e9),
+           "k1_launches_per_tree": launches["hist_full"] / trees,
+           "copy_hidden_share": hidden, "pred_max_abs_diff": pdiff,
+           "same_trees_as_serial": True, "repeat_same_trees": True}
+    print(f"stream: s/tree {run['s_per_tree']:.4f} (in-memory serial "
+          f"{run['serial_s_per_tree']:.4f}), H2D {h2d / trees / 1e9:.3f} GB"
+          f"/tree at {run['h2d_copy_gb_s']:.2f} GB/s a copy, K1 "
+          f"launches/tree {run['k1_launches_per_tree']:.1f}, copy hidden "
+          f"{hidden:.3f} ({card})", flush=True)
+
+    # force_row_wise (the one-hot K1) and u16 (max_bin=1023), 200k rows
+    Xs, ys = make_higgs_like(N_STREAM_SMALL, N_FEAT, seed=49)
+    small = {}
+    for name, extra, kern in (
+            ("row_wise_staged", {"force_row_wise": True,
+                                 "hist_variant": "staged"}, "onehot_full"),
+            ("u16", {"max_bin": 1023}, "hist_full")):
+        p = dict(base, num_leaves=STREAM_SMALL_LEAVES, **extra)
+        d_mem = lgt.Dataset(Xs, label=ys, params=p).construct(device="cuda")
+        b_mem, mem_s = _train(lgt, d_mem, p, 1)
+        ps = dict(p, max_bin_matrix_bytes=STREAM_SMALL_BUDGET)
+        d_st = lgt.Dataset(Xs, label=ys, params=ps).construct(device="cuda")
+        hist.reset_launch_counts()
+        b_st, st_small_s = _train(lgt, d_st, ps, 1)
+        cnt = dict(hist.launch_counts)
+        if not cnt[kern] or any(v for k, v in cnt.items() if k != kern):
+            raise AssertionError(f"stream {name}: launches {cnt}")
+        a_mem = _auc(b_mem.predict(Xv, raw_score=True), yv)
+        a_st = _auc(b_st.predict(Xv, raw_score=True), yv)
+        if abs(a_mem - a_st) > AUC_TOL:
+            raise AssertionError(f"stream {name}: AUC {a_st} vs {a_mem}")
+        small[name] = {"rows": N_STREAM_SMALL, "launches": cnt,
+                       "blocks": d_st._inner.stream_plan().num_blocks,
+                       "dtype": str(d_st._inner.bins.dtype),
+                       "s_per_tree": st_small_s, "memory_s_per_tree": mem_s,
+                       "auc": a_st, "memory_auc": a_mem}
+        print(f"stream {name}: {small[name]}", flush=True)
+    step("small_runs")
+    print(f"stream steps (s): {steps}", flush=True)
+    emit({"phase": "stream", "card": card, "budget_bytes": STREAM_BUDGET,
+          "steps_s": steps,
+          "prefetch": STREAM_PREFETCH, **run, "block": block,
+          "small": small})
+    return ({"atomic": launches,
+             **{k: v["launches"] for k, v in small.items()}}, block)
+
+
 def phase_predict(boosters, Xv):
     import lightgbm_tpu_torch as lgt
     out = []
@@ -2901,7 +3399,28 @@ BENCH_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_full.cu",
               "lightgbm_tpu/ops/onehot_variants.py::make_bench_kernel")
 
 
-def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
+def _only_phases(names, smi, timed):
+    """``--only``: the serve and stream phases alone, on the train phase's
+    data and its default model (trained once, no plain run)."""
+    import lightgbm_tpu_torch as lgt
+    unknown = set(names) - {"serve", "stream"}
+    if unknown:
+        raise SystemExit(f"--only: unknown phases {sorted(unknown)}")
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+            "learning_rate": 0.1, "verbose": -1}
+    X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=42)
+    Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=43)
+    ds = lgt.Dataset(X, label=y, params=base).construct(device="cuda")
+    data = (ds, X, Xv, yv)
+    if "serve" in names:
+        booster, _ = _train(lgt, ds, base, N_ITERS)
+        timed("serve", phase_serve, smi, booster, data)
+    if "stream" in names:
+        timed("stream", phase_stream, smi, data)
+
+
+def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
+                stream_block, card):
     """The ``{"kernels": [...]}`` rows: the atomic kernels, one row per
     one-hot (kernel, layout, variant, width), the quantize kernel, and one
     row per shootout (variant, width).  ``launches`` is the count from the
@@ -2931,6 +3450,10 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
                **{k: r[k] for k in keys + atomic_keys}, "card": card}
         if kname in serial_blocks:
             row["serial_blocks"] = serial_blocks[kname]
+        if kname == "hist_full":
+            row["launches_by_stream_run"] = \
+                launches["stream"]["atomic"][kname]
+            row["stream_block"] = stream_block
         if "cases" in r:
             row["cases"] = {c: {k: v[k] for k in ("relerr", "ms",
                                                   "kernel_ms", "library_ms")}
@@ -2949,10 +3472,14 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
             if f"{kname}/u16/{case}" not in kern:
                 continue
             r = kern[f"{kname}/u16/{case}"]
+            stream = ({"launches_by_stream_run":
+                       launches["stream"]["u16"][kname]}
+                      if case == "B1024" else {})
             rows.append({"name": f"{kname}/u16/{case}", "route": "cuda",
                          "source": src, "replaces": replaces, "jax": jax_fn,
                          "dtype": "uint16", "shape": r["shape"],
                          "launches": launches[run][kname] if run else 0,
+                         **stream,
                          **{k: r[k] for k in keys + atomic_keys},
                          "card": card})
     for name, r in onehot.items():
@@ -2963,7 +3490,9 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks, card):
         n = launches[run][r["kernel"]] if on_path else 0
         serial = ({"launches_by_serial_run": launches["serial"][
             "row_wise_staged"]["onehot_full"],
-                   "serial_blocks": serial_blocks["onehot_full"]}
+                   "serial_blocks": serial_blocks["onehot_full"],
+                   "launches_by_stream_run": launches["stream"][
+                       "row_wise_staged"]["onehot_full"]}
                   if (r["kernel"], r["layout"], r["variant"], r["B"]) == (
                       "onehot_full", "featmajor", "staged", 256) else {})
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -3019,7 +3548,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few more iterations (torch.profiler)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases among serve,stream: build "
+                         "the kernels, train the train phase's default "
+                         "model once and run only these (no kernels line)")
     args = ap.parse_args()
+    global PROFILE_STREAM
+    PROFILE_STREAM = args.profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3037,6 +3572,13 @@ def main() -> int:
         return out
     name, smi, clock = timed("device", phase_device)
     timed("build", phase_build)
+    if args.only:
+        _only_phases(args.only.split(","), smi, timed)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "phase_seconds": seconds})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     breadth = timed("breadth_data", breadth_data)
     kern = timed("kernels", phase_kernels, clock, breadth)
     onehot = timed("kernels_onehot", phase_kernels_onehot, smi, breadth)
@@ -3050,6 +3592,9 @@ def main() -> int:
     launches["knobs"] = timed("knobs", phase_knobs, smi, data)
     Xv = data[2]
     timed("predict", phase_predict, boosters, Xv)
+    timed("serve", phase_serve, smi, boosters[0], data)
+    launches["stream"], stream_block = timed("stream", phase_stream, smi,
+                                             data)
     if args.profile:
         timed("profile", phase_profile, boosters[0], smi)
     del data, boosters
@@ -3060,7 +3605,7 @@ def main() -> int:
     launches.update(timed("widest_bins", phase_widest_bins, smi))
     launches.update(timed("engine", phase_engine, smi))
     rows = kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
-                       smi)
+                       stream_block, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})
     emit({"kernels": rows})

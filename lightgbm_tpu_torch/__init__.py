@@ -5,8 +5,10 @@ The same module layout and names as the JAX package, in PyTorch; the
 histogram kernels of the training path are hand-written CUDA for Hopper
 (``ops/kernels``).  Entry points (``train``, ``cv``, ``Booster``,
 ``Dataset.construct`` and the sklearn estimators ``LGBMRegressor``,
-``LGBMClassifier``, ``LGBMRanker``) run on the CUDA card unless the caller
-passes ``device="cpu"``; the command line (``python -m lightgbm_tpu_torch``)
+``LGBMClassifier``, ``LGBMRanker``), the serving artifact
+(``serve.PredictorArtifact``) and the out-of-core engines (``stream``) run
+on the CUDA card unless the caller passes ``device="cpu"``; the command
+line (``python -m lightgbm_tpu_torch``)
 reads ``device_type``.  This package imports neither jax nor lightgbm_tpu.
 """
 from .basic import Booster, Dataset
@@ -31,6 +33,13 @@ def __getattr__(name):
     if name in ("LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker"):
         from . import sklearn as _sk
         return getattr(_sk, name)
+    if name in ("serve", "PredictorArtifact", "Predictor", "MicroBatcher",
+                "QueueSaturatedError"):
+        from . import serve as _serve
+        return _serve if name == "serve" else getattr(_serve, name)
+    if name == "stream":
+        from . import stream as _stream
+        return _stream
     if name.startswith("plot_") or name in ("create_tree_digraph", "plotting"):
         import importlib
         _pl = importlib.import_module(".plotting", __name__)

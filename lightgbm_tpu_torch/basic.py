@@ -7,7 +7,9 @@ training data's lists) or a data file (with its ``.weight``/``.query``/
 data, row subsets, field access, and the ``Booster``: training (``update``,
 custom gradients), rollback, refit, parameter resets, evaluation, the
 predict family (dense, sparse, frame or file input; leaves and TreeSHAP
-contributions), model text IO, dumps and pickling.  Every entry point takes
+contributions), model text IO, dumps and pickling.  A training set whose
+bin matrix is over the out-of-core budget stays in host RAM and trains on
+``stream.StreamGBDT``/``StreamGOSS``.  Every entry point takes
 ``device``: ``None`` means the CUDA card and raises ``NoCudaDeviceError``
 without one; pass ``"cpu"`` to run the plain PyTorch path.  Multi-process
 training (``set_network``) is not ported and raises ``NotPortedError``.
@@ -63,12 +65,14 @@ class Dataset:
 
     def construct(self, device=None) -> "Dataset":
         """Bin the data and place it on ``device`` (default: the one given
-        at construction, else CUDA)."""
+        at construction, else CUDA).  A dataset that streams
+        (``stream_plan()``) keeps its bin matrix in host RAM."""
         dev = resolve_device(device if device is not None else self.device)
         self.device = dev
         if self._inner is None:
             self._inner = self._build_inner(dev)
-        self._inner.device_data(dev)
+        if self._inner.stream_plan() is None:
+            self._inner.device_data(dev)
         return self
 
     def _build_inner(self, dev) -> _InnerDataset:
@@ -354,7 +358,18 @@ class Booster:
     @staticmethod
     def _create_engine(cfg: Config, inner_train, device):
         """The boosting class by ``boosting`` (the JAX package's
-        ``Booster._create_engine``, without its out-of-core routing)."""
+        ``Booster._create_engine``): when the training set's bin matrix is
+        over the out-of-core budget, or ``stream_rows`` forces it, the
+        streaming engines train from host RAM in row blocks."""
+        if inner_train.stream_plan() is not None:
+            from .stream.booster import StreamGBDT, StreamGOSS
+            scls = {"gbdt": StreamGBDT, "goss": StreamGOSS}.get(cfg.boosting)
+            if scls is None:
+                raise LightGBMError(
+                    "out-of-core streaming supports boosting=gbdt/goss "
+                    f"(got {cfg.boosting}); raise max_bin_matrix_bytes or "
+                    "unset stream_rows to train device-resident")
+            return scls(cfg, inner_train, device=device)
         from .models.dart import DART
         from .models.goss import GOSS
         from .models.rf import RF

@@ -18,7 +18,12 @@ bin mappers; pandas ``category`` columns become their codes against the
 training data's category lists (``_pandas_to_numpy``).  With
 ``linear_tree`` the dense raw values are kept as ``raw_data`` (float32).
 
-Not ported yet (raises ``NotPortedError``): out-of-core streaming.
+Out-of-core training (``stream/``): ``stream_plan()`` decides from the
+``max_bin_matrix_bytes``/``stream_rows`` knobs (or the fake-cap seam)
+whether the bin matrix streams from host RAM; ``host_bin_matrix()`` is its
+row-block view and ``device_meta()`` the per-feature metadata without the
+bins on the device.  A configured stream budget turns EFB off (a config-
+only gate, ``_efb_config_allows``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..device import NotPortedError, resolve_device
+from ..device import resolve_device
 from ..utils.log import Log, check, LightGBMError
 from ..utils.random_gen import Random
 from .bin import BinMapper, BinType, MissingType
@@ -151,8 +156,6 @@ class Dataset:
         its bin mappers come from a densified row sample and its binning
         and EFB packing stream over row blocks (``_bin_data_sparse``)."""
         config = config or Config()
-        if config.stream_rows or config.max_bin_matrix_bytes:
-            raise NotPortedError("out-of-core streaming is not ported yet")
         self = cls(config)
         sparse = _is_sparse(data)
         check(not (sparse and config.linear_tree),
@@ -336,14 +339,25 @@ class Dataset:
 
     # ------------------------------------------------------------------
     # EFB (io/efb.py; reference FindGroups, src/io/dataset.cpp:60-180)
+    @staticmethod
+    def _efb_config_allows(cfg, num_features: int) -> bool:
+        """Config-only part of the EFB gate.  Out-of-core streaming turns
+        bundling off whenever a stream budget or block size is CONFIGURED
+        (not merely triggered): the streaming grower trains plain
+        per-feature columns, and the bundle layout must not depend on the
+        data size, which triggers the stream."""
+        from ..stream.host_matrix import effective_budget_bytes
+        return (cfg.enable_bundle and num_features > 1
+                and cfg.tree_learner not in ("feature", "voting")
+                and not cfg.stream_rows
+                and not effective_budget_bytes(cfg))
+
     def _efb_candidates(self):
         """(num_bins, bundleable) arrays over used features, or None when
-        bundling cannot apply (disabled / feature-sharded learners / too few
-        candidates; the JAX package also turns it off under a stream
-        budget, which the port refuses outright)."""
+        bundling cannot apply (disabled / feature-sharded learners / a
+        stream budget / too few candidates)."""
         cfg = self.config
-        if not (cfg.enable_bundle and self.num_features > 1
-                and cfg.tree_learner not in ("feature", "voting")):
+        if not self._efb_config_allows(cfg, self.num_features):
             return None
         feats = self.used_features
         nb = np.array([self.bin_mappers[f].num_bin for f in feats], np.int64)
@@ -519,11 +533,41 @@ class Dataset:
         return sub
 
     # ------------------------------------------------------------------
+    # out-of-core streaming (stream/)
+    def stream_plan(self):
+        """``StreamPlan`` when this dataset should train out-of-core (its
+        bin matrix exceeds the ``max_bin_matrix_bytes`` budget, or the
+        fake-cap seam's, or ``stream_rows`` forces it), else ``None``.  The
+        decision lives here, so every consumer makes the same choice."""
+        if self.bins is None:
+            return None
+        from ..stream.host_matrix import plan_streaming
+        return plan_streaming(self.num_data, self.bins.shape[1],
+                              self.bins.dtype.itemsize, self.config)
+
+    def host_bin_matrix(self, plan=None):
+        """Row-block view of the host bin matrix for the streaming
+        trainer."""
+        from ..stream.host_matrix import HostBinMatrix
+        plan = plan or self.stream_plan()
+        check(plan is not None, "host_bin_matrix needs a streaming plan")
+        return HostBinMatrix(self.bins, plan.block_rows)
+
+    def device_meta(self, device=None) -> DeviceData:
+        """The per-feature metadata tensors on ``device`` WITHOUT the bin
+        matrix (``bins`` is None): the streaming trainer keeps the bins in
+        host RAM and moves row blocks instead."""
+        return self._device_tensors(resolve_device(device), with_bins=False)
+
     def device_data(self, device=None) -> DeviceData:
         """Materialize device tensors on ``device`` (lazily cached)."""
         dev = resolve_device(device)
-        if dev in self._device:
-            return self._device[dev]
+        if dev not in self._device:
+            self._device[dev] = self._device_tensors(dev, with_bins=True)
+        return self._device[dev]
+
+    def _device_tensors(self, dev: torch.device, with_bins: bool
+                        ) -> DeviceData:
         feats = self.used_features
         nb = np.array([self.bin_mappers[f].num_bin for f in feats], dtype=np.int32)
         offsets = np.concatenate([[0], np.cumsum(nb)]).astype(np.int32)
@@ -562,8 +606,8 @@ class Dataset:
 
         def t(a):
             return torch.as_tensor(a).to(dev)
-        dd = DeviceData(
-            bins=t(self.bins),
+        return DeviceData(
+            bins=t(self.bins) if with_bins else None,
             num_bins=t(nb),
             bin_offsets=t(offsets),
             default_bins=t(default_bins),
@@ -575,8 +619,6 @@ class Dataset:
             efb=efb,
             bundle_bins=bundle_bins,
         )
-        self._device[dev] = dd
-        return dd
 
 
 def _is_sparse(data) -> bool:

@@ -5,8 +5,9 @@ reference parser stack, ``src/io/parser.cpp`` CreateParser auto-detection,
 ``TextReader``): the native parser (``native/``) reads the file, numpy when
 it is unavailable.  Label column by index or ``name:<col>``, and the
 ``weight_column``/``group_column``/``ignore_column`` roles, as in the
-reference.  The JAX package's out-of-core heads-up at load time is not
-ported (its streaming is not).
+reference.  A file whose binned footprint will exceed the out-of-core
+budget is announced at load time, as in the JAX package (the binding
+decision is ``Dataset.stream_plan()``'s, after binning).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..config import Config
-from ..utils.log import check
+from ..utils.log import Log, check
 
 
 def _detect_format(first_lines: List[str]) -> str:
@@ -51,8 +52,27 @@ def load_file(path: str, config: Optional[Config] = None):
     fmt = detect_file_format(path)
     if fmt == "libsvm":
         feat, label, names = _load_libsvm(path)
-        return feat, label, names, None, None
-    return _load_delimited(path, "\t" if fmt == "tsv" else ",", cfg)
+        out = (feat, label, names, None, None)
+    else:
+        out = _load_delimited(path, "\t" if fmt == "tsv" else ",", cfg)
+    _announce_stream_budget(out[0], cfg, path)
+    return out
+
+
+def _announce_stream_budget(feat, cfg: Config, path: str) -> None:
+    """Out-of-core heads-up at file-load time: the u8-bin estimate (one
+    byte a cell, exact whenever max_bin <= 256) tells command-line users
+    at ingest that this file will train from host RAM."""
+    from ..stream.host_matrix import effective_budget_bytes
+    budget = effective_budget_bytes(cfg)
+    if not budget or feat is None:
+        return
+    projected = int(np.prod(feat.shape))
+    if projected > budget:
+        Log.info(
+            "%s: projected binned footprint ~%.1f MB exceeds the %.1f MB "
+            "device budget; training will stream row blocks from host RAM",
+            path, projected / 1e6, budget / 1e6)
 
 
 def _load_delimited(path: str, delim: str, cfg: Config):

@@ -1190,10 +1190,7 @@ class GBDT:
             self._warm_linear()
             return
         ds = self.train_data
-        dd = self._dd
-        sets = [(dd.bins, self._train_score)] + [
-            (v.device_data(self.device).bins, self._valid_scores[i])
-            for i, v in enumerate(self.valid_sets)]
+        sets = self._score_sets()
         for i, t in enumerate(self.models):
             k = i % K
             bias = self.init_scores[k] if i < K else 0.0
@@ -1201,17 +1198,26 @@ class GBDT:
             rate = (self.shrinkage_rate if bias and t.shrinkage == 1.0
                     else t.shrinkage)
             unshrunk = ((t.leaf_value - bias) / rate).astype(np.float32)
-            delta = torch.as_tensor(unshrunk).to(self.device) * rate
-            if t.num_leaves <= 1:
-                for _, score in sets:
-                    score[k] += delta[0]
-                continue
-            tree, depth = self._binned_tree(t, ds)
-            for bins, score in sets:
-                leaf = predict_leaf_binned(tree, bins, dd.nan_bins,
-                                           depth=depth, efb=dd.efb)
-                score[k] += delta[leaf]
+            tree, depth = ((None, 0) if t.num_leaves <= 1
+                           else self._binned_tree(t, ds))
+            for leaf_of, score in sets:
+                delta = torch.as_tensor(unshrunk).to(score.device) * rate
+                score[k] += (delta[0] if tree is None
+                             else delta[leaf_of(tree, depth)])
         self._prev_scores = None
+
+    def _score_sets(self):
+        """``(leaf_of, scores)`` of the training set and of each valid
+        set: ``leaf_of(tree, depth)`` gives the leaf of each row by the
+        binned traversal, on the scores' device."""
+        dd = self._dd
+
+        def leaves(bins):
+            return lambda tree, depth: predict_leaf_binned(
+                tree, bins, dd.nan_bins, depth=depth, efb=dd.efb)
+        return [(leaves(dd.bins), self._train_score)] + [
+            (leaves(v.device_data(self.device).bins), self._valid_scores[i])
+            for i, v in enumerate(self.valid_sets)]
 
     def _warm_linear(self) -> None:
         """Warm the scores from a model holding linear trees, as the JAX

@@ -44,6 +44,10 @@ class EnsembleArrays(NamedTuple):
     cat_words: torch.Tensor        # [W] int64 (uint32 values)
     has_split: List[bool]          # [T] host
     depth: List[int]               # [T] host: traversal steps per tree
+    # [T] host: whether a tree has a categorical split (read here, not
+    # from is_cat on the device, so the traversal never syncs and a CUDA
+    # graph can capture it)
+    has_cat: List[bool]
     # linear trees (None when no tree of the stack is linear)
     leaf_const: torch.Tensor = None    # [T, L] f32
     leaf_coeff: torch.Tensor = None    # [T, L, K] f32
@@ -73,7 +77,7 @@ def stack_trees(models: List, device) -> EnsembleArrays:
     lc = np.full((T, M), -1, np.int64)
     rc = np.full((T, M), -1, np.int64)
     lv = np.zeros((T, L), np.float32)
-    hs, depth = [], []
+    hs, depth, hc = [], [], []
     any_linear = any(getattr(t, "is_linear", False) for t in models)
     K = 1
     if any_linear:
@@ -85,6 +89,7 @@ def stack_trees(models: List, device) -> EnsembleArrays:
     for ti, t in enumerate(models):
         m = t.num_internal if t.num_leaves > 1 else 0
         hs.append(t.num_leaves > 1)
+        hc.append(False)
         depth.append(tree_depth(t.left_child, t.right_child, t.num_leaves))
         if m:
             sf[ti, :m] = t.split_feature[:m]
@@ -93,6 +98,7 @@ def stack_trees(models: List, device) -> EnsembleArrays:
             for j in range(m):
                 if t.is_categorical_split(j):
                     ic[ti, j] = True
+                    hc[ti] = True
                     cidx = int(t.threshold[j])
                     lo, hi = t.cat_boundaries[cidx], t.cat_boundaries[cidx + 1]
                     clo[ti, j] = len(words)
@@ -122,7 +128,7 @@ def stack_trees(models: List, device) -> EnsembleArrays:
         right_child=d(rc), leaf_value=d(lv), cat_lo=d(clo),
         cat_nwords=d(cnw),
         cat_words=d(np.asarray(words or [0], np.int64) & 0xFFFFFFFF),
-        has_split=hs, depth=depth,
+        has_split=hs, depth=depth, has_cat=hc,
         **(dict(leaf_const=d(const), leaf_coeff=d(coeff),
                 leaf_feats=d(feats)) if any_linear else {}))
 
@@ -137,7 +143,6 @@ def predict_leaf_raw(ens: EnsembleArrays, X: torch.Tensor, ti: int) -> torch.Ten
     lch, rch = ens.left_child[ti], ens.right_child[ti]
     ic, clo, cnw = ens.is_cat[ti], ens.cat_lo[ti], ens.cat_nwords[ti]
     words = ens.cat_words
-    has_cat = bool(ic.any())
     rows = torch.arange(n, device=X.device)
     cur = torch.zeros(n, dtype=torch.int64, device=X.device)
     for _ in range(ens.depth[ti]):
@@ -151,7 +156,7 @@ def predict_leaf_raw(ens: EnsembleArrays, X: torch.Tensor, ti: int) -> torch.Ten
             is_nan | (torch.abs(x) <= K_ZERO_THRESHOLD),
             (node_mt == _MT_NAN) & is_nan)
         goes_left = torch.where(is_miss, dl[node], x0 <= th[node])
-        if has_cat:
+        if ens.has_cat[ti]:
             # categorical: the value's bit in the split's bitset
             iv = torch.where(torch.isfinite(x) & (x >= 0), x,
                              torch.full_like(x, -1.0)).to(torch.int64)

@@ -286,6 +286,23 @@ def onehot_leaves_fits(f: int, num_slots: int, max_bin: int) -> bool:
             and num_slots * 6 * lanes * 4 <= ONEHOT_LEAVES_ACC_BYTES)
 
 
+def accumulate_histogram(acc: torch.Tensor, bins: torch.Tensor,
+                         grad: torch.Tensor, hess: torch.Tensor,
+                         mask: torch.Tensor, max_bin: int, *,
+                         method: str = "atomic",
+                         variant: str = "base") -> torch.Tensor:
+    """Block-accumulating entry point: ``acc + build_histogram(block)``
+    (the JAX package's ``accumulate_histogram``).  The out-of-core grower
+    (``stream/``) folds each streamed row block into a running float32
+    ``[F, B, 3]`` accumulator with it: on a CUDA block that is the K1
+    kernel (``hist_full``, or ``onehot_full`` featmajor under
+    ``method="onehot"``), on a CPU block its plain version.  Accumulation
+    is block-major, so the float32 adds reassociate against one full pass
+    (the sharded learners' noise class, ~2^-23 relative an add)."""
+    return acc + build_histogram(bins, grad, hess, mask, max_bin,
+                                 method=method, variant=variant)
+
+
 def subtract_histogram(parent: torch.Tensor, child: torch.Tensor) -> torch.Tensor:
     """Sibling histogram via subtraction (reference ``FeatureHistogram::Subtract``,
     ``feature_histogram.hpp:79``)."""

@@ -13,7 +13,6 @@ import torch
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
 from lightgbm_tpu_torch import interop
-from lightgbm_tpu_torch.device import NotPortedError
 
 pytestmark = pytest.mark.torch_port
 # one intra-op thread each: the suite runs in several worker processes
@@ -85,15 +84,18 @@ def test_bin_mappers_from_state_round_trip():
 
 
 def test_untaken_paths_raise(tmp_path):
-    """Streaming stays unported and raises; data files, pandas category
-    columns, the binary cache and ``subset`` are ported and give the JAX
-    package's Dataset (their parity tests: test_torch_loader.py,
-    test_torch_pandas.py)."""
+    """Streaming, data files, pandas category columns, the binary cache
+    and ``subset`` are ported and give the JAX package's Dataset (their
+    parity tests: test_torch_stream.py, test_torch_loader.py,
+    test_torch_pandas.py); a streamed dataset keeps its bin matrix in
+    host RAM."""
     import pandas as pd
     X, y = _data(seed=1)
-    with pytest.raises(NotPortedError, match="streaming"):
-        lgt.Dataset(X, label=y, params={"stream_rows": 1024}).construct(
-            device="cpu")
+    ds = lgt.Dataset(X, label=y, params={"stream_rows": 1024}).construct(
+        device="cpu")
+    plan = ds._inner.stream_plan()
+    assert plan.block_rows == 1024 and plan.reason == "stream_rows"
+    assert not ds._inner._device
     path = tmp_path / "train.csv"
     np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.17g")
     dt = lgt.Dataset(str(path)).construct(device="cpu")

@@ -1972,3 +1972,127 @@ def test_nan_gradients_raise_divergence_on_the_card(dev, tmp_path):
         flight.uninstall()
     assert ei.value.iteration == 0
     assert ei.value.flight_path.startswith(str(tmp_path))
+
+
+# ---------------------------------------------------------------------------
+# serving: the captured bucket graphs; out-of-core: the copy-streamed blocks
+def test_serve_graph_capture_bit_exact_with_eager(dev):
+    """One captured graph a bucket gives the eager device traversal's bits
+    (``GBDT.predict`` with ``pred_device=device``), raw and transformed,
+    padded and chunked, with a categorical split in the traversal."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.serve import PredictorArtifact
+    X, y = _engine_data(4000)
+    X[:, 3] = np.random.default_rng(1).integers(0, 9, len(X))
+    y = np.where(X[:, 3] % 3 == 0, 1 - y, y)
+    p = {"objective": "binary", "num_leaves": 15, "verbose": -1,
+         "pred_device": "device"}
+    bst = lgt.train(p, lgt.Dataset(X, label=y, categorical_feature=[3]), 6,
+                    verbose_eval=False, device="cuda")
+    art = PredictorArtifact.freeze(bst, buckets=[64, 256])
+    assert art.compile_count == 2 and len(art._graphs) == 2
+    assert any(art._ens.has_cat)
+    for n in (1, 63, 64, 65, 256, 600):
+        assert np.array_equal(art.predict(X[:n]), bst.predict(X[:n])), n
+        assert np.array_equal(art.predict(X[:n], raw_score=True),
+                              bst.predict(X[:n], raw_score=True)), n
+    full = art.predict(X[:64])
+    assert np.array_equal(art.predict(X[5:6]), full[5:6])
+    assert art.compile_count == 2
+    ok, reason = art.parity_check(X[:500])
+    assert ok, reason
+
+
+@pytest.mark.parametrize("esz,B,method", [(1, 256, "atomic"),
+                                          (2, 1024, "atomic"),
+                                          (1, 256, "onehot")])
+def test_accumulate_histogram_on_copy_streamed_blocks(dev, esz, B, method):
+    """K1 on each pinned, copy-streamed block (``accumulate_histogram``)
+    gives its plain version's bits on the same device block."""
+    from lightgbm_tpu_torch.stream.host_matrix import HostBinMatrix
+    from lightgbm_tpu_torch.stream.pipeline import (PipelineStats,
+                                                    RowBlockPipeline)
+    rng = np.random.default_rng(esz)
+    n, f = 50_000, 28
+    bins = rng.integers(0, B, (n, f)).astype(np.uint8 if esz == 1
+                                               else np.uint16)
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.uniform(0.05, 0.25, n).astype(np.float32)
+    w = (rng.random(n) < 0.8).astype(np.float32)
+    stats = PipelineStats()
+    pipe = RowBlockPipeline(HostBinMatrix(bins, 12_288), 2, stats, dev)
+    acc = torch.zeros(f, B, 3, device=dev)
+    ref = torch.zeros(f, B, 3, device=dev)
+    variant = "staged" if method == "onehot" else "base"
+    launches = thist.launch_counts["hist_full"] + \
+        thist.launch_counts["onehot_full"]
+    for blk in pipe.blocks({"g": g, "h": h, "rw": w}):
+        args = (blk.bins, blk.extras["g"], blk.extras["h"],
+                blk.extras["rw"], B)
+        acc = thist.accumulate_histogram(acc, *args, method=method,
+                                         variant=variant)
+        with thist.force_plain():
+            ref = thist.accumulate_histogram(ref, *args, method=method,
+                                             variant=variant)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["hist_full"] + \
+        thist.launch_counts["onehot_full"] == launches + 5
+    if method == "atomic":
+        assert torch.equal(acc, ref)
+    else:
+        assert relerr(acc, ref) <= TOL
+    assert stats.puts == 5 and stats.passes == 1
+    assert pipe._slots[0].staging.is_pinned()
+
+
+def test_ring_never_reuses_a_slot_before_its_event(dev):
+    """The consumer's compute on each block is held back by a spin on the
+    compute stream; the copies of later blocks into the same ring slot
+    must wait for it, so what the compute reads is its own block."""
+    from lightgbm_tpu_torch.stream.host_matrix import HostBinMatrix
+    from lightgbm_tpu_torch.stream.pipeline import (PipelineStats,
+                                                    RowBlockPipeline)
+    rng = np.random.default_rng(3)
+    bins = rng.integers(0, 256, (8 * 1024, 16)).astype(np.uint8)
+    g = rng.normal(size=len(bins)).astype(np.float32)
+    stats = PipelineStats(events=[])
+    pipe = RowBlockPipeline(HostBinMatrix(bins, 1024), 1, stats, dev)
+    seen = []
+    for blk in pipe.blocks({"g": g}):
+        torch.cuda._sleep(5_000_000)         # keep the slot busy
+        seen.append((blk.bins.clone(), blk.extras["g"].clone()))
+    torch.cuda.synchronize()
+    assert len(pipe._slots) == 2
+    for i, (b, gg) in enumerate(seen):
+        sl = slice(i * 1024, (i + 1) * 1024)
+        assert np.array_equal(b.cpu().numpy(), bins[sl]), i
+        assert np.array_equal(gg.cpu().numpy(), g[sl]), i
+    # the timing events: one (copy, compute) pair of intervals a block
+    assert len(stats.events) == 8
+    for c0, c1, k0, k1 in stats.events:
+        assert c0.elapsed_time(c1) >= 0 and k0.elapsed_time(k1) > 0
+
+
+def test_stream_training_matches_serial_on_the_card(dev):
+    """Streamed training on the card (hist_full a block) grows the
+    in-memory serial grower's trees."""
+    import lightgbm_tpu_torch as lgt
+    X, y = _engine_data(20_000)
+    p = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+         "tree_grower": "serial"}
+    ref = lgt.train(p, lgt.Dataset(X, label=y), 3, device="cuda")
+    thist.reset_launch_counts()
+    sp = dict(p, stream_rows=4096)
+    st = lgt.train(sp, lgt.Dataset(X, label=y), 3, device="cuda")
+    assert type(st._gbdt).__name__ == "StreamGBDT"
+    assert thist.launch_counts["hist_full"] > 3 * 30
+    assert thist.launch_counts["hist_leaves"] == 0
+
+    def structure(b):
+        return [ln for ln in b.model_to_string().splitlines()
+                if ln.startswith(("split_feature=", "threshold=",
+                                  "left_child=", "right_child=",
+                                  "leaf_count="))]
+    assert structure(st) == structure(ref)
+    np.testing.assert_allclose(st.predict(X), ref.predict(X), rtol=0,
+                               atol=1e-5)

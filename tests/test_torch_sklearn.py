@@ -219,6 +219,9 @@ print("OK")
 def test_estimators_without_sklearn():
     env = {k: v for k, v in os.environ.items() if "PYTHONPATH" not in k}
     env["PYTHONPATH"] = REPO
+    # one torch thread, as the test processes run: a thread a core would
+    # contend with the other test workers on a loaded machine
+    env["OMP_NUM_THREADS"] = "1"
     out = subprocess.run([sys.executable, "-c", _NO_SKLEARN], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]

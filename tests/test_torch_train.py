@@ -219,18 +219,22 @@ def test_device_none_means_cuda():
     {"tree_grower": "serial", "tree_learner": "data"},
     {"tree_learner": "data"},
     {"feature_contri": [1.0] * 8, "tree_learner": "feature"},
-    {"linear_tree": True, "max_bin_matrix_bytes": 1 << 20}])
+    {"linear_tree": True, "max_bin_matrix_bytes": 1024}])
 def test_untaken_paths_raise(params):
     X, y, _, _ = _data(5, n=800)
     # the serial grower's features are ported (tests/test_torch_serial.py,
     # test_torch_constraints.py, test_torch_linear_tree.py): with an
-    # unported tree learner or out-of-core streaming they still raise,
-    # never falling back.  Objective "none" is ported (custom gradients,
-    # test_torch_engine.py): without the caller's gradients it raises as
-    # the JAX package does
-    err, match = ((lgt.LightGBMError, "custom grad")
-                  if params.get("objective") == "none"
-                  else (NotPortedError, None))
+    # unported tree learner they still raise, never falling back, and
+    # out-of-core streaming (ported: tests/test_torch_stream.py) refuses
+    # the features it does not serve, as the JAX package's does.
+    # Objective "none" is ported (custom gradients, test_torch_engine.py):
+    # without the caller's gradients it raises as the JAX package does
+    if params.get("objective") == "none":
+        err, match = lgt.LightGBMError, "custom grad"
+    elif "stream_rows" in params or "max_bin_matrix_bytes" in params:
+        err, match = lgt.LightGBMError, "streaming does not support"
+    else:
+        err, match = NotPortedError, None
     with pytest.raises(err, match=match):
         lgt.train({**PARAMS, **params}, lgt.Dataset(X, label=y), 2,
                   verbose_eval=False, device="cpu")
@@ -245,6 +249,7 @@ import lightgbm_tpu_torch.native, lightgbm_tpu_torch.io.loader
 import lightgbm_tpu_torch.models.convert, lightgbm_tpu_torch.application
 import lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.plotting
 import lightgbm_tpu_torch.ops.linear
+import lightgbm_tpu_torch.serve, lightgbm_tpu_torch.stream
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
