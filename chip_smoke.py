@@ -10,7 +10,7 @@ Drives ``lightgbm_tpu_torch``'s main path on the card, in phases, printing
 one JSON line per phase; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the five histogram kernels from the sources in this
+2. build: compile the six histogram kernels from the sources in this
    checkout (one ``nvcc`` per source, all at once); then the sparse_efb
    phase's data (made first: the kernels phase uses its bundle matrix);
 3. kernels: each kernel against its plain PyTorch version on the card at the
@@ -53,9 +53,16 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    >= B present; a comb of odd stride (27 + 6 u16); the sparse_efb
    phase's own bundle matrix at its bundle width, full and per leaf; and
    the widths at which not even one feature's histogram fits a CTA, B =
-   12,000, 16,384 and 65,536 (bin tiles), 1M x 28 and one round's comb,
-   with random bins (bin 65,535 present) and Zipf-skewed ones, bit for bit
-   the plain version, each with its bin tiles and scratch bytes; one-hot
+   12,000, 16,384 and 65,536 (the listed design's bin tiles of 256 bins),
+   1M x 28 and one round's comb, with random bins (bin 65,535 present)
+   and Zipf-skewed ones, bit for bit the plain version, each with its
+   plan (tiles, CTAs, row chunks, entries a unit), the pre-pass and the
+   main kernel's times apart, the partials' and the lists' bytes, and the
+   walked design (each bin tile walking every row) timed and held in the
+   same call; the pre-pass
+   (``hist_lists``) bit for bit its plain version at each, and as a row
+   of its own at the widest_bins run's K1 shape (call, kernel, plain, one
+   stable ``torch.sort`` of the same keys, byte bound); one-hot
    ``staged`` at B = 65,536 on 1M x 28 beside them;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
@@ -189,10 +196,11 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    iterations: ``onehot_full`` once a tree, its per-leaf histograms by
    ``hist_leaves``, outside the leaves cut); widest_bins (Higgs 1M x 28
    at max_bin=65535, the JAX package's widest: the atomic kernels at B =
-   65,536 in 8 bin tiles of 8,192 a feature, 255 leaves, 5 iterations,
+   65,536 in the listed design (256 tiles of 256 bins a feature, the
+   pre-pass ``hist_lists`` before each call), 255 leaves, 5 iterations,
    then ``force_row_wise`` staged, 3: ``onehot_full`` at B = 65,536 once a
    tree and the per-leaf histograms by ``hist_leaves``; the plans' scratch
-   bytes and the phase's peak device memory);
+   and list bytes and the phase's peak device memory);
 16. engine: the engine surface on the generator's 1M x 28 (``max_bin``
    255), each float32 value written to nine digits as TSV with the label
    in column 0 and a ``.weight`` sidecar (in a temporary directory; the
@@ -239,10 +247,15 @@ ATOMIC_REL_TOL = 1.2e-7
 # floor is one read-add-write of three float64 values (48 bytes) per
 # (row, feature) at this rate on every SM
 SMEM_BYTES_PER_CLK = 128
-# the kernels a call of each atomic wrapper launches (profiler names)
-ATOMIC_KERNELS = {"hist_full": ("hist_full_kernel", "hist_reduce_kernel"),
+# the kernels a call of each atomic wrapper launches (profiler names): the
+# main and reduce kernels, or at bin-tiled widths the pre-pass's five
+# (hist_lists_*) and the listed main kernel
+LISTS_KERNELS = ("hist_lists_",)
+ATOMIC_KERNELS = {"hist_full": ("hist_full_kernel", "hist_full_listed_kernel",
+                                "hist_reduce_kernel") + LISTS_KERNELS,
                   "hist_leaves": ("hist_leaves_kernel",
-                                  "hist_reduce_kernel")}
+                                  "hist_leaves_listed_kernel",
+                                  "hist_reduce_kernel") + LISTS_KERNELS}
 AUC_TOL = 1e-3
 N_TRAIN, N_VALID, N_FEAT, N_ITERS = 1_000_000, 100_000, 28, 20
 # the packed run: a smaller one at the width packing serves
@@ -502,6 +515,42 @@ def _hold_atomic(name, st):
         raise AssertionError(f"{name}: {st}")
 
 
+def _lists_stats(hist, got, ref, g, h, m, lists_kw):
+    """The pre-pass's lists against its plain version's: the segment and
+    unit tables and each entry's row and bin in its tile, and its ``gh4``
+    against (g*m, h*m, m, 0) on the rows of the chunks it lists (every row
+    of the full pass; per slot, the rows of blocks of a slot).  The largest
+    absolute difference over all of them, the largest relative one of
+    ``gh4``'s finite values, the share of values bit for bit equal, and
+    whether all are (``same``: also ``lists_equal``)."""
+    n = g.shape[0]
+    rows = torch.arange(n, device=g.device)
+    bl = lists_kw.get("block_leaf")
+    if bl is not None:
+        slot = bl[rows // lists_kw["block_rows"]]
+        rows = rows[(slot >= 0) & (slot < lists_kw["num_slots"])]
+    keep = ref.entries()
+    pairs = [(getattr(got, x), getattr(ref, x))
+             for x in ("seg_off", "seg_len", "seg_ubase", "unit_seg")]
+    pairs += [(got.ids[keep], ref.ids[keep]),
+              (got.lbin[keep], ref.lbin[keep])]
+    gh = got.gh4.view(-1, 4)[rows]
+    want = torch.stack((g * m, h * m, m, torch.zeros_like(m)), 1)[rows]
+    equal = sum(int((a == b).sum()) for a, b in pairs) + int(
+        (gh.view(torch.int32) == want.view(torch.int32)).sum())
+    total = sum(b.numel() for _, b in pairs) + want.numel()
+    err = max(float((a.double() - b.double()).abs().max()) if b.numel()
+              else 0.0 for a, b in pairs)
+    fin = torch.isfinite(want)
+    gh_err = (float((gh[fin] - want[fin]).abs().max()) if fin.any()
+              else 0.0)
+    st = dict(max_abs_err=max(err, gh_err),
+              relerr=relerr(gh[fin], want[fin]) if fin.any() else 0.0,
+              bit_identical_share=equal / total)
+    st["same"] = (equal == total and hist.lists_equal(got, ref))
+    return st
+
+
 def _check_full(hist, gen, dev, n, f, B):
     bins = torch.randint(0, B, (n, f), generator=gen, device=dev,
                          dtype=torch.uint8)
@@ -592,13 +641,19 @@ def _atomic_attrs(hist, kernel, dev, units, stride, f, B, k=1, esz=1):
     """The launch plan's geometry and design, its kernel's registers,
     spills, shared bytes and CTAs an SM, the warps an SM and the warps
     that add rows a feature (``W``: the owned design's warps own whole
-    features; the dealt design's item warps share the group's features),
-    the bin tiles of a feature and the bins each holds, and the float64
-    partials a call writes (one a CTA along x for the full pass; for the
-    leaves one a CTA for each slot its blocks may name, min(blocks a CTA,
-    k)) with their scratch bytes."""
+    features; the dealt design's item warps share the group's features;
+    the listed design's warps each a unit of one feature's tile), the bin
+    tiles of a feature and the bins each holds, the CTAs of the launch
+    (``ctas``) and its row chunks (``row_chunks``: CTAs along x; listed,
+    the pre-pass's chunks of rows, each unit at most ``unit`` entries),
+    and the scratch a call takes (``histogram.atomic_scratch``): the
+    float64 partials (``scratch_bytes``; one a CTA along x for the full
+    pass, for the leaves one a CTA for each slot its blocks may name,
+    min(blocks a CTA, k); listed, a [tile_bins, 3] sum a segment) and the
+    listed design's lists and tables (``list_bytes``)."""
     plan = hist.atomic_plan(kernel, dev, stride, f, B, esz)
-    grid_x, _, partials = hist.atomic_partials(kernel, plan, units, k)
+    sc = hist.atomic_scratch(kernel, plan, f, B, units, k,
+                             LEAVES_SHAPE["BR"])
     warps = plan["threads"] // 32
     return {**{x: plan[x] for x in ("registers", "local_bytes",
                                     "static_smem_bytes",
@@ -608,8 +663,9 @@ def _atomic_attrs(hist, kernel, dev, units, stride, f, B, k=1, esz=1):
             "design": hist.ATOMIC_DESIGNS[plan["design"]],
             "warps_per_sm": warps * plan["ctas_per_sm"],
             "W": (warps - plan["stagers"]) / plan["fg"],
-            "grid_x": grid_x, "partials": partials,
-            "scratch_bytes": partials * f * B * 3 * 8}
+            "ctas": sc["ctas"], "row_chunks": sc["row_chunks"],
+            "unit": sc["unit"], "scratch_bytes": sc["partial_bytes"],
+            "list_bytes": sc["list_bytes"]}
 
 
 def _index_add_ms(dev, flat, vals, size):
@@ -750,13 +806,16 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
     gh columns; a comb of odd stride (27 + 6 = 33 u16, 66 bytes: rows
     2-byte aligned); the sparse_efb phase's own bundle matrix at its
     bundle width, full and per leaf; and at the widths above one feature's
-    CTA, B = 12,000, 16,384 and 65,536 (bin tiles: 2, 2 and 8 a feature),
-    1M x 28 and one round's comb with random and Zipf-skewed bins
-    (``_wide_u16``), bit for bit the plain version.  Bins >= B are present
-    in the random cases.  Each: relerr, the same bits twice, ms, kernel
-    alone, plain, index_add_, the byte bound (2 bytes a bin) and the plan
-    with its design, feature group, warps a feature (W), warps an SM, bin
-    tiles and scratch bytes."""
+    CTA, B = 12,000, 16,384 and 65,536 (the listed design: 47, 64 and
+    256 tiles of 256 bins a feature), 1M x 28 and one round's comb with
+    random and Zipf-skewed bins (``_wide_u16``), bit for bit the plain
+    version, with the pre-pass and main kernel apart, the pre-pass's lists
+    bit for bit its plain version's and the walked design (bin tiles along
+    gridDim.y, every tile walking every row) in the same call (``listed``).  Bins >= B are present in the random cases.
+    Each: relerr, the same bits twice, ms, kernel alone, plain,
+    index_add_, the byte bound (2 bytes a bin) and the plan with its
+    design, feature group, warps a feature (W), warps an SM, bin tiles,
+    CTAs, row chunks, scratch and list bytes."""
     out = {}
     k, BR = LEAVES_SHAPE["k"], LEAVES_SHAPE["BR"]
 
@@ -764,6 +823,77 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
         if st["bit_identical_share"] != 1.0:
             raise AssertionError(f"{name}: not bit for bit the plain "
                                  f"version: {st}")
+
+    def listed(kernel, call, ref, lists_kw, mat, g, h, m, B, f):
+        """At a bin-tiled width: the pre-pass's and the main kernel's times
+        apart, the pre-pass held bit for bit against its plain version, and
+        the walked design in the same call (held as the listed
+        one is: within a rounding step, the same bits twice)."""
+        plan = hist.atomic_plan(kernel, dev, mat.shape[1], f, B, esz=2)
+        if plan["design"] != 2:
+            raise AssertionError(f"{kernel} at B = {B}: not listed: {plan}")
+        kw = dict(f_limit=f, tile_bins=plan["tile_bins"],
+                  unit=hist.list_unit(plan, f * mat.shape[0]), **lists_kw)
+        lst = _lists_stats(hist, hist.bin_lists(mat, g, h, m, B, **kw),
+                           hist.bin_lists_plain(mat, g, h, m, B, **kw),
+                           g, h, m, lists_kw)
+        if not lst["same"]:
+            raise AssertionError(f"hist_lists at B = {B}: not its plain "
+                                 f"version's lists: {lst}")
+        extra = {"prepass_ms": calls_ms(call, LISTS_KERNELS),
+                 "main_ms": calls_ms(call, (f"{kernel}_listed_kernel",)),
+                 "lists_bit_identical": lst["same"]}
+        with hist.atomic_design("dealt"):
+            w1, w2 = call(), call()
+            torch.cuda.synchronize()
+            wst = _atomic_stats(w1, w2, ref)
+            _hold_atomic(f"{kernel} walked at B = {B}", wst)
+            extra.update(walked_ms=median_ms(call),
+                         walked_kernel_ms=calls_ms(call,
+                                                   ATOMIC_KERNELS[kernel]),
+                         walked_relerr=wst["relerr"],
+                         walked_scratch_bytes=_atomic_attrs(
+                             hist, kernel, dev,
+                             mat.shape[0] if kernel == "hist_full"
+                             else mat.shape[0] // BR, mat.shape[1], f, B, k,
+                             esz=2)["scratch_bytes"])
+        return extra, kw
+
+    def lists_row(mat, g, h, m, B, kw):
+        """The pre-pass as a kernel of its own at the widest_bins run's K1
+        shape: held against its plain version (``_lists_stats``), its call,
+        kernel alone, plain version, one library sort of the same keys, and
+        its byte bound (the rows read once, ids and lbin written once an
+        entry, gh4 once a row)."""
+        n, f = mat.shape[0], kw["f_limit"]
+
+        def call():
+            return hist.bin_lists(mat, g, h, m, B, **kw)
+        got = call()
+        entries = int(got.seg_len.sum())
+        lst = _lists_stats(hist, got,
+                           hist.bin_lists_plain(mat, g, h, m, B, **kw),
+                           g, h, m, kw)
+        del got
+        with hist.force_plain():
+            plain_ms = median_ms(lambda: hist.bin_lists_plain(
+                mat, g, h, m, B, **kw), reps=3)
+        if not lst["same"]:
+            raise AssertionError(f"hist_lists {mat.shape}: not its plain "
+                                 f"version's lists: {lst}")
+        wide = hist.widen_bins(mat[:, :f])
+        keys = torch.where(wide < B, wide >> 8, 1 << 16).int().t() \
+            .contiguous()
+        b_ms, b_by = bound(2 * n * f + 12 * n + 6 * entries + 16 * n, 0)
+        out["hist_lists"] = dict(
+            shape=[n, mat.shape[1], f, B], entries=entries,
+            max_abs_err=lst["max_abs_err"], relerr=lst["relerr"],
+            bit_identical_share=lst["bit_identical_share"],
+            ms=median_ms(call),
+            kernel_ms=calls_ms(call, LISTS_KERNELS), plain_ms=plain_ms,
+            library_ms=median_ms(lambda: torch.sort(keys, dim=1,
+                                                    stable=True)),
+            bound_ms=b_ms, bound_by=b_by)
 
     def hold_full(name, bins, B, f, bits=False):
         n = bins.shape[0]
@@ -795,6 +925,13 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
             smem_floor_ms=smem_floor_ms(n, f, clock_mhz, sms),
             **_atomic_attrs(hist, "hist_full", dev, n, bins.shape[1], f, B,
                             esz=2))
+        if bits:                                 # a bin-tiled width
+            extra, kw = listed("hist_full", call, ref, {
+                "block_rows": hist.list_chunk_rows(None)}, bins, g, h, m,
+                B, f)
+            out[name].update(extra)
+            if name == f"hist_full/u16/B{WIDE_WIDTHS[-1]}":
+                lists_row(bins, g, h, m, B, kw)
 
     def hold_leaves(name, comb, B, f, timed=True, bits=False):
         C = comb.shape[0]
@@ -833,6 +970,10 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
             smem_floor_ms=smem_floor_ms(C, f, clock_mhz, sms),
             **_atomic_attrs(hist, "hist_leaves", dev, nb, comb.shape[1], f,
                             B, k, esz=2))
+        if bits:                                 # a bin-tiled width
+            out[name].update(listed("hist_leaves", call, ref, {
+                "block_rows": BR, "block_leaf": bl, "num_slots": k}, comb,
+                g, h, m, B, f)[0])
 
     n, f, B = N_TRAIN, N_FEAT, 1024
     hold_full("hist_full/u16/B1024", _u16(gen, (n, f), B + 60, dev), B, f)
@@ -869,7 +1010,7 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
                         bits=True)
             torch.cuda.empty_cache()
     for name, r in out.items():
-        if "ms" in r:
+        if "ms" in r and name != "hist_lists":
             print(f"{name} {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, "
                   f"call {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"index_add_ {r['library_ms']:.4f} ms, bound "
@@ -880,6 +1021,21 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
                   f"{r['ctas_per_sm']} CTAs an SM, relerr "
                   f"{r['relerr']:.3g}, bit-identical share "
                   f"{r['bit_identical_share']}", flush=True)
+        if "walked_ms" in r:
+            print(f"{name} listed: {r['ctas']} CTAs, {r['row_chunks']} row "
+                  f"chunks, units of {r['unit']}, pre-pass "
+                  f"{_f4(r['prepass_ms'])} ms, main {_f4(r['main_ms'])} ms, "
+                  f"lists {r['list_bytes']} bytes [walked: call "
+                  f"{r['walked_ms']:.4f} ms, kernel "
+                  f"{_f4(r['walked_kernel_ms'])} ms, scratch "
+                  f"{r['walked_scratch_bytes']} bytes]", flush=True)
+    if "hist_lists" in out:
+        r = out["hist_lists"]
+        print(f"hist_lists {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, "
+              f"call {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sort "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms, "
+              f"{r['entries']} entries, max_abs_err {r['max_abs_err']}, "
+              f"bit-identical share {r['bit_identical_share']}", flush=True)
     return out
 
 
@@ -2490,15 +2646,16 @@ def phase_sparse_efb(card, data):
 
 def phase_widest_bins(card):
     """Higgs geometry at max_bin=65535, the JAX package's widest: every
-    feature 65,535 bins, the atomic kernels at B = 65,536 in bin tiles (8
-    of 8,192 a feature), 255 leaves, 5 iterations; then force_row_wise
+    feature 65,535 bins, the atomic kernels at B = 65,536 in the listed
+    design (256 tiles of 256 bins a feature, each call after its pre-pass
+    hist_lists), 255 leaves, 5 iterations; then force_row_wise
     staged for 3: K1's bucketed one-hot kernel at B = 65,536 and the
     per-leaf histograms by hist_leaves (28 x 65,536 lanes lie outside the
     leaves cut).  Each run as ``_breadth_pair`` holds it (tree 0 identical
     to force_plain()'s, held-out AUC within 1e-3 of plain and above 0.75,
     reload bit-identical), the row-wise run's AUC also within 1e-3 of the
-    atomic run's; with the plans' bin tiles and scratch bytes and the
-    phase's peak device memory (the frontier's leaf store alone is 255 x
+    atomic run's; with the plans' bin tiles, scratch and list bytes and
+    the phase's peak device memory (the frontier's leaf store alone is 255 x
     28 x 65,536 x 3 float32, 5.6 GB)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import histogram as hist
@@ -2513,7 +2670,9 @@ def phase_widest_bins(card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     booster, out = _breadth_pair(lgt, hist, "widest_bins", ds, params,
-                                 ITERS_BREADTH, auc_holdout(Xv, yv), Xv)
+                                 ITERS_BREADTH, auc_holdout(Xv, yv), Xv,
+                                 expect=("hist_full", "hist_leaves",
+                                         "hist_lists"))
     width = out["kernel_width"]
     if width != WIDE_WIDTHS[-1] or out["bin_dtype"] != "uint16":
         raise AssertionError(f"widest_bins: {out}")
@@ -2524,19 +2683,22 @@ def phase_widest_bins(card):
              "hist_leaves": _atomic_attrs(hist, "hist_leaves", dev,
                                           LS["C"] // LS["BR"], N_FEAT + 6,
                                           N_FEAT, width, LS["k"], esz=2)}
-    if any(p["tiles"] < 2 for p in plans.values()):
-        raise AssertionError(f"widest_bins: untiled plans {plans}")
+    if any(p["tiles"] < 2 or p["design"] != "listed"
+           for p in plans.values()):
+        raise AssertionError(f"widest_bins: plans not listed {plans}")
     rw = _row_wise_vs_atomic(
         lgt, hist, "widest_bins row_wise staged", ds,
         dict(params, force_row_wise=True, hist_variant="staged"),
         ITERS_WIDEST_ROW_WISE, booster, Xv, yv, 0.75,
-        ("onehot_full", "hist_leaves"), "staged")
+        ("onehot_full", "hist_leaves", "hist_lists"), "staged")
     peak = torch.cuda.max_memory_allocated()
     print(f"widest_bins: kernel width {width}, bin tiles "
           f"{plans['hist_full']['tiles']} of "
           f"{plans['hist_full']['tile_bins']}, scratch a call "
           f"{plans['hist_full']['scratch_bytes']} bytes (K1, 1M rows), "
           f"{plans['hist_leaves']['scratch_bytes']} (K2, 262,144 rows), "
+          f"lists {plans['hist_full']['list_bytes']} / "
+          f"{plans['hist_leaves']['list_bytes']} bytes, "
           f"peak device memory {peak} bytes, construct {construct_s:.3f} s",
           flush=True)
     emit({"phase": "widest_bins", "card": card, "construct_s": construct_s,
@@ -3389,6 +3551,13 @@ MAIN_PATH_RUNS = {("staged", 256): "staged", ("packed", 64): "packed",
                   ("int8", "B1024"): "wide_int8",
                   ("staged", "bundle"): "efb_staged",
                   ("staged", f"B{WIDE_WIDTHS[-1]}"): "widest_staged"}
+# the atomic kernels' pre-pass at bin-tiled widths: no TPU kernel has its
+# function (the Pallas kernels it serves add every row at once); "replaces"
+# names K1's, whose port at those widths it belongs to
+LISTS_INFO = ("lightgbm_tpu_torch/ops/kernels/hist_lists.cu",
+              "lightgbm_tpu/ops/histogram.py:491",
+              "none: the pre-pass of the ports of _hist_pallas (K1) and "
+              "_hist_leaves_pallas (K2) at B above ~8,900")
 # the int8 quantize kernel (the `level` chain of the int8 body) and the
 # shootout shell's entry
 QUANT_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_quant.cu",
@@ -3435,7 +3604,13 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
     atomic_keys = ("kernel_ms", "vs_index_add", "smem_floor_ms",
                    "registers", "local_bytes", "dynamic_smem_bytes",
                    "ctas_per_sm", "design", "fg", "W", "warps_per_sm",
-                   "tiles", "tile_bins", "scratch_bytes")
+                   "tiles", "tile_bins", "ctas", "row_chunks", "unit",
+                   "scratch_bytes", "list_bytes")
+    # the listed design's rows also: the pre-pass and main kernel apart,
+    # and the walked design in the same call
+    listed_keys = ("prepass_ms", "main_ms", "lists_bit_identical",
+                   "walked_ms", "walked_kernel_ms", "walked_relerr",
+                   "walked_scratch_bytes")
     for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
         r = kern[kname]
         row = {"name": kname, "route": "cuda", "source": src,
@@ -3481,7 +3656,21 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
                          "launches": launches[run][kname] if run else 0,
                          **stream,
                          **{k: r[k] for k in keys + atomic_keys},
+                         **{k: r[k] for k in listed_keys if k in r},
                          "card": card})
+    # the listed design's pre-pass, at the widest_bins run's K1 shape; its
+    # launches are the widest_bins runs' (a K1 or K2 call each at B =
+    # 65,536)
+    src, replaces, jax_fn = LISTS_INFO
+    r = kern["hist_lists"]
+    rows.append({"name": "hist_lists", "route": "cuda", "source": src,
+                 "replaces": replaces, "jax": jax_fn, "dtype": "uint16",
+                 "shape": r["shape"],
+                 "launches": launches["widest_bins"]["hist_lists"],
+                 "launches_by_row_wise_run": launches["widest_staged"][
+                     "hist_lists"],
+                 **{k: r[k] for k in keys + ("kernel_ms", "entries")},
+                 "card": card})
     for name, r in onehot.items():
         src, replaces, jax_fn = ONEHOT_SHELLS[(r["kernel"], r["layout"])]
         run = MAIN_PATH_RUNS.get((r["variant"], r.get("case", r["B"])))

@@ -3,7 +3,10 @@
 Each ``kernels/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface (``<name>_launch``, and for
 ``onehot_full`` also the shootout shell's ``onehot_bench_launch``), loaded
-with ``ctypes``.  The one-hot libraries also export an attribute query
+with ``ctypes``; ``hist_lists`` is the atomic kernels' pre-pass at bin-tiled
+widths (``hist_lists_launch``), whose lists the atomic libraries' listed
+entries (``hist_full_listed_launch``, ``hist_leaves_listed_launch``)
+read.  The one-hot libraries also export an attribute query
 (``onehot_full_query``, ``onehot_leaves_query``: registers, static and
 dynamic shared memory, spills and CTAs an SM of a body's kernel), the
 quantize kernel its registers, spills and geometry at a block size
@@ -33,6 +36,7 @@ from typing import Dict, Iterable, Optional
 KERNEL_DIR = Path(__file__).resolve().parent / "kernels"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = {"hist_full": "hist_full.cu", "hist_leaves": "hist_leaves.cu",
+           "hist_lists": "hist_lists.cu",
            "onehot_full": "onehot_full.cu",
            "onehot_leaves": "onehot_leaves.cu",
            "onehot_quant": "onehot_quant.cu"}
@@ -40,6 +44,7 @@ KERNELS = {"hist_full": "hist_full.cu", "hist_leaves": "hist_leaves.cu",
 # one rebuilds every kernel that includes it
 _HEADERS = {"hist_full": ("hist_common.cuh",),
             "hist_leaves": ("hist_common.cuh",),
+            "hist_lists": ("hist_common.cuh",),
             "onehot_full": ("onehot_common.cuh", "onehot_bucket.cuh"),
             "onehot_leaves": ("onehot_common.cuh", "onehot_bucket.cuh"),
             "onehot_quant": ()}
@@ -48,11 +53,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _INT_P = ctypes.POINTER(ctypes.c_int)
+_LL_P = ctypes.POINTER(ctypes.c_longlong)
 # argument types of each library's entry points
 _ARGTYPES = {
     "hist_full": {
-        # device, stride, f, B, esz, design, min_tiles, out[13]
+        # device, stride, f, B, esz, design, min_tiles, out[14]
         "hist_full_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT, _INT_P],
+        # device, ptrs[9], partial, out, f, B, tw_log2, unit, units, grid,
+        # stream
+        "hist_full_listed_launch": [_INT, _LL_P, _VOID_P, _VOID_P, _INT,
+                                    _INT, _INT, _INT, _INT, _INT, _VOID_P],
         # device, bins, n, stride, f, B, esz, g, h, m, partial, out, fg,
         # tile, tiles, tile_bins, threads, design, grid_x, rows_per_cta,
         # stream
@@ -61,9 +71,14 @@ _ARGTYPES = {
                              _INT, _INT, _INT, _INT, _INT, _INT, _INT, _LL,
                              _VOID_P]},
     "hist_leaves": {
-        # device, stride, f, B, esz, design, min_tiles, out[13]
+        # device, stride, f, B, esz, design, min_tiles, out[14]
         "hist_leaves_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT,
                              _INT_P],
+        # device, ptrs[9], partial, out, f, B, k, tw_log2, unit, units,
+        # grid, stream
+        "hist_leaves_listed_launch": [_INT, _LL_P, _VOID_P, _VOID_P, _INT,
+                                      _INT, _INT, _INT, _INT, _INT, _INT,
+                                      _VOID_P],
         # device, comb, c, stride, f, B, esz, g, h, m, block_leaf, br, k,
         # scratch, out, fg, tile, tiles, tile_bins, threads, design,
         # grid_x, bpc, parts, stream
@@ -72,6 +87,13 @@ _ARGTYPES = {
                                _INT, _VOID_P, _VOID_P, _INT, _INT, _INT,
                                _INT, _INT, _INT, _INT, _INT, _INT,
                                _VOID_P]},
+    "hist_lists": {
+        # device, bins, n, stride, f, B, esz, g, h, m, block_leaf, cr,
+        # br, k, tw_log2, unit, per_feature, ptrs[17], stream
+        "hist_lists_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _INT,
+                              _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT,
+                              _INT, _INT, _INT, _INT, _INT, _LL_P,
+                              _VOID_P]},
     "onehot_full": {
         # device, bins, ld, n, f, layout, esz, g, h, m, q, scales, qbr,
         # out, variant, lpf, lanes, nf_max, design, stream

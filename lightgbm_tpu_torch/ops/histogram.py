@@ -21,8 +21,10 @@ point with a hand-written Hopper kernel (``kernels/*.cu``, built by
   plan picks, ``ATOMIC_DESIGNS``) -- one float64 partial per CTA (per
   slot run for the leaves) summed by a second kernel in a fixed order.
   Where one feature's histogram does not fit a CTA (above ~8,900 bins),
-  the plan splits each feature's bins into bin tiles, a grid axis beside
-  the feature groups (``atomic_geometry``).
+  the plan splits each feature's bins into bin tiles of 256 and takes the
+  ``listed`` design: a pre-pass kernel (``bin_lists``) lists each
+  (slot, feature, tile)'s rows, and each warp walks only its list's rows
+  (``atomic_geometry``).
   The counterpart of the JAX package's scatter method, the card's
   counterpart of a known winner.
 - ``method="onehot"`` (``force_row_wise``): ``hist_onehot_full`` and
@@ -100,12 +102,15 @@ SMEM_MAX_BYTES = 227 * 1024
 ATOMIC_MAX_BIN = 65536
 
 _force_plain = False
-# the atomic kernels' two designs of the update, in the plan's numbering
-# (kernels/hist_common.cuh), and the one atomic_design() asks for
-ATOMIC_DESIGNS = ("owned", "dealt")
+# the atomic kernels' designs of the update, in the plan's numbering
+# (kernels/hist_common.cuh): owned and dealt, and at bin-tiled widths
+# listed (owned or dealt asked for there: the walked bin tiles);
+# and the one atomic_design() asks for
+ATOMIC_DESIGNS = ("owned", "dealt", "listed")
 _atomic_design: Optional[str] = None
 # the fewest bin tiles atomic_tiles() asks the plan for (1: as the width
-# needs)
+# needs; more: the listed design, or the walked one where a design is
+# asked for)
 _atomic_min_tiles = 1
 # the one-hot kernels' two designs, in the kernels' numbering
 # (kernels/onehot_bucket.cuh): dense, every warp over every row of its
@@ -137,7 +142,9 @@ def force_plain():
 def atomic_design(design: str):
     """Plan the atomic kernels in this design of the update (one of
     ``ATOMIC_DESIGNS``) in place of the plan's own choice, to time one
-    design against the other on the card; not a training parameter."""
+    design against the other on the card (at bin-tiled widths ``owned``
+    or ``dealt`` give the walked design, ``listed`` the lists);
+    not a training parameter."""
     global _atomic_design
     _check(design in ATOMIC_DESIGNS, f"unknown atomic design {design!r}; "
            f"known: {', '.join(ATOMIC_DESIGNS)}")
@@ -152,8 +159,12 @@ def atomic_design(design: str):
 @contextlib.contextmanager
 def atomic_tiles(tiles: int):
     """Plan the atomic kernels with at least this many bin tiles a feature
-    even where the width needs fewer, to test the tiled path against the
-    untiled one on the card; not a training parameter."""
+    even where the width needs fewer, to test a tiled path against the
+    untiled one on the card; not a training parameter.  Which path depends
+    on the design: with the plan's own choice or ``atomic_design("listed")``
+    the listed design (its tiles of at most 256 bins), under
+    ``atomic_design("owned"|"dealt")`` the walked tiles along gridDim.y,
+    which stay only to time that design."""
     global _atomic_min_tiles
     _check(tiles >= 1, f"bin tiles must be at least 1, not {tiles}")
     prev = _atomic_min_tiles
@@ -552,14 +563,17 @@ def _check_vectors(name, dev, n, grad, hess, mask):
 # feature group, tile rows, threads, dynamic shared bytes, CTAs an SM, SMs,
 # registers a thread, static shared bytes, spilled bytes a thread, the
 # design of the update (0 owned: a warp a feature; 1 dealt: every warp
-# but the staging ones takes (step, feature) items, sorted by bin), its
-# staging warps (0: every warp stages), the bin tiles of a feature and the
-# bins a bin tile holds; it depends on the shape only, so it is kept per
+# but the staging ones takes (step, feature) items, sorted by bin; 2
+# listed: a warp a unit of one bin tile's list), its staging warps (0:
+# every warp stages), the bin tiles of a feature, the bins a bin tile
+# holds and (listed) the full pass's rows a pre-pass block; listed, "tile"
+# is the entries a unit.  It depends on the shape only, so it is kept per
 # (kernel, device, stride, f, B, bin size, tiles and design asked) and a
-# call splits its rows or blocks with atomic_grid
+# call splits its rows or blocks with atomic_grid (listed: its lists'
+# units over ctas_per_sm x sms CTAs)
 _PLAN_KEYS = ("fg", "tile", "threads", "dynamic_smem_bytes", "ctas_per_sm",
               "sms", "registers", "static_smem_bytes", "local_bytes",
-              "design", "stagers", "tiles", "tile_bins")
+              "design", "stagers", "tiles", "tile_bins", "list_rows")
 _plans: Dict[tuple, Dict[str, int]] = {}
 # rows a hist_full CTA takes are a multiple of this (16 rows of any
 # stride are whole 16-byte pieces, so every CTA's span starts at the
@@ -626,6 +640,11 @@ def atomic_partials(kernel: str, plan: Dict[str, int], units: int,
 # design's ring buffers, the group below which the plan deals, and the
 # tile rows, at most and at least
 _DEALT_STAGES, _OWNED_MIN_GROUP, _MAX_TILE, _MIN_TILE = 3, 16, 512, 128
+# the listed design's: warps a CTA, log2 of a warp tile's bins at most,
+# entries a unit at most, the full pass's rows a pre-pass block, the most
+# slots its block sort holds in shared memory
+_LIST_WARPS, _LIST_TILE_LOG2, LIST_UNIT, _LIST_ROWS = 8, 8, 8192, 4096
+LIST_MAX_SLOTS = (SMEM_MAX_BYTES // 4 - 1) // 2
 
 
 def _round16(x: int) -> int:
@@ -674,6 +693,12 @@ def _plan_geometry(f, B, stride, esz, dealt, min_tiles):
     return None
 
 
+def list_tile_log2(max_bin: int) -> int:
+    """``hist_common.cuh::list_tile_log2``: log2 of a listed warp tile's
+    bins, 256 or the power of two at or above a narrower width."""
+    return min(_LIST_TILE_LOG2, max(0, (max_bin - 1).bit_length()))
+
+
 def atomic_geometry(f: int, max_bin: int, stride: int, esz: int = 1,
                     design: Optional[str] = None,
                     min_tiles: int = 1) -> Dict[str, int]:
@@ -681,14 +706,29 @@ def atomic_geometry(f: int, max_bin: int, stride: int, esz: int = 1,
     arithmetic (``kernels/hist_common.cuh::plan_launch``) up to the
     occupancy it asks the card for -- the design, the feature group and
     tile rows, the bin tiles of a feature and the bins each holds, and the
-    dynamic shared bytes.  The plan itself may then narrow an untiled
-    group to fill the card's last wave; a tiled plan holds one feature a
-    CTA and keeps it.  Card tests hold it against ``atomic_plan``."""
+    dynamic shared bytes.  Where one feature's histogram does not fit a
+    dealt CTA (or ``min_tiles`` > 1 asks for bin tiles) the plan takes the
+    listed design: one feature a unit of ``LIST_UNIT`` entries ("tile"),
+    tiles of 256 bins.  The plan itself may then narrow an untiled group
+    to fill the card's last wave; a tiled plan holds one feature a CTA and
+    keeps it.  Card tests hold it against ``atomic_plan``."""
     if design is None:
-        owned = _plan_geometry(f, max_bin, stride, esz, False, min_tiles)
-        pick = (owned is not None and owned[2] == 1
-                and owned[0] >= min(f, _OWNED_MIN_GROUP))
-        design = ATOMIC_DESIGNS[0 if pick else 1]
+        dealt = _plan_geometry(f, max_bin, stride, esz, True, min_tiles)
+        if dealt is None or dealt[2] > 1:
+            design = "listed"
+        else:
+            owned = _plan_geometry(f, max_bin, stride, esz, False,
+                                   min_tiles)
+            pick = (owned is not None and owned[2] == 1
+                    and owned[0] >= min(f, _OWNED_MIN_GROUP))
+            design = ATOMIC_DESIGNS[0 if pick else 1]
+    if design == "listed":
+        tw = 1 << list_tile_log2(max_bin)
+        return {"design": 2, "fg": 1, "tile": LIST_UNIT,
+                "threads": 32 * _LIST_WARPS,
+                "tiles": -(-max_bin // tw), "tile_bins": tw, "groups": f,
+                "dynamic_smem_bytes": 24 * _LIST_WARPS * tw,
+                "list_rows": _LIST_ROWS}
     dealt = design == "dealt"
     geo = _plan_geometry(f, max_bin, stride, esz, dealt, min_tiles)
     _check(geo is not None, f"no plan for {f} features of {max_bin} bins")
@@ -701,7 +741,295 @@ def atomic_geometry(f: int, max_bin: int, stride: int, esz: int = 1,
     return {"design": ATOMIC_DESIGNS.index(design), "fg": fg, "tile": tile,
             "tiles": tiles, "tile_bins": bt, "groups": -(-f // fg),
             "dynamic_smem_bytes": _smem_bytes(fg, bt, tile, stride, esz,
-                                              dealt)}
+                                              dealt), "list_rows": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def list_chunk_rows(block_rows: Optional[int]) -> int:
+    """Rows a pre-pass chunk: the full pass's ``_LIST_ROWS`` (``None``),
+    or for per-slot blocks of ``block_rows`` the widest divisor of it up
+    to ``_LIST_ROWS``, so that a chunk lies in one block."""
+    if block_rows is None:
+        return _LIST_ROWS
+    return max(d for d in range(1, min(block_rows, _LIST_ROWS) + 1)
+               if block_rows % d == 0)
+
+
+_ELEMENT_BYTES = {torch.int32: 4, torch.int16: 2, torch.int64: 8,
+                  torch.float32: 4, torch.float64: 8}
+
+
+@functools.lru_cache(maxsize=256)
+def _list_layout(f, cap, tiles, slots, chunks, per_feature, chunk_rows,
+                 partial=0):
+    """The lists' buffers (``hist_lists.cu``: its ``ptrs`` order) as
+    ``{name: (byte offset, dtype, numel)}``, and their bytes: the nine the
+    main kernel reads, then the pre-pass's own tables, then (``partial``
+    float64 values) the main kernel's partial sums."""
+    nseg = f * tiles * slots
+    entries = [
+        ("ids", torch.int32, f * cap), ("lbin", torch.int16, f * cap),
+        ("seg_off", torch.int64, nseg), ("seg_len", torch.int32, nseg),
+        ("seg_ubase", torch.int32, nseg),
+        ("unit_seg", torch.int32, f * per_feature),
+        ("flags", torch.int32, nseg), ("counter", torch.int32, 1),
+        ("gh4", torch.float32, 4 * cap),
+        ("order", torch.int32, chunks),
+        ("slot_start", torch.int32, slots + 1),
+        ("cnt", torch.int32, chunks * f * tiles),
+        ("offs", torch.int32, chunks * f * tiles),
+        ("tot", torch.int32, f * tiles), ("seg_rel", torch.int32, nseg),
+        ("list_base", torch.int32, f * tiles),
+        ("tmp", torch.int32, chunks * f * chunk_rows),
+        ("partial", torch.float64, partial)]
+    layout, at = {}, 0
+    for name, dt, numel in entries:
+        layout[name] = (at, dt, numel)
+        at += _round16(numel * _ELEMENT_BYTES[dt])
+    return layout, at
+
+
+def list_unit(plan: Dict[str, int], entries: int) -> int:
+    """Entries a unit of a listed call over ``entries`` (row, feature)
+    pairs: the power of two from 2,048 up to the plan's ``LIST_UNIT`` at
+    which one unit a warp the card holds at once covers them.  A small
+    call (one frontier round's leaves) takes short units, so that a hot
+    segment of skewed bins is split over several warps; a full pass of 1M
+    x 28 takes the longest, so that a hot segment's units, which combine
+    in turn, stay few."""
+    warps = max(1, plan["ctas_per_sm"]) * plan["sms"] * plan["threads"] // 32
+    unit = 2048
+    while unit < plan["tile"] and unit * warps < entries:
+        unit *= 2
+    return unit
+
+
+def atomic_scratch(kernel: str, plan: Dict[str, int], f: int, max_bin: int,
+                   units: int, num_slots: int = 1,
+                   block_rows: int = 512) -> Dict[str, int]:
+    """The device scratch of one call of ``kernel`` over ``units`` rows
+    (``hist_full``) or blocks of ``block_rows`` rows (``hist_leaves``):
+    the float64 partials' bytes (``partial_bytes``; for the owned, dealt
+    and walked designs ``atomic_partials``'s, with the leaves' slot names;
+    for the listed design a ``[tile_bins, 3]`` sum for each segment, of
+    which only the segments of more than one unit are touched) and the
+    listed design's lists and tables (``list_bytes``), the CTAs of the
+    launch (``ctas``) and, listed, the pre-pass's chunks of rows and the
+    entries a unit (``row_chunks``, ``unit``: ``list_unit``)."""
+    if plan["design"] != 2:
+        grid_x, per, partials = atomic_partials(kernel, plan, units,
+                                                num_slots)
+        slot_names = 0 if kernel == "hist_full" else 4 * partials
+        return {"partial_bytes": partials * f * max_bin * 24 + slot_names,
+                "list_bytes": 0, "ctas": grid_x * plan["groups"]
+                * plan["tiles"], "row_chunks": grid_x, "unit": per}
+    full = kernel == "hist_full"
+    cap = units if full else units * block_rows
+    cr = list_chunk_rows(None if full else block_rows)
+    chunks = -(-cap // cr)
+    k = 1 if full else num_slots
+    tiles, tw = plan["tiles"], plan["tile_bins"]
+    unit = list_unit(plan, f * cap)
+    per_feature = tiles * k + -(-cap // unit)
+    return {"partial_bytes": f * tiles * k * tw * 24,
+            "list_bytes": _list_layout(f, cap, tiles, k, chunks,
+                                       per_feature, cr)[1],
+            "ctas": plan["ctas_per_sm"] * plan["sms"], "row_chunks": chunks,
+            "unit": unit}
+
+
+class BinLists:
+    """The listed design's lists of one call (``kernels/hist_common.cuh``,
+    ``hist_lists.cu``): feature ``j``'s entries in ``[j * cap, j * cap +
+    its count)`` of ``ids`` (the row, int32) and ``lbin`` (the bin's index
+    in its tile of ``tile_bins``, u16 bits in int16), by tile, then slot,
+    then row; segment ``(j * tiles + t) * slots + s`` at ``seg_off``
+    (int64), ``seg_len`` entries; its units of ``unit`` entries numbered
+    from ``seg_ubase`` (feature ``j``'s from ``j * per_feature``), and
+    ``unit_seg`` naming each unit's segment (-1: none).  A kernel call's
+    buffers live in ``buf`` at ``layout``'s offsets, their addresses in
+    ``ptrs`` for the main kernel, and each field is a view made when first
+    read; the plain version's fields are tensors of their own.  A kernel
+    call's buffer also holds ``gh4``, each row's (g*m, h*m, m, 0) as float32
+    ``[cap * 4]``, written for the rows of the chunks it lists (the main
+    kernel's one gather an entry); the plain version has none."""
+
+    FIELDS = ("ids", "lbin", "seg_off", "seg_len", "seg_ubase", "unit_seg",
+              "gh4")
+
+    def __init__(self, f, cap, tiles, tile_bins, slots, unit, tensors=None,
+                 buf=None, layout=None, ptrs=None):
+        self.f, self.cap, self.tiles, self.tile_bins = f, cap, tiles, \
+            tile_bins
+        self.slots, self.unit = slots, unit
+        self.per_feature = tiles * slots + -(-cap // unit)
+        self.segments = f * tiles * slots
+        self.buf, self.layout, self.ptrs = buf, layout, ptrs
+        for name, t in (tensors or {}).items():
+            setattr(self, name, t)
+
+    def __getattr__(self, name):
+        layout = self.__dict__.get("layout")
+        if name not in BinLists.FIELDS or layout is None:
+            raise AttributeError(name)
+        at, dt, numel = layout[name]
+        view = self.buf[at:at + numel * _ELEMENT_BYTES[dt]].view(dt)
+        setattr(self, name, view)
+        return view
+
+    def counts(self) -> torch.Tensor:
+        """``[f]`` entries of each feature."""
+        return self.seg_len.view(self.f, -1).sum(1)
+
+    def entries(self) -> torch.Tensor:
+        """The positions in ``ids``/``lbin`` that hold an entry."""
+        pos = torch.arange(self.cap, device=self.ids.device)
+        return (pos[None, :] < self.counts()[:, None]).reshape(-1)
+
+
+def lists_equal(a: BinLists, b: BinLists) -> bool:
+    """Whether two calls' lists are the same, bit for bit, on every
+    position that holds an entry and in every table."""
+    if not all(torch.equal(getattr(a, n), getattr(b, n))
+               for n in ("seg_off", "seg_len", "seg_ubase", "unit_seg")):
+        return False
+    keep = a.entries()
+    return (torch.equal(a.ids[keep], b.ids[keep])
+            and torch.equal(a.lbin[keep], b.lbin[keep]))
+
+
+def _list_buffer(nbytes: int, dev: torch.device, rows: int,
+                 f: int) -> torch.Tensor:
+    """The one buffer of a ``bin_lists`` call's lists, tables and partial
+    sums (``_list_layout``), or, where the card cannot hold it, an
+    ``OutOfMemoryError`` that says what the lists take: their bytes grow
+    with the call's (row, feature) pairs, 10.7-11.1 a pair at 1M x 28
+    (ids 4, lbin 2, the pre-pass's staging 4, its count tables, ``gh4``
+    16 a row), against the bins' 2 a pair at u16."""
+    try:
+        return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    except torch.OutOfMemoryError as e:
+        raise torch.OutOfMemoryError(
+            f"hist_lists: the bin-tiled histogram's lists of {rows} rows x "
+            f"{f} features take {nbytes} bytes ({nbytes / (rows * f):.1f} a "
+            "(row, feature) pair), more than the card holds free; at "
+            "max_bin above ~8,900 train on fewer rows a call (stream_rows) "
+            "or at a max_bin whose bins fit one tile") from e
+
+
+def bin_lists(mat, grad, hess, mask, max_bin, *, f_limit=None,
+              tile_bins=256, unit=LIST_UNIT, block_rows=_LIST_ROWS,
+              block_leaf=None, num_slots=1, partial=0) -> BinLists:
+    """The listed design's pre-pass: for each (feature, tile of
+    ``tile_bins`` bins (a power of two), slot), the rows of ``mat [N,
+    NC]`` (``uint8``/``uint16``, its first ``F = f_limit or NC`` columns)
+    whose bin lies in the tile, in row order (``BinLists``).
+    ``block_leaf`` (None: one slot) names the slot in ``[0, num_slots)``
+    of each block of ``block_rows`` rows, and a block outside is dropped;
+    a bin >= ``max_bin`` or a row whose (g*m, h*m, m) are all zero lists
+    nowhere.  Without a block map ``block_rows`` is the kernel's chunk of
+    rows (a chunk's entries are sorted in shared memory, at most 65,536
+    rows).  ``partial``: float64 values of room for the main kernel's
+    partial sums after the lists (``BinLists.partial_ptr``).  A CUDA
+    tensor launches the ``hist_lists`` kernel (or raises); a CPU tensor
+    takes ``bin_lists_plain``."""
+    if _plain(mat):
+        return bin_lists_plain(mat, grad, hess, mask, max_bin,
+                               f_limit=f_limit, tile_bins=tile_bins,
+                               unit=unit, block_rows=block_rows,
+                               block_leaf=block_leaf, num_slots=num_slots)
+    import ctypes
+    _check_rows("hist_lists", mat, grad, hess, mask)
+    n, ncols = mat.shape
+    f = _n_feat(ncols, f_limit)
+    dev = mat.device
+    tw_log2 = tile_bins.bit_length() - 1
+    _check(tile_bins == 1 << tw_log2 and tw_log2 <= _LIST_TILE_LOG2,
+           f"tile_bins={tile_bins} is not a power of two up to "
+           f"{1 << _LIST_TILE_LOG2}")
+    _check(0 < num_slots <= LIST_MAX_SLOTS and (block_leaf is not None
+                                               or num_slots == 1),
+           f"hist_lists: {num_slots} slots (at most {LIST_MAX_SLOTS}; one "
+           "without a block map)")
+    _check(n > 0 and f > 0 and unit > 0 and block_rows > 0,
+           "hist_lists: no rows, features or units")
+    tiles = -(-max_bin // tile_bins)
+    blocks = -(-n // block_rows)
+    cr = block_rows if block_leaf is None else list_chunk_rows(block_rows)
+    _check(cr <= 65536, f"hist_lists: chunks of {cr} rows (at most 65,536)")
+    if block_leaf is not None:
+        _check(block_leaf.device == dev and block_leaf.dtype == torch.int32
+               and block_leaf.shape == (blocks,)
+               and block_leaf.is_contiguous(),
+               f"hist_lists: block_leaf must be a contiguous int32 "
+               f"[{blocks}] tensor on {dev}")
+    per_feature = tiles * num_slots + -(-n // unit)
+    layout, nbytes = _list_layout(f, n, tiles, num_slots, -(-n // cr),
+                                  per_feature, cr, partial)
+    buf = _list_buffer(nbytes, dev, n, f)
+    base = buf.data_ptr()
+    ptrs = (ctypes.c_longlong * len(layout))(
+        *(base + at for at, _, _ in layout.values()))
+    lib = _build.load("hist_lists")
+    rc = lib.hist_lists_launch(
+        dev.index, mat.data_ptr(), n, ncols, f, max_bin, mat.element_size(),
+        grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
+        None if block_leaf is None else block_leaf.data_ptr(), cr,
+        block_rows, num_slots, tw_log2, unit, per_feature, ptrs,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, "hist_lists", rc)
+    launch_counts["hist_lists"] += 1
+    return BinLists(f, n, tiles, tile_bins, num_slots, unit, buf=buf,
+                    layout=layout, ptrs=ptrs)
+
+
+def bin_lists_plain(mat, grad, hess, mask, max_bin, *, f_limit=None,
+                    tile_bins=256, unit=LIST_UNIT, block_rows=_LIST_ROWS,
+                    block_leaf=None, num_slots=1) -> BinLists:
+    """``bin_lists``'s function in plain PyTorch: each feature's kept rows
+    sorted stably by (tile, slot) -- a library sort, which the kernel's
+    counting pre-pass replaces on the card.  Positions past a feature's
+    entries hold -1."""
+    n, ncols = mat.shape
+    f = _n_feat(ncols, f_limit)
+    dev = mat.device
+    k, tw_log2 = num_slots, tile_bins.bit_length() - 1
+    tiles = -(-max_bin // tile_bins)
+    b = widen_bins(mat[:, :f])
+    gw, hw = grad * mask, hess * mask
+    live = ~((mask == 0) & (gw == 0) & (hw == 0))
+    slot, ok = _row_slots(n, block_leaf, k, block_rows, dev)
+    keep = (b < max_bin) & (live & ok)[:, None]
+    key = (b >> tw_log2) * k + slot[:, None]
+    ids = torch.full((f, n), -1, dtype=torch.int32, device=dev)
+    lbin = torch.full((f, n), -1, dtype=torch.int16, device=dev)
+    seg_len = torch.zeros(f, tiles * k, dtype=torch.int64, device=dev)
+    rows_all = torch.arange(n, device=dev)
+    for j in range(f):
+        rows = rows_all[keep[:, j]]
+        kj = key[rows, j]
+        order = torch.argsort(kj, stable=True)
+        ids[j, :rows.numel()] = rows[order].int()
+        lbin[j, :rows.numel()] = (b[rows, j] & (tile_bins - 1))[order] \
+            .to(torch.int16)
+        seg_len[j] = torch.bincount(kj, minlength=tiles * k)
+    feat = torch.arange(f, device=dev)[:, None]
+    seg_off = feat * n + torch.cumsum(seg_len, 1) - seg_len
+    nu = torch.where(seg_len > unit, -(-seg_len // unit), 1)
+    per_feature = tiles * k + -(-n // unit)
+    seg_ubase = feat * per_feature + torch.cumsum(nu, 1) - nu
+    unit_seg = torch.full((f * per_feature,), -1, dtype=torch.int32,
+                          device=dev)
+    segs = torch.arange(f * tiles * k, device=dev)
+    first = seg_ubase.reshape(-1)
+    units = torch.repeat_interleave(segs, nu.reshape(-1))
+    unit_seg[first[units] + (torch.arange(units.numel(), device=dev)
+                             - (torch.cumsum(nu.reshape(-1), 0)
+                                - nu.reshape(-1))[units])] = units.int()
+    return BinLists(f, n, tiles, tile_bins, k, unit, tensors={
+        "ids": ids.reshape(-1), "lbin": lbin.reshape(-1),
+        "seg_off": seg_off.reshape(-1), "seg_len": seg_len.reshape(-1).int(),
+        "seg_ubase": seg_ubase.reshape(-1).int(), "unit_seg": unit_seg})
 
 
 def _raise_on(lib, name: str, rc: int) -> None:
@@ -723,6 +1051,9 @@ def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
     if n == 0 or f == 0:
         return torch.zeros(f, max_bin, 3, device=dev)
     plan = atomic_plan("hist_full", dev, ncols, f, max_bin, esz)
+    if plan["design"] == 2:
+        return _hist_listed("hist_full", bins, grad, hess, mask, None, 1,
+                            max_bin, f, plan, plan["list_rows"])
     grid_x, per_cta, _ = atomic_partials("hist_full", plan, n)
     partial = torch.empty(grid_x, f, max_bin, 3, dtype=torch.float64,
                           device=dev)
@@ -764,6 +1095,10 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
     if nb == 0 or f == 0 or num_slots == 0:
         return torch.zeros(num_slots, f, max_bin, 3, device=dev)
     plan = atomic_plan("hist_leaves", dev, nc, f, max_bin, esz)
+    if plan["design"] == 2:
+        return _hist_listed("hist_leaves", comb, grad, hess, mask,
+                            block_leaf, num_slots, max_bin, f, plan,
+                            block_rows)
     # the partials (float64 [grid x * parts, F, B, 3]: a CTA writes one for
     # each slot its blocks name), then their slots
     grid_x, bpc, n_partial = atomic_partials("hist_leaves", plan, nb,
@@ -782,6 +1117,35 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_leaves", rc)
     launch_counts["hist_leaves"] += 1
+    return out
+
+
+def _hist_listed(kernel, mat, grad, hess, mask, block_leaf, num_slots,
+                 max_bin, f, plan, block_rows):
+    """A call of ``hist_full`` or ``hist_leaves`` in the listed design:
+    the pre-pass (``bin_lists``, its own launch count; its buffer also
+    holds the main kernel's float64 partial sums, a ``[tile_bins, 3]`` a
+    segment), then the listed main kernel over ``ctas_per_sm x sms`` CTAs,
+    which writes the float32 output itself."""
+    dev = mat.device
+    tw = plan["tile_bins"]
+    lists = bin_lists(mat, grad, hess, mask, max_bin, f_limit=f,
+                      tile_bins=tw, unit=list_unit(plan, f * mat.shape[0]),
+                      block_rows=block_rows, block_leaf=block_leaf,
+                      num_slots=num_slots,
+                      partial=f * plan["tiles"] * num_slots * tw * 3)
+    shape = (f, max_bin, 3) if kernel == "hist_full" else (
+        num_slots, f, max_bin, 3)
+    out = torch.empty(*shape, device=dev)
+    lib = _build.load(kernel)
+    slots = () if kernel == "hist_full" else (num_slots,)
+    rc = getattr(lib, f"{kernel}_listed_launch")(
+        dev.index, lists.ptrs, lists.ptrs[-1], out.data_ptr(), f, max_bin,
+        *slots, tw.bit_length() - 1, lists.unit, f * lists.per_feature,
+        max(1, plan["ctas_per_sm"]) * plan["sms"],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, kernel, rc)
+    launch_counts[kernel] += 1
     return out
 
 

@@ -15,13 +15,26 @@
 // any width a u16 bin reaches (65,536): the plan narrows the feature
 // group until the group's histogram fits, and where not even one
 // feature's [B, 3] histogram fits (24 bytes a bin: above ~8,900 bins with
-// its staging) it splits each feature's bins into tiles of tile_bins
-// bins, a grid axis beside the feature groups.  A CTA of tile t adds only
-// the rows whose bin lies in [t * tile_bins, (t + 1) * tile_bins), at the
-// local index bin - t * tile_bins; each bin lies in one tile, so its adds
-// come in row order as without tiles, and give the same bits.  Every
-// tile re-reads the rows (a cluster of the tiles' CTAs sharing one staged
-// tile by TMA multicast would read them once).
+// its staging) it splits each feature's bins into bin tiles.  Two designs
+// serve bin tiles:
+//
+// * Listed (the plan's choice; the end of this file, and hist_lists.cu).
+//   A pre-pass puts, for each (slot, feature, tile of 256 bins), the rows
+//   whose bin lies in the tile into one contiguous list in row order; a
+//   warp then takes a unit of one list (at most kListUnit entries) into a
+//   histogram of its own in shared memory, and walks only those rows.
+//   No row outside the tile is read and no ticket is passed: a warp's
+//   adds come in list order, and the units of a long list (skewed bins)
+//   combine in unit order through one float64 partial.
+// * Walked (the earlier design; kept for timing, asked for by design 0 or
+//   1).  The fewest tiles of tile_bins bins at which one feature fits,
+//   along gridDim.y; every CTA of tile t walks all its rows and adds only
+//   those whose bin lies in [t * tile_bins, (t + 1) * tile_bins).  What
+//   paced it was the dealt design's ticket chain, not the re-read rows
+//   (mostly from L2): a one-feature CTA's 22 item warps pass one ticket
+//   through every 64-row pair of its stretch, ~263 ns a pair on an H100,
+//   whether or not the pair holds a row of the tile, so each extra tile
+//   was one more full walk (PERF.md).
 //
 // Common to both designs (each point answers what bounded the first
 // kernel, which added every (row, feature) into shared memory with three
@@ -622,8 +635,9 @@ __device__ __forceinline__ void scan_round(Run& a, int start, int lane,
 // 64p + 32 + l on lane l) for feature f, the two sorts interleaved, added
 // into feature f's histogram of bins [b0, b0 + bw) in that order once
 // ticket[f] says pair s0 + p is next; then the ticket passes to pair s0 +
-// p + 1.  A pair with no row in the bin tile (most pairs of a tile on
-// skewed bins) skips the sort and only passes the ticket on.
+// p + 1.  A pair with no row in the bin tile (in the walked design of bin
+// tiles, most pairs of a tile) skips the sort and only passes the ticket
+// on: that hand-off, not the sort, set the walked tiles' pace.
 template <typename T>
 __device__ __forceinline__ void dealt_item(double* hist, uint32_t* tickets,
                                            const Tile& t, int nrows, int p,
@@ -846,6 +860,188 @@ __device__ __forceinline__ BinTile bin_tile(int tiles, int tile_bins, int B) {
   return BinTile{group, b0, min(tile_bins, B - b0)};
 }
 
+// --- the listed design of bin tiles ----------------------------------------
+//
+// The lists (built by hist_lists.cu): feature j's entries lie in [j * cap,
+// j * cap + its count) of ids (the row) and lbin (the bin's index in its
+// tile of tw = 2^tw_log2 bins), ordered by tile, then slot, then row.
+// Segment (j * T + t) * k + s holds slot s's rows of feature j whose bin
+// lies in tile t: entries [seg_off, seg_off + seg_len).  A segment of more
+// than `unit` entries is split into units of `unit` entries (at least one
+// unit a segment, an empty one included); the units of feature j are
+// numbered from j * per_feature, segment by segment in order (seg_ubase:
+// a segment's first), and unit_seg names each unit's segment (-1: none).
+//
+// The pre-pass also writes each row's float32 products (g*m, h*m, m, 0)
+// as one float4 (gh4), so an entry costs the main kernel one 16-byte
+// gather, not three of 4 bytes (each its own 32-byte sector).
+//
+// The main kernel (listed_units): each warp of a persistent grid takes the
+// next unit from a counter, adds its entries into a [tw][3] float64
+// histogram of its own in shared memory -- pairs of 32-lane steps, each
+// step's lanes grouped by bin (the dealt design's warp sort and segmented
+// scan: at most one add a bin a step; grouping by a ballot a key bit and
+// the group's lowest lane adding its peers was slower on the card), the
+// steps in list order -- and
+// writes it: a segment of one unit straight into the float32 output; the
+// units of a longer one in unit order through one float64 partial of the
+// segment (a flag a segment names the unit whose turn it is; unit c waits
+// for it, the last one writes the rounded sum).  Units are taken in
+// increasing order, so the unit a warp waits for is held by a running
+// warp: no unit waits on one that has not started.  Bound on an H100: the
+// entries' gathers of gh4 (a sector an entry) and the per-step sort;
+// the pre-pass reads the rows twice and writes 6 bytes an entry.
+// ---------------------------------------------------------------------------
+
+constexpr int kListWarps = 8;      // warps of a listed CTA, a unit each
+constexpr int kListTileLog2 = 8;   // a warp's tile: 256 bins at most
+constexpr int kListUnit = 8192;    // entries a unit, at most
+constexpr int kListRows = 4096;    // the full pass's rows a pre-pass block
+constexpr int kListGroup = 16;     // features a pre-pass CTA
+constexpr int kListStage = 256;    // rows a pre-pass CTA stages at a time
+
+// log2 of the bins a warp's tile holds at width B: 256, or the power of
+// two at or above B where B is narrower
+__host__ __device__ inline int list_tile_log2(int B) {
+  int l = 0;
+  while ((1 << l) < B && l < kListTileLog2) ++l;
+  return l;
+}
+__host__ __device__ inline int list_smem_bytes(int tw) {
+  return 24 * kListWarps * tw;
+}
+
+struct Lists {
+  const int32_t* ids;
+  const uint16_t* lbin;
+  const long long* seg_off;
+  const int32_t* seg_len;
+  const int32_t* seg_ubase;
+  const int32_t* unit_seg;
+  int32_t* flags;    // a segment's next unit to write (split segments)
+  int32_t* counter;  // the next unit to take
+  const float4* gh4;  // a row's (g*m, h*m, m, 0)
+};
+
+struct ListedArgs {
+  Lists l;
+  double* partial;  // [segments][tw][3]: a split segment's units so far
+  float* out;       // [k][f][B][3]
+  int f, B, k, T, tw_log2, unit, units;
+};
+
+__device__ __forceinline__ int ld_acquire_gpu(const int32_t* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_gpu(int32_t* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Entries [e0, e0 + n) of a list into the warp's histogram (see above).
+// A pair's rows and keys are read one pair ahead, and its gh4 gathered
+// before the sort; a lane past n has the key kNoKey.
+__device__ __forceinline__ void list_walk(double* hist, const ListedArgs& a,
+                                          long long e0, int n, int lane) {
+  int rowa = 0, rowb = 0;
+  uint32_t keya = kNoKey, keyb = kNoKey;
+  auto fetch = [&](int q) {
+    keya = keyb = kNoKey;
+    if (q + lane < n) {
+      rowa = a.l.ids[e0 + q + lane];
+      keya = a.l.lbin[e0 + q + lane];
+    }
+    if (q + 32 + lane < n) {
+      rowb = a.l.ids[e0 + q + 32 + lane];
+      keyb = a.l.lbin[e0 + q + 32 + lane];
+    }
+  };
+  fetch(0);
+  for (int q = 0; q < n; q += 64) {
+    StepRow va{0.f, 0.f, 0.f, 0u}, vb{0.f, 0.f, 0.f, 0u};
+    if (keya != kNoKey) {
+      const float4 v = a.l.gh4[rowa];
+      va = StepRow{v.z, v.x, v.y, 0u};
+    }
+    if (keyb != kNoKey) {
+      const float4 v = a.l.gh4[rowb];
+      vb = StepRow{v.z, v.x, v.y, 0u};
+    }
+    uint32_t xa = keya << 5 | (uint32_t)lane, xb = keyb << 5 | (uint32_t)lane;
+    fetch(q + 64);
+    warp_sort2(xa, xb, lane);
+    Run ra, rb;
+    int sa, sb;
+    const int la = runs_of(xa, va, lane, ra, sa);
+    const int lb = runs_of(xb, vb, lane, rb, sb);
+    for (int d = 1; d < la || d < lb; d <<= 1) {
+      if (d < la) scan_round(ra, sa, lane, d);
+      if (d < lb) scan_round(rb, sb, lane, d);
+    }
+    if (ra.tail && ra.key != kNoKey)
+      add_entry(hist + 3 * ra.key, ra.v0, ra.v1, ra.v2);
+    __syncwarp();
+    if (rb.tail && rb.key != kNoKey)
+      add_entry(hist + 3 * rb.key, rb.v0, rb.v1, rb.v2);
+    __syncwarp();
+  }
+}
+
+// The listed design's main loop (see above); every warp of the grid runs
+// it on its own, with no CTA barrier.
+__device__ __forceinline__ void listed_units(const ListedArgs& a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tw = 1 << a.tw_log2;
+  double* hist = reinterpret_cast<double*>(smem) + 3LL * warp * tw;
+  for (;;) {
+    int u = 0;
+    if (lane == 0) u = atomicAdd(a.l.counter, 1);
+    u = __shfl_sync(kFull, u, 0);
+    if (u >= a.units) return;
+    const int seg = a.l.unit_seg[u];
+    if (seg < 0) continue;
+    const int c = u - a.l.seg_ubase[seg];
+    const int len = a.l.seg_len[seg];
+    const int nu = len > a.unit ? (len + a.unit - 1) / a.unit : 1;
+    const int jt = seg / a.k, s = seg - jt * a.k;
+    const int j = jt / a.T, b0 = (jt - j * a.T) << a.tw_log2;
+    const int n3 = 3 * min(tw, a.B - b0);
+    float* o = a.out + (((long long)s * a.f + j) * a.B + b0) * 3;
+    if (len == 0) {  // an empty segment: zeros, straight out
+      for (int i = lane; i < n3; i += 32) o[i] = 0.f;
+      continue;
+    }
+    for (int i = lane; i < n3; i += 32) hist[i] = 0.0;
+    __syncwarp();
+    list_walk(hist, a, a.l.seg_off[seg] + (long long)c * a.unit,
+              min(a.unit, len - c * a.unit), lane);
+    __syncwarp();
+    if (nu == 1) {
+      for (int i = lane; i < n3; i += 32) o[i] = (float)hist[i];
+      continue;
+    }
+    double* p = a.partial + 3LL * seg * tw;
+    while (ld_acquire_gpu(a.l.flags + seg) != c) {
+    }
+    if (c == 0) {
+      for (int i = lane; i < n3; i += 32) p[i] = hist[i];
+    } else if (c + 1 < nu) {
+      for (int i = lane; i < n3; i += 32) p[i] += hist[i];
+    } else {
+      for (int i = lane; i < n3; i += 32) o[i] = (float)(p[i] + hist[i]);
+    }
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) st_release_gpu(a.l.flags + seg, c + 1);
+  }
+}
+
 }  // namespace lgbt
 
 // out[s][e] = float(sum of partial[p][e] over the partials p of slot s, in
@@ -980,26 +1176,77 @@ static inline cudaError_t allow_smem(K kern, int device, int smem) {
   return e;
 }
 
-// out[0..12]: fg, tile, threads, dynamic shared bytes, CTAs an SM, SMs,
-// registers a thread, static shared bytes, spilled bytes a thread, the
-// design (0 owned, 1 dealt), its staging warps (0: all warps stage), the
-// bin tiles of a feature and the bins a tile holds.  They depend on the
-// shape only (not on the rows), so a caller asks once per shape and
-// splits its rows over ctas_per_sm * SMs / (groups * tiles) itself.
-// `stride` is in bins of esz bytes.  design: -1 lets the plan choose
-// (owned while one bin tile holds the whole width and the group holds
-// min(f, kOwnedMinGroup) features, else dealt), 0 or 1 asks for one.
-// min_tiles: the fewest bin tiles (1: as the width needs; more only to
-// test the tiled path at a width that needs none).  owned and dealt are
-// the kernel's two instantiations.  (histogram.py::atomic_geometry
-// mirrors the geometry for the tests that run without a card.)
-template <typename K>
-static inline cudaError_t plan_launch(K owned, K dealt_kern, int device,
-                                      long long stride, int f, int B,
-                                      int esz, int design, int min_tiles,
+// The listed design's plan (out as plan_launch's): one feature a unit,
+// `unit` entries a unit at most (in the tile slot), kListWarps warps a
+// CTA each with a [tw][3] float64 histogram, the CTAs an SM the card
+// holds of them (the grid: that many on every SM), tiles of tw bins, and
+// the full pass's rows a pre-pass block.  tw is fixed by occupancy, not
+// by fit: 256 bins (6 KB a warp) leave 24 warps an SM room, and a
+// narrower tile costs no walk, only a longer pre-pass table.
+template <typename L>
+static inline cudaError_t plan_listed(L kern, int device, int f, int B,
                                       int* out) {
+  const int tw = 1 << list_tile_log2(B);
+  const int smem = list_smem_bytes(tw);
+  int per_sm = 0, sms = 0;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) e = allow_smem(kern, device, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, 32 * kListWarps, smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kern);
+  if (e != cudaSuccess) return e;
+  out[0] = 1;
+  out[1] = kListUnit;
+  out[2] = 32 * kListWarps;
+  out[3] = smem;
+  out[4] = per_sm;
+  out[5] = sms;
+  out[6] = a.numRegs;
+  out[7] = (int)a.sharedSizeBytes;
+  out[8] = (int)a.localSizeBytes;
+  out[9] = 2;
+  out[10] = 0;
+  out[11] = (B + tw - 1) / tw;
+  out[12] = tw;
+  out[13] = kListRows;
+  return f > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// out[0..13]: fg, tile, threads, dynamic shared bytes, CTAs an SM, SMs,
+// registers a thread, static shared bytes, spilled bytes a thread, the
+// design (0 owned, 1 dealt, 2 listed), its staging warps (0: all warps
+// stage), the bin tiles of a feature, the bins a tile holds and (listed)
+// the full pass's rows a pre-pass block.  They depend on the shape only
+// (not on the rows), so a caller asks once per shape and splits its rows
+// over ctas_per_sm * SMs / (groups * tiles) itself (listed: the lists'
+// units over a grid of ctas_per_sm * SMs).  `stride` is in bins of esz
+// bytes.  design: -1 lets the plan choose (listed where one feature's
+// histogram does not fit a dealt CTA or min_tiles > 1 asks for bin tiles;
+// else owned while the group holds min(f, kOwnedMinGroup) features, else
+// dealt), 0, 1 or 2 asks for one (0 or 1 with bin tiles: the walked
+// design).  min_tiles: the fewest bin tiles of the walked design (1: as
+// the width needs; more only to test the tiled path at a width that
+// needs none).  owned and dealt are the kernel's two instantiations,
+// listed its listed kernel.  (histogram.py::atomic_geometry mirrors the
+// geometry for the tests that run without a card.)
+template <typename K, typename L>
+static inline cudaError_t plan_launch(K owned, K dealt_kern, L listed,
+                                      int device, long long stride, int f,
+                                      int B, int esz, int design,
+                                      int min_tiles, int* out) {
   int fg, tile, tiles, bt;
-  if (design > 1) return cudaErrorInvalidValue;
+  out[13] = 0;
+  if (design > 2) return cudaErrorInvalidValue;
+  if (design < 0) {
+    if (!plan_geometry(f, B, stride, esz, true, min_tiles, &fg, &tile,
+                       &tiles, &bt) ||
+        tiles > 1)
+      design = 2;
+  }
+  if (design == 2) return plan_listed(listed, device, f, B, out);
   if (design < 0) {
     if (!plan_geometry(f, B, stride, esz, false, min_tiles, &fg, &tile,
                        &tiles, &bt))
@@ -1074,6 +1321,43 @@ static inline cudaError_t launch_reduce(const double* partial,
                   (unsigned)slots);
   hist_reduce_kernel<<<grid, kReduceThreads, 0, stream>>>(partial, pslot, R,
                                                           E, out);
+  return cudaGetLastError();
+}
+
+// The listed design's main kernel over `grid` CTAs.  ptrs: the lists'
+// ids, lbin, seg_off, seg_len, seg_ubase, unit_seg, flags, counter and gh4
+// (hist_lists.cu's order of them).
+template <typename L>
+static inline cudaError_t launch_listed(L kern, int device,
+                                        const long long* ptrs, void* partial,
+                                        void* out, int f, int B, int k,
+                                        int tw_log2, int unit, int units,
+                                        int grid, cudaStream_t stream) {
+  const int smem = list_smem_bytes(1 << tw_log2);
+  cudaError_t e = allow_smem(kern, device, smem);
+  if (e != cudaSuccess) return e;
+  if (grid < 1 || tw_log2 < 0 || tw_log2 > kListTileLog2 || unit < 1)
+    return cudaErrorInvalidValue;
+  const Lists l{reinterpret_cast<const int32_t*>(ptrs[0]),
+                reinterpret_cast<const uint16_t*>(ptrs[1]),
+                reinterpret_cast<const long long*>(ptrs[2]),
+                reinterpret_cast<const int32_t*>(ptrs[3]),
+                reinterpret_cast<const int32_t*>(ptrs[4]),
+                reinterpret_cast<const int32_t*>(ptrs[5]),
+                reinterpret_cast<int32_t*>(ptrs[6]),
+                reinterpret_cast<int32_t*>(ptrs[7]),
+                reinterpret_cast<const float4*>(ptrs[8])};
+  const ListedArgs a{l,
+                     (double*)partial,
+                     (float*)out,
+                     f,
+                     B,
+                     k,
+                     (B + (1 << tw_log2) - 1) >> tw_log2,
+                     tw_log2,
+                     unit,
+                     units};
+  kern<<<grid, 32 * kListWarps, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -12,9 +12,12 @@
 // it writes that histogram once into its float64 partial, and
 // hist_reduce_kernel sums the partials in a fixed order into the float32
 // output.  Where one feature's histogram does not fit a CTA (B above
-// ~8,900), each feature's bins are split into bin tiles along gridDim.y
-// (8 of 8,192 bins at B = 65,536), and a CTA adds and writes only its
-// tile's bins.
+// ~8,900), the listed design takes the call (hist_common.cuh): the
+// pre-pass (hist_lists.cu) lists each (feature, tile of 256 bins)'s rows,
+// and hist_full_listed_kernel's warps each add a unit of one list into a
+// histogram of their own, writing the float32 output themselves.  The
+// walked design (bin tiles along gridDim.y, 8 of 8,192 bins at
+// B = 65,536, every tile walking every row) stays for timing.
 //
 // Bound on an H100: it must read N * f * esz bytes of bins (esz = 1 for
 // u8, 2 for u16) and 12 * N bytes of (g, h, m) once and write F * B * 12
@@ -24,8 +27,11 @@
 // feature), 48 bytes through shared memory at 128 bytes a clock an SM
 // (about 0.04 ms at 1M x 28).  The partials add 2 * (grid x) * F * B * 24
 // bytes of device-memory traffic (about 45 MB at 1M x 28 with one CTA an
-// SM).  With bin tiles every tile re-reads the rows: (f * esz + 12) * N
-// bytes a tile, mostly from L2.
+// SM).  The walked bin tiles re-read the rows, (f * esz + 12) * N bytes a
+// tile, mostly from L2, but what paced them was the ticket each CTA
+// passed through every 64-row pair, in the tile or not (~263 ns a pair).
+// The listed design reads each (row, feature) twice in the pre-pass and
+// once by its entry (6 bytes of list and a 32-byte sector of g, h, m).
 #include "hist_common.cuh"
 
 // T: the bin type (uint8_t or uint16_t); stride in bins; kDealt: the
@@ -60,23 +66,49 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
                    sm.hist, fgc, B, bt.b0, bt.bw);
 }
 
-// The launch plan of a shape (lgbt::plan_launch's thirteen values); esz
+// The listed design (hist_common.cuh::listed_units): a persistent grid
+// whose warps take the lists' units; the output is the slot-0 [f, B, 3]
+// histogram.
+__global__ void __launch_bounds__(32 * lgbt::kListWarps, 3)
+    hist_full_listed_kernel(const lgbt::ListedArgs a) {
+  lgbt::listed_units(a);
+}
+
+// The launch plan of a shape (lgbt::plan_launch's fourteen values); esz
 // is the bin type's size (1: u8, 2: u16); design -1 (the plan's choice),
-// 0 (owned) or 1 (dealt); min_tiles the fewest bin tiles (1: as the
-// width needs).
+// 0 (owned), 1 (dealt) or 2 (listed); min_tiles the fewest bin tiles of
+// the walked design (1: as the width needs).
 extern "C" int hist_full_plan(int device, long long stride, int f, int B,
                               int esz, int design, int min_tiles, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (esz == 1)
     return (int)lgbt::plan_launch(hist_full_kernel<uint8_t, false>,
-                                  hist_full_kernel<uint8_t, true>, device,
-                                  stride, f, B, 1, design, min_tiles, out);
+                                  hist_full_kernel<uint8_t, true>,
+                                  hist_full_listed_kernel, device, stride,
+                                  f, B, 1, design, min_tiles, out);
   if (esz == 2)
     return (int)lgbt::plan_launch(hist_full_kernel<uint16_t, false>,
-                                  hist_full_kernel<uint16_t, true>, device,
-                                  stride, f, B, 2, design, min_tiles, out);
+                                  hist_full_kernel<uint16_t, true>,
+                                  hist_full_listed_kernel, device, stride,
+                                  f, B, 2, design, min_tiles, out);
   return (int)cudaErrorInvalidValue;
+}
+
+// The listed design's main kernel over the lists of one call (ptrs: see
+// lgbt::launch_listed) into out ([f, B, 3] float32); partial holds a
+// [tw][3] float64 sum for each segment (only split ones are touched);
+// units = f * the lists' units a feature; grid = the plan's CTAs an SM
+// times its SMs.
+extern "C" int hist_full_listed_launch(int device, const long long* ptrs,
+                                       void* partial, void* out, int f,
+                                       int B, int tw_log2, int unit,
+                                       int units, int grid, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)lgbt::launch_listed(hist_full_listed_kernel, device, ptrs,
+                                  partial, out, f, B, 1, tw_log2, unit, units,
+                                  grid, (cudaStream_t)stream);
 }
 
 // The launch geometry: the plan's feature group, tile rows, bin tiles,

@@ -22,17 +22,23 @@
 // that carried it.  comb holds u8 or u16 bins (the template parameter T);
 // only the first `f` columns of each `stride`-bin row are read (the rest
 // are the packed g/h/w columns: 12 u8 or 6 u16).  Where one feature's
-// histogram does not fit a CTA (B above ~8,900), each feature's bins are
-// split into bin tiles along gridDim.y, and a CTA adds and writes only its
-// tile's bins of each slot.
+// histogram does not fit a CTA (B above ~8,900), the listed design takes
+// the call (hist_common.cuh): the pre-pass (hist_lists.cu) orders the
+// blocks by slot and lists each (slot, feature, tile of 256 bins)'s rows
+// in row order, and hist_leaves_listed_kernel's warps each add a unit of
+// one list and write that slot's output themselves.  The walked design
+// (bin tiles along gridDim.y, every tile's CTA walking all its blocks'
+// rows) stays for timing.
 //
 // Bound on an H100: C * f * esz bytes of bins (esz = 1 for u8, 2 for
 // u16), 12 * C bytes of (g, h, m) and 4 * C / BR bytes of block_leaf read
 // once, k * F * B * 12 bytes written: the byte bound is about (f * esz +
 // 12) * C / 3.35 TB/s (0.0035 ms at C = 262,144, f = 28 u8, k = 16).  The update's shared-memory floor is 48 bytes
 // per (row, feature) at 128 bytes a clock an SM (about 0.011 ms there).
-// Each partial adds 2 * F * B * 24 bytes of device-memory traffic.  With
-// bin tiles every tile re-reads the rows, mostly from L2.
+// Each partial adds 2 * F * B * 24 bytes of device-memory traffic.  The
+// walked bin tiles were paced by the ticket each CTA passed through every
+// 64-row pair, in the tile or not (~263 ns a pair), not by the rows they
+// re-read from L2; the listed design walks each segment's rows only.
 #include "hist_common.cuh"
 
 // Whether a block of [b0, blk) names `slot` (nearest first, so a block
@@ -103,10 +109,17 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
       pslot[(long long)blockIdx.x * parts + r] = -1;
 }
 
-// The launch plan of a shape (lgbt::plan_launch's thirteen values); esz
+// The listed design (hist_common.cuh::listed_units) for k slots: a unit
+// writes its slot's [B, 3] of one feature's tile.
+__global__ void __launch_bounds__(32 * lgbt::kListWarps, 3)
+    hist_leaves_listed_kernel(const lgbt::ListedArgs a) {
+  lgbt::listed_units(a);
+}
+
+// The launch plan of a shape (lgbt::plan_launch's fourteen values); esz
 // is the bin type's size (1: u8, 2: u16); design -1 (the plan's choice),
-// 0 (owned) or 1 (dealt); min_tiles the fewest bin tiles (1: as the
-// width needs).
+// 0 (owned), 1 (dealt) or 2 (listed); min_tiles the fewest bin tiles of
+// the walked design (1: as the width needs).
 extern "C" int hist_leaves_plan(int device, long long stride, int f, int B,
                                 int esz, int design, int min_tiles,
                                 int* out) {
@@ -114,13 +127,29 @@ extern "C" int hist_leaves_plan(int device, long long stride, int f, int B,
   if (e != cudaSuccess) return (int)e;
   if (esz == 1)
     return (int)lgbt::plan_launch(hist_leaves_kernel<uint8_t, false>,
-                                  hist_leaves_kernel<uint8_t, true>, device,
-                                  stride, f, B, 1, design, min_tiles, out);
+                                  hist_leaves_kernel<uint8_t, true>,
+                                  hist_leaves_listed_kernel, device, stride,
+                                  f, B, 1, design, min_tiles, out);
   if (esz == 2)
     return (int)lgbt::plan_launch(hist_leaves_kernel<uint16_t, false>,
-                                  hist_leaves_kernel<uint16_t, true>, device,
-                                  stride, f, B, 2, design, min_tiles, out);
+                                  hist_leaves_kernel<uint16_t, true>,
+                                  hist_leaves_listed_kernel, device, stride,
+                                  f, B, 2, design, min_tiles, out);
   return (int)cudaErrorInvalidValue;
+}
+
+// The listed design's main kernel over the lists of one call (ptrs: see
+// lgbt::launch_listed; k slots) into out ([k, f, B, 3] float32); partial,
+// units and grid as hist_full_listed_launch's.
+extern "C" int hist_leaves_listed_launch(int device, const long long* ptrs,
+                                         void* partial, void* out, int f,
+                                         int B, int k, int tw_log2, int unit,
+                                         int units, int grid, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  return (int)lgbt::launch_listed(hist_leaves_listed_kernel, device, ptrs,
+                                  partial, out, f, B, k, tw_log2, unit, units,
+                                  grid, (cudaStream_t)stream);
 }
 
 // The launch geometry: the plan's feature group, tile rows, bin tiles,

@@ -1,28 +1,42 @@
-"""The PyTorch port's atomic histogram kernels in bin tiles, by tile count,
-on one NVIDIA card.
+"""The PyTorch port's atomic histogram kernels at bin-tiled widths, listed
+design against walked, on one NVIDIA card.
 
     python3 scripts/torch_bin_tiles.py [--widths 12000,16384,65536]
-        [--tiles 0,16,32,64] [--out PATH]
+        [--kinds random,zipf] [--reps 2] [--out PATH]
+    python3 scripts/torch_bin_tiles.py --untiled [--out PATH]
 
-Where one feature's ``[B, 3]`` float64 histogram does not fit a CTA, the
-plan of ``hist_full`` and ``hist_leaves`` splits each feature's bins into
-bin tiles along ``gridDim.y`` (``ops/kernels/hist_common.cuh``): the
-fewest tiles that fit, one feature a CTA.  This script times both kernels
-at ``chip_smoke.py``'s shapes (the full pass at 1M x 28, one frontier
-round's comb of 28 u16 features and 6 gh columns, C=262,144, k=16,
-BR=512, slot-ordered) with random bins (``chip_smoke._wide_u16``) at
-each width, under the plan's own tiles (``0``) and under more tiles asked
-through ``histogram.atomic_tiles`` (narrower tiles, so a CTA holds more
-features, each with its own ticket chain, at the same staged bytes a
-row).  For each: the plan (feature group, tiles, bins a tile, CTAs),
-the kernel-alone time (torch.profiler, the main and reduce kernels, mean
-of 10 calls), the time of a call (median of 20, CUDA events), and whether
-the result is bit for bit the plain version's.  Prints the card's name and
-power limit, one line per case, and writes them all to
-``chiprun_out/bin_tiles.json`` (or ``--out``).  Exits non-zero without a
-CUDA card.
+Where one feature's ``[B, 3]`` float64 histogram does not fit a CTA,
+``hist_full`` and ``hist_leaves`` take the listed design
+(``ops/kernels/hist_common.cuh``, ``hist_lists.cu``): a pre-pass lists
+each (slot, feature, tile of 256 bins)'s rows, and each warp walks only
+its unit of one list.  This script times both kernels at
+``chip_smoke.py``'s shapes (the full pass at 1M x 28, one frontier round's
+comb of 28 u16 features and 6 gh columns, C=262,144, k=16, BR=512,
+slot-ordered) with random and Zipf-skewed bins (``chip_smoke._wide_u16``)
+at each width, in the listed design and, in the same call, in the
+walked design (``histogram.atomic_design("dealt")``: bin tiles along
+``gridDim.y``, every tile walking every row), the listed one ``--reps``
+times around it.  For each: the plan (tile width, tiles, CTAs, the
+pre-pass's row blocks, entries a unit), the float64 partials' and the
+lists' bytes, the time of a call (median of 20, CUDA events), the kernels
+alone (torch.profiler, mean of 10 calls) and of those the pre-pass's apart,
+whether the result is bit for bit the plain version's and the same bits
+twice, and ``index_add_``'s time on the same inputs.  The pre-pass kernel
+is also held bit for bit against its plain version (``bin_lists_plain``).
+
+``--untiled`` times instead the shapes one tile holds, which the listed
+design must leave as they were: K1 and K2 at u8 (B = 256, the main path)
+and u16 at B = 1,024, kernel alone and call.  To compare with an older
+checkout in one call, untar it under ``chip_tmp/``, copy this script into
+its ``scripts/`` and run it there too (parent, change, change, parent);
+the script asks the wrappers only for what that checkout has.
+
+Prints the card's name and power limit, one JSON line per case, and
+writes them all to ``chiprun_out/bin_tiles.json`` (or ``--out``).  Exits
+non-zero without a CUDA card.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -36,51 +50,200 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def _case(hist, kernel, dev, width, tiles, inputs):
-    """One kernel at one width and tile count: plan, times, exactness."""
+def _calls(hist, kernel, inputs, width):
+    """(call, plain, index_add_ yardstick, units, stride, f, k) of one
+    kernel on its inputs."""
     if kernel == "hist_full":
         bins, g, h, m = inputs
-        stride, units, f = bins.shape[1], bins.shape[0], bins.shape[1]
 
         def call():
             return hist.hist_full(bins, g, h, m, width)
 
         def plain():
             return hist.hist_full_plain(bins, g, h, m, width)
-    else:
-        comb, g, h, m, bl = inputs
-        stride, f = comb.shape[1], cs.N_FEAT
-        units = comb.shape[0] // cs.LEAVES_SHAPE["BR"]
-        kw = dict(block_rows=cs.LEAVES_SHAPE["BR"], f_limit=f)
-        k = cs.LEAVES_SHAPE["k"]
 
-        def call():
-            return hist.hist_leaves(comb, g, h, m, bl, k, width, **kw)
+        def lib(dev):
+            return cs._full_yardstick(dev, bins, g, h, m, width)
+        return call, plain, lib, bins.shape[0], bins.shape[1], \
+            bins.shape[1], 1
+    comb, g, h, m, bl = inputs
+    f, k, BR = cs.N_FEAT, cs.LEAVES_SHAPE["k"], cs.LEAVES_SHAPE["BR"]
+    kw = dict(block_rows=BR, f_limit=f)
 
-        def plain():
-            return hist.hist_leaves_plain(comb, g, h, m, bl, k, width, **kw)
-    ref = plain()
-    with hist.atomic_tiles(max(1, tiles)):
+    def call():
+        return hist.hist_leaves(comb, g, h, m, bl, k, width, **kw)
+
+    def plain():
+        return hist.hist_leaves_plain(comb, g, h, m, bl, k, width, **kw)
+
+    def lib(dev):
+        return cs._leaves_yardstick(dev, comb, g, h, m, bl, k, width, BR, f)
+    return call, plain, lib, comb.shape[0] // BR, comb.shape[1], f, k
+
+
+def _design(hist, design):
+    if design is None:
+        return contextlib.nullcontext()
+    return hist.atomic_design(design)
+
+
+def _time(hist, kernel, dev, width, inputs, ref, design):
+    """One kernel in one design: plan, scratch, times, exactness."""
+    call, _, _, units, stride, f, k = _calls(hist, kernel, inputs, width)
+    with _design(hist, design):
         plan = hist.atomic_plan(kernel, dev, stride, f, width, esz=2)
-        grid_x = hist.atomic_partials(kernel, plan, units)[0]
-        got = call()
+        got, again = call(), call()
         torch.cuda.synchronize()
-        row = {"kernel": kernel, "width": width, "tiles_asked": tiles,
-               "fg": plan["fg"], "tiles": plan["tiles"],
-               "tile_bins": plan["tile_bins"], "tile_rows": plan["tile"],
-               "ctas": grid_x * plan["groups"] * plan["tiles"],
+        row = {"kernel": kernel, "width": width,
+               "design": hist.ATOMIC_DESIGNS[plan["design"]],
+               "tile_bins": plan["tile_bins"], "tiles": plan["tiles"],
+               "registers": plan["registers"],
+               "local_bytes": plan["local_bytes"],
+               "ctas_per_sm": plan["ctas_per_sm"],
                "bit_identical": bool(torch.equal(got.view(torch.int32),
                                                  ref.view(torch.int32))),
-               "kernel_ms": cs.calls_ms(call, cs.ATOMIC_KERNELS[kernel]),
-               "ms": cs.median_ms(call)}
+               "same_bits_twice": bool(torch.equal(
+                   got.view(torch.int32), again.view(torch.int32))),
+               "relerr": cs.relerr(got, ref),
+               "ms": cs.median_ms(call),
+               "kernel_ms": cs.calls_ms(call, cs.ATOMIC_KERNELS[kernel])}
+        if hasattr(hist, "atomic_scratch"):
+            row.update(hist.atomic_scratch(
+                kernel, plan, f, width, units, k,
+                cs.LEAVES_SHAPE["BR"]))
+        else:
+            grid_x, per, partials = hist.atomic_partials(kernel, plan,
+                                                         units, k)
+            row.update(partial_bytes=partials * f * width * 24,
+                       list_bytes=0, ctas=grid_x * plan["groups"]
+                       * plan["tiles"], row_chunks=grid_x, unit=per)
+        if plan["design"] == 2:
+            row["prepass_ms"] = cs.calls_ms(call, cs.LISTS_KERNELS)
+            row["by_kernel_ms"] = _by_kernel(call)
     return row
+
+
+def _by_kernel(call, reps=10):
+    """Device ms a call of each kernel a call launches (torch.profiler)."""
+    return {e.key[:60]: cs._device_us(e) / 1e3 / reps
+            for e in cs._device_rows(call, reps, ("hist_",))
+            if "hist_" in e.key}
+
+
+def _lists_check(hist, kernel, inputs, width, plan_geo):
+    """The pre-pass alone on these inputs: bit for bit its plain version,
+    its call time, and one library sort of the same keys."""
+    if kernel == "hist_full":
+        mat, g, h, m = inputs
+        kw = dict(block_rows=plan_geo["list_rows"])
+        f = mat.shape[1]
+    else:
+        mat, g, h, m, bl = inputs
+        kw = dict(block_rows=cs.LEAVES_SHAPE["BR"], block_leaf=bl,
+                  num_slots=cs.LEAVES_SHAPE["k"])
+        f = cs.N_FEAT
+    kw.update(f_limit=f, tile_bins=plan_geo["tile_bins"],
+              unit=hist.list_unit(plan_geo, f * mat.shape[0]))
+
+    def call():
+        return hist.bin_lists(mat, g, h, m, width, **kw)
+    got = call()
+    ref = hist.bin_lists_plain(mat, g, h, m, width, **kw)
+    keys = (hist.widen_bins(mat[:, :f]) >> 8).int().t().contiguous()
+    return {"lists_bit_identical": hist.lists_equal(got, ref),
+            "lists_entries": int(got.seg_len.sum()),
+            "lists_ms": cs.median_ms(call),
+            "lists_kernel_ms": cs.calls_ms(call, cs.LISTS_KERNELS),
+            "sort_ms": cs.median_ms(lambda: torch.sort(keys, dim=1,
+                                                       stable=True))}
+
+
+def _inputs(gen, dev, width, kind):
+    n, f = cs.N_TRAIN, cs.N_FEAT
+    C, k, BR = (cs.LEAVES_SHAPE[x] for x in ("C", "k", "BR"))
+    full = (cs._wide_u16(gen, (n, f), width, dev, kind),
+            *cs._rows(gen, n, dev))
+    bl = torch.sort(torch.randint(0, k, (C // BR,), generator=gen,
+                                  device=dev)).values.to(torch.int32)
+    leaves = (cs._frontier_comb(cs._wide_u16(gen, (C, f), width, dev, kind),
+                                *cs._rows(gen, C, dev)),
+              *cs._rows(gen, C, dev), bl)
+    return {"hist_full": full, "hist_leaves": leaves}
+
+
+def tiled(hist, dev, args):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = []
+    for width in (int(w) for w in args.widths.split(",")):
+        for kind in args.kinds.split(","):
+            data = _inputs(gen, dev, width, kind)
+            for kernel, inputs in data.items():
+                call, plain, lib, *_ = _calls(hist, kernel, inputs, width)
+                ref = plain()
+                runs = []
+                for r in range(args.reps):
+                    runs.append(_time(hist, kernel, dev, width, inputs, ref,
+                                      None))
+                    if r == 0:
+                        runs.append(_time(hist, kernel, dev, width, inputs,
+                                          ref, "dealt"))
+                stride = _calls(hist, kernel, inputs, width)[4]
+                geo = hist.atomic_plan(kernel, dev, stride, cs.N_FEAT, width,
+                                       esz=2)
+                row = {"kernel": kernel, "width": width, "kind": kind,
+                       "index_add_ms": lib(dev), "runs": runs,
+                       **_lists_check(hist, kernel, inputs, width, geo)}
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+            del data
+            torch.cuda.empty_cache()
+    return rows
+
+
+def untiled(hist, dev, args):
+    """K1 and K2 at the shapes one tile holds: u8 B = 256 and u16 B =
+    1,024, kernel alone and call, on chip_smoke.py's inputs."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n, f = cs.N_TRAIN, cs.N_FEAT
+    C, k, BR = (cs.LEAVES_SHAPE[x] for x in ("C", "k", "BR"))
+    rows = []
+    for B, dtype in ((256, torch.uint8), (1024, torch.uint16)):
+        if dtype == torch.uint8:
+            bins = torch.randint(0, B, (n, f), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+            comb = torch.randint(0, 256, (C, f + 12), generator=gen,
+                                 device=dev, dtype=torch.uint8)
+        else:
+            bins = cs._u16(gen, (n, f), B + 60, dev)
+            comb = cs._frontier_comb(cs._u16(gen, (C, f), B + 60, dev),
+                                     *cs._rows(gen, C, dev))
+        g, h, m = cs._rows(gen, n, dev)
+        lg, lh, lm = cs._rows(gen, C, dev)
+        bl = torch.sort(torch.randint(0, k, (C // BR,), generator=gen,
+                                      device=dev)).values.to(torch.int32)
+        cases = {"hist_full": lambda: hist.hist_full(bins, g, h, m, B),
+                 "hist_leaves": lambda: hist.hist_leaves(
+                     comb, lg, lh, lm, bl, k, B, block_rows=BR, f_limit=f)}
+        for kernel, call in cases.items():
+            row = {"kernel": kernel, "width": B, "dtype": str(dtype),
+                   "ms": cs.median_ms(call),
+                   "kernel_ms": cs.calls_ms(call, cs.ATOMIC_KERNELS[kernel])}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--widths", default="12000,16384,65536")
-    ap.add_argument("--tiles", default="0,16,32,64",
-                    help="bin tiles to ask for (0: the plan's own)")
+    ap.add_argument("--kinds", default="random,zipf")
+    ap.add_argument("--reps", type=int, default=2,
+                    help="listed runs a case (the walked one runs once, "
+                         "after the first)")
+    ap.add_argument("--untiled", action="store_true",
+                    help="time the shapes one tile holds instead")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                   "bin_tiles.json"))
     args = ap.parse_args()
@@ -94,28 +257,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    n, f = cs.N_TRAIN, cs.N_FEAT
-    C, k, BR = (cs.LEAVES_SHAPE[x] for x in ("C", "k", "BR"))
-    rows = []
-    for width in (int(w) for w in args.widths.split(",")):
-        full = (cs._wide_u16(gen, (n, f), width, dev, "random"),
-                *cs._rows(gen, n, dev))
-        bl = torch.sort(torch.randint(0, k, (C // BR,), generator=gen,
-                                      device=dev)).values.to(torch.int32)
-        leaves = (cs._frontier_comb(cs._wide_u16(gen, (C, f), width, dev,
-                                                 "random"),
-                                    *cs._rows(gen, C, dev)),
-                  *cs._rows(gen, C, dev), bl)
-        for tiles in (int(t) for t in args.tiles.split(",")):
-            for kernel, inputs in (("hist_full", full),
-                                   ("hist_leaves", leaves)):
-                row = _case(hist, kernel, dev, width, tiles, inputs)
-                rows.append(row)
-                print(json.dumps(row), flush=True)
-        del full, leaves
-        torch.cuda.empty_cache()
+    rows = (untiled if args.untiled else tiled)(hist, dev, args)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump({"card": card, "rows": rows}, fh, indent=1)

@@ -1195,7 +1195,10 @@ def test_atomic_forced_tiles_match_the_untiled_kernel(dev, kernel, design,
             plan = thist.atomic_plan(kernel, dev, stride, f, B, esz=2)
     torch.cuda.synchronize()
     geo = thist.atomic_geometry(f, B, stride, 2, design, tiles)
-    assert plan["tiles"] == tiles and plan["design"] == _design_id(design)
+    # the walked design takes the tiles asked for; the listed one its
+    # tiles of 256 bins (4 at B = 1,024)
+    assert plan["tiles"] == (4 if design == "listed" else tiles)
+    assert plan["design"] == _design_id(design)
     for key in ("design", "tiles", "tile_bins"):
         assert plan[key] == geo[key], key
     _hold_atomic(untiled, untiled, ref)
@@ -1206,9 +1209,10 @@ def test_atomic_forced_tiles_match_the_untiled_kernel(dev, kernel, design,
 
 def test_atomic_plan_tiles_every_u16_width(dev):
     """The plan at the main path's shape (28 features, the frontier's comb
-    of 34 columns): untiled to B = 8,192, in bin tiles above, 8 of 8,192
-    bins at B = 65,536, every tile within the shared memory a CTA may
-    hold and no spill; a width no u16 bin reaches is refused."""
+    of 34 columns): untiled to B = 8,192, in bin tiles above (the listed
+    design: 256 of 256 bins at B = 65,536), every tile within the shared
+    memory a CTA may hold and no spill; a width no u16 bin reaches is
+    refused."""
     for B in (1024, 8192, 9686, 20_000, 65_536):
         for kernel, stride in (("hist_full", 28), ("hist_leaves", 34)):
             plan = thist.atomic_plan(kernel, dev, stride, 28, B, esz=2)
@@ -1217,9 +1221,114 @@ def test_atomic_plan_tiles_every_u16_width(dev):
             assert (plan["tiles"] - 1) * plan["tile_bins"] < B
             assert plan["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
             assert plan["local_bytes"] == 0
-    assert plan["tiles"] == 8 and plan["tile_bins"] == 8192
+            assert (plan["design"] == 2) == (B > 8192)
+    assert plan["tiles"] == 256 and plan["tile_bins"] == 256
     with pytest.raises(ValueError, match="max_bin=70000"):
         thist.atomic_plan("hist_full", dev, 28, 28, 70_000, esz=2)
+
+
+# (B, case): the listed design's inputs at every bin-tiled width: uniform
+# bins (bins >= B present), Zipf-skewed, every row in one tile (one
+# segment a feature, split into units chained through its partial), every
+# row at a bin >= B (every segment empty; below 65,536, which no u16 bin
+# reaches), and uniform bins with a NaN row
+LISTED_CASES = [(B, case) for B in (12_000, 16_384, 65_536)
+                for case in ("random", "zipf", "one_tile", "all_high", "nan")
+                if (B, case) != (65_536, "all_high")]
+
+
+def _listed_bins(rng, case, shape, B, dev):
+    if case in ("random", "zipf", "nan"):
+        return _wide_u16(rng, shape, B, "zipf" if case == "zipf"
+                         else "random", dev)
+    lo, hi = (B // 2, B // 2 + 200) if case == "one_tile" else (B, 65_536)
+    return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.uint16)
+                           ).to(dev)
+
+
+@pytest.mark.parametrize("B,case", LISTED_CASES)
+@pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
+def test_bin_tiled_kernels_match_plain(dev, kernel, B, case):
+    """Both kernels in the listed design at B = 12,000, 16,384 and 65,536:
+    within one rounding step of the plain version, a NaN in its own
+    entries, the same bits twice; one pre-pass launch and one main launch
+    a call."""
+    rng = np.random.default_rng(B + len(case))
+    f = 5
+    if kernel == "hist_full":
+        n = 100_003
+        bins = _listed_bins(rng, case, (n, f + 2), B, dev)
+        g, h, m = _rows(rng, n, dev)
+
+        def call():
+            return thist.build_histogram(bins, g, h, m, B, f_limit=f)
+    else:
+        k, BR, nb = 8, 512, 40
+        n = nb * BR
+        comb = torch.cat([_listed_bins(rng, case, (n, f), B, dev),
+                          torch.as_tensor(rng.integers(0, 65_536, (n, 6))
+                                          .astype(np.uint16)).to(dev)], 1)
+        g, h, m = _rows(rng, n, dev)
+        bl = torch.as_tensor(_leaf_map(rng, "random", nb, k)).to(dev)
+
+        def call():
+            return thist.build_histogram_leaves(comb, g, h, m, bl, k, B,
+                                                block_rows=BR, f_limit=f)
+    if case == "nan":                       # row 77's bins all below B
+        g[77] = float("nan")
+        (bins if kernel == "hist_full" else comb)[77, :f] = 5
+    with thist.force_plain():
+        ref = call()
+    before = dict(thist.launch_counts)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert thist.launch_counts[kernel] == before[kernel] + 2
+    assert thist.launch_counts["hist_lists"] == before["hist_lists"] + 2
+    _hold_atomic(got, again, ref)
+    if case == "all_high":
+        assert bool((got == 0).all())
+    if case == "nan":
+        assert 0 < int(torch.isnan(got).sum()) <= 3 * f
+
+
+@pytest.mark.parametrize("slotted", (False, True))
+@pytest.mark.parametrize("B", (12_000, 16_384, 65_536))
+def test_bin_lists_kernel_matches_plain_bit_for_bit(dev, B, slotted):
+    """The pre-pass kernel (``hist_lists``) against its plain version: the
+    same lists, tables and unit numbers, bit for bit, on Zipf-skewed bins
+    with bins >= B (below 65,536) and zero rows, for the full pass (ragged last block)
+    and per slot (an unsorted map, blocks of no slot, a slot no block
+    names); its gh4, bit for bit (g*m, h*m, m) on every row of a listed
+    block; one launch a call."""
+    rng = np.random.default_rng(B + slotted)
+    f = 4
+    if slotted:
+        k, BR, nb = 8, 512, 40
+        n = nb * BR
+        bl = torch.as_tensor(_leaf_map(rng, "random", nb, k)).to(dev)
+        kw = dict(block_rows=BR, block_leaf=bl, num_slots=k)
+    else:
+        n, kw = 50_001, dict(block_rows=4096)
+    bins = _wide_u16(rng, (n, f + 1), B, "zipf", dev)
+    if B < 65_536:                          # bins >= B on every 7th row
+        bins[::7] = B + 3
+    g, h, m = _rows(rng, n, dev)            # a fifth of the rows zero
+    before = thist.launch_counts["hist_lists"]
+    got = thist.bin_lists(bins, g, h, m, B, f_limit=f, unit=1000, **kw)
+    ref = thist.bin_lists_plain(bins, g, h, m, B, f_limit=f, unit=1000,
+                                **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["hist_lists"] == before + 1
+    assert thist.lists_equal(got, ref)
+    assert int(got.seg_len.sum()) == int(ref.counts().sum()) > 0
+    rows = torch.arange(n, device=dev)
+    if slotted:                             # rows of blocks of a slot
+        slot = bl[rows // BR]
+        rows = rows[(slot >= 0) & (slot < k)]
+    gh = got.gh4.view(-1, 4)[rows]
+    want = torch.stack((g * m, h * m, m, torch.zeros_like(m)), 1)[rows]
+    assert rows.numel() > 0
+    assert torch.equal(gh.view(torch.int32), want.view(torch.int32))
 
 
 def test_training_wide_bins_launches_both_kernels_and_matches_plain(dev):
@@ -2005,6 +2114,7 @@ def test_serve_graph_capture_bit_exact_with_eager(dev):
 
 @pytest.mark.parametrize("esz,B,method", [(1, 256, "atomic"),
                                           (2, 1024, "atomic"),
+                                          (2, 12_000, "atomic"),
                                           (1, 256, "onehot")])
 def test_accumulate_histogram_on_copy_streamed_blocks(dev, esz, B, method):
     """K1 on each pinned, copy-streamed block (``accumulate_histogram``)
