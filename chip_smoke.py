@@ -57,13 +57,17 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    1M x 28 and one round's comb, with random bins (bin 65,535 present)
    and Zipf-skewed ones, bit for bit the plain version, each with its
    plan (tiles, CTAs, row chunks, entries a unit), the pre-pass and the
-   main kernel's times apart, the partials' and the lists' bytes, and the
-   walked design (each bin tile walking every row) timed and held in the
-   same call; the pre-pass
+   main kernel's times apart, and the partials' and the lists' bytes; the
+   pre-pass
    (``hist_lists``) bit for bit its plain version at each, and as a row
    of its own at the widest_bins run's K1 shape (call, kernel, plain, one
    stable ``torch.sort`` of the same keys, byte bound); one-hot
-   ``staged`` at B = 65,536 on 1M x 28 beside them;
+   ``staged`` and ``int8`` at B = 65,536 on 1M x 28 beside them.  The
+   u16 ``int8`` rows (K3 row-major at B = 1,024, K1 feature-major on the
+   bundle matrix at 2,599, at 4,096 and at 65,536: quantization blocks of
+   128 rows) are held bit for bit against the plain version, and the
+   dense design of the one-hot kernels is timed and held beside the
+   bucketed one in the same call;
 4. quant: the int8 quantize kernel (``onehot_quant``) bit-identical to its
    plain version at the main path's blocks (1M rows per 1024 and per 512,
    the leaves' 262,144 rows per 512 with a NaN block), in both input
@@ -190,17 +194,22 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    max_bin=1023, u16, B = 1,024; then ``force_row_wise`` with staged and
    int8, 5 iterations each, and auto, 3: ``onehot_full`` once a tree and
    ``onehot_leaves``, held-out AUC also within 1e-3 of the atomic run's
-   at the same iterations); sparse_efb (Allstate width, 250k x 4,228 CSR,
+   at the same iterations; ``--only wide_bins`` runs it alone);
+   sparse_efb (Allstate width, 250k x 4,228 CSR,
    bundled into u16 columns, the kernels at the bundle width, CSR
-   prediction equal to dense; then ``force_row_wise`` staged, 3
-   iterations: ``onehot_full`` once a tree, its per-leaf histograms by
+   prediction equal to dense; then ``force_row_wise`` staged and int8, 3
+   iterations each: ``onehot_full`` once a tree -- int8 in the bucketed
+   design over 128-row quantization blocks -- its per-leaf histograms by
    ``hist_leaves``, outside the leaves cut); widest_bins (Higgs 1M x 28
    at max_bin=65535, the JAX package's widest: the atomic kernels at B =
    65,536 in the listed design (256 tiles of 256 bins a feature, the
    pre-pass ``hist_lists`` before each call), 255 leaves, 5 iterations,
    then ``force_row_wise`` staged, 3: ``onehot_full`` at B = 65,536 once a
    tree and the per-leaf histograms by ``hist_leaves``; the plans' scratch
-   and list bytes and the phase's peak device memory);
+   and list bytes and the phase's peak device memory; and a K1 call at B
+   = 65,536 held to a quarter of its lists' bytes, in feature passes, bit
+   for bit the one-pass call, its peak allocation within that budget and
+   its output);
 16. engine: the engine surface on the generator's 1M x 28 (``max_bin``
    255), each float32 value written to nine digits as TSV with the label
    in column 0 and a ``.weight`` sidecar (in a temporary directory; the
@@ -809,9 +818,9 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
     CTA, B = 12,000, 16,384 and 65,536 (the listed design: 47, 64 and
     256 tiles of 256 bins a feature), 1M x 28 and one round's comb with
     random and Zipf-skewed bins (``_wide_u16``), bit for bit the plain
-    version, with the pre-pass and main kernel apart, the pre-pass's lists
-    bit for bit its plain version's and the walked design (bin tiles along
-    gridDim.y, every tile walking every row) in the same call (``listed``).  Bins >= B are present in the random cases.
+    version, with the pre-pass and main kernel apart and the pre-pass's
+    lists bit for bit its plain version's (``listed``).  Bins >= B are
+    present in the random cases.
     Each: relerr, the same bits twice, ms, kernel alone, plain,
     index_add_, the byte bound (2 bytes a bin) and the plan with its
     design, feature group, warps a feature (W), warps an SM, bin tiles,
@@ -824,11 +833,10 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
             raise AssertionError(f"{name}: not bit for bit the plain "
                                  f"version: {st}")
 
-    def listed(kernel, call, ref, lists_kw, mat, g, h, m, B, f):
+    def listed(kernel, call, lists_kw, mat, g, h, m, B, f):
         """At a bin-tiled width: the pre-pass's and the main kernel's times
-        apart, the pre-pass held bit for bit against its plain version, and
-        the walked design in the same call (held as the listed
-        one is: within a rounding step, the same bits twice)."""
+        apart, and the pre-pass held bit for bit against its plain
+        version."""
         plan = hist.atomic_plan(kernel, dev, mat.shape[1], f, B, esz=2)
         if plan["design"] != 2:
             raise AssertionError(f"{kernel} at B = {B}: not listed: {plan}")
@@ -843,20 +851,6 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
         extra = {"prepass_ms": calls_ms(call, LISTS_KERNELS),
                  "main_ms": calls_ms(call, (f"{kernel}_listed_kernel",)),
                  "lists_bit_identical": lst["same"]}
-        with hist.atomic_design("dealt"):
-            w1, w2 = call(), call()
-            torch.cuda.synchronize()
-            wst = _atomic_stats(w1, w2, ref)
-            _hold_atomic(f"{kernel} walked at B = {B}", wst)
-            extra.update(walked_ms=median_ms(call),
-                         walked_kernel_ms=calls_ms(call,
-                                                   ATOMIC_KERNELS[kernel]),
-                         walked_relerr=wst["relerr"],
-                         walked_scratch_bytes=_atomic_attrs(
-                             hist, kernel, dev,
-                             mat.shape[0] if kernel == "hist_full"
-                             else mat.shape[0] // BR, mat.shape[1], f, B, k,
-                             esz=2)["scratch_bytes"])
         return extra, kw
 
     def lists_row(mat, g, h, m, B, kw):
@@ -926,7 +920,7 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
             **_atomic_attrs(hist, "hist_full", dev, n, bins.shape[1], f, B,
                             esz=2))
         if bits:                                 # a bin-tiled width
-            extra, kw = listed("hist_full", call, ref, {
+            extra, kw = listed("hist_full", call, {
                 "block_rows": hist.list_chunk_rows(None)}, bins, g, h, m,
                 B, f)
             out[name].update(extra)
@@ -971,7 +965,7 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
             **_atomic_attrs(hist, "hist_leaves", dev, nb, comb.shape[1], f,
                             B, k, esz=2))
         if bits:                                 # a bin-tiled width
-            out[name].update(listed("hist_leaves", call, ref, {
+            out[name].update(listed("hist_leaves", call, {
                 "block_rows": BR, "block_leaf": bl, "num_slots": k}, comb,
                 g, h, m, B, f)[0])
 
@@ -1021,14 +1015,11 @@ def _u16_cases(hist, gen, dev, clock_mhz, sms, efb_bins):
                   f"{r['ctas_per_sm']} CTAs an SM, relerr "
                   f"{r['relerr']:.3g}, bit-identical share "
                   f"{r['bit_identical_share']}", flush=True)
-        if "walked_ms" in r:
+        if "prepass_ms" in r:
             print(f"{name} listed: {r['ctas']} CTAs, {r['row_chunks']} row "
                   f"chunks, units of {r['unit']}, pre-pass "
                   f"{_f4(r['prepass_ms'])} ms, main {_f4(r['main_ms'])} ms, "
-                  f"lists {r['list_bytes']} bytes [walked: call "
-                  f"{r['walked_ms']:.4f} ms, kernel "
-                  f"{_f4(r['walked_kernel_ms'])} ms, scratch "
-                  f"{r['walked_scratch_bytes']} bytes]", flush=True)
+                  f"lists {r['list_bytes']} bytes", flush=True)
     if "hist_lists" in out:
         r = out["hist_lists"]
         print(f"hist_lists {r['shape']}: kernel {_f4(r['kernel_ms'])} ms, "
@@ -1166,9 +1157,11 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
     attributes.  The Zipf-skewed cases (bin i with weight 1/(i+1)^1.1, as
     an EFB bundle's default bin skews its rows) hold the bucketed design's
     dealing of a hot bucket's rows across warps: the full pass at 1M x 28
-    and the leaves, both at B = 1,024.  At B = 65,536, ``staged`` alone
-    (the widest_bins phase's force_row_wise run's root, 1M x 28 in 512
-    buckets a feature)."""
+    and the leaves, both at B = 1,024.  At B = 4,096, ``int8`` alone, and
+    at B = 65,536 ``staged`` (the widest_bins phase's force_row_wise run's
+    root, 1M x 28 in 512 buckets a feature) and ``int8``.  Every ``int8``
+    full-pass row is held bit for bit against the plain version and
+    times the dense design beside the bucketed one (``_int8_vs_dense``)."""
     rows = {}
     n, f, B = N_TRAIN, N_FEAT, 1024
     C, k, BR = (LEAVES_SHAPE[x] for x in ("C", "k", "BR"))
@@ -1190,9 +1183,12 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
                               *_rows(gen, efb_bins["bins"].shape[0], dev)),
                    int(efb_bins["bundle_bins"]), ("featmajor",),
                    ONEHOT_U16_BODIES),
+                  ("B4096", (_u16(gen, (n, f), 4096 + 240, dev), g, h, m),
+                   4096, ("featmajor",), ("int8",)),
                   (f"B{WIDE_WIDTHS[-1]}",
                    (_wide_u16(gen, (n, f), WIDE_WIDTHS[-1], dev, "random"),
-                    g, h, m), WIDE_WIDTHS[-1], ("featmajor",), ("staged",)))
+                    g, h, m), WIDE_WIDTHS[-1], ("featmajor",),
+                   ("staged", "int8")))
 
     def hold(name, kernel, fn, ref, leaves=False):
         before = hist.launch_counts[kernel]
@@ -1248,6 +1244,10 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
                     hist.onehot_kernel_attributes("onehot_full", v, fc, Bc,
                                                   layout),
                     fn, _kernel_name("onehot_full", v))
+                if v == "int8":
+                    rows[name].update(_int8_vs_dense(
+                        hist, ov, name, fn, ref[fam, layout], layout, nc,
+                        fc, Bc))
 
     for case, comb in combs.items():
         def leaves(v, comb=comb):
@@ -1292,7 +1292,46 @@ def _onehot_u16_cases(hist, ov, gen, dev, efb_bins):
               f"{r['local_bytes']} spilled bytes, "
               f"{r['dynamic_smem_bytes']} shared bytes, {r['ctas_per_sm']} "
               f"CTAs an SM, relerr {r['relerr']:.3g}", flush=True)
+        if "dense_ms" in r:
+            print(f"{name}: blocks of {r['block_rows']} rows, bit for bit "
+                  f"{r['bit_identical']} [dense design: call "
+                  f"{r['dense_ms']:.4f} ms, kernel "
+                  f"{_f4(r['dense_kernel_ms'])} ms, relerr "
+                  f"{r['dense_relerr']:.3g}]", flush=True)
     return rows
+
+
+def _int8_exact(got, ref) -> bool:
+    """NaN where the plain version is NaN, and its bits elsewhere (a NaN's
+    payload is not part of the function)."""
+    nan = torch.isnan(ref)
+    return bool(torch.equal(torch.isnan(got), nan)) and torch.equal(
+        got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
+
+
+def _int8_vs_dense(hist, ov, name, fn, ref, layout, n, f, B):
+    """A u16 int8 full-pass row: the bucketed design (the plan's at every
+    quantization block) bit for bit the plain version, and the dense
+    design in the same call, held within REL_TOL and timed, call and
+    kernel alone."""
+    got = fn()
+    torch.cuda.synchronize()
+    if not _int8_exact(got, ref):
+        raise AssertionError(f"{name}: the bucketed int8 design is not "
+                             "bit for bit its plain version")
+    with hist.onehot_design("dense"):
+        dense = fn()
+        torch.cuda.synchronize()
+        err = relerr(dense, ref)
+        if not err <= REL_TOL:
+            raise AssertionError(f"{name}: dense design relerr {err}")
+        reps = 5 if B > 8192 else 20
+        dense_ms = median_ms(fn, reps=reps)
+        dense_kernel = kernel_ms(fn, _kernel_name("onehot_full", "int8"),
+                                 reps=min(reps, 10))
+    return dict(bit_identical=True, dense_ms=dense_ms,
+                dense_kernel_ms=dense_kernel, dense_relerr=err,
+                block_rows=ov.pallas_block_rows("int8", layout, n, f, B))
 
 
 def phase_kernels_onehot(card, efb_bins):
@@ -2609,10 +2648,11 @@ def phase_wide_bins(card, elected):
 def phase_sparse_efb(card, data):
     """Allstate geometry as CSR: sparse binning, EFB bundles of u16
     columns, the atomic kernels at the bundle width, and sparse prediction
-    input (equal to the dense input's); then force_row_wise staged (3
-    iterations): the one-hot root at the bundle width, and the per-leaf
-    histograms by hist_leaves (35 bundle columns x 2,688 lanes lie outside
-    the leaves cut)."""
+    input (equal to the dense input's); then force_row_wise staged and
+    int8 (3 iterations each): the one-hot root at the bundle width (int8:
+    the bucketed design over the JAX package's 128-row quantization blocks
+    there, one launch a tree), and the per-leaf histograms by hist_leaves
+    (35 bundle columns x 2,688 lanes lie outside the leaves cut)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import histogram as hist
     ds, Xv, yv = data["ds"], data["Xv"], data["yv"]
@@ -2634,14 +2674,77 @@ def phase_sparse_efb(card, data):
         dict(params, force_row_wise=True, hist_variant="staged"),
         ITERS_EFB_ROW_WISE, booster, Xv, yv, 0.5,
         ("onehot_full", "hist_leaves"), "staged")
+    from lightgbm_tpu_torch.ops import onehot_variants as ov
+    nb, Bb = data["bins"].shape[1], int(data["bundle_bins"])
+    qbr = ov.pallas_block_rows("int8", "featmajor", N_ALLSTATE, nb, Bb)
+    if not (qbr < 512 and hist.onehot_plan("int8", nb, Bb, qbr)[
+            "design"] == "bucketed"):
+        raise AssertionError(f"sparse_efb: int8 at {nb} x {Bb} over "
+                             f"{qbr}-row blocks is not the bucketed design")
+    rw8 = _row_wise_vs_atomic(
+        lgt, hist, "sparse_efb row_wise int8", ds,
+        dict(params, force_row_wise=True, hist_variant="int8"),
+        ITERS_EFB_ROW_WISE, booster, Xv, yv, 0.5,
+        ("onehot_full", "hist_leaves", "onehot_quant"), "int8")
+    rw8["quant_block_rows"] = qbr
     emit({"phase": "sparse_efb", "card": card, "rows": N_ALLSTATE,
           "columns": data["X"].shape[1], "nnz": int(data["X"].nnz),
           "features": inner.num_features, "bundles": len(inner.bundles),
           "bundle_widths_top": sorted(int(w) for w in
                                       inner.bundle_widths)[-4:],
           "construct_s": data["construct_s"], "sparse_equals_dense": True,
-          **out, "row_wise_staged": rw})
-    return {"sparse_efb": out["launches"], "efb_staged": rw["launches"]}
+          **out, "row_wise_staged": rw, "row_wise_int8": rw8})
+    return {"sparse_efb": out["launches"], "efb_staged": rw["launches"],
+            "efb_int8": rw8["launches"]}
+
+
+def _budget_check(hist, dev, B):
+    """A listed K1 call at 1M x 28 and width B held to a quarter of its
+    lists' bytes (``histogram.list_budget``): its features in passes
+    (``list_passes``), bit for bit the one-pass call, the kernel and its
+    pre-pass launched once a pass, and the device's peak allocation
+    during the call within the budget and its output (and the allocator's
+    rounding of the two, 512 bytes each)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n, f = N_TRAIN, N_FEAT
+    bins = _wide_u16(gen, (n, f), B, dev, "random")
+    g, h, m = _rows(gen, n, dev)
+    plan = hist.atomic_plan("hist_full", dev, f, f, B, esz=2)
+    cr = plan["list_rows"]
+    one = hist.list_pass_bytes(plan, f, n, 1, cr)
+    budget = one // 4
+    passes = hist.list_passes(plan, f, n, 1, cr, budget)
+    ref = hist.hist_full(bins, g, h, m, B)
+    torch.cuda.synchronize()
+    before = dict(hist.launch_counts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    with hist.list_budget(budget):
+        got = hist.hist_full(bins, g, h, m, B)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    out_bytes = f * B * 12
+    launched = {k: hist.launch_counts[k] - before[k]
+                for k in ("hist_full", "hist_lists")}
+    same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    if not (same and len(passes) >= 4
+            and peak <= budget + out_bytes + 2 * 512
+            and launched == {"hist_full": len(passes),
+                             "hist_lists": len(passes)}):
+        raise AssertionError(f"widest_bins: K1 under a budget of {budget} "
+                             f"bytes: bits {same}, passes {passes}, peak "
+                             f"{peak}, launches {launched}")
+    print(f"widest_bins: K1 held to {budget} bytes of lists (a quarter of "
+          f"{one}): {len(passes)} feature passes of {passes[0][1]} or "
+          f"fewer, bit for bit one pass, peak {peak} bytes (output "
+          f"{out_bytes}), {secs * 1e3:.1f} ms a call", flush=True)
+    return {"one_pass_bytes": one, "budget": budget,
+            "passes": len(passes), "bit_identical": same,
+            "peak_bytes": peak, "output_bytes": out_bytes,
+            "call_ms_host": secs * 1e3}
 
 
 def phase_widest_bins(card):
@@ -2656,7 +2759,8 @@ def phase_widest_bins(card):
     reload bit-identical), the row-wise run's AUC also within 1e-3 of the
     atomic run's; with the plans' bin tiles, scratch and list bytes and
     the phase's peak device memory (the frontier's leaf store alone is 255 x
-    28 x 65,536 x 3 float32, 5.6 GB)."""
+    28 x 65,536 x 3 float32, 5.6 GB); and a K1 call held to a quarter of
+    its lists' bytes (``_budget_check``)."""
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import histogram as hist
     X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=53)
@@ -2692,6 +2796,7 @@ def phase_widest_bins(card):
         ITERS_WIDEST_ROW_WISE, booster, Xv, yv, 0.75,
         ("onehot_full", "hist_leaves", "hist_lists"), "staged")
     peak = torch.cuda.max_memory_allocated()
+    budget = _budget_check(hist, dev, width)
     print(f"widest_bins: kernel width {width}, bin tiles "
           f"{plans['hist_full']['tiles']} of "
           f"{plans['hist_full']['tile_bins']}, scratch a call "
@@ -2703,7 +2808,7 @@ def phase_widest_bins(card):
           flush=True)
     emit({"phase": "widest_bins", "card": card, "construct_s": construct_s,
           **out, "plans": plans, "peak_memory_bytes": peak,
-          "row_wise_staged": rw})
+          "row_wise_staged": rw, "list_budget": budget})
     return {"widest_bins": out["launches"], "widest_staged": rw["launches"]}
 
 
@@ -3550,6 +3655,7 @@ MAIN_PATH_RUNS = {("staged", 256): "staged", ("packed", 64): "packed",
                   ("int8", 256): "int8", ("staged", "B1024"): "wide_staged",
                   ("int8", "B1024"): "wide_int8",
                   ("staged", "bundle"): "efb_staged",
+                  ("int8", "bundle"): "efb_int8",
                   ("staged", f"B{WIDE_WIDTHS[-1]}"): "widest_staged"}
 # the atomic kernels' pre-pass at bin-tiled widths: no TPU kernel has its
 # function (the Pallas kernels it serves add every row at once); "replaces"
@@ -3570,11 +3676,17 @@ BENCH_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_full.cu",
 
 def _only_phases(names, smi, timed):
     """``--only``: the serve and stream phases alone, on the train phase's
-    data and its default model (trained once, no plain run)."""
+    data and its default model (trained once, no plain run), and the
+    wide_bins phase alone (after the election its ``auto`` run reads)."""
     import lightgbm_tpu_torch as lgt
-    unknown = set(names) - {"serve", "stream"}
+    unknown = set(names) - {"serve", "stream", "wide_bins"}
     if unknown:
         raise SystemExit(f"--only: unknown phases {sorted(unknown)}")
+    if "wide_bins" in names:
+        elected = timed("elect", phase_elect, smi)
+        timed("wide_bins", phase_wide_bins, smi, elected)
+    if not {"serve", "stream"} & set(names):
+        return
     base = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
             "learning_rate": 0.1, "verbose": -1}
     X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=42)
@@ -3606,11 +3718,8 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
                    "ctas_per_sm", "design", "fg", "W", "warps_per_sm",
                    "tiles", "tile_bins", "ctas", "row_chunks", "unit",
                    "scratch_bytes", "list_bytes")
-    # the listed design's rows also: the pre-pass and main kernel apart,
-    # and the walked design in the same call
-    listed_keys = ("prepass_ms", "main_ms", "lists_bit_identical",
-                   "walked_ms", "walked_kernel_ms", "walked_relerr",
-                   "walked_scratch_bytes")
+    # the listed design's rows also: the pre-pass and main kernel apart
+    listed_keys = ("prepass_ms", "main_ms", "lists_bit_identical")
     for kname, (src, replaces, jax_fn) in KERNEL_INFO.items():
         r = kern[kname]
         row = {"name": kname, "route": "cuda", "source": src,
@@ -3738,9 +3847,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few more iterations (torch.profiler)")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases among serve,stream: build "
-                         "the kernels, train the train phase's default "
-                         "model once and run only these (no kernels line)")
+                    help="comma-separated phases among serve,stream,"
+                         "wide_bins: build the kernels, train the train "
+                         "phase's default model once (serve, stream) and "
+                         "run only these (no kernels line)")
     args = ap.parse_args()
     global PROFILE_STREAM
     PROFILE_STREAM = args.profile

@@ -57,36 +57,32 @@ _LL_P = ctypes.POINTER(ctypes.c_longlong)
 # argument types of each library's entry points
 _ARGTYPES = {
     "hist_full": {
-        # device, stride, f, B, esz, design, min_tiles, out[14]
-        "hist_full_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT, _INT_P],
+        # device, stride, f, B, esz, design, out[14]
+        "hist_full_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT_P],
         # device, ptrs[9], partial, out, f, B, tw_log2, unit, units, grid,
         # stream
         "hist_full_listed_launch": [_INT, _LL_P, _VOID_P, _VOID_P, _INT,
                                     _INT, _INT, _INT, _INT, _INT, _VOID_P],
         # device, bins, n, stride, f, B, esz, g, h, m, partial, out, fg,
-        # tile, tiles, tile_bins, threads, design, grid_x, rows_per_cta,
-        # stream
+        # tile, threads, design, grid_x, rows_per_cta, stream
         "hist_full_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _INT,
                              _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
-                             _INT, _INT, _INT, _INT, _INT, _INT, _INT, _LL,
-                             _VOID_P]},
+                             _INT, _INT, _INT, _INT, _INT, _LL, _VOID_P]},
     "hist_leaves": {
-        # device, stride, f, B, esz, design, min_tiles, out[14]
-        "hist_leaves_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT,
-                             _INT_P],
+        # device, stride, f, B, esz, design, out[14]
+        "hist_leaves_plan": [_INT, _LL, _INT, _INT, _INT, _INT, _INT_P],
         # device, ptrs[9], partial, out, f, B, k, tw_log2, unit, units,
-        # grid, stream
+        # fout, grid, stream
         "hist_leaves_listed_launch": [_INT, _LL_P, _VOID_P, _VOID_P, _INT,
                                       _INT, _INT, _INT, _INT, _INT, _INT,
-                                      _VOID_P],
+                                      _INT, _VOID_P],
         # device, comb, c, stride, f, B, esz, g, h, m, block_leaf, br, k,
-        # scratch, out, fg, tile, tiles, tile_bins, threads, design,
-        # grid_x, bpc, parts, stream
+        # scratch, out, fg, tile, threads, design, grid_x, bpc, parts,
+        # stream
         "hist_leaves_launch": [_INT, _VOID_P, _LL, _LL, _INT, _INT, _INT,
                                _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT,
                                _INT, _VOID_P, _VOID_P, _INT, _INT, _INT,
-                               _INT, _INT, _INT, _INT, _INT, _INT,
-                               _VOID_P]},
+                               _INT, _INT, _INT, _INT, _VOID_P]},
     "hist_lists": {
         # device, bins, n, stride, f, B, esz, g, h, m, block_leaf, cr,
         # br, k, tw_log2, unit, per_feature, ptrs[17], stream
@@ -106,8 +102,9 @@ _ARGTYPES = {
         "onehot_bench_launch": [_INT, _VOID_P, _LL, _INT, _INT, _VOID_P,
                                 _VOID_P, _INT, _VOID_P, _INT, _INT, _INT,
                                 _INT, _INT, _VOID_P],
-        # variant, layout, nf_max, ld, esz, design, out[5]
-        "onehot_full_query": [_INT, _INT, _INT, _LL, _INT, _INT, _INT_P]},
+        # variant, layout, nf_max, ld, esz, design, qbr, out[5]
+        "onehot_full_query": [_INT, _INT, _INT, _LL, _INT, _INT, _INT,
+                              _INT_P]},
     "onehot_leaves": {
         # device, comb, ld, c, f, esz, g, h, m, q, scales, block_leaf, br,
         # k, out, variant, lpf, lanes, nf_max, design, stream

@@ -72,7 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -104,14 +104,11 @@ ATOMIC_MAX_BIN = 65536
 _force_plain = False
 # the atomic kernels' designs of the update, in the plan's numbering
 # (kernels/hist_common.cuh): owned and dealt, and at bin-tiled widths
-# listed (owned or dealt asked for there: the walked bin tiles);
-# and the one atomic_design() asks for
+# listed; and the one atomic_design() asks for
 ATOMIC_DESIGNS = ("owned", "dealt", "listed")
 _atomic_design: Optional[str] = None
-# the fewest bin tiles atomic_tiles() asks the plan for (1: as the width
-# needs; more: the listed design, or the walked one where a design is
-# asked for)
-_atomic_min_tiles = 1
+# the lists' budget list_budget() forces (None: what the card allocates)
+_list_budget: Optional[int] = None
 # the one-hot kernels' two designs, in the kernels' numbering
 # (kernels/onehot_bucket.cuh): dense, every warp over every row of its
 # lanes' features; bucketed, the rows sorted by their 128-lane bucket
@@ -142,8 +139,8 @@ def force_plain():
 def atomic_design(design: str):
     """Plan the atomic kernels in this design of the update (one of
     ``ATOMIC_DESIGNS``) in place of the plan's own choice, to time one
-    design against the other on the card (at bin-tiled widths ``owned``
-    or ``dealt`` give the walked design, ``listed`` the lists);
+    design against the other on the card (``owned`` or ``dealt`` at a
+    width where one feature's histogram does not fit a CTA have no plan);
     not a training parameter."""
     global _atomic_design
     _check(design in ATOMIC_DESIGNS, f"unknown atomic design {design!r}; "
@@ -157,22 +154,20 @@ def atomic_design(design: str):
 
 
 @contextlib.contextmanager
-def atomic_tiles(tiles: int):
-    """Plan the atomic kernels with at least this many bin tiles a feature
-    even where the width needs fewer, to test a tiled path against the
-    untiled one on the card; not a training parameter.  Which path depends
-    on the design: with the plan's own choice or ``atomic_design("listed")``
-    the listed design (its tiles of at most 256 bins), under
-    ``atomic_design("owned"|"dealt")`` the walked tiles along gridDim.y,
-    which stay only to time that design."""
-    global _atomic_min_tiles
-    _check(tiles >= 1, f"bin tiles must be at least 1, not {tiles}")
-    prev = _atomic_min_tiles
-    _atomic_min_tiles = tiles
+def list_budget(nbytes: int):
+    """Hold each pass of a listed ``hist_full`` or ``hist_leaves`` call
+    (the bin-tiled widths) to lists of at most ``nbytes`` bytes, in place
+    of what the card can allocate beside the call's output, to test the
+    feature passes on the card (``list_passes``); not a training
+    parameter."""
+    global _list_budget
+    _check(nbytes > 0, f"a list budget must be positive, not {nbytes}")
+    prev = _list_budget
+    _list_budget = nbytes
     try:
         yield
     finally:
-        _atomic_min_tiles = prev
+        _list_budget = prev
 
 
 @contextlib.contextmanager
@@ -586,8 +581,8 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
     """The launch plan of ``hist_full`` or ``hist_leaves`` over ``f``
     features of ``max_bin`` bins in rows of ``stride`` bins of ``esz``
     bytes (1: u8, 2: u16); builds the kernel first if needed.  The plan
-    picks the design of the update, unless ``atomic_design`` asks for one,
-    and the bin tiles, at least ``atomic_tiles``'s.  A width above
+    picks the design of the update, unless ``atomic_design`` asks for one
+    (``listed``: at any width).  A width above
     ``ATOMIC_MAX_BIN`` (no u16 bin reaches it) is refused before any
     kernel is built."""
     _check(0 < max_bin <= ATOMIC_MAX_BIN, f"max_bin={max_bin} is outside "
@@ -597,14 +592,14 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
              else torch.cuda.current_device())
     want = (-1 if _atomic_design is None
             else ATOMIC_DESIGNS.index(_atomic_design))
-    key = (kernel, index, stride, f, max_bin, esz, _atomic_min_tiles, want)
+    key = (kernel, index, stride, f, max_bin, esz, want)
     plan = _plans.get(key)
     if plan is None:
         import ctypes
         buf = (ctypes.c_int * len(_PLAN_KEYS))()
         lib = _build.load(kernel)
         rc = getattr(lib, f"{kernel}_plan")(index, stride, f, max_bin, esz,
-                                            want, _atomic_min_tiles, buf)
+                                            want, buf)
         _raise_on(lib, f"{kernel} plan", rc)
         plan = _plans[key] = dict(zip(_PLAN_KEYS, buf))
         plan["groups"] = -(-f // plan["fg"])
@@ -613,11 +608,10 @@ def atomic_plan(kernel: str, device: torch.device, stride: int, f: int,
 
 def atomic_grid(plan: Dict[str, int], units: int, align: int = 1):
     """``(CTAs along x, units a CTA)``: ``units`` rows or blocks split over
-    the CTAs the card holds at once, each feature group's bin tile a
-    column of the grid, the units a CTA rounded up to a multiple of
-    ``align``."""
+    the CTAs the card holds at once, each feature group a column of the
+    grid, the units a CTA rounded up to a multiple of ``align``."""
     splits = max(1, max(1, plan["ctas_per_sm"]) * plan["sms"]
-                 // (plan["groups"] * plan.get("tiles", 1)))
+                 // plan["groups"])
     per = -(-units // splits)
     per = -(-per // align) * align
     return -(-units // per), per
@@ -630,7 +624,7 @@ def atomic_partials(kernel: str, plan: Dict[str, int], units: int,
     float64 ``[F, B, 3]`` partials its scratch holds, one a CTA along x for
     the full pass and, for the leaves, one for each slot a CTA's blocks may
     name, ``min(blocks a CTA, num_slots)``.  Each CTA writes only its own
-    feature group's bin tile of them."""
+    feature group of them."""
     full = kernel == "hist_full"
     grid_x, per = atomic_grid(plan, units, _FULL_ROW_ALIGN if full else 1)
     return grid_x, per, grid_x * (1 if full else min(per, num_slots))
@@ -681,15 +675,13 @@ def _fit_tile(g, B, stride, esz, dealt, min_tile):
     return 0
 
 
-def _plan_geometry(f, B, stride, esz, dealt, min_tiles):
-    """``hist_common.cuh::plan_geometry``: ``(fg, tile rows, tiles, tile
-    bins)`` or None."""
-    for t in range(max(1, min_tiles), B + 1):
-        bt = -(-B // t)
-        for g in range(f, 0, -1):
-            tile = _fit_tile(g, bt, stride, esz, dealt, _MIN_TILE)
-            if tile:
-                return g, tile, -(-B // bt), bt
+def _plan_geometry(f, B, stride, esz, dealt):
+    """``hist_common.cuh::plan_geometry``: ``(fg, tile rows)``, or None
+    where not even one feature's histogram fits a CTA."""
+    for g in range(f, 0, -1):
+        tile = _fit_tile(g, B, stride, esz, dealt, _MIN_TILE)
+        if tile:
+            return g, tile
     return None
 
 
@@ -700,26 +692,25 @@ def list_tile_log2(max_bin: int) -> int:
 
 
 def atomic_geometry(f: int, max_bin: int, stride: int, esz: int = 1,
-                    design: Optional[str] = None,
-                    min_tiles: int = 1) -> Dict[str, int]:
+                    design: Optional[str] = None) -> Dict[str, int]:
     """The atomic kernels' plan geometry without a card: the C plan's
     arithmetic (``kernels/hist_common.cuh::plan_launch``) up to the
     occupancy it asks the card for -- the design, the feature group and
     tile rows, the bin tiles of a feature and the bins each holds, and the
     dynamic shared bytes.  Where one feature's histogram does not fit a
-    dealt CTA (or ``min_tiles`` > 1 asks for bin tiles) the plan takes the
-    listed design: one feature a unit of ``LIST_UNIT`` entries ("tile"),
-    tiles of 256 bins.  The plan itself may then narrow an untiled group
-    to fill the card's last wave; a tiled plan holds one feature a CTA and
-    keeps it.  Card tests hold it against ``atomic_plan``."""
+    dealt CTA the plan takes the listed design: one feature a unit of
+    ``LIST_UNIT`` entries ("tile"), tiles of 256 bins; the owned and dealt
+    designs hold whole features (one tile of ``max_bin`` bins) and have no
+    plan where one does not fit.  The
+    plan itself may then narrow a group to fill the card's last wave.
+    Card tests hold it against ``atomic_plan``."""
     if design is None:
-        dealt = _plan_geometry(f, max_bin, stride, esz, True, min_tiles)
-        if dealt is None or dealt[2] > 1:
+        dealt = _plan_geometry(f, max_bin, stride, esz, True)
+        if dealt is None:
             design = "listed"
         else:
-            owned = _plan_geometry(f, max_bin, stride, esz, False,
-                                   min_tiles)
-            pick = (owned is not None and owned[2] == 1
+            owned = _plan_geometry(f, max_bin, stride, esz, False)
+            pick = (owned is not None
                     and owned[0] >= min(f, _OWNED_MIN_GROUP))
             design = ATOMIC_DESIGNS[0 if pick else 1]
     if design == "listed":
@@ -730,17 +721,18 @@ def atomic_geometry(f: int, max_bin: int, stride: int, esz: int = 1,
                 "dynamic_smem_bytes": 24 * _LIST_WARPS * tw,
                 "list_rows": _LIST_ROWS}
     dealt = design == "dealt"
-    geo = _plan_geometry(f, max_bin, stride, esz, dealt, min_tiles)
-    _check(geo is not None, f"no plan for {f} features of {max_bin} bins")
-    fg, tile, tiles, bt = geo
+    geo = _plan_geometry(f, max_bin, stride, esz, dealt)
+    _check(geo is not None, f"no {design} plan for {f} features of "
+           f"{max_bin} bins: one feature's histogram does not fit a CTA")
+    fg, tile = geo
     if dealt:
         groups = -(-f // fg)
         g = -(-f // groups)
         if g < fg:
-            fg, tile = g, _fit_tile(g, bt, stride, esz, True, _MIN_TILE)
+            fg, tile = g, _fit_tile(g, max_bin, stride, esz, True, _MIN_TILE)
     return {"design": ATOMIC_DESIGNS.index(design), "fg": fg, "tile": tile,
-            "tiles": tiles, "tile_bins": bt, "groups": -(-f // fg),
-            "dynamic_smem_bytes": _smem_bytes(fg, bt, tile, stride, esz,
+            "tiles": 1, "tile_bins": max_bin, "groups": -(-f // fg),
+            "dynamic_smem_bytes": _smem_bytes(fg, max_bin, tile, stride, esz,
                                               dealt), "list_rows": 0}
 
 
@@ -809,20 +801,21 @@ def atomic_scratch(kernel: str, plan: Dict[str, int], f: int, max_bin: int,
                    block_rows: int = 512) -> Dict[str, int]:
     """The device scratch of one call of ``kernel`` over ``units`` rows
     (``hist_full``) or blocks of ``block_rows`` rows (``hist_leaves``):
-    the float64 partials' bytes (``partial_bytes``; for the owned, dealt
-    and walked designs ``atomic_partials``'s, with the leaves' slot names;
-    for the listed design a ``[tile_bins, 3]`` sum for each segment, of
-    which only the segments of more than one unit are touched) and the
-    listed design's lists and tables (``list_bytes``), the CTAs of the
-    launch (``ctas``) and, listed, the pre-pass's chunks of rows and the
-    entries a unit (``row_chunks``, ``unit``: ``list_unit``)."""
+    the float64 partials' bytes (``partial_bytes``; for the owned and
+    dealt designs ``atomic_partials``'s, with the leaves' slot names; for
+    the listed design a ``[tile_bins, 3]`` sum for each segment, of which
+    only the segments of more than one unit are touched) and the listed
+    design's lists and tables of one pass over all ``f`` features
+    (``list_bytes``), the CTAs of the launch (``ctas``) and, listed, the
+    pre-pass's chunks of rows and the entries a unit (``row_chunks``,
+    ``unit``: ``list_unit``)."""
     if plan["design"] != 2:
         grid_x, per, partials = atomic_partials(kernel, plan, units,
                                                 num_slots)
         slot_names = 0 if kernel == "hist_full" else 4 * partials
         return {"partial_bytes": partials * f * max_bin * 24 + slot_names,
-                "list_bytes": 0, "ctas": grid_x * plan["groups"]
-                * plan["tiles"], "row_chunks": grid_x, "unit": per}
+                "list_bytes": 0, "ctas": grid_x * plan["groups"],
+                "row_chunks": grid_x, "unit": per}
     full = kernel == "hist_full"
     cap = units if full else units * block_rows
     cr = list_chunk_rows(None if full else block_rows)
@@ -898,31 +891,100 @@ def lists_equal(a: BinLists, b: BinLists) -> bool:
             and torch.equal(a.lbin[keep], b.lbin[keep]))
 
 
+def _one_feature_too_large(nbytes: int, rows: int) -> torch.OutOfMemoryError:
+    return torch.OutOfMemoryError(
+        f"hist_lists: one feature's lists of {rows} rows take {nbytes} "
+        f"bytes ({nbytes / rows:.1f} a row), more than the card holds free, "
+        "and a bin-tiled histogram's pass holds at least one feature; at "
+        "max_bin above ~8,900 train on fewer rows a call (stream_rows) or "
+        "at a max_bin whose bins fit one tile")
+
+
 def _list_buffer(nbytes: int, dev: torch.device, rows: int,
                  f: int) -> torch.Tensor:
     """The one buffer of a ``bin_lists`` call's lists, tables and partial
-    sums (``_list_layout``), or, where the card cannot hold it, an
-    ``OutOfMemoryError`` that says what the lists take: their bytes grow
-    with the call's (row, feature) pairs, 10.7-11.1 a pair at 1M x 28
-    (ids 4, lbin 2, the pre-pass's staging 4, its count tables, ``gh4``
-    16 a row), against the bins' 2 a pair at u16."""
+    sums (``_list_layout``).  Where the card cannot hold it, the
+    allocator's ``OutOfMemoryError`` for a call of several features (the
+    caller takes fewer a pass), and for one feature an
+    ``OutOfMemoryError`` that says what its lists take (10.7-11.1 bytes a
+    (row, feature) pair at 1M x 28: ids 4, lbin 2, the pre-pass's staging
+    4, its count tables, ``gh4`` 16 a row)."""
     try:
         return torch.empty(nbytes, dtype=torch.uint8, device=dev)
     except torch.OutOfMemoryError as e:
-        raise torch.OutOfMemoryError(
-            f"hist_lists: the bin-tiled histogram's lists of {rows} rows x "
-            f"{f} features take {nbytes} bytes ({nbytes / (rows * f):.1f} a "
-            "(row, feature) pair), more than the card holds free; at "
-            "max_bin above ~8,900 train on fewer rows a call (stream_rows) "
-            "or at a max_bin whose bins fit one tile") from e
+        if f > 1:
+            raise
+        raise _one_feature_too_large(nbytes, rows) from e
 
 
-def bin_lists(mat, grad, hess, mask, max_bin, *, f_limit=None,
+def list_pass_bytes(plan: Dict[str, int], f: int, rows: int,
+                    num_slots: int, chunk_rows: int) -> int:
+    """The bytes of the one buffer a listed call of ``f`` features over
+    ``rows`` rows (the leaves: their blocks' rows) in ``num_slots`` slots
+    takes: the lists and tables of ``bin_lists`` in chunks of
+    ``chunk_rows``, and the main kernel's float64 partial sums."""
+    tiles, tw = plan["tiles"], plan["tile_bins"]
+    unit = list_unit(plan, f * rows)
+    per_feature = tiles * num_slots + -(-rows // unit)
+    return _list_layout(f, rows, tiles, num_slots, -(-rows // chunk_rows),
+                        per_feature, chunk_rows,
+                        f * tiles * num_slots * tw * 3)[1]
+
+
+def list_passes(plan: Dict[str, int], f: int, rows: int, num_slots: int,
+                chunk_rows: int, budget: int) -> List[Tuple[int, int]]:
+    """``[(first feature, features)]``: a listed call's features in the
+    fewest passes whose buffers (``list_pass_bytes``) each fit ``budget``
+    bytes, as even as they come, in feature order.  Each feature's
+    histogram is its own, so the passes give the same bits as one.  One
+    feature a pass is the floor; where not even that fits, an
+    ``OutOfMemoryError`` names its bytes."""
+    def nbytes(fp):
+        return list_pass_bytes(plan, fp, rows, num_slots, chunk_rows)
+    if nbytes(f) <= budget:
+        return [(0, f)]
+    if nbytes(1) > budget:
+        raise _one_feature_too_large(nbytes(1), rows)
+    lo, hi = 1, f                       # nbytes(lo) fits, nbytes(hi) not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if nbytes(mid) <= budget else (lo, mid)
+    return even_passes(0, f, lo)
+
+
+def even_passes(f0: int, f: int, most: int) -> List[Tuple[int, int]]:
+    """``[(first feature, features)]``: features ``[f0, f)`` in the fewest
+    passes of at most ``most`` features, as even as they come, in order."""
+    count = -(-(f - f0) // most)
+    sizes = [(f - f0) // count + (i < (f - f0) % count)
+             for i in range(count)]
+    return [(f0 + sum(sizes[:i]), sizes[i]) for i in range(count)]
+
+
+def halve_passes(passes: List[Tuple[int, int]],
+                 at: int) -> List[Tuple[int, int]]:
+    """The passes of a listed call after pass ``at`` (of more than one
+    feature) failed to allocate its lists: those before it as they were,
+    then its features and the rest in passes of at most half its
+    features."""
+    f0, fp = passes[at]
+    f = passes[-1][0] + passes[-1][1]
+    return passes[:at] + even_passes(f0, f, fp // 2)
+
+
+# the feature passes a listed call took where one pass did not fit, by
+# (kernel, device, features, rows, slots, max_bin): later calls of the
+# shape take them at once, with no failed allocation
+_list_passes_taken: Dict[tuple, List[Tuple[int, int]]] = {}
+
+
+def bin_lists(mat, grad, hess, mask, max_bin, *, f_limit=None, col0=0,
               tile_bins=256, unit=LIST_UNIT, block_rows=_LIST_ROWS,
               block_leaf=None, num_slots=1, partial=0) -> BinLists:
     """The listed design's pre-pass: for each (feature, tile of
     ``tile_bins`` bins (a power of two), slot), the rows of ``mat [N,
-    NC]`` (``uint8``/``uint16``, its first ``F = f_limit or NC`` columns)
+    NC]`` (``uint8``/``uint16``, its ``F = f_limit or NC - col0`` columns
+    from ``col0``: feature ``j`` of the lists is column ``col0 + j``)
     whose bin lies in the tile, in row order (``BinLists``).
     ``block_leaf`` (None: one slot) names the slot in ``[0, num_slots)``
     of each block of ``block_rows`` rows, and a block outside is dropped;
@@ -934,14 +996,16 @@ def bin_lists(mat, grad, hess, mask, max_bin, *, f_limit=None,
     tensor launches the ``hist_lists`` kernel (or raises); a CPU tensor
     takes ``bin_lists_plain``."""
     if _plain(mat):
-        return bin_lists_plain(mat, grad, hess, mask, max_bin,
+        return bin_lists_plain(mat[:, col0:], grad, hess, mask, max_bin,
                                f_limit=f_limit, tile_bins=tile_bins,
                                unit=unit, block_rows=block_rows,
                                block_leaf=block_leaf, num_slots=num_slots)
     import ctypes
     _check_rows("hist_lists", mat, grad, hess, mask)
     n, ncols = mat.shape
-    f = _n_feat(ncols, f_limit)
+    _check(0 <= col0 < ncols, f"hist_lists: col0={col0} outside the "
+           f"matrix's {ncols} columns")
+    f = _n_feat(ncols - col0, f_limit)
     dev = mat.device
     tw_log2 = tile_bins.bit_length() - 1
     _check(tile_bins == 1 << tw_log2 and tw_log2 <= _LIST_TILE_LOG2,
@@ -972,7 +1036,8 @@ def bin_lists(mat, grad, hess, mask, max_bin, *, f_limit=None,
         *(base + at for at, _, _ in layout.values()))
     lib = _build.load("hist_lists")
     rc = lib.hist_lists_launch(
-        dev.index, mat.data_ptr(), n, ncols, f, max_bin, mat.element_size(),
+        dev.index, mat.data_ptr() + col0 * mat.element_size(), n, ncols, f,
+        max_bin, mat.element_size(),
         grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
         None if block_leaf is None else block_leaf.data_ptr(), cr,
         block_rows, num_slots, tw_log2, unit, per_feature, ptrs,
@@ -1063,8 +1128,8 @@ def hist_full(bins, grad, hess, mask, max_bin, f_limit=None):
         dev.index, bins.data_ptr(), n, ncols, f, max_bin, esz,
         grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        plan["fg"], plan["tile"], plan["tiles"], plan["tile_bins"],
-        plan["threads"], plan["design"], grid_x, per_cta,
+        plan["fg"], plan["tile"], plan["threads"], plan["design"], grid_x,
+        per_cta,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_full", rc)
     launch_counts["hist_full"] += 1
@@ -1112,8 +1177,7 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
         dev.index, comb.data_ptr(), c, nc, f, max_bin, esz, grad.data_ptr(),
         hess.data_ptr(), mask.data_ptr(), block_leaf.data_ptr(), block_rows,
         num_slots, scratch.data_ptr(), out.data_ptr(), plan["fg"],
-        plan["tile"], plan["tiles"], plan["tile_bins"], plan["threads"],
-        plan["design"], grid_x, bpc, parts,
+        plan["tile"], plan["threads"], plan["design"], grid_x, bpc, parts,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, "hist_leaves", rc)
     launch_counts["hist_leaves"] += 1
@@ -1122,30 +1186,64 @@ def hist_leaves(comb, grad, hess, mask, block_leaf, num_slots, max_bin,
 
 def _hist_listed(kernel, mat, grad, hess, mask, block_leaf, num_slots,
                  max_bin, f, plan, block_rows):
-    """A call of ``hist_full`` or ``hist_leaves`` in the listed design:
-    the pre-pass (``bin_lists``, its own launch count; its buffer also
-    holds the main kernel's float64 partial sums, a ``[tile_bins, 3]`` a
-    segment), then the listed main kernel over ``ctas_per_sm x sms`` CTAs,
-    which writes the float32 output itself."""
+    """A call of ``hist_full`` or ``hist_leaves`` in the listed design, in
+    feature passes whose lists fit the budget (``list_passes``): each pass
+    the pre-pass over its features (``bin_lists``, its own launch count;
+    its buffer also holds the main kernel's float64 partial sums, a
+    ``[tile_bins, 3]`` a segment), then the listed main kernel over
+    ``ctas_per_sm x sms`` CTAs, which writes its features of the float32
+    output itself.  The budget is ``list_budget``'s, or what the card can
+    allocate beside the output: one pass, and where a pass's buffer
+    cannot be allocated, that pass and the rest in passes of half its
+    features (``halve_passes``), down to one feature.  The passes a shape
+    took are kept (``_list_passes_taken``), so only its first call meets
+    the failed allocations.  A pass's buffer goes back to the allocator
+    before the next is taken, so the call holds at most the output and
+    one pass's buffer."""
     dev = mat.device
+    full = kernel == "hist_full"
     tw = plan["tile_bins"]
-    lists = bin_lists(mat, grad, hess, mask, max_bin, f_limit=f,
-                      tile_bins=tw, unit=list_unit(plan, f * mat.shape[0]),
-                      block_rows=block_rows, block_leaf=block_leaf,
-                      num_slots=num_slots,
-                      partial=f * plan["tiles"] * num_slots * tw * 3)
-    shape = (f, max_bin, 3) if kernel == "hist_full" else (
-        num_slots, f, max_bin, 3)
+    n = mat.shape[0]
+    shape = (f, max_bin, 3) if full else (num_slots, f, max_bin, 3)
+    cr = block_rows if full else list_chunk_rows(block_rows)
+    if _list_budget is not None:
+        key = None
+        passes = list_passes(plan, f, n, num_slots, cr, _list_budget)
+    else:
+        key = (kernel, dev.index, f, n, num_slots, max_bin)
+        passes = list(_list_passes_taken.get(key, [(0, f)]))
     out = torch.empty(*shape, device=dev)
     lib = _build.load(kernel)
-    slots = () if kernel == "hist_full" else (num_slots,)
-    rc = getattr(lib, f"{kernel}_listed_launch")(
-        dev.index, lists.ptrs, lists.ptrs[-1], out.data_ptr(), f, max_bin,
-        *slots, tw.bit_length() - 1, lists.unit, f * lists.per_feature,
-        max(1, plan["ctas_per_sm"]) * plan["sms"],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, kernel, rc)
-    launch_counts[kernel] += 1
+    launch = getattr(lib, f"{kernel}_listed_launch")
+    at = 0
+    while at < len(passes):
+        f0, fp = passes[at]
+        try:
+            lists = bin_lists(mat, grad, hess, mask, max_bin, f_limit=fp,
+                              col0=f0, tile_bins=tw,
+                              unit=list_unit(plan, fp * n),
+                              block_rows=block_rows, block_leaf=block_leaf,
+                              num_slots=num_slots,
+                              partial=fp * plan["tiles"] * num_slots * tw * 3)
+        except torch.OutOfMemoryError:
+            if fp == 1:
+                raise
+            passes = halve_passes(passes, at)
+            continue
+        extra = () if full else (num_slots,)
+        tail = () if full else (f,)
+        rc = launch(dev.index, lists.ptrs, lists.ptrs[-1],
+                    out.data_ptr() + 4 * f0 * max_bin * 3, fp, max_bin,
+                    *extra, tw.bit_length() - 1, lists.unit,
+                    fp * lists.per_feature, *tail,
+                    max(1, plan["ctas_per_sm"]) * plan["sms"],
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, kernel, rc)
+        launch_counts[kernel] += 1
+        del lists
+        at += 1
+    if key is not None and len(passes) > 1:
+        _list_passes_taken[key] = passes
     return out
 
 
@@ -1181,17 +1279,15 @@ def _onehot_spec(variant: str, max_bin: int, layout: str) -> ov.VariantSpec:
 # warps, each CTA owning up to 8 buckets of 128 lanes of one feature, and
 # their dynamic shared bytes per body family (a constant: a segment's
 # compacted rows, a region a bucket, the helper runs' slots, the counts
-# and places, and int8's float64 sums)
+# and places, and int8's float64 sums; int8 over blocks under 512 rows,
+# whose segments span them, keys its counts by block as well and pads
+# each block's run)
 _OH_BUCKET_THREADS = 256
 _OH_BUCKETS_PER_CTA = 8
-_OH_BUCKET_SMEM = {"bf16": 110560, "int8": 111680}
+_OH_BUCKET_SMEM = {"bf16": 110560, "int8": 111680, "int8_span": 113040}
 _OH_GRID_Y_MAX = 65535
-# the bucketed kernels sort a segment of up to 512 rows at a time, and an
-# int8 segment never spans two quantization blocks: blocks of fewer rows
-# leave each sort too little work (a block of 128 rows made the bucketed
-# int8 kernel slower than the dense one on the card), so int8 keeps the
-# dense design there
-_OH_BUCKET_INT8_MIN_BLOCK = 512
+# chunks of 128 rows a bucketed segment holds at most
+_OH_SEG_CHUNKS = 4
 
 
 def onehot_plan(variant: str, f: int, max_bin: int,
@@ -1200,18 +1296,18 @@ def onehot_plan(variant: str, f: int, max_bin: int,
     (``int8``: quantized per ``block_rows`` rows): its design
     (``ONEHOT_DESIGNS``), threads a CTA, dynamic shared bytes, and for the
     bucketed design the buckets of a feature, the CTAs a feature takes
-    (``gpf``) and the buckets each owns (``bpg``).  Every u8 width
-    (``max_bin`` <= 256) takes the dense design of PRs 5-6; every u16 width
-    the bucketed one, but for int8 over blocks of fewer than 512 rows, and
-    unless ``onehot_design`` asks for the dense one.  A design the width
-    does not serve (bucketed at u8) is refused.  Computed from the kernels'
-    constants alone (no card): the card tests hold it against the kernels'
-    own query."""
+    (``gpf``) and the buckets each owns (``bpg``); for int8 also the most
+    quantization blocks one segment of 512 rows touches
+    (``segment_blocks``: blocks of 512 rows or more cut the segments, so
+    one; a smaller block a segment spans, up to four of 128 rows, in a
+    kernel of its own, whose shared bytes differ).  Every
+    u8 width (``max_bin`` <= 256) takes the dense design; every u16 width
+    the bucketed one, at every block size, unless ``onehot_design`` asks
+    for the dense one.  A design the width does not serve (bucketed at u8)
+    is refused.  Computed from the kernels' constants alone (no card): the
+    card tests hold it against the kernels' own query."""
     allowed = ONEHOT_DESIGNS if max_bin > 256 else ONEHOT_DESIGNS[:1]
-    small_blocks = (variant == "int8" and block_rows is not None
-                    and block_rows < _OH_BUCKET_INT8_MIN_BLOCK)
-    design = ((allowed[0] if small_blocks else allowed[-1])
-              if _onehot_design is None else _onehot_design)
+    design = allowed[-1] if _onehot_design is None else _onehot_design
     _check(design in allowed, f"the {design} one-hot design does not "
            f"serve max_bin={max_bin} (u8 bins take the dense design)")
     if design == "dense":
@@ -1220,10 +1316,21 @@ def onehot_plan(variant: str, f: int, max_bin: int,
     gpf = -(-nb // _OH_BUCKETS_PER_CTA)
     _check(f * gpf <= _OH_GRID_Y_MAX, f"{f} features of {max_bin} bins "
            f"need {f * gpf} CTAs along y, above {_OH_GRID_Y_MAX}")
-    return {"design": "bucketed", "threads": _OH_BUCKET_THREADS,
+    plan = {"design": "bucketed", "threads": _OH_BUCKET_THREADS,
             "dynamic_smem_bytes": _OH_BUCKET_SMEM[
                 "int8" if variant == "int8" else "bf16"],
             "buckets": nb, "gpf": gpf, "bpg": -(-nb // gpf)}
+    if variant == "int8" and block_rows is not None:
+        qcpb = block_rows // _OH_CHUNK
+        # a segment from any chunk: its 4 chunks' blocks, or one block
+        # where the blocks cut it
+        plan["segment_blocks"] = (1 if qcpb >= _OH_SEG_CHUNKS else
+                                  max(((c + _OH_SEG_CHUNKS - 1) // qcpb
+                                       - c // qcpb + 1)
+                                      for c in range(qcpb)))
+        if qcpb < _OH_SEG_CHUNKS:
+            plan["dynamic_smem_bytes"] = _OH_BUCKET_SMEM["int8_span"]
+    return plan
 
 
 def _onehot_out(plan, lead, lanes, device):
@@ -1511,7 +1618,8 @@ def onehot_kernel_attributes(kernel: str, variant: str, f: int, max_bin: int,
     if kernel == "onehot_full":
         rc = lib.onehot_full_query(spec.kernel_id, LAYOUTS.index(layout),
                                    nf_max, ld, esz,
-                                   ONEHOT_DESIGNS.index(design), buf)
+                                   ONEHOT_DESIGNS.index(design), block_rows,
+                                   buf)
     else:
         _check(kernel == "onehot_leaves" and layout == "rowmajor",
                f"no attribute query for {kernel} ({layout})")

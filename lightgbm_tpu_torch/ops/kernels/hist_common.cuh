@@ -15,26 +15,18 @@
 // any width a u16 bin reaches (65,536): the plan narrows the feature
 // group until the group's histogram fits, and where not even one
 // feature's [B, 3] histogram fits (24 bytes a bin: above ~8,900 bins with
-// its staging) it splits each feature's bins into bin tiles.  Two designs
-// serve bin tiles:
-//
-// * Listed (the plan's choice; the end of this file, and hist_lists.cu).
-//   A pre-pass puts, for each (slot, feature, tile of 256 bins), the rows
-//   whose bin lies in the tile into one contiguous list in row order; a
-//   warp then takes a unit of one list (at most kListUnit entries) into a
-//   histogram of its own in shared memory, and walks only those rows.
-//   No row outside the tile is read and no ticket is passed: a warp's
-//   adds come in list order, and the units of a long list (skewed bins)
-//   combine in unit order through one float64 partial.
-// * Walked (the earlier design; kept for timing, asked for by design 0 or
-//   1).  The fewest tiles of tile_bins bins at which one feature fits,
-//   along gridDim.y; every CTA of tile t walks all its rows and adds only
-//   those whose bin lies in [t * tile_bins, (t + 1) * tile_bins).  What
-//   paced it was the dealt design's ticket chain, not the re-read rows
-//   (mostly from L2): a one-feature CTA's 22 item warps pass one ticket
-//   through every 64-row pair of its stretch, ~263 ns a pair on an H100,
-//   whether or not the pair holds a row of the tile, so each extra tile
-//   was one more full walk (PERF.md).
+// its staging) it splits each feature's bins into bin tiles of 256 and
+// takes the listed design (the end of this file, and hist_lists.cu).  A
+// pre-pass puts, for each (slot, feature, tile of 256 bins), the rows
+// whose bin lies in the tile into one contiguous list in row order; a
+// warp then takes a unit of one list (at most kListUnit entries) into a
+// histogram of its own in shared memory, and walks only those rows.  No
+// row outside the tile is read and no ticket is passed: a warp's adds
+// come in list order, and the units of a long list (skewed bins) combine
+// in unit order through one float64 partial.  (An earlier design put the
+// tiles along gridDim.y, each walking every row; it was paced by the
+// dealt design's ticket passed through every 64-row pair whether or not
+// it held a row of the tile, ~263 ns a pair on an H100: PERF.md.)
 //
 // Common to both designs (each point answers what bounded the first
 // kernel, which added every (row, feature) into shared memory with three
@@ -138,8 +130,8 @@ namespace lgbt {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNoBin = 0xffffffffu;  // a lane with nothing to add
 // the dealt design: a lane with nothing to add sorts by this key, above
-// any local bin index (a CTA's histogram of at most SMEM_MAX / 24 bins;
-// keys are tile-local, so a u16 bin of 65,535 never meets it)
+// any bin a dealt CTA's histogram holds (at most SMEM_MAX / 24 bins; the
+// listed design's keys are tile-local, so a u16 bin never meets it)
 constexpr uint32_t kNoKey = 0xffffu;
 // warps of a dealt CTA: 768 threads leave the leaves kernel the ~80
 // registers a thread it needs without spilling
@@ -449,24 +441,21 @@ __device__ __forceinline__ bool load_row(const Tile& t, int r, int nrows,
   return r < nrows && !(v.w == 0.f && v.gw == 0.f && v.hw == 0.f);
 }
 
-// The local index of bin b in the bin tile [b0, b0 + bw), or kNoBin
-// outside it (kNoBin itself, a bin >= B and a bin below b0 included: the
-// unsigned difference wraps).
-__device__ __forceinline__ uint32_t local_bin(uint32_t b, uint32_t b0,
-                                              uint32_t bw) {
-  return b - b0 < bw ? b - b0 : kNoBin;
+// Bin b, or kNoBin at or above bw (kNoBin itself included).
+__device__ __forceinline__ uint32_t local_bin(uint32_t b, uint32_t bw) {
+  return b < bw ? b : kNoBin;
 }
 
 // Rows [0, nrows) of a staged tile of T bins into the CTA's histogram
-// hist [fg][bw][3] of bins [b0, b0 + bw): warp `warp` of nw adds features
-// warp, warp + nw, ... (see the top), the row's float64 values widened
-// once for all of them; wm is the warp's bw words for group_peers.  A bin
-// outside the bin tile takes no word and adds nothing.
+// hist [fg][bw][3]: warp `warp` of nw adds features warp, warp + nw, ...
+// (see the top), the row's float64 values widened once for all of them;
+// wm is the warp's bw words for group_peers.  A bin >= bw takes no word
+// and adds nothing.
 template <typename T>
 __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
                                                 const Tile& t, int nrows,
-                                                int fg, int b0, int bw,
-                                                int lane, int warp, int nw) {
+                                                int fg, int bw, int lane,
+                                                int warp, int nw) {
   const unsigned below = (1u << lane) - 1u;
   StepRow next;
   bool next_live = load_row(t, lane, nrows, next);
@@ -480,7 +469,7 @@ __device__ __forceinline__ void accumulate_tile(double* hist, uint32_t* wm,
       const uint32_t key = local_bin(
           live ? (uint32_t)reinterpret_cast<const T*>(t.bins + cur.at)[f]
                : kNoBin,
-          (uint32_t)b0, (uint32_t)bw);
+          (uint32_t)bw);
       const uint32_t peers = group_peers(wm, key, below);
       const bool lead = key != kNoBin && (peers & below) == 0;
       const unsigned leaders = __ballot_sync(kFull, lead);
@@ -584,17 +573,15 @@ struct Run {
   double v0, v1, v2;
 };
 
-// Row r's key for feature f: its bin's local index in the bin tile [b0,
-// b0 + bw), or kNoKey past nrows, for a row of no weight and for a bin
-// outside the tile; and its values in row.
+// Row r's key for feature f: its bin, or kNoKey past nrows, for a row of
+// no weight and for a bin >= bw; and its values in row.
 template <typename T>
 __device__ __forceinline__ uint32_t key_of(const Tile& t, int r, int nrows,
-                                           int f, int b0, int bw,
-                                           StepRow& row) {
+                                           int f, int bw, StepRow& row) {
   const bool live = load_row(t, r, nrows, row);
   const uint32_t k = local_bin(
       live ? (uint32_t)reinterpret_cast<const T*>(t.bins + row.at)[f] : kNoBin,
-      (uint32_t)b0, (uint32_t)bw);
+      (uint32_t)bw);
   return k == kNoBin ? kNoKey : k;
 }
 
@@ -633,20 +620,18 @@ __device__ __forceinline__ void scan_round(Run& a, int start, int lane,
 
 // Item p * fg + f of a staged tile: steps 2p and 2p + 1 (rows 64p + l and
 // 64p + 32 + l on lane l) for feature f, the two sorts interleaved, added
-// into feature f's histogram of bins [b0, b0 + bw) in that order once
-// ticket[f] says pair s0 + p is next; then the ticket passes to pair s0 +
-// p + 1.  A pair with no row in the bin tile (in the walked design of bin
-// tiles, most pairs of a tile) skips the sort and only passes the ticket
-// on: that hand-off, not the sort, set the walked tiles' pace.
+// into feature f's histogram of bw bins in that order once ticket[f] says
+// pair s0 + p is next; then the ticket passes to pair s0 + p + 1.  A pair
+// with no row to add skips the sort and only passes the ticket on.
 template <typename T>
 __device__ __forceinline__ void dealt_item(double* hist, uint32_t* tickets,
                                            const Tile& t, int nrows, int p,
-                                           int f, int b0, int bw, int lane,
+                                           int f, int bw, int lane,
                                            uint32_t s0) {
   StepRow ra, rb;
   const int r0 = p * 64 + lane;
-  const uint32_t ka = key_of<T>(t, r0, nrows, f, b0, bw, ra);
-  const uint32_t kb = key_of<T>(t, r0 + 32, nrows, f, b0, bw, rb);
+  const uint32_t ka = key_of<T>(t, r0, nrows, f, bw, ra);
+  const uint32_t kb = key_of<T>(t, r0 + 32, nrows, f, bw, rb);
   Run a{kNoKey, false, 0.0, 0.0, 0.0}, b{kNoKey, false, 0.0, 0.0, 0.0};
   if (__ballot_sync(kFull, ka != kNoKey || kb != kNoKey) != 0) {
     uint32_t wa = ka << 5 | (uint32_t)lane, wb = kb << 5 | (uint32_t)lane;
@@ -683,15 +668,14 @@ struct Smem {
   uint8_t* stage;
 };
 
-// Rows [r0, r1) of src, columns [f0, f0 + fg), bins [b0, b0 + bw), into
-// hist, in the owned design: tiles through two staging buffers, the next
-// tile copied while one is added, one barrier a tile.  Every thread of the
-// CTA calls it.
+// Rows [r0, r1) of src, columns [f0, f0 + fg), bins [0, bw), into hist,
+// in the owned design: tiles through two staging buffers, the next tile
+// copied while one is added, one barrier a tile.  Every thread of the CTA
+// calls it.
 template <typename T>
 __device__ __forceinline__ void accumulate_rows_owned(
     double* hist, uint32_t* wm, uint8_t* stage, const Stage& st,
-    const Rows& src, long long r0, long long r1, int f0, int fg, int b0,
-    int bw) {
+    const Rows& src, long long r0, long long r1, int f0, int fg, int bw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int sb = st.bin_region + 3 * st.val_region;
@@ -712,7 +696,7 @@ __device__ __forceinline__ void accumulate_rows_owned(
     }
     const long long ri = r0 + (long long)i * st.tile;
     accumulate_tile<T>(hist, wm, tile_at(stage + (i & 1) * sb, st, src, ri, f0),
-                       rows_of(i), fg, b0, bw, lane, warp, nw);
+                       rows_of(i), fg, bw, lane, warp, nw);
   }
 }
 
@@ -731,7 +715,7 @@ __device__ __forceinline__ void accumulate_rows_owned(
 template <typename T>
 __device__ __forceinline__ void accumulate_rows_dealt(
     const Smem& sm, const Stage& st, const Rows& src, long long r0,
-    long long r1, int f0, int fg, int b0, int bw, uint32_t& ring) {
+    long long r1, int f0, int fg, int bw, uint32_t& ring) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwi = (blockDim.x >> 5) - kStagers;  // item warps; the last
                                                  // kStagers stage
@@ -768,8 +752,8 @@ __device__ __forceinline__ void accumulate_rows_dealt(
       const int items = ((nrows + 63) >> 6) * fg;
       for (; it < items; it += nwi) {
         const int p = it / fg;
-        dealt_item<T>(sm.hist, sm.aux, t, nrows, p, it - p * fg, b0, bw,
-                      lane, (uint32_t)(i * tile_pairs));
+        dealt_item<T>(sm.hist, sm.aux, t, nrows, p, it - p * fg, bw, lane,
+                      (uint32_t)(i * tile_pairs));
       }
       it -= items;
       __syncwarp();
@@ -779,21 +763,20 @@ __device__ __forceinline__ void accumulate_rows_dealt(
   ring += ntiles;
 }
 
-// Rows [r0, r1) of src, columns [f0, f0 + fg), bins [b0, b0 + bw), into
-// the CTA's histogram in either design.
+// Rows [r0, r1) of src, columns [f0, f0 + fg), bins [0, bw), into the
+// CTA's histogram in either design.
 template <typename T, bool kDealt>
 __device__ __forceinline__ void accumulate_rows(const Smem& sm,
                                                 const Stage& st,
                                                 const Rows& src, long long r0,
                                                 long long r1, int f0, int fg,
-                                                int b0, int bw,
-                                                uint32_t& ring) {
+                                                int bw, uint32_t& ring) {
   if (r0 >= r1) return;
   if (kDealt)
-    accumulate_rows_dealt<T>(sm, st, src, r0, r1, f0, fg, b0, bw, ring);
+    accumulate_rows_dealt<T>(sm, st, src, r0, r1, f0, fg, bw, ring);
   else
     accumulate_rows_owned<T>(sm.hist, sm.aux, sm.stage, st, src, r0, r1, f0,
-                             fg, b0, bw);
+                             fg, bw);
 }
 
 __device__ __forceinline__ void zero_hist(double* hist, int n) {
@@ -832,32 +815,6 @@ __device__ __forceinline__ void write_partial(double* __restrict__ dst,
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   }
-}
-
-// The CTA's histogram [fg][bw][3] of bins [b0, b0 + bw) into its part of
-// a partial [.., B, 3] whose feature f0 starts at dst: the bin tile's
-// entries of each feature, and nothing else of the partial.
-__device__ __forceinline__ void write_tile(double* __restrict__ dst,
-                                           const double* hist, int fg, int B,
-                                           int b0, int bw) {
-  if (bw == B) {
-    write_partial(dst, hist, 3 * fg * B);
-    return;
-  }
-  for (int i = 0; i < fg; ++i)
-    write_partial(dst + ((long long)i * B + b0) * 3, hist + 3LL * i * bw,
-                  3 * bw);
-}
-
-// The bin tile of a CTA: tile blockIdx.y % tiles of its feature group,
-// bins [b0, b0 + bw) of B, tiles of tile_bins bins (the last narrower).
-struct BinTile {
-  int group, b0, bw;
-};
-__device__ __forceinline__ BinTile bin_tile(int tiles, int tile_bins, int B) {
-  const int group = blockIdx.y / tiles;
-  const int b0 = (blockIdx.y - group * tiles) * tile_bins;
-  return BinTile{group, b0, min(tile_bins, B - b0)};
 }
 
 // --- the listed design of bin tiles ----------------------------------------
@@ -926,8 +883,8 @@ struct Lists {
 struct ListedArgs {
   Lists l;
   double* partial;  // [segments][tw][3]: a split segment's units so far
-  float* out;       // [k][f][B][3]
-  int f, B, k, T, tw_log2, unit, units;
+  float* out;       // [k][fout][B][3], at the lists' first feature
+  int f, B, k, T, tw_log2, unit, units, fout;
 };
 
 __device__ __forceinline__ int ld_acquire_gpu(const int32_t* p) {
@@ -1012,7 +969,7 @@ __device__ __forceinline__ void listed_units(const ListedArgs& a) {
     const int jt = seg / a.k, s = seg - jt * a.k;
     const int j = jt / a.T, b0 = (jt - j * a.T) << a.tw_log2;
     const int n3 = 3 * min(tw, a.B - b0);
-    float* o = a.out + (((long long)s * a.f + j) * a.B + b0) * 3;
+    float* o = a.out + (((long long)s * a.fout + j) * a.B + b0) * 3;
     if (len == 0) {  // an empty segment: zeros, straight out
       for (int i = lane; i < n3; i += 32) o[i] = 0.f;
       continue;
@@ -1104,39 +1061,22 @@ static inline int fit_tile(int g, int B, long long stride, int esz,
   return 0;
 }
 
-// The bins a bin tile holds where B bins are split into `tiles` tiles, and
-// the tiles that width takes (the last one narrower, none empty).
-__host__ __device__ inline int tile_width(int B, int tiles) {
-  return (B + tiles - 1) / tiles;
-}
-__host__ __device__ inline int tiles_of(int B, int tile_bins) {
-  return (B + tile_bins - 1) / tile_bins;
-}
-
-// Feature group, tile rows and bin tiles of a launch over f features of B
-// bins in rows of `stride` bins of esz bytes, in one design: the fewest
-// bin tiles (at least min_tiles) at whose width a CTA holds one feature's
-// histogram, its lane words or tickets and two staging buffers within
-// kSmemMax with tiles of at least kMinTile rows; at that width the most
-// features a CTA holds so; each tile as large as then fits.  So a wide
-// matrix or a wide bin range takes narrower groups, not smaller tiles (at
-// B = 4,096 a feature's histogram takes 96 KB, and in the owned design its
-// words 16 KB more: two features a dealt CTA, one an owned one), and a
-// width at which not even one feature fits takes bin tiles (8 of 8,192
-// bins at B = 65,536).  Returns false when not even one bin fits.
+// Feature group and tile rows of a launch over f features of B bins in
+// rows of `stride` bins of esz bytes, in one design: the most features
+// whose histograms, lane words or tickets and two staging buffers a CTA
+// holds within kSmemMax with tiles of at least kMinTile rows; each tile as
+// large as then fits.  So a wide matrix or a wide bin range takes
+// narrower groups, not smaller tiles (at B = 4,096 a feature's histogram
+// takes 96 KB, and in the owned design its words 16 KB more: two features
+// a dealt CTA, one an owned one).  Returns false when not even one
+// feature's histogram fits (the listed design's widths).
 static inline bool plan_geometry(int f, int B, long long stride, int esz,
-                                 bool dealt, int min_tiles, int* fg,
-                                 int* tile, int* tiles, int* tile_bins) {
-  for (int t = min_tiles > 1 ? min_tiles : 1; t <= B; ++t) {
-    const int bt = tile_width(B, t);
-    for (int g = f; g >= 1; --g)
-      if ((*tile = fit_tile(g, bt, stride, esz, dealt, kMinTile)) > 0) {
-        *fg = g;
-        *tile_bins = bt;
-        *tiles = tiles_of(B, bt);
-        return true;
-      }
-  }
+                                 bool dealt, int* fg, int* tile) {
+  for (int g = f; g >= 1; --g)
+    if ((*tile = fit_tile(g, B, stride, esz, dealt, kMinTile)) > 0) {
+      *fg = g;
+      return true;
+    }
   return false;
 }
 
@@ -1218,46 +1158,35 @@ static inline cudaError_t plan_listed(L kern, int device, int f, int B,
 // out[0..13]: fg, tile, threads, dynamic shared bytes, CTAs an SM, SMs,
 // registers a thread, static shared bytes, spilled bytes a thread, the
 // design (0 owned, 1 dealt, 2 listed), its staging warps (0: all warps
-// stage), the bin tiles of a feature, the bins a tile holds and (listed)
-// the full pass's rows a pre-pass block.  They depend on the shape only
-// (not on the rows), so a caller asks once per shape and splits its rows
-// over ctas_per_sm * SMs / (groups * tiles) itself (listed: the lists'
-// units over a grid of ctas_per_sm * SMs).  `stride` is in bins of esz
-// bytes.  design: -1 lets the plan choose (listed where one feature's
-// histogram does not fit a dealt CTA or min_tiles > 1 asks for bin tiles;
-// else owned while the group holds min(f, kOwnedMinGroup) features, else
-// dealt), 0, 1 or 2 asks for one (0 or 1 with bin tiles: the walked
-// design).  min_tiles: the fewest bin tiles of the walked design (1: as
-// the width needs; more only to test the tiled path at a width that
-// needs none).  owned and dealt are the kernel's two instantiations,
-// listed its listed kernel.  (histogram.py::atomic_geometry mirrors the
-// geometry for the tests that run without a card.)
+// stage), the bin tiles of a feature (1 but listed), the bins a tile
+// holds (B but listed) and (listed) the full pass's rows a pre-pass
+// block.  They depend on the shape only (not on the rows), so a caller
+// asks once per shape and splits its rows over ctas_per_sm * SMs / groups
+// itself (listed: the lists' units over a grid of ctas_per_sm * SMs).
+// `stride` is in bins of esz bytes.  design: -1 lets the plan choose
+// (listed where one feature's histogram does not fit a dealt CTA; else
+// owned while the group holds min(f, kOwnedMinGroup) features, else
+// dealt), 0, 1 or 2 asks for one (0 or 1 at a width where one feature
+// does not fit: no plan).  owned and dealt are the kernel's two instantiations, listed
+// its listed kernel.  (histogram.py::atomic_geometry mirrors the geometry
+// for the tests that run without a card.)
 template <typename K, typename L>
 static inline cudaError_t plan_launch(K owned, K dealt_kern, L listed,
                                       int device, long long stride, int f,
-                                      int B, int esz, int design,
-                                      int min_tiles, int* out) {
-  int fg, tile, tiles, bt;
+                                      int B, int esz, int design, int* out) {
+  int fg, tile;
   out[13] = 0;
   if (design > 2) return cudaErrorInvalidValue;
-  if (design < 0) {
-    if (!plan_geometry(f, B, stride, esz, true, min_tiles, &fg, &tile,
-                       &tiles, &bt) ||
-        tiles > 1)
-      design = 2;
-  }
+  if (design < 0 && !plan_geometry(f, B, stride, esz, true, &fg, &tile))
+    design = 2;
   if (design == 2) return plan_listed(listed, device, f, B, out);
   if (design < 0) {
-    if (!plan_geometry(f, B, stride, esz, false, min_tiles, &fg, &tile,
-                       &tiles, &bt))
-      fg = tiles = 0;
-    design =
-        tiles == 1 && fg >= (f < kOwnedMinGroup ? f : kOwnedMinGroup) ? 0 : 1;
+    if (!plan_geometry(f, B, stride, esz, false, &fg, &tile)) fg = 0;
+    design = fg >= (f < kOwnedMinGroup ? f : kOwnedMinGroup) ? 0 : 1;
   }
   const bool dealt = design == 1;
   const K kern = dealt ? dealt_kern : owned;
-  if (!plan_geometry(f, B, stride, esz, dealt, min_tiles, &fg, &tile, &tiles,
-                     &bt))
+  if (!plan_geometry(f, B, stride, esz, dealt, &fg, &tile))
     return cudaErrorInvalidValue;
   if (dealt) {
     // the narrowest group that keeps the number of groups: the shared
@@ -1266,7 +1195,7 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, L listed,
     const int g = (f + (f + fg - 1) / fg - 1) / ((f + fg - 1) / fg);
     if (g < fg) {
       fg = g;
-      tile = fit_tile(fg, bt, stride, esz, true, kMinTile);
+      tile = fit_tile(fg, B, stride, esz, true, kMinTile);
     }
   }
   int per_sm = 0, sms = 0;
@@ -1274,7 +1203,7 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, L listed,
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
   for (int pass = 0; pass < 2; ++pass) {
-    const int smem = (int)smem_bytes(fg, bt, tile, stride, esz, dealt);
+    const int smem = (int)smem_bytes(fg, B, tile, stride, esz, dealt);
     e = allow_smem(kern, device, smem);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -1284,15 +1213,13 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, L listed,
     // wave (67 groups of 30 features on 132 SMs fill 51%): take the
     // widest group down to half as wide that leaves at most a tenth idle.
     const int slots = (per_sm > 0 ? per_sm : 1) * sms;
-    if (pass > 0 || wave_share((f + fg - 1) / fg * tiles, slots) >= 0.75)
-      break;
+    if (pass > 0 || wave_share((f + fg - 1) / fg, slots) >= 0.75) break;
     int g = fg - 1;
-    while (g >= (fg + 1) / 2 &&
-           wave_share((f + g - 1) / g * tiles, slots) < 0.9)
+    while (g >= (fg + 1) / 2 && wave_share((f + g - 1) / g, slots) < 0.9)
       --g;
     if (g < (fg + 1) / 2) break;
     fg = g;
-    tile = fit_tile(fg, bt, stride, esz, dealt, 1);
+    tile = fit_tile(fg, B, stride, esz, dealt, 1);
   }
   cudaFuncAttributes a;
   e = cudaFuncGetAttributes(&a, kern);
@@ -1300,7 +1227,7 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, L listed,
   out[0] = fg;
   out[1] = tile;
   out[2] = 32 * warps_for(fg, dealt);
-  out[3] = (int)smem_bytes(fg, bt, tile, stride, esz, dealt);
+  out[3] = (int)smem_bytes(fg, B, tile, stride, esz, dealt);
   out[4] = per_sm;
   out[5] = sms;
   out[6] = a.numRegs;
@@ -1308,8 +1235,8 @@ static inline cudaError_t plan_launch(K owned, K dealt_kern, L listed,
   out[8] = (int)a.localSizeBytes;
   out[9] = design;
   out[10] = dealt ? kStagers : 0;
-  out[11] = tiles;
-  out[12] = bt;
+  out[11] = 1;
+  out[12] = B;
   return cudaSuccess;
 }
 
@@ -1326,17 +1253,20 @@ static inline cudaError_t launch_reduce(const double* partial,
 
 // The listed design's main kernel over `grid` CTAs.  ptrs: the lists'
 // ids, lbin, seg_off, seg_len, seg_ubase, unit_seg, flags, counter and gh4
-// (hist_lists.cu's order of them).
+// (hist_lists.cu's order of them); out: the output's first entry of the
+// lists' first feature, a slot's features fout apart.
 template <typename L>
 static inline cudaError_t launch_listed(L kern, int device,
                                         const long long* ptrs, void* partial,
                                         void* out, int f, int B, int k,
                                         int tw_log2, int unit, int units,
-                                        int grid, cudaStream_t stream) {
+                                        int fout, int grid,
+                                        cudaStream_t stream) {
   const int smem = list_smem_bytes(1 << tw_log2);
   cudaError_t e = allow_smem(kern, device, smem);
   if (e != cudaSuccess) return e;
-  if (grid < 1 || tw_log2 < 0 || tw_log2 > kListTileLog2 || unit < 1)
+  if (grid < 1 || tw_log2 < 0 || tw_log2 > kListTileLog2 || unit < 1 ||
+      fout < f)
     return cudaErrorInvalidValue;
   const Lists l{reinterpret_cast<const int32_t*>(ptrs[0]),
                 reinterpret_cast<const uint16_t*>(ptrs[1]),
@@ -1356,7 +1286,8 @@ static inline cudaError_t launch_listed(L kern, int device,
                      (B + (1 << tw_log2) - 1) >> tw_log2,
                      tw_log2,
                      unit,
-                     units};
+                     units,
+                     fout};
   kern<<<grid, 32 * kListWarps, smem, stream>>>(a);
   return cudaGetLastError();
 }

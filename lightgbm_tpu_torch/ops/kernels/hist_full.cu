@@ -15,9 +15,7 @@
 // ~8,900), the listed design takes the call (hist_common.cuh): the
 // pre-pass (hist_lists.cu) lists each (feature, tile of 256 bins)'s rows,
 // and hist_full_listed_kernel's warps each add a unit of one list into a
-// histogram of their own, writing the float32 output themselves.  The
-// walked design (bin tiles along gridDim.y, 8 of 8,192 bins at
-// B = 65,536, every tile walking every row) stays for timing.
+// histogram of their own, writing the float32 output themselves.
 //
 // Bound on an H100: it must read N * f * esz bytes of bins (esz = 1 for
 // u8, 2 for u16) and 12 * N bytes of (g, h, m) once and write F * B * 12
@@ -27,43 +25,36 @@
 // feature), 48 bytes through shared memory at 128 bytes a clock an SM
 // (about 0.04 ms at 1M x 28).  The partials add 2 * (grid x) * F * B * 24
 // bytes of device-memory traffic (about 45 MB at 1M x 28 with one CTA an
-// SM).  The walked bin tiles re-read the rows, (f * esz + 12) * N bytes a
-// tile, mostly from L2, but what paced them was the ticket each CTA
-// passed through every 64-row pair, in the tile or not (~263 ns a pair).
-// The listed design reads each (row, feature) twice in the pre-pass and
-// once by its entry (6 bytes of list and a 32-byte sector of g, h, m).
+// SM).  The listed design reads each (row, feature) twice in the pre-pass
+// and once by its entry (6 bytes of list and a 32-byte sector of g, h, m).
 #include "hist_common.cuh"
 
 // T: the bin type (uint8_t or uint16_t); stride in bins; kDealt: the
-// design (hist_common.cuh).  Grid (grid_x, groups * tiles): CTA (x, y)
-// takes rows [x * rows_per_cta, ...) and bin tile y % tiles of feature
-// group y / tiles.
+// design (hist_common.cuh).  Grid (grid_x, groups): CTA (x, y) takes rows
+// [x * rows_per_cta, ...) of feature group y.
 template <typename T, bool kDealt>
 __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
     hist_full_kernel(const T* __restrict__ bins, long long n,
                      long long stride, int f, int B,
                      const float* __restrict__ g, const float* __restrict__ h,
                      const float* __restrict__ m, double* __restrict__ partial,
-                     int fg, int tile, int tiles, int tile_bins,
-                     long long rows_per_cta) {
+                     int fg, int tile, long long rows_per_cta) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const lgbt::BinTile bt = lgbt::bin_tile(tiles, tile_bins, B);
-  const int f0 = bt.group * fg;
+  const int f0 = blockIdx.y * fg;
   const int fgc = min(fg, f - f0);
-  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, bt.bw);
+  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, B);
   const int esz = (int)sizeof(T);
   const lgbt::Stage st = lgbt::stage_of(tile, stride * esz, fg * esz);
   const long long r0 = (long long)blockIdx.x * rows_per_cta;
   const long long r1 = min(n, r0 + rows_per_cta);
-  lgbt::zero_hist(sm.hist, 3 * fgc * bt.bw);
+  lgbt::zero_hist(sm.hist, 3 * fgc * B);
   const lgbt::Rows src{reinterpret_cast<const uint8_t*>(bins), stride * esz,
                         esz, g, h, m};
   uint32_t ring = 0;
-  lgbt::accumulate_rows<T, kDealt>(sm, st, src, r0, r1, f0, fgc, bt.b0,
-                                   bt.bw, ring);
+  lgbt::accumulate_rows<T, kDealt>(sm, st, src, r0, r1, f0, fgc, B, ring);
   __syncthreads();
-  lgbt::write_tile(partial + ((long long)blockIdx.x * f + f0) * B * 3,
-                   sm.hist, fgc, B, bt.b0, bt.bw);
+  lgbt::write_partial(partial + ((long long)blockIdx.x * f + f0) * B * 3,
+                      sm.hist, 3 * fgc * B);
 }
 
 // The listed design (hist_common.cuh::listed_units): a persistent grid
@@ -76,30 +67,29 @@ __global__ void __launch_bounds__(32 * lgbt::kListWarps, 3)
 
 // The launch plan of a shape (lgbt::plan_launch's fourteen values); esz
 // is the bin type's size (1: u8, 2: u16); design -1 (the plan's choice),
-// 0 (owned), 1 (dealt) or 2 (listed); min_tiles the fewest bin tiles of
-// the walked design (1: as the width needs).
+// 0 (owned), 1 (dealt) or 2 (listed).
 extern "C" int hist_full_plan(int device, long long stride, int f, int B,
-                              int esz, int design, int min_tiles, int* out) {
+                              int esz, int design, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (esz == 1)
     return (int)lgbt::plan_launch(hist_full_kernel<uint8_t, false>,
                                   hist_full_kernel<uint8_t, true>,
                                   hist_full_listed_kernel, device, stride,
-                                  f, B, 1, design, min_tiles, out);
+                                  f, B, 1, design, out);
   if (esz == 2)
     return (int)lgbt::plan_launch(hist_full_kernel<uint16_t, false>,
                                   hist_full_kernel<uint16_t, true>,
                                   hist_full_listed_kernel, device, stride,
-                                  f, B, 2, design, min_tiles, out);
+                                  f, B, 2, design, out);
   return (int)cudaErrorInvalidValue;
 }
 
 // The listed design's main kernel over the lists of one call (ptrs: see
-// lgbt::launch_listed) into out ([f, B, 3] float32); partial holds a
-// [tw][3] float64 sum for each segment (only split ones are touched);
-// units = f * the lists' units a feature; grid = the plan's CTAs an SM
-// times its SMs.
+// lgbt::launch_listed) of f features into out ([f, B, 3] float32 from the
+// lists' first feature); partial holds a [tw][3] float64 sum for each
+// segment (only split ones are touched); units = f * the lists' units a
+// feature; grid = the plan's CTAs an SM times its SMs.
 extern "C" int hist_full_listed_launch(int device, const long long* ptrs,
                                        void* partial, void* out, int f,
                                        int B, int tw_log2, int unit,
@@ -108,13 +98,13 @@ extern "C" int hist_full_listed_launch(int device, const long long* ptrs,
   if (e != cudaSuccess) return (int)e;
   return (int)lgbt::launch_listed(hist_full_listed_kernel, device, ptrs,
                                   partial, out, f, B, 1, tw_log2, unit, units,
-                                  grid, (cudaStream_t)stream);
+                                  f, grid, (cudaStream_t)stream);
 }
 
-// The launch geometry: the plan's feature group, tile rows, bin tiles,
-// bins a bin tile and threads; the CTAs along x and the rows each takes.
+// The launch geometry: the plan's feature group, tile rows and threads;
+// the CTAs along x and the rows each takes.
 struct FullGrid {
-  int fg, tile, tiles, tile_bins, threads, grid_x;
+  int fg, tile, threads, grid_x;
   long long rows_per_cta;
 };
 
@@ -124,15 +114,14 @@ static cudaError_t launch_full_as(int device, const void* bins, long long n,
                                   const void* g, const void* h,
                                   const void* m, void* partial,
                                   const FullGrid& q, cudaStream_t s) {
-  const int smem = (int)lgbt::smem_bytes(q.fg, q.tile_bins, q.tile, stride,
-                                         sizeof(T), kDealt);
+  const int smem = (int)lgbt::smem_bytes(q.fg, B, q.tile, stride, sizeof(T),
+                                         kDealt);
   cudaError_t e = lgbt::allow_smem(hist_full_kernel<T, kDealt>, device, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(q.grid_x, (f + q.fg - 1) / q.fg * q.tiles);
+  const dim3 grid(q.grid_x, (f + q.fg - 1) / q.fg);
   hist_full_kernel<T, kDealt><<<grid, q.threads, smem, s>>>(
       (const T*)bins, n, stride, f, B, (const float*)g, (const float*)h,
-      (const float*)m, (double*)partial, q.fg, q.tile, q.tiles, q.tile_bins,
-      q.rows_per_cta);
+      (const float*)m, (double*)partial, q.fg, q.tile, q.rows_per_cta);
   return cudaGetLastError();
 }
 
@@ -152,24 +141,20 @@ static cudaError_t launch_full(int device, const void* bins, long long n,
 }
 
 // The main kernel over grid_x CTAs (rows_per_cta rows each) by the
-// feature groups' bin tiles, then the reduce pass over its grid_x
-// partials ([grid_x, f, B, 3] float64) into out ([f, B, 3] float32).
-// bins holds u8 (esz 1) or u16 (esz 2) values, rows of `stride` bins; fg,
-// tile, tiles, tile_bins, threads and design are the plan's.
+// feature groups, then the reduce pass over its grid_x partials ([grid_x,
+// f, B, 3] float64) into out ([f, B, 3] float32).  bins holds u8 (esz 1)
+// or u16 (esz 2) values, rows of `stride` bins; fg, tile, threads and
+// design are the plan's.
 extern "C" int hist_full_launch(int device, const void* bins, long long n,
                                 long long stride, int f, int B, int esz,
                                 const void* g, const void* h, const void* m,
                                 void* partial, void* out, int fg, int tile,
-                                int tiles, int tile_bins, int threads,
-                                int design, int grid_x,
+                                int threads, int design, int grid_x,
                                 long long rows_per_cta, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (tiles < 1 || tile_bins < 1 || (long long)tiles * tile_bins < B ||
-      (long long)(tiles - 1) * tile_bins >= B)
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const FullGrid q{fg, tile, tiles, tile_bins, threads, grid_x, rows_per_cta};
+  const FullGrid q{fg, tile, threads, grid_x, rows_per_cta};
   if (esz == 1)
     e = launch_full<uint8_t>(device, bins, n, stride, f, B, g, h, m, partial,
                              design, q, s);

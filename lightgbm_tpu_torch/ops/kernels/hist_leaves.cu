@@ -26,9 +26,7 @@
 // the call (hist_common.cuh): the pre-pass (hist_lists.cu) orders the
 // blocks by slot and lists each (slot, feature, tile of 256 bins)'s rows
 // in row order, and hist_leaves_listed_kernel's warps each add a unit of
-// one list and write that slot's output themselves.  The walked design
-// (bin tiles along gridDim.y, every tile's CTA walking all its blocks'
-// rows) stays for timing.
+// one list and write that slot's output themselves.
 //
 // Bound on an H100: C * f * esz bytes of bins (esz = 1 for u8, 2 for
 // u16), 12 * C bytes of (g, h, m) and 4 * C / BR bytes of block_leaf read
@@ -36,9 +34,7 @@
 // 12) * C / 3.35 TB/s (0.0035 ms at C = 262,144, f = 28 u8, k = 16).  The update's shared-memory floor is 48 bytes
 // per (row, feature) at 128 bytes a clock an SM (about 0.011 ms there).
 // Each partial adds 2 * F * B * 24 bytes of device-memory traffic.  The
-// walked bin tiles were paced by the ticket each CTA passed through every
-// 64-row pair, in the tile or not (~263 ns a pair), not by the rows they
-// re-read from L2; the listed design walks each segment's rows only.
+// listed design walks each segment's rows only.
 #include "hist_common.cuh"
 
 // Whether a block of [b0, blk) names `slot` (nearest first, so a block
@@ -51,9 +47,8 @@ __device__ __forceinline__ bool named_before(const int32_t* block_leaf,
 }
 
 // T: the bin type (uint8_t or uint16_t); stride in bins; kDealt: the
-// design (hist_common.cuh).  Grid (grid_x, groups * tiles): CTA (x, y)
-// takes blocks [x * bpc, ...) and bin tile y % tiles of feature group y /
-// tiles.
+// design (hist_common.cuh).  Grid (grid_x, groups): CTA (x, y) takes
+// blocks [x * bpc, ...) of feature group y.
 template <typename T, bool kDealt>
 __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
     hist_leaves_kernel(const T* __restrict__ comb, long long c,
@@ -64,12 +59,11 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
                        const int32_t* __restrict__ block_leaf, int br, int k,
                        double* __restrict__ partial,
                        int32_t* __restrict__ pslot, int fg, int tile,
-                       int tiles, int tile_bins, int bpc, int parts) {
+                       int bpc, int parts) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const lgbt::BinTile bt = lgbt::bin_tile(tiles, tile_bins, B);
-  const int f0 = bt.group * fg;
+  const int f0 = blockIdx.y * fg;
   const int fgc = min(fg, f - f0);
-  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, bt.bw);
+  const lgbt::Smem sm = lgbt::carve<kDealt>(smem, fgc, B);
   const int esz = (int)sizeof(T);
   const lgbt::Stage st = lgbt::stage_of(tile, stride * esz, fg * esz);
   const int nb = (int)(c / br);
@@ -84,7 +78,7 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
     if (slot < 0 || slot >= k || named_before(block_leaf, b0, first, slot))
       continue;
     __syncthreads();  // the last slot's partial is written
-    lgbt::zero_hist(sm.hist, 3 * fgc * bt.bw);
+    lgbt::zero_hist(sm.hist, 3 * fgc * B);
     for (int blk = first; blk < b1;) {  // each run of the slot
       if (block_leaf[blk] != slot) {
         ++blk;
@@ -93,14 +87,14 @@ __global__ void __launch_bounds__(kDealt ? 32 * lgbt::kDealtWarps : 1024)
       int end = blk + 1;
       while (end < b1 && block_leaf[end] == slot) ++end;
       lgbt::accumulate_rows<T, kDealt>(sm, st, src, (long long)blk * br,
-                                       (long long)end * br, f0, fgc, bt.b0,
-                                       bt.bw, ring);
+                                       (long long)end * br, f0, fgc, B,
+                                       ring);
       blk = end;
     }
     __syncthreads();
     const long long p = (long long)blockIdx.x * parts + j;
-    lgbt::write_tile(partial + (p * f + f0) * B * 3, sm.hist, fgc, B, bt.b0,
-                     bt.bw);
+    lgbt::write_partial(partial + (p * f + f0) * B * 3, sm.hist,
+                        3 * fgc * B);
     if (blockIdx.y == 0 && threadIdx.x == 0) pslot[p] = slot;
     ++j;
   }
@@ -118,45 +112,45 @@ __global__ void __launch_bounds__(32 * lgbt::kListWarps, 3)
 
 // The launch plan of a shape (lgbt::plan_launch's fourteen values); esz
 // is the bin type's size (1: u8, 2: u16); design -1 (the plan's choice),
-// 0 (owned), 1 (dealt) or 2 (listed); min_tiles the fewest bin tiles of
-// the walked design (1: as the width needs).
+// 0 (owned), 1 (dealt) or 2 (listed).
 extern "C" int hist_leaves_plan(int device, long long stride, int f, int B,
-                                int esz, int design, int min_tiles,
-                                int* out) {
+                                int esz, int design, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (esz == 1)
     return (int)lgbt::plan_launch(hist_leaves_kernel<uint8_t, false>,
                                   hist_leaves_kernel<uint8_t, true>,
                                   hist_leaves_listed_kernel, device, stride,
-                                  f, B, 1, design, min_tiles, out);
+                                  f, B, 1, design, out);
   if (esz == 2)
     return (int)lgbt::plan_launch(hist_leaves_kernel<uint16_t, false>,
                                   hist_leaves_kernel<uint16_t, true>,
                                   hist_leaves_listed_kernel, device, stride,
-                                  f, B, 2, design, min_tiles, out);
+                                  f, B, 2, design, out);
   return (int)cudaErrorInvalidValue;
 }
 
 // The listed design's main kernel over the lists of one call (ptrs: see
-// lgbt::launch_listed; k slots) into out ([k, f, B, 3] float32); partial,
-// units and grid as hist_full_listed_launch's.
+// lgbt::launch_listed; k slots) of f features into out ([k, fout, B, 3]
+// float32 from the lists' first feature); partial, units and grid as
+// hist_full_listed_launch's.
 extern "C" int hist_leaves_listed_launch(int device, const long long* ptrs,
                                          void* partial, void* out, int f,
                                          int B, int k, int tw_log2, int unit,
-                                         int units, int grid, void* stream) {
+                                         int units, int fout, int grid,
+                                         void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   return (int)lgbt::launch_listed(hist_leaves_listed_kernel, device, ptrs,
                                   partial, out, f, B, k, tw_log2, unit, units,
-                                  grid, (cudaStream_t)stream);
+                                  fout, grid, (cudaStream_t)stream);
 }
 
-// The launch geometry: the plan's feature group, tile rows, bin tiles,
-// bins a bin tile and threads; the CTAs along x, the blocks each takes
-// and the partials each may write.
+// The launch geometry: the plan's feature group, tile rows and threads;
+// the CTAs along x, the blocks each takes and the partials each may
+// write.
 struct LeavesGrid {
-  int fg, tile, tiles, tile_bins, threads, grid_x, bpc, parts;
+  int fg, tile, threads, grid_x, bpc, parts;
 };
 
 template <typename T, bool kDealt>
@@ -167,16 +161,16 @@ static cudaError_t launch_leaves_as(int device, const void* comb,
                                     int br, int k, double* partial,
                                     int32_t* pslot, const LeavesGrid& q,
                                     cudaStream_t s) {
-  const int smem = (int)lgbt::smem_bytes(q.fg, q.tile_bins, q.tile, stride,
-                                         sizeof(T), kDealt);
+  const int smem = (int)lgbt::smem_bytes(q.fg, B, q.tile, stride, sizeof(T),
+                                         kDealt);
   cudaError_t e =
       lgbt::allow_smem(hist_leaves_kernel<T, kDealt>, device, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(q.grid_x, (f + q.fg - 1) / q.fg * q.tiles);
+  const dim3 grid(q.grid_x, (f + q.fg - 1) / q.fg);
   hist_leaves_kernel<T, kDealt><<<grid, q.threads, smem, s>>>(
       (const T*)comb, c, stride, f, B, (const float*)g, (const float*)h,
       (const float*)m, (const int32_t*)block_leaf, br, k, partial, pslot,
-      q.fg, q.tile, q.tiles, q.tile_bins, q.bpc, q.parts);
+      q.fg, q.tile, q.bpc, q.parts);
   return cudaGetLastError();
 }
 
@@ -197,31 +191,26 @@ static cudaError_t launch_leaves(int device, const void* comb, long long c,
 }
 
 // The main kernel over grid_x CTAs (bpc blocks each) by the feature
-// groups' bin tiles, then the reduce pass over its grid_x * parts
-// partials into out ([k, f, B, 3] float32).  parts >= min(bpc, k);
-// scratch holds the partials ([grid_x * parts, f, B, 3] float64), then
-// their slots (int32 each).  comb holds u8 (esz 1) or u16 (esz 2) values,
-// rows of `stride` bins; fg, tile, tiles, tile_bins, threads and design
-// are the plan's.
+// groups, then the reduce pass over its grid_x * parts partials into out
+// ([k, f, B, 3] float32).  parts >= min(bpc, k); scratch holds the
+// partials ([grid_x * parts, f, B, 3] float64), then their slots (int32
+// each).  comb holds u8 (esz 1) or u16 (esz 2) values, rows of `stride`
+// bins; fg, tile, threads and design are the plan's.
 extern "C" int hist_leaves_launch(int device, const void* comb, long long c,
                                   long long stride, int f, int B, int esz,
                                   const void* g, const void* h, const void* m,
                                   const void* block_leaf, int br, int k,
                                   void* scratch, void* out, int fg, int tile,
-                                  int tiles, int tile_bins, int threads,
-                                  int design, int grid_x, int bpc, int parts,
-                                  void* stream) {
+                                  int threads, int design, int grid_x,
+                                  int bpc, int parts, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (parts < (bpc < k ? bpc : k)) return (int)cudaErrorInvalidValue;
-  if (tiles < 1 || tile_bins < 1 || (long long)tiles * tile_bins < B ||
-      (long long)(tiles - 1) * tile_bins >= B)
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long E = (long long)f * B * 3;
   double* partial = (double*)scratch;
   int32_t* pslot = (int32_t*)(partial + (long long)grid_x * parts * E);
-  const LeavesGrid q{fg, tile, tiles, tile_bins, threads, grid_x, bpc, parts};
+  const LeavesGrid q{fg, tile, threads, grid_x, bpc, parts};
   if (esz == 1)
     e = launch_leaves<uint8_t>(device, comb, c, stride, f, B, g, h, m,
                                block_leaf, br, k, partial, pslot, design, q,

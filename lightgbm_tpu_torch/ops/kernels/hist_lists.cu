@@ -7,8 +7,7 @@
 // every row into a one-hot product of the whole width at once.  It exists
 // because on this card one feature's [B, 3] float64 histogram does not
 // fit a CTA above ~8,900 bins: the bins are split into tiles, and
-// without lists every tile's CTA walked every row (the walked design,
-// paced by a ticket passed through each 64-row pair, in the tile or not).
+// without lists every tile's CTA would walk every row.
 //
 // Rows come in chunks of cr rows (the full pass: kListRows; the leaves:
 // the widest divisor of their block_rows up to kListRows, so a chunk lies
@@ -56,8 +55,22 @@
 // the leaves' cr = 512); a row gh4's 16; a segment (f x T x k of them) 24
 // bytes of tables and the main kernel's [2^tw_log2, 3] float64 sum.  At 1M
 // x 28, B = 65,536: 311 MB of lists, 11.1 bytes a pair against the u16
-// bins' 2, and 44 MB of sums.  Nothing caps it by rows: a call whose
-// buffer the card cannot hold raises (histogram.py::_list_buffer).
+// bins' 2, and 44 MB of sums.  The wrapper bounds it: a call whose buffer
+// the card cannot allocate beside its output runs its features in passes
+// of half as many until they fit, each its own launch of these kernels on
+// the columns of the pass, and keeps them for later calls of the shape
+// (histogram.py::halve_passes; at least one feature a pass, ~11 bytes a
+// row), and only a feature that no budget holds raises.
+//
+// tmp stays.  Without it the copy kernel would re-stage its chunk's rows
+// from the bins: a warp a (chunk, feature) reads 2 bytes of each row of a
+// row-major matrix (a 32-byte sector a row at 1M x 28: 16 times the bytes
+// it keeps), so the chunk's rows would be read once for each of the 28
+// features, against tmp's 4 bytes an entry written and read once,
+// coalesced; and it would redo the count's ballots to find each row's
+// place.  By bytes that is about 0.9 GB of reads for 1M x 28 against
+// tmp's 0.22 GB, more than the pre-pass takes now (a reckoning from the
+// shapes, not a timing).
 #include "hist_common.cuh"
 
 namespace lgbt {

@@ -16,7 +16,8 @@
 // A CTA of 8 warps owns buckets [b0, b0 + nbc) of one feature (nbc <= 8;
 // a feature of more buckets takes ceil(nb / 8) CTAs along y) and a range
 // of rows, which it walks in segments of at most 512 rows (4 chunks; a
-// segment never crosses an int8 quantization block or a leaves block):
+// segment never crosses a leaves block, nor an int8 quantization block of
+// 512 rows or more; int8 over smaller blocks: below):
 //
 // 1. Each thread holds two adjacent rows of the segment, loaded a segment
 //    ahead of their use: their bins of the CTA's feature (read from the
@@ -53,10 +54,46 @@
 //    every home warp folds every segment, zero sums too, so it reaches
 //    every lane.
 //
-// Four barriers a segment: after the ranks, the places, the placement and
-// the multiply.  On an H100 the kernel is bound by the latency of these
-// short phases at 16 warps an SM, not by one of them: taking the sort, the
-// one-hot build or the mma out alone saves 0.2-0.3 of it
+// int8 over quantization blocks under 512 rows (bucket_cta_int8, the body
+// kInt8Span, its own kernel instantiation: blocks of 512 rows or more,
+// the leaves' included, keep bucket_cta above, whose segments hold one
+// block).  Its int32 sums must be folded by their own block's scales, and
+// the JAX package's blocks are small where the layout or the width asks
+// for it (pallas_block_rows: 128 rows row-major at every u16 width,
+// 128-384 feature-major above 1,024 bins).  A segment sorted one block at
+// a time would pay the sort, the dealing and four barriers for 128 rows;
+// so its segments keep the 512 rows of the others' and span up to four
+// blocks:
+// * the sort key carries the row's block in the segment, (block, bucket,
+//   tile), eight bits, so that each bucket's region holds its rows
+//   grouped by block in block order, each block's run sorted by tile and
+//   padded to whole 32-row steps on its own (the padding rows of zero q
+//   sit on the run's last tile, so a step's tiles stay its rows'): an
+//   mma step never mixes two blocks;
+// * a warp folds its int32 sums into its float64 sums in shared memory
+//   (a thread t < 3 holds channel t of its 16 lanes, as the bf16 bodies'
+//   registers do) at the end of each block's run of its home steps, and
+//   once a block from the slots of its bucket's helper runs, which the
+//   dealing cuts at block edges (a slot names its run's block);
+// * only runs that hold rows are folded; a block whose scale is not
+//   finite reaches every lane of its channel all the same (the dense
+//   design's rule: acc += 0 * s is NaN), folded once a segment by each
+//   home warp that holds none of its rows;
+// * a home run of at most kQScalarRows rows (16; above 1,024 bins most
+//   runs hold fewer) is added row by row in float64 instead: a fold
+//   converts and adds 128 lanes x 9 sums whatever the rows, a row 3
+//   products on the thread that owns its lane;
+// * the float64 sums stay in shared memory, as the one-block body's: in
+//   registers beside the int32 sums they spilled at the 128-register
+//   bound (2 CTAs an SM) and ran slower; at 1 CTA an SM slower still;
+// * a segment's blocks' scales are staged in shared memory once, by the
+//   last warp (the least-loaded under skew), for the folds to read.
+// The float64 sums flush to out once a CTA range (and slot).
+//
+// Barriers: four a segment (after the ranks, the places, the placement
+// and the multiply).  On an H100 the kernel is bound by the latency of
+// these short phases at 16 warps an SM, not by one of them: taking the
+// sort, the one-hot build or the mma out alone saves 0.2-0.3 of it
 // (scripts/torch_onehot_ablation.py, PERF.md).
 //
 // The staged bf16 rows are ordered hi0, lo0, hi1, lo1, hi2, lo2, so a
@@ -70,7 +107,11 @@
 // the tensor cores now do at most 2 * 8 * 128 flops a (row, feature) (its
 // bucket's 8 tiles; fewer where a step's rows share tiles), 0.058 ms at
 // 1M x 28 at 989 TFLOP/s, against the bytes' 0.0204 ms; the phases above
-// keep the kernel far from either.
+// keep the kernel far from either.  int8 over 128-row blocks pays each
+// (bucket, block) run's own step and fold (16 rows a run at B = 1,024:
+// about twice the rows' tensor-core work with the padding, and a fold of
+// 128 lanes for them), and above 1,024 bins every CTA of a feature reads
+// every row of it (64 CTAs a feature at 65,536).
 #pragma once
 
 #include <type_traits>
@@ -120,11 +161,65 @@ struct BucketBody<kInt8> {
   static constexpr int kRowsBytes = 9 * kStride;
 };
 
+// int8 over quantization blocks under 512 rows, whose segments span them
+// (bucket_cta_int8): a body of the bucketed layer only, with int8's rows
+// and a layout of its own.  A bucket's region holds its rows of each
+// block a segment touches (at most kSegChunks), each block's run padded on
+// its own, which leaves room for fewer slots.
+constexpr int kInt8Span = kNumVariants;
+template <>
+struct BucketBody<kInt8Span> {
+  static constexpr int kStep = 32;
+  static constexpr int kRunMax = 4;
+  static constexpr int kVals = kTiles * 6;
+  static constexpr int kNSlot = 5;
+  static constexpr int kRegion = kSegRows + kSegChunks * kStep;
+  static constexpr int kCap = kMaxBuckets * kRegion;
+  static constexpr int kStride = kCap + 32;
+  static constexpr int kRowsBytes = 9 * kStride;
+};
+
+// the bodies whose rows are int8's nine q bytes
+__host__ __device__ constexpr bool int8_rows(int V) {
+  return V == kInt8 || V == kInt8Span;
+}
+
 // A segment's counts and places (shared memory)
 struct BucketPlan {
   int off[kBWarps][kKeys];         // a warp's count a key, then a row's
                                    // place: off[warp][key] + rank
   int nrow[kMaxBuckets];           // a bucket's rows, before padding
+};
+
+// kInt8Span's: its keys (block in the segment, bucket, tile) are up to 8 bits,
+// and each (bucket, block) run has its rows and its first step in the
+// bucket's region (bstep[b][nblk]: the bucket's steps); rblk names each
+// helper run's block; the segment's blocks' scales, staged once a segment
+// in one of two buffers (a segment's folds read its own while the next
+// segment stages the other), and which blocks have a scale that is not
+// finite
+constexpr int kQBlocks = kSegChunks;
+constexpr int kQKeys = kQBlocks * kKeys;
+struct QPlan {
+  int off[kBWarps][kQKeys];
+  int nrow[kMaxBuckets][kQBlocks];
+  int bstep[kMaxBuckets][kQBlocks + 1];
+  int rblk[8];                  // at least kNSlot
+  float scl[2][kQBlocks * 9];
+  uint32_t bad[4];              // [2] used; keeps the size 16-aligned
+};
+static_assert(BucketBody<kInt8Span>::kNSlot <= 8 &&
+                  sizeof(QPlan) % 16 == 0,
+              "the int8 plan holds a block for each slot and keeps what "
+              "follows it 16-byte aligned");
+
+template <int V>
+struct PlanOf {
+  using type = BucketPlan;
+};
+template <>
+struct PlanOf<kInt8Span> {
+  using type = QPlan;
 };
 
 template <int V>
@@ -142,8 +237,8 @@ template <int V>
 __host__ __device__ constexpr int bucket_smem() {
   return BucketBody<V>::kRowsBytes + BucketBody<V>::kCap * 2 +
          BucketBody<V>::kNSlot * bucket_slot_bytes<V>() +
-         (int)sizeof(BucketPlan) +
-         (V == kInt8 ? kInt8AccBytes : 0);
+         (int)sizeof(typename PlanOf<V>::type) +
+         (int8_rows(V) ? kInt8AccBytes : 0);
 }
 
 // What a bucketed CTA reads.  bins: u16, [f, ld] (feature-major; rows of
@@ -184,7 +279,7 @@ __device__ __forceinline__ void load_rows(const BSrc& S, int fa, int64_t r,
     const uint32_t b1 = r + 1 < S.n ? S.bins[(r + 1) * S.ld + fa] : 0xFFFFu;
     w.bins = b0 | (b1 << 16);
   }
-  if constexpr (V == kInt8) {
+  if constexpr (int8_rows(V)) {
     // a segment's last threads may stand past q's padded rows (ldq, a
     // multiple of kChunk, so r + 1 < ldq whenever r < ldq)
 #pragma unroll
@@ -230,28 +325,29 @@ __device__ __forceinline__ bool split_pair(float g, float h, float m,
 // The shared memory of a bucketed CTA
 template <int V>
 struct BShared {
+  using Plan = typename PlanOf<V>::type;
   uint8_t* rows;       // [6][kStride] u16, or [9][kStride] bytes
   uint16_t* bins;      // [kCap]
   int* slots;          // [kNSlot][kVals][kSlotThreads] f32 or int32
-  BucketPlan* plan;
+  Plan* plan;
   double* acc;         // int8: [kBWarps][2 kTiles][kSlotThreads]
   __device__ __forceinline__ explicit BShared(uint8_t* smem)
       : rows(smem),
         bins(reinterpret_cast<uint16_t*>(smem + BucketBody<V>::kRowsBytes)),
         slots(reinterpret_cast<int*>(smem + BucketBody<V>::kRowsBytes +
                                      BucketBody<V>::kCap * 2)),
-        plan(reinterpret_cast<BucketPlan*>(
+        plan(reinterpret_cast<Plan*>(
             smem + BucketBody<V>::kRowsBytes + BucketBody<V>::kCap * 2 +
             BucketBody<V>::kNSlot * bucket_slot_bytes<V>())),
         acc(reinterpret_cast<double*>(
             smem + BucketBody<V>::kRowsBytes + BucketBody<V>::kCap * 2 +
-            BucketBody<V>::kNSlot * bucket_slot_bytes<V>() +
-            sizeof(BucketPlan))) {}
+            BucketBody<V>::kNSlot * bucket_slot_bytes<V>() + sizeof(Plan))) {}
 };
 
 // Write one row (i: 0 or 1 of the thread's pair) at compacted place pos;
-// pad writes a row that adds nothing (zero gh) on lane 127 of bucket bk
-// (its last tile, which keeps the bucket's tiles in order)
+// a pad is a row that adds nothing (zero gh) at bin `bin`, put_pad's on
+// lane 127 of bucket bk (its last tile, which keeps the bucket's tiles in
+// order)
 template <int V>
 __device__ __forceinline__ void put_row(const BShared<V>& sh, int pos,
                                         uint32_t bin,
@@ -259,7 +355,7 @@ __device__ __forceinline__ void put_row(const BShared<V>& sh, int pos,
                                         const Raw& w, int i) {
   constexpr int kS = BucketBody<V>::kStride;
   sh.bins[pos] = (uint16_t)bin;
-  if constexpr (V == kInt8) {
+  if constexpr (int8_rows(V)) {
 #pragma unroll
     for (int s = 0; s < 9; ++s)
       sh.rows[s * kS + pos] = (uint8_t)(w.q[s] >> (8 * i));
@@ -274,11 +370,11 @@ __device__ __forceinline__ void put_row(const BShared<V>& sh, int pos,
 }
 
 template <int V>
-__device__ __forceinline__ void put_pad(const BShared<V>& sh, int pos,
-                                        int bucket) {
+__device__ __forceinline__ void put_pad_at(const BShared<V>& sh, int pos,
+                                           int bin) {
   constexpr int kS = BucketBody<V>::kStride;
-  sh.bins[pos] = (uint16_t)(bucket * kWarpLanes + kWarpLanes - 1);
-  if constexpr (V == kInt8) {
+  sh.bins[pos] = (uint16_t)bin;
+  if constexpr (int8_rows(V)) {
 #pragma unroll
     for (int s = 0; s < 9; ++s) sh.rows[s * kS + pos] = 0;
   } else {
@@ -286,6 +382,12 @@ __device__ __forceinline__ void put_pad(const BShared<V>& sh, int pos,
 #pragma unroll
     for (int c = 0; c < 6; ++c) r[c * kS + pos] = 0;
   }
+}
+
+template <int V>
+__device__ __forceinline__ void put_pad(const BShared<V>& sh, int pos,
+                                        int bucket) {
+  put_pad_at<V>(sh, pos, bucket * kWarpLanes + kWarpLanes - 1);
 }
 
 // The tiles [lo, hi] a step's rows fall in, from its first and last
@@ -337,11 +439,12 @@ __device__ __forceinline__ void bucket_run(float (&c)[kTiles][4],
 // tile's column j is staged row j (for t < 3: levels 2 and 3 of channel
 // t); the second's columns 0, 2, 4 are staged rows 6, 7, 8 (level 1 of
 // channels 0, 1, 2), the rest zero.
+template <int V>
 __device__ __forceinline__ void bucket_run_int8(int (&c)[kTiles][2][4],
-                                                const BShared<kInt8>& sh,
+                                                const BShared<V>& sh,
                                                 int pos, int len,
                                                 const Int8Ids& ids) {
-  constexpr int kS = BucketBody<kInt8>::kStride;
+  constexpr int kS = BucketBody<V>::kStride;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const uint8_t* qp = sh.rows + g * kS + pos + 8 * t;
   const bool lv1 = g < 6 && !(g & 1);
@@ -367,7 +470,8 @@ __device__ __forceinline__ void bucket_run_int8(int (&c)[kTiles][2][4],
 
 // A consumer thread's float64 sums: lanes g (h = 0) and g + 8 (h = 1) of
 // each tile, channel t (t < 3; threads t = 3 hold none), in registers
-// (bf16) or in shared memory (int8, 16 a thread strided by kSlotThreads)
+// (bf16) or in shared memory (int8, 16 a thread strided by kSlotThreads:
+// its int32 sums take the registers)
 struct RegAcc {
   double v[kTiles][2];
   __device__ __forceinline__ double& at(int tl, int h) { return v[tl][h]; }
@@ -415,6 +519,52 @@ __device__ __forceinline__ void fold_levels(A& acc,
                      ((double)c[tl][0][0] * s2 + (double)c[tl][0][1] * s3);
     acc.at(tl, 1) += (double)c[tl][1][2] * s1 +
                      ((double)c[tl][0][2] * s2 + (double)c[tl][0][3] * s3);
+  }
+}
+
+// int8: a home run of few rows (at most kQScalarRows, all of one block)
+// added row by row in float64, with no step and no fold: lane l of the
+// bucket (its first bin base) and channel t are thread (l % 8, t)'s, as
+// in fold_levels, and a row adds its three levels times their scales.
+// Each product is the one the fold takes of the row's share of an int32
+// sum, so the float64 sums agree with the fold's in practice.  Every lane
+// of the warp calls it.
+constexpr int kQScalarRows = 16;
+template <typename A>
+__device__ __forceinline__ void add_rows(A& acc,
+                                         const BShared<kInt8Span>& sh,
+                                         int pos, int n, int base,
+                                         const float* __restrict__ sc) {
+  constexpr int kS = BucketBody<kInt8Span>::kStride;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  if (t == 3) return;
+  const double s1 = sc[t], s2 = sc[3 + t], s3 = sc[6 + t];
+  const int8_t* q = reinterpret_cast<const int8_t*>(sh.rows) + pos;
+  for (int r = 0; r < n; ++r) {
+    const int l = sh.bins[pos + r] - base;
+    if ((l & 7) != g) continue;
+    acc.at(l >> 4, (l >> 3) & 1) +=
+        (double)q[(6 + t) * kS + r] * s1 +
+        ((double)q[2 * t * kS + r] * s2 +
+         (double)q[(2 * t + 1) * kS + r] * s3);
+  }
+}
+
+// int8: what folding zero sums by a block's scales adds, where this
+// thread's channel has a scale that is not finite: NaN on every lane (0 *
+// NaN, 0 * inf), as the dense design's fold of a block gives it
+template <typename A>
+__device__ __forceinline__ void fold_nonfinite(A& acc,
+                                               const float* __restrict__ sc) {
+  const int t = threadIdx.x & 3;
+  if (t == 3) return;
+  const double z = 0.0 * (double)sc[t] +
+                   (0.0 * (double)sc[3 + t] + 0.0 * (double)sc[6 + t]);
+  if (z == 0.0) return;
+#pragma unroll
+  for (int tl = 0; tl < kTiles; ++tl) {
+    acc.at(tl, 0) += z;
+    acc.at(tl, 1) += z;
   }
 }
 
@@ -510,12 +660,14 @@ __device__ __forceinline__ void zero_tiles(float (&c)[kTiles][4]) {
 }
 
 // The warp's rows of key k among one row of each thread's pair (x: the
-// ballots of those rows: x[0] the rows that count, x[1..6] their keys'
-// bits)
-__device__ __forceinline__ uint32_t peers(const uint32_t (&x)[7], int k) {
+// ballots of those rows: x[0] the rows that count, x[1..kBits] their
+// keys' bits)
+template <int kBits>
+__device__ __forceinline__ uint32_t peers(const uint32_t (&x)[kBits + 1],
+                                          int k) {
   uint32_t m = x[0];
 #pragma unroll
-  for (int bit = 0; bit < 6; ++bit)
+  for (int bit = 0; bit < kBits; ++bit)
     m &= ((k >> bit) & 1) ? x[bit + 1] : ~x[bit + 1];
   return m;
 }
@@ -538,16 +690,58 @@ __device__ __forceinline__ void rank_rows(BucketPlan& P, const int (&key)[2],
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     if (key[i] >= 0)
-      rank[i] = __popc(peers(x[0], key[i]) & lt) +
-                __popc(peers(x[1], key[i]) & lt) +
+      rank[i] = __popc(peers<6>(x[0], key[i]) & lt) +
+                __popc(peers<6>(x[1], key[i]) & lt) +
                 (i == 1 && key[0] == key[1]);
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     const int k = lane + 32 * q;
     if (k < nkeys)
-      P.off[wp][k] = __popc(peers(x[0], k)) + __popc(peers(x[1], k));
+      P.off[wp][k] = __popc(peers<6>(x[0], k)) + __popc(peers<6>(x[1], k));
   }
 }
+
+// The same for int8's keys, up to 256 (kBits bits): each row writes its
+// own key's count into off (every row of a key writes the same), the
+// others stay zero
+template <int kBits>
+__device__ __forceinline__ void rank_own_keys(int* off, const int (&key)[2],
+                                              int (&rank)[2], int nkeys) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t lt = (1u << lane) - 1u;
+  for (int k = lane; k < nkeys; k += 32) off[k] = 0;
+  uint32_t x[2][kBits + 1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    x[i][0] = __ballot_sync(~0u, key[i] >= 0);
+#pragma unroll
+    for (int bit = 0; bit < kBits; ++bit)
+      x[i][bit + 1] = __ballot_sync(~0u, (key[i] >> bit) & 1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (key[i] >= 0) {
+      const uint32_t m0 = peers<kBits>(x[0], key[i]);
+      const uint32_t m1 = peers<kBits>(x[1], key[i]);
+      rank[i] =
+          __popc(m0 & lt) + __popc(m1 & lt) + (i == 1 && key[0] == key[1]);
+      off[key[i]] = __popc(m0) + __popc(m1);
+    }
+}
+
+// int8's keys over a segment of nblk quantization blocks: (block, bucket,
+// tile), as few bits as the blocks need
+__device__ __forceinline__ void rank_blocks(int* off, const int (&key)[2],
+                                            int (&rank)[2], int nblk) {
+  if (nblk == 1)
+    rank_own_keys<6>(off, key, rank, kKeys);
+  else if (nblk == 2)
+    rank_own_keys<7>(off, key, rank, 2 * kKeys);
+  else
+    rank_own_keys<8>(off, key, rank, nblk * kKeys);
+}
+
 
 // Warp b, after the counts: the places of bucket b's rows in its region
 // (ordered by tile, then warp, then rank), and its rows.  Lane l takes
@@ -676,9 +870,10 @@ __device__ __forceinline__ Run deal_run(const Deal& d, int r, int nbc,
 }
 
 // The segments a CTA walks: whole chunks [sc, end), cut at 4 chunks and
-// at each block of cpb chunks (an int8 quantization block, a leaves
-// block); with leaf (the leaves), a block whose slot is outside [0, k) is
-// skipped
+// at each block of cpb chunks (a leaves block, or int8's quantization
+// block of kSegChunks chunks or more; the other full passes pass a cpb no
+// range reaches); with leaf (the leaves), a block whose slot is
+// outside [0, k) is skipped
 struct Segs {
   int64_t end;
   int cpb;
@@ -847,6 +1042,284 @@ __device__ __forceinline__ void bucket_cta(uint8_t* smem, const BSrc& S,
     if constexpr (V != kInt8) fold_home();
     flush_bucket(out + cur * slot_stride, acc, my_lane0, lanes);
   }
+}
+
+// --- int8 over quantization blocks (see the top) ---------------------------
+
+// Warp b, after the counts: the places of bucket b's rows in its region,
+// block by block (each block's run ordered by tile, then warp, then rank),
+// each run's rows and first step, and its padding to a whole step: rows
+// of zero q on the run's last tile (bucket b is the CTA's b0 + b).  Lane l
+// takes tile l / 4 of warps 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void qrun_offsets(const BShared<kInt8Span>& sh,
+                                             QPlan& P, int b, int b0,
+                                             int nblk) {
+  constexpr int kStep = BucketBody<kInt8Span>::kStep;
+  const int l = threadIdx.x & 31, w0 = 2 * (l & 3);
+  int at0 = b * BucketBody<kInt8Span>::kRegion, steps = 0;
+  if (l == 0) P.bstep[b][0] = 0;
+  for (int j = 0; j < nblk; ++j) {
+    const int k = (j << 6) | (b << 3) | (l >> 2);
+    const int c0 = P.off[w0][k], c1 = P.off[w0 + 1][k];
+    int incl = c0 + c1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(~0u, incl, o);
+      if (l >= o) incl += u;
+    }
+    const int at = at0 + incl - c0 - c1;
+    P.off[w0][k] = at;
+    P.off[w0 + 1][k] = at + c0;
+    const int n = __shfl_sync(~0u, incl, 31);
+    const uint32_t held = __ballot_sync(~0u, c0 + c1 > 0);
+    const int ns = (n + kStep - 1) / kStep;
+    if (l == 0) {
+      P.nrow[b][j] = n;
+      P.bstep[b][j + 1] = steps + ns;
+    }
+    if (l < ns * kStep - n)
+      put_pad_at<kInt8Span>(sh, at0 + n + l,
+                        (b0 + b) * kWarpLanes +
+                            16 * (held ? (31 - __clz(held)) >> 2 : 0));
+    steps += ns;
+    at0 += ns * kStep;
+  }
+}
+
+// The dealing of an int8 segment (make_deal's, with the bucket's steps
+// taken from its runs and the helper runs cut at block edges); lane b is
+// bucket b.
+struct QDeal {
+  int steps, H, L, nr, rbase, NR;
+};
+
+// Helper runs of bucket b: its steps from H on, in runs of at most L steps
+// that end at each block's end
+__device__ __forceinline__ int qruns(const QPlan& P, int b, int nblk, int H,
+                                     int L) {
+  int n = 0;
+  for (int j = 0; j < nblk; ++j) {
+    const int e = P.bstep[b][j + 1] - max(H, P.bstep[b][j]);
+    if (e > 0) n += (e + L - 1) / L;
+  }
+  return n;
+}
+
+__device__ __forceinline__ QDeal make_qdeal(const QPlan& P, int nbc,
+                                            int nblk) {
+  constexpr int kRunMax = BucketBody<kInt8Span>::kRunMax;
+  constexpr int kNSlot = BucketBody<kInt8Span>::kNSlot;
+  const int l = threadIdx.x & 31;
+  const bool on = l < nbc;
+  QDeal d;
+  d.steps = on ? P.bstep[l][nblk] : 0;
+  const int tstar =
+      ((int)__reduce_add_sync(~0u, (unsigned)d.steps) + kBWarps - 1) /
+      kBWarps;
+  d.L = min(max(tstar, 1), kRunMax);
+  d.H = min(d.steps, tstar + 1);
+  d.nr = on ? qruns(P, l, nblk, d.H, d.L) : 0;
+  d.NR = (int)__reduce_add_sync(~0u, (unsigned)d.nr);
+  if (d.NR > kNSlot) {                       // longer runs, then none
+    d.L = kRunMax;
+    d.nr = on ? qruns(P, l, nblk, d.H, d.L) : 0;
+    d.NR = (int)__reduce_add_sync(~0u, (unsigned)d.nr);
+    if (d.NR > kNSlot) {
+      d.H = d.steps;
+      d.nr = d.NR = 0;
+    }
+  }
+  d.rbase = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxBuckets; ++j) {
+    const int nj = __shfl_sync(~0u, d.nr, j);
+    if (j < l) d.rbase += nj;
+  }
+  return d;
+}
+
+// Helper run r of an int8 segment: its bucket, block, first row and steps,
+// and the warp it goes to (lane w holds warp w's load, which this adds to)
+struct QRun {
+  int warp, bucket, blk, pos, len;
+};
+
+__device__ __forceinline__ QRun qdeal_run(const QPlan& P, const QDeal& d,
+                                          int r, int nbc, int nblk,
+                                          uint32_t& load) {
+  const int l = threadIdx.x & 31;
+  const uint32_t has =
+      __ballot_sync(~0u, l < nbc && d.nr > 0 && d.rbase <= r);
+  QRun u;
+  u.bucket = 31 - __clz(has);
+  int jr = r - __shfl_sync(~0u, d.rbase, u.bucket);
+  const int H = __shfl_sync(~0u, d.H, u.bucket);
+  int s = 0;
+  u.blk = 0;
+  u.len = 0;
+  for (int j = 0; j < nblk; ++j) {
+    const int a = max(H, P.bstep[u.bucket][j]);
+    const int e = P.bstep[u.bucket][j + 1] - a;
+    const int n = e > 0 ? (e + d.L - 1) / d.L : 0;
+    if (jr < n) {
+      s = a + jr * d.L;
+      u.len = min(d.L, e - jr * d.L);
+      u.blk = j;
+      break;
+    }
+    jr -= n;
+  }
+  u.pos = u.bucket * BucketBody<kInt8Span>::kRegion +
+          BucketBody<kInt8Span>::kStep * s;
+  const uint32_t key = l < kBWarps ? (load << 3) | (uint32_t)l : ~0u;
+  u.warp = (int)(__reduce_min_sync(~0u, key) & 7u);
+  if (l == u.warp) load += (uint32_t)u.len;
+  return u;
+}
+
+// An int8 bucketed CTA over the segments from chunk start (G), its rows
+// quantized in blocks of qcpb chunks (fewer than kSegChunks): as
+// bucket_cta, with the segment's rows sorted by (block, bucket, tile) and
+// each warp's int32 sums folded into its float64 sums by their own
+// block's scales.
+template <int L>
+__device__ __forceinline__ void bucket_cta_int8(uint8_t* smem, const BSrc& S,
+                                                const Segs& G, int qcpb,
+                                                int64_t start, int fa, int b0,
+                                                int nbc,
+                                                double* __restrict__ out,
+                                                int64_t lane0, int lanes,
+                                                int64_t slot_stride) {
+  constexpr int kStep = BucketBody<kInt8Span>::kStep;
+  constexpr int kRegion = BucketBody<kInt8Span>::kRegion;
+  constexpr int kSlotWords = bucket_slot_bytes<kInt8Span>() / 4;
+  const BShared<kInt8Span> sh(smem);
+  QPlan& P = *sh.plan;
+  const int tid = threadIdx.x, wp = tid >> 5, lane = tid & 31, g = lane >> 2;
+  const bool home = wp < nbc;
+  const int64_t my_lane0 = lane0 + (int64_t)wp * kWarpLanes;
+  SmemAcc acc{sh.acc + wp * 2 * kTiles * kSlotThreads + slot_thread()};
+  zero_acc(acc);
+  const Int8Ids hids = make_int8_ids((b0 + wp) * kWarpLanes + g);
+  const uint32_t none[3] = {0u, 0u, 0u};
+  Raw w;
+  int64_t sc = G.first(start);
+  if (sc < G.end) load_rows<kInt8Span, L>(S, fa, sc * kChunk + 2 * tid, w);
+  int cur = -1, parity = 0;
+  while (sc < G.end) {
+    const int64_t blk = sc / G.cpb;
+    const int slot = G.leaf != nullptr ? G.leaf[blk] : 0;
+    if (slot != cur) {
+      if (cur >= 0 && home)
+        flush_bucket(out + cur * slot_stride, acc, my_lane0, lanes);
+      cur = slot;
+    }
+    const int64_t se = G.stop(sc);
+    const int seg_rows = (int)(se - sc) * kChunk;
+    const int64_t nsc = G.first(se);
+    // the segment's quantization blocks: qb0 and the nblk after it, their
+    // scales staged by the last warp (the home of the least-hit bucket
+    // under skew; read after the next barrier)
+    const int64_t qb0 = sc / qcpb;
+    const int nblk = (int)((se - 1) / qcpb - qb0) + 1;
+    float* sc9 = P.scl[parity];
+    if (wp == kBWarps - 1) {
+      uint32_t bad = 0;
+      for (int i = lane; i < 9 * nblk; i += 32) {
+        const float x = S.scales[qb0 * 9 + i];
+        sc9[i] = x;
+        if (!isfinite(x)) bad |= 1u << (i / 9);
+      }
+      bad = __reduce_or_sync(~0u, bad);
+      if (lane == 0) P.bad[parity] = bad;
+    }
+    // 1. the pair's keys: block in the segment, bucket and tile (bin / 16
+    // - 8 b0), or -1: dropped
+    const int64_t r = sc * kChunk + 2 * tid;
+    const bool mine = 2 * tid < seg_rows;
+    const int bib = mine ? (int)(r / kChunk / qcpb - qb0) : 0;
+    int key[2], rank[2] = {0, 0};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k =
+          (int)((w.bins >> (16 * i)) & 0xFFFFu) / 16 - kTiles * b0;
+      key[i] = (mine && r + i < S.n && k >= 0 && k < kTiles * nbc)
+                   ? (bib << 6) | k
+                   : -1;
+    }
+    // 2. ranks and counts
+    rank_blocks(P.off[wp], key, rank, nblk);
+    __syncthreads();
+    // 3. each (bucket, block) run's places, then the rows there and each
+    // run's padding on its last tile
+    if (home) qrun_offsets(sh, P, wp, b0, nblk);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (key[i] >= 0)
+        put_row<kInt8Span>(sh, P.off[wp][key[i]] + rank[i],
+                       (w.bins >> (16 * i)) & 0xFFFFu, none, w, i);
+    __syncthreads();
+    // 4. the home steps block by block, each block's sums folded by its
+    // scales; the helper runs dealt to this warp into their slots
+    const QDeal d = make_qdeal(P, nbc, nblk);
+    const int hlen = __shfl_sync(~0u, d.H, wp);
+    const int slo = __shfl_sync(~0u, d.rbase, wp),
+              shi = slo + __shfl_sync(~0u, d.nr, wp);
+    uint32_t load = lane < nbc ? (uint32_t)d.H : 0u;
+    uint32_t folded = 0;
+    int ci[kTiles][2][4];
+    if (home)
+      for (int j = 0; j < nblk; ++j) {
+        const int s0 = P.bstep[wp][j], s1 = min(P.bstep[wp][j + 1], hlen);
+        if (s1 <= s0) continue;
+        const int n = P.nrow[wp][j];
+        if (n <= kQScalarRows && s1 == P.bstep[wp][j + 1]) {
+          // a block whose scale is not finite still takes fold_nonfinite
+          add_rows(acc, sh, wp * kRegion + kStep * s0, n,
+                   (b0 + wp) * kWarpLanes, sc9 + 9 * j);
+          continue;
+        }
+        zero_sums(ci);
+        bucket_run_int8(ci, sh, wp * kRegion + kStep * s0, s1 - s0, hids);
+        fold_levels(acc, ci, sc9 + 9 * j);
+        folded |= 1u << j;
+      }
+    for (int q = 0; q < d.NR; ++q) {
+      const QRun u = qdeal_run(P, d, q, nbc, nblk, load);
+      if (u.warp != wp) continue;
+      zero_sums(ci);
+      bucket_run_int8(ci, sh, u.pos, u.len,
+                      make_int8_ids((b0 + u.bucket) * kWarpLanes + g));
+      put_slot(sh.slots + q * kSlotWords, ci);
+      if (lane == 0) P.rblk[q] = u.blk;
+    }
+    // the next segment's rows, loaded only now: held through the multiply
+    // they cost the int32 sums registers
+    if (nsc < G.end) load_rows<kInt8Span, L>(S, fa, nsc * kChunk + 2 * tid, w);
+    __syncthreads();
+    if (home) {
+      zero_sums(ci);
+      for (int q = slo; q < shi; ++q) {
+        add_slot(ci, sh.slots + q * kSlotWords);
+        const int j = P.rblk[q];
+        if (q + 1 == shi || P.rblk[q + 1] != j) {
+          fold_levels(acc, ci, sc9 + 9 * j);
+          folded |= 1u << j;
+          zero_sums(ci);
+        }
+      }
+      // a block whose scale is not finite reaches every lane: the folds
+      // of its runs did, and those of none here add it
+      const uint32_t bad = P.bad[parity] & ~folded;
+      for (int j = 0; j < nblk; ++j)
+        if ((bad >> j) & 1u) fold_nonfinite(acc, sc9 + 9 * j);
+    }
+    parity ^= 1;
+    sc = nsc;
+  }
+  if (cur >= 0 && home)
+    flush_bucket(out + cur * slot_stride, acc, my_lane0, lanes);
 }
 
 // Launch helpers (host)

@@ -46,12 +46,13 @@
 // At u16 widths the dense design's work grows with Bp, and the bucketed
 // design (onehot_bucket.cuh: rows sorted by their 128-lane bucket, each
 // warp multiplying only its bucket's rows) replaces it on the main path
-// (onehot_full_bucket_kernel; int8 only over quantization blocks of 512
-// rows or more, histogram.onehot_plan).  It gathers each CTA's feature
-// from the rows itself, so the wrapper hands it the matrix as stored in
-// both layouts (no transposed copy); K4's entry hands it the caller's
-// transposed bins.  The design argument of the entries picks (0 dense, 1
-// bucketed; bucketed serves u16 bins only).
+// (onehot_full_bucket_kernel, every u16 body at every width; int8 over
+// quantization blocks under 512 rows in a kernel of its own, kInt8Span,
+// whose segments of 512 rows span the blocks; histogram.onehot_plan).  It
+// gathers each CTA's feature from the rows itself, so the wrapper hands it
+// the matrix as stored in both layouts (no transposed copy); K4's entry
+// hands it the caller's transposed bins.  The design argument of the
+// entries picks (0 dense, 1 bucketed; bucketed serves u16 bins only).
 #include "onehot_bucket.cuh"
 
 using namespace lgbt_oh;
@@ -106,8 +107,9 @@ __global__ void __launch_bounds__(kThreads, kInt8MinBlocks)
 // The bucketed design over u16 bins: grid (row splits, f * gpf), CTA y
 // owning feature y / gpf and the buckets from (y % gpf) * bpg; a CTA's
 // chunk range may start and end inside a quantization block of cpb chunks
-// (int8; the bf16 bodies pass a cpb no range reaches).  out: zeroed [3,
-// lanes] float64.
+// (int8, whose segments it cuts; kInt8Span: blocks of cpb < kSegChunks
+// chunks, which its segments span; the bf16 bodies pass a cpb no range
+// reaches).  out: zeroed [3, lanes] float64.
 template <int V, int L>
 __global__ void __launch_bounds__(kBThreads, kBMinBlocks)
     onehot_full_bucket_kernel(BSrc S, double* __restrict__ out, int nb,
@@ -119,9 +121,15 @@ __global__ void __launch_bounds__(kBThreads, kBMinBlocks)
   const int64_t chunks = (S.n + kChunk - 1) / kChunk;
   const int64_t c0 = (int64_t)blockIdx.x * cps;
   const int64_t c1 = (c0 + cps < chunks) ? c0 + cps : chunks;
-  const Segs G{c1, cpb, nullptr, 0};
-  bucket_cta<V, L>(smem, S, G, c0, fa, b0, nbc, out,
-                   ((int64_t)fa * nb + b0) * kWarpLanes, lanes, 0);
+  const int64_t lane0 = ((int64_t)fa * nb + b0) * kWarpLanes;
+  if constexpr (V == kInt8Span) {
+    const Segs G{c1, 1 << 30, nullptr, 0};
+    bucket_cta_int8<L>(smem, S, G, cpb, c0, fa, b0, nbc, out, lane0, lanes,
+                       0);
+  } else {
+    const Segs G{c1, cpb, nullptr, 0};
+    bucket_cta<V, L>(smem, S, G, c0, fa, b0, nbc, out, lane0, lanes, 0);
+  }
 }
 
 // What one launch is given (the C entries' arguments).
@@ -204,16 +212,10 @@ static int launch_int8(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// The bucketed kernel of body V (int8 asks for kInt8Span over blocks under
+// kSegChunks chunks)
 template <int V, int L>
-static int launch_bucket(const Args& a) {
-  const long long chunks = (a.n + kChunk - 1) / kChunk;
-  if (V == kInt8) {
-    if (a.q == nullptr || a.scales == nullptr || a.qbr <= 0 ||
-        a.qbr % kChunk != 0 || !aligned16(a.q))
-      return (int)cudaErrorInvalidValue;
-  } else if (!(aligned16(a.g) && aligned16(a.h) && aligned16(a.m))) {
-    return (int)cudaErrorInvalidValue;
-  }
+static int run_bucket(const Args& a, long long chunks) {
   if (L == kFeatMajor && !featmajor_ok<uint16_t>(a, chunks))
     return (int)cudaErrorInvalidValue;
   if (a.lpf % kWarpLanes != 0) return (int)cudaErrorInvalidValue;
@@ -233,8 +235,23 @@ static int launch_bucket(const Args& a) {
                (int64_t)(chunks * kChunk), (const float*)a.scales};
   kern<<<dim3(gx, nlb), kBThreads, smem, a.stream>>>(
       S, (double*)a.out, bg.nb, bg.gpf, bg.bpg, a.lanes, (int64_t)cps,
-      V == kInt8 ? a.qbr / kChunk : (1 << 30));
+      int8_rows(V) ? a.qbr / kChunk : (1 << 30));
   return (int)cudaGetLastError();
+}
+
+template <int V, int L>
+static int launch_bucket(const Args& a) {
+  const long long chunks = (a.n + kChunk - 1) / kChunk;
+  if constexpr (V == kInt8) {
+    if (a.q == nullptr || a.scales == nullptr || a.qbr <= 0 ||
+        a.qbr % kChunk != 0 || !aligned16(a.q))
+      return (int)cudaErrorInvalidValue;
+    if (a.qbr / kChunk < kSegChunks)
+      return run_bucket<kInt8Span, L>(a, chunks);
+  } else if (!(aligned16(a.g) && aligned16(a.h) && aligned16(a.m))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return run_bucket<V, L>(a, chunks);
 }
 
 // a body with no u16 instantiation (bf16cmp, u8cmp, sub1abs, packed: the
@@ -352,8 +369,15 @@ static cudaError_t attrs(int smem, int* out) {
 
 static cudaError_t no_attrs(int, int*) { return cudaErrorInvalidValue; }
 
+// qbr: int8's quantization block rows (kInt8Span's kernel under
+// kSegChunks chunks)
 template <int V, int L>
-static cudaError_t bucket_attrs(int, int* out) {
+static cudaError_t bucket_attrs(int qbr, int* out) {
+  if constexpr (V == kInt8) {
+    if (qbr > 0 && qbr < kSegRows)
+      return kernel_attrs(onehot_full_bucket_kernel<kInt8Span, L>,
+                          bucket_smem<kInt8Span>(), out, kBThreads);
+  }
   return kernel_attrs(onehot_full_bucket_kernel<V, L>, bucket_smem<V>(), out,
                       kBThreads);
 }
@@ -396,15 +420,16 @@ static const AttrFn kBucketAttrs[kNumVariants][2] = {
 // registers a thread, out[1] static shared bytes, out[2] the dynamic shared
 // bytes of a launch with nf_max features a CTA (rowmajor: rows of ld bins,
 // 16-byte aligned; bucketed: a constant of the body), out[3] local (spill)
-// bytes a thread, out[4] CTAs an SM at that launch.
+// bytes a thread, out[4] CTAs an SM at that launch.  qbr: int8's
+// quantization block rows (the bucketed int8 kernel differs under 512).
 extern "C" int onehot_full_query(int variant, int layout, int nf_max,
-                                 long long ld, int esz, int design,
+                                 long long ld, int esz, int design, int qbr,
                                  int* out) {
   if (variant < 0 || variant >= kNumVariants || layout < 0 || layout > 1 ||
       esz < 1 || esz > 2 || design < 0 || design > 1 ||
       (design == 1 && esz != 2))
     return (int)cudaErrorInvalidValue;
-  if (design == 1) return (int)kBucketAttrs[variant][layout](0, out);
+  if (design == 1) return (int)kBucketAttrs[variant][layout](qbr, out);
   return (int)kAttrs[esz - 1][variant][layout](
       launch_smem(variant, layout, nf_max > 0 ? nf_max : 1, ld, true, esz),
       out);

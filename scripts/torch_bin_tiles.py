@@ -1,9 +1,10 @@
-"""The PyTorch port's atomic histogram kernels at bin-tiled widths, listed
-design against walked, on one NVIDIA card.
+"""The PyTorch port's atomic histogram kernels at bin-tiled widths, on one
+NVIDIA card.
 
     python3 scripts/torch_bin_tiles.py [--widths 12000,16384,65536]
         [--kinds random,zipf] [--reps 2] [--out PATH]
     python3 scripts/torch_bin_tiles.py --untiled [--out PATH]
+    python3 scripts/torch_bin_tiles.py --filled [--out PATH]
 
 Where one feature's ``[B, 3]`` float64 histogram does not fit a CTA,
 ``hist_full`` and ``hist_leaves`` take the listed design
@@ -13,12 +14,9 @@ its unit of one list.  This script times both kernels at
 ``chip_smoke.py``'s shapes (the full pass at 1M x 28, one frontier round's
 comb of 28 u16 features and 6 gh columns, C=262,144, k=16, BR=512,
 slot-ordered) with random and Zipf-skewed bins (``chip_smoke._wide_u16``)
-at each width, in the listed design and, in the same call, in the
-walked design (``histogram.atomic_design("dealt")``: bin tiles along
-``gridDim.y``, every tile walking every row), the listed one ``--reps``
-times around it.  For each: the plan (tile width, tiles, CTAs, the
-pre-pass's row blocks, entries a unit), the float64 partials' and the
-lists' bytes, the time of a call (median of 20, CUDA events), the kernels
+at each width, ``--reps`` times, in the plan's design.  For each: the
+plan (tile width, tiles, CTAs, the pre-pass's row blocks, entries a
+unit), the float64 partials' and the lists' bytes, the time of a call (median of 20, CUDA events), the kernels
 alone (torch.profiler, mean of 10 calls) and of those the pre-pass's apart,
 whether the result is bit for bit the plain version's and the same bits
 twice, and ``index_add_``'s time on the same inputs.  The pre-pass kernel
@@ -29,18 +27,30 @@ design must leave as they were: K1 and K2 at u8 (B = 256, the main path)
 and u16 at B = 1,024, kernel alone and call.  To compare with an older
 checkout in one call, untar it under ``chip_tmp/``, copy this script into
 its ``scripts/`` and run it there too (parent, change, change, parent);
-the script asks the wrappers only for what that checkout has.
+the script asks the wrappers only for what that checkout has.  The
+earlier walked design of bin tiles (bin tiles along ``gridDim.y``, every
+tile walking every row) is timed only by a checkout that still has it,
+with that checkout's own copy of this script.
+
+``--filled`` times each kernel at B = 65,536 (random bins) on a card
+filled by a tensor held here, so that a third of the call's one-pass
+buffer stays free beside its output: its first call, which meets the
+failed allocations and halves its feature passes until they fit
+(``histogram.halve_passes``), on the host clock with the card
+synchronized around it; its later calls, which take the passes it kept
+(median of 20, CUDA events); and the one-pass call before the fill; each
+result bit for bit the one-pass result.
 
 Prints the card's name and power limit, one JSON line per case, and
 writes them all to ``chiprun_out/bin_tiles.json`` (or ``--out``).  Exits
 non-zero without a CUDA card.
 """
 import argparse
-import contextlib
 import json
 import os
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -81,45 +91,38 @@ def _calls(hist, kernel, inputs, width):
     return call, plain, lib, comb.shape[0] // BR, comb.shape[1], f, k
 
 
-def _design(hist, design):
-    if design is None:
-        return contextlib.nullcontext()
-    return hist.atomic_design(design)
-
-
-def _time(hist, kernel, dev, width, inputs, ref, design):
-    """One kernel in one design: plan, scratch, times, exactness."""
+def _time(hist, kernel, dev, width, inputs, ref):
+    """One kernel in the plan's design: plan, scratch, times, exactness."""
     call, _, _, units, stride, f, k = _calls(hist, kernel, inputs, width)
-    with _design(hist, design):
-        plan = hist.atomic_plan(kernel, dev, stride, f, width, esz=2)
-        got, again = call(), call()
-        torch.cuda.synchronize()
-        row = {"kernel": kernel, "width": width,
-               "design": hist.ATOMIC_DESIGNS[plan["design"]],
-               "tile_bins": plan["tile_bins"], "tiles": plan["tiles"],
-               "registers": plan["registers"],
-               "local_bytes": plan["local_bytes"],
-               "ctas_per_sm": plan["ctas_per_sm"],
-               "bit_identical": bool(torch.equal(got.view(torch.int32),
-                                                 ref.view(torch.int32))),
-               "same_bits_twice": bool(torch.equal(
-                   got.view(torch.int32), again.view(torch.int32))),
-               "relerr": cs.relerr(got, ref),
-               "ms": cs.median_ms(call),
-               "kernel_ms": cs.calls_ms(call, cs.ATOMIC_KERNELS[kernel])}
-        if hasattr(hist, "atomic_scratch"):
-            row.update(hist.atomic_scratch(
-                kernel, plan, f, width, units, k,
-                cs.LEAVES_SHAPE["BR"]))
-        else:
-            grid_x, per, partials = hist.atomic_partials(kernel, plan,
-                                                         units, k)
-            row.update(partial_bytes=partials * f * width * 24,
-                       list_bytes=0, ctas=grid_x * plan["groups"]
-                       * plan["tiles"], row_chunks=grid_x, unit=per)
-        if plan["design"] == 2:
-            row["prepass_ms"] = cs.calls_ms(call, cs.LISTS_KERNELS)
-            row["by_kernel_ms"] = _by_kernel(call)
+    plan = hist.atomic_plan(kernel, dev, stride, f, width, esz=2)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    row = {"kernel": kernel, "width": width,
+           "design": hist.ATOMIC_DESIGNS[plan["design"]],
+           "tile_bins": plan["tile_bins"], "tiles": plan["tiles"],
+           "registers": plan["registers"],
+           "local_bytes": plan["local_bytes"],
+           "ctas_per_sm": plan["ctas_per_sm"],
+           "bit_identical": bool(torch.equal(got.view(torch.int32),
+                                             ref.view(torch.int32))),
+           "same_bits_twice": bool(torch.equal(
+               got.view(torch.int32), again.view(torch.int32))),
+           "relerr": cs.relerr(got, ref),
+           "ms": cs.median_ms(call),
+           "kernel_ms": cs.calls_ms(call, cs.ATOMIC_KERNELS[kernel])}
+    if hasattr(hist, "atomic_scratch"):
+        row.update(hist.atomic_scratch(
+            kernel, plan, f, width, units, k,
+            cs.LEAVES_SHAPE["BR"]))
+    else:
+        grid_x, per, partials = hist.atomic_partials(kernel, plan,
+                                                     units, k)
+        row.update(partial_bytes=partials * f * width * 24,
+                   list_bytes=0, ctas=grid_x * plan["groups"]
+                   * plan["tiles"], row_chunks=grid_x, unit=per)
+    if plan["design"] == 2:
+        row["prepass_ms"] = cs.calls_ms(call, cs.LISTS_KERNELS)
+        row["by_kernel_ms"] = _by_kernel(call)
     return row
 
 
@@ -181,13 +184,8 @@ def tiled(hist, dev, args):
             for kernel, inputs in data.items():
                 call, plain, lib, *_ = _calls(hist, kernel, inputs, width)
                 ref = plain()
-                runs = []
-                for r in range(args.reps):
-                    runs.append(_time(hist, kernel, dev, width, inputs, ref,
-                                      None))
-                    if r == 0:
-                        runs.append(_time(hist, kernel, dev, width, inputs,
-                                          ref, "dealt"))
+                runs = [_time(hist, kernel, dev, width, inputs, ref)
+                        for _ in range(args.reps)]
                 stride = _calls(hist, kernel, inputs, width)[4]
                 geo = hist.atomic_plan(kernel, dev, stride, cs.N_FEAT, width,
                                        esz=2)
@@ -235,15 +233,64 @@ def untiled(hist, dev, args):
     return rows
 
 
+def filled(hist, dev, args):
+    """K1 and K2 at B = 65,536 with a third of their one-pass buffer free
+    beside the output (see the top)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    width = 65_536
+    rows = []
+    for kernel, inputs in _inputs(gen, dev, width, "random").items():
+        call, _, _, _, stride, f, k = _calls(hist, kernel, inputs, width)
+        n = inputs[0].shape[0]
+        plan = hist.atomic_plan(kernel, dev, stride, f, width, esz=2)
+        cr = (plan["list_rows"] if kernel == "hist_full"
+              else hist.list_chunk_rows(cs.LEAVES_SHAPE["BR"]))
+        one = hist.list_pass_bytes(plan, f, n, k, cr)
+        one_ms = cs.median_ms(call)
+        ref = call()
+        out_bytes = ref.numel() * ref.element_size()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        fill = torch.empty(free - out_bytes - one // 3, dtype=torch.uint8,
+                           device=dev)
+        hist._list_passes_taken.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        first_same = bool(torch.equal(got.view(torch.int32),
+                                      ref.view(torch.int32)))
+        del got
+        passes = [p for p in hist._list_passes_taken.values()]
+        later_ms = cs.median_ms(call)
+        again = call()
+        row = {"kernel": kernel, "width": width, "one_pass_bytes": one,
+               "free_beside_output": one // 3, "filled_bytes": fill.numel(),
+               "passes": passes[0] if passes else [(0, f)],
+               "one_pass_ms": one_ms, "first_call_host_ms": first_ms,
+               "later_ms": later_ms, "first_bit_identical": first_same,
+               "later_bit_identical": bool(torch.equal(
+                   again.view(torch.int32), ref.view(torch.int32)))}
+        del fill, again, ref
+        torch.cuda.empty_cache()
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--widths", default="12000,16384,65536")
     ap.add_argument("--kinds", default="random,zipf")
     ap.add_argument("--reps", type=int, default=2,
-                    help="listed runs a case (the walked one runs once, "
-                         "after the first)")
+                    help="runs a case")
     ap.add_argument("--untiled", action="store_true",
                     help="time the shapes one tile holds instead")
+    ap.add_argument("--filled", action="store_true",
+                    help="time B = 65,536 on a card too full for one pass")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                   "bin_tiles.json"))
     args = ap.parse_args()
@@ -257,7 +304,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
-    rows = (untiled if args.untiled else tiled)(hist, dev, args)
+    rows = (untiled if args.untiled else filled if args.filled
+            else tiled)(hist, dev, args)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump({"card": card, "rows": rows}, fh, indent=1)

@@ -26,8 +26,9 @@ computes is wrong on purpose, only its time is read.
   skeleton    const_a and no_mma together: staging, split, loop and fold
   no_sort     the bucketed design (u16) without its sort: no ballot ranks
               and no compacted rows written; each warp counts its 64 rows
-              as spread evenly over its (bucket, tile) keys, so the plan
-              and the multiply keep their work on uniform bins
+              as spread evenly over its (bucket, tile) keys (int8: over
+              every nblk-th of its (block, bucket, tile) keys), so the
+              plan and the multiply keep their work on uniform bins
 
 ``--width`` above 256 (u16 bins; default bodies ``base``, ``i16cmp``,
 ``staged``, ``int8``) times the u16 shapes instead: the full pass at 1M x
@@ -137,6 +138,11 @@ _NO_SORT = [
      "      P.off[wp][k] = kSegRows / kBWarps / (kTiles * nbc);\n"),
     ("    place_rows<V>(sh, P, key, rank, p, w, b0, nbc, dense, mine);\n",
      ""),
+    ("    rank_blocks(P.off[wp], key, rank, nblk);\n",
+     "    for (int k = lane; k < nblk * kKeys; k += 32)\n"
+     "      P.off[wp][k] = k % nblk == 0;\n"),
+    ("      if (key[i] >= 0)\n        put_row<kInt8Span>(",
+     "      if (key[i] < -1)\n        put_row<kInt8Span>("),
 ]
 ABLATIONS = ("repo", "const_a", "no_mma", "skeleton", "no_sort")
 INT8_BODIES = tuple(_INT8_CONST_A)

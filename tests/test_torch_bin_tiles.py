@@ -18,8 +18,12 @@ rows.  Here:
   sums are exact;
 - the plan's Python mirror (``atomic_geometry``, ``atomic_scratch``) at B
   = 12,000, 16,384 and 65,536: the listed design, every bin in one tile,
-  the partials no larger than the walked design's, the list bytes; and the
-  widths that one tile holds keep the plan they had.
+  no plan in the designs that hold whole features, the list bytes; and the
+  widths that one tile holds keep the plan they had;
+- the lists' bound: a call's features in passes sized to a budget
+  (``list_passes``), one feature as the floor, and the passes' plain
+  lists adding up to one pass's histograms bit for bit.
+
 
 The kernels themselves, bit for bit against these plain versions, are in
 ``tests/test_torch_kernels_cuda.py``.
@@ -193,26 +197,25 @@ TILED = [(28, B, stride) for B in (12_000, 16_384, 65_536)
 def test_listed_plan_at_the_tiled_widths(f, width, stride):
     """The listed design at every bin-tiled width: tiles of 256 bins, each
     bin in exactly one, a warp's histogram and the CTA within shared
-    memory; the float64 partials a call no larger than the walked
-    design's on a card of 132 SMs, and the lists' bytes stated."""
+    memory; the designs that hold whole features have no plan there (one
+    feature does not fit); a [256, 3] float64 partial a segment, and the
+    lists' bytes stated."""
     geo = thist.atomic_geometry(f, width, stride, 2)
     assert geo["design"] == 2 and geo["fg"] == 1
     assert geo["tile_bins"] == 256 and geo["tiles"] == -(-width // 256)
     assert (geo["tiles"] - 1) * 256 < width <= geo["tiles"] * 256
     assert geo["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES // 3
-    walked = thist.atomic_geometry(f, width, stride, 2, "dealt")
-    assert walked["tiles"] > 1                 # one feature does not fit
+    for design in ("owned", "dealt"):          # one feature does not fit
+        with pytest.raises(ValueError, match=f"no {design} plan"):
+            thist.atomic_geometry(f, width, stride, 2, design)
     for kernel, units, k in (("hist_full", 1_000_000, 1),
                              ("hist_leaves", 512, 16)):
         new = thist.atomic_scratch(kernel, {**geo, "ctas_per_sm": 3,
                                             "sms": 132}, f, width, units, k)
-        old = thist.atomic_scratch(kernel, {**walked, "ctas_per_sm": 1,
-                                            "sms": 132}, f, width, units, k)
-        assert new["partial_bytes"] <= old["partial_bytes"]
+        assert new["partial_bytes"] == f * geo["tiles"] * k * 256 * 24
         rows = units if kernel == "hist_full" else units * 512
         # ids and lbin: 6 bytes an entry, and the tables besides
         assert new["list_bytes"] >= 6 * f * rows
-        assert old["list_bytes"] == 0
 
 
 @pytest.mark.parametrize("rows,unit", [(1_000_000, 8192), (600_000, 4096),
@@ -267,13 +270,135 @@ def test_list_bytes_grow_with_the_pairs_of_a_call(width):
 
 
 def test_lists_the_card_cannot_hold_raise_what_they_take(monkeypatch):
-    """A call whose lists' buffer cannot be allocated raises an
-    OutOfMemoryError naming the lists' bytes and bytes a pair, not the
-    allocator's bare message."""
+    """A pass of one feature whose lists' buffer cannot be allocated
+    raises an OutOfMemoryError naming the lists' bytes and bytes a row, not
+    the allocator's bare message; a pass of several features passes the
+    allocator's error on, so that the call takes fewer a pass."""
     def refuse(*args, **kwargs):
         raise torch.OutOfMemoryError("CUDA out of memory")
     monkeypatch.setattr(thist.torch, "empty", refuse)
     with pytest.raises(torch.OutOfMemoryError,
-                       match=r"lists of 1000 rows x 28 features take "
-                             r"310000 bytes \(11.1 a \(row, feature\) pair\)"):
+                       match=r"one feature's lists of 1000 rows take "
+                             r"11100 bytes \(11.1 a row\)"):
+        thist._list_buffer(11_100, torch.device("cpu"), 1000, 1)
+    with pytest.raises(torch.OutOfMemoryError, match=r"^CUDA out of memory$"):
         thist._list_buffer(310_000, torch.device("cpu"), 1000, 28)
+
+
+# (rows, slots, chunk rows): the full pass's chunks and one round's
+# leaves in 512-row blocks
+PASS_SHAPES = [(200_003, 1, thist.list_chunk_rows(None)),
+               (262_144, 16, thist.list_chunk_rows(512))]
+
+
+@pytest.mark.parametrize("rows,k,cr", PASS_SHAPES)
+def test_list_passes_fit_a_forced_budget(rows, k, cr):
+    """A listed call of 28 features at B = 12,000 in passes sized to a
+    budget (``list_passes``): one pass where its lists fit; below that the
+    fewest passes whose buffers (``list_pass_bytes``) each fit, every
+    feature in one of them, in order, their sizes at most one apart; one
+    feature a pass as the floor, and a budget below one feature's lists an
+    OutOfMemoryError that names them."""
+    f = 28
+    plan = {**thist.atomic_geometry(f, 12_000, f + 6, 2), "ctas_per_sm": 3,
+            "sms": 132, "threads": 256}
+    one = thist.list_pass_bytes(plan, f, rows, k, cr)
+    assert thist.list_passes(plan, f, rows, k, cr, one) == [(0, f)]
+    for share in (2, 4, 7):
+        budget = one // share
+        passes = thist.list_passes(plan, f, rows, k, cr, budget)
+        sizes = [fp for _, fp in passes]
+        assert [f0 for f0, _ in passes] == [sum(sizes[:i])
+                                            for i in range(len(sizes))]
+        assert sum(sizes) == f and max(sizes) - min(sizes) <= 1
+        assert all(thist.list_pass_bytes(plan, fp, rows, k, cr) <= budget
+                   for fp in sizes)
+        widest = max(fp for fp in range(1, f + 1)
+                     if thist.list_pass_bytes(plan, fp, rows, k, cr)
+                     <= budget)
+        assert len(passes) == -(-f // widest) >= share
+    floor = thist.list_pass_bytes(plan, 1, rows, k, cr)
+    assert thist.list_passes(plan, f, rows, k, cr, floor) == [
+        (j, 1) for j in range(f)]
+    with pytest.raises(torch.OutOfMemoryError,
+                       match=f"one feature's lists of {rows} rows take "
+                             f"{floor} bytes"):
+        thist.list_passes(plan, f, rows, k, cr, floor - 1)
+
+
+@pytest.mark.parametrize("f", (28, 35, 5))
+def test_a_failed_pass_halves_it_and_the_rest(f):
+    """A pass that fails to allocate (``halve_passes``): the passes before
+    it stay, it and the rest go in passes of at most half its features,
+    every feature in one pass, in order, their sizes at most one apart;
+    halving again ends at one feature a pass."""
+    passes = [(0, f)]
+    at, seen = 0, []
+    while any(fp > 1 for _, fp in passes):
+        at = next(i for i, (_, fp) in enumerate(passes) if fp > 1)
+        head, width = passes[:at], passes[at][1]
+        passes = thist.halve_passes(passes, at)
+        assert passes[:at] == head
+        rest = [fp for _, fp in passes[at:]]
+        assert max(rest) <= width // 2 and max(rest) - min(rest) <= 1
+        assert [f0 for f0, _ in passes] == [
+            sum(fp for _, fp in passes[:i]) for i in range(len(passes))]
+        assert sum(fp for _, fp in passes) == f
+        seen.append(len(passes))
+    assert passes == [(j, 1) for j in range(f)]
+    assert seen == sorted(seen)
+    assert thist.even_passes(3, 10, 3) == [(3, 3), (6, 2), (8, 2)]
+
+
+def _hist_of(lists, vals, k, f):
+    """The float64 histograms [k, f, T * tw, 3] the lists' entries add up
+    to, each entry in list order."""
+    tw = lists.tile_bins
+    out = np.zeros((k, f, lists.tiles * tw, 3))
+    ids, lbin = lists.ids.numpy(), lists.lbin.numpy().astype(np.int64)
+    for seg, (off, cnt) in enumerate(zip(lists.seg_off.numpy(),
+                                         lists.seg_len.numpy())):
+        jt, s = divmod(seg, k)
+        j, tile = divmod(jt, lists.tiles)
+        np.add.at(out[s, j], tile * tw + lbin[off:off + cnt],
+                  vals[ids[off:off + cnt]])
+    return out
+
+
+@pytest.mark.parametrize("slotted", (False, True))
+def test_feature_passes_add_up_to_one_pass_bit_for_bit(slotted):
+    """The passes of a call held to half its lists' bytes: each pass's
+    plain lists (``bin_lists`` from its first column) are the one pass's
+    lists of those features, and the histograms they add up to, side by
+    side, are the one pass's bit for bit."""
+    rng = np.random.default_rng(5)
+    n, f, ncols, B = 4096, 5, 7, 12_000
+    bins = _bins(rng, "zipf", (n, ncols), B)
+    g, h, m = _values(rng, n)
+    br, k = (256, 4) if slotted else (thist.list_chunk_rows(None), 1)
+    bl = (torch.as_tensor(rng.integers(-1, k + 1, n // br).astype(np.int32))
+          if slotted else None)
+    t = [torch.as_tensor(a) for a in (bins, g, h, m)]
+    kw = dict(unit=300, block_rows=br, block_leaf=bl, num_slots=k)
+    one = thist.bin_lists(*t, B, f_limit=f, **kw)
+    plan = {**thist.atomic_geometry(f, B, ncols, 2), "ctas_per_sm": 3,
+            "sms": 132, "threads": 256}
+    cr = br if not slotted else thist.list_chunk_rows(br)
+    passes = thist.list_passes(plan, f, n, k, cr, thist.list_pass_bytes(
+        plan, f, n, k, cr) // 2)
+    assert len(passes) >= 2
+    vals = np.stack([g * m, h * m, m], 1).astype(np.float64)
+    whole = _hist_of(one, vals, k, f)
+    parts = []
+    for f0, fp in passes:
+        lst = thist.bin_lists(*t, B, f_limit=fp, col0=f0, **kw)
+        for name in ("ids", "lbin"):
+            np.testing.assert_array_equal(
+                getattr(lst, name).numpy().reshape(fp, n),
+                getattr(one, name).numpy().reshape(f, n)[f0:f0 + fp])
+        np.testing.assert_array_equal(
+            lst.seg_len.numpy().reshape(fp, -1),
+            one.seg_len.numpy().reshape(f, -1)[f0:f0 + fp])
+        parts.append(_hist_of(lst, vals, k, fp))
+    got = np.concatenate(parts, axis=1)
+    assert np.array_equal(got.view(np.int64), whole.view(np.int64))

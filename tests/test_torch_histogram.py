@@ -314,17 +314,15 @@ def test_atomic_grid_covers_every_unit_once(units, align, ctas_per_sm, sms,
 def test_atomic_plan_refuses_a_width_shared_memory_cannot_hold():
     """A width whose one-feature histogram exceeds a CTA's shared memory
     (B = 20,000: 480 KB) is planned in bin tiles, each within it (the
-    listed design: 79 tiles of 256 bins; the walked one: 3 of 6,667); only
+    listed design: 79 tiles of 256 bins; no plan holds a whole feature); only
     a width no u16 bin reaches (above 65,536) is refused, before any
     kernel is built (so also here, without a card)."""
     geo = thist.atomic_geometry(28, 20_000, 28, esz=2)
     assert geo["tiles"] == 79 and geo["tile_bins"] == 256
     assert geo["fg"] == 1 and geo["design"] == 2
     assert geo["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
-    walked = thist.atomic_geometry(28, 20_000, 28, esz=2, design="dealt")
-    assert walked["tiles"] == 3 and walked["tile_bins"] == 6667
-    assert walked["fg"] == 1 and walked["design"] == 1
-    assert walked["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
+    with pytest.raises(ValueError, match="no dealt plan"):
+        thist.atomic_geometry(28, 20_000, 28, esz=2, design="dealt")
     with pytest.raises(ValueError, match="max_bin=70000"):
         thist.atomic_plan("hist_full", torch.device("cuda", 0), 28, 28,
                           70_000, esz=2)

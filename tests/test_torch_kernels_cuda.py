@@ -486,16 +486,25 @@ def _is_prime(p):
     return p > 1 and all(p % d for d in range(2, int(p ** 0.5) + 1))
 
 
-@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
-def test_onehot_full_int8_mid_block_matches_plain(dev, layout):
+@pytest.mark.parametrize("layout,B", [("featmajor", 256), ("rowmajor", 256),
+                                      ("featmajor", 1025),
+                                      ("featmajor", 1200)])
+def test_onehot_full_int8_mid_block_matches_plain(dev, layout, B):
     """A CTA whose chunk range starts and ends inside a quantization block
     (the full kernel splits rows in chunks, not blocks): the int32 sums
-    fold by the block of each chunk.  The row count is the first prime
-    number of chunks (with a ragged last one) for which the launcher's
-    split puts both ends of some CTA's range inside a block."""
-    f, B = 28, 256
-    lanes = ov.total_lanes("int8", f, B)
-    nlb = -(-lanes // 512)
+    fold by the block of each chunk -- at u8 in the dense design, and at
+    u16 in the bucketed one over blocks of 384 rows (B = 1,025 and 1,200,
+    feature-major), whose segments then start mid-block and span two
+    blocks; there bit for bit the plain version.  The row count
+    is the first prime number of chunks (with a ragged last one) for
+    which the launcher's split puts both ends of some CTA's range inside
+    a block."""
+    f = 28 if B <= 256 else 5
+    plan = thist.onehot_plan("int8", f, B)
+    if plan["design"] == "dense":
+        nlb = -(-ov.total_lanes("int8", f, B) // 512)
+    else:
+        nlb = f * plan["gpf"]
     per_sm = thist.onehot_kernel_attributes("onehot_full", "int8", f, B,
                                             layout, ld=f)["ctas_per_sm"]
     resident = per_sm * torch.cuda.get_device_properties(
@@ -512,8 +521,9 @@ def test_onehot_full_int8_mid_block_matches_plain(dev, layout):
             break
     assert found is not None
     rng = np.random.default_rng(found)
-    bins = torch.as_tensor(rng.integers(0, 256, (found, f)).astype(np.uint8)
-                           ).to(dev)
+    dtype = np.uint8 if B <= 256 else np.uint16
+    bins = torch.as_tensor(rng.integers(0, min(B, 256) if B <= 256 else B,
+                                        (found, f)).astype(dtype)).to(dev)
     g, h, m = _rows(rng, found, dev)
     kw = dict(method="onehot", variant="int8", layout=layout)
     with thist.force_plain():
@@ -523,6 +533,8 @@ def test_onehot_full_int8_mid_block_matches_plain(dev, layout):
     torch.cuda.synchronize()
     assert relerr(got, ref) <= TOL
     assert torch.equal(got, again)
+    if B > 256:
+        _int8_bits(got, ref)
 
 
 def test_onehot_kernel_attributes(dev):
@@ -1154,17 +1166,16 @@ def test_hist_leaves_wide_bins_match_plain_bit_for_bit(dev, B, kind):
                              esz=2)["tiles"] > 1
 
 
-@pytest.mark.parametrize("tiles", (2, 3))
-@pytest.mark.parametrize("design", thist.ATOMIC_DESIGNS)
+@pytest.mark.parametrize("design", ("owned", "dealt"))
 @pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
-def test_atomic_forced_tiles_match_the_untiled_kernel(dev, kernel, design,
-                                                      tiles):
-    """Bin tiles forced at B = 1,024, where one feature fits a CTA, in
-    both designs: the same bits as the untiled kernel, which itself
+def test_atomic_forced_tiles_match_the_untiled_kernel(dev, kernel, design):
+    """Bin tiles forced at B = 1,024, where one feature fits a CTA (the
+    listed design asked for by ``atomic_design``, its tiles of 256 bins):
+    the same bits as the untiled kernel in each design, which itself
     equals the plain version bit for bit; the crafted steps' edge cases
     (one bin a step, bins >= B, a NaN row) included."""
     B = 1024
-    rng = np.random.default_rng(tiles)
+    rng = np.random.default_rng(2)
     bins = np.concatenate([_crafted_u16(B, rows=4096),
                            rng.integers(0, B + 50, (4096, 3))
                            .astype(np.uint16)], 1)
@@ -1189,16 +1200,15 @@ def test_atomic_forced_tiles_match_the_untiled_kernel(dev, kernel, design,
         ref = call()
     with thist.atomic_design(design):
         untiled = call()
-        with thist.atomic_tiles(tiles):
-            got, again = call(), call()
-            stride = f if kernel == "hist_full" else f + 6
-            plan = thist.atomic_plan(kernel, dev, stride, f, B, esz=2)
+    with thist.atomic_design("listed"):
+        got, again = call(), call()
+        stride = f if kernel == "hist_full" else f + 6
+        plan = thist.atomic_plan(kernel, dev, stride, f, B, esz=2)
     torch.cuda.synchronize()
-    geo = thist.atomic_geometry(f, B, stride, 2, design, tiles)
-    # the walked design takes the tiles asked for; the listed one its
-    # tiles of 256 bins (4 at B = 1,024)
-    assert plan["tiles"] == (4 if design == "listed" else tiles)
-    assert plan["design"] == _design_id(design)
+    geo = thist.atomic_geometry(f, B, stride, 2, "listed")
+    # the listed design's tiles of 256 bins (4 at B = 1,024)
+    assert plan["tiles"] == 4
+    assert plan["design"] == _design_id("listed")
     for key in ("design", "tiles", "tile_bins"):
         assert plan[key] == geo[key], key
     _hold_atomic(untiled, untiled, ref)
@@ -1726,8 +1736,8 @@ def test_onehot_leaves_u16_designs_match_plain(dev, variant, case, B, f,
 
 def test_onehot_plan_matches_the_kernels_query(dev):
     """The plan's design and shared bytes are the kernels' own: bucketed at
-    u16 (each body, both layouts and the leaves, over 512-row int8 blocks),
-    dense at u8 and for int8 over the row-major layout's 128-row blocks."""
+    u16 (each body, both layouts and the leaves, int8 over 512-row blocks
+    and over the row-major layout's 128-row ones), dense at u8."""
     for v in U16_BODIES:
         plan = thist.onehot_plan(v, 28, 1024)
         for kernel, layout in (("onehot_full", "featmajor"),
@@ -1740,8 +1750,161 @@ def test_onehot_plan_matches_the_kernels_query(dev):
             assert a["ctas_per_sm"] >= 1
     assert thist.onehot_kernel_attributes(
         "onehot_full", "staged", 28, 255, "featmajor")["design"] == "dense"
-    assert thist.onehot_kernel_attributes(
-        "onehot_full", "int8", 28, 1024, "rowmajor")["design"] == "dense"
+    # int8 over the row-major layout's 128-row blocks: bucketed as well, in
+    # the kernel whose segments span the blocks
+    a = thist.onehot_kernel_attributes("onehot_full", "int8", 28, 1024,
+                                       "rowmajor")
+    assert a["design"] == "bucketed"
+    assert a["dynamic_smem_bytes"] == thist.onehot_plan(
+        "int8", 28, 1024, 128)["dynamic_smem_bytes"]
+    assert a["dynamic_smem_bytes"] > thist.onehot_plan(
+        "int8", 28, 1024, 512)["dynamic_smem_bytes"]
+    assert a["ctas_per_sm"] == 2
+
+
+# ---------------------------------------------------------------------------
+# u16 int8 over quantization blocks of 128-512 rows: the bucketed design,
+# whose 512-row segments span the blocks of fewer rows, bit for bit its
+# plain version
+# ---------------------------------------------------------------------------
+
+INT8_BLOCKS = [(br, B) for br in (128, 256, 384, 512)
+               for B in (1024, 1536, 2599, 4096, 65_536)]
+
+
+def _int8_bits(got, ref):
+    """NaN where the plain version is NaN, and its bits elsewhere (a NaN's
+    payload is not part of the function)."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert _same_bits(got[~nan], ref[~nan])
+
+
+@pytest.mark.parametrize("layout", ["featmajor", "rowmajor"])
+@pytest.mark.parametrize("br,B", INT8_BLOCKS)
+def test_onehot_int8_blocks_match_plain_bit_for_bit(dev, monkeypatch, layout,
+                                                    br, B):
+    """int8 quantized in blocks of br rows (the JAX package's
+    pallas_block_rows, patched here for the kernel and the plain version
+    alike): the bucketed design in both layouts, bit for bit the plain
+    version, with rows at bins past B, masked rows, a ragged last block
+    and a NaN gradient in one block (its scale NaN: channel 0 NaN on every
+    lane, the others finite); the same bits twice, one launch a call."""
+    monkeypatch.setattr(ov, "pallas_block_rows", lambda *a, **kw: br)
+    rng = np.random.default_rng(br + B)
+    f = 3 if B < 65_536 else 2
+    n = 12_345
+    bins = torch.as_tensor(rng.integers(0, min(B + B // 8, 65_536),
+                                        (n, f + 1)).astype(np.uint16)
+                           ).to(dev)
+    g, h, m = _rows(rng, n, dev)
+    g[5 * br + 17] = float("nan")
+    kw = dict(method="onehot", variant="int8", layout=layout, f_limit=f)
+    assert thist.onehot_plan("int8", f, B, br)["design"] == "bucketed"
+    with thist.force_plain():
+        ref = thist.build_histogram(bins, g, h, m, B, **kw)
+    before = thist.launch_counts["onehot_full"]
+    got = thist.build_histogram(bins, g, h, m, B, **kw)
+    again = thist.build_histogram(bins, g, h, m, B, **kw)
+    torch.cuda.synchronize()
+    assert thist.launch_counts["onehot_full"] == before + 2
+    assert bool(torch.isnan(got[..., 0]).all())
+    assert bool(torch.isfinite(got[..., 1:]).all())
+    _int8_bits(got, ref)
+    _int8_bits(again, got)
+
+
+@pytest.mark.parametrize("kernel", ("hist_full", "hist_leaves"))
+def test_listed_call_under_a_quarter_budget_matches_one_pass(dev, kernel):
+    """A listed K1 or K2 call (B = 12,000) held to a quarter of its one
+    pass's lists (histogram.list_budget) runs its features in passes
+    (list_passes, each within the budget): bit for bit the one-pass call,
+    the pre-pass and the main kernel launched once a pass, and the
+    device's peak allocation during the call within the budget plus its
+    output (and the allocator's rounding of the two, 512 bytes each)."""
+    B, f = 12_000, 28
+    rng = np.random.default_rng(11)
+    if kernel == "hist_full":
+        n, k = 200_003, 1
+        mat = _wide_u16(rng, (n, f + 1), B, "random", dev)
+        g, h, m = _rows(rng, n, dev)
+
+        def call():
+            return thist.build_histogram(mat, g, h, m, B, f_limit=f)
+        plan = thist.atomic_plan(kernel, dev, f + 1, f, B, esz=2)
+        cr = plan["list_rows"]
+    else:
+        k, BR, nb = 8, 512, 200
+        n = nb * BR
+        mat = torch.cat([_wide_u16(rng, (n, f), B, "random", dev),
+                         torch.as_tensor(rng.integers(0, 65_536, (n, 6))
+                                         .astype(np.uint16)).to(dev)], 1)
+        g, h, m = _rows(rng, n, dev)
+        bl = torch.as_tensor(_leaf_map(rng, "random", nb, k)).to(dev)
+
+        def call():
+            return thist.build_histogram_leaves(mat, g, h, m, bl, k, B,
+                                                block_rows=BR, f_limit=f)
+        plan = thist.atomic_plan(kernel, dev, f + 6, f, B, esz=2)
+        cr = thist.list_chunk_rows(BR)
+    assert plan["design"] == 2
+    budget = thist.list_pass_bytes(plan, f, n, k, cr) // 4
+    passes = thist.list_passes(plan, f, n, k, cr, budget)
+    assert len(passes) >= 4
+    assert all(thist.list_pass_bytes(plan, fp, n, k, cr) <= budget
+               for _, fp in passes)
+    ref = call()
+    torch.cuda.synchronize()
+    before = dict(thist.launch_counts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with thist.list_budget(budget):
+        got = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak <= budget + 4 * f * B * 3 * k + 2 * 512
+    assert thist.launch_counts[kernel] == before[kernel] + len(passes)
+    assert thist.launch_counts["hist_lists"] == (before["hist_lists"]
+                                                 + len(passes))
+    assert _same_bits(got, ref)
+
+
+def test_listed_call_sizes_its_passes_when_one_does_not_fit(dev,
+                                                            monkeypatch):
+    """Where a listed call's one buffer cannot be allocated (the
+    OutOfMemoryError made here for any pass of more than a third of the
+    features), the call halves the pass that failed and the rest until
+    they fit (28 -> 14 -> 7 features a pass): the same bits as one pass,
+    the kernel launched once a pass; a second call of the shape takes the
+    passes it kept at once, with no failed allocation."""
+    B, f, n = 12_000, 28, 100_003
+    rng = np.random.default_rng(13)
+    mat = _wide_u16(rng, (n, f), B, "random", dev)
+    g, h, m = _rows(rng, n, dev)
+    ref = thist.build_histogram(mat, g, h, m, B)
+    real = thist._list_buffer
+    refused = []
+
+    def buffer(nbytes, device, rows, fp):
+        if fp > f // 3:
+            refused.append(fp)
+            raise torch.OutOfMemoryError("CUDA out of memory")
+        return real(nbytes, device, rows, fp)
+    monkeypatch.setattr(thist, "_list_buffer", buffer)
+    monkeypatch.setattr(thist, "_list_passes_taken", {})
+    before = thist.launch_counts["hist_full"]
+    got = thist.build_histogram(mat, g, h, m, B)
+    torch.cuda.synchronize()
+    assert refused == [28, 14]
+    assert thist.launch_counts["hist_full"] == before + 4
+    assert _same_bits(got, ref)
+    assert list(thist._list_passes_taken.values()) == [
+        [(0, 7), (7, 7), (14, 7), (21, 7)]]
+    again = thist.build_histogram(mat, g, h, m, B)
+    torch.cuda.synchronize()
+    assert refused == [28, 14]
+    assert thist.launch_counts["hist_full"] == before + 8
+    assert _same_bits(again, ref)
 
 
 def test_election_on_the_card_at_u16(dev):

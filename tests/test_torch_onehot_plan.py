@@ -18,6 +18,8 @@ from lightgbm_tpu_torch.ops import onehot_variants as ov
 pytestmark = pytest.mark.torch_port
 
 SMEM_LIMIT = 232_448          # shared bytes one CTA may opt into on an H100
+SM_SMEM = 233_472             # shared bytes of an H100 SM, 1,024 of them
+                              # reserved for each resident CTA
 
 
 @pytest.mark.parametrize("variant", ov.VARIANT_NAMES)
@@ -45,22 +47,33 @@ def test_plan_buckets_every_u16_width_within_shared_memory(variant):
             assert f * p["gpf"] <= 65535
 
 
-def test_plan_keeps_int8_dense_over_small_quantization_blocks():
-    """int8 sorts one quantization block at a time: below 512 rows a block
-    keeps the dense design (the full pass's row-major blocks at B = 1,024
-    and its feature-major blocks at the bundle width are 128 rows)."""
-    for br in (128, 256, 384):
-        assert thist.onehot_plan("int8", 28, 1024, br)["design"] == "dense"
-        assert thist.onehot_plan("staged", 28, 1024, br)["design"] == (
+def test_plan_buckets_int8_over_every_quantization_block():
+    """int8's segments of 512 rows span the quantization blocks of fewer
+    (up to four of 128 rows; a block of 512 or more cuts them, one block a
+    segment): the bucketed design at every block size, the full pass's
+    row-major blocks at B = 1,024 and its feature-major ones at the bundle
+    width (128 rows) included; the dense design only where
+    ``onehot_design`` asks for it.  Blocks under 512 rows take the kernel
+    whose segments span them, with shared bytes of its own; both leave
+    room for two CTAs an SM."""
+    want = {128: 4, 256: 3, 384: 2, 512: 1, 640: 1, 1024: 1}
+    one = thist.onehot_plan("int8", 28, 1024)["dynamic_smem_bytes"]
+    for br, blocks in want.items():
+        for B in (1024, 1536, 2599, 4096, 65_536):
+            p = thist.onehot_plan("int8", 28, B, br)
+            assert p["design"] == "bucketed"
+            assert p["segment_blocks"] == blocks
+            assert (p["dynamic_smem_bytes"] > one) == (br < 512)
+            assert 2 * (p["dynamic_smem_bytes"] + 1024) <= SM_SMEM
+        with thist.onehot_design("dense"):
+            assert thist.onehot_plan("int8", 28, 1024, br)["design"] == (
+                "dense")
+    for layout, B in (("rowmajor", 1024), ("featmajor", 2599)):
+        qbr = ov.pallas_block_rows("int8", layout, 1 << 20, 28, B)
+        assert qbr == 128
+        assert thist.onehot_plan("int8", 28, B, qbr)["design"] == (
             "bucketed")
-    for br in (512, 640, 1024):
-        assert thist.onehot_plan("int8", 28, 1024, br)["design"] == (
-            "bucketed")
-    qbr = ov.pallas_block_rows("int8", "rowmajor", 1 << 20, 28, 1024)
-    assert thist.onehot_plan("int8", 28, 1024, qbr)["design"] == "dense"
-    with thist.onehot_design("bucketed"):
-        assert thist.onehot_plan("int8", 28, 1024, 128)["design"] == (
-            "bucketed")
+    assert not hasattr(thist, "_OH_BUCKET_INT8_MIN_BLOCK")
 
 
 def test_plan_obeys_an_override_it_serves_and_refuses_the_rest():

@@ -141,6 +141,73 @@ def test_full_u16_matches_pallas(pallas, variant, B, layout):
     assert relerr(got, exact) <= jhist.HIST_PARITY_TOL
 
 
+# int8 over quantization blocks under 512 rows, which the card's bucketed
+# design spans with its 512-row segments: (layout, B, f, rows, block rows)
+# -- row-major at B = 1,024 over 17 features, the fewest whose lanes make
+# the JAX package's blocks 128 rows (as at 1M x 28), and feature-major at
+# B = 1,536 (256-row blocks); feature-major at B = 2,599 (128-row blocks)
+# is a case of the test above
+SMALL_BLOCKS = [("rowmajor", 1024, 17, 300, 128),
+                ("featmajor", 1536, 4, 600, 256)]
+
+_SMALL_BLOCKS_SCRIPT = r"""
+import json, sys, numpy as np, jax
+jax.config.update("jax_platforms", "cpu")
+from lightgbm_tpu.ops.histogram import _hist_pallas
+out = {}
+for lay, B, f, n, br in json.loads(sys.argv[1]):
+    d = np.load(sys.argv[2] + f"/in_{lay}_{B}.npz")
+    out[f"{lay}_{B}"] = np.asarray(_hist_pallas(
+        d["bins"], d["g"], d["h"], d["m"], B, f_limit=f, layout=lay,
+        variant="int8", interpret=True))
+np.savez(sys.argv[2] + "/out.npz", **out)
+"""
+
+
+def _small_block_inputs(B, f, n, br):
+    """A few hundred rows (a ragged last block), bins >= B present, and a
+    NaN gradient in the third block."""
+    rng = np.random.default_rng(B + f)
+    bins = _u16(rng, (n, f + 2), B + 40)
+    g, h, m = _rows(rng, n)
+    g[2 * br + 7] = np.nan
+    return dict(bins=bins, g=g, h=h, m=m)
+
+
+@pytest.fixture(scope="module")
+def pallas_small_blocks():
+    with tempfile.TemporaryDirectory() as td:
+        for lay, B, f, n, br in SMALL_BLOCKS:
+            np.savez(os.path.join(td, f"in_{lay}_{B}.npz"),
+                     **_small_block_inputs(B, f, n, br))
+        _run_clean(_SMALL_BLOCKS_SCRIPT, [json.dumps(SMALL_BLOCKS), td])
+        return dict(np.load(os.path.join(td, "out.npz")))
+
+
+@pytest.mark.parametrize("layout,B,f,n,br", SMALL_BLOCKS)
+def test_int8_small_blocks_match_pallas(pallas_small_blocks, layout, B, f,
+                                        n, br):
+    """``build_histogram(..., method="onehot", hist_variant="int8")`` over
+    quantization blocks of fewer than 512 rows (the JAX package's own
+    ``pallas_block_rows`` at these shapes) against ``_hist_pallas`` int8 in
+    interpret mode: the NaN block's scale makes channel 0 NaN on every
+    lane in both, and the rest agrees within ``PALLAS_TOL`` and with the
+    exact scatter within ``HIST_PARITY_TOL``."""
+    d = _small_block_inputs(B, f, n, br)
+    assert tov.pallas_block_rows("int8", layout, n, f, B) == br
+    got = thist.build_histogram(torch.as_tensor(d["bins"]),
+                                *_t(d["g"], d["h"], d["m"]), B, f_limit=f,
+                                method="onehot", variant="int8",
+                                layout=layout).numpy()
+    ref = pallas_small_blocks[f"{layout}_{B}"]
+    assert got.shape == ref.shape == (f, B, 3)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    assert np.isnan(got[..., 0]).all() and np.isfinite(got[..., 1:]).all()
+    assert relerr(got[..., 1:], ref[..., 1:]) <= PALLAS_TOL
+    exact = _scatter_exact(d["bins"][:, :f], d["g"], d["h"], d["m"], B)
+    assert relerr(got[..., 1:], exact[..., 1:]) <= jhist.HIST_PARITY_TOL
+
+
 @pytest.mark.parametrize("variant,B", CASES)
 def test_leaves_u16_match_pallas(pallas, variant, B):
     """Inside the leaves cut at every width here: the one-hot plain

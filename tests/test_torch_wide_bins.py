@@ -29,10 +29,10 @@ have no width limit.  Here:
   ``tests/test_torch_train.py`` asks of its own;
 - the tile plan (``atomic_geometry``, the C plan's arithmetic): the
   listed design's tiles of 256 bins at every width one feature's dealt CTA
-  cannot hold; in it and in the walked design every bin in exactly one
-  tile and a CTA's histogram within the shared memory a CTA may hold; the
-  walked design's fewest tiles; and the float64 partials of a call no
-  larger than the walked design's (``atomic_scratch``).
+  cannot hold, every bin in exactly one tile and a CTA's histogram within
+  the shared memory a CTA may hold; no plan there in the designs that hold
+  whole features, but one at the widest width they hold; and the float64
+  partials of a call bounded by its segments (``atomic_scratch``).
 
 The kernels themselves, bit for bit against the plain versions at B =
 12,000, 16,384 and 65,536, are in ``tests/test_torch_kernels_cuda.py``.
@@ -172,46 +172,38 @@ def test_bin_tiles_cover_every_bin_once_and_fit_a_cta(f, width, stride,
     # the listed design: a unit a warp of one feature's tile of 256 bins
     assert geo["tiles"] > 1 and geo["fg"] == 1 and geo["design"] == 2
     assert geo["tile_bins"] == 256 and geo["tile"] == thist.LIST_UNIT
-    # the walked design (asked for by name) at the same width
-    walked = thist.atomic_geometry(f, width, stride, esz, "dealt")
-    assert walked["tiles"] > 1 and walked["fg"] == 1
-    assert walked["design"] == 1
-    for g in (geo, walked):
-        tiles, bt = g["tiles"], g["tile_bins"]
-        # bin b lies in tile b // bt, and only there; no tile is empty
-        edges = [min(t * bt, width) for t in range(tiles + 1)]
-        assert edges[0] == 0 and edges[-1] == width
-        assert all(a < b for a, b in zip(edges, edges[1:]))
-        assert g["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
-    # the walked design takes the fewest tiles: at the width of one tile
-    # fewer, not even one feature's histogram fits a dealt CTA
-    wider = -(-width // (walked["tiles"] - 1))
-    assert thist.atomic_geometry(1, wider, stride, esz, "dealt")["tiles"] > 1
+    tiles, bt = geo["tiles"], geo["tile_bins"]
+    # bin b lies in tile b // bt, and only there; no tile is empty
+    edges = [min(t * bt, width) for t in range(tiles + 1)]
+    assert edges[0] == 0 and edges[-1] == width
+    assert all(a < b for a, b in zip(edges, edges[1:]))
+    assert geo["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
+    # the dealt design holds whole features: none at this width, and one
+    # at the widest width it holds, in one tile within shared memory
+    with pytest.raises(ValueError, match="no dealt plan"):
+        thist.atomic_geometry(f, width, stride, esz, "dealt")
+    widest = max(B for B in range(8_000, 9_700, 4)
+                 if thist._plan_geometry(1, B, stride, esz, True))
+    one = thist.atomic_geometry(1, widest, stride, esz, "dealt")
+    assert one["tiles"] == 1 and one["tile_bins"] == widest
+    assert one["dynamic_smem_bytes"] <= thist.SMEM_MAX_BYTES
 
 
 def test_tiled_scratch_is_bounded_by_a_wave_of_tiles():
     """The float64 partials of a call at f = 28, B = 65,536 on a card of
-    132 SMs.  The walked design (one CTA an SM): 224 CTAs (28 features x 8
-    tiles) take all rows in one column, so K1 holds one partial (44 MB,
-    not the ~5.8 GB of 132 whole-width partials) and K2 one a slot (16
-    slots: 705 MB), each bounded by the CTAs of the grid times a tile's
-    bytes.  The listed design holds one [256, 3] sum a segment (a slot's
-    tile of a feature), touched only where a segment is split into units:
-    no more than the walked design's."""
+    132 SMs: the listed design holds one [256, 3] sum a segment (a slot's
+    tile of a feature, 256 tiles a feature), touched only where a segment
+    is split into units, whatever the rows: one [B, 3] partial a feature
+    and slot (44 MB for K1, 705 MB for K2's 16 slots), not the ~5.8 GB of
+    132 whole-width partials a CTA each would take."""
     f, width = 28, 65_536
     for kernel, stride, units, k in (("hist_full", 28, 1_000_000, 1),
                                      ("hist_leaves", 34, 512, 16)):
-        geo = thist.atomic_geometry(f, width, stride, 2, "dealt")
-        plan = {**geo, "ctas_per_sm": 1, "sms": 132}
-        grid_x, per, partials = thist.atomic_partials(kernel, plan, units, k)
-        assert grid_x == 1 and per >= units
-        scratch = partials * f * width * 3 * 8
-        ctas = grid_x * geo["groups"] * geo["tiles"]
-        tile_bytes = geo["fg"] * geo["tile_bins"] * 3 * 8
-        assert scratch <= ctas * min(per, k) * tile_bytes
-        assert scratch <= (50e6 if kernel == "hist_full" else 750e6)
         listed = thist.atomic_geometry(f, width, stride, 2)
+        assert listed["design"] == 2 and listed["tiles"] == 256
         new = thist.atomic_scratch(kernel, {**listed, "ctas_per_sm": 4,
                                             "sms": 132}, f, width, units, k)
-        assert listed["design"] == 2
-        assert new["partial_bytes"] == f * k * width * 24 <= scratch
+        assert new["partial_bytes"] == f * k * width * 24
+        assert new["partial_bytes"] <= (50e6 if kernel == "hist_full"
+                                        else 750e6)
+        assert new["partial_bytes"] < 132 * f * width * 24
