@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--only PHASES]
 
 (``--profile`` adds a torch.profiler phase over three more iterations and
 writes its tables to ``chiprun_out/profile_train.txt``; the whole output
@@ -227,7 +227,25 @@ one JSON line per phase; any failure raises and the script exits non-zero:
    last tree; a custom logloss within 1e-3 AUC of the builtin one without
    boost-from-average; 3-fold ``cv`` on 300k rows within 1e-3 of plain;
    ``pred_contrib`` on 10k rows summing to the raw score within 1e-5; and
-   refit on the held-out rows.
+   refit on the held-out rows;
+17. distributed: first the collective helper on an NCCL group of world
+   size 1 on the card (sum, max and min all-reduce, reduce-scatter,
+   all-gather, broadcast: the expected values) and K1/K2 on zero rows
+   (zeros, no launch); then two ranks of a ``gloo`` group on this one card
+   (NCCL refuses two ranks on one GPU; the collectives go through the
+   host), each a worker process with ``OMP_NUM_THREADS=1`` under a hard
+   timeout, each binning the train phase's rows: ``tree_learner=data`` on
+   1M rows (255 leaves, ``max_bin=255``, 5 iterations), ``feature`` and
+   ``voting`` on 200k rows (3 iterations), and ``train_distributed`` over
+   500k + 500k rows (5 iterations; its s/tree include the pooled binning;
+   its serial run bins the 1M rows with the mappers the ranks pool).
+   Gates: both ranks' model texts identical byte for byte, tree 0's
+   structure the single-process serial run's on this card, held-out AUC
+   within 1e-4 of it, and ``hist_full`` and ``hist_leaves`` launched by
+   each rank (counts
+   from zero around each run).  It prints each run's s/tree by rank
+   against serial, collectives and bytes a tree and the structure lines
+   that differ from serial (``--only distributed`` runs it alone).
 
 Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the package beside it, it fails
@@ -3040,6 +3058,263 @@ def phase_engine(card):
     return {"engine_cli": launches}
 
 
+# the distributed phase: two ranks of a gloo group sharing this card (NCCL
+# refuses two ranks on one GPU), each a worker process; the runs (learner,
+# rows, iterations) on the train phase's Higgs-shaped rows at its widths
+DIST_BASE = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+             "learning_rate": 0.1, "verbose": -1}
+DIST_RUNS = (("data", N_TRAIN, 5), ("feature", 200_000, 3),
+             ("voting", 200_000, 3))
+# train_distributed: rank r holds rows [r * 500k, (r + 1) * 500k); its
+# serial reference bins the same rows with the ranks' pooled mappers
+DIST_SHARD, DIST_TD_ITERS = 500_000, 5
+DIST_AUC_TOL = 1e-4
+DIST_TIMEOUT = 600
+DIST_STRUCT = ("split_feature=", "threshold=", "left_child=",
+               "right_child=", "leaf_count=")
+
+_DIST_WORKER = r'''
+import json, os, sys, time
+rank, port, out, root = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                         sys.argv[4])
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.ops import histogram as hist
+from lightgbm_tpu_torch.parallel import (free_network, init_distributed,
+                                         train_distributed)
+from chip_smoke import (DIST_BASE, DIST_RUNS, DIST_SHARD, DIST_TD_ITERS,
+                        N_FEAT, N_TRAIN, N_VALID, _auc, make_higgs_like)
+init_distributed(f"127.0.0.1:{port}", 2, rank, timeout_secs=300,
+                 backend="gloo")
+assert "jax" not in sys.modules
+X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=42)
+Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=43)
+res = {}
+
+
+def timed_train(fn):
+    hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster = fn()
+    booster._gbdt.models
+    torch.cuda.synchronize()
+    return booster, time.perf_counter() - t0, dict(hist.launch_counts)
+
+
+def record(name, booster, secs, launches, stats=None):
+    trees = booster.num_trees()
+    with open(f"{out}/{name}_{rank}.txt", "w") as fh:
+        fh.write(booster.model_to_string())
+    res[name] = {"s_per_tree": secs / trees, "trees": trees,
+                 "launches": launches,
+                 "auc": _auc(booster.predict(Xv, raw_score=True), yv)}
+    if stats is not None:
+        res[name]["collectives_per_tree"] = stats["calls"] / trees
+        res[name]["bytes_per_tree"] = stats["bytes"] / trees
+
+
+for name, rows, iters in DIST_RUNS:
+    params = dict(DIST_BASE, tree_learner=name)
+    ds = lgt.Dataset(X[:rows], label=y[:rows], params=params).construct(
+        device="cuda")
+    b, secs, launches = timed_train(lambda: lgt.train(
+        params, ds, iters, verbose_eval=False, device="cuda"))
+    assert b._gbdt._grower_cfg.parallel_mode == name
+    record(name, b, secs, launches, b._gbdt._pmesh.stats)
+    del ds, b
+part = slice(rank * DIST_SHARD, (rank + 1) * DIST_SHARD)
+# its seconds include the pooled binning of the rank's rows
+b, secs, launches = timed_train(lambda: train_distributed(
+    DIST_BASE, X[part], y[part], num_boost_round=DIST_TD_ITERS,
+    device="cuda"))
+record("train_distributed", b, secs, launches)
+with open(f"{out}/res_{rank}.json", "w") as fh:
+    json.dump(res, fh)
+free_network()
+'''
+
+
+def _dist_structure(text):
+    return [ln for ln in text.splitlines() if ln.startswith(DIST_STRUCT)]
+
+
+def _pooled_dataset(lgt, X, y, params):
+    """The single-process reference of ``train_distributed`` over the
+    ranks' ``DIST_SHARD`` blocks of ``X``: the rows binned with the mappers
+    that the ranks pool (each rank's sample by ``Random(data_random_seed
+    + rank)``, sized by its share of ``bin_construct_sample_cnt``), found
+    here from the same pooled sample."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.dataset import Dataset as Inner
+    from lightgbm_tpu_torch.utils.random_gen import Random
+    cfg = Config.from_params(dict(params))
+    n = len(X)
+    share = round(min(n, cfg.bin_construct_sample_cnt) * DIST_SHARD / n)
+    pooled = np.concatenate([
+        X[r * DIST_SHARD:(r + 1) * DIST_SHARD][Random(
+            cfg.data_random_seed + r).sample(DIST_SHARD, share)]
+        for r in range(n // DIST_SHARD)]).astype(np.float64)
+    ref = Inner(cfg)
+    ref.num_total_features = X.shape[1]
+    ref.bin_mappers = [ref._find_bin_one(j, pooled[:, j], len(pooled), set())
+                       for j in range(X.shape[1])]
+    ref._finalize_used_features()
+    ds = lgt.Dataset(None, params=dict(params))
+    ds._inner = Inner.from_data(X, cfg, label=y, reference=ref)
+    return ds
+
+
+def _nccl_world_one(dev):
+    """The collective helper on one NCCL group of world size 1 on the card:
+    each collective (sum, max and min all-reduce, reduce-scatter,
+    all-gather, broadcast) goes to NCCL and gives the expected values."""
+    from lightgbm_tpu_torch.parallel import mesh as pmesh
+    pmesh.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                           timeout_secs=120, backend="nccl")
+    try:
+        m = pmesh.default_mesh()
+        x = torch.arange(8, dtype=torch.float32, device=dev) - 3.0
+        got = {"sum": m.all_reduce(x), "max": m.all_reduce(x, "max"),
+               "min": m.all_reduce(x, "min"), "reduce_scatter":
+               m.reduce_scatter(x.reshape(4, 2)).reshape(-1),
+               "all_gather": m.all_gather(x).reshape(-1),
+               "broadcast": m.broadcast(x, 0)}
+        torch.cuda.synchronize()
+        ok = {k: bool(torch.equal(v, x)) for k, v in got.items()}
+        out = {"backend": m.backend, "calls": m.stats["calls"], **ok}
+    finally:
+        pmesh.free_network()
+    if not all(ok.values()) or out["backend"] != "nccl" or out["calls"] != 6:
+        raise AssertionError(f"NCCL world-1 collectives: {out}")
+    return out
+
+
+def _zero_row_kernels(hist, dev):
+    """K1 on zero rows and K2 on zero blocks: zeros, and no launch (a rank
+    can hold no rows of a leaf)."""
+    hist.reset_launch_counts()
+    bins = torch.zeros(0, 28, dtype=torch.uint8, device=dev)
+    v = torch.zeros(0, device=dev)
+    full = hist.hist_full(bins, v, v, v, 256)
+    leaves = hist.hist_leaves(bins, v, v, v,
+                              torch.zeros(0, dtype=torch.int32, device=dev),
+                              16, 256)
+    torch.cuda.synchronize()
+    out = {"hist_full_shape": list(full.shape),
+           "hist_leaves_shape": list(leaves.shape),
+           "zeros": bool((full == 0).all() and (leaves == 0).all()),
+           "launches": sum(hist.launch_counts.values())}
+    if (not out["zeros"] or out["launches"]
+            or out["hist_full_shape"] != [28, 256, 3]
+            or out["hist_leaves_shape"] != [16, 28, 256, 3]):
+        raise AssertionError(f"zero-row kernels: {out}")
+    return out
+
+
+def phase_distributed(card):
+    """Two ranks on this card over gloo train what one process trains:
+    ``tree_learner`` data, feature and voting in ``lgb.train`` and
+    ``train_distributed`` on 500k + 500k rows, each rank's histograms by
+    K1/K2 on the card.  Both ranks' model texts are identical, tree 0 is
+    the serial run's on this card and the held-out AUC within 1e-4 of it;
+    each rank launched ``hist_full`` and ``hist_leaves``.  Two processes
+    share one card and the collectives go through the host: the s/tree
+    are no speed result.  Before them, the collective helper on a
+    world-1 NCCL group and the kernels on zero rows."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import histogram as hist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"phase": "distributed", "card": card, "world": 2,
+           "backend": "gloo", "nccl_world1": _nccl_world_one(dev),
+           "zero_rows": _zero_row_kernels(hist, dev)}
+    X, y = make_higgs_like(N_TRAIN, N_FEAT, seed=42)
+    Xv, yv = make_higgs_like(N_VALID, N_FEAT, seed=43)
+    serial = {}
+    for name, rows, iters in DIST_RUNS + (
+            ("train_distributed", N_TRAIN, DIST_TD_ITERS),):
+        key = (rows, iters, name == "train_distributed")
+        if key not in serial:
+            ds = (_pooled_dataset(lgt, X, y, DIST_BASE) if key[2] else
+                  lgt.Dataset(X[:rows], label=y[:rows], params=DIST_BASE))
+            ds.construct(device="cuda")
+            b, secs = _train(lgt, ds, DIST_BASE, iters)
+            serial[key] = {"text": b.model_to_string(),
+                           "s_per_tree": secs / b.num_trees(),
+                           "auc": _auc(b.predict(Xv, raw_score=True), yv)}
+            del ds, b
+        serial[name] = serial[key]
+    with tempfile.TemporaryDirectory() as td:
+        script = os.path.join(td, "dist_worker.py")
+        with open(script, "w") as fh:
+            fh.write(_DIST_WORKER)
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        root = os.path.dirname(os.path.abspath(__file__))
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, script, str(r), str(port), td, root], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"distributed rank {r} exited "
+                                     f"{p.returncode}:\n{log[-4000:]}")
+        res = [json.load(open(os.path.join(td, f"res_{r}.json")))
+               for r in range(2)]
+        texts = {name: [open(os.path.join(td, f"{name}_{r}.txt")).read()
+                        for r in range(2)]
+                 for name in res[0]}
+    runs = {}
+    for name, (t0, t1) in texts.items():
+        ref = serial[name]
+        mine, theirs = _dist_structure(t0), _dist_structure(ref["text"])
+        run = {"ranks_identical": t0 == t1,
+               "tree0_equal_serial": mine[:5] == theirs[:5],
+               "structure_lines_differing": sum(
+                   a != b for a, b in zip(mine, theirs))
+               + abs(len(mine) - len(theirs)),
+               "auc": res[0][name]["auc"], "serial_auc": ref["auc"],
+               "s_per_tree_by_rank": [r_[name]["s_per_tree"] for r_ in res],
+               "serial_s_per_tree": ref["s_per_tree"],
+               "launches_by_rank": [r_[name]["launches"] for r_ in res]}
+        for k in ("collectives_per_tree", "bytes_per_tree"):
+            if k in res[0][name]:
+                run[k] = res[0][name][k]
+        print(f"distributed {name}: s/tree by rank "
+              f"{[round(s, 4) for s in run['s_per_tree_by_rank']]}, serial "
+              f"{run['serial_s_per_tree']:.4f}; collectives/tree "
+              f"{run.get('collectives_per_tree')}, bytes/tree "
+              f"{run.get('bytes_per_tree')}; structure lines differing from "
+              f"serial {run['structure_lines_differing']}", flush=True)
+        bad = [k for k in ("ranks_identical", "tree0_equal_serial")
+               if not run[k]]
+        if abs(run["auc"] - run["serial_auc"]) > DIST_AUC_TOL:
+            bad.append("auc")
+        for lr in run["launches_by_rank"]:
+            if not (lr["hist_full"] > 0 and lr["hist_leaves"] > 0):
+                bad.append("launches")
+        if bad:
+            raise AssertionError(f"distributed {name}: {bad}: {run}")
+        runs[name] = run
+    out["runs"] = runs
+    emit(out)
+    return {"distributed": {name: [lr["hist_full"] for lr in
+                                   r["launches_by_rank"]]
+                            for name, r in runs.items()},
+            "distributed_leaves": {name: [lr["hist_leaves"] for lr in
+                                          r["launches_by_rank"]]
+                                   for name, r in runs.items()}}
+
+
 # the serve phase: the train phase's atomic model frozen into one captured
 # CUDA graph per default bucket (1,024, 16,384, 262,144 rows)
 SERVE_ROWS = (1, 1023, 1024, 1025, 16_384, 300_000)
@@ -3676,15 +3951,18 @@ BENCH_INFO = ("lightgbm_tpu_torch/ops/kernels/onehot_full.cu",
 
 def _only_phases(names, smi, timed):
     """``--only``: the serve and stream phases alone, on the train phase's
-    data and its default model (trained once, no plain run), and the
-    wide_bins phase alone (after the election its ``auto`` run reads)."""
+    data and its default model (trained once, no plain run), the
+    wide_bins phase alone (after the election its ``auto`` run reads) and
+    the distributed phase alone."""
     import lightgbm_tpu_torch as lgt
-    unknown = set(names) - {"serve", "stream", "wide_bins"}
+    unknown = set(names) - {"serve", "stream", "wide_bins", "distributed"}
     if unknown:
         raise SystemExit(f"--only: unknown phases {sorted(unknown)}")
     if "wide_bins" in names:
         elected = timed("elect", phase_elect, smi)
         timed("wide_bins", phase_wide_bins, smi, elected)
+    if "distributed" in names:
+        timed("distributed", phase_distributed, smi)
     if not {"serve", "stream"} & set(names):
         return
     base = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
@@ -3731,6 +4009,9 @@ def kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
                "launches_by_obs_run": launches["obs"][kname],
                "launches_by_serial_run": {run: cnt[kname] for run, cnt in
                                           launches["serial"].items()},
+               "launches_by_distributed_run_by_rank": launches[
+                   "distributed" if kname == "hist_full"
+                   else "distributed_leaves"],
                **{k: r[k] for k in keys + atomic_keys}, "card": card}
         if kname in serial_blocks:
             row["serial_blocks"] = serial_blocks[kname]
@@ -3848,9 +4129,9 @@ def main() -> int:
                     help="also profile a few more iterations (torch.profiler)")
     ap.add_argument("--only", default="",
                     help="comma-separated phases among serve,stream,"
-                         "wide_bins: build the kernels, train the train "
-                         "phase's default model once (serve, stream) and "
-                         "run only these (no kernels line)")
+                         "wide_bins,distributed: build the kernels, train "
+                         "the train phase's default model once (serve, "
+                         "stream) and run only these (no kernels line)")
     args = ap.parse_args()
     global PROFILE_STREAM
     PROFILE_STREAM = args.profile
@@ -3903,6 +4184,7 @@ def main() -> int:
     launches.update(timed("sparse_efb", phase_sparse_efb, smi, breadth))
     launches.update(timed("widest_bins", phase_widest_bins, smi))
     launches.update(timed("engine", phase_engine, smi))
+    launches.update(timed("distributed", phase_distributed, smi))
     rows = kernel_rows(kern, onehot, quant, bench, launches, serial_blocks,
                        stream_block, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -37,6 +37,12 @@ def __getattr__(name):
                 "QueueSaturatedError"):
         from . import serve as _serve
         return _serve if name == "serve" else getattr(_serve, name)
+    if name in ("DistLGBMClassifier", "DistLGBMRegressor"):
+        from .parallel import estimators as _est
+        return getattr(_est, name)
+    if name == "parallel":
+        from . import parallel as _parallel
+        return _parallel
     if name == "stream":
         from . import stream as _stream
         return _stream

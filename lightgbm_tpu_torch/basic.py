@@ -11,8 +11,9 @@ contributions), model text IO, dumps and pickling.  A training set whose
 bin matrix is over the out-of-core budget stays in host RAM and trains on
 ``stream.StreamGBDT``/``StreamGOSS``.  Every entry point takes
 ``device``: ``None`` means the CUDA card and raises ``NoCudaDeviceError``
-without one; pass ``"cpu"`` to run the plain PyTorch path.  Multi-process
-training (``set_network``) is not ported and raises ``NotPortedError``.
+without one; pass ``"cpu"`` to run the plain PyTorch path.
+``set_network``/``free_network`` bring the ranks of a multi-process run up
+and down (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from .config import Config
-from .device import NotPortedError, resolve_device
+from .device import resolve_device
 from .io.dataset import (Dataset as _InnerDataset, _is_dataframe, _is_sparse,
                          _pandas_to_numpy, _require_pandas_mapping,
                          _sanitize_feature_names)
@@ -437,7 +438,13 @@ class Booster:
         if "learning_rate" in params:
             gbdt.shrinkage_rate = float(gbdt.config.learning_rate)
         if gbdt.train_data is not None:
-            gbdt._grower_cfg = gbdt._make_grower_cfg()
+            old = gbdt._grower_cfg
+            # keep the fields _setup_parallel added: a config rebuilt from
+            # scratch would turn a parallel learner serial while its rank
+            # still holds one block of the data
+            gbdt._grower_cfg = gbdt._make_grower_cfg()._replace(
+                parallel_mode=old.parallel_mode, num_shards=old.num_shards,
+                top_k=old.top_k, mesh=old.mesh)
         return self
 
     def attr(self, key: str):
@@ -530,12 +537,21 @@ class Booster:
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,
                     num_machines: Optional[int] = None) -> "Booster":
-        raise NotPortedError("multi-process training (set_network) is not "
-                             "ported yet")
+        """Reference ``Booster.set_network``: bring up the process group
+        from a machine list (``parallel.mesh.set_network``; ``nccl`` for a
+        booster on the card, ``gloo`` on the CPU)."""
+        from .parallel.mesh import set_network as _set_network
+        _set_network(machines, local_listen_port=local_listen_port,
+                     listen_time_out=listen_time_out,
+                     num_machines=num_machines, device=self.device)
+        return self
 
     def free_network(self) -> "Booster":
-        raise NotPortedError("multi-process training (free_network) is not "
-                             "ported yet")
+        """Reference ``Booster.free_network`` (``parallel.mesh.
+        free_network``)."""
+        from .parallel.mesh import free_network as _free_network
+        _free_network()
+        return self
 
     def free_dataset(self) -> "Booster":
         """Drop the python-side Dataset references; the engine keeps its

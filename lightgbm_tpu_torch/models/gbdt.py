@@ -1,6 +1,6 @@
 """GBDT: the boosting engine.
 
-Port of the JAX package's ``models/gbdt.py`` for the serial learner: every
+Port of the JAX package's ``models/gbdt.py``: every
 objective (the ranking ones with query groups), categorical features, u16
 bin matrices and EFB bundle matrices, ``num_class`` trees an iteration,
 boost-from-average, bagging (the masked bag, and the compacted bag of ``cap`` rows when
@@ -26,7 +26,13 @@ recorder, and the ``train.grow_tree`` cost record.  Custom gradients (``train_on
 ``rf.py`` derive from it.  ``ops/grower.grow_tree`` picks the frontier or
 the sequential grower per tree.
 
-Not ported yet (raise ``NotPortedError``): the other tree learners.
+The parallel tree learners (``tree_learner=data|feature|voting``,
+``_setup_parallel``) run over the ranks of a ``torch.distributed`` group,
+each rank holding the same full training set and binning it to the same
+mappers: a rank grows each tree on its block of rows (data, voting) or of
+feature columns (feature), the growers' collectives join the blocks, and
+every rank keeps the full ``[K, N]`` scores, gradients and sampling masks,
+computed as a single process computes them.
 """
 from __future__ import annotations
 
@@ -44,12 +50,12 @@ from ..metric import create_metrics
 from ..objective import ObjectiveFunction, create_objective
 from ..ops import onehot_variants
 from ..io.bin import BinType
-from ..ops.grower import GrowerConfig, TreeArrays, grow_tree
+from ..ops.grower import GrowerConfig, TreeArrays, _pad_rows, grow_tree
 from ..obs import TrainTelemetry
 from ..obs import costs as obs_costs
 from ..obs import health as obs_health
 from ..ops import histogram
-from ..ops.histogram import take_rows
+from ..ops.histogram import movable_bins, take_rows
 from ..ops.predict import predict_leaf_binned, tree_depth
 from ..ops.split import SplitParams
 from ..utils.log import LightGBMError, Log, check
@@ -86,12 +92,20 @@ def kernel_backend(device: torch.device) -> str:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise ``NotPortedError`` for any training parameter whose path the
-    port does not have yet (no silent fallback to another path): the
-    data-, feature- and voting-parallel tree learners."""
+    """Raise ``NotPortedError`` for a training parameter whose path the
+    out-of-core engines do not have yet (no silent fallback to another
+    path): the parallel tree learners over streamed blocks (A21b)."""
     if cfg.tree_learner != "serial":
         raise NotPortedError(
-            f"not ported yet: tree_learner={cfg.tree_learner}")
+            f"not ported yet (A21b): tree_learner={cfg.tree_learner} with "
+            "out-of-core streaming")
+
+
+def _pad_cols(a: torch.Tensor, cols: int) -> torch.Tensor:
+    """``a [N, C]`` with zero columns appended to ``cols`` columns."""
+    if a.shape[1] >= cols:
+        return a
+    return torch.cat([a, a.new_zeros(a.shape[0], cols - a.shape[1])], 1)
 
 
 def bag_mask_from_uniform(cfg: Config, u: torch.Tensor,
@@ -136,6 +150,8 @@ class GBDT:
             from ..obs import flight as obs_flight
             obs_flight.install()
         self._grow_cost_recorded = False
+        # the parallel learners' mesh (_setup_parallel); None: serial
+        self._pmesh = None
         self._models: List[Tree] = []
         # deferred host trees: (numpy TreeArrays, shrinkage, bias, iter,
         # sentinels or None) materialized into Tree objects when `models`
@@ -210,7 +226,6 @@ class GBDT:
     # ------------------------------------------------------------------
     def init_train(self, train_data: Dataset) -> None:
         cfg = self.config
-        check_ported(cfg)
         self.train_data = train_data
         if self.objective is None:
             self.objective = create_objective(cfg)
@@ -264,6 +279,83 @@ class GBDT:
             if self._cegb_lazy is not None else None)
         # raw values on the device per dataset (linear trees)
         self._raw_cache = {}
+        self._setup_parallel()
+
+    def _setup_parallel(self) -> None:
+        """Route ``tree_learner=data|feature|voting`` through the ranks of
+        the process group (the analog of the reference's learner x device
+        ``CreateTreeLearner`` factory, tree_learner.cpp:15-53; the JAX
+        package's ``_setup_parallel``).  Without a group, or in a group of
+        one, it warns and trains serially (the JAX package's one-device
+        rule).  ``mesh_shape[0]``, when given, must be the world size: a
+        JAX mesh may use a prefix of the devices, but a rank cannot sit out
+        of its own group's collectives.
+
+        Each rank keeps its block on the card: rows ``[r m, (r + 1) m)`` of
+        the row order padded to ``W m`` (``m = ceil(N / W)``, pad rows of
+        weight 0), the block ``shard_map`` gives device r in the JAX
+        package (data, voting), or columns ``[r w, (r + 1) w)`` of the
+        features zero-padded to ``W w`` (feature)."""
+        from ..parallel.mesh import DATA_AXIS, FEATURE_AXIS, default_mesh
+        cfg = self.config
+        self._pmesh = None
+        tl = cfg.tree_learner or "serial"
+        if tl == "serial":
+            return
+        mesh = default_mesh(axis_name=FEATURE_AXIS if tl == "feature"
+                            else DATA_AXIS)
+        W = mesh.size
+        if cfg.mesh_shape and int(cfg.mesh_shape[0]) != W:
+            raise LightGBMError(
+                f"mesh_shape[0]={cfg.mesh_shape[0]} differs from the process "
+                f"group's world size {W}: each rank is one shard of "
+                "tree_learner=%s" % tl)
+        if W < 2:
+            Log.warning(
+                "tree_learner=%s requested but only one process is in the "
+                "group; training serially", tl)
+            return
+        if tl in ("feature", "voting") and self._dd.efb is not None:
+            raise LightGBMError(
+                f"tree_learner={tl} cannot train on an EFB-bundled Dataset; "
+                "construct the Dataset with tree_learner=%s or "
+                "enable_bundle=false in its params" % tl)
+        self._pmesh = mesh
+        self._grower_cfg = self._grower_cfg._replace(
+            parallel_mode=tl, num_shards=W, top_k=cfg.top_k, mesh=mesh)
+        dd = self._dd
+        n = self.train_data.num_data
+        r = mesh.rank
+        if tl == "feature":
+            f = self.train_data.num_features
+            w = -(-f // W)
+            pad = W * w - f
+
+            def padf(a, v):
+                return torch.cat([a, torch.full((pad,), v, dtype=a.dtype,
+                                                 device=a.device)])
+            # u16 bins pad and slice as int16 (histogram.movable_bins)
+            self._par_bins = _pad_cols(movable_bins(dd.bins), W * w)[
+                :, r * w:(r + 1) * w].contiguous().view(dd.bins.dtype)
+            self._par_meta = dict(
+                num_bins=padf(dd.num_bins, 1), nan_bins=padf(dd.nan_bins, -1),
+                monotone=padf(dd.monotone, 0),
+                is_categorical=(padf(self._is_cat, False)
+                                if self._is_cat is not None else None),
+                feature_contri=(padf(self._contri, 1.0)
+                                if self._contri is not None else None),
+                cegb_lazy=(padf(self._cegb_lazy, 0.0)
+                           if self._cegb_lazy is not None else None),
+                inter=(torch.cat([self._inter, self._inter.new_zeros(
+                    self._inter.shape[0], pad)], 1)
+                       if self._inter is not None else None))
+            self._par_fpad = pad
+        else:
+            m = -(-n // W)
+            self._par_rows = (r * m, min((r + 1) * m, n), m)
+            self._par_bins = _pad_rows(
+                movable_bins(dd.bins)[r * m:min((r + 1) * m, n)],
+                m).contiguous().view(dd.bins.dtype)
 
     def _make_grower_cfg(self) -> GrowerConfig:
         cfg = self.config
@@ -582,6 +674,7 @@ class GBDT:
                                           < self._BAG_SUBSET_MAX_FRACTION)
                 or cfg.pos_bagging_fraction < 1.0
                 or cfg.neg_bagging_fraction < 1.0
+                or self._pmesh is not None
                 or type(self)._bagging_weights is not GBDT._bagging_weights):
             return None
         return self._capacity_with_margin(n * cfg.bagging_fraction, n)
@@ -643,17 +736,62 @@ class GBDT:
             bytes0 = sum(histogram.hist_bytes.values())
             if self.device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(self.device)
-        out = grow_tree(bins, g, h, row_weight, fmask, dd.num_bins,
-                        dd.nan_bins, gcfg, key=key, monotone=dd.monotone,
-                        is_categorical=self._is_cat, efb=dd.efb,
-                        interaction_sets=self._inter,
-                        cegb_coupled=cegb_coupled, cegb_lazy=self._cegb_lazy,
-                        cegb_used_data=cegb_used, forced=self._forced,
-                        feature_contri=self._contri)
+        if self._pmesh is not None:
+            out = self._grow_parallel(g, h, row_weight, fmask, key,
+                                      cegb_coupled, cegb_used)
+        else:
+            out = grow_tree(bins, g, h, row_weight, fmask, dd.num_bins,
+                            dd.nan_bins, gcfg, key=key, monotone=dd.monotone,
+                            is_categorical=self._is_cat, efb=dd.efb,
+                            interaction_sets=self._inter,
+                            cegb_coupled=cegb_coupled,
+                            cegb_lazy=self._cegb_lazy,
+                            cegb_used_data=cegb_used, forced=self._forced,
+                            feature_contri=self._contri)
         if record:
             self._ledger_grow_cost(
                 sum(histogram.hist_bytes.values()) - bytes0, bins)
         return out
+
+    def _grow_parallel(self, g, h, row_weight, fmask, key, cegb_coupled,
+                       cegb_used):
+        """One tree under a parallel learner, from the full ``[N]`` vectors
+        every rank holds: the rank grows it on its block (the JAX package's
+        sharded grow function, models/gbdt.py:880-1000) and the returned
+        ``node_assignment`` covers all N rows -- the feature learner's rows
+        are replicated; the row learners gather every rank's block of leaf
+        ids (one all-gather a tree)."""
+        dd = self._dd
+        gcfg = self._grower_cfg
+        if gcfg.parallel_mode == "feature":
+            meta, pad = self._par_meta, self._par_fpad
+
+            def padf(a):
+                return (torch.cat([a, a.new_zeros(pad)]) if a is not None
+                        else None)
+            return grow_tree(
+                self._par_bins, g, h, row_weight, padf(fmask),
+                meta["num_bins"], meta["nan_bins"], gcfg, key=key,
+                monotone=meta["monotone"],
+                is_categorical=meta["is_categorical"],
+                interaction_sets=meta["inter"],
+                cegb_coupled=padf(cegb_coupled), cegb_lazy=meta["cegb_lazy"],
+                cegb_used_data=(_pad_cols(cegb_used, cegb_used.shape[1] + pad)
+                                if cegb_used is not None else None),
+                forced=self._forced, feature_contri=meta["feature_contri"])
+        lo, hi, m = self._par_rows
+
+        def blk(a):
+            return _pad_rows(a[lo:hi], m) if a is not None else None
+        tree, na_local, host = grow_tree(
+            self._par_bins, blk(g), blk(h), blk(row_weight), fmask,
+            dd.num_bins, dd.nan_bins, gcfg, key=key, monotone=dd.monotone,
+            is_categorical=self._is_cat, efb=dd.efb,
+            interaction_sets=self._inter, cegb_coupled=cegb_coupled,
+            cegb_lazy=self._cegb_lazy, cegb_used_data=blk(cegb_used),
+            forced=self._forced, feature_contri=self._contri)
+        na = self._pmesh.all_gather(na_local).reshape(-1)
+        return tree, na[:self.train_data.num_data], host
 
     def _ledger_grow_cost(self, nbytes: int, bins) -> None:
         """Record ``train.grow_tree`` in the obs cost ledger once a fit,

@@ -52,7 +52,8 @@ class GOSS(GBDT):
     # iteration: one re-gather an iteration, every grower pass O(kept rows)
     def _bag_subset_capacity(self):
         cfg = self.config
-        if cfg.top_rate + cfg.other_rate >= self._BAG_SUBSET_MAX_FRACTION:
+        if (cfg.top_rate + cfg.other_rate >= self._BAG_SUBSET_MAX_FRACTION
+                or self._pmesh is not None):
             return None
         n = self.train_data.num_data
         k_top = max(1, int(cfg.top_rate * n))

@@ -1,7 +1,10 @@
 """Level-batched best-first tree growth — the main-path tree learner.
 
-Port of the JAX package's ``ops/frontier.py`` (``grow_tree_frontier``) for
-the serial learner, with ``feature_fraction_bynode``, ``extra_trees``,
+Port of the JAX package's ``ops/frontier.py`` (``grow_tree_frontier``),
+with the parallel learners' modes (data: the histograms summed over the
+ranks; feature: the search over this rank's columns, one ``[N]`` sum a
+round for the split columns; voting: ``split.voting_elect``), and with
+``feature_fraction_bynode``, ``extra_trees``,
 monotone-basic, ``feature_contri``, categorical splits (one-hot and
 sorted, each carrying the bitset of the bins that go left, decided by that
 bitset in the partition)
@@ -47,13 +50,13 @@ import numpy as np
 import torch
 
 from ..obs.tracer import DeviceRange, device_ranged
-from .grower import (GrowerConfig, TreeArrays, _BestSplits, kernel_width,
+from .grower import (GrowerConfig, TreeArrays, _BestSplits, _FeatureBlock,
+                     _find_mode, _search_meta, kernel_width,
                      monotone_gain_mult, node_feature_mask_for,
                      rand_thresholds_for)
 from .histogram import (build_histogram, build_histogram_leaves,
                         movable_bins, widen_bins)
-from .split import (NEG_INF, POS_INF, bitset_contains, cat_words,
-                    find_best_split, leaf_output)
+from .split import NEG_INF, POS_INF, bitset_contains, cat_words, leaf_output
 
 _SP_FLOAT = ("sp_ghat", "sp_gain", "sp_lout", "sp_rout", "sp_lweight",
              "sp_rweight", "sp_lcount", "sp_rcount", "sp_value", "sp_count")
@@ -134,13 +137,28 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
     def f32(*shape, fill=0.0):
         return torch.full(shape, fill, dtype=torch.float32, device=dev)
 
+    mode, mesh = cfg.parallel_mode, cfg.mesh
     tot = torch.stack([torch.sum(grad * row_weight),
                        torch.sum(hess * row_weight), torch.sum(row_weight)])
+    if mode in ("data", "voting"):
+        # the feature learner replicates rows: its sums are global already
+        tot = mesh.all_reduce(tot)
     if f == 0:
         return _single_leaf(tot, n, L, cw, dev)
     expand_hist, decode_col, col_of_feat = _efb_tables(efb, B, Bb, dev)
     sorted_cat = (torch.as_tensor(cfg.sorted_cat, dtype=torch.int64).to(dev)
                   if cfg.sorted_cat else None)
+    # the feature learner searches this rank's columns of the bins
+    block = (_FeatureBlock(mesh.rank * n_cols, n_cols)
+             if mode == "feature" else None)
+    srch = _search_meta(block, num_bins, nan_bins, is_categorical, monotone,
+                        feature_contri, sorted_cat)
+
+    def reduce_hist(h):
+        """The data learner sums the ranks' histograms; the feature and
+        voting learners keep their own (voting sums only the elected
+        features' inside the search)."""
+        return mesh.all_reduce(h) if mode == "data" else h
 
     # combined row payload: (grad, hess, row_weight) as 12 trailing bytes
     # in bin-typed columns (12 u8 or 6 u16), so one row gather moves bins
@@ -162,7 +180,7 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
                                         cfg.feature_fraction_bynode)
                   if cfg.feature_fraction_bynode < 1.0 else None)
     node_thr = (rand_thresholds_for(key, all_steps, cfg.extra_seed,
-                                    num_bins, nan_bins)
+                                    srch.num_bins, srch.nan_bins)
                 if cfg.extra_trees else None)
 
     def find(hist_b, sum_g, sum_h, count, steps, lo=NEG_INF, hi=POS_INF,
@@ -174,13 +192,10 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         rand = node_thr[steps] if node_thr is not None else None
         mult = (monotone_gain_mult(depth, monotone, cfg.monotone_penalty)
                 if use_pen else None)
-        return find_best_split(expand_hist(hist_b), num_bins, nan_bins,
-                               sum_g, sum_h, count, p, fmask, output_lo=lo,
-                               output_hi=hi,
-                               monotone=monotone if use_mono else None,
-                               rand_threshold=rand, gain_mult=mult,
-                               is_categorical=is_categorical,
-                               sorted_cat=sorted_cat, contri=feature_contri)
+        return _find_mode(cfg, srch, block, expand_hist(hist_b), num_bins,
+                          nan_bins, (sum_g, sum_h, count), fmask, lo, hi,
+                          monotone if use_mono else None, rand, mult,
+                          is_categorical, sorted_cat, feature_contri, None)
 
     # obs_trace_device: the phases as profiler ranges (the JAX package's
     # lgbm/* named scopes); off, nothing more is called
@@ -193,8 +208,9 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         find = device_ranged("lgbm/split_search", find, nvtx)
 
     # ---- root -------------------------------------------------------------
-    root_hist = build_full(bins, grad, hess, row_weight, Bb,
-                           method=cfg.hist_method, variant=cfg.hist_variant)
+    root_hist = reduce_hist(build_full(bins, grad, hess, row_weight, Bb,
+                                       method=cfg.hist_method,
+                                       variant=cfg.hist_variant))
     root_step = torch.zeros(1, dtype=torch.int64, device=dev)
     root_split = find(root_hist[None], tot[0:1], tot[1:2], tot[2:3],
                       root_step, depth=root_step)
@@ -271,8 +287,21 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         act = si >= 0
         sic = si.clamp(min=0)
         feat_p = sel_feat[sic]
-        col_p = col_of_feat[feat_p] if col_of_feat is not None else feat_p
-        colv = decode_col(widen_bins(bins_mv[perm, col_p]), feat_p)
+        if mode == "feature":
+            # the columns are sharded: each rank reads the rows whose
+            # split column it holds, and one [N] sum a round gives every
+            # rank every row's bin (the rows, so perm, are the same on
+            # every rank)
+            owns = act & (feat_p >= block.start) & (
+                feat_p < block.start + n_cols)
+            col_p = (feat_p - block.start).clamp(0, n_cols - 1)
+            colv_loc = widen_bins(bins_mv[perm, col_p])
+            colv = mesh.all_reduce(torch.where(owns, colv_loc,
+                                               torch.zeros_like(colv_loc)))
+        else:
+            col_p = (col_of_feat[feat_p] if col_of_feat is not None
+                     else feat_p)
+            colv = decode_col(widen_bins(bins_mv[perm, col_p]), feat_p)
         nb_p = nan_bins.long()[feat_p]
         is_miss = (colv == nb_p) & (nb_p >= 0)
         gl = torch.where(is_miss, sel_dleft[sic], colv <= sel_thr[sic])
@@ -316,11 +345,11 @@ def grow_tree_frontier(bins, grad, hess, row_weight, feature_mask, num_bins,
         combb = comb[torch.where(okrow, rid, 0)]
         ghb = combb[:, n_cols:].contiguous().view(torch.float32)  # [C, 3]
         m = torch.where(okrow, ghb[:, 2], 0.0)
-        hist_small = build_leaves(
+        hist_small = reduce_hist(build_leaves(
             combb.view(bins.dtype), ghb[:, 0].contiguous(),
             ghb[:, 1].contiguous(), m, i_of_blk.to(torch.int32), k, Bb,
             block_rows=BR, f_limit=n_cols, method=cfg.hist_method,
-            variant=cfg.hist_variant)
+            variant=cfg.hist_variant))
 
         parent_hist = hist[sel]
         large_hist = parent_hist - hist_small

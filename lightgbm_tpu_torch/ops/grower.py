@@ -1,7 +1,7 @@
 """Leaf-wise (best-first) tree growth: configuration, tree layout, routing
 and the sequential grower.
 
-Port of the JAX package's ``ops/grower.py`` for the serial learner:
+Port of the JAX package's ``ops/grower.py``:
 ``GrowerConfig``, ``TreeArrays``, ``_BestSplits``, the per-node draws and
 penalty (``node_feature_mask_for``, ``rand_thresholds_for``,
 ``monotone_gain_mult``, batched over split steps), the
@@ -11,7 +11,15 @@ one-split-at-a-time grower (``grow_tree_serial``) that serves what depends
 on the split order: interaction constraints, forced splits, CEGB and the
 intermediate and advanced monotone modes.  Both take every histogram
 width the bin types allow, on the CPU and on the card; nothing falls
-back.
+back.  Both also grow a tree as one rank of a parallel learner
+(``GrowerConfig.parallel_mode``, over ``parallel.mesh``): the data
+learner sums the ranks' histograms (the sequential grower reduce-scatters
+them to a block of features a rank, ``dp_scatter``), the feature learner
+searches its block of columns and shares the split column's sides, the
+voting learner sums only the elected features' histograms; the ranks'
+best splits are joined by ``_reduce_split_global``.  Every host read that
+steers the growth comes from a replicated value, so every rank issues the
+same collectives in the same order.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from .histogram import (_OH_CHUNK, build_histogram, movable_bins,
                         widen_bins)
 from .split import (NEG_INF, POS_INF, SplitParams, SplitResult,
                     bitset_contains, cat_words, find_best_split, leaf_gain,
-                    leaf_output, pack_bin_bitset)
+                    leaf_output, pack_bin_bitset, voting_elect)
 
 
 class GrowerConfig(NamedTuple):
@@ -64,6 +72,19 @@ class GrowerConfig(NamedTuple):
     # lgbm/partition, lgbm/apply_split, lgbm/frontier_round) as profiler
     # ranges; off, the growers call nothing more
     trace_device: bool = False
+    # the parallel learners (reference {data,feature,voting}_parallel_
+    # tree_learner.cpp), each rank of ``mesh`` (a parallel.mesh.ProcessMesh)
+    # growing the same tree:
+    #   'data'    -- rows sharded; histograms summed over the ranks
+    #   'feature' -- features sharded, rows replicated; the split search
+    #                sharded, the winning SplitInfo reduced
+    #   'voting'  -- rows sharded; a local top-k vote elects 2k features
+    #                and only their histograms are summed
+    # None: the serial learner (mesh unused)
+    parallel_mode: Optional[str] = None
+    top_k: int = 20               # voting: local proposals per leaf
+    num_shards: int = 1           # ranks (the gates' scale in voting)
+    mesh: object = None
 
 
 class TreeArrays(NamedTuple):
@@ -180,6 +201,27 @@ def monotone_gain_mult(depth: torch.Tensor, monotone: torch.Tensor,
                        torch.ones_like(factor))
 
 
+def _reduce_split_global(s: SplitResult, mesh) -> SplitResult:
+    """Every rank's best split of each leaf of a batch joined into the
+    global one (the JAX package's ``_reduce_split_global``, reference
+    ``SyncUpGlobalBestSplit``, parallel_tree_learner.h:191-214): one
+    all-gather of each rank's packed record ``[S, 12 + CW]`` float64 (which
+    holds every float32 and int32 field exactly, bitset words included);
+    the largest gain wins, the lowest rank on a tie, and every rank reads
+    the identical winner."""
+    S = s.gain.shape[0]
+    fields = [getattr(s, name).reshape(S) for name in _SPLIT_FIELDS]
+    rec = torch.cat([torch.stack([x.double() for x in fields], 1),
+                     s.cat_bits.reshape(S, -1).double()], 1)
+    every = mesh.all_gather(rec)                          # [W, S, 12 + CW]
+    winner = torch.argmax(every[:, :, 0], dim=0)          # first max
+    pick = every[winner, torch.arange(S, device=rec.device)]
+    out = {name: pick[:, i].to(x.dtype)
+           for i, (name, x) in enumerate(zip(_SPLIT_FIELDS, fields))}
+    out["cat_bits"] = pick[:, len(_SPLIT_FIELDS):].to(torch.int32)
+    return SplitResult(**out)
+
+
 def kernel_width(cfg: GrowerConfig) -> int:
     """The histogram kernels' bin width: the widest EFB bundle, else the
     widest feature."""
@@ -188,25 +230,29 @@ def kernel_width(cfg: GrowerConfig) -> int:
 
 def _frontier_eligible(cfg: GrowerConfig, n_cols: int, interaction_sets=None,
                        cegb_coupled=None, cegb_lazy=None,
-                       forced=()) -> bool:
+                       forced=(), efb=None) -> bool:
     """True when the round-batched frontier grower (ops/frontier.py) can
     serve this call (the JAX package's gate, with its arguments).
     Cross-leaf-coupled features (monotone intermediate and advanced
     bounds, CEGB refunds, interaction branch masks, forced-split prefixes)
     depend on the sequential split order and take the one-split loop; the
     per-node RNG features (feature_fraction_bynode, extra_trees) and
-    monotone-basic are served by the frontier.  Its per-leaf one-hot
+    monotone-basic are served by the frontier, as are the parallel
+    learners (EFB bundles with the data learner only).  Its per-leaf one-hot
     kernel needs whole 128-row chunks in a block (``frontier_block_rows``
     a multiple of 128).  ``tree_grower=frontier`` with a feature the
     frontier cannot serve logs the JAX package's warning."""
     if cfg.grower_mode == "serial":
         return False
+    mode = cfg.parallel_mode
     ok = ((not cfg.has_monotone or cfg.monotone_mode == "basic")
           and interaction_sets is None
           and cegb_coupled is None and cegb_lazy is None
           and not forced
           and cfg.cegb_split_penalty == 0.0
           and n_cols >= 0
+          and mode in (None, "data", "feature", "voting")
+          and (efb is None or mode in (None, "data"))
           and (cfg.hist_method != "onehot"
                or cfg.frontier_block_rows % _OH_CHUNK == 0))
     if not ok and cfg.grower_mode == "frontier":
@@ -239,7 +285,7 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     feature-gating state is the JAX package's (``grow_tree_serial``);
     ``feature_contri [F]`` scales each feature's gains in both growers."""
     if _frontier_eligible(cfg, bins.shape[1], interaction_sets,
-                          cegb_coupled, cegb_lazy, forced):
+                          cegb_coupled, cegb_lazy, forced, efb):
         from .frontier import grow_tree_frontier
         return grow_tree_frontier(bins, grad, hess, row_weight, feature_mask,
                                   num_bins, nan_bins, cfg, key=key,
@@ -327,6 +373,113 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32))
 
 
+class _FeatureBlock(NamedTuple):
+    """This rank's features ``[start, start + width)`` in a sharded split
+    search (the feature learner's columns, the data learner's
+    reduce-scattered block)."""
+    start: int
+    width: int
+
+    def take(self, a, fill=0):
+        """The block of ``a``'s last axis (None stays None), padded past
+        its end with ``fill``."""
+        if a is None:
+            return None
+        need = self.start + self.width - a.shape[-1]
+        if need > 0:
+            a = torch.cat([a, torch.full(a.shape[:-1] + (need,), fill,
+                                         dtype=a.dtype, device=a.device)], -1)
+        return a[..., self.start:self.start + self.width]
+
+
+class _SearchMeta(NamedTuple):
+    """The feature metadata a split search reads."""
+    num_bins: torch.Tensor
+    nan_bins: torch.Tensor
+    is_categorical: Optional[torch.Tensor]
+    monotone: Optional[torch.Tensor]
+    contri: Optional[torch.Tensor]
+    sorted_cat: Optional[torch.Tensor]
+
+
+def _search_meta(block, num_bins, nan_bins, is_categorical, monotone,
+                 contri, sorted_cat) -> _SearchMeta:
+    """The metadata of a search over ``block`` (all features for None);
+    pad features past the last have one bin, so no threshold."""
+    if block is None:
+        return _SearchMeta(num_bins, nan_bins, is_categorical, monotone,
+                           contri, sorted_cat)
+    sc = None
+    if sorted_cat is not None:
+        inside = ((sorted_cat >= block.start)
+                  & (sorted_cat < block.start + block.width))
+        sc = sorted_cat[inside] - block.start
+        sc = sc if sc.numel() else None
+    return _SearchMeta(block.take(num_bins, 1), block.take(nan_bins, -1),
+                       block.take(is_categorical, False),
+                       block.take(monotone, 0), block.take(contri, 1.0), sc)
+
+
+def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``a`` with zero (False) rows appended to ``rows`` along the leading
+    axis."""
+    if a.shape[0] >= rows:
+        return a
+    return torch.cat([a, a.new_zeros((rows - a.shape[0],)
+                                     + tuple(a.shape[1:]))])
+
+
+def _find_mode(cfg: GrowerConfig, srch: _SearchMeta, block, hist, num_bins,
+               nan_bins, sums, fmask, lo, hi, monotone, rand, mult,
+               is_categorical, sorted_cat, contri, pen) -> SplitResult:
+    """The learner's batched split search over ``hist [S, *, B, 3]`` with
+    global totals ``sums [3, S]`` (the JAX package's mode-dispatched
+    ``find``; the reference's per-learner FindBestSplitsFromHistograms):
+    serial and data without a block search every feature; a sharded
+    search (``block``) searches this rank's features and joins the
+    ranks' winners (``_reduce_split_global``); voting elects the features
+    whose global histograms it searches (``split.voting_elect``).  The
+    masks ``fmask``, ``mult`` and ``pen`` and the metadata span every
+    feature; ``rand`` is already the block's."""
+    p = cfg.split
+    if block is not None:
+        s = find_best_split(
+            hist, srch.num_bins, srch.nan_bins, sums[0], sums[1], sums[2], p,
+            block.take(fmask), output_lo=lo, output_hi=hi,
+            monotone=srch.monotone if monotone is not None else None,
+            rand_threshold=rand, gain_mult=block.take(mult),
+            is_categorical=srch.is_categorical, sorted_cat=srch.sorted_cat,
+            contri=srch.contri, gain_penalty=block.take(pen))
+        return _reduce_split_global(
+            s._replace(feature=s.feature + block.start), cfg.mesh)
+    if cfg.parallel_mode == "voting":
+        hist, fmask = voting_elect(
+            hist, num_bins, nan_bins, sums[0], sums[1], sums[2], p, fmask,
+            cfg.mesh, cfg.top_k, cfg.num_shards, lo, hi, monotone=monotone,
+            gain_mult=mult, is_categorical=is_categorical,
+            sorted_cat=sorted_cat, contri=contri)
+    return find_best_split(
+        hist, num_bins, nan_bins, sums[0], sums[1], sums[2], p, fmask,
+        output_lo=lo, output_hi=hi, monotone=monotone, rand_threshold=rand,
+        gain_mult=mult, is_categorical=is_categorical, sorted_cat=sorted_cat,
+        contri=contri, gain_penalty=pen)
+
+
+def _forced_column(mode, mesh, block, h_leaf, feat: int) -> torch.Tensor:
+    """Feature ``feat``'s ``[B, 3]`` histogram of a leaf for a forced
+    split, from this rank's ``h_leaf [*, B, 3]``: summed over the ranks
+    under voting (each stores its rows' histograms), the owner's under
+    the feature learner (the others' zeros; the owner's split is
+    broadcast)."""
+    if mode == "feature":
+        if feat // block.width == mesh.rank:
+            return h_leaf[feat - block.start]
+        return torch.zeros_like(h_leaf[0])
+    if mode == "voting":
+        return mesh.all_reduce(h_leaf[feat])
+    return h_leaf[feat]
+
+
 def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
                      nan_bins, cfg: GrowerConfig, key=None, monotone=None,
                      is_categorical=None, efb=None, interaction_sets=None,
@@ -374,8 +527,20 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
     Bb = kernel_width(cfg)
     cw = cat_words(B)
     p = cfg.split
+    # the masks and the metadata span every feature (f_full); under the
+    # feature learner the bins hold this rank's block of them
+    f_full = feature_mask.shape[0]
+    mode, mesh = cfg.parallel_mode, cfg.mesh
+    if efb is not None and mode in ("feature", "voting"):
+        raise NotImplementedError(
+            "EFB is not supported with feature/voting parallel learners")
     tot = torch.stack([torch.sum(grad * row_weight),
                        torch.sum(hess * row_weight), torch.sum(row_weight)])
+    if mode in ("data", "voting"):
+        # the root's sums are global (reference Allreduce,
+        # data_parallel_tree_learner.cpp:126-152); the feature learner
+        # replicates rows
+        tot = mesh.all_reduce(tot)
     if f == 0:
         return _single_leaf(tot, n, L, cw, dev)
     expand_hist, decode_col, _ = _efb_tables(efb, B, Bb, dev)
@@ -383,11 +548,38 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
                   if cfg.sorted_cat else None)
     nan_np = nan_bins.cpu().numpy().astype(np.int64)
     is_cat_np = (is_categorical.cpu().numpy().astype(bool)
-                 if is_categorical is not None else np.zeros(f, bool))
+                 if is_categorical is not None else np.zeros(f_full, bool))
     mono_np = (monotone.cpu().numpy().astype(np.int32)
-               if monotone is not None else np.zeros(f, np.int32))
+               if monotone is not None else np.zeros(f_full, np.int32))
     col_np = (efb[0].astype(np.int64) if efb is not None
               else np.arange(f, dtype=np.int64))
+
+    # the data learner's comm shape (the JAX package's dp_scatter, reference
+    # ReduceScatter + SyncUpGlobalBestSplit, data_parallel_tree_learner.cpp:
+    # 155-251): each histogram is reduce-scattered to this rank's block of
+    # ceil(F / W) features, which it stores and searches.  EFB, forced
+    # splits and CEGB-lazy need the full width and take a full all-reduce.
+    dp_scatter = (mode == "data" and efb is None and not forced
+                  and cegb_lazy is None and cfg.num_shards > 1)
+    if dp_scatter:
+        shard_w = -(-f // cfg.num_shards)
+        block = _FeatureBlock(mesh.rank * shard_w, shard_w)
+    elif mode == "feature":
+        block = _FeatureBlock(mesh.rank * n_cols, n_cols)
+    else:
+        block = None
+    srch = _search_meta(block, num_bins, nan_bins, is_categorical, monotone,
+                        feature_contri, sorted_cat)
+
+    def reduce_hist(h):
+        """Join the ranks' ``[n_cols, Bb, 3]`` histograms: reduce-scatter to
+        this rank's block (dp_scatter) or sum; only the data learner."""
+        if mode != "data":
+            return h
+        if dp_scatter:
+            return mesh.reduce_scatter(_pad_rows(h, block.width
+                                                 * cfg.num_shards))
+        return mesh.all_reduce(h)
 
     # combined row payload, as in the frontier: (grad, hess, row_weight)
     # as 12 trailing bytes in bin-typed columns, so one row gather moves a
@@ -410,7 +602,8 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
     used_data = None
     if cegb_lazy is not None:
         used_data = (cegb_used_data.clone() if cegb_used_data is not None
-                     else torch.zeros(n, f, dtype=torch.bool, device=dev))
+                     else torch.zeros(n, f_full, dtype=torch.bool,
+                                      device=dev))
     inter_np = (interaction_sets.cpu().numpy().astype(np.float32)
                 if interaction_sets is not None else None)
 
@@ -421,7 +614,7 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
                                         cfg.feature_fraction_bynode)
                   if cfg.feature_fraction_bynode < 1.0 else None)
     node_thr = (rand_thresholds_for(key, all_steps, cfg.extra_seed,
-                                    num_bins, nan_bins)
+                                    srch.num_bins, srch.nan_bins)
                 if cfg.extra_trees else None)
 
     def interaction_allowed(branch):
@@ -447,7 +640,7 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
             return None
         c = np.asarray(counts, np.float32)[:, None]
         base = np.broadcast_to(np.float32(cfg.cegb_split_penalty) * c,
-                               (len(counts), f)).astype(np.float32)
+                               (len(counts), f_full)).astype(np.float32)
         if coupled_np is not None:
             base = base + np.where(feat_used, np.float32(0.0),
                                    coupled_np)[None, :]
@@ -462,9 +655,15 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         given."""
         free = (~used_data[rows] & rw_pos[rows][:, None]).float()
         if sides is None:
-            return free.sum(0)[None]
+            return rank_sum(free.sum(0)[None])
         left = sides[:, None].float()
-        return torch.stack([(free * left).sum(0), (free * (1 - left)).sum(0)])
+        return rank_sum(torch.stack([(free * left).sum(0),
+                                     (free * (1 - left)).sum(0)]))
+
+    def rank_sum(x):
+        """Counts over this rank's rows summed over the row-sharded
+        learners' ranks."""
+        return mesh.all_reduce(x) if mode in ("data", "voting") else x
 
     def find(hist_b, sums, fmask, lo, hi, pen, steps, depths):
         """The ``[S]``-batched search: ``sums [3, S]`` host float32 totals,
@@ -476,13 +675,11 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
                                    monotone, cfg.monotone_penalty)
                 if use_pen else None)
         sums_d = _f32(sums).to(dev)
-        return find_best_split(
-            expand_hist(hist_b), num_bins, nan_bins, sums_d[0], sums_d[1],
-            sums_d[2], p, fmask, output_lo=_f32(lo).to(dev),
-            output_hi=_f32(hi).to(dev),
-            monotone=monotone if use_mono else None, rand_threshold=rand,
-            gain_mult=mult, is_categorical=is_categorical,
-            sorted_cat=sorted_cat, contri=feature_contri, gain_penalty=pen)
+        return _find_mode(cfg, srch, block, expand_hist(hist_b), num_bins,
+                          nan_bins, sums_d, fmask, _f32(lo).to(dev),
+                          _f32(hi).to(dev), monotone if use_mono else None,
+                          rand, mult, is_categorical, sorted_cat,
+                          feature_contri, pen)
 
     trace = cfg.trace_device
     nvtx = trace and dev.type == "cuda"
@@ -492,21 +689,24 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         find = device_ranged("lgbm/split_search", find, nvtx)
 
     # ---- root -------------------------------------------------------------
-    root_hist = hist_of(bins, grad, hess, row_weight, Bb,
-                        method=cfg.hist_method, variant=cfg.hist_variant)
+    root_hist = reduce_hist(hist_of(bins, grad, hess, row_weight, Bb,
+                                    method=cfg.hist_method,
+                                    variant=cfg.hist_variant))
     tot_h = tot.cpu().numpy().astype(np.float32)
-    zero_branch = np.zeros(f, np.float32)
+    zero_branch = np.zeros(f_full, np.float32)
     fmask0 = fmask_of(0, zero_branch)[None]
-    unused0 = (((~used_data) & rw_pos[:, None]).sum(0, dtype=torch.float32)[None]
-               if used_data is not None else None)
-    pen0 = penalty([tot_h[2]], unused0, np.zeros(f, bool))
+    unused0 = (rank_sum(((~used_data) & rw_pos[:, None]).sum(
+        0, dtype=torch.float32)[None]) if used_data is not None else None)
+    pen0 = penalty([tot_h[2]], unused0, np.zeros(f_full, bool))
     fields, bits, _ = _fetch_splits(find(
         root_hist[None], tot_h[:, None], fmask0, [NEG_INF], [POS_INF], pen0,
         [0], [0]))
 
     best = _HostBest(L, cw)
     best.set(0, fields[:, 0], bits[0])
-    hist = torch.zeros(L, n_cols, Bb, 3, dtype=torch.float32, device=dev)
+    # under dp_scatter each rank stores its block only: memory / W
+    hist = torch.zeros((L,) + tuple(root_hist.shape), dtype=torch.float32,
+                       device=dev)
     hist[0] = root_hist
     perm = torch.arange(n, dtype=torch.int64, device=dev)
     leaf_begin = np.zeros(L, np.int64)
@@ -534,17 +734,17 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
     node_count = np.zeros(L - 1, np.float32)
     num_leaves = 1
     if mono_inter:
-        rect_lo = np.zeros((L, f), np.int32)
-        rect_hi = np.full((L, f), B - 1, np.int32)
+        rect_lo = np.zeros((L, f_full), np.int32)
+        rect_hi = np.full((L, f_full), B - 1, np.int32)
         # the step whose draws a leaf's cached split was searched under:
         # the re-search re-keys with the same step
         leaf_step = np.zeros(L, np.int64)
     if mono_adv:
         leaf_out = np.zeros(L, np.float32)
         leaf_out[0] = _out(leaf_sum_g[0], leaf_weight[0], leaf_count[0], p)
-    leaf_branch = (np.zeros((L, f), np.float32) if inter_np is not None
+    leaf_branch = (np.zeros((L, f_full), np.float32) if inter_np is not None
                    else None)
-    feat_used = np.zeros(f, bool) if coupled_np is not None else None
+    feat_used = np.zeros(f_full, bool) if coupled_np is not None else None
     lid = np.arange(L)
 
     def forced_split_info(leaf, feat, thr):
@@ -557,7 +757,8 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         ``min_gain_to_split`` only.  (The JAX package sums the left side
         and takes the right as the rest, whose rounding residue can pass
         an empty side's split at a residue gain.)"""
-        h = expand_hist(hist[leaf][None])[0, feat].cpu()            # [B, 3]
+        h = _forced_column(mode, mesh, block, expand_hist(hist[leaf][None])[0],
+                           feat).cpu()                              # [B, 3]
         total = torch.as_tensor(np.array([leaf_sum_g[leaf], leaf_weight[leaf],
                                           leaf_count[leaf]], np.float32))
         bin_ids = torch.arange(B)
@@ -582,7 +783,15 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
                            float(lout), float(rout)], np.float64)
         bits = (pack_bin_bitset(torch.arange(B) == thr).numpy() if f_cat
                 else np.zeros(cw, np.int32))
-        return fields.astype(np.float32).astype(np.float64), bits
+        fields = fields.astype(np.float32).astype(np.float64)
+        if mode == "feature":
+            # only the rank holding the feature's histogram knows the
+            # split: it broadcasts it (the JAX package reduces it)
+            rec = mesh.broadcast(torch.as_tensor(np.concatenate(
+                [fields, bits.astype(np.float64)])).to(dev),
+                feat // n_cols).cpu().numpy()
+            fields, bits = rec[:12], rec[12:].astype(np.int32)
+        return fields, bits
 
     def apply_split(j, leaf, gain):
         """Apply the pending best split of ``leaf`` as node ``j``."""
@@ -615,14 +824,27 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         seg = perm[b0:b0 + r0].clone()     # perm's segment is rewritten
         combb = comb[seg]                                # [r0, NC + gh]
         ghb = combb[:, n_cols:].contiguous().view(torch.float32)  # [r0, 3]
-        colv = decode_col(widen_bins(combb[:, int(col_np[feat])]), feat)
-        if f_is_cat:
-            gl = bitset_contains(torch.as_tensor(cbits).to(dev), colv)
-        else:
+        def goes_left(colv):
+            if f_is_cat:
+                return bitset_contains(torch.as_tensor(cbits).to(dev), colv)
             gl = colv <= thr
             if nan_np[feat] >= 0:
                 gl = torch.where(colv == int(nan_np[feat]),
                                  torch.full_like(gl, dleft), gl)
+            return gl
+
+        if mode == "feature":
+            # the column lives on one rank: it decides and broadcasts (the
+            # rows, so the segment, are the same on every rank)
+            owner = feat // n_cols
+            if mesh.rank == owner:
+                gl = goes_left(widen_bins(combb[:, feat - block.start]))
+            else:
+                gl = torch.zeros(r0, dtype=torch.bool, device=dev)
+            gl = mesh.broadcast(gl.to(torch.uint8), owner).bool()
+        else:
+            gl = goes_left(decode_col(widen_bins(combb[:, int(col_np[feat])]),
+                                      feat))
         gl64 = gl.long()
         nleft = gl64.sum()
         pos = torch.where(gl, torch.cumsum(gl64, 0) - 1,
@@ -633,10 +855,10 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         if trace:
             part.close()
         m = torch.where(gl == left_smaller, ghb[:, 2], 0.0)
-        small_hist = hist_of(
+        small_hist = reduce_hist(hist_of(
             combb.view(bins.dtype), ghb[:, 0].contiguous(),
             ghb[:, 1].contiguous(), m, Bb, f_limit=n_cols,
-            method=cfg.hist_method, variant=cfg.hist_variant)
+            method=cfg.hist_method, variant=cfg.hist_variant))
         parent_hist = hist[leaf]
         lhist = small_hist if left_smaller else parent_hist - small_hist
         rhist = parent_hist - lhist
@@ -677,7 +899,7 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
             # children rectangles: a numeric split cuts dimension feat at
             # thr; categorical children keep the parent's rectangle
             prl, prh = rect_lo[leaf].copy(), rect_hi[leaf].copy()
-            fsel = (np.arange(f) == feat) & is_num
+            fsel = (np.arange(f_full) == feat) & is_num
             l_rh = np.where(fsel, thr, prh).astype(np.int32)
             r_rl = np.where(fsel, thr + 1, prl).astype(np.int32)
             rect_lo[leaf], rect_lo[new_id] = prl, r_rl
@@ -743,7 +965,7 @@ def grow_tree_serial(bins, grad, hess, row_weight, feature_mask, num_bins,
         pen2 = penalty([lc, rc], unused2, feat_used)
         s2 = find(torch.stack([lhist, rhist]),
                   np.array([[lg, rg], [lh, rh], [lc, rc]], np.float32),
-                  fmask[None].expand(2, f),
+                  fmask[None].expand(2, f_full),
                   [leaf_lo[leaf], leaf_lo[new_id]],
                   [leaf_hi[leaf], leaf_hi[new_id]], pen2,
                   [j + 1, j + 1], [depth, depth])

@@ -278,43 +278,26 @@ def _sorted_cat_best(hist, num_bins, cat_feats, mono, total, p: SplitParams,
     return gain_out, bits_out, left_out
 
 
-def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
-                    nan_bins: torch.Tensor, sum_g, sum_h, count,
-                    p: SplitParams, feature_mask: torch.Tensor,
-                    output_lo=NEG_INF, output_hi=POS_INF,
-                    monotone: torch.Tensor = None,
-                    rand_threshold: torch.Tensor = None,
-                    gain_mult: torch.Tensor = None,
-                    is_categorical: torch.Tensor = None,
-                    sorted_cat: torch.Tensor = None,
-                    contri: torch.Tensor = None,
-                    gain_penalty: torch.Tensor = None) -> SplitResult:
-    """Best split of each leaf of a batch.
+class _Grid(NamedTuple):
+    """The candidate gains of a batched search, before the monotone split
+    penalty: ``gain [S, F, B]`` and what the winner's sums are read from."""
+    gain: torch.Tensor
+    use_left: torch.Tensor
+    cum: torch.Tensor
+    miss: torch.Tensor
+    total: torch.Tensor           # [S, 3]
+    lo1: object
+    hi1: object
+    is_cat: object                # [F] bool, or None
+    sorted: object                # (gain [S, F], bits, left) or None
 
-    Args:
-      hist: ``[S, F, B, 3]`` (grad, hess, count) histograms.
-      num_bins/nan_bins: ``[F]`` int32 feature metadata (``nan_bins`` is the
-        missing bin per feature, or -1).
-      sum_g/sum_h/count: ``[S]`` leaf totals.
-      feature_mask: ``[F]`` or per leaf ``[S, F]`` f32 — 0 excludes a
-        feature.
-      output_lo/output_hi: monotone output bounds, floats or ``[S]``.
-      monotone: ``[F]`` -1/0/+1 directions (None: no constraint).
-      rand_threshold: ``[S, F]`` extra-trees threshold per feature (the
-        only one each feature offers), or None.
-      gain_mult: ``[S, F]`` monotone split penalty factors, or None.
-      is_categorical: ``[F]`` bool (None: every feature numerical); a
-        categorical feature offers the one-hot splits ``bin == t`` when it
-        has at most ``max_cat_to_onehot`` bins.
-      sorted_cat: ``[Fc]`` int64, the categorical features that take the
-        sorted many-category scan (more than ``max_cat_to_onehot`` bins),
-        or None when there are none (the JAX ``sorted_cat`` static).
-      contri: ``[F]`` or ``[S, F]`` ``feature_contri`` multipliers of the
-        min-gain-shifted improvement, or None.
-      gain_penalty: ``[S, F]`` CEGB penalties subtracted from every
-        candidate of a feature after ``contri``, or None.
-    Returns an ``[S]``-batched ``SplitResult``.
-    """
+
+def _candidate_gains(hist, num_bins, nan_bins, sum_g, sum_h, count, p,
+                     feature_mask, output_lo, output_hi, monotone,
+                     rand_threshold, is_categorical, sorted_cat, contri,
+                     gain_penalty) -> _Grid:
+    """Every candidate's gain (``find_best_split``'s arguments; the JAX
+    package's ``_split_gain_matrix`` and sorted scan)."""
     s_, f, b, _ = hist.shape
     dev = hist.device
     total = torch.stack([torch.as_tensor(sum_g, dtype=torch.float32),
@@ -390,12 +373,65 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
         gain_fb = torch.where(keep, gain_fb, neg)
     fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
     gain_fb = torch.where(fm[:, :, None] > 0, gain_fb, neg)
-    use_sc = sorted_cat is not None and sorted_cat.numel() > 0
-    if use_sc:
-        gain_sorted, bits_sorted, left_sorted = _sorted_cat_best(
+    srt = None
+    if sorted_cat is not None and sorted_cat.numel() > 0:
+        srt = _sorted_cat_best(
             hist, num_bins, sorted_cat.to(dev), monotone, total, p,
             fm.expand(s_, f), output_lo, output_hi, contri=contri,
             penalty=gain_penalty)
+    return _Grid(gain_fb, use_left, cum, miss, total, lo1, hi1,
+                 is_cat if is_categorical is not None else None, srt)
+
+
+def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
+                    nan_bins: torch.Tensor, sum_g, sum_h, count,
+                    p: SplitParams, feature_mask: torch.Tensor,
+                    output_lo=NEG_INF, output_hi=POS_INF,
+                    monotone: torch.Tensor = None,
+                    rand_threshold: torch.Tensor = None,
+                    gain_mult: torch.Tensor = None,
+                    is_categorical: torch.Tensor = None,
+                    sorted_cat: torch.Tensor = None,
+                    contri: torch.Tensor = None,
+                    gain_penalty: torch.Tensor = None) -> SplitResult:
+    """Best split of each leaf of a batch.
+
+    Args:
+      hist: ``[S, F, B, 3]`` (grad, hess, count) histograms.
+      num_bins/nan_bins: ``[F]`` int32 feature metadata (``nan_bins`` is the
+        missing bin per feature, or -1).
+      sum_g/sum_h/count: ``[S]`` leaf totals.
+      feature_mask: ``[F]`` or per leaf ``[S, F]`` f32 — 0 excludes a
+        feature.
+      output_lo/output_hi: monotone output bounds, floats or ``[S]``.
+      monotone: ``[F]`` -1/0/+1 directions (None: no constraint).
+      rand_threshold: ``[S, F]`` extra-trees threshold per feature (the
+        only one each feature offers), or None.
+      gain_mult: ``[S, F]`` monotone split penalty factors, or None.
+      is_categorical: ``[F]`` bool (None: every feature numerical); a
+        categorical feature offers the one-hot splits ``bin == t`` when it
+        has at most ``max_cat_to_onehot`` bins.
+      sorted_cat: ``[Fc]`` int64, the categorical features that take the
+        sorted many-category scan (more than ``max_cat_to_onehot`` bins),
+        or None when there are none (the JAX ``sorted_cat`` static).
+      contri: ``[F]`` or ``[S, F]`` ``feature_contri`` multipliers of the
+        min-gain-shifted improvement, or None.
+      gain_penalty: ``[S, F]`` CEGB penalties subtracted from every
+        candidate of a feature after ``contri``, or None.
+    Returns an ``[S]``-batched ``SplitResult``.
+    """
+    s_, f, b, _ = hist.shape
+    dev = hist.device
+    grid = _candidate_gains(hist, num_bins, nan_bins, sum_g, sum_h, count, p,
+                            feature_mask, output_lo, output_hi, monotone,
+                            rand_threshold, is_categorical, sorted_cat,
+                            contri, gain_penalty)
+    gain_fb, use_left, cum, miss, total, lo1, hi1, is_cat, srt = grid
+    use_sc = srt is not None
+    if use_sc:
+        gain_sorted, bits_sorted, left_sorted = srt
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    p_cat = p._replace(lambda_l2=p.lambda_l2 + p.cat_l2)
     if gain_mult is not None:
         # monotone split penalty, rebased around parent gain + min_gain so
         # that the reported improvement is the reference's scaled gain
@@ -476,3 +512,81 @@ def find_best_split(hist: torch.Tensor, num_bins: torch.Tensor,
         left_output=lo_out, right_output=hi_out,
         cat_bits=cat_bits,
     )
+
+
+def per_feature_gains(hist, num_bins, nan_bins, sum_g, sum_h, count,
+                      p: SplitParams, feature_mask, output_lo=NEG_INF,
+                      output_hi=POS_INF, monotone=None, gain_mult=None,
+                      is_categorical=None, sorted_cat=None,
+                      contri=None) -> torch.Tensor:
+    """The best candidate gain of each feature, ``[S, F]`` (the JAX
+    package's ``per_feature_gains``): the voting learner's local proposal
+    (reference ``VotingParallelTreeLearner``,
+    voting_parallel_tree_learner.cpp:151).  The gains carry ``contri`` and
+    the monotone penalty ``gain_mult``, as the reference votes on
+    penalized SplitInfo gains; no CEGB penalty and no extra-trees
+    threshold, as in the JAX package."""
+    grid = _candidate_gains(hist, num_bins, nan_bins, sum_g, sum_h, count, p,
+                            feature_mask, output_lo, output_hi, monotone,
+                            None, is_categorical, sorted_cat, contri, None)
+    best = grid.gain.max(dim=2).values                           # [S, F]
+    if grid.sorted is not None:
+        best = torch.maximum(best, grid.sorted[0])
+    if gain_mult is not None:
+        t = grid.total
+        pivot = (leaf_gain(t[:, 0], t[:, 1], p, 0.0, t[:, 2], grid.lo1,
+                           grid.hi1) + p.min_gain_to_split)[:, None]
+        best = torch.where(best > NEG_INF / 2,
+                           pivot + (best - pivot) * gain_mult, best)
+    return best
+
+
+def voting_elect(hist, num_bins, nan_bins, sum_g, sum_h, count,
+                 p: SplitParams, feature_mask, mesh, top_k: int,
+                 num_shards: int, output_lo=NEG_INF, output_hi=POS_INF,
+                 monotone=None, gain_mult=None, is_categorical=None,
+                 sorted_cat=None, contri=None):
+    """The voting-parallel election (the JAX package's ``voting_elect``,
+    reference voting_parallel_tree_learner.cpp:151-345) over a batch of
+    leaves: each rank proposes its ``top_k`` features by local gains under
+    the min-data/min-hessian gates scaled by ``1 / num_shards`` (``:61-63``),
+    the ballots are one-hot votes summed over the ranks, the ``2 top_k``
+    features of the most votes are elected (the lower index wins a tie),
+    and only their histograms are summed over the ranks.  Returns
+    ``(hist_elected [S, F, B, 3], elected_mask [S, F])`` for the caller's
+    final ``find_best_split``.  ``hist`` is this rank's ``[S, F, B, 3]``;
+    ``sum_g``/``sum_h``/``count`` are the global totals; ``mesh`` is the
+    ranks' ``parallel.mesh.ProcessMesh``."""
+    ns = max(1, num_shards)
+    s_, f_full = hist.shape[0], hist.shape[1]
+    dev = hist.device
+    p_loc = p._replace(
+        min_data_in_leaf=max(1, p.min_data_in_leaf // ns),
+        min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf / ns)
+    t = [torch.as_tensor(v, dtype=torch.float32).to(dev) / ns
+         for v in (sum_g, sum_h, count)]
+    fg = per_feature_gains(hist, num_bins, nan_bins, *t, p_loc, feature_mask,
+                           output_lo, output_hi, monotone=monotone,
+                           gain_mult=gain_mult, is_categorical=is_categorical,
+                           sorted_cat=sorted_cat, contri=contri)  # [S, F]
+    kv = min(top_k, f_full)
+    # lax.top_k: the lower index first among equal gains
+    top = torch.sort(fg, dim=1, descending=True, stable=True)
+    topv, topi = top.values[:, :kv], top.indices[:, :kv]
+    votes = torch.zeros(s_, f_full, dtype=torch.float32, device=dev)
+    votes.scatter_add_(1, topi, (topv > NEG_INF / 2).to(torch.float32))
+    votes = mesh.all_reduce(votes)
+    score = votes * (f_full + 1.0) - torch.arange(
+        f_full, dtype=torch.float32, device=dev)
+    k2 = min(2 * kv, f_full)
+    elected = torch.sort(score, dim=1, descending=True,
+                         stable=True).indices[:, :k2]           # [S, k2]
+    rows = torch.arange(s_, device=dev)[:, None]
+    h_glob = mesh.all_reduce(hist[rows, elected])               # [S, k2, B, 3]
+    hist_e = torch.zeros_like(hist)
+    hist_e[rows, elected] = h_glob
+    emask = torch.zeros(s_, f_full, dtype=torch.float32, device=dev)
+    emask[rows, elected] = 1.0
+    fm = feature_mask if feature_mask.dim() == 2 else feature_mask[None]
+    emask = torch.where(fm > 0, emask, torch.zeros_like(emask))
+    return hist_e, emask

@@ -19,8 +19,8 @@ constraints, feature_fraction (by tree and by node), extra_trees,
 feature_contri and max_depth.  Refused: linear trees, CEGB, interaction
 constraints, forced splits, the intermediate and advanced monotone
 methods, ranking objectives (query-coupled gradients), DART and RF.
-Distributed streaming waits for the distributed slice, as does every
-``tree_learner`` other than serial (``NotPortedError``).
+Distributed streaming, and with it every ``tree_learner`` other than
+serial here, is not ported yet (``NotPortedError``, ROADMAP A21b).
 """
 from __future__ import annotations
 

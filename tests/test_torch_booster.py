@@ -13,7 +13,6 @@ import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lgt
-from lightgbm_tpu_torch.device import NotPortedError
 
 from test_torch_engine import ITERS, N, PARAMS, _data, _error_rate, _pair
 from test_torch_train import _assert_same_model_text
@@ -224,20 +223,30 @@ def test_dataset_methods_match_jax():
     assert bt.num_trees() == 3
 
 
-def test_unported_paths_raise(tmp_path, capsys):
-    """What stays unported raises NotPortedError: multi-process training.
-    The obs-report subcommand is ported: it renders a small journal and
-    exits 0.  Refit and pred_contrib of a linear-tree model raise the JAX
-    package's LightGBMError: neither package has that path (continued
-    training from one is ported, tests/test_torch_linear_tree.py)."""
+def test_unported_paths_raise(tmp_path, capsys, monkeypatch):
+    """Multi-process training is ported: ``set_network`` brings the group
+    up from the machine list (here the bring-up records its arguments:
+    this host is rank 1 of 2, the booster's CPU takes gloo) and
+    ``free_network`` without a group does nothing.  The obs-report
+    subcommand is ported: it renders a small journal and exits 0.  Refit
+    and pred_contrib of a linear-tree model raise the JAX package's
+    LightGBMError: neither package has that path (continued training from
+    one is ported, tests/test_torch_linear_tree.py)."""
     from lightgbm_tpu_torch.application import main
+    from lightgbm_tpu_torch.parallel import mesh as tmesh
     X, y, _, _ = _data()
     bt = lgt.train(PARAMS, lgt.Dataset(X, label=y), 2, verbose_eval=False,
                    device="cpu")
-    with pytest.raises(NotPortedError, match="set_network"):
-        bt.set_network(["127.0.0.1:12400"])
-    with pytest.raises(NotPortedError, match="free_network"):
-        bt.free_network()
+    calls = []
+    monkeypatch.setattr(tmesh, "init_distributed",
+                        lambda **kw: calls.append(kw))
+    assert bt.set_network(["10.255.255.1:12400", "127.0.0.1:12401"],
+                          listen_time_out=1) is bt
+    assert calls == [dict(coordinator_address="10.255.255.1:12400",
+                          num_processes=2, process_id=1, timeout_secs=60,
+                          backend=None, device=bt.device)]
+    assert tmesh.default_backend(bt.device) == "gloo"
+    assert bt.free_network() is bt
     journal = tmp_path / "journal.jsonl"
     journal.write_text('{"metric": "m", "value": 1.0}\n')
     assert main(["obs-report", "--path", str(journal), "--no-metrics"]) == 0

@@ -287,6 +287,49 @@ def test_training_launches_both_kernels_and_matches_plain(dev):
                                rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("esz", (1, 2))
+def test_zero_rows_give_zeros_without_a_launch(dev, esz):
+    """A rank of a row-sharded learner may hold no rows of a leaf: K1 on no
+    rows and K2 on no blocks return zeros and launch nothing."""
+    dt = torch.uint8 if esz == 1 else torch.uint16
+    B = 256 if esz == 1 else 1024
+    bins = torch.zeros(0, 28, dtype=dt, device=dev)
+    v = torch.zeros(0, device=dev)
+    thist.reset_launch_counts()
+    full = thist.hist_full(bins, v, v, v, B)
+    leaves = thist.hist_leaves(bins, v, v, v,
+                               torch.zeros(0, dtype=torch.int32, device=dev),
+                               16, B)
+    torch.cuda.synchronize()
+    assert not any(thist.launch_counts.values())
+    assert full.shape == (28, B, 3) and leaves.shape == (16, 28, B, 3)
+    assert not full.any() and not leaves.any()
+
+
+def test_collectives_on_a_world_one_nccl_group(dev):
+    """The parallel learners' collective helper on an NCCL group of one
+    rank: every collective goes to NCCL and gives back its input."""
+    import socket
+    from lightgbm_tpu_torch.parallel import mesh as pmesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pmesh.init_distributed(f"127.0.0.1:{port}", 1, 0, timeout_secs=120,
+                           backend="nccl")
+    try:
+        m = pmesh.default_mesh()
+        assert m.backend == "nccl"
+        x = torch.arange(8, dtype=torch.float32, device=dev) - 3.0
+        for got in (m.all_reduce(x), m.all_reduce(x, "max"),
+                    m.all_reduce(x, "min"),
+                    m.reduce_scatter(x.reshape(4, 2)).reshape(-1),
+                    m.all_gather(x)[0], m.broadcast(x, 0)):
+            assert torch.equal(got, x)
+        assert m.stats["calls"] == 6
+    finally:
+        pmesh.free_network()
+
+
 # every one-hot body at each width it serves (packed only at B=64)
 ONEHOT_CASES = [(v, B) for B in (64, 256) for v in ov.VARIANT_NAMES
                 if ov.VARIANTS[v].kernel_id is not None

@@ -523,6 +523,7 @@ sys.path.insert(0, {repo!r})
 from lightgbm_tpu_torch.obs import flight
 rec = flight.install(dir={dir!r}, run_id="victim", flush_every=1)
 rec.note("about_to_die", mode="sigkill")
+import lightgbm_tpu_torch.parallel
 assert "jax" not in sys.modules
 os.kill(os.getpid(), signal.SIGKILL)
 """

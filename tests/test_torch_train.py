@@ -213,28 +213,33 @@ def test_device_none_means_cuda():
 @pytest.mark.parametrize("params", [
     {"objective": "none"},
     {"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
-     "monotone_constraints_method": "intermediate", "tree_learner": "feature"},
-    {"interaction_constraints": [[0, 1], [2, 3]], "tree_learner": "voting"},
+     "monotone_constraints_method": "intermediate", "tree_learner": "feature",
+     "stream_rows": 256},
+    {"interaction_constraints": [[0, 1], [2, 3]], "tree_learner": "voting",
+     "stream_rows": 256},
     {"cegb_penalty_split": 0.5, "stream_rows": 256},
-    {"tree_grower": "serial", "tree_learner": "data"},
-    {"tree_learner": "data"},
-    {"feature_contri": [1.0] * 8, "tree_learner": "feature"},
+    {"tree_grower": "serial", "tree_learner": "data", "stream_rows": 256},
+    {"tree_learner": "data", "max_bin_matrix_bytes": 1024},
+    {"feature_contri": [1.0] * 8, "tree_learner": "feature",
+     "stream_rows": 256},
     {"linear_tree": True, "max_bin_matrix_bytes": 1024}])
 def test_untaken_paths_raise(params):
     X, y, _, _ = _data(5, n=800)
     # the serial grower's features are ported (tests/test_torch_serial.py,
-    # test_torch_constraints.py, test_torch_linear_tree.py): with an
-    # unported tree learner they still raise, never falling back, and
-    # out-of-core streaming (ported: tests/test_torch_stream.py) refuses
-    # the features it does not serve, as the JAX package's does.
-    # Objective "none" is ported (custom gradients, test_torch_engine.py):
-    # without the caller's gradients it raises as the JAX package does
+    # test_torch_constraints.py, test_torch_linear_tree.py), and so are the
+    # parallel tree learners in memory (tests/test_torch_parallel.py); over
+    # out-of-core streaming a parallel learner is not ported yet (A21b) and
+    # raises, never falling back, and streaming (ported:
+    # tests/test_torch_stream.py) refuses the features it does not serve,
+    # as the JAX package's does.  Objective "none" is ported (custom
+    # gradients, test_torch_engine.py): without the caller's gradients it
+    # raises as the JAX package does
     if params.get("objective") == "none":
         err, match = lgt.LightGBMError, "custom grad"
-    elif "stream_rows" in params or "max_bin_matrix_bytes" in params:
-        err, match = lgt.LightGBMError, "streaming does not support"
+    elif "tree_learner" in params:
+        err, match = NotPortedError, "A21b"
     else:
-        err, match = NotPortedError, None
+        err, match = lgt.LightGBMError, "streaming does not support"
     with pytest.raises(err, match=match):
         lgt.train({**PARAMS, **params}, lgt.Dataset(X, label=y), 2,
                   verbose_eval=False, device="cpu")
@@ -250,6 +255,7 @@ import lightgbm_tpu_torch.models.convert, lightgbm_tpu_torch.application
 import lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.plotting
 import lightgbm_tpu_torch.ops.linear
 import lightgbm_tpu_torch.serve, lightgbm_tpu_torch.stream
+import lightgbm_tpu_torch.parallel, lightgbm_tpu_torch.io.distributed
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
